@@ -1,0 +1,156 @@
+"""Builds the port's CUDA kernels and binds them with ctypes.
+
+Each source under `csrc/` is compiled by `nvcc` for `sm_90a` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), at first use, into `csrc/build/` (listed in `.gitignore`).  The
+library name carries a hash of the source and the flags, so an edited source
+is rebuilt and never loaded stale.  `build_all` starts one `nvcc` per source
+at once and waits for all of them.
+
+Every kernel has one `Kernel` record here.  Its wrapper adds one to
+`launches` each time it launches the kernel, and only there, so a run can
+show which kernels its main path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: its source, C symbol and launch count."""
+
+    name: str
+    source: str                      # file name under csrc/
+    symbol: str
+    argtypes: Tuple
+    replaces: str                    # the TPU kernel it replaces
+    launches: int = 0
+    launches_by_shape: Dict[str, int] = dataclasses.field(default_factory=dict)
+    build_seconds: Optional[float] = None
+    ptxas_info: str = ""
+    _fn: object = None
+
+    @property
+    def source_path(self) -> Path:
+        return CSRC / self.source
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(self.source_path.read_bytes()
+                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        return BUILD_DIR / f"{self.source_path.stem}-{h}.so"
+
+    def count(self, shape_key: str) -> None:
+        self.launches += 1
+        self.launches_by_shape[shape_key] = (
+            self.launches_by_shape.get(shape_key, 0) + 1)
+
+    def function(self):
+        """The bound C entry point, building the library on first use."""
+        if self._fn is None:
+            lib_path = self.library_path()
+            if not lib_path.exists():
+                build_all([self])
+            lib = ctypes.CDLL(str(lib_path))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = list(self.argtypes)
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+KERNELS: Dict[str, Kernel] = {
+    "dpd_pair": Kernel(
+        name="dpd_pair", source="pair_kernel.cu", symbol="obmd_dpd_pair",
+        # fld, tag, occ, out, nb, cap, lanes, nx, ny, nz, s, p,
+        # ly, lz, inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut,
+        # dtinvsqrt, salt, stream
+        argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _U, _P),
+        replaces="obmd_tpu/forces/pallas_dpd.py:575"),
+    "usher_search": Kernel(
+        name="usher_search", source="usher_kernel.cu",
+        symbol="obmd_usher_search",
+        # rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt,
+        # ly, lz, thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
+        argtypes=(_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+        replaces="obmd_tpu/forces/pallas_usher.py:110"),
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+        k.launches_by_shape.clear()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def build_all(kernels=None) -> Dict[str, float]:
+    """Compile every kernel whose library is missing, one nvcc per source,
+    all started together.  Returns seconds per kernel; raises with the
+    compiler's output if any build fails."""
+    kernels = list(KERNELS.values()) if kernels is None else list(kernels)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = []
+    t0 = time.perf_counter()
+    for k in kernels:
+        out = k.library_path()
+        if out.exists():
+            k.build_seconds = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source_path)]
+        procs.append((k, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for k, out, tmp, p in procs:
+        log, _ = p.communicate()
+        k.build_seconds = time.perf_counter() - t0
+        k.ptxas_info = "\n".join(line for line in log.splitlines()
+                                 if "ptxas" in line)
+        if p.returncode != 0:
+            failed.append(f"{k.source}: nvcc rc={p.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {k.name: k.build_seconds for k in kernels}
+
+
+def check(rc: int, kernel: Kernel) -> None:
+    """Raise on a refused launch (the C entry point returns
+    cudaGetLastError() right after the launch)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel.name}: CUDA launch failed with error "
+                           f"code {rc}")

@@ -1,0 +1,178 @@
+"""Scene configuration for the OBMD_DPD main path.
+
+Own copy of the main-path part of `obmd_tpu/config.py`: `eval_param`,
+`DPDParams`, `UsherParams`, `ObmdParams`, `Capacity` and
+`SceneConfig.finalize`, with the same field names and defaults so a test can
+hold the two packages' configs field by field.  LJ, bonded and molecule
+configurations are not part of this slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
+
+import numpy as np
+
+from .geometry import Box, RegionBlock
+
+# A boundary-law parameter: a constant or a function of simulation time.
+Param = Union[float, Callable]
+
+
+def eval_param(p: Param, t):
+    """Resolve a Param at simulation time t (a 0-dim tensor)."""
+    return p(t) if callable(p) else p
+
+
+def _sym(table, ntypes, name):
+    """Validate/symmetrize an (ntypes, ntypes) coefficient table."""
+    arr = np.asarray(table, dtype=np.float64)
+    if arr.shape == ():
+        arr = np.full((ntypes, ntypes), float(arr))
+    if arr.shape != (ntypes, ntypes):
+        raise ValueError(f"{name} must be scalar or ({ntypes},{ntypes}), got {arr.shape}")
+    if not np.allclose(arr, arr.T):
+        raise ValueError(f"{name} table must be symmetric")
+    return tuple(tuple(float(v) for v in row) for row in arr)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPDParams:
+    """`pair_style dpd T rc seed` + per-type-pair coeffs (pair_dpd.cpp:128-137):
+    F = (a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)) * rhat,
+    wd = 1 - r/rc, sigma = sqrt(2 kB T gamma)."""
+
+    temp: float
+    cutoff: float
+    seed: int
+    ntypes: int = 1
+    a0: Tuple[Tuple[float, ...], ...] = ()
+    gamma: Tuple[Tuple[float, ...], ...] = ()
+    cut: Tuple[Tuple[float, ...], ...] = ()
+    gaussian_noise: bool = False
+
+    @staticmethod
+    def create(temp, cutoff, seed, a0, gamma, cut=None, ntypes=1, gaussian_noise=False):
+        cut = cutoff if cut is None else cut
+        return DPDParams(
+            temp=float(temp), cutoff=float(cutoff), seed=int(seed), ntypes=ntypes,
+            a0=_sym(a0, ntypes, "a0"), gamma=_sym(gamma, ntypes, "gamma"),
+            cut=_sym(cut, ntypes, "cut"), gaussian_noise=gaussian_noise)
+
+    @property
+    def sigma(self) -> Tuple[Tuple[float, ...], ...]:
+        g = np.asarray(self.gamma)
+        return tuple(tuple(float(v) for v in row)
+                     for row in np.sqrt(2.0 * self.temp * g))
+
+    @property
+    def max_cut(self) -> float:
+        return float(np.max(np.asarray(self.cut))) if self.cut else self.cutoff
+
+
+@dataclasses.dataclass(frozen=True)
+class UsherParams:
+    """`usher etarget ds0 dtheta0 uovlp dsolvp eps nattempt`
+    (fix_obmd_merged.cpp:2025-2038; algorithm at :1518-1616)."""
+
+    etarget: float
+    ds0: float = 1.0
+    dtheta0: float = 0.02
+    uovlp: float = 1.0e4
+    dsovlp: float = 1.5
+    eps: float = 1.0
+    nattempt: int = 40
+
+
+@dataclasses.dataclass(frozen=True)
+class ObmdParams:
+    """`fix ID group obmd ntype nfreq seed pxx pxy pxz dpxx freq alpha tau
+    nbuf [keywords]` for ATOM-mode insertion.  region1/2: buffers,
+    region3/4: shear sub-regions, region5/6: insertion sub-regions."""
+
+    ntype: int
+    nfreq: int
+    seed: int
+    pxx: Param
+    pxy: Param = 0.0
+    pxz: Param = 0.0
+    dpxx: Param = 0.0
+    freq: Param = 0.0
+    alpha: Param = 0.7
+    tau: Param = 0.005
+    nbuf: Param = 0.0
+
+    region1: Optional[RegionBlock] = None
+    region2: Optional[RegionBlock] = None
+    region3: Optional[RegionBlock] = None
+    region4: Optional[RegionBlock] = None
+    region5: Optional[RegionBlock] = None
+    region6: Optional[RegionBlock] = None
+
+    group_types: Optional[Tuple[int, ...]] = None
+    buffer_size: float = 0.0   # default 0.3*Lx applied in SceneConfig.finalize
+    g_fac: float = 0.25
+    maxattempt: int = 1
+    usher: Optional[UsherParams] = None
+    near: Optional[float] = None
+    mol_len: int = 1
+    insert_kmax: int = 8
+    id_policy: str = "next"
+
+    def __post_init__(self):
+        if (self.usher is None) == (self.near is None):
+            raise ValueError("exactly one of `usher` / `near` must be given "
+                             "(fix_obmd_merged.cpp:2105,2163)")
+        for name in ("region1", "region2", "region5", "region6"):
+            if getattr(self, name) is None:
+                raise ValueError(
+                    f"fix obmd: `{name}` is required "
+                    "(fix_obmd_merged.cpp init() :421-438)")
+        if self.region3 is None or self.region4 is None:
+            for name in ("pxy", "pxz"):
+                v = getattr(self, name)
+                if callable(v) or float(v) != 0.0:
+                    raise ValueError(
+                        "fix obmd: shear stress needs region3/region4 "
+                        "(fix_obmd_merged.cpp:1452-1516)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Capacity:
+    """Static shapes: particle slots and filing capacity per cell."""
+
+    n_max: int
+    cell_capacity: int = 16
+
+    def __post_init__(self):
+        if self.n_max <= 0 or self.cell_capacity <= 0:
+            raise ValueError("capacities must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneConfig:
+    """Box, masses, pair style, dt, the OBMD stage and static capacities."""
+
+    box: Box
+    masses: Tuple[float, ...]
+    pair: DPDParams
+    dt: float
+    capacity: Capacity
+    obmd: Optional[ObmdParams] = None
+    skin: float = 0.3
+    force_path: str = "cellpad"
+    rebuild_every: int = 0
+    dtype: str = "float32"
+
+    @property
+    def ntypes(self) -> int:
+        return len(self.masses)
+
+    def finalize(self) -> "SceneConfig":
+        """Apply the buffersize default 0.3*Lx (fix_obmd_merged.cpp:1912)."""
+        out = self
+        if out.obmd is not None and out.obmd.buffer_size == 0.0:
+            lx = out.box.lengths[0]
+            obmd = dataclasses.replace(out.obmd, buffer_size=0.3 * lx)
+            out = dataclasses.replace(out, obmd=obmd)
+        return out

@@ -1,0 +1,55 @@
+"""Conversion between the JAX package's state and the port's.
+
+The JAX side is handed over as a dict of numpy arrays (so this module needs
+neither JAX nor the JAX package): the `State` fields x, v, f, type, tag,
+alive, step, sim_time, maxtag, cell_overflow; the `ObmdScalars` fields; and
+the `PadAux` fields xref, rebuilds, overflow, skin_trips, tag3d and occ.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cellpad import PadAux
+from .state import ObmdScalars, State, make_generator, resolve_device
+
+STATE_FIELDS = ("x", "v", "f", "type", "tag", "alive", "step", "sim_time",
+                "maxtag", "cell_overflow")
+OBMD_FIELDS = ("momentum_force_left", "momentum_force_right",
+               "shear_force_left", "shear_force_right", "ndeleted",
+               "ninserted", "insert_fail", "usher_iters")
+AUX_FIELDS = ("xref", "rebuilds", "overflow", "skin_trips", "tag3d", "occ")
+
+
+def from_arrays(d: dict, seed: int = 0, device="cuda") -> State:
+    """Port State from the JAX state's arrays; PadAux when `xref` is given.
+    The generator is seeded from `seed` (a JAX key has no torch
+    counterpart)."""
+    dev = resolve_device(device)
+
+    def t(name):
+        return torch.from_numpy(np.array(d[name], copy=True)).to(dev)
+
+    aux = None
+    if "xref" in d:
+        aux = PadAux(**{k: t(k) for k in AUX_FIELDS})
+    return State(
+        x=t("x"), v=t("v"), f=t("f"), type=t("type").to(torch.int32),
+        tag=t("tag").to(torch.int32), alive=t("alive").to(torch.bool),
+        step=int(d["step"]), sim_time=t("sim_time"),
+        maxtag=t("maxtag").to(torch.int32), gen=make_generator(seed, dev),
+        obmd=ObmdScalars(**{k: t(k) for k in OBMD_FIELDS}),
+        cell_overflow=t("cell_overflow").to(torch.int32), nbrs=aux)
+
+
+def to_arrays(state: State) -> dict:
+    """The same dict of numpy arrays from a port State."""
+    def n(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+
+    out = {k: n(getattr(state, k)) for k in STATE_FIELDS}
+    out.update({k: n(getattr(state.obmd, k)) for k in OBMD_FIELDS})
+    if isinstance(state.nbrs, PadAux):
+        out.update({k: n(getattr(state.nbrs, k)) for k in AUX_FIELDS})
+    return out

@@ -1,0 +1,371 @@
+"""The cellpad engine: the OBMD_DPD step over the padded cell-major layout.
+
+Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD with
+ATOM-mode USHER insertion.  Step order mirrors Verlet::run: half kick,
+drift + y/z wrap, the epoch relayout on an epoch's first step, the OBMD
+stage (face deletion, buffer census, feedback law, demand-gated subset
+compaction and insertion, boundary-force setpoints), the pair kernel plus
+the boundary force, half kick.
+
+Candidate positions go through a draw seam: `draw(state, need)` is called
+once per stage call and returns uniform [0, 1) draws [2, rounds, K, 3]
+(side-major) when `need` is true, else None.  `own_draws` uses the state's
+generator; a parity test passes a function that replays the JAX engine's
+own random draws.
+
+The demand gate (the reference's `lax.cond` on "either buffer needs
+atoms") is a host-side `if`: one device-to-host read per stage call.  The
+skip branch leaves the state as the reference's skip branch does: no
+subset-overflow count, no USHER iterations, no insertion.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from . import rng
+from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
+                      patch_kernel_caches, place_insertions,
+                      relayout_incremental, scatter_rows, slab_slice_bounds,
+                      compact_indices)
+from .cells import BIG
+from .config import SceneConfig, eval_param
+from .geometry import const
+from .forces.pair_kernel import PadGeometry, make_pair_kernel
+from .forces.usher_kernel import usher_search
+from .obmd.stage import (_sequential_accept, draw_candidates, feedback_count,
+                         insertion_tag_base, rounds_of, smooth_weight)
+from .obmd.subset import Subset, expand_region
+from .state import State, per_atom_mass
+
+PURPOSE_PAIR_NOISE = 1
+
+Draw = Callable[[State, bool], Optional[torch.Tensor]]
+
+
+def own_draws(cfg: SceneConfig) -> Draw:
+    """Production draws from the state's generator, only when needed."""
+    shape = (2, rounds_of(cfg), cfg.obmd.insert_kmax, 3) \
+        if cfg.obmd is not None else None
+
+    def draw(state: State, need: bool):
+        if not need:
+            return None
+        return torch.rand(shape, generator=state.gen, dtype=state.dtype,
+                          device=state.device)
+    return draw
+
+
+def check_supported(cfg: SceneConfig) -> None:
+    if cfg.box.periodic[0] and cfg.obmd is not None:
+        raise ValueError("open boundaries require an open x axis")
+    if cfg.obmd is not None and cfg.obmd.usher is None:
+        raise NotImplementedError("`near` insertion is not ported yet")
+    if cfg.obmd is not None and cfg.obmd.group_types is not None:
+        raise NotImplementedError("group-restricted census is not ported yet")
+    if cfg.obmd is not None and (cfg.obmd.maxattempt > 1
+                                 or cfg.obmd.nfreq > 1):
+        raise NotImplementedError(
+            "maxattempt > 1 and nfreq > 1 are not ported yet")
+    if cfg.ntypes != 1 or cfg.dtype != "float32":
+        raise NotImplementedError("only single-type float32 DPD is ported")
+
+
+def make_geometry(cfg: SceneConfig) -> PadGeometry:
+    return PadGeometry.create(cfg.box, cfg.pair.max_cut + cfg.skin,
+                              cfg.capacity.cell_capacity)
+
+
+def _make_kernel(cfg: SceneConfig, geom: PadGeometry):
+    return make_pair_kernel(geom, cfg.pair, cfg.dt)
+
+
+def pack_fields(cfg, geom, state: State):
+    """The pair kernel's inputs: (fld f32[nb, 6, cap, lanes] = x (BIG at
+    dead slots), v; tag3d; the step's noise salt; occ)."""
+    nb, cap, lanes = geom.n_blocks, geom.cap, geom.lanes
+    xm = torch.where(state.alive[:, None], state.x, BIG)
+    fld = torch.cat([xm, state.v], dim=1).reshape(nb, cap, lanes, 6) \
+        .permute(0, 3, 1, 2).contiguous()
+    salt = rng.step_salt(cfg.pair.seed, state.step, PURPOSE_PAIR_NOISE)
+    aux: PadAux = state.nbrs
+    return fld, aux.tag3d, salt, aux.occ
+
+
+def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
+    """Pair kernel on the packed fields, then the boundary force."""
+    fpad = kern(*pack_fields(cfg, geom, state))
+    f = fpad.permute(0, 2, 3, 1).reshape(-1, 3)
+    if cfg.obmd is not None:
+        f = _boundary_force_sliced(cfg, geom, state, f)
+    return torch.where(state.alive[:, None], f, 0.0)
+
+
+def _boundary_force_sliced(cfg, geom, state: State, f):
+    """f_i += F * g_i / sum(g) over each region's contiguous slot slice
+    (ref :1414-1516): smooth weights in the buffers, mass weights in the
+    shear sub-regions.  Elementwise scale*F adds only, never a matmul."""
+    obmd = cfg.obmd
+    sc = state.obmd
+    f = f.clone()
+    for region, F, smooth in (
+            (obmd.region1, sc.momentum_force_left, True),
+            (obmd.region2, sc.momentum_force_right, True),
+            (obmd.region3, sc.shear_force_left, False),
+            (obmd.region4, sc.shear_force_right, False)):
+        if region is None or region.hi[0] <= region.lo[0]:
+            continue
+        a, b = slab_slice_bounds(geom, cfg.box, region.lo[0], region.hi[0])
+        xs = state.x[a:b]
+        m = torch.full((b - a,), float(cfg.masses[0]), dtype=f.dtype,
+                       device=f.device)
+        member = state.alive[a:b] & region.match(xs)
+        g = torch.where(member, smooth_weight(cfg, xs[:, 0], m) if smooth
+                        else m, 0.0)
+        gsum = g.sum()
+        scale = torch.where(gsum > 0.0, g / torch.clamp(gsum, min=1e-30), 0.0)
+        f[a:b] = f[a:b] + scale[:, None] * F
+    return f
+
+
+def _region_count_sliced(cfg, geom, state: State, region) -> torch.Tensor:
+    a, b = slab_slice_bounds(geom, cfg.box, region.lo[0], region.hi[0])
+    return (state.alive[a:b] & region.match(state.x[a:b])).sum(
+        dtype=torch.int32)
+
+
+def _subset_bounds(cfg, geom, region, pad):
+    a, b = slab_slice_bounds(geom, cfg.box, region.lo[0] - pad,
+                             region.hi[0] + pad)
+    n = b - a
+    return a, b, min(n, int(0.45 * n) + 256)
+
+
+def _subset_slice(cfg, geom, state, region, pad) -> Subset:
+    """Buffer subset: a contiguous slot slice compacted to its live rows
+    (at most b_max = min(n, 0.45 n + 256); more is counted as overflow)."""
+    a, b, b_max = _subset_bounds(cfg, geom, region, pad)
+    n = b - a
+    xs = state.x[a:b]
+    valid = state.alive[a:b] & expand_region(region, pad).match(xs)
+    sel = compact_indices(valid, b_max, n)
+    ok = sel < n
+    safe = torch.clamp(sel, 0, n - 1)
+    return Subset(
+        x=torch.where(ok[:, None], xs[safe], BIG),
+        type=torch.zeros((b_max,), dtype=torch.int32, device=xs.device),
+        valid=ok,
+        overflow=valid.sum() > b_max)
+
+
+def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
+    """ATOM-mode insertion of up to K candidates per buffer: uniform draws
+    -> USHER -> greedy in-order acceptance within the feedback budget ->
+    free-rank placement -> kernel-cache patch.  Only called when a buffer
+    needs atoms; `u` holds the draws [2, 1, K, 3]."""
+    obmd = cfg.obmd
+    k = obmd.insert_kmax
+    n_slots = geom.n_slots
+    ctype = torch.full((k,), obmd.ntype, dtype=torch.int32,
+                       device=state.device)
+    cand_l = draw_candidates(u[0, 0], obmd.region5)
+    cand_r = draw_candidates(u[1, 0], obmd.region6)
+    pos2, ok2, iters2 = usher_search(cfg, sub_l, sub_r, cand_l, cand_r,
+                                     obmd.region5, obmd.region6)
+    acc_l, _ = _sequential_accept(cfg, pos2[0], ctype, ok2[0],
+                                  torch.clamp(nins_l, 0, k))
+    acc_r, _ = _sequential_accept(cfg, pos2[1], ctype, ok2[1],
+                                  torch.clamp(nins_r, 0, k))
+    pos = pos2.reshape(2 * k, 3)
+    accepted = torch.cat([acc_l, acc_r])
+    slot, landed = place_insertions(geom, state, pos, accepted)
+    order = torch.cumsum(landed.to(torch.int32), 0, dtype=torch.int32) - 1
+    base = insertion_tag_base(cfg, state)
+    new_tag = base + 1 + order
+    aux: PadAux = state.nbrs
+    aux = aux.replace(xref=scatter_rows(aux.xref, slot, pos))
+    aux = patch_kernel_caches(geom, aux, slot, new_tag, n_slots)
+    n_landed = landed.sum(dtype=torch.int32)
+    want = torch.clamp(nins_l, min=0) + torch.clamp(nins_r, min=0)
+    sc = state.obmd
+    return state.replace(
+        x=scatter_rows(state.x, slot, pos),
+        tag=scatter_rows(state.tag, slot, new_tag),
+        alive=scatter_rows(state.alive, slot, torch.ones_like(landed)),
+        nbrs=aux, maxtag=base + n_landed,
+        obmd=sc.replace(
+            ninserted=sc.ninserted + n_landed,
+            insert_fail=sc.insert_fail + torch.clamp(want - n_landed, min=0),
+            usher_iters=sc.usher_iters + iters2.sum(dtype=torch.int32)))
+
+
+def _delete_outside_sliced(cfg, geom, state: State):
+    """Delete atoms beyond the open x faces, touching only the two face
+    blocks (an atom beyond a face was filed in that face's cell column),
+    and tally the deleted momentum per side."""
+    box = cfg.box
+    csx = geom.cell_size[0]
+    alive, tag, v = state.alive.clone(), state.tag.clone(), state.v.clone()
+    vnew = []
+    ndel = torch.zeros((), dtype=torch.int32, device=state.device)
+    for lo_face in (True, False):
+        if lo_face:
+            a, b = slab_slice_bounds(geom, box, box.lo[0] - 1.0,
+                                     box.lo[0] + csx)
+        else:
+            a, b = slab_slice_bounds(geom, box, box.hi[0] - csx,
+                                     box.hi[0] + 1.0)
+        x0 = state.x[a:b, 0]
+        al = alive[a:b]
+        doomed = al & ((x0 < box.lo[0]) if lo_face else (x0 > box.hi[0]))
+        vs = v[a:b]
+        m = torch.full((b - a,), float(cfg.masses[0]), dtype=state.dtype,
+                       device=state.device)
+        mv = m[:, None] * vs
+        vnew.append(torch.where(doomed[:, None], mv, 0.0).sum(0))
+        ndel = ndel + doomed.sum(dtype=torch.int32)
+        alive[a:b] = al & ~doomed
+        tag[a:b] = torch.where(doomed, -1, tag[a:b])
+        v[a:b] = torch.where(doomed[:, None], 0.0, vs)
+    state = state.replace(alive=alive, tag=tag, v=v, obmd=state.obmd.replace(
+        ndeleted=state.obmd.ndeleted + ndel))
+    return state, vnew[0], vnew[1]
+
+
+def _obmd_stage(cfg, geom, state: State, draw: Draw,
+                with_rebuild: bool = True) -> State:
+    obmd = cfg.obmd
+    box = cfg.box
+    # float32 scalars on the device (cached): a division by a host scalar
+    # would become a multiplication by its reciprocal on the card
+    dt = const((float(np.float32(cfg.dt)),), state.dtype, state.device)[0]
+    area = const((box.cross_area,), state.dtype, state.device)[0]
+    t = state.sim_time
+
+    pxx = eval_param(obmd.pxx, t)
+    pxy = eval_param(obmd.pxy, t)
+    pxz = eval_param(obmd.pxz, t)
+    dpxx = eval_param(obmd.dpxx, t)
+    freq = eval_param(obmd.freq, t)
+    alpha = eval_param(obmd.alpha, t)
+    tau = eval_param(obmd.tau, t)
+    nbuf = eval_param(obmd.nbuf, t)
+
+    state, vnewl, vnewr = _delete_outside_sliced(cfg, geom, state)
+    if with_rebuild:
+        state = maybe_rebuild(geom, box, cfg.skin, state)
+
+    nins_l = feedback_count(_region_count_sliced(cfg, geom, state,
+                                                 obmd.region1),
+                            obmd.mol_len, alpha, nbuf, dt, tau)
+    nins_r = feedback_count(_region_count_sliced(cfg, geom, state,
+                                                 obmd.region2),
+                            obmd.mol_len, alpha, nbuf, dt, tau)
+    need = bool(((nins_l > 0) | (nins_r > 0)).item())
+    u = draw(state, need)
+    if need:
+        pad = cfg.pair.max_cut + cfg.skin
+        sub_l = _subset_slice(cfg, geom, state, obmd.region5, pad)
+        sub_r = _subset_slice(cfg, geom, state, obmd.region6, pad)
+        state = state.replace(cell_overflow=state.cell_overflow
+                              + sub_l.overflow.to(torch.int32)
+                              + sub_r.overflow.to(torch.int32))
+        state = _insert(cfg, geom, state, nins_l, nins_r, sub_l, sub_r, u)
+
+    sim_time = t + dt
+    factor = pxx + dpxx * torch.sin(2.0 * np.pi * freq * sim_time)
+    mfl = torch.stack([vnewl[0] / dt + factor * area, vnewl[1] / dt,
+                       vnewl[2] / dt])
+    mfr = torch.stack([vnewr[0] / dt - pxx * area, vnewr[1] / dt,
+                       vnewr[2] / dt])
+    sfl = torch.stack([torch.zeros_like(area), pxy * area, pxz * area])
+    return state.replace(sim_time=sim_time, obmd=state.obmd.replace(
+        momentum_force_left=mfl, momentum_force_right=mfr,
+        shear_force_left=sfl, shear_force_right=-sfl))
+
+
+def setup_cellpad(cfg: SceneConfig, state: State,
+                  draw: Optional[Draw] = None) -> State:
+    """Pack into the cellpad layout, run the OBMD stage and the initial
+    force evaluation.  Raises if the initial filing drops atoms."""
+    cfg = cfg.finalize()
+    check_supported(cfg)
+    draw = draw or own_draws(cfg)
+    geom = make_geometry(cfg)
+    kern = _make_kernel(cfg, geom)
+    n_before = int(state.alive.sum())
+    state = state.replace(x=cfg.box.wrap(state.x))
+    state = layout_build(geom, cfg.box, state)
+    if cfg.obmd is not None:
+        state = _obmd_stage(cfg, geom, state, draw)
+    out = state.replace(f=_forces(cfg, geom, kern, state))
+    lost = n_before - int(out.alive.sum())
+    if cfg.obmd is not None:
+        lost += int(out.obmd.ninserted) - int(out.obmd.ndeleted)
+    if lost > 0:
+        raise ValueError(
+            f"cellpad initial filing dropped {lost} atoms: cell occupancy "
+            f"exceeds Capacity.cell_capacity={geom.cap} "
+            f"(grid {geom.dims}, {n_before} atoms). Raise "
+            f"cell_capacity or enlarge the box.")
+    return out
+
+
+def _plain_step(cfg, geom, kern, state: State, draw: Draw,
+                relayout: bool = False) -> State:
+    """One step; relayout=True runs the epoch relayout between the drift
+    and the force pass (f is dead there and skips the move)."""
+    dt = float(np.float32(cfg.dt))          # float32 values as python floats
+    dtf = float(np.float32(0.5 * cfg.dt))
+    m = per_atom_mass(cfg, state)[:, None]
+    a3 = state.alive[:, None]
+    v = torch.where(a3, state.v + dtf * state.f / m, state.v)
+    x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
+    state = state.replace(x=x, v=v)
+    if relayout:
+        if cfg.skin > 0:
+            state = note_skin_check(cfg.box, float(cfg.skin), state)
+        state = relayout_incremental(geom, cfg.box, state, move_f=False)
+    if cfg.obmd is not None:
+        state = _obmd_stage(cfg, geom, state, draw, with_rebuild=False)
+    f = _forces(cfg, geom, kern, state)
+    m = per_atom_mass(cfg, state)[:, None]
+    v = torch.where(state.alive[:, None], state.v + dtf * f / m, state.v)
+    return state.replace(v=v, f=f, step=state.step + 1)
+
+
+def auto_rebuild_every(cfg: SceneConfig) -> int:
+    """Static relayout period from the half-skin budget (the reference's
+    calibration: the fastest atom drifts ~9 sqrt(T/m) per unit time)."""
+    if cfg.rebuild_every > 0:
+        return cfg.rebuild_every
+    if cfg.skin <= 0.0:
+        return 1
+    t_max = max(1.0, float(cfg.pair.temp))
+    m_min = min(cfg.masses)
+    v_fast = 9.0 * float(np.sqrt(t_max / m_min))
+    r = int(0.45 * cfg.skin / (v_fast * cfg.dt))
+    return max(1, min(r, 40))
+
+
+def make_run_cellpad(cfg: SceneConfig, nsteps: int,
+                     draw: Optional[Draw] = None):
+    """Runner of nsteps on a static relayout schedule: every
+    auto_rebuild_every steps an epoch starts with a relayout; the half-skin
+    criterion is telemetry (PadAux.skin_trips), not a trigger."""
+    cfg = cfg.finalize()
+    check_supported(cfg)
+    draw = draw or own_draws(cfg)
+    geom = make_geometry(cfg)
+    kern = _make_kernel(cfg, geom)
+    r_every = auto_rebuild_every(cfg)
+
+    def run(state: State) -> State:
+        for i in range(nsteps):
+            state = _plain_step(cfg, geom, kern, state, draw,
+                                relayout=(i % r_every == 0))
+        return state
+
+    return run

@@ -1,0 +1,122 @@
+"""The whole USHER steered-insertion search in one kernel launch.
+
+Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, the DPD
+branch, and `usher_search_pallas`).  The Hopper kernel `csrc/usher_kernel.cu`
+replaces `make_usher_kernel`; its plain version is
+`obmd.subset.usher_search_subset_batch`, whose arithmetic the kernel follows
+(it is also what the JAX engine runs off the TPU).  A CUDA tensor goes to
+the kernel, a CPU tensor to the plain version; the choice is the tensors'
+device, never an environment variable.
+
+Scope of this slice: the DPD law (E = 0.5*a0*rc*wd^2, any number of types
+through per-subset-atom coefficient rows).  The LJ law raises
+`NotImplementedError`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..cells import BIG
+from ..config import DPDParams
+from ..geometry import const
+from ..obmd.subset import EPSILON, Subset, pad_subset, usher_search_subset_batch
+
+
+def usher_law(pair):
+    """The kernel law's per-atom coefficient rows for a pair style, as a
+    function (the DPD law: type_row [B] -> [a0 row, cut row] against the
+    trial type), or None when this port has no kernel law for it (LJ is
+    not ported yet)."""
+    if isinstance(pair, DPDParams):
+        a0 = np.asarray(pair.a0, np.float32)
+        cut = np.asarray(pair.cut, np.float32)
+
+        def rows(ct: int, tj: torch.Tensor):
+            tj = tj.long()
+            return [const(tuple(a0[ct].tolist()), torch.float32, tj.device)[tj],
+                    const(tuple(cut[ct].tolist()), torch.float32, tj.device)[tj]]
+        return rows
+    return None
+
+
+def subset_rows(pair, ntype: int, ntypes: int, sub: Subset) -> torch.Tensor:
+    """[5, B] kernel input: positions (BIG where invalid) and the law's
+    coefficient rows (a0 = 0 and cut = 1 where invalid, so a padding row
+    contributes exactly zero and never divides by zero)."""
+    law_rows = usher_law(pair)
+    if law_rows is None:
+        raise NotImplementedError(
+            f"USHER kernel: no law for {type(pair).__name__}")
+    valid = sub.valid
+    x = torch.where(valid[:, None], sub.x, BIG).to(torch.float32)
+    a0, cut = law_rows(ntype, torch.clamp(sub.type, 0, ntypes - 1))
+    a0 = torch.where(valid, a0, 0.0)
+    cut = torch.where(valid, cut, 1.0)
+    return torch.cat([x.t(), a0[None], cut[None]], dim=0)
+
+
+def launch(cfg, rows, cand, bounds):
+    """Launch the kernel on prepared inputs (kernel_inputs): rows f32[2, 5,
+    B], cand f32[2, K, 3], bounds f32[2, 6], all contiguous on one CUDA
+    device."""
+    b = rows.shape[-1]
+    k = cand.shape[1]
+    for name, t, shape in (("rows", rows, (2, 5, b)), ("cand", cand, (2, k, 3)),
+                           ("bounds", bounds, (2, 6))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != rows.device
+                or t.device.type != "cuda"):
+            raise ValueError(f"USHER kernel: {name} must be contiguous "
+                             f"float32{list(shape)} on the card, got "
+                             f"{t.dtype}{list(t.shape)} on {t.device}")
+    kern = _build.KERNELS["usher_search"]
+    fn = kern.function()
+    u = cfg.obmd.usher
+    dev = rows.device
+    per = cfg.box.periodic
+    ly = float(cfg.box.lengths[1]) if per[1] else 0.0
+    lz = float(cfg.box.lengths[2]) if per[2] else 0.0
+    pos = torch.empty((2, k, 3), dtype=torch.float32, device=dev)
+    acc = torch.empty((2, k), dtype=torch.int32, device=dev)
+    iters = torch.empty((2, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(rows.data_ptr(), cand.data_ptr(), bounds.data_ptr(),
+                pos.data_ptr(), acc.data_ptr(), iters.data_ptr(), b, k,
+                int(u.nattempt), ly, lz, float(u.etarget + EPSILON),
+                float(u.etarget), float(u.ds0), float(u.uovlp),
+                float(u.dsovlp), float(4.0 * u.eps), EPSILON, stream)
+    _build.check(rc, kern)
+    kern.count(f"B{b}")
+    return pos, acc.bool(), iters
+
+
+def kernel_inputs(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
+                  region_l, region_r):
+    """(rows f32[2, 5, B], cand f32[2, K, 3], bounds f32[2, 6]) on the
+    candidates' device (launch checks them)."""
+    ct = int(cfg.obmd.ntype)
+    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
+    rows = torch.stack([subset_rows(cfg.pair, ct, cfg.ntypes, pad_subset(s, b))
+                        for s in (sub_l, sub_r)]).contiguous()
+    cand = torch.stack([cand_l, cand_r]).contiguous()
+    bounds = const(tuple(region_l.lo) + tuple(region_l.hi) + tuple(region_r.lo)
+                   + tuple(region_r.hi), torch.float32,
+                   cand.device).reshape(2, 6)
+    return rows, cand, bounds
+
+
+def usher_search(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
+                 region_l, region_r):
+    """Both buffers' searches: (pos [2,K,3], accepted [2,K], iters [2,K])."""
+    if cand_l.device.type == "cpu":
+        ctype = torch.full((cand_l.shape[0],), int(cfg.obmd.ntype),
+                           dtype=torch.int32)
+        return usher_search_subset_batch(cfg, sub_l, sub_r, cand_l, cand_r,
+                                         ctype, region_l, region_r)
+    if cand_l.device.type != "cuda":
+        raise ValueError(f"unsupported device {cand_l.device}")
+    return launch(cfg, *kernel_inputs(cfg, sub_l, sub_r, cand_l, cand_r,
+                                      region_l, region_r))

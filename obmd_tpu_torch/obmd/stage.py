@@ -1,0 +1,115 @@
+"""Pieces of the OBMD open-boundary stage used by the cellpad engine.
+
+Counterpart of the ATOM-mode, uniform-candidate part of
+`obmd_tpu/obmd/stage.py`: `feedback_count`, `smooth_weight`,
+`_sequential_accept`, `draw_candidates`, `rounds_of` and
+`insertion_tag_base`.  Inserted atoms are at rest (the reference's
+`draw_inserted_velocities` without velocity keywords, ref :1076-1078).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import DPDParams, SceneConfig
+from ..geometry import const, const_like
+
+EPSILON = 1.0e-6  # reference EPSILON (fix_obmd_merged.cpp:62)
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    """A parameter as a float32 scalar tensor on `like`'s device (cached, so
+    no host-to-device copy per call; a tensor, not a python number, so that
+    a division by it is a true division on the card too, where PyTorch
+    turns division by a host scalar into multiplication by its
+    reciprocal)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return const((float(v),), torch.float32, like.device)[0]
+
+
+def feedback_count(cnt: torch.Tensor, mol_len, alpha, nbuf, dt, tau):
+    """ninsert = -(int)((cnt/mol_len - alpha*nbuf) * dt/tau), C truncation
+    toward zero (ref :586-589), in float32 like the reference port, with its
+    5-ulp-relative nudge so a result landing on an integer is not cut a hair
+    below it."""
+    val = (cnt.to(torch.float32) / mol_len - _f32(alpha * nbuf, cnt)) \
+        * _f32(dt, cnt) / _f32(tau, cnt)
+    adj = -val * _f32(1.0 + 5.0e-6, cnt)
+    return torch.trunc(adj).to(torch.int32)
+
+
+def smooth_weight(cfg: SceneConfig, x0: torch.Tensor, mass: torch.Tensor):
+    """g_par weight (ref :1312-1340): plateau `m` deep in the buffer,
+    half-cosine rolloff of width g_fac*buffer near the inner edge."""
+    obmd = cfg.obmd
+    lower, upper = cfg.box.lo[0], cfg.box.hi[0]
+    b = obmd.buffer_size
+    gf = obmd.g_fac
+    pi = math.pi
+    in_left = x0 < lower + b
+    left_plateau = x0 < lower + (1.0 - gf) * b
+    carg_l = (1.0 / gf) * pi * (x0 - b - lower) / (-b) - pi
+    g_left = torch.where(left_plateau, mass,
+                         0.5 * (1.0 + torch.cos(carg_l)) * mass)
+    in_right = x0 > upper - b
+    right_plateau = x0 > upper - (1.0 - gf) * b
+    carg_r = (1.0 / gf) * pi * (x0 - upper + b) / b - pi
+    g_right = torch.where(right_plateau, mass,
+                          0.5 * (1.0 + torch.cos(carg_r)) * mass)
+    return torch.where(in_left, g_left, torch.where(in_right, g_right, 0.0))
+
+
+def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
+    """Greedy in-order acceptance with candidate-candidate visibility: in
+    candidate order, take a candidate when it is ok, conflicts with no
+    earlier taken one (DPD pair energy above etarget + eps) and the budget
+    is not spent (ref :914 sequential insertion)."""
+    obmd = cfg.obmd
+    k = cand_x.shape[0]
+    d = cfg.box.min_image(cand_x[:, None, :] - cand_x[None, :, :])
+    rsq = (d * d).sum(-1)
+    p = cfg.pair
+    if not isinstance(p, DPDParams) or obmd.usher is None:
+        raise NotImplementedError("acceptance: only DPD with USHER is ported")
+    nt = p.ntypes
+    ct = cand_type.long()
+    pair_idx = ct[:, None] * nt + ct[None, :]
+    a0 = const_like([v for row in p.a0 for v in row], cand_x)[pair_idx]
+    cut = const_like([v for row in p.cut for v in row], cand_x)[pair_idx]
+    r = torch.sqrt(rsq)
+    wd = torch.clamp(1.0 - r / cut, min=0.0)
+    epair = 0.5 * a0 * cut * wd * wd
+    conflict = epair > obmd.usher.etarget + EPSILON
+    conflict = conflict & ~torch.eye(k, dtype=torch.bool,
+                                     device=cand_x.device)
+    accepted = torch.zeros((k,), dtype=torch.bool, device=cand_x.device)
+    count = torch.zeros((), dtype=torch.int32, device=cand_x.device)
+    for kk in range(k):
+        clash = (conflict[kk] & accepted).any()
+        take = cand_ok[kk] & ~clash & (count < budget)
+        accepted[kk] = take
+        count = count + take.to(torch.int32)
+    return accepted, count
+
+
+def draw_candidates(u: torch.Tensor, region) -> torch.Tensor:
+    """Uniform candidates in the insertion region (ref :921-927) from
+    uniform [0, 1) triples `u` [K, 3] (the draw seam: the engine's own
+    generator in production, injected draws in parity tests).  The gaussian
+    and deposit keywords are not part of this slice."""
+    return region.sample_uniform(u)
+
+
+def insertion_tag_base(cfg: SceneConfig, state):
+    """`id next` counts up from the running maximum; `id max` recomputes it
+    over alive atoms (ref find_maxid :1860-1868)."""
+    if cfg.obmd.id_policy == "max":
+        return torch.where(state.alive, state.tag, 0).max()
+    return state.maxtag
+
+
+def rounds_of(cfg: SceneConfig) -> int:
+    """Candidate rounds per stage call (`maxattempt`, ref :913-935)."""
+    return max(1, int(cfg.obmd.maxattempt))

@@ -47,7 +47,7 @@ def pytest_collection_modifyitems(config, items):
         mod = item.module.__name__.rsplit(".", 1)[-1]
         if mod in SMOKE_MODULES:
             item.add_marker(pytest.mark.smoke)
-        if mod in QUICK_MODULES:
+        if mod in QUICK_MODULES or mod.startswith("test_torch_"):
             item.add_marker(pytest.mark.quick)
         else:
             item.add_marker(pytest.mark.slow)

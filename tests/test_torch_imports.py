@@ -1,0 +1,62 @@
+"""obmd_tpu_torch's import and device rules: it imports with JAX blocked,
+no file of it (nor chip_smoke.py) names JAX or the JAX package, and on a
+machine without a GPU the default device raises instead of running on the
+CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "obmd_tpu_torch"
+
+
+def _modules():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        yield ".".join(rel.parts).removesuffix(".__init__")
+
+
+def test_imports_with_jax_blocked():
+    mods = list(_modules())
+    assert "obmd_tpu_torch.forces.pair_kernel" in mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['obmd_tpu'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'triton' not in sys.modules\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_file_names_jax():
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) \
+        + [ROOT / "chip_smoke.py"]
+    pat = re.compile(r"\bjax\b|obmd_tpu\.|import obmd_tpu\b")
+    for p in files:
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            assert not pat.search(line), f"{p.relative_to(ROOT)}:{i}: {line}"
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from obmd_tpu_torch import convert, scenes
+    from obmd_tpu_torch.state import init_state, resolve_device
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.obmd_dpd_scene(scale=0.25)
+    cfg = scenes.obmd_dpd_config(scale=0.25)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_state(cfg, [[1.0, 1.0, 1.0]])
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.from_arrays({})
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,115 @@
+"""The pair kernel's plain PyTorch version against the TPU kernel
+(obmd_tpu.forces.pallas_dpd.make_pair_kernel, interpret mode on the CPU) at
+filing cap 15 (its big-tile body) and cap 24 (its rank-looped body), on a
+set-up OBMD_DPD lattice state.
+
+Tolerances are tests/test_bigtile.py's: max error <= 2e-4 * max|f| over
+alive slots (the port sums each slot's 27 cells, the TPU kernel a Newton
+half stencil: float32 summation order differs), |sum f| <= 1e-3 * max|f|
+(Newton's third law; the noise is pair-symmetric bit for bit)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from obmd_tpu.engine_cellpad import make_geometry as j_make_geometry
+from obmd_tpu.forces.pallas_dpd import make_pair_kernel as j_make_pair_kernel
+from obmd_tpu.integrate import setup as jsetup
+from obmd_tpu_torch import config as pconfig
+from obmd_tpu_torch.engine_cellpad import _forces as p_forces
+from obmd_tpu_torch.engine_cellpad import make_geometry as p_make_geometry
+from obmd_tpu_torch.forces.pair_kernel import (NF, PadGeometry,
+                                               make_pair_kernel)
+
+from test_torch_support import jax_arrays, lattice_states
+from obmd_tpu_torch import convert
+
+
+def _packed(d, nb, cap, lanes):
+    xm = np.where(d["alive"][:, None], d["x"], np.float32(1e8))
+    fld = np.concatenate([xm, d["v"]], axis=1).astype(np.float32)
+    return np.ascontiguousarray(
+        fld.reshape(nb, cap, lanes, NF).transpose(0, 3, 1, 2))
+
+
+@pytest.fixture(scope="module", params=[15, 24])
+def set_up(request):
+    """(jax cfg, set-up jax state, port cfg) at filing cap 15 / 24."""
+    jcfg, jst, pcfg, _ = lattice_states(scale=0.25, cap=request.param,
+                                        seed=21)
+    return jcfg, jsetup(jcfg, jst), pcfg
+
+
+def test_plain_matches_tpu_kernel(set_up):
+    jcfg, jst, pcfg = set_up
+    geom = j_make_geometry(jcfg)
+    assert tuple(p_make_geometry(pcfg)) == tuple(geom)
+    d = jax_arrays(jst)
+    nb, c, lanes = geom.n_blocks, geom.cap, geom.lanes
+    fld = _packed(d, nb, c, lanes)
+    salt = 0x9E3779B1
+    f_tpu = np.asarray(j_make_pair_kernel(geom, params=jcfg.pair,
+                                          dt=jcfg.dt)(
+        jnp.asarray(fld), jnp.asarray(d["tag3d"]), jnp.uint32(salt),
+        jnp.asarray(d["occ"]), None))
+    kern = make_pair_kernel(PadGeometry(*geom), pcfg.pair, pcfg.dt)
+    f_port = kern(torch.from_numpy(fld), torch.from_numpy(d["tag3d"].copy()),
+                  salt, torch.from_numpy(d["occ"].copy())).numpy()
+    alive = d["alive"].reshape(nb, c, lanes)
+    sel = np.broadcast_to(alive[:, None], f_tpu.shape)
+    scale = np.abs(f_tpu[sel]).max()
+    assert scale > 10.0
+    assert np.abs(f_port - f_tpu)[sel].max() <= 2e-4 * scale
+    assert np.all(f_port[~sel] == 0.0)          # dead slots get no force
+    flin = f_port.transpose(0, 2, 3, 1).reshape(-1, 3)[d["alive"]]
+    assert np.abs(flin.sum(axis=0)).max() <= 1e-3 * scale
+
+
+def test_forces_with_boundary_force_match_jax(set_up):
+    """engine _forces (pair kernel + boundary force on the buffer slices)
+    against the JAX engine's, on the set-up state; the boundary force adds
+    exactly the setpoint forces (sum of f == sum of setpoints)."""
+    from obmd_tpu import engine_cellpad as jec
+    jcfg, jst, pcfg = set_up
+    pst = convert.from_arrays(jax_arrays(jst), device="cpu")
+    geom = j_make_geometry(jcfg)
+    f_j = np.asarray(jec._forces(jcfg, geom, jec._make_kernel(jcfg, geom),
+                                 jst))
+    pg = p_make_geometry(pcfg)
+    f_p = p_forces(pcfg, pg, make_pair_kernel(pg, pcfg.pair, pcfg.dt),
+                   pst).numpy()
+    scale = np.abs(f_j).max()
+    assert np.abs(f_p - f_j).max() <= 2e-4 * scale
+    setpoints = sum(np.asarray(getattr(pst.obmd, k)) for k in (
+        "momentum_force_left", "momentum_force_right"))
+    np.testing.assert_allclose(f_p.sum(axis=0), setpoints,
+                               atol=1e-3 * scale)
+
+
+def test_wrapper_rejects_what_it_does_not_cover():
+    jcfg, _, pcfg, _ = lattice_states(scale=0.25, cap=15)
+    geom = p_make_geometry(pcfg)
+    kern = make_pair_kernel(geom, pcfg.pair, pcfg.dt)
+    nb, cap, lanes = geom.n_blocks, geom.cap, geom.lanes
+    fld = torch.zeros((nb, NF, cap, lanes))
+    tag = torch.zeros((nb, cap, lanes), dtype=torch.int32)
+    occ = torch.zeros((nb,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kern(fld.double(), tag, 1, occ)
+    with pytest.raises(ValueError):
+        kern(fld, tag.long(), 1, occ)
+    with pytest.raises(ValueError):
+        kern(fld[:, :3], tag, 1, occ)
+    two = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1,
+                                   a0=((25.0, 30.0), (30.0, 25.0)),
+                                   gamma=4.5, ntypes=2)
+    with pytest.raises(NotImplementedError):
+        make_pair_kernel(geom, two, pcfg.dt)
+    gauss = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1, a0=25.0,
+                                     gamma=4.5, gaussian_noise=True)
+    with pytest.raises(NotImplementedError):
+        make_pair_kernel(geom, gauss, pcfg.dt)
+    with pytest.raises(NotImplementedError):
+        make_pair_kernel(geom._replace(p=1, lanes=128, s=9), pcfg.pair, 0.01)
+    with pytest.raises(NotImplementedError):
+        make_pair_kernel(geom._replace(periodic_x=True), pcfg.pair, 0.01)

@@ -1,0 +1,163 @@
+"""Shared fixtures of the obmd_tpu_torch parity tests, and the tests of the
+converter and the configuration mirror.
+
+Both packages run on the CPU: the JAX package as its own tests run it
+(Pallas kernels in interpret mode), the port through its plain PyTorch
+versions.  Inputs come from numpy seeds; states cross between the two as
+numpy arrays (obmd_tpu_torch.convert)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from obmd_tpu import scenes as jscenes
+from obmd_tpu.state import init_state as jinit_state
+from obmd_tpu_torch import convert
+from obmd_tpu_torch import scenes as pscenes
+from obmd_tpu_torch.state import init_state as pinit_state
+
+CPU = "cpu"
+# state fields held exactly and at float tolerance in whole-slice parity
+EXACT = ("type", "tag", "alive", "step", "maxtag", "cell_overflow",
+         "ndeleted", "ninserted", "insert_fail", "usher_iters", "rebuilds",
+         "overflow", "skin_trips", "tag3d", "occ")
+CLOSE = ("x", "v", "xref", "sim_time", "momentum_force_left",
+         "momentum_force_right", "shear_force_left", "shear_force_right")
+
+
+def jax_arrays(state) -> dict:
+    """The converter's dict of numpy arrays from a JAX State (+ PadAux)."""
+    d = {k: np.asarray(getattr(state, k)) for k in convert.STATE_FIELDS}
+    d.update({k: np.asarray(getattr(state.obmd, k))
+              for k in convert.OBMD_FIELDS})
+    if state.nbrs is not None:
+        d.update({k: np.asarray(getattr(state.nbrs, k))
+                  for k in convert.AUX_FIELDS})
+    return d
+
+
+def assert_states_match(jd, pd):
+    """EXACT fields equal; CLOSE fields within 1e-4; f within 2e-4 *
+    max|f| (float32 summation order only)."""
+    for k in EXACT:
+        assert np.array_equal(np.asarray(pd[k]), jd[k]), k
+    for k in CLOSE:
+        np.testing.assert_allclose(pd[k], jd[k], rtol=0, atol=1e-4,
+                                   err_msg=k)
+    fmax = np.abs(jd["f"]).max()
+    assert np.abs(pd["f"] - jd["f"]).max() <= 2e-4 * fmax
+
+
+class JaxDraws:
+    """The port's draw seam fed with the JAX engine's own candidate draws:
+    each stage call advances the key chain exactly as
+    obmd_tpu/engine_cellpad.py _insert does (keys = split(fold_in(key,
+    step), 2R + 1), the last key carried), and returns
+    jax.random.uniform(keys[i], (K, 3)) for sides x rounds when asked."""
+
+    def __init__(self, cfg, seed: int):
+        self.key = jax.random.PRNGKey(seed)
+        self.rounds = max(1, int(cfg.obmd.maxattempt))
+        self.k = cfg.obmd.insert_kmax
+
+    def __call__(self, state, need):
+        key = jax.random.fold_in(self.key, jnp.uint32(state.step))
+        keys = jax.random.split(key, 2 * self.rounds + 1)
+        self.key = keys[-1]
+        if not need:
+            return None
+        u = np.stack([np.asarray(jax.random.uniform(keys[i], (self.k, 3),
+                                                    dtype=jnp.float32))
+                      for i in range(2 * self.rounds)])
+        return torch.from_numpy(u.reshape(2, self.rounds, self.k, 3))
+
+
+def lattice(cfg, seed=13, jitter=0.18):
+    """A jittered rho = 3 simple-cubic lattice filling the box (the
+    equilibrated liquid's occupancy fits filing capacity 15) with unit
+    normal velocities."""
+    lo = np.asarray(cfg.box.lo)
+    hi = np.asarray(cfg.box.hi)
+    a = (1.0 / 3.0) ** (1.0 / 3.0)
+    axes = [np.arange(l + a / 2, h - 1e-9, a) for l, h in zip(lo, hi)]
+    g = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+    r = np.random.default_rng(seed)
+    x = g + r.uniform(-jitter, jitter, g.shape) * a
+    v = r.normal(0, 1, g.shape)
+    return x, v
+
+
+def lattice_states(scale=0.25, cap=15, seed=13, **cfg_kw):
+    """(jax cfg, jax state, port cfg, port state) on one jittered lattice."""
+    jcfg = jscenes.obmd_dpd_config(scale=scale, cell_capacity=cap, **cfg_kw)
+    pcfg = pscenes.obmd_dpd_config(scale=scale, cell_capacity=cap, **cfg_kw)
+    x, v = lattice(jcfg, seed)
+    n_max = len(x) + 512
+    jcfg = dataclasses.replace(jcfg, capacity=dataclasses.replace(
+        jcfg.capacity, n_max=n_max)).finalize()
+    pcfg = dataclasses.replace(pcfg, capacity=dataclasses.replace(
+        pcfg.capacity, n_max=n_max)).finalize()
+    return (jcfg, jinit_state(jcfg, x, v=v), pcfg,
+            pinit_state(pcfg, x, v=v, device=CPU))
+
+
+def _mirror(port_obj, jax_obj, path="cfg"):
+    """Every field of the port's config object equals the JAX one."""
+    if dataclasses.is_dataclass(port_obj):
+        for f in dataclasses.fields(port_obj):
+            _mirror(getattr(port_obj, f.name), getattr(jax_obj, f.name),
+                    f"{path}.{f.name}")
+    else:
+        assert port_obj == jax_obj, (path, port_obj, jax_obj)
+
+
+def test_config_fields_agree():
+    """Both packages' scenes.obmd_dpd_config build the same configuration
+    from the same scene arguments (exact, field by field)."""
+    for kw in (dict(scale=0.25), dict(scale=9.0),
+               dict(scale=0.5, cell_capacity=15, nbuf=700.0)):
+        _mirror(pscenes.obmd_dpd_config(**kw), jscenes.obmd_dpd_config(**kw))
+
+
+def test_convert_roundtrip_exact():
+    """JAX State + PadAux -> port State -> arrays reproduces every field
+    bit for bit."""
+    from obmd_tpu.integrate import setup as jsetup
+    jcfg, jst, _, _ = lattice_states(scale=0.25, cap=15)
+    jst = jsetup(jcfg, jst)
+    d = jax_arrays(jst)
+    back = convert.to_arrays(convert.from_arrays(d, device=CPU))
+    assert set(back) == set(d)
+    for k in d:
+        assert np.array_equal(np.asarray(back[k]), d[k]), k
+
+
+def test_initial_states_agree():
+    """obmd_dpd_scene draws the same gas in both packages."""
+    js = jscenes.obmd_dpd_scene(scale=0.25, seed=3)
+    ps = pscenes.obmd_dpd_scene(scale=0.25, seed=3, device=CPU)
+    jd = jax_arrays(js.state)
+    pd = convert.to_arrays(ps.state)
+    for k in convert.STATE_FIELDS + convert.OBMD_FIELDS:
+        assert np.array_equal(np.asarray(pd[k]), jd[k]), k
+
+
+def test_state_observables_agree():
+    """temperature, kinetic_energy and momentum of one gas agree to float32
+    summation order (rtol 1e-5; momentum, a sum near zero, within 1e-5 of
+    sum |m v|)."""
+    from obmd_tpu import state as jstate
+    from obmd_tpu_torch import state as pstate
+    js = jscenes.obmd_dpd_scene(scale=0.25, seed=3)
+    ps = pscenes.obmd_dpd_scene(scale=0.25, seed=3, device=CPU)
+    for name in ("temperature", "kinetic_energy"):
+        want = float(getattr(jstate, name)(js.cfg, js.state))
+        got = float(getattr(pstate, name)(ps.cfg, ps.state))
+        assert want > 0.0
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=name)
+    want = np.asarray(jstate.momentum(js.cfg, js.state))
+    got = pstate.momentum(ps.cfg, ps.state).numpy()
+    scale = float(np.abs(np.asarray(js.state.v)).sum())
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
