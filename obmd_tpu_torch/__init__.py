@@ -4,17 +4,23 @@ kernels for NVIDIA Hopper.
 A port of `obmd_tpu` (JAX + Pallas for the TPU), which stays the reference.
 This package imports torch and numpy only — never JAX, never `obmd_tpu`.
 Module names mirror the reference's, so each counterpart is easy to find;
-the two TPU kernels on the main path live in `forces/pair_kernel.py` and
-`forces/usher_kernel.py`, each beside its plain PyTorch version.
+the TPU kernels of the ported paths live in `forces/pair_kernel.py` and
+`forces/usher_kernel.py`, each beside its plain PyTorch version.  Two paths
+run: the OBMD_DPD open-boundary run and the LJ melt (with thermo through the
+pair sweep of `forces/pairs.py`).
 
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:
 
     from obmd_tpu_torch import scenes
     from obmd_tpu_torch.integrate import setup, equilibrate, make_run
+    from obmd_tpu_torch.observe import make_thermo_fn
     sc = scenes.obmd_dpd_scene(scale=1.0)
     state = setup(sc.cfg, sc.state)
     state = make_run(sc.cfg, 100)(state)
+    sc = scenes.lj_melt_scene(nx=20)
+    state = make_run(sc.cfg, 400)(setup(sc.cfg, sc.state))
+    print(make_thermo_fn(sc.cfg)(state))
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), at first use, into `csrc/build/` (listed in `.gitignore`).  The
 library name carries a hash of the source and the flags, so an edited source
 is rebuilt and never loaded stale.  `build_all` starts one `nvcc` per source
-at once and waits for all of them.
+at once and waits for all of them; kernels that share a source share its
+library.
 
 Every kernel has one `Kernel` record here.  Its wrapper adds one to
 `launches` each time it launches the kernel, and only there, so a run can
@@ -77,15 +78,20 @@ class Kernel:
         return self._fn
 
 
+# fld, tag, occ, out, nb, cap, lanes, nx, ny, nz, s, p, per_x, law,
+# lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut,
+# dtinvsqrt, lj1, lj2, salt, stream
+_PAIR_ARGS = (_P, _P, _P, _P) + (_I,) * 10 + (_F,) * 14 + (_U, _P)
+
 KERNELS: Dict[str, Kernel] = {
-    "dpd_pair": Kernel(
-        name="dpd_pair", source="pair_kernel.cu", symbol="obmd_dpd_pair",
-        # fld, tag, occ, out, nb, cap, lanes, nx, ny, nz, s, p,
-        # ly, lz, inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut,
-        # dtinvsqrt, salt, stream
-        argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _U, _P),
-        replaces="obmd_tpu/forces/pallas_dpd.py:575"),
+    "pair": Kernel(
+        name="pair", source="pair_kernel.cu", symbol="obmd_pair",
+        argtypes=_PAIR_ARGS,
+        replaces="obmd_tpu/forces/pallas_dpd.py:575 and :324"),
+    "dpd_full": Kernel(
+        name="dpd_full", source="pair_kernel.cu", symbol="obmd_dpd_full",
+        argtypes=_PAIR_ARGS,
+        replaces="obmd_tpu/forces/pallas_dpd.py:909"),
     "usher_search": Kernel(
         name="usher_search", source="usher_kernel.cu",
         symbol="obmd_usher_search",
@@ -121,26 +127,30 @@ def build_all(kernels=None) -> Dict[str, float]:
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    by_lib: Dict[Path, list] = {}
+    for k in kernels:
+        by_lib.setdefault(k.library_path(), []).append(k)
     procs = []
     t0 = time.perf_counter()
-    for k in kernels:
-        out = k.library_path()
+    for out, ks in by_lib.items():
         if out.exists():
-            k.build_seconds = 0.0
+            for k in ks:
+                k.build_seconds = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source_path)]
-        procs.append((k, out, tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(ks[0].source_path)]
+        procs.append((ks, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for k, out, tmp, p in procs:
+    for ks, out, tmp, p in procs:
         log, _ = p.communicate()
-        k.build_seconds = time.perf_counter() - t0
-        k.ptxas_info = "\n".join(line for line in log.splitlines()
-                                 if "ptxas" in line)
+        for k in ks:
+            k.build_seconds = time.perf_counter() - t0
+            k.ptxas_info = "\n".join(line for line in log.splitlines()
+                                     if "ptxas" in line)
         if p.returncode != 0:
-            failed.append(f"{k.source}: nvcc rc={p.returncode}\n{log}")
+            failed.append(f"{ks[0].source}: nvcc rc={p.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failed:

@@ -1,10 +1,10 @@
 """Scene configuration for the OBMD_DPD main path.
 
-Own copy of the main-path part of `obmd_tpu/config.py`: `eval_param`,
-`DPDParams`, `UsherParams`, `ObmdParams`, `Capacity` and
+Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
+`DPDParams`, `LJCutParams`, `UsherParams`, `ObmdParams`, `Capacity` and
 `SceneConfig.finalize`, with the same field names and defaults so a test can
-hold the two packages' configs field by field.  LJ, bonded and molecule
-configurations are not part of this slice.
+hold the two packages' configs field by field.  lj/cut/rf, dpd/tstat,
+dpd/ext, Langevin, bonded and molecule configurations are not ported yet.
 """
 from __future__ import annotations
 
@@ -68,6 +68,34 @@ class DPDParams:
     @property
     def max_cut(self) -> float:
         return float(np.max(np.asarray(self.cut))) if self.cut else self.cutoff
+
+
+@dataclasses.dataclass(frozen=True)
+class LJCutParams:
+    """`pair_style lj/cut rc` + eps/sigma per type pair (12-6 LJ, energy
+    shifted by the cutoff offset when shift=True)."""
+
+    cutoff: float
+    ntypes: int = 1
+    epsilon: Tuple[Tuple[float, ...], ...] = ()
+    sigma: Tuple[Tuple[float, ...], ...] = ()
+    cut: Tuple[Tuple[float, ...], ...] = ()
+    shift: bool = False
+
+    @staticmethod
+    def create(cutoff, epsilon, sigma, cut=None, ntypes=1, shift=False):
+        cut = cutoff if cut is None else cut
+        return LJCutParams(cutoff=float(cutoff), ntypes=ntypes,
+                           epsilon=_sym(epsilon, ntypes, "epsilon"),
+                           sigma=_sym(sigma, ntypes, "sigma"),
+                           cut=_sym(cut, ntypes, "cut"), shift=shift)
+
+    @property
+    def max_cut(self) -> float:
+        return float(np.max(np.asarray(self.cut))) if self.cut else self.cutoff
+
+
+PairParams = Union[DPDParams, LJCutParams]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +183,7 @@ class SceneConfig:
 
     box: Box
     masses: Tuple[float, ...]
-    pair: DPDParams
+    pair: PairParams
     dt: float
     capacity: Capacity
     obmd: Optional[ObmdParams] = None

@@ -1,11 +1,16 @@
-"""The cellpad engine: the OBMD_DPD step over the padded cell-major layout.
+"""The cellpad engine: the step over the padded cell-major layout.
 
-Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD with
-ATOM-mode USHER insertion.  Step order mirrors Verlet::run: half kick,
-drift + y/z wrap, the epoch relayout on an epoch's first step, the OBMD
+Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD or LJ, in
+an open-x box with ATOM-mode USHER insertion (OBMD_DPD) or a closed box
+without the OBMD stage (the LJ melt).  Step order mirrors Verlet::run: half
+kick, drift + wrap, the epoch relayout on an epoch's first step, the OBMD
 stage (face deletion, buffer census, feedback law, demand-gated subset
 compaction and insertion, boundary-force setpoints), the pair kernel plus
 the boundary force, half kick.
+
+The pair kernel is make_pair_kernel's (`kernel="pair"`, the default) or the
+legacy full-stencil make_dpd_kernel's (`kernel="full"`); both compute the
+same forces.
 
 Candidate positions go through a draw seam: `draw(state, need)` is called
 once per stage call and returns uniform [0, 1) draws [2, rounds, K, 3]
@@ -31,9 +36,11 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import SceneConfig, eval_param
+from .config import DPDParams, SceneConfig, eval_param
 from .geometry import const
-from .forces.pair_kernel import PadGeometry, make_pair_kernel
+from .forces.pair_kernel import (PadGeometry, check_supported as
+                                 kernel_check_supported, legacy_kwargs,
+                                 make_dpd_kernel, make_pair_kernel)
 from .forces.usher_kernel import usher_search
 from .obmd.stage import (_sequential_accept, draw_candidates, feedback_count,
                          insertion_tag_base, rounds_of, smooth_weight)
@@ -59,6 +66,9 @@ def own_draws(cfg: SceneConfig) -> Draw:
 
 
 def check_supported(cfg: SceneConfig) -> None:
+    """Raise for a configuration the port's cellpad engine cannot run yet:
+    OBMD_DPD-like open boxes (single-type DPD, ATOM-mode USHER) and closed
+    boxes without the OBMD stage (single-type DPD or LJ)."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
     if cfg.obmd is not None and cfg.obmd.usher is None:
@@ -69,8 +79,22 @@ def check_supported(cfg: SceneConfig) -> None:
                                  or cfg.obmd.nfreq > 1):
         raise NotImplementedError(
             "maxattempt > 1 and nfreq > 1 are not ported yet")
+    if cfg.obmd is not None and not isinstance(cfg.pair, DPDParams):
+        raise NotImplementedError(
+            "the OBMD stage is ported for the DPD law only")
     if cfg.ntypes != 1 or cfg.dtype != "float32":
-        raise NotImplementedError("only single-type float32 DPD is ported")
+        raise NotImplementedError("only single-type float32 scenes are "
+                                  "ported")
+    kernel_check_supported(make_geometry(cfg), cfg.pair)
+
+
+def supports(cfg: SceneConfig) -> bool:
+    """True when the port's cellpad engine runs this configuration."""
+    try:
+        check_supported(cfg.finalize())
+    except (ValueError, NotImplementedError):
+        return False
+    return True
 
 
 def make_geometry(cfg: SceneConfig) -> PadGeometry:
@@ -78,8 +102,19 @@ def make_geometry(cfg: SceneConfig) -> PadGeometry:
                               cfg.capacity.cell_capacity)
 
 
-def _make_kernel(cfg: SceneConfig, geom: PadGeometry):
-    return make_pair_kernel(geom, cfg.pair, cfg.dt)
+def _make_kernel(cfg: SceneConfig, geom: PadGeometry, kernel: str = "pair"):
+    if kernel == "pair":
+        return make_pair_kernel(geom, cfg.pair, cfg.dt)
+    if kernel == "full":
+        return make_dpd_kernel(geom, **legacy_kwargs(cfg.pair, cfg.dt))
+    raise ValueError(f'kernel must be "pair" or "full", not {kernel!r}')
+
+
+def pair_salt(cfg: SceneConfig, step: int) -> int:
+    """The pair noise's uint32 salt of a step (0 seed for a law without
+    noise)."""
+    return rng.step_salt(getattr(cfg.pair, "seed", 0), step,
+                         PURPOSE_PAIR_NOISE)
 
 
 def pack_fields(cfg, geom, state: State):
@@ -89,9 +124,8 @@ def pack_fields(cfg, geom, state: State):
     xm = torch.where(state.alive[:, None], state.x, BIG)
     fld = torch.cat([xm, state.v], dim=1).reshape(nb, cap, lanes, 6) \
         .permute(0, 3, 1, 2).contiguous()
-    salt = rng.step_salt(cfg.pair.seed, state.step, PURPOSE_PAIR_NOISE)
     aux: PadAux = state.nbrs
-    return fld, aux.tag3d, salt, aux.occ
+    return fld, aux.tag3d, pair_salt(cfg, state.step), aux.occ
 
 
 def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
@@ -287,14 +321,14 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
 
 
 def setup_cellpad(cfg: SceneConfig, state: State,
-                  draw: Optional[Draw] = None) -> State:
+                  draw: Optional[Draw] = None, kernel: str = "pair") -> State:
     """Pack into the cellpad layout, run the OBMD stage and the initial
     force evaluation.  Raises if the initial filing drops atoms."""
     cfg = cfg.finalize()
     check_supported(cfg)
     draw = draw or own_draws(cfg)
     geom = make_geometry(cfg)
-    kern = _make_kernel(cfg, geom)
+    kern = _make_kernel(cfg, geom, kernel)
     n_before = int(state.alive.sum())
     state = state.replace(x=cfg.box.wrap(state.x))
     state = layout_build(geom, cfg.box, state)
@@ -338,12 +372,14 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
 
 def auto_rebuild_every(cfg: SceneConfig) -> int:
     """Static relayout period from the half-skin budget (the reference's
-    calibration: the fastest atom drifts ~9 sqrt(T/m) per unit time)."""
+    calibration: the fastest atom drifts ~9 sqrt(T/m) per unit time, T the
+    pair law's temperature, at least 1; a law without one, such as LJ,
+    counts as T = 1)."""
     if cfg.rebuild_every > 0:
         return cfg.rebuild_every
     if cfg.skin <= 0.0:
         return 1
-    t_max = max(1.0, float(cfg.pair.temp))
+    t_max = max(1.0, float(getattr(cfg.pair, "temp", 1.0)))
     m_min = min(cfg.masses)
     v_fast = 9.0 * float(np.sqrt(t_max / m_min))
     r = int(0.45 * cfg.skin / (v_fast * cfg.dt))
@@ -351,7 +387,7 @@ def auto_rebuild_every(cfg: SceneConfig) -> int:
 
 
 def make_run_cellpad(cfg: SceneConfig, nsteps: int,
-                     draw: Optional[Draw] = None):
+                     draw: Optional[Draw] = None, kernel: str = "pair"):
     """Runner of nsteps on a static relayout schedule: every
     auto_rebuild_every steps an epoch starts with a relayout; the half-skin
     criterion is telemetry (PadAux.skin_trips), not a trigger."""
@@ -359,7 +395,7 @@ def make_run_cellpad(cfg: SceneConfig, nsteps: int,
     check_supported(cfg)
     draw = draw or own_draws(cfg)
     geom = make_geometry(cfg)
-    kern = _make_kernel(cfg, geom)
+    kern = _make_kernel(cfg, geom, kernel)
     r_every = auto_rebuild_every(cfg)
 
     def run(state: State) -> State:

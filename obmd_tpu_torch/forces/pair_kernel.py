@@ -1,31 +1,40 @@
-"""DPD pair forces over the padded cell-major layout.
+"""Pair forces over the padded cell-major layout.
 
 Counterpart of `obmd_tpu/forces/pallas_dpd.py`: `PadGeometry` (the slot =
-(block, rank, lane) layout, a lane being a cell) and `make_pair_kernel`.
-The TPU file has two bodies of one function — the big-tile body
-(`kernel_bigtile`, fill cap <= 20) and the rank-looped body (`kernel`) —
-which the Hopper kernel `csrc/pair_kernel.cu` replaces with one kernel that
-takes any capacity.  Beside it, `pair_forces_plain` is the same function in
-PyTorch: the CPU tests run it, and `chip_smoke.py` holds the kernel against
+(block, rank, lane) layout, a lane being a cell), `make_pair_kernel` and
+`make_dpd_kernel`.  The TPU file has three kernels of one function: the
+big-tile body of make_pair_kernel (`kernel_bigtile`, fill cap <= 20), its
+rank-looped body (`kernel`, fill cap > 20), both Newton half stencils, and
+the legacy full-stencil make_dpd_kernel.  The Hopper kernel source
+`csrc/pair_kernel.cu` replaces them with one Newton-off kernel that takes any
+capacity, behind two C entry points: `obmd_pair` (make_pair_kernel) and
+`obmd_dpd_full` (make_dpd_kernel, with that kernel's own r and cutoff
+arithmetic).  Beside them, `pair_forces_plain` is the same function in
+PyTorch: the CPU tests run it, and `chip_smoke.py` holds each kernel against
 it on the card.
 
-The function: for every live slot i, F_i = sum_j F_ij over the atoms j filed
-in the 27 cells around i's FILED cell (never `cell_of(x)`: atoms drift up to
-half a skin inside an epoch, which the cut + skin cell width absorbs), with
+The function: for every live slot i, F_i = sum_j fpair_ij * d_ij over the
+live atoms j filed in the 27 cells around i's FILED cell (never
+`cell_of(x)`: atoms drift up to half a skin inside an epoch, which the
+cut + skin cell width absorbs), d_ij = x_i - x_j with the minimum image on
+every periodic axis, counted only for 1e-10 < r < rc, with the law
 
-    F_ij = [a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)] * rhat,
-    wd = 1 - r/rc,   xi = sqrt(3)*(2u - 1),
-    u = top 24 bits of fmix32((lo*0x9E3779B9) ^ (hi*0x85EBCA77) ^ salt) / 2^24
+    dpd: fpair = [a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)] / r,
+         wd = 1 - r/rc,   xi = sqrt(3)*(2u - 1),
+         u = top 24 bits of fmix32((lo*0x9E3779B9) ^ (hi*0x85EBCA77) ^ salt)
+             / 2^24   (lo, hi = smaller and larger tag of the pair);
+    lj:  fpair = r6inv*(lj1*r6inv - lj2)*r2inv,  r2inv = 1/r^2,
+         lj1 = 48 eps sig^12,  lj2 = 24 eps sig^6.
 
-(lo, hi = smaller and larger tag of the pair), counted only for
-1e-10 < r < rc, with the minimum image on the periodic y/z axes.  Dead slots
-carry x = BIG and drop out of the cutoff test.
+Dead slots carry x = y = z = BIG and are skipped by an explicit test, not
+by distance alone: on a periodic x axis the minimum image folds BIG back
+into the box.
 
-Scope of this slice: single-type DPD, uniform noise, open x, periodic y/z
-with >= 3 cells each, and a layout whose x-slabs tile the 128 lanes
-(p >= 2).  Every other configuration of the TPU kernel (lj, lj/rf, 2-4
-types, bonded exclusion, the dpd/tstat ramp, gaussian noise, periodic x,
-p == 1 layouts) raises `NotImplementedError`.
+Scope: single type, uniform noise, periodic y/z with >= 3 cells each, open
+or periodic x (>= 3 cells), any layout (x-slabs tiling the lanes, p >= 2, or
+one slab per block in lanes padded to a multiple of 128, p == 1), any
+capacity.  lj/cut/rf, 2-4 types, bonded exclusion, the dpd/tstat ramp,
+gaussian noise, single-cell or open y/z axes raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -37,13 +46,15 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..config import DPDParams
-from ..geometry import const_like
+from ..cells import BIG
+from ..config import DPDParams, LJCutParams
+from ..geometry import cell_index
 from ..rng import pair_bits, uniform01
 
 EPS = 1.0e-10
 SQRT3 = float(np.sqrt(3.0))
 NF = 6   # x, y, z, vx, vy, vz
+LAWS = ("dpd", "lj")       # the C entry points' law index
 
 
 class PadGeometry(NamedTuple):
@@ -122,14 +133,9 @@ class PadGeometry(NamedTuple):
                            fill_cap=fill)
 
     def cell_of(self, x: torch.Tensor) -> torch.Tensor:
-        """Linear cell id (int32) of [..., 3] positions, clipped to the grid."""
-        lo = const_like(self.lo, x)
-        cs = const_like(self.cell_size, x)
-        top = const_like([d - 1 for d in self.dims], x, torch.int32)
-        c = torch.floor((x - lo) / cs).to(torch.int32)
-        c = torch.minimum(torch.clamp(c, min=0), top)
-        nx, ny, nz = self.dims
-        return (c[..., 0] * ny + c[..., 1]) * nz + c[..., 2]
+        """Linear cell id (int32) of [..., 3] positions, clipped to the
+        grid (geometry.cell_index)."""
+        return cell_index(x, self.lo, self.cell_size, self.dims)
 
     def slot_of_cell(self, cell):
         """(block, lane) of a linear cell id."""
@@ -142,125 +148,184 @@ class PadGeometry(NamedTuple):
         return block, lane
 
 
-def check_supported(geom: PadGeometry, params) -> None:
-    """Raise for every configuration of the TPU kernel this port does not
-    cover yet (ROADMAP.md lists them)."""
-    if not isinstance(params, DPDParams):
-        raise NotImplementedError(
-            f"pair kernel: only the DPD law is ported, not {type(params).__name__}")
-    if params.ntypes != 1:
-        raise NotImplementedError("pair kernel: only single-type DPD is ported")
-    if params.gaussian_noise:
-        raise NotImplementedError("pair kernel: gaussian pair noise is not ported")
-    if geom.periodic_x:
-        raise NotImplementedError("pair kernel: periodic x is not ported")
+def check_geometry(geom: PadGeometry) -> None:
+    """Raise for the layouts the kernels do not cover yet."""
     if geom.periodic_yz != (True, True) or min(geom.dims[1:]) < 3:
         raise NotImplementedError(
             "pair kernel: y and z must be periodic with >= 3 cells each")
-    if geom.p < 2 or geom.p * geom.s != geom.lanes:
+
+
+def check_supported(geom: PadGeometry, params) -> None:
+    """Raise for every configuration of the TPU kernel this port does not
+    cover yet (ROADMAP.md lists them)."""
+    if not isinstance(params, (DPDParams, LJCutParams)):
         raise NotImplementedError(
-            "pair kernel: p == 1 (lane-padded) layouts are not ported")
+            f"pair kernel: the {type(params).__name__} law is not ported")
+    if params.ntypes != 1:
+        raise NotImplementedError("pair kernel: only a single type is ported")
+    if getattr(params, "gaussian_noise", False):
+        raise NotImplementedError("pair kernel: gaussian pair noise is not ported")
+    check_geometry(geom)
 
 
-class DPDCoef(NamedTuple):
-    """Scalar law constants, each rounded to float32 where it is used."""
+class PairCoef(NamedTuple):
+    """The law and its scalar constants, each rounded to float32 where it
+    is used, and the box lengths of the minimum image."""
 
+    law: str
     a0: float
     gamma: float
     sigma: float
     cut: float
     inv_cut: float
     dtinvsqrt: float
+    lj1: float
+    lj2: float
+    periodic_x: bool
+    lx: float
     ly: float
     lz: float
+    inv_lx: float
     inv_ly: float
     inv_lz: float
 
     @staticmethod
-    def create(geom: PadGeometry, params: DPDParams, dt: float) -> "DPDCoef":
-        ly = float(geom.dims[1] * geom.cell_size[1])
-        lz = float(geom.dims[2] * geom.cell_size[2])
-        cut = float(params.cut[0][0])
-        return DPDCoef(a0=float(params.a0[0][0]),
-                       gamma=float(params.gamma[0][0]),
-                       sigma=float(params.sigma[0][0]), cut=cut,
-                       inv_cut=1.0 / cut,
-                       dtinvsqrt=float(1.0 / np.sqrt(dt)),
-                       ly=ly, lz=lz, inv_ly=1.0 / ly, inv_lz=1.0 / lz)
+    def create(geom: PadGeometry, law: str, *, a0: float = 0.0,
+               gamma: float = 0.0, sigma: float = 0.0, cut: float = 1.0,
+               dt: float = 0.01, lj_eps: float = 1.0,
+               lj_sig: float = 1.0) -> "PairCoef":
+        if law not in LAWS:
+            raise NotImplementedError(f"pair law {law!r} is not ported")
+        lx, ly, lz = (float(n * c) for n, c in zip(geom.dims,
+                                                    geom.cell_size))
+        s6 = float(lj_sig) ** 6
+        return PairCoef(law=law, a0=float(a0), gamma=float(gamma),
+                        sigma=float(sigma), cut=float(cut),
+                        inv_cut=1.0 / float(cut),
+                        dtinvsqrt=float(1.0 / np.sqrt(dt)),
+                        lj1=48.0 * float(lj_eps) * s6 * s6,
+                        lj2=24.0 * float(lj_eps) * s6,
+                        periodic_x=bool(geom.periodic_x), lx=lx, ly=ly,
+                        lz=lz, inv_lx=1.0 / lx, inv_ly=1.0 / ly,
+                        inv_lz=1.0 / lz)
+
+
+def legacy_kwargs(params, dt: float) -> dict:
+    """make_dpd_kernel's keyword arguments for a single-type config law."""
+    if isinstance(params, DPDParams):
+        return dict(a0=params.a0[0][0], gamma=params.gamma[0][0],
+                    sigma=params.sigma[0][0], cut=params.cut[0][0], dt=dt,
+                    law="dpd")
+    if isinstance(params, LJCutParams):
+        return dict(cut=params.cut[0][0], dt=dt, law="lj",
+                    lj_eps=params.epsilon[0][0], lj_sig=params.sigma[0][0])
+    raise NotImplementedError(
+        f"pair kernel: the {type(params).__name__} law is not ported")
 
 
 @functools.lru_cache(maxsize=16)
 def _neighbor_columns(geom: PadGeometry, device: torch.device):
-    """For each of the 27 cell offsets: the flat (block, lane) column of the
-    neighbour cell of every (block, lane), and whether it exists (open x;
-    y/z wrap).  Columns index the [nb * lanes] cell axis."""
+    """The real (block, lane) columns (cells) of the layout, flat over the
+    [nb * lanes] cell axis, and for each of the 27 cell offsets the column of
+    each one's neighbour cell and whether it exists (open x ends; periodic
+    axes wrap).  Returns (icol [R], cols [27, R], oks [27, R])."""
     nx, ny, nz = geom.dims
     s, p, lanes, nb = geom.s, geom.p, geom.lanes, geom.n_blocks
     lane = np.arange(lanes)
     slab = np.arange(nb)[:, None] * p + (lane // s)[None, :]
-    real = (lane < p * s)[None, :] & (slab < nx)
-    within = lane % s
-    cy = (within // nz)[None, :]
-    cz = (within % nz)[None, :]
+    real = ((lane < p * s)[None, :] & (slab < nx)).reshape(-1)
+    icol = np.flatnonzero(real)
+    slab = slab.reshape(-1)[icol]
+    within = np.broadcast_to(lane % s, (nb, lanes)).reshape(-1)[icol]
+    cy = within // nz
+    cz = within % nz
     cols, oks = [], []
     for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
         jx = slab + ox
-        ok = real & (jx >= 0) & (jx < nx)
+        if geom.periodic_x:
+            jx = jx % nx
+        ok = (jx >= 0) & (jx < nx)
         jy = (cy + oy) % ny
         jz = (cz + oz) % nz
         col = (jx // p) * lanes + (jx % p) * s + jy * nz + jz
-        cols.append(np.where(ok, col, 0).reshape(-1))
-        oks.append(ok.reshape(-1))
-    cols = torch.from_numpy(np.stack(cols)).to(device)
-    oks = torch.from_numpy(np.stack(oks)).to(device)
-    return cols, oks
+        cols.append(np.where(ok, col, 0))
+        oks.append(ok)
+    return (torch.from_numpy(icol).to(device),
+            torch.from_numpy(np.stack(cols)).to(device),
+            torch.from_numpy(np.stack(oks)).to(device))
 
 
-def pair_forces_plain(geom: PadGeometry, coef: DPDCoef, fld: torch.Tensor,
-                      tag: torch.Tensor, salt: int) -> torch.Tensor:
-    """The kernel's function in PyTorch: fld f32[nb, 6, cap, lanes], tag
+def _min_image(d, length: float, inv_length: float):
+    return d - length * torch.round(d * inv_length)
+
+
+def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
+                      tag: torch.Tensor, salt: int,
+                      legacy: bool = False) -> torch.Tensor:
+    """The kernels' function in PyTorch: fld f32[nb, 6, cap, lanes], tag
     i32[nb, cap, lanes] -> f32[nb, 3, cap, lanes].  Newton-off: each slot
-    sums over the 27 cells around its column, all ranks of each."""
+    of a real column sums over the 27 cells around its column, all ranks of
+    each.  legacy=True takes make_dpd_kernel's arithmetic (r = sqrt(r^2),
+    r > 1e-10), else make_pair_kernel's (r = r^2 / r, r^2 > 1e-20)."""
     nb, nf, cap, lanes = fld.shape
-    c = nb * lanes
-    fl = fld.permute(0, 3, 1, 2).reshape(c, nf, cap)
-    tl = tag.permute(0, 2, 1).reshape(c, cap)
-    cols, oks = _neighbor_columns(geom, fld.device)
-    xi = fl[:, :, :, None]                           # [C, NF, cap_i, 1]
-    ti = tl[:, :, None]                              # [C, cap_i, 1]
-    not_self = ~torch.eye(cap, dtype=torch.bool, device=fld.device)
-    f = torch.zeros((c, 3, cap), dtype=torch.float32, device=fld.device)
+    dev = fld.device
+    fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
+    tl = tag.permute(0, 2, 1).reshape(nb * lanes, cap)
+    icol, cols, oks = _neighbor_columns(geom, dev)
+    fi = fl[icol]                                    # [R, NF, cap_i]
+    xi = fi[:, :, :, None]                           # [R, NF, cap_i, 1]
+    ti = tl[icol][:, :, None]                        # [R, cap_i, 1]
+    live_i = (fi[:, 0] < 0.5 * BIG)[:, :, None]
+    not_self = ~torch.eye(cap, dtype=torch.bool, device=dev)
+    cut2 = coef.cut * coef.cut
+    f = torch.zeros((icol.shape[0], 3, cap), dtype=torch.float32, device=dev)
     for o in range(cols.shape[0]):
-        xj = fl[cols[o]][:, :, None, :]              # [C, NF, 1, cap_j]
-        tj = tl[cols[o]][:, None, :]                 # [C, 1, cap_j]
+        fj = fl[cols[o]]
+        xj = fj[:, :, None, :]                       # [R, NF, 1, cap_j]
         dx = xi[:, 0] - xj[:, 0]
-        dy = xi[:, 1] - xj[:, 1]
-        dz = xi[:, 2] - xj[:, 2]
-        dy = dy - coef.ly * torch.round(dy * coef.inv_ly)
-        dz = dz - coef.lz * torch.round(dz * coef.inv_lz)
+        dy = _min_image(xi[:, 1] - xj[:, 1], coef.ly, coef.inv_ly)
+        dz = _min_image(xi[:, 2] - xj[:, 2], coef.lz, coef.inv_lz)
+        if coef.periodic_x:
+            dx = _min_image(dx, coef.lx, coef.inv_lx)
         rsq = dx * dx + dy * dy + dz * dz
-        ok = oks[o][:, None, None] & (rsq < coef.cut * coef.cut) \
-            & (rsq > EPS * EPS)
+        ok = oks[o][:, None, None] & live_i \
+            & (fj[:, 0] < 0.5 * BIG)[:, None, :] & (rsq < cut2)
+        if legacy:
+            r = torch.sqrt(rsq)
+            ok = ok & (r > EPS)
+        else:
+            ok = ok & (rsq > EPS * EPS)
         if o == 13:                                  # the (0, 0, 0) offset
             ok = ok & not_self
-        rinv = torch.rsqrt(torch.clamp(rsq, min=EPS * EPS))
-        wd = 1.0 - (rsq * rinv) * coef.inv_cut
-        dot = (dx * (xi[:, 3] - xj[:, 3]) + dy * (xi[:, 4] - xj[:, 4])
-               + dz * (xi[:, 5] - xj[:, 5]))
-        u01 = uniform01(pair_bits(salt, ti, tj))
-        noise = SQRT3 * (2.0 * u01 - 1.0)
-        fpair = coef.a0 * wd
-        fpair = fpair - coef.gamma * wd * wd * dot * rinv
-        fpair = fpair + coef.sigma * wd * noise * coef.dtinvsqrt
-        fpair = torch.where(ok, fpair * rinv, 0.0)
+        if coef.law == "lj":
+            r2inv = 1.0 / torch.clamp(rsq, min=EPS * EPS)
+            r6inv = r2inv * r2inv * r2inv
+            fpair = r6inv * (coef.lj1 * r6inv - coef.lj2) * r2inv
+        else:
+            rinv = torch.rsqrt(torch.clamp(rsq, min=EPS * EPS))
+            if not legacy:
+                r = rsq * rinv
+            wd = 1.0 - r * coef.inv_cut
+            dot = (dx * (xi[:, 3] - xj[:, 3]) + dy * (xi[:, 4] - xj[:, 4])
+                   + dz * (xi[:, 5] - xj[:, 5]))
+            u01 = uniform01(pair_bits(salt, ti, tl[cols[o]][:, None, :]))
+            noise = SQRT3 * (2.0 * u01 - 1.0)
+            fpair = coef.a0 * wd
+            fpair = fpair - coef.gamma * wd * wd * dot * rinv
+            fpair = fpair + coef.sigma * wd * noise * coef.dtinvsqrt
+            fpair = fpair * rinv
+        fpair = torch.where(ok, fpair, 0.0)
         f[:, 0] += (fpair * dx).sum(-1)
         f[:, 1] += (fpair * dy).sum(-1)
         f[:, 2] += (fpair * dz).sum(-1)
-    return f.reshape(nb, lanes, 3, cap).permute(0, 2, 3, 1).contiguous()
+    out = torch.zeros((nb * lanes, 3, cap), dtype=torch.float32, device=dev)
+    out[icol] = f
+    return out.reshape(nb, lanes, 3, cap).permute(0, 2, 3, 1).contiguous()
 
 
-def _launch(geom: PadGeometry, coef: DPDCoef, fld, tag, salt: int, occ):
-    kern = _build.KERNELS["dpd_pair"]
+def _launch(name: str, geom: PadGeometry, coef: PairCoef, fld, tag,
+            salt: int, occ):
+    kern = _build.KERNELS[name]
     fn = kern.function()
     nb, _, cap, lanes = fld.shape
     nx, ny, nz = geom.dims
@@ -270,28 +335,23 @@ def _launch(geom: PadGeometry, coef: DPDCoef, fld, tag, salt: int, occ):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(fld.data_ptr(), tag.data_ptr(), occ.data_ptr(),
                 out.data_ptr(), nb, cap, lanes, nx, ny, nz, geom.s, geom.p,
-                coef.ly, coef.lz, coef.inv_ly, coef.inv_lz, coef.a0,
+                int(coef.periodic_x), LAWS.index(coef.law), coef.lx, coef.ly,
+                coef.lz, coef.inv_lx, coef.inv_ly, coef.inv_lz, coef.a0,
                 coef.gamma, coef.sigma, coef.cut, coef.inv_cut,
-                coef.dtinvsqrt, salt & 0xFFFFFFFF, stream)
+                coef.dtinvsqrt, coef.lj1, coef.lj2, salt & 0xFFFFFFFF, stream)
     _build.check(rc, kern)
-    kern.count(f"cap{geom.fcap}")
+    kern.count(f"{coef.law}-cap{geom.fcap}")
     return out
 
 
-def make_pair_kernel(geom: PadGeometry, params: DPDParams, dt: float):
-    """Build pair_forces(fld, tag, salt, occ) -> f32[nb, 3, cap, lanes]:
-    fld f32[nb, 6, cap, lanes] (x, y, z, vx, vy, vz; dead slots at x = BIG),
-    tag i32[nb, cap, lanes], salt a uint32 python int, occ i32[nb] (per
-    block highest occupied rank + 1; stale-high is safe, stale-low is not).
-
-    A CUDA tensor goes to the Hopper kernel; a CPU tensor to the plain
-    version.  There is no fallback between them."""
-    check_supported(geom, params)
-    coef = DPDCoef.create(geom, params, dt)
+def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool):
+    """The kernel's calling convention: checks, then a CUDA tensor goes to
+    the Hopper kernel and a CPU tensor to the plain version.  There is no
+    fallback between them."""
     shape = (geom.n_blocks, NF, geom.cap, geom.lanes)
 
-    def pair_forces(fld: torch.Tensor, tag: torch.Tensor, salt: int,
-                    occ: torch.Tensor) -> torch.Tensor:
+    def forces(fld: torch.Tensor, tag: torch.Tensor, salt: int,
+               occ: torch.Tensor) -> torch.Tensor:
         if tuple(fld.shape) != shape or fld.dtype != torch.float32:
             raise ValueError(f"fld must be float32{list(shape)}, got "
                              f"{fld.dtype}{list(fld.shape)}")
@@ -303,10 +363,45 @@ def make_pair_kernel(geom: PadGeometry, params: DPDParams, dt: float):
         if not (fld.device == tag.device == occ.device):
             raise ValueError("fld, tag and occ must share one device")
         if fld.device.type == "cpu":
-            return pair_forces_plain(geom, coef, fld, tag, salt)
+            return pair_forces_plain(geom, coef, fld, tag, salt, legacy)
         if fld.device.type != "cuda":
             raise ValueError(f"unsupported device {fld.device}")
-        return _launch(geom, coef, fld.contiguous(), tag.contiguous(), salt,
-                       occ.contiguous())
+        return _launch(name, geom, coef, fld.contiguous(), tag.contiguous(),
+                       salt, occ.contiguous())
 
-    return pair_forces
+    return forces
+
+
+def make_pair_kernel(geom: PadGeometry, params, dt: float):
+    """Build pair_forces(fld, tag, salt, occ) -> f32[nb, 3, cap, lanes]:
+    fld f32[nb, 6, cap, lanes] (x, y, z, vx, vy, vz; dead slots at BIG),
+    tag i32[nb, cap, lanes], salt a uint32 python int, occ i32[nb] (per
+    block highest occupied rank + 1; stale-high is safe, stale-low is not).
+    The law comes from `params` (DPDParams or LJCutParams)."""
+    check_supported(geom, params)
+    return _wrapper("pair", geom,
+                    PairCoef.create(geom, **legacy_kwargs(params, dt)),
+                    legacy=False)
+
+
+def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,
+                    gamma: float = 0.0, sigma: float = 0.0, cut: float = 1.0,
+                    dt: float = 0.01, law: str = "dpd",
+                    lj_eps: float = 1.0, lj_sig: float = 1.0,
+                    exclude_bonded: bool = False):
+    """Build dpd_forces(fld, tag, salt, occ, pbond=None), the counterpart of
+    the legacy full-stencil kernel (pallas_dpd.py:877): the calling
+    convention of make_pair_kernel's function, law "dpd" or "lj" from
+    scalar coefficients.  Bonded exclusion (pbond) is not ported yet."""
+    if exclude_bonded:
+        raise NotImplementedError(
+            "make_dpd_kernel: bonded exclusion is not ported")
+    check_geometry(geom)
+    forces = _wrapper("dpd_full", geom, PairCoef.create(
+        geom, law, a0=a0, gamma=gamma, sigma=sigma, cut=cut, dt=dt,
+        lj_eps=lj_eps, lj_sig=lj_sig), legacy=True)
+
+    def dpd_forces(fld, tag, salt, occ, pbond=None):
+        return forces(fld, tag, salt, occ)
+
+    return dpd_forces

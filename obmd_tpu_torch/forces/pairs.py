@@ -1,0 +1,200 @@
+"""Pair laws and the cell-pair force sweep.
+
+Counterpart of `obmd_tpu/forces/pairs.py` for the ported pair styles:
+  * DPD    — DPD-BASIC/pair_dpd.cpp:128-137, uniform pair noise;
+  * LJ cut — 12-6 LJ (pair_lj_cut.cpp), optionally energy-shifted.
+Every other law raises NotImplementedError.
+
+`pair_sweep` is the full-neighbour sweep over a dense cell table
+(`cells.build_cells`): every pair is computed from both sides and each atom
+sums the forces on itself, with no scatter-add.  It is array code in the
+reference too (not a TPU kernel), so it stays plain PyTorch on every
+device: it is the semantics reference the cellpad kernels are held
+against, and what thermo and profiles run on.  The 27 stencil offsets are
+looped, never stacked, so one offset's [n_cells, cap, cap, 3] block is the
+largest temporary.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..cells import BIG, CellTable, GridSpec, gather_padded
+from ..config import DPDParams, LJCutParams
+from ..geometry import Box
+
+EPS_R = 1.0e-10  # reference EPSILON for the r ~ 0 skip (pair_dpd.cpp:117)
+
+
+class PairFields(NamedTuple):
+    """Outputs of one force sweep."""
+
+    f: torch.Tensor                       # [N, 3] per-atom force
+    pe: Optional[torch.Tensor]            # [N] per-atom energy (half shares)
+    virial: Optional[torch.Tensor]        # [6] xx, yy, zz, xy, xz, yz
+    virial_atom: Optional[torch.Tensor] = None   # [N, 6] per-atom shares
+
+
+def _table_names(params):
+    if isinstance(params, DPDParams):
+        return ("a0", "gamma", "cut", "sigma")
+    if isinstance(params, LJCutParams):
+        return ("epsilon", "sigma", "cut")
+    raise NotImplementedError(
+        f"pair law {type(params).__name__} is not ported")
+
+
+def _tables(params, dtype, device):
+    """Coefficient tables as [ntypes, ntypes] tensors."""
+    return {name: torch.tensor(np.asarray(getattr(params, name)),
+                               dtype=dtype, device=device)
+            for name in _table_names(params)}
+
+
+def _lookup(tab: torch.Tensor, ti, tj):
+    """Per-pair coefficient; a single-type table is a scalar."""
+    if tab.shape == (1, 1):
+        return tab[0, 0]
+    return tab[ti.long(), tj.long()]
+
+
+def _lj_consts(eps, sig):
+    """LAMMPS lj1..lj4 (pair_lj_cut.cpp init_one)."""
+    s6 = sig ** 6
+    return 48.0 * eps * s6 * s6, 24.0 * eps * s6, 4.0 * eps * s6 * s6, \
+        4.0 * eps * s6
+
+
+def make_pair_law(params, dt: float, dtype=torch.float32, device="cpu"):
+    """pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt) -> (fpair, e) with
+    F_i += fpair * d, d = x_i - x_j (fpair carries the 1/r factors); e is
+    the full pair energy (the caller halves it per atom)."""
+    tabs = _tables(params, dtype, device)
+
+    if isinstance(params, DPDParams):
+        if params.gaussian_noise:
+            raise NotImplementedError("gaussian pair noise is not ported")
+        dtinvsqrt = float(np.float32(1.0 / np.sqrt(dt)))
+
+        def pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt):
+            cut = _lookup(tabs["cut"], ti, tj)
+            a0 = _lookup(tabs["a0"], ti, tj)
+            gam = _lookup(tabs["gamma"], ti, tj)
+            sig = _lookup(tabs["sigma"], ti, tj)
+            r = torch.sqrt(rsq)
+            rinv = torch.where(r > EPS_R, 1.0 / torch.clamp(r, min=EPS_R),
+                               0.0)
+            wd = 1.0 - r * (1.0 / cut)
+            dot = (d * dv).sum(-1)
+            xi = rng.pair_noise(salt, tag_i, tag_j, dtype=dtype)
+            fpair = a0 * wd
+            fpair = fpair - gam * wd * wd * dot * rinv
+            fpair = fpair + sig * wd * xi * dtinvsqrt
+            fpair = fpair * rinv
+            in_range = (rsq < cut * cut) & (r > EPS_R)
+            e = 0.5 * a0 * cut * wd * wd          # pair_dpd.cpp:152 (shifted)
+            return (torch.where(in_range, fpair, 0.0),
+                    torch.where(in_range, e, 0.0))
+
+        return pair_fn
+
+    shift = params.shift
+
+    def pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt):
+        cut = _lookup(tabs["cut"], ti, tj)
+        eps = _lookup(tabs["epsilon"], ti, tj)
+        sig = _lookup(tabs["sigma"], ti, tj)
+        lj1, lj2, lj3, lj4 = _lj_consts(eps, sig)
+        in_range = (rsq < cut * cut) & (rsq > EPS_R * EPS_R)
+        r2inv = torch.where(in_range, 1.0 / torch.clamp(rsq, min=EPS_R), 0.0)
+        r6inv = r2inv * r2inv * r2inv
+        fpair = r6inv * (lj1 * r6inv - lj2) * r2inv
+        e = r6inv * (lj3 * r6inv - lj4)
+        if shift:
+            rc2 = 1.0 / (cut * cut)
+            rc6 = rc2 * rc2 * rc2
+            e = e - rc6 * (lj3 * rc6 - lj4)
+        return (torch.where(in_range, fpair, 0.0),
+                torch.where(in_range, e, 0.0))
+
+    return pair_fn
+
+
+def _scatter_back(vals: torch.Tensor, idx: torch.Tensor, n: int):
+    """Cell-major values back to slot order (idx == n rows dropped)."""
+    out = torch.zeros((n + 1,) + tuple(vals.shape[2:]), dtype=vals.dtype,
+                      device=vals.device)
+    out[idx.reshape(-1).long()] = vals.reshape((-1,) + tuple(vals.shape[2:]))
+    return out[:n]
+
+
+def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
+               x, v, types, tag, salt, *, dt: float,
+               compute_energy: bool = False,
+               compute_virial: bool = False,
+               compute_virial_atom: bool = False) -> PairFields:
+    """Full force sweep over the cell grid: per-atom forces (zero for dead
+    slots), optionally per-atom pe (half of each incident pair's energy),
+    the global virial 0.5 sum_pairs d (x) F over both orientations, and the
+    per-atom virial shares.  The reference's charge argument is left out:
+    no charged law is ported."""
+    dtype = x.dtype
+    dev = x.device
+    n = x.shape[0]
+    n_cells = spec.n_cells
+    cap = spec.capacity
+    pair_fn = make_pair_law(params, dt, dtype, dev)
+
+    idx = ctab.table[:n_cells]                       # [n_cells, cap]
+    xi = gather_padded(x, idx, BIG)
+    vi = gather_padded(v, idx, 0.0)
+    ti = gather_padded(types, idx, 0)
+    gi = gather_padded(tag, idx, -1)
+
+    nbr = torch.from_numpy(spec.stencil_neighbors()).long().to(dev)
+    not_self = ~torch.eye(cap, dtype=torch.bool, device=dev)[None]
+
+    f_acc = torch.zeros((n_cells, cap, 3), dtype=dtype, device=dev)
+    pe_acc = torch.zeros((n_cells, cap), dtype=dtype, device=dev) \
+        if compute_energy else None
+    w_acc = torch.zeros((6,), dtype=dtype, device=dev) \
+        if compute_virial else None
+    wa_acc = torch.zeros((n_cells, cap, 6), dtype=dtype, device=dev) \
+        if compute_virial_atom else None
+    pairs6 = ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2))
+
+    for k in range(nbr.shape[0]):
+        jdx = ctab.table[nbr[k]]                     # [n_cells, cap]
+        xj = gather_padded(x, jdx, BIG)
+        vj = gather_padded(v, jdx, 0.0)
+        tj = gather_padded(types, jdx, 0)
+        gj = gather_padded(tag, jdx, -1)
+
+        d = box.min_image(xi[:, :, None, :] - xj[:, None, :, :])
+        dv = vi[:, :, None, :] - vj[:, None, :, :]
+        rsq = (d * d).sum(-1)
+        valid = (xi[:, :, None, 0] < BIG * 0.5) & (xj[:, None, :, 0] < BIG * 0.5)
+        if k == 13:                                  # the (0, 0, 0) offset
+            valid = valid & not_self
+        fpair, e = pair_fn(rsq, d, dv, ti[:, :, None], tj[:, None, :],
+                           gi[:, :, None], gj[:, None, :], salt)
+        fvec = torch.where(valid[..., None], fpair[..., None] * d, 0.0)
+        f_acc += fvec.sum(2)
+        if compute_energy:
+            pe_acc += 0.5 * torch.where(valid, e, 0.0).sum(2)
+        if compute_virial:
+            w_acc += 0.5 * torch.stack([(d[..., a] * fvec[..., b]).sum()
+                                        for a, b in pairs6])
+        if compute_virial_atom:
+            wa_acc += 0.5 * torch.stack([(d[..., a] * fvec[..., b]).sum(2)
+                                         for a, b in pairs6], dim=-1)
+
+    return PairFields(
+        f=_scatter_back(f_acc, idx, n),
+        pe=_scatter_back(pe_acc, idx, n) if compute_energy else None,
+        virial=w_acc,
+        virial_atom=(_scatter_back(wa_acc, idx, n) if compute_virial_atom
+                     else None))

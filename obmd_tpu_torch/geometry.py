@@ -10,6 +10,7 @@ import dataclasses
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,21 @@ def const(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tens
 
 def const_like(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
     return const(tuple(values), dtype or like.dtype, like.device)
+
+
+def cell_index(x: torch.Tensor, lo, cell_size, dims) -> torch.Tensor:
+    """Linear cell id (int32) of [..., 3] positions on a grid of `dims`
+    cells of `cell_size` from `lo`, clipped to the grid.  The division by
+    the cell size is a multiplication by its float32 reciprocal, as the
+    reference's compiled code computes it (XLA turns a division by a
+    float32 constant into one), so an atom within rounding of a cell face
+    is filed alike."""
+    inv = [float(np.float32(1.0) / np.float32(c)) for c in cell_size]
+    top = const_like([d - 1 for d in dims], x, torch.int32)
+    c = torch.floor((x - const_like(lo, x)) * const_like(inv, x))
+    c = torch.minimum(torch.clamp(c.to(torch.int32), min=0), top)
+    nx, ny, nz = dims
+    return (c[..., 0] * ny + c[..., 1]) * nz + c[..., 2]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,10 @@
-"""Entry points of a run: setup, the multi-step runner and equilibration.
+"""Entry points of a run: setup, the multi-step runner and equilibration,
+and the stateless sweep force evaluation.
 
 Counterpart of the cellpad branches of `obmd_tpu/integrate.py` (`setup`,
-`make_run`, `equilibrate`).  The other force paths ("nlist", "sweep") are
-not part of this slice and raise.  Each function runs on the device its
-state lives on.
+`make_run`, `equilibrate`) and of its `make_grid_spec`, `_salt` and
+`compute_forces`.  The other step engines ("nlist", "sweep") are not ported
+yet and raise.  Each function runs on the device its state lives on.
 """
 from __future__ import annotations
 
@@ -11,9 +12,37 @@ from typing import Optional
 
 import torch
 
+from .cells import GridSpec, build_cells
 from .config import SceneConfig
 from .engine_cellpad import Draw, make_run_cellpad, setup_cellpad
+from .engine_cellpad import pair_salt as _salt
+from .forces.pairs import pair_sweep
 from .state import State, temperature
+
+
+def make_grid_spec(cfg: SceneConfig) -> GridSpec:
+    return GridSpec.create(cfg.box, cfg.pair.max_cut + cfg.skin,
+                           cfg.capacity.cell_capacity)
+
+
+def compute_forces(cfg: SceneConfig, spec: GridSpec, state: State, *,
+                   compute_energy: bool = False,
+                   compute_virial: bool = False,
+                   compute_virial_atom: bool = False):
+    """Stateless force evaluation of the sweep path: cell rebuild + pair
+    sweep.  Returns (PairFields, CellTable).  The OBMD boundary force and
+    bonded terms of the reference's version are not ported, so a scene with
+    an OBMD stage raises."""
+    if cfg.obmd is not None:
+        raise NotImplementedError(
+            "compute_forces: the OBMD boundary force is not ported")
+    ctab = build_cells(spec, state.x, state.alive)
+    pf = pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
+                    state.type, state.tag, _salt(cfg, state.step),
+                    dt=cfg.dt, compute_energy=compute_energy,
+                    compute_virial=compute_virial,
+                    compute_virial_atom=compute_virial_atom)
+    return pf, ctab
 
 
 def _require_cellpad(cfg: SceneConfig) -> None:
@@ -22,19 +51,23 @@ def _require_cellpad(cfg: SceneConfig) -> None:
             f"force_path={cfg.force_path!r}: only the cellpad engine is ported")
 
 
-def setup(cfg: SceneConfig, state: State, draw: Optional[Draw] = None) -> State:
+def setup(cfg: SceneConfig, state: State, draw: Optional[Draw] = None,
+          kernel: str = "pair") -> State:
     """Initial layout, OBMD stage and force evaluation before the first
-    step (Verlet::setup; the stage runs first like setup_pre_exchange)."""
+    step (Verlet::setup; the stage runs first like setup_pre_exchange).
+    `kernel` picks the pair kernel: "pair" (make_pair_kernel's) or "full"
+    (the legacy full-stencil make_dpd_kernel's)."""
     cfg = cfg.finalize()
     _require_cellpad(cfg)
-    return setup_cellpad(cfg, state, draw)
+    return setup_cellpad(cfg, state, draw, kernel)
 
 
-def make_run(cfg: SceneConfig, nsteps: int, draw: Optional[Draw] = None):
+def make_run(cfg: SceneConfig, nsteps: int, draw: Optional[Draw] = None,
+             kernel: str = "pair"):
     """Runner of nsteps steps on the static relayout schedule."""
     cfg = cfg.finalize()
     _require_cellpad(cfg)
-    return make_run_cellpad(cfg, nsteps, draw)
+    return make_run_cellpad(cfg, nsteps, draw, kernel)
 
 
 def equilibrate(cfg: SceneConfig, state: State, nsteps: int,

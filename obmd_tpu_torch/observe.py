@@ -1,9 +1,11 @@
-"""Run audits and OBMD counters.
+"""Observables: thermo quantities, x-resolved profiles, OBMD counters and
+run audits.
 
-Counterpart of `check_invariants` and `make_obmd_metrics_fn` in
-`obmd_tpu/observe.py`; both read only the state's counters.  The thermo and
-profile functions need the pair sweep engine and are not part of this
-slice.
+Counterpart of `obmd_tpu/observe.py`.  Thermo and profiles run the pair
+sweep (`forces/pairs.pair_sweep` over a fresh `cells.build_cells` table),
+independent of the cellpad layout and its kernels.  Pressure convention
+(LAMMPS): P_ab V = sum m v_a v_b + W_ab.  Bonded energies stay zero: no
+bonded configuration is ported yet.
 """
 from __future__ import annotations
 
@@ -11,8 +13,120 @@ from typing import NamedTuple
 
 import torch
 
+from .cells import build_cells
 from .config import SceneConfig
-from .state import State
+from .forces.pairs import pair_sweep
+from .integrate import _salt, make_grid_spec
+from .state import State, per_atom_mass, temperature
+
+
+class Thermo(NamedTuple):
+    step: int
+    natoms: torch.Tensor
+    temp: torch.Tensor
+    pe: torch.Tensor          # total potential energy (epair + bonded)
+    ke: torch.Tensor
+    pressure: torch.Tensor    # (W_xx + W_yy + W_zz + sum m v^2) / (3V)
+    pxx: torch.Tensor
+    press_tensor: torch.Tensor   # pxx pyy pzz pxy pxz pyz
+    epair: torch.Tensor
+    ebond: torch.Tensor
+    eangle: torch.Tensor
+    edihed: torch.Tensor
+    eimp: torch.Tensor
+    fmax: torch.Tensor
+    fnorm: torch.Tensor
+
+
+class Profiles(NamedTuple):
+    """x-binned profiles, each [nbins]."""
+
+    x_centers: torch.Tensor
+    density: torch.Tensor      # number density
+    vx: torch.Tensor           # mean x velocity
+    temp: torch.Tensor         # local temperature
+    pxx: torch.Tensor          # local P_xx (kinetic + virial share)
+    count: torch.Tensor
+
+
+def _sweep(cfg: SceneConfig, spec, state: State, **kw):
+    ctab = build_cells(spec, state.x, state.alive)
+    return pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
+                      state.type, state.tag, _salt(cfg, state.step),
+                      dt=cfg.dt, **kw)
+
+
+def make_thermo_fn(cfg: SceneConfig):
+    """thermo(state) -> Thermo, the `thermo_style` quantities of one
+    state."""
+    cfg = cfg.finalize()
+    spec = make_grid_spec(cfg)
+    vol = cfg.box.volume
+
+    def thermo(state: State) -> Thermo:
+        pf = _sweep(cfg, spec, state, compute_energy=True,
+                    compute_virial=True)
+        m = per_atom_mass(cfg, state)
+        alive = state.alive
+        mv2 = torch.where(alive[:, None], m[:, None] * state.v ** 2, 0.0)
+        w = pf.virial
+        pressure = (mv2.sum() + w[0] + w[1] + w[2]) / (3.0 * vol)
+        pxx = (mv2[:, 0].sum() + w[0]) / vol
+        v_ = torch.where(alive[:, None], state.v, 0.0)
+        mvv = torch.stack([
+            mv2[:, 0].sum(), mv2[:, 1].sum(), mv2[:, 2].sum(),
+            (m * v_[:, 0] * v_[:, 1]).sum(), (m * v_[:, 0] * v_[:, 2]).sum(),
+            (m * v_[:, 1] * v_[:, 2]).sum()])
+        epair = torch.where(alive, pf.pe, 0.0).sum()
+        zero = torch.zeros((), dtype=state.dtype, device=state.device)
+        fa = torch.where(alive[:, None], state.f, 0.0)
+        return Thermo(step=state.step, natoms=state.natoms,
+                      temp=temperature(cfg, state), pe=epair,
+                      ke=0.5 * mv2.sum(), pressure=pressure, pxx=pxx,
+                      press_tensor=(mvv + w) / vol, epair=epair, ebond=zero,
+                      eangle=zero, edihed=zero, eimp=zero,
+                      fmax=fa.abs().max(), fnorm=torch.sqrt((fa * fa).sum()))
+
+    return thermo
+
+
+def make_profile_fn(cfg: SceneConfig, nbins: int = 64):
+    """Instantaneous profile snapshot along x; average over calls on the
+    host."""
+    cfg = cfg.finalize()
+    spec = make_grid_spec(cfg)
+    xlo, xhi = cfg.box.lo[0], cfg.box.hi[0]
+    dx = (xhi - xlo) / nbins
+    ly, lz = cfg.box.lengths[1], cfg.box.lengths[2]
+    bin_vol = dx * ly * lz
+
+    def profiles(state: State) -> Profiles:
+        dtype = state.dtype
+        pf = _sweep(cfg, spec, state, compute_virial_atom=True)
+        alive = state.alive
+        m = per_atom_mass(cfg, state)
+        b = torch.clamp(((state.x[:, 0] - xlo) / dx).to(torch.int32), 0,
+                        nbins - 1)
+        b = torch.where(alive, b, nbins).long()
+
+        def binsum(vals):
+            out = torch.zeros((nbins + 1,), dtype=dtype, device=state.device)
+            return out.index_add(0, b, torch.where(alive, vals, 0.0))[:nbins]
+
+        cnt = binsum(torch.ones_like(m))
+        safe = torch.clamp(cnt, min=1.0)
+        mvx2 = m * state.v[:, 0] ** 2
+        mv2 = m * (state.v ** 2).sum(-1)
+        return Profiles(
+            x_centers=xlo + (torch.arange(nbins, dtype=dtype,
+                                          device=state.device) + 0.5) * dx,
+            density=cnt / bin_vol,
+            vx=binsum(state.v[:, 0]) / safe,
+            temp=binsum(mv2) / (3.0 * safe),
+            pxx=(binsum(mvx2) + binsum(pf.virial_atom[:, 0])) / bin_vol,
+            count=cnt)
+
+    return profiles
 
 
 class ObmdMetrics(NamedTuple):

@@ -1,11 +1,13 @@
-"""The OBMD_DPD scene (examples/OBMD_DPD/input.py:17-124).
+"""The ported scenes: OBMD_DPD (examples/OBMD_DPD/input.py:17-124) and the
+LJ melt (the reference's code/bench/in.lj).
 
-Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config` and `obmd_dpd_scene`:
-DPD fluid at rho = 3, T = 1 with open x boundaries, constant normal load
-pxx on both buffers and USHER insertion; `scale` stretches the box in x
-(scale 9 is the ~107k-atom bench size).  The initial gas is drawn with the
-same numpy generator as the reference, so both packages start from the same
-positions and velocities.
+Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config`, `obmd_dpd_scene` and
+`lj_melt_scene`.  OBMD_DPD: DPD fluid at rho = 3, T = 1 with open x
+boundaries, constant normal load pxx on both buffers and USHER insertion;
+`scale` stretches the box in x (scale 9 is the ~107k-atom bench size).  LJ
+melt: an fcc lattice in a fully periodic box, NVE.  Initial states are drawn
+with the same numpy generators as the reference, so both packages start from
+the same positions and velocities.
 """
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ from typing import Optional
 
 import numpy as np
 
-from .config import (Capacity, DPDParams, ObmdParams, SceneConfig,
-                     UsherParams)
+from .config import (Capacity, DPDParams, LJCutParams, ObmdParams,
+                     SceneConfig, UsherParams)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -87,3 +89,36 @@ def obmd_dpd_scene(scale: float = 1.0, seed: int = 12345,
     v -= v.mean(axis=0)
     state = init_state(cfg, x, v=v, seed=seed, device=device)
     return Scene(cfg=cfg, state=state)
+
+
+def lj_melt_scene(nx: int = 20, dtype: str = "float32",
+                  force_path: str = "cellpad", skin: float = 0.55,
+                  cell_capacity: int = 36, rebuild_every: int = 0,
+                  device="cuda") -> Scene:
+    """The LJ melt (code/bench/in.lj): fcc lattice at rho* = 0.8442,
+    4 nx^3 atoms (nx = 20 -> 32,000), T0 = 1.44, lj/cut rc = 2.5,
+    dt = 0.005, NVE, fully periodic, on `device`.  Skin 0.55 keeps the
+    reference's cell grid (cells are floor(L / (rc + skin)) wide either
+    way) with twice its half-skin drift budget."""
+    rho = 0.8442
+    a = (4.0 / rho) ** (1.0 / 3.0)          # fcc lattice constant
+    L = nx * a
+    box = Box((0.0, 0.0, 0.0), (L, L, L), (True, True, True))
+    basis = np.asarray([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
+                        [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
+    cells = np.stack(np.meshgrid(np.arange(nx), np.arange(nx),
+                                 np.arange(nx), indexing="ij"),
+                     axis=-1).reshape(-1, 1, 3)
+    x = ((cells + basis[None, :, :]) * a).reshape(-1, 3)
+    n = len(x)
+    rng = np.random.default_rng(87287)
+    v = rng.normal(0.0, np.sqrt(1.44), (n, 3))
+    v -= v.mean(axis=0)
+    pair = LJCutParams.create(cutoff=2.5, epsilon=1.0, sigma=1.0)
+    cfg = SceneConfig(box=box, masses=(1.0,), pair=pair, dt=0.005,
+                      capacity=Capacity(n_max=n,
+                                        cell_capacity=cell_capacity),
+                      obmd=None, skin=skin, dtype=dtype,
+                      rebuild_every=rebuild_every,
+                      force_path=force_path)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))

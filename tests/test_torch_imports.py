@@ -54,6 +54,8 @@ def test_default_device_raises_without_gpu():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.obmd_dpd_scene(scale=0.25)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.lj_melt_scene(nx=2)
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

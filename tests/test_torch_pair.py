@@ -19,6 +19,7 @@ from obmd_tpu_torch import config as pconfig
 from obmd_tpu_torch.engine_cellpad import _forces as p_forces
 from obmd_tpu_torch.engine_cellpad import make_geometry as p_make_geometry
 from obmd_tpu_torch.forces.pair_kernel import (NF, PadGeometry,
+                                               make_dpd_kernel,
                                                make_pair_kernel)
 
 from test_torch_support import jax_arrays, lattice_states
@@ -87,6 +88,9 @@ def test_forces_with_boundary_force_match_jax(set_up):
 
 
 def test_wrapper_rejects_what_it_does_not_cover():
+    """Wrong dtypes and shapes raise ValueError; 2 types, gaussian noise,
+    open or single-cell y/z axes and bonded exclusion raise
+    NotImplementedError.  p == 1 layouts and periodic x are ported."""
     jcfg, _, pcfg, _ = lattice_states(scale=0.25, cap=15)
     geom = p_make_geometry(pcfg)
     kern = make_pair_kernel(geom, pcfg.pair, pcfg.dt)
@@ -110,6 +114,11 @@ def test_wrapper_rejects_what_it_does_not_cover():
     with pytest.raises(NotImplementedError):
         make_pair_kernel(geom, gauss, pcfg.dt)
     with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom._replace(p=1, lanes=128, s=9), pcfg.pair, 0.01)
+        make_pair_kernel(geom._replace(periodic_yz=(False, True)), pcfg.pair,
+                         0.01)
     with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom._replace(periodic_x=True), pcfg.pair, 0.01)
+        make_pair_kernel(geom._replace(dims=(8, 1, 8)), pcfg.pair, 0.01)
+    with pytest.raises(NotImplementedError):
+        make_dpd_kernel(geom, exclude_bonded=True)
+    make_pair_kernel(geom._replace(p=1, lanes=128, s=64), pcfg.pair, 0.01)
+    make_pair_kernel(geom._replace(periodic_x=True), pcfg.pair, 0.01)

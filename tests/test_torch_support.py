@@ -18,6 +18,11 @@ from obmd_tpu_torch import convert
 from obmd_tpu_torch import scenes as pscenes
 from obmd_tpu_torch.state import init_state as pinit_state
 
+# The test run puts several worker processes on one machine.  torch's default
+# of one OpenMP thread per core in each of them oversubscribes the cores, and
+# the spinning threads slow every worker, the JAX tests' too, several-fold.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 # state fields held exactly and at float tolerance in whole-slice parity
 EXACT = ("type", "tag", "alive", "step", "maxtag", "cell_overflow",
@@ -87,6 +92,15 @@ def lattice(cfg, seed=13, jitter=0.18):
     x = g + r.uniform(-jitter, jitter, g.shape) * a
     v = r.normal(0, 1, g.shape)
     return x, v
+
+
+def jittered(cfg, x, seed=1, sigma=0.05):
+    """Positions x moved by a numpy normal jitter of `sigma` and wrapped
+    into the (fully periodic) box, as float32."""
+    r = np.random.default_rng(seed)
+    x = np.asarray(x) + sigma * r.normal(size=np.shape(x))
+    lo, L = np.asarray(cfg.box.lo), np.asarray(cfg.box.lengths)
+    return (lo + np.mod(x - lo, L)).astype(np.float32)
 
 
 def lattice_states(scale=0.25, cap=15, seed=13, **cfg_kw):
