@@ -8,7 +8,7 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from obmd_tpu_torch/csrc (one nvcc per source,
      all started together);
-  3. the whole path at a small size (scale 0.25) on the card against the
+  3. the OBMD_DPD path at a small size (scale 0.25) on the card against the
      same path on the CPU through the plain versions (check_small_path);
      then each kernel against its plain PyTorch version at bench shapes:
      the pair kernel at filing cap 24 on the set-up scale-9 state, the
@@ -42,8 +42,30 @@ Phases (any failure exits non-zero and prints no result line):
      (zero sweep overflow), both kernels against their plain versions and
      each other; then the pair kernel alone at nx = 40 (256,000 atoms, 512
      lanes) on a jittered lattice against its plain version;
- 10. the figures of both paths, the kernel figures ({"kernels": [...]}),
-     the card line, and last {"ok": true, "device": {...}}.
+ 10. the open LJ fluid at a small size (obmd_lj_scene at 16 x 9 x 9 fcc
+     cells, 5,184 atoms, nbuf raised, nattempt = 0) on the card against the
+     same path on the CPU (check_small_path);
+ 11. the open LJ fluid's main path: obmd_lj_scene() (BASELINE.json config
+     2 at full width: 128 x 14 x 14 fcc cells, 100,352 atoms, x open, cap
+     44), setup, equilibrate(OLJ_EQUIL, temp=1.44) to melt the lattice,
+     make_run(400) under the Langevin thermostat to settle, two timed
+     make_run(400) windows, check_invariants, T within 5% of 0.722 at both
+     window ends (thermo through the pair sweep); the buffer censuses and
+     the deleted count; then an insertion phase with nbuf raised to 1.05 x
+     census / alpha, INS_STEPS steps, ninserted > 0, check_invariants.
+     Launch counts are zeroed before setup and read after the insertion
+     phase: the pair kernel once per step and at setup, the LJ USHER kernel
+     once per step that needs atoms (every insertion step);
+ 12. on the ended production state of phase 11: the LJ USHER kernel
+     against its plain version on the buffer subsets (K = 16; at least one
+     candidate starting above uovlp, so that the overlap step runs; the
+     shifted law's rows on the same input too), both pair kernels against
+     their plain versions and each other, the pair kernel against the
+     port's pair sweep; a profile of two relayout epochs; FULL_STEPS steps
+     through the full-stencil kernel, check_invariants;
+ 13. the figures of the three paths (with each path's whole wall time,
+     its checks included), the kernel figures ({"kernels": [...]}), the
+     card line, and last {"ok": true, "device": {...}}.
 
 Tolerances are the CPU tests': pair forces within 2e-4 * max|f| over alive
 slots and |sum f| <= 1e-3 * max|f| (kernel against plain, kernel against
@@ -54,10 +76,12 @@ median of 20 launches timed with CUDA events; bound_ms is the larger of its
 bytes (each input read once, each output written once; of a dead slot only
 the x that marks it dead) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (H100 SXM data sheet; the work counted from this run's inputs by
-pair_work and usher_work).  No PyTorch call computes any kernel's function,
-so library_ms is null.  The main path records the most atoms in one cell at
-the cap-15 repack and after each production window: the margin left before
-a cell overflow, which check_invariants turns into a failure.
+pair_work and usher_work: a distance test for every candidate pair, the
+law only for the pairs within the cutoff).  No PyTorch call computes any
+kernel's function, so library_ms is null.  The OBMD_DPD and open LJ paths
+record the most atoms in one cell after their repack or melt and after each
+production window: the margin left before a cell overflow, which
+check_invariants turns into a failure.
 """
 import dataclasses
 import json
@@ -74,6 +98,10 @@ SMALL_SCALE, SMALL_SEED, SMALL_NBUF, SMALL_STEPS = 0.25, 1, 700.0, 4
 # the LJ melt path (bench_lj.py's deck and windows), the kernel-only check's
 # size, and the steps each path runs through the full-stencil kernel
 LJ_NX, LJ_STEPS, LJ_WIDE_NX, FULL_STEPS = 20, 400, 40, 200
+# the open LJ fluid: its lattice (128 x 14 x 14 fcc cells, 100,352 atoms),
+# the melt at T0 = 1.44, the production windows, the small path's lattice
+OLJ_NX, OLJ_NY, OLJ_EQUIL, OLJ_STEPS = 128, 14, 400, 400
+OLJ_SMALL = (16, 9)
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -90,8 +118,18 @@ OPS_PAIR_FORCE = 45
 # (4), the 3-component accumulation on both atoms of the pair (12)
 OPS_MI_X = 3
 OPS_LJ_FORCE = 19
-# float32 operations of one (candidate, subset atom) USHER energy/force term
-OPS_USHER_TERM = 30
+# float32 operations of one (candidate, subset atom) USHER distance test,
+# which every valid subset atom takes at every energy evaluation: the pair
+# kernel's test and the cutoff compare
+OPS_USHER_TEST = OPS_PAIR_TEST + 1
+# the law's further operations on an atom within the cutoff.  dpd: the
+# r ~ 0 test, sqrt, 1/r with its clamp (2), wd (2), the energy term and its
+# accumulation (5), the force scalar (2), the 3-component accumulation (6);
+# lj/cut: the r ~ 0 test, 1/r^2 with its clamp (2), r^-6 (2), the energy
+# term with its shift and accumulation (5), the force scalar (6), the
+# 3-component accumulation (6)
+OPS_USHER_DPD = 19
+OPS_USHER_LJ = 22
 
 
 def fail(msg: str):
@@ -257,27 +295,104 @@ def check_both(cfg, geom, state, label):
     return pair, full
 
 
-def usher_work(sub_l, sub_r, iters, k: int):
-    """(bytes, operations) of one search on this input: each candidate
-    evaluates its energy iters + 1 times against the valid subset atoms."""
+def usher_work(cfg, sub_l, sub_r, cl, cr, iters, inputs):
+    """(bytes, operations) of one search on this input.  A candidate
+    evaluates its energy iters + 1 times, at the positions the search
+    reaches after 0 .. iters steps (replayed through the plain version).
+    Every evaluation tests every valid subset atom; the law runs only on the
+    atoms within the cutoff, counted at those positions."""
     import torch
-    n_valid = torch.stack([sub_l.valid.sum(), sub_r.valid.sum()])
-    evals = int(((iters + 1).to(torch.int64) * n_valid[:, None]).sum())
+    from obmd_tpu_torch.config import LJCutParams
+    from obmd_tpu_torch.obmd.subset import (pad_subset,
+                                            usher_search_subset_batch)
+    o = cfg.obmd
+    rows, cand, bounds = inputs
+    k = cand.shape[1]
     b = max(sub_l.x.shape[0], sub_r.x.shape[0])
-    n_bytes = 2 * 5 * b * 4 + 2 * 6 * 4 + 2 * k * (3 * 4 + 3 * 4 + 4 + 4)
-    return n_bytes, evals * OPS_USHER_TERM
+    sl, sr = pad_subset(sub_l, b), pad_subset(sub_r, b)
+    sx = torch.stack([sl.x, sr.x])
+    sv = torch.stack([sl.valid, sr.valid])
+    ct = torch.zeros((k,), dtype=torch.int32, device=cand.device)
+    cut2 = cfg.pair.max_cut ** 2
+    tests = inside = 0
+    for n in range(int(iters.max()) + 1):
+        cfg_n = dataclasses.replace(cfg, obmd=dataclasses.replace(
+            o, usher=dataclasses.replace(o.usher, nattempt=n)))
+        pos = usher_search_subset_batch(cfg_n, sub_l, sub_r, cl, cr, ct,
+                                        o.region5, o.region6)[0]
+        d = cfg.box.min_image(pos[:, :, None, :] - sx[:, None, :, :])
+        near = sv[:, None, :] & ((d * d).sum(-1) < cut2)
+        live = iters >= n                    # candidates evaluated here
+        tests += int((live.to(torch.int64) * sv.sum(-1)[:, None]).sum())
+        inside += int((near & live[..., None]).sum())
+    law = OPS_USHER_LJ if isinstance(cfg.pair, LJCutParams) else OPS_USHER_DPD
+    # rows, candidates and bounds read once; positions, verdicts and
+    # iterations written once
+    n_bytes = (rows.numel() + cand.numel() + bounds.numel()) * 4 \
+        + 2 * k * (3 * 4 + 4 + 4)
+    return n_bytes, tests * OPS_USHER_TEST + inside * law, tests, inside
 
 
-def check_usher(cfg, geom, state):
-    """The USHER kernel against its plain version on the state's buffer
-    subsets with K uniform candidates per buffer."""
+def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
+    """The law's USHER kernel against its plain version on one input:
+    verdicts equal on margin-robust candidates, accepted positions within
+    2e-3, at least 6 candidates checked.  Returns (the kernel's accepted
+    and iterations, max position error, candidates checked, candidates
+    that started above uovlp, i.e. took the overlap step first)."""
     import torch
-    from obmd_tpu_torch.engine_cellpad import _subset_slice
-    from obmd_tpu_torch.forces.usher_kernel import (kernel_inputs, launch,
-                                                    usher_search)
+    from obmd_tpu_torch.forces.usher_kernel import usher_search
     from obmd_tpu_torch.obmd.subset import (_batched_energy_force,
                                             pad_subset,
                                             usher_search_subset_batch)
+    o = cfg.obmd
+    ct = torch.zeros((cl.shape[0],), dtype=torch.int32, device=DEV)
+    pk, ak, ik = usher_search(cfg, sub_l, sub_r, cl, cr, o.region5,
+                              o.region6)
+    sync()
+    pp, ap, ip = usher_search_subset_batch(cfg, sub_l, sub_r, cl, cr, ct,
+                                           o.region5, o.region6)
+    sync()
+    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
+    sl, sr = pad_subset(sub_l, b), pad_subset(sub_r, b)
+    sx = torch.stack([sl.x, sr.x])
+    st = torch.stack([sl.type, sr.type])
+    sv = torch.stack([sl.valid, sr.valid])
+    ct2 = torch.stack([ct, ct])
+
+    def energy(pos):
+        return _batched_energy_force(cfg.pair, sx, st, sv, pos, ct2,
+                                     box=cfg.box)[0]
+    ek, ep, e0 = energy(pk), energy(pp), energy(torch.stack([cl, cr]))
+    et = o.usher.etarget
+    robust = ((ek - et).abs() >= 0.3) & ((ep - et).abs() >= 0.3)
+    checked = int(robust.sum())
+    if checked < 6:
+        fail(f"USHER {label}: only {checked} margin-robust candidates")
+    if not torch.equal(ak[robust], ap[robust]):
+        fail(f"USHER {label}: verdicts differ on margin-robust candidates")
+    both = robust & ak & ap
+    err = float((pk - pp).abs().amax(-1)[both].max()) \
+        if bool(both.any()) else 0.0
+    if not err < 2e-3:
+        fail(f"USHER {label}: position error {err} >= 2e-3")
+    overlap = int((e0 > o.usher.uovlp).sum())
+    log(f"usher {label}: B={b}, {checked} robust candidates, accepted "
+        f"{int(ak.sum())}/{ak.numel()} (plain {int(ap.sum())}), iterations "
+        f"{int(ik.sum())} (plain {int(ip.sum())}), {overlap} candidates "
+        f"started above uovlp (the overlap step), max_abs_err {err:.3e}")
+    return ak, ik, err, checked, overlap
+
+
+def check_usher(cfg, geom, state, label):
+    """The law's USHER kernel against its plain version on the state's
+    buffer subsets with K uniform candidates per buffer; for lj/cut, the
+    shifted law's rows on the same input too, and at least one candidate
+    must take the overlap step."""
+    import torch
+    from obmd_tpu_torch.config import LJCutParams
+    from obmd_tpu_torch.engine_cellpad import _subset_slice
+    from obmd_tpu_torch.forces.usher_kernel import kernel_inputs, launch
+    from obmd_tpu_torch.obmd.subset import usher_search_subset_batch
     o = cfg.obmd
     k = o.insert_kmax
     pad = cfg.pair.max_cut + cfg.skin
@@ -289,49 +404,40 @@ def check_usher(cfg, geom, state):
     cl = o.region5.sample_uniform(u[0])
     cr = o.region6.sample_uniform(u[1])
     ct = torch.zeros((k,), dtype=torch.int32, device=DEV)
+    lj = isinstance(cfg.pair, LJCutParams)
     with KeepCounts():
-        pk, ak, ik = usher_search(cfg, sub_l, sub_r, cl, cr, o.region5,
-                                  o.region6)
-        sync()
-        pp, ap, ip = usher_search_subset_batch(cfg, sub_l, sub_r, cl, cr, ct,
-                                               o.region5, o.region6)
-        sync()
-        b = max(sub_l.x.shape[0], sub_r.x.shape[0])
-        sl, sr = pad_subset(sub_l, b), pad_subset(sub_r, b)
-        sx = torch.stack([sl.x, sr.x])
-        st = torch.stack([sl.type, sr.type])
-        sv = torch.stack([sl.valid, sr.valid])
-        ct2 = torch.stack([ct, ct])
-        ek, _ = _batched_energy_force(cfg.pair, sx, st, sv, pk, ct2,
-                                      box=cfg.box)
-        ep, _ = _batched_energy_force(cfg.pair, sx, st, sv, pp, ct2,
-                                      box=cfg.box)
-        et = o.usher.etarget
-        robust = ((ek - et).abs() >= 0.3) & ((ep - et).abs() >= 0.3)
-        checked = int(robust.sum())
-        if checked < 6:
-            fail(f"USHER: only {checked} margin-robust candidates")
-        if not torch.equal(ak[robust], ap[robust]):
-            fail("USHER: verdicts differ on margin-robust candidates")
-        both = robust & ak & ap
-        err = float((pk - pp).abs().amax(-1)[both].max()) \
-            if bool(both.any()) else 0.0
-        if not err < 2e-3:
-            fail(f"USHER: position error {err} >= 2e-3")
+        ak, ik, err, checked, overlap = usher_compare(
+            cfg, sub_l, sub_r, cl, cr, label)
+        if lj and overlap < 1:
+            fail(f"USHER {label}: no candidate took the overlap step")
+        extra = {}
+        if lj:
+            cfg_s = dataclasses.replace(cfg, pair=dataclasses.replace(
+                cfg.pair, shift=True))
+            _, _, err_s, checked_s, _ = usher_compare(
+                cfg_s, sub_l, sub_r, cl, cr, f"{label}, shifted")
+            extra = dict(shifted_max_abs_err=err_s,
+                         shifted_robust_checked=checked_s)
         inputs = kernel_inputs(cfg, sub_l, sub_r, cl, cr, o.region5,
                                o.region6)
         ms = time_ms(lambda: launch(cfg, *inputs))
         plain = time_ms(lambda: usher_search_subset_batch(
             cfg, sub_l, sub_r, cl, cr, ct, o.region5, o.region6),
             reps=5, warmup=1)
-    n_bytes, n_ops = usher_work(sub_l, sub_r, ik, k)
+    t0 = time.perf_counter()
+    n_bytes, n_ops, tests, inside = usher_work(cfg, sub_l, sub_r, cl, cr, ik,
+                                               inputs)
+    work_s = time.perf_counter() - t0
     b_ms, b_by = bound(n_bytes, n_ops)
-    log(f"usher: B={b}, {checked} robust candidates, accepted "
-        f"{int(ak.sum())}/{ak.numel()} (plain {int(ap.sum())}), iterations "
-        f"{int(ik.sum())} (plain {int(ip.sum())}), max_abs_err {err:.3e}, "
-        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.5f} ms")
+    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
+    log(f"usher {label}: B={b}, K={k}, kernel {ms:.4f} ms, plain {plain:.3f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by}; {tests} distance tests, {inside} "
+        f"within the cutoff, counted in {work_s:.2f} s)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None), dict(
+        B=b, K=k, robust_checked=checked, accepted=int(ak.sum()),
+        overlap_candidates=overlap, distance_tests=tests,
+        within_cutoff=inside, **extra)
 
 
 class SeededDraws:
@@ -358,31 +464,53 @@ SMALL_CLOSE = ("x", "v", "xref", "sim_time", "momentum_force_left",
                "shear_force_right")
 
 
-def check_small_path():
+def small_dpd(dev):
+    """The OBMD_DPD small path's deck: tests/test_torch_slice.py's (nbuf
+    raised so that both buffers insert on every step)."""
+    from obmd_tpu_torch import scenes
+    sc = scenes.obmd_dpd_scene(scale=SMALL_SCALE, seed=SMALL_SEED,
+                               nbuf=SMALL_NBUF, device=dev)
+    return sc.cfg, sc.state
+
+
+def small_obmd_lj(dev):
+    """The open LJ fluid's small path: Lx = 16a, Ly = Lz = 9a (5,184
+    atoms, 5 cells per periodic axis), nbuf raised to 1.05 x the buffer's
+    lattice count / alpha so that both buffers ask for atoms."""
+    from obmd_tpu_torch import scenes
+    cfg = scenes.obmd_lj_config(nx=OLJ_SMALL[0], ny=OLJ_SMALL[1])
+    o = cfg.obmd
+    nbuf = 1.05 * o.nbuf / o.alpha ** 2
+    sc = scenes.obmd_lj_scene(nx=OLJ_SMALL[0], ny=OLJ_SMALL[1], nbuf=nbuf,
+                              device=dev)
+    return sc.cfg, sc.state
+
+
+def check_small_path(label, make, require_insert):
     """The whole path at a small size on the card against the same path on
-    the CPU (the plain versions), from one gas and one stream of candidate
-    draws: the deck of tests/test_torch_slice.py (nbuf raised so that both
-    buffers insert on every step; nattempt = 0, so that no USHER verdict
-    sits at the etarget gate, where float32 summation order decides it).
-    After setup and after one step, slots, tags, alive, the kernel caches
-    and every counter are equal, x, v and the setpoints agree within 1e-4
-    and f within 2e-4 * max|f|; after SMALL_STEPS steps the counters and atom
+    the CPU (the plain versions), from one initial state and one stream of
+    candidate draws, with nattempt = 0, so that no USHER verdict sits at
+    the etarget gate, where float32 summation order decides it.  After
+    setup and after one step, slots, tags, alive, the kernel caches and
+    every counter are equal, x, v and the setpoints agree within 1e-4 and
+    f within 2e-4 * max|f|; after SMALL_STEPS steps the counters and atom
     counts are equal and positions by tag agree within 5e-3 (the CPU
-    tests' bars).  Returns the largest position difference by tag."""
+    tests' bars).  `make(device)` gives the scene's (cfg, state);
+    require_insert: the first step must insert atoms.  Returns the largest
+    position difference by tag."""
     import dataclasses as dc
 
     import numpy as np
-    from obmd_tpu_torch import convert, scenes
+    from obmd_tpu_torch import convert
     from obmd_tpu_torch.integrate import make_run, setup
 
     runs = []
     for dev in (DEV, "cpu"):
-        sc = scenes.obmd_dpd_scene(scale=SMALL_SCALE, seed=SMALL_SEED,
-                                   nbuf=SMALL_NBUF, device=dev)
-        cfg = dc.replace(sc.cfg, obmd=dc.replace(
-            sc.cfg.obmd, usher=dc.replace(sc.cfg.obmd.usher, nattempt=0)))
+        cfg, state = make(dev)
+        cfg = dc.replace(cfg, obmd=dc.replace(
+            cfg.obmd, usher=dc.replace(cfg.obmd.usher, nattempt=0)))
         draws = SeededDraws(cfg, SMALL_SEED)
-        st = setup(cfg, sc.state, draw=draws)
+        st = setup(cfg, state, draw=draws)
         out = [convert.to_arrays(st)]
         run = make_run(cfg, 1, draw=draws)
         for _ in range(SMALL_STEPS):
@@ -394,38 +522,42 @@ def check_small_path():
         got, want = dev_run[i], cpu_run[i]
         for k in SMALL_EXACT:
             if not np.array_equal(got[k], want[k]):
-                fail(f"small path, state {i}: {k} differs from the CPU's")
+                fail(f"{label} small path, state {i}: {k} differs from the "
+                     "CPU's")
         for k in SMALL_CLOSE:
             d = float(np.abs(got[k] - want[k]).max())
             if not d <= 1e-4:
-                fail(f"small path, state {i}: {k} differs by {d}")
+                fail(f"{label} small path, state {i}: {k} differs by {d}")
         fmax = float(np.abs(want["f"]).max())
         d = float(np.abs(got["f"] - want["f"]).max())
         if not d <= 2e-4 * fmax:
-            fail(f"small path, state {i}: f differs by {d} (max|f| {fmax})")
-    if int(cpu_run[1]["ninserted"]) <= int(cpu_run[0]["ninserted"]):
-        fail("small path: the first step inserted no atoms")
+            fail(f"{label} small path, state {i}: f differs by {d} (max|f| "
+                 f"{fmax})")
+    if require_insert and \
+            int(cpu_run[1]["ninserted"]) <= int(cpu_run[0]["ninserted"]):
+        fail(f"{label} small path: the first step inserted no atoms")
     got, want = dev_run[-1], cpu_run[-1]
-    for k in ("ndeleted", "ninserted", "insert_fail", "maxtag", "rebuilds",
-              "overflow", "cell_overflow", "step"):
+    for k in ("ndeleted", "ninserted", "insert_fail", "usher_iters", "maxtag",
+              "rebuilds", "overflow", "cell_overflow", "step"):
         if int(got[k]) != int(want[k]):
-            fail(f"small path after {SMALL_STEPS} steps: {k} {int(got[k])} != "
-                 f"{int(want[k])}")
+            fail(f"{label} small path after {SMALL_STEPS} steps: {k} "
+                 f"{int(got[k])} != {int(want[k])}")
 
     def by_tag(d):
         keep = d["alive"]
         return dict(zip(d["tag"][keep].tolist(), d["x"][keep]))
     mg, mw = by_tag(got), by_tag(want)
     if set(mg) != set(mw):
-        fail(f"small path after {SMALL_STEPS} steps: the alive tags differ")
+        fail(f"{label} small path after {SMALL_STEPS} steps: the alive tags "
+             "differ")
     err = max(float(np.abs(mg[t] - mw[t]).max()) for t in mw)
     if not err < 5e-3:
-        fail(f"small path after {SMALL_STEPS} steps: positions by tag differ "
-             f"by {err}")
-    log(f"small path (scale {SMALL_SCALE}, {len(mw)} atoms, "
-        f"{int(want['ninserted'])} inserted, {int(want['ndeleted'])} "
-        f"deleted): the card agrees with the CPU, positions by tag within "
-        f"{err:.2e} after {SMALL_STEPS} steps")
+        fail(f"{label} small path after {SMALL_STEPS} steps: positions by tag "
+             f"differ by {err}")
+    log(f"{label} small path ({len(mw)} atoms, {int(want['ninserted'])} "
+        f"inserted, {int(want['insert_fail'])} insertions failed, "
+        f"{int(want['ndeleted'])} deleted): the card agrees with the CPU, "
+        f"positions by tag within {err:.2e} after {SMALL_STEPS} steps")
     return err
 
 
@@ -509,13 +641,17 @@ def thermo_line(t):
                 press=float(t.pressure))
 
 
-def energy_drift(marks, label):
-    """|dE_tot|/N between the first and last thermo line, at most 1e-2."""
-    drift = abs(marks[-1]["etot_per_atom"] - marks[0]["etot_per_atom"])
+def log_thermo(marks, label):
     for m in marks:
         log(f"{label} thermo: step {m['step']} E_tot/N "
             f"{m['etot_per_atom']:.6f} E_pair/N {m['epair_per_atom']:.6f} "
             f"temp {m['temp']:.5f} press {m['press']:.5f}")
+
+
+def energy_drift(marks, label):
+    """|dE_tot|/N between the first and last thermo line, at most 1e-2."""
+    drift = abs(marks[-1]["etot_per_atom"] - marks[0]["etot_per_atom"])
+    log_thermo(marks, label)
     if not drift <= 1e-2:
         fail(f"{label}: |dE_tot|/N {drift} > 1e-2 over "
              f"{marks[-1]['step'] - marks[0]['step']} steps")
@@ -560,13 +696,14 @@ def run_obmd():
     # ---- phase 3: the whole path at a small size against the CPU, then the
     # kernels against their plain versions at bench shapes (cap 24)
     with KeepCounts():
-        small_err = check_small_path()
+        small_err = check_small_path("OBMD_DPD", small_dpd,
+                                     require_insert=True)
     sc = scenes.obmd_dpd_scene(scale=SCALE, seed=SEED, device=DEV)
     geom24 = make_geometry(sc.cfg)
     st = setup(sc.cfg, sc.state)
     sync()
     pair24, _ = check_pair(sc.cfg, geom24, st, "dpd cap 24")
-    usher = check_usher(sc.cfg, geom24, st)
+    usher, _ = check_usher(sc.cfg, geom24, st, "dpd")
     del st
 
     # ---- phase 4: the main path, then the insertion phase
@@ -768,8 +905,154 @@ def run_lj():
     return path, kernels
 
 
+def run_obmd_lj():
+    """Phases 10-12: the open LJ fluid's small path against the CPU, its
+    main path with an insertion phase and its kernel checks."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
+    from obmd_tpu_torch.integrate import (compute_forces, equilibrate,
+                                          make_grid_spec, make_run, setup)
+    from obmd_tpu_torch.observe import (check_invariants, make_obmd_metrics_fn,
+                                        make_thermo_fn)
+
+    # ---- phase 10: the path at a small size against the CPU
+    with KeepCounts():
+        small_err = check_small_path("open LJ", small_obmd_lj,
+                                     require_insert=False)
+
+    # ---- phase 11: the main path, then the insertion phase
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    sc = scenes.obmd_lj_scene(nx=OLJ_NX, ny=OLJ_NY, device=DEV)
+    cfg = sc.cfg
+    geom = make_geometry(cfg)
+    thermo = make_thermo_fn(cfg)
+    metrics = make_obmd_metrics_fn(cfg)
+    st = setup(cfg, sc.state)
+    t_eq = time.perf_counter()
+    st = equilibrate(cfg, st, OLJ_EQUIL, temp=1.44)
+    sync()
+    eq_s = time.perf_counter() - t_eq
+    occupancy = [max_cell_count(geom, st)]
+    run = make_run(cfg, OLJ_STEPS)
+    st = run(st)
+    sync()
+    occupancy.append(max_cell_count(geom, st))
+    marks = [thermo_line(thermo(st))]
+    windows = []
+    for _ in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        marks.append(thermo_line(thermo(st)))
+    tel = check_invariants(cfg, st)
+    check_finite(st, "open LJ main path")
+    natoms = int(st.natoms)
+    st_prod = st
+    log_thermo(marks, "open LJ")
+    t_want = cfg.langevin.temp
+    for m in marks[1:]:
+        if not abs(m["temp"] - t_want) <= 0.05 * t_want:
+            fail(f"open LJ: T {m['temp']} at step {m['step']} is not within "
+                 f"5% of {t_want}")
+    m = metrics(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    deleted = int(st.obmd.ndeleted)
+    log(f"open LJ: buffer censuses {int(m.nbuf_left)} and "
+        f"{int(m.nbuf_right)} (alpha * nbuf = "
+        f"{cfg.obmd.alpha * cfg.obmd.nbuf:.1f}), {deleted} deleted, "
+        f"{int(st.obmd.ninserted)} inserted, {natoms} atoms")
+
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=1.05 * census / cfg.obmd.alpha)).finalize()
+    ins0 = int(st.obmd.ninserted)
+    t_ins = time.perf_counter()
+    st = make_run(cfg_ins, INS_STEPS)(st)
+    sync()
+    ins_s = time.perf_counter() - t_ins
+    tel_ins = check_invariants(cfg_ins, st)
+    inserted = int(st.obmd.ninserted) - ins0
+    if inserted <= 0:
+        fail("open LJ insertion phase inserted no atoms")
+    check_finite(st, "open LJ insertion phase")
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    # equilibrate runs whole velocity-rescale periods of 25 steps
+    n_steps = OLJ_EQUIL // 25 * 25 + 3 * OLJ_STEPS + INS_STEPS
+    log(f"open LJ main path (lattice {OLJ_NX} x {OLJ_NY} x {OLJ_NY}, {geom}) "
+        f"{path_s:.1f} s (equilibrate {eq_s:.1f} s), windows {windows}, "
+        f"telemetry {tel}, most atoms in one cell after equilibration and "
+        f"after each production window {occupancy} (filing cap {geom.fcap}); "
+        f"insertion phase: nbuf {cfg_ins.obmd.nbuf:.1f}, {inserted} inserted "
+        f"in {INS_STEPS} steps ({ins_s:.2f} s), {tel_ins}; launches "
+        f"{launches}")
+    require_launches(launches, {"pair": (f"lj-cap{geom.fcap}",),
+                                "usher_search_lj": None}, "open LJ main path")
+    if launches["pair"][0] != n_steps + 1:
+        fail(f"open LJ: {launches['pair'][0]} pair kernel launches for "
+             f"setup and {n_steps} steps")
+    if not INS_STEPS <= launches["usher_search_lj"][0] <= n_steps + 1:
+        fail(f"open LJ: {launches['usher_search_lj'][0]} USHER launches, "
+             f"expected one for each of the {INS_STEPS} insertion steps and "
+             "at most one per step")
+
+    # ---- phase 12: the kernels on the ended production state, a profile
+    # of two relayout epochs, then FULL_STEPS steps through the full kernel
+    usher, usher_info = check_usher(cfg, geom, st_prod, "lj")
+    pair, full = check_both(cfg, geom, st_prod, f"lj cap {geom.fcap}, open x")
+    bare = dataclasses.replace(cfg, obmd=None, langevin=None)
+    pf, ctab = compute_forces(bare, make_grid_spec(bare), st_prod)
+    if int(ctab.overflow) != 0:
+        fail(f"open LJ sweep: cell overflow {int(ctab.overflow)}")
+    from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
+    with KeepCounts():
+        f_k = _make_kernel(cfg, geom)(*pack_fields(cfg, geom, st_prod))
+    f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
+        .permute(0, 3, 1, 2)
+    sweep_err, sweep_scale, _ = compare_forces(
+        geom, st_prod, f_k, torch.where(st_prod.alive.reshape(
+            geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
+        "open LJ pair kernel against the pair sweep")
+    log(f"open LJ pair kernel against the pair sweep: max_abs_err "
+        f"{sweep_err:.3e} (max|f| {sweep_scale:.1f})")
+    r_every = auto_rebuild_every(cfg)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st_prod, 2 * r_every)
+    log(f"open LJ profile: {prof}")
+    _, full_ms, full_launches = run_full_path(cfg, st_prod, "open LJ")
+    require_launches(full_launches, {"dpd_full": (f"lj-cap{geom.fcap}",)},
+                     "open LJ through the full-stencil kernel")
+
+    wall, steps = min(windows)
+    path = dict(atoms=natoms, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], equilibrate_s=eq_s,
+                path_s=path_s, thermo=marks, telemetry=tel,
+                buffer_census=[int(m.nbuf_left), int(m.nbuf_right)],
+                deleted=deleted, max_cell_count=max(occupancy),
+                filing_cap=geom.fcap, insertion_phase_inserted=inserted,
+                small_path_max_pos_err=small_err, usher=usher_info,
+                forces_vs_sweep_max_abs_err=sweep_err,
+                forces_vs_sweep_max_f=sweep_scale, profile=prof,
+                full_kernel_ms_per_step=full_ms)
+    config = f"lj, cap {geom.fcap}, open x, p = {geom.p}"
+    kernels = [
+        kernel_line("pair", config, "obmd_tpu/forces/pallas_dpd.py:324",
+                    launches["pair"][1][f"lj-cap{geom.fcap}"], pair),
+        kernel_line("usher_search_lj", "lj", None,
+                    launches["usher_search_lj"][0], usher),
+        kernel_line("dpd_full", config, None, full_launches["dpd_full"][0],
+                    full),
+    ]
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-9; returns both paths' figures and the kernel figures."""
+    """Phases 2-12; returns the three paths' figures and the kernel
+    figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build_all()
@@ -777,11 +1060,21 @@ def run_smoke():
     for kern in _build.KERNELS.values():
         log(f"{kern.name} ({kern.source}): build {kern.build_seconds} s\n"
             f"{kern.ptxas_info}")
+    # each path's whole wall time, checks and profile included: the
+    # smoke's time budget
+    wall_s = {}
+    t0 = time.perf_counter()
     obmd_path, obmd_kernels = run_obmd()
+    wall_s["obmd_dpd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     lj_path, lj_kernels = run_lj()
-    return dict(path=dict(build_s=build_s, obmd_dpd=obmd_path,
-                          lj_melt=lj_path),
-                kernels=obmd_kernels + lj_kernels)
+    wall_s["lj_melt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    olj_path, olj_kernels = run_obmd_lj()
+    wall_s["obmd_lj"] = time.perf_counter() - t0
+    return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
+                          lj_melt=lj_path, obmd_lj=olj_path),
+                kernels=obmd_kernels + lj_kernels + olj_kernels)
 
 
 def main():

@@ -5,9 +5,10 @@ A port of `obmd_tpu` (JAX + Pallas for the TPU), which stays the reference.
 This package imports torch and numpy only — never JAX, never `obmd_tpu`.
 Module names mirror the reference's, so each counterpart is easy to find;
 the TPU kernels of the ported paths live in `forces/pair_kernel.py` and
-`forces/usher_kernel.py`, each beside its plain PyTorch version.  Two paths
-run: the OBMD_DPD open-boundary run and the LJ melt (with thermo through the
-pair sweep of `forces/pairs.py`).
+`forces/usher_kernel.py`, each beside its plain PyTorch version.  Three
+paths run: the OBMD_DPD open-boundary run, the LJ melt (with thermo through
+the pair sweep of `forces/pairs.py`) and the open-boundary LJ fluid (USHER
+with the lj/cut law under a Langevin thermostat).
 
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:
@@ -21,6 +22,9 @@ machine without one raises).  Quick start:
     sc = scenes.lj_melt_scene(nx=20)
     state = make_run(sc.cfg, 400)(setup(sc.cfg, sc.state))
     print(make_thermo_fn(sc.cfg)(state))
+    sc = scenes.obmd_lj_scene()
+    state = equilibrate(sc.cfg, setup(sc.cfg, sc.state), 400, temp=1.44)
+    state = make_run(sc.cfg, 400)(state)
 """
 
 __version__ = "0.1.0"

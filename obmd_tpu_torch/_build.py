@@ -82,6 +82,9 @@ class Kernel:
 # lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut,
 # dtinvsqrt, lj1, lj2, salt, stream
 _PAIR_ARGS = (_P, _P, _P, _P) + (_I,) * 10 + (_F,) * 14 + (_U, _P)
+# rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt, ly, lz,
+# thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
+_USHER_ARGS = (_P,) * 6 + (_I,) * 3 + (_F,) * 9 + (_P,)
 
 KERNELS: Dict[str, Kernel] = {
     "pair": Kernel(
@@ -94,12 +97,13 @@ KERNELS: Dict[str, Kernel] = {
         replaces="obmd_tpu/forces/pallas_dpd.py:909"),
     "usher_search": Kernel(
         name="usher_search", source="usher_kernel.cu",
-        symbol="obmd_usher_search",
-        # rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt,
-        # ly, lz, thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
-        argtypes=(_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                  _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+        symbol="obmd_usher_search", argtypes=_USHER_ARGS,
         replaces="obmd_tpu/forces/pallas_usher.py:110"),
+    "usher_search_lj": Kernel(
+        name="usher_search_lj", source="usher_kernel.cu",
+        symbol="obmd_usher_search_lj", argtypes=_USHER_ARGS,
+        replaces="obmd_tpu/forces/pallas_usher.py:110 (lj rows :57-75, "
+                 "E and F :155-166)"),
 }
 
 

@@ -1,10 +1,11 @@
 """Scene configuration for the OBMD_DPD main path.
 
 Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
-`DPDParams`, `LJCutParams`, `UsherParams`, `ObmdParams`, `Capacity` and
-`SceneConfig.finalize`, with the same field names and defaults so a test can
-hold the two packages' configs field by field.  lj/cut/rf, dpd/tstat,
-dpd/ext, Langevin, bonded and molecule configurations are not ported yet.
+`DPDParams`, `LJCutParams`, `UsherParams`, `ObmdParams`, `LangevinParams`,
+`Capacity` and `SceneConfig.finalize`, with the same field names and
+defaults so a test can hold the two packages' configs field by field.
+lj/cut/rf, dpd/tstat, dpd/ext, bonded and molecule configurations are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -166,6 +167,17 @@ class ObmdParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class LangevinParams:
+    """`fix langevin T T damp seed` (fix_langevin.cpp semantics):
+    f += -(m/damp) v + sqrt(24 kB T m / (damp dt)) * uniform(-0.5, 0.5),
+    with counter-based per-(atom, axis, step) deviates."""
+
+    temp: float
+    damp: float
+    seed: int = 904297
+
+
+@dataclasses.dataclass(frozen=True)
 class Capacity:
     """Static shapes: particle slots and filing capacity per cell."""
 
@@ -179,7 +191,8 @@ class Capacity:
 
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
-    """Box, masses, pair style, dt, the OBMD stage and static capacities."""
+    """Box, masses, pair style, dt, the OBMD stage, the Langevin thermostat
+    and static capacities."""
 
     box: Box
     masses: Tuple[float, ...]
@@ -187,6 +200,7 @@ class SceneConfig:
     dt: float
     capacity: Capacity
     obmd: Optional[ObmdParams] = None
+    langevin: Optional[LangevinParams] = None
     skin: float = 0.3
     force_path: str = "cellpad"
     rebuild_every: int = 0

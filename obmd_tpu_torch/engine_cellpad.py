@@ -1,12 +1,13 @@
 """The cellpad engine: the step over the padded cell-major layout.
 
-Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD or LJ, in
-an open-x box with ATOM-mode USHER insertion (OBMD_DPD) or a closed box
-without the OBMD stage (the LJ melt).  Step order mirrors Verlet::run: half
+Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD or lj/cut,
+in an open-x box with ATOM-mode USHER insertion (OBMD_DPD, the open LJ
+fluid) or a closed box without the OBMD stage (the LJ melt), with or
+without the Langevin thermostat.  Step order mirrors Verlet::run: half
 kick, drift + wrap, the epoch relayout on an epoch's first step, the OBMD
 stage (face deletion, buffer census, feedback law, demand-gated subset
 compaction and insertion, boundary-force setpoints), the pair kernel plus
-the boundary force, half kick.
+the boundary force plus the Langevin force, half kick.
 
 The pair kernel is make_pair_kernel's (`kernel="pair"`, the default) or the
 legacy full-stencil make_dpd_kernel's (`kernel="full"`); both compute the
@@ -36,8 +37,9 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import DPDParams, SceneConfig, eval_param
+from .config import DPDParams, LJCutParams, SceneConfig, eval_param
 from .geometry import const
+from .forces.bonded import langevin_force
 from .forces.pair_kernel import (PadGeometry, check_supported as
                                  kernel_check_supported, legacy_kwargs,
                                  make_dpd_kernel, make_pair_kernel)
@@ -67,8 +69,9 @@ def own_draws(cfg: SceneConfig) -> Draw:
 
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
-    OBMD_DPD-like open boxes (single-type DPD, ATOM-mode USHER) and closed
-    boxes without the OBMD stage (single-type DPD or LJ)."""
+    open boxes with ATOM-mode USHER insertion and closed boxes without the
+    OBMD stage, each single-type DPD or lj/cut, with or without the
+    Langevin thermostat."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
     if cfg.obmd is not None and cfg.obmd.usher is None:
@@ -79,9 +82,10 @@ def check_supported(cfg: SceneConfig) -> None:
                                  or cfg.obmd.nfreq > 1):
         raise NotImplementedError(
             "maxattempt > 1 and nfreq > 1 are not ported yet")
-    if cfg.obmd is not None and not isinstance(cfg.pair, DPDParams):
+    if cfg.obmd is not None and not isinstance(cfg.pair,
+                                              (DPDParams, LJCutParams)):
         raise NotImplementedError(
-            "the OBMD stage is ported for the DPD law only")
+            "the OBMD stage is ported for the DPD and lj/cut laws only")
     if cfg.ntypes != 1 or cfg.dtype != "float32":
         raise NotImplementedError("only single-type float32 scenes are "
                                   "ported")
@@ -129,11 +133,14 @@ def pack_fields(cfg, geom, state: State):
 
 
 def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
-    """Pair kernel on the packed fields, then the boundary force."""
+    """Pair kernel on the packed fields, then the boundary force, then the
+    Langevin force."""
     fpad = kern(*pack_fields(cfg, geom, state))
     f = fpad.permute(0, 2, 3, 1).reshape(-1, 3)
     if cfg.obmd is not None:
         f = _boundary_force_sliced(cfg, geom, state, f)
+    if cfg.langevin is not None:
+        f = f + langevin_force(cfg.langevin, cfg, state)
     return torch.where(state.alive[:, None], f, 0.0)
 
 
@@ -373,13 +380,17 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
 def auto_rebuild_every(cfg: SceneConfig) -> int:
     """Static relayout period from the half-skin budget (the reference's
     calibration: the fastest atom drifts ~9 sqrt(T/m) per unit time, T the
-    pair law's temperature, at least 1; a law without one, such as LJ,
-    counts as T = 1)."""
+    highest temperature of the pair law and the Langevin thermostat, at
+    least 1)."""
     if cfg.rebuild_every > 0:
         return cfg.rebuild_every
     if cfg.skin <= 0.0:
         return 1
-    t_max = max(1.0, float(getattr(cfg.pair, "temp", 1.0)))
+    t_max = 1.0
+    for src in (cfg.pair, cfg.langevin):
+        t = getattr(src, "temp", None)
+        if t is not None:
+            t_max = max(t_max, float(t))
     m_min = min(cfg.masses)
     v_fast = 9.0 * float(np.sqrt(t_max / m_min))
     r = int(0.45 * cfg.skin / (v_fast * cfg.dt))

@@ -1,16 +1,19 @@
 """The whole USHER steered-insertion search in one kernel launch.
 
-Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, the DPD
-branch, and `usher_search_pallas`).  The Hopper kernel `csrc/usher_kernel.cu`
-replaces `make_usher_kernel`; its plain version is
+Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, its DPD and
+lj/cut branches, and `usher_search_pallas`).  The Hopper kernel
+`csrc/usher_kernel.cu` replaces `make_usher_kernel`, with one C entry point
+per law (`obmd_usher_search` for DPD, `obmd_usher_search_lj` for lj/cut),
+each with its own launch count; its plain version is
 `obmd.subset.usher_search_subset_batch`, whose arithmetic the kernel follows
 (it is also what the JAX engine runs off the TPU).  A CUDA tensor goes to
 the kernel, a CPU tensor to the plain version; the choice is the tensors'
 device, never an environment variable.
 
-Scope of this slice: the DPD law (E = 0.5*a0*rc*wd^2, any number of types
-through per-subset-atom coefficient rows).  The LJ law raises
-`NotImplementedError`.
+The laws take per-subset-atom coefficient rows against the fix's single
+trial type: DPD E = 0.5*a0*rc*wd^2 (rows a0, cut); lj/cut
+E = r^-6 (lj3 r^-6 - lj4) - eshift (rows lj3, lj4, cut, eshift).  Neutral
+lj/cut/rf rows come with that law's port.
 """
 from __future__ import annotations
 
@@ -19,59 +22,79 @@ import torch
 
 from .. import _build
 from ..cells import BIG
-from ..config import DPDParams
+from ..config import DPDParams, LJCutParams
 from ..geometry import const
 from ..obmd.subset import EPSILON, Subset, pad_subset, usher_search_subset_batch
 
 
 def usher_law(pair):
-    """The kernel law's per-atom coefficient rows for a pair style, as a
-    function (the DPD law: type_row [B] -> [a0 row, cut row] against the
-    trial type), or None when this port has no kernel law for it (LJ is
-    not ported yet)."""
+    """(kernel name, per-atom coefficient rows, padding) for a pair style:
+    the rows are a function type_row [B] -> list of [B] float32 rows against
+    the trial type, the kernel the `_build.KERNELS` record that evaluates
+    them, the padding each row's value on an invalid subset atom (cut = 1,
+    every other coefficient 0, so that a padding row contributes exactly
+    zero and never divides by zero; pallas_usher.py:276-285); None when this
+    port has no kernel law for the style."""
     if isinstance(pair, DPDParams):
-        a0 = np.asarray(pair.a0, np.float32)
-        cut = np.asarray(pair.cut, np.float32)
+        tabs = [np.asarray(pair.a0, np.float32),
+                np.asarray(pair.cut, np.float32)]
+        name, pads = "usher_search", (0.0, 1.0)
+    elif isinstance(pair, LJCutParams):
+        eps = np.asarray(pair.epsilon, np.float64)
+        sig = np.asarray(pair.sigma, np.float64)
+        cut = np.asarray(pair.cut, np.float64)
+        s6 = sig ** 6
+        lj3 = 4.0 * eps * s6 * s6
+        lj4 = 4.0 * eps * s6
+        if pair.shift:
+            rc6 = (1.0 / cut ** 2) ** 3
+            eshift = rc6 * (lj3 * rc6 - lj4)
+        else:
+            eshift = np.zeros_like(lj3)
+        tabs = [t.astype(np.float32) for t in (lj3, lj4, cut, eshift)]
+        name, pads = "usher_search_lj", (0.0, 0.0, 1.0, 0.0)
+    else:
+        return None
 
-        def rows(ct: int, tj: torch.Tensor):
-            tj = tj.long()
-            return [const(tuple(a0[ct].tolist()), torch.float32, tj.device)[tj],
-                    const(tuple(cut[ct].tolist()), torch.float32, tj.device)[tj]]
-        return rows
-    return None
+    def rows(ct: int, tj: torch.Tensor):
+        tj = tj.long()
+        return [const(tuple(t[ct].tolist()), torch.float32, tj.device)[tj]
+                for t in tabs]
+    return name, rows, pads
 
 
 def subset_rows(pair, ntype: int, ntypes: int, sub: Subset) -> torch.Tensor:
-    """[5, B] kernel input: positions (BIG where invalid) and the law's
-    coefficient rows (a0 = 0 and cut = 1 where invalid, so a padding row
-    contributes exactly zero and never divides by zero)."""
-    law_rows = usher_law(pair)
-    if law_rows is None:
+    """[3 + n_coef, B] kernel input: positions (BIG where invalid) and the
+    law's coefficient rows ([5, B] for DPD, [7, B] for lj/cut)."""
+    law = usher_law(pair)
+    if law is None:
         raise NotImplementedError(
             f"USHER kernel: no law for {type(pair).__name__}")
+    _, law_rows, pads = law
     valid = sub.valid
     x = torch.where(valid[:, None], sub.x, BIG).to(torch.float32)
-    a0, cut = law_rows(ntype, torch.clamp(sub.type, 0, ntypes - 1))
-    a0 = torch.where(valid, a0, 0.0)
-    cut = torch.where(valid, cut, 1.0)
-    return torch.cat([x.t(), a0[None], cut[None]], dim=0)
+    coef = law_rows(ntype, torch.clamp(sub.type, 0, ntypes - 1))
+    coef = [torch.where(valid, c, pad) for c, pad in zip(coef, pads)]
+    return torch.cat([x.t(), torch.stack(coef)], dim=0)
 
 
 def launch(cfg, rows, cand, bounds):
-    """Launch the kernel on prepared inputs (kernel_inputs): rows f32[2, 5,
-    B], cand f32[2, K, 3], bounds f32[2, 6], all contiguous on one CUDA
-    device."""
+    """Launch the law's kernel on prepared inputs (kernel_inputs): rows
+    f32[2, 3 + n_coef, B], cand f32[2, K, 3], bounds f32[2, 6], all
+    contiguous on one CUDA device."""
+    name, _, pads = usher_law(cfg.pair)
     b = rows.shape[-1]
     k = cand.shape[1]
-    for name, t, shape in (("rows", rows, (2, 5, b)), ("cand", cand, (2, k, 3)),
-                           ("bounds", bounds, (2, 6))):
+    for arg, t, shape in (("rows", rows, (2, 3 + len(pads), b)),
+                          ("cand", cand, (2, k, 3)),
+                          ("bounds", bounds, (2, 6))):
         if (tuple(t.shape) != shape or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != rows.device
                 or t.device.type != "cuda"):
-            raise ValueError(f"USHER kernel: {name} must be contiguous "
+            raise ValueError(f"USHER kernel: {arg} must be contiguous "
                              f"float32{list(shape)} on the card, got "
                              f"{t.dtype}{list(t.shape)} on {t.device}")
-    kern = _build.KERNELS["usher_search"]
+    kern = _build.KERNELS[name]
     fn = kern.function()
     u = cfg.obmd.usher
     dev = rows.device
@@ -95,7 +118,7 @@ def launch(cfg, rows, cand, bounds):
 
 def kernel_inputs(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
                   region_l, region_r):
-    """(rows f32[2, 5, B], cand f32[2, K, 3], bounds f32[2, 6]) on the
+    """(rows f32[2, 3 + n_coef, B], cand f32[2, K, 3], bounds f32[2, 6]) on the
     candidates' device (launch checks them)."""
     ct = int(cfg.obmd.ntype)
     b = max(sub_l.x.shape[0], sub_r.x.shape[0])

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from ..config import DPDParams, SceneConfig
+from ..config import DPDParams, LJCutParams, SceneConfig
 from ..geometry import const, const_like
 
 EPSILON = 1.0e-6  # reference EPSILON (fix_obmd_merged.cpp:62)
@@ -64,23 +64,33 @@ def smooth_weight(cfg: SceneConfig, x0: torch.Tensor, mass: torch.Tensor):
 def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
     """Greedy in-order acceptance with candidate-candidate visibility: in
     candidate order, take a candidate when it is ok, conflicts with no
-    earlier taken one (DPD pair energy above etarget + eps) and the budget
-    is not spent (ref :914 sequential insertion)."""
+    earlier taken one and the budget is not spent (ref :914 sequential
+    insertion).  Two candidates conflict when their pair energy exceeds
+    etarget + eps: the DPD energy 0.5*a0*rc*wd^2, or for lj/cut the
+    reference's conservative stand-in, infinite closer than the cutoff and
+    zero beyond it (so with a negative etarget, as in any LJ liquid, every
+    two candidates conflict and one per call is taken)."""
     obmd = cfg.obmd
     k = cand_x.shape[0]
     d = cfg.box.min_image(cand_x[:, None, :] - cand_x[None, :, :])
     rsq = (d * d).sum(-1)
     p = cfg.pair
-    if not isinstance(p, DPDParams) or obmd.usher is None:
-        raise NotImplementedError("acceptance: only DPD with USHER is ported")
-    nt = p.ntypes
-    ct = cand_type.long()
-    pair_idx = ct[:, None] * nt + ct[None, :]
-    a0 = const_like([v for row in p.a0 for v in row], cand_x)[pair_idx]
-    cut = const_like([v for row in p.cut for v in row], cand_x)[pair_idx]
-    r = torch.sqrt(rsq)
-    wd = torch.clamp(1.0 - r / cut, min=0.0)
-    epair = 0.5 * a0 * cut * wd * wd
+    if obmd.usher is None:
+        raise NotImplementedError("acceptance: `near` insertion is not ported")
+    if isinstance(p, DPDParams):
+        nt = p.ntypes
+        ct = cand_type.long()
+        pair_idx = ct[:, None] * nt + ct[None, :]
+        a0 = const_like([v for row in p.a0 for v in row], cand_x)[pair_idx]
+        cut = const_like([v for row in p.cut for v in row], cand_x)[pair_idx]
+        r = torch.sqrt(rsq)
+        wd = torch.clamp(1.0 - r / cut, min=0.0)
+        epair = 0.5 * a0 * cut * wd * wd
+    elif isinstance(p, LJCutParams):
+        epair = torch.where(rsq < p.max_cut ** 2, torch.inf, 0.0)
+    else:
+        raise NotImplementedError(
+            f"acceptance: the {type(p).__name__} law is not ported")
     conflict = epair > obmd.usher.etarget + EPSILON
     conflict = conflict & ~torch.eye(k, dtype=torch.bool,
                                      device=cand_x.device)

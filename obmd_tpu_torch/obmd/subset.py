@@ -1,7 +1,7 @@
 """Buffer subsets and the batched USHER search in PyTorch.
 
-Counterpart of `obmd_tpu/obmd/subset.py` for ATOM-mode DPD insertion:
-`Subset`, `expand_region`, the DPD branch of `_batched_energy_force` and
+Counterpart of `obmd_tpu/obmd/subset.py` for ATOM-mode insertion: `Subset`,
+`expand_region`, the DPD and lj/cut branches of `_batched_energy_force` and
 `usher_search_subset_batch`, op for op.  Candidates only ever sit inside an
 insertion region, so the atoms that can contribute are those within
 cut + skin of it; the search runs brute force against that subset.  This is
@@ -14,7 +14,8 @@ from typing import NamedTuple
 import torch
 
 from ..cells import BIG
-from ..config import DPDParams, SceneConfig
+from ..config import DPDParams, LJCutParams, SceneConfig
+from ..forces.pairs import make_pair_law
 from ..geometry import RegionBlock, const_like
 
 EPSILON = 1.0e-6
@@ -32,36 +33,41 @@ def expand_region(region: RegionBlock, pad: float) -> RegionBlock:
                        tuple(h + pad for h in region.hi))
 
 
-def _dpd_tables(pair, like: torch.Tensor):
-    if not isinstance(pair, DPDParams):
-        raise NotImplementedError(
-            f"USHER: only the DPD law is ported, not {type(pair).__name__}")
-    return (const_like([v for row in pair.a0 for v in row], like),
-            const_like([v for row in pair.cut for v in row], like))
-
-
 def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
                           box=None):
     """sub_* [S,B,...], pos [S,K,3], cand_type [S,K] -> E [S,K], F [S,K,3]
-    (DPD: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat)."""
-    a0, cut = _dpd_tables(pair, pos)
+    (DPD: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; lj/cut: the pair law of
+    forces/pairs.make_pair_law)."""
     d = pos[:, :, None, :] - sub_x[:, None, :, :]          # [S,K,B,3]
     if box is not None:
         d = box.min_image(d)
     rsq = (d * d).sum(-1)
     ok = sub_valid[:, None, :]
-    if a0.shape[0] == 1:
-        a0v, cutv = a0[0], cut[0]
+    if isinstance(pair, DPDParams):
+        a0 = const_like([v for row in pair.a0 for v in row], pos)
+        cut = const_like([v for row in pair.cut for v in row], pos)
+        if a0.shape[0] == 1:
+            a0v, cutv = a0[0], cut[0]
+        else:
+            nt = pair.ntypes
+            flat = (cand_type[:, :, None] * nt + sub_type[:, None, :]).long()
+            a0v, cutv = a0[flat], cut[flat]
+        r = torch.sqrt(rsq)
+        rinv = torch.where(r > 1e-10, 1.0 / torch.clamp(r, min=1e-10), 0.0)
+        wd = 1.0 - r / cutv
+        inr = ok & (rsq < cutv * cutv) & (r > 1e-10)
+        e = torch.where(inr, 0.5 * a0v * cutv * wd * wd, 0.0)
+        fp = torch.where(inr, a0v * wd * rinv, 0.0)
+    elif isinstance(pair, LJCutParams):
+        pair_fn = make_pair_law(pair, 1.0, pos.dtype, pos.device)
+        zero = torch.zeros((), dtype=torch.int32, device=pos.device)
+        fp, e = pair_fn(rsq, d, torch.zeros_like(d), cand_type[:, :, None],
+                        sub_type[:, None, :], zero, zero, 0)
+        fp = torch.where(ok, fp, 0.0)
+        e = torch.where(ok, e, 0.0)
     else:
-        nt = pair.ntypes
-        flat = (cand_type[:, :, None] * nt + sub_type[:, None, :]).long()
-        a0v, cutv = a0[flat], cut[flat]
-    r = torch.sqrt(rsq)
-    rinv = torch.where(r > 1e-10, 1.0 / torch.clamp(r, min=1e-10), 0.0)
-    wd = 1.0 - r / cutv
-    inr = ok & (rsq < cutv * cutv) & (r > 1e-10)
-    e = torch.where(inr, 0.5 * a0v * cutv * wd * wd, 0.0)
-    fp = torch.where(inr, a0v * wd * rinv, 0.0)
+        raise NotImplementedError(
+            f"USHER: the {type(pair).__name__} law is not ported")
     return e.sum(-1), (fp[..., None] * d).sum(2)
 
 

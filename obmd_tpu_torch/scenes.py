@@ -1,5 +1,5 @@
-"""The ported scenes: OBMD_DPD (examples/OBMD_DPD/input.py:17-124) and the
-LJ melt (the reference's code/bench/in.lj).
+"""The ported scenes: OBMD_DPD (examples/OBMD_DPD/input.py:17-124), the LJ
+melt (the reference's code/bench/in.lj) and the open-boundary LJ fluid.
 
 Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config`, `obmd_dpd_scene` and
 `lj_melt_scene`.  OBMD_DPD: DPD fluid at rho = 3, T = 1 with open x
@@ -7,7 +7,10 @@ boundaries, constant normal load pxx on both buffers and USHER insertion;
 `scale` stretches the box in x (scale 9 is the ~107k-atom bench size).  LJ
 melt: an fcc lattice in a fully periodic box, NVE.  Initial states are drawn
 with the same numpy generators as the reference, so both packages start from
-the same positions and velocities.
+the same positions and velocities.  The open LJ fluid (`obmd_lj_config`,
+`obmd_lj_scene`) assembles configuration objects both packages have: the
+LJ melt's law and lattice in OBMD_DPD's open-x buffer layout under a
+Langevin thermostat.
 """
 from __future__ import annotations
 
@@ -16,8 +19,8 @@ from typing import Optional
 
 import numpy as np
 
-from .config import (Capacity, DPDParams, LJCutParams, ObmdParams,
-                     SceneConfig, UsherParams)
+from .config import (Capacity, DPDParams, LangevinParams, LJCutParams,
+                     ObmdParams, SceneConfig, UsherParams)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -91,6 +94,16 @@ def obmd_dpd_scene(scale: float = 1.0, seed: int = 12345,
     return Scene(cfg=cfg, state=state)
 
 
+def fcc_lattice(cells, a: float, offset=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """Positions of an fcc lattice of cells[0] x cells[1] x cells[2] unit
+    cells of edge a, shifted by `offset`."""
+    basis = np.asarray([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
+                        [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
+    grid = np.stack(np.meshgrid(*(np.arange(n) for n in cells),
+                                indexing="ij"), axis=-1).reshape(-1, 1, 3)
+    return ((grid + basis[None, :, :]) * a).reshape(-1, 3) + np.asarray(offset)
+
+
 def lj_melt_scene(nx: int = 20, dtype: str = "float32",
                   force_path: str = "cellpad", skin: float = 0.55,
                   cell_capacity: int = 36, rebuild_every: int = 0,
@@ -104,12 +117,7 @@ def lj_melt_scene(nx: int = 20, dtype: str = "float32",
     a = (4.0 / rho) ** (1.0 / 3.0)          # fcc lattice constant
     L = nx * a
     box = Box((0.0, 0.0, 0.0), (L, L, L), (True, True, True))
-    basis = np.asarray([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0],
-                        [0.5, 0.0, 0.5], [0.0, 0.5, 0.5]])
-    cells = np.stack(np.meshgrid(np.arange(nx), np.arange(nx),
-                                 np.arange(nx), indexing="ij"),
-                     axis=-1).reshape(-1, 1, 3)
-    x = ((cells + basis[None, :, :]) * a).reshape(-1, 3)
+    x = fcc_lattice((nx, nx, nx), a)
     n = len(x)
     rng = np.random.default_rng(87287)
     v = rng.normal(0.0, np.sqrt(1.44), (n, 3))
@@ -121,4 +129,88 @@ def lj_melt_scene(nx: int = 20, dtype: str = "float32",
                       obmd=None, skin=skin, dtype=dtype,
                       rebuild_every=rebuild_every,
                       force_path=force_path)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+
+
+# The open LJ fluid's state point: rho* = 0.8442 (in.lj), T* = 0.722.
+# OBMD_LJ_ETARGET is E_pair/N and OBMD_LJ_PXX the mean pressure of the bulk
+# liquid there, read once with lj_state_point.py (at the root of the
+# repository) on an NVIDIA H100 80GB HBM3 at 700 W: a periodic
+# lj_melt_scene(nx=20) melted at T = 1.44 and run under this scene's
+# Langevin thermostat, thermo over its last 400 of 4,000 steps: T 0.7277,
+# E_pair/N -5.6354, pressure 0.9273.  E_pair/N, not twice it, is the
+# OBMD_DPD deck's own convention: its etarget 31.03 and pxx 188 sit at
+# E_pair/N 31.49 and pressure 188.16 of its bulk fluid (the same reading);
+# at 2 E_pair/N the steered search accepted none of 256 bulk candidates.
+OBMD_LJ_RHO, OBMD_LJ_TEMP = 0.8442, 0.722
+OBMD_LJ_ETARGET = -5.6354
+OBMD_LJ_PXX = 0.9273
+
+
+def obmd_lj_config(nx: int = 128, ny: int = 14,
+                   nbuf: Optional[float] = None) -> SceneConfig:
+    """The open-boundary LJ fluid (BASELINE.json config 2: USHER insertion
+    and deletion at a fixed normal load, Delgado-Buscalioni and Coveney,
+    J. Chem. Phys. 119, 978 (2003)): in.lj's lj/cut law (eps = sigma = 1,
+    rc = 2.5, no shift) and dt = 0.005 at rho* = 0.8442 in a box of
+    nx x ny x ny fcc cells (128 x 14 x 14: 100,352 atoms, 215.0 x 23.51 x
+    23.51), x open, y and z periodic; USHER's target energy and the normal
+    load at the bulk liquid's E_pair/N = -5.6354 and pressure 0.9273
+    (OBMD_LJ_ETARGET, OBMD_LJ_PXX: the reading above); OBMD_DPD's regions
+    (buffers of 0.15 Lx at each end, insertion regions = buffers,
+    degenerate shear regions, g_fac 0.25); the stage at ntype 0, nfreq 1,
+    maxattempt 1, K = 16, alpha 0.7, the deck's dt/tau (tau = dt / 0.2928)
+    and, unless `nbuf` is given, its nbuf rule alpha * rho * V_buf; the
+    fix's default USHER steps; Langevin at T* = 0.722, damp 1.  Skin 0.4
+    gives 2.94-wide y/z cells (8 per
+    axis: 64 cells in 128 lanes, p = 2, OBMD_DPD's layout).  Filing
+    capacity 44: a buffer subset holds at most 0.45 n + 256 of its slot
+    slice's n slots (engine_cellpad._subset_slice, as the reference), and
+    at this density that needs cap >= 41; the most atoms in one cell stays
+    far below."""
+    rho = OBMD_LJ_RHO
+    a = (4.0 / rho) ** (1.0 / 3.0)          # fcc lattice constant
+    xhi = nx * a
+    yhi = zhi = ny * a
+    buffer_size = 0.15 * xhi
+    alpha = 0.7
+    if nbuf is None:
+        nbuf = alpha * rho * buffer_size * yhi * zhi
+    dt = 0.005
+    box = Box((0.0, 0.0, 0.0), (xhi, yhi, zhi), (False, True, True))
+    r1 = RegionBlock((0.0, 0.0, 0.0), (buffer_size, yhi, zhi))
+    r2 = RegionBlock((xhi - buffer_size, 0.0, 0.0), (xhi, yhi, zhi))
+    degenerate = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    obmd = ObmdParams(
+        ntype=0, nfreq=1, seed=872634,
+        pxx=OBMD_LJ_PXX, pxy=0.0, pxz=0.0, dpxx=0.0, freq=0.0,
+        alpha=alpha, tau=dt * (0.005 / 0.001464), nbuf=float(nbuf),
+        region1=r1, region2=r2, region3=degenerate, region4=degenerate,
+        region5=r1, region6=r2,
+        buffer_size=buffer_size, g_fac=0.25, maxattempt=1,
+        usher=UsherParams(etarget=OBMD_LJ_ETARGET), insert_kmax=16)
+    pair = LJCutParams.create(cutoff=2.5, epsilon=1.0, sigma=1.0)
+    return SceneConfig(
+        box=box, masses=(1.0,), pair=pair, dt=dt,
+        capacity=Capacity(n_max=4 * nx * ny * ny, cell_capacity=44),
+        obmd=obmd, langevin=LangevinParams(temp=OBMD_LJ_TEMP, damp=1.0),
+        skin=0.4, force_path="cellpad").finalize()
+
+
+def obmd_lj_scene(nx: int = 128, ny: int = 14, nbuf: Optional[float] = None,
+                  device="cuda") -> Scene:
+    """Config + in.lj's start on `device`: the fcc lattice shifted by a/4
+    in x (no atom on an open face) and a/8 in y and z, with normal
+    velocities at T0 = 1.44, zero net momentum; the lattice melts under
+    `integrate.equilibrate(..., temp=1.44)`.  The y/z shift keeps lattice
+    planes off the cell faces: a 2.94-wide cell is 3.5 half-spacings, so
+    unshifted planes lie on every other face, and the first relayout would
+    move more atoms than its mover budget (cellpad.relayout_incremental's
+    m_max, as the reference's)."""
+    cfg = obmd_lj_config(nx=nx, ny=ny, nbuf=nbuf)
+    a = (4.0 / OBMD_LJ_RHO) ** (1.0 / 3.0)
+    x = fcc_lattice((nx, ny, ny), a, offset=(0.25 * a, 0.125 * a, 0.125 * a))
+    rng = np.random.default_rng(87287)
+    v = rng.normal(0.0, np.sqrt(1.44), x.shape)
+    v -= v.mean(axis=0)
     return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
