@@ -63,7 +63,30 @@ Phases (any failure exits non-zero and prints no result line):
      their plain versions and each other, the pair kernel against the
      port's pair sweep; a profile of two relayout epochs; FULL_STEPS steps
      through the full-stencil kernel, check_invariants;
- 13. the figures of the three paths (with each path's whole wall time,
+ 13. the FENE chain melt at a small size (chain_scene(nx=7): 28 chains of
+     49 beads, warmed up on the card, then copied to the CPU) on the card
+     against the same path on the CPU (check_small_path: slots, tags and
+     partner columns exact);
+ 14. the chain melt's main path (bench/in.chain at full width):
+     chain_scene() (32,000 beads, 320 chains of 100, 31,680 bonds, the
+     generated lattice start), chain_warm_up (WARM_STEPS at dt 0.003 and
+     filing cap 24, velocity rescale to T = 1; launch counts zeroed before
+     and read after; then the warm-up's pair kernel on the warmed state
+     against its plain version, and without pbond differing on exactly the
+     slots with a 1-2 pair inside the cut), then setup at in.chain's
+     settings (dt 0.012, cap 18), make_run(400) to settle, two timed
+     make_run(400) windows, check_invariants; T within 5% of 1.0 at both
+     window ends (thermo through the pair sweep) and no bond at or beyond
+     r0 at any window end.  Launch counts are zeroed before setup and read
+     after the last window: the pair kernel, with 2-channel exclusion, once
+     per step and at setup;
+ 15. on the ended state of phase 14: both pair kernels with exclusion
+     against their plain versions and each other, the 1-2 pairs inside the
+     cut counted (more than zero), and each kernel without pbond differing
+     from it on exactly the slots that have such a pair; a profile of two
+     relayout epochs; FULL_STEPS steps through the full-stencil kernel,
+     check_invariants;
+ 16. the figures of the four paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
@@ -77,13 +100,15 @@ bytes (each input read once, each output written once; of a dead slot only
 the x that marks it dead) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (H100 SXM data sheet; the work counted from this run's inputs by
 pair_work and usher_work: a distance test for every candidate pair, the
-law only for the pairs within the cutoff).  No PyTorch call computes any
-kernel's function, so library_ms is null.  The OBMD_DPD and open LJ paths
+law only for the pairs within the cutoff and not excluded; with exclusion
+each alive slot also reads its two partner tags, and the LJ law its tag).
+No PyTorch call computes any kernel's function, so library_ms is null.  The OBMD_DPD and open LJ paths
 record the most atoms in one cell after their repack or melt and after each
 production window: the margin left before a cell overflow, which
 check_invariants turns into a failure.
 """
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -102,6 +127,9 @@ LJ_NX, LJ_STEPS, LJ_WIDE_NX, FULL_STEPS = 20, 400, 40, 200
 # the melt at T0 = 1.44, the production windows, the small path's lattice
 OLJ_NX, OLJ_NY, OLJ_EQUIL, OLJ_STEPS = 128, 14, 400, 400
 OLJ_SMALL = (16, 9)
+# the chain melt: bench/in.chain's 32,000 beads (nx = 20), its windows, and
+# the small path's 28 chains of 49 beads (nx = 7) and their warm-up
+CHAIN_NX, CHAIN_STEPS, CHAIN_SMALL, CHAIN_SMALL_WARM = 20, 400, (7, 49), 300
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -185,15 +213,19 @@ class KeepCounts:
             _build.KERNELS[k].launches_by_shape = by
 
 
-def pair_work(geom, fld, coef):
+def pair_work(geom, fld, coef, tag=None, pbond=None):
     """(alive slots, unordered candidate pairs of alive atoms in the 27-cell
-    stencil, unordered pairs within the cutoff) of this input: the least
-    work of the function, each pair visited once."""
+    stencil, unordered pairs within the cutoff and not excluded) of this
+    input: the least work of the function, each pair visited once."""
     import torch
     from obmd_tpu_torch.forces.pair_kernel import _neighbor_columns
     nb, nf, cap, lanes = fld.shape
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
     icol, cols, oks = _neighbor_columns(geom, fld.device)
+    if pbond is not None:
+        tl = tag.permute(0, 2, 1).reshape(nb * lanes, cap)
+        pb = pbond.permute(0, 3, 1, 2).reshape(nb * lanes, pbond.shape[1],
+                                               cap)[icol]
     live = fl[:, 0, :] < 0.5e8
     not_self = ~torch.eye(cap, dtype=torch.bool, device=fld.device)
     lengths = (coef.lx if coef.periodic_x else 0.0, coef.ly, coef.lz)
@@ -210,20 +242,28 @@ def pair_work(geom, fld, coef):
             if lengths[c]:
                 d = d - lengths[c] * torch.round(d / lengths[c])
             rsq = rsq + d * d
+        law = ok & (rsq < coef.cut * coef.cut)
+        if pbond is not None:
+            tj = tl[cols[o]][:, None, :]
+            for c in range(pb.shape[1]):
+                law = law & (tj != pb[:, c, :, None])
         cand += int(ok.sum())
-        inside += int((ok & (rsq < coef.cut * coef.cut)).sum())
+        inside += int(law.sum())
     return int(live.sum()), cand // 2, inside // 2
 
 
-def pair_bound(geom, fld, coef):
-    """(bound_ms, bound_by, candidate pairs, in-cutoff pairs) of one
-    pair-kernel call on this input."""
-    n_live, n_cand, n_in = pair_work(geom, fld, coef)
+def pair_bound(geom, fld, coef, tag=None, pbond=None):
+    """(bound_ms, bound_by, candidate pairs, in-cutoff pairs that take the
+    law) of one pair-kernel call on this input."""
+    n_live, n_cand, n_in = pair_work(geom, fld, coef, tag, pbond)
     slots = geom.n_slots
     # x of every slot (it tells dead from alive), the other fields the law
     # reads of the alive slots (dpd: y, z, v and tag; lj: y, z), occ, and
-    # the force of every slot
+    # the force of every slot; with exclusion the two partner tags of each
+    # alive slot, and its tag for the lj law
     per_live = 6 if coef.law == "dpd" else 2
+    if pbond is not None:
+        per_live += pbond.shape[1] + (coef.law != "dpd")
     n_bytes = (slots * 4 + n_live * per_live * 4 + geom.n_blocks * 4
                + slots * 3 * 4)
     test = OPS_PAIR_TEST + (OPS_MI_X if coef.periodic_x else 0)
@@ -260,23 +300,23 @@ def check_pair(cfg, geom, state, label, kernel="pair"):
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
     from obmd_tpu_torch.forces.pair_kernel import (PairCoef, legacy_kwargs,
                                                    pair_forces_plain)
-    fld, tag, salt, occ = pack_fields(cfg, geom, state)
+    fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
     kern = _make_kernel(cfg, geom, kernel)
     coef = PairCoef.create(geom, **legacy_kwargs(cfg.pair, cfg.dt))
 
     def plain():
         return pair_forces_plain(geom, coef, fld, tag, salt,
-                                 legacy=kernel == "full")
+                                 legacy=kernel == "full", pbond=pbond)
     with KeepCounts():
-        f_k = kern(fld, tag, salt, occ)
+        f_k = kern(fld, tag, salt, occ, pbond)
         sync()
         f_p = plain()
         sync()
         err, scale, fsum = compare_forces(geom, state, f_k, f_p,
                                           f"{kernel} kernel {label}")
-        ms = time_ms(lambda: kern(fld, tag, salt, occ))
+        ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond))
         plain_ms = time_ms(plain, reps=5, warmup=1)
-    b_ms, b_by, n_cand, n_in = pair_bound(geom, fld, coef)
+    b_ms, b_by, n_cand, n_in = pair_bound(geom, fld, coef, tag, pbond)
     log(f"{kernel} kernel {label}: max_abs_err {err:.3e} (max|f| "
         f"{scale:.1f}), |sum f| {fsum:.3e}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, {n_cand} candidate / {n_in} in-cutoff pairs, "
@@ -456,9 +496,10 @@ class SeededDraws:
         return torch.from_numpy(u).to(state.device) if need else None
 
 
-SMALL_EXACT = ("type", "tag", "alive", "step", "maxtag", "cell_overflow",
-               "ndeleted", "ninserted", "insert_fail", "usher_iters",
-               "rebuilds", "overflow", "skin_trips", "tag3d", "occ")
+SMALL_EXACT = ("type", "tag", "alive", "mol", "bond1", "bond2", "step",
+               "maxtag", "cell_overflow", "ndeleted", "ninserted",
+               "insert_fail", "usher_iters", "rebuilds", "overflow",
+               "skin_trips", "tag3d", "occ")
 SMALL_CLOSE = ("x", "v", "xref", "sim_time", "momentum_force_left",
                "momentum_force_right", "shear_force_left",
                "shear_force_right")
@@ -486,6 +527,24 @@ def small_obmd_lj(dev):
     return sc.cfg, sc.state
 
 
+@functools.lru_cache(maxsize=1)
+def _small_chain_start():
+    """The chain melt's small path start: chain_scene(nx=7) with 49-bead
+    chains, warmed up on the card (CHAIN_SMALL_WARM steps), as arrays."""
+    from obmd_tpu_torch import convert, scenes
+    nx, chain_len = CHAIN_SMALL
+    sc = scenes.chain_scene(nx=nx, chain_len=chain_len, device=DEV)
+    warm = scenes.chain_warm_up(sc.cfg, sc.state, steps=CHAIN_SMALL_WARM)
+    return sc.cfg, convert.to_arrays(warm)
+
+
+def small_chain(dev):
+    """The chain melt's small path: one warmed start, copied to `dev`."""
+    from obmd_tpu_torch import convert
+    cfg, arrays = _small_chain_start()
+    return cfg, convert.from_arrays(arrays, device=dev)
+
+
 def check_small_path(label, make, require_insert):
     """The whole path at a small size on the card against the same path on
     the CPU (the plain versions), from one initial state and one stream of
@@ -507,9 +566,11 @@ def check_small_path(label, make, require_insert):
     runs = []
     for dev in (DEV, "cpu"):
         cfg, state = make(dev)
-        cfg = dc.replace(cfg, obmd=dc.replace(
-            cfg.obmd, usher=dc.replace(cfg.obmd.usher, nattempt=0)))
-        draws = SeededDraws(cfg, SMALL_SEED)
+        draws = None
+        if cfg.obmd is not None:
+            cfg = dc.replace(cfg, obmd=dc.replace(
+                cfg.obmd, usher=dc.replace(cfg.obmd.usher, nattempt=0)))
+            draws = SeededDraws(cfg, SMALL_SEED)
         st = setup(cfg, state, draw=draws)
         out = [convert.to_arrays(st)]
         run = make_run(cfg, 1, draw=draws)
@@ -1050,8 +1111,194 @@ def run_obmd_lj():
     return path, kernels
 
 
+def bond_pair_slots(cfg, geom, state):
+    """[nb, cap, lanes] bool: the alive slots with a bond partner inside the
+    pair cut (minimum image), i.e. a 1-2 pair the exclusion drops."""
+    import torch
+    n = state.capacity
+    near = torch.zeros_like(state.alive)
+    cut2 = cfg.pair.max_cut ** 2
+    for partner in state.bond_partners:
+        j = torch.clamp(partner.long(), 0, n - 1)
+        d = cfg.box.min_image(state.x - state.x[j])
+        near |= state.alive & (partner >= 0) & ((d * d).sum(-1) < cut2)
+    return near.reshape(geom.n_blocks, geom.cap, geom.lanes)
+
+
+def check_exclusion(cfg, geom, state, kernel):
+    """A kernel ("pair" or "full") with pbond against the same kernel
+    without it: they differ on exactly the slots that have a 1-2 pair
+    inside the cut.  Returns that slot count."""
+    import torch
+    from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
+    fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
+    bare = dataclasses.replace(cfg, bond=None)
+    with KeepCounts():
+        f_ex = _make_kernel(cfg, geom, kernel)(fld, tag, salt, occ, pbond)
+        f_all = _make_kernel(bare, geom, kernel)(fld, tag, salt, occ)
+        sync()
+    differs = (f_ex != f_all).any(dim=1)
+    near = bond_pair_slots(cfg, geom, state)
+    n_near = int(near.sum())
+    if n_near <= 0:
+        fail(f"chain {kernel} kernel: no 1-2 pair inside the cut")
+    if not torch.equal(differs, near):
+        fail(f"chain {kernel} kernel: exclusion changed "
+             f"{int(differs.sum())} slots, {n_near} have a 1-2 pair inside "
+             f"the cut, {int((differs != near).sum())} disagree")
+    log(f"chain {kernel} kernel: exclusion changes exactly the {n_near} "
+        f"slots with a 1-2 pair inside the cut")
+    return n_near
+
+
+def chain_marks(cfg, thermo, state, marks, label):
+    """Thermo through the pair sweep and the bond figures at a window end;
+    no bond may sit at or beyond r0 (FENE clamps it without an error)."""
+    from obmd_tpu_torch.observe import bond_stats
+    t = thermo(state)
+    m = thermo_line(t)
+    n = int(t.natoms)
+    longest, over, count = bond_stats(cfg, state)
+    m.update(ebond_per_atom=float(t.ebond) / n, longest_bond=longest,
+             bonds_at_or_beyond_r0=over, bonds=count)
+    if over:
+        fail(f"{label}: {over} bonds at or beyond r0 = {cfg.bond.r0} at step "
+             f"{state.step} (longest {longest})")
+    marks.append(m)
+    return m
+
+
+def run_chain():
+    """Phases 13-15: the chain melt's small path against the CPU, its main
+    path, the kernels with exclusion, and the full-stencil run."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import (bond_stats, check_invariants,
+                                        make_thermo_fn)
+    from obmd_tpu_torch.state import temperature
+
+    # ---- phase 13: the path at a small size against the CPU
+    with KeepCounts():
+        small_err = check_small_path("chain", small_chain,
+                                     require_insert=False)
+
+    # ---- phase 14: the main path
+    t_path = time.perf_counter()
+    sc = scenes.chain_scene(nx=CHAIN_NX, device=DEV)
+    cfg = sc.cfg
+    n_bonds = bond_stats(cfg, sc.state)[2]
+    wcfg = scenes.chain_warm_up_config(cfg)
+    wgeom = make_geometry(wcfg)
+    wkey = f"lj-excl2-cap{wgeom.fcap}"
+    _build.reset_launch_counts()
+    t_warm = time.perf_counter()
+    st = scenes.chain_warm_up(cfg, sc.state)
+    sync()
+    warm_s = time.perf_counter() - t_warm
+    warm_launches = launch_counts()
+    require_launches(warm_launches, {"pair": (wkey,)}, "chain warm-up")
+    warm_t = float(temperature(cfg, st))
+    warm_longest, warm_over, _ = bond_stats(cfg, st)
+    warm_tel = check_invariants(wcfg, st)
+    if warm_over or not abs(warm_t - 1.0) <= 0.1:
+        fail(f"chain warm-up: T {warm_t}, {warm_over} bonds at or beyond r0")
+    log(f"chain warm-up: {scenes.WARM_STEPS} steps at dt {scenes.WARM_DT}, "
+        f"cap {scenes.WARM_CAP}, {warm_s:.2f} s; T {warm_t:.4f}, longest "
+        f"bond {warm_longest:.4f}, telemetry {warm_tel}, launches "
+        f"{warm_launches}")
+    # the warm-up's pair kernel (its own filing cap) on the warmed state,
+    # in the warm-up's layout, against its plain version
+    warm_pair, _ = check_pair(wcfg, wgeom, st,
+                              f"lj, exclusion, cap {wgeom.fcap}, warm-up")
+    check_exclusion(wcfg, wgeom, st, "pair")
+    _build.reset_launch_counts()
+    geom = make_geometry(cfg)
+    thermo = make_thermo_fn(cfg)
+    st = setup(cfg, st)
+    occupancy = [max_cell_count(geom, st)]
+    run = make_run(cfg, CHAIN_STEPS)
+    st = run(st)
+    sync()
+    occupancy.append(max_cell_count(geom, st))
+    marks = []
+    chain_marks(cfg, thermo, st, marks, "chain main path")
+    windows = []
+    for _ in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        chain_marks(cfg, thermo, st, marks, "chain main path")
+    launches = launch_counts()
+    tel = check_invariants(cfg, st)
+    check_finite(st, "chain main path")
+    natoms = int(st.natoms)
+    path_s = time.perf_counter() - t_path
+    log_thermo(marks, "chain")
+    for m in marks[1:]:
+        if not abs(m["temp"] - 1.0) <= 0.05:
+            fail(f"chain: T {m['temp']} at step {m['step']} is not within 5% "
+                 "of 1.0")
+    wall, steps = min(windows)
+    log(f"chain main path ({natoms} beads, {n_bonds} bonds, {geom}) "
+        f"{path_s:.1f} s (warm-up {warm_s:.1f} s), windows {windows}, "
+        f"telemetry {tel}, most atoms in one cell at setup and after each "
+        f"window {occupancy} (filing cap {geom.fcap}), longest bond "
+        f"{max(m['longest_bond'] for m in marks):.4f}, E_bond/N "
+        f"{marks[-1]['ebond_per_atom']:.4f}, {steps / wall:.1f} steps/s, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s; launches "
+        f"{launches} (warm-up: {wkey} x {warm_launches['pair'][1][wkey]})")
+    key = f"lj-excl2-cap{geom.fcap}"
+    require_launches(launches, {"pair": (key,)}, "chain main path")
+    if launches["pair"][0] != 3 * CHAIN_STEPS + 1:
+        fail(f"chain: {launches['pair'][0]} pair kernel launches for setup "
+             f"and {3 * CHAIN_STEPS} steps")
+
+    # ---- phase 15: both kernels with exclusion on the ended state, the
+    # exclusion's reach, a profile of two epochs, the full-stencil run
+    pair, full = check_both(cfg, geom, st, f"lj, exclusion, cap {geom.fcap}")
+    near = {k: check_exclusion(cfg, geom, st, k) for k in ("pair", "full")}
+    r_every = auto_rebuild_every(cfg)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st, 2 * r_every)
+    log(f"chain profile: {prof}")
+    st_full, full_ms, full_launches = run_full_path(cfg, st, "chain")
+    require_launches(full_launches, {"dpd_full": (key,)},
+                     "chain through the full-stencil kernel")
+    full_marks = []
+    chain_marks(cfg, thermo, st_full, full_marks,
+                "chain, full-stencil kernel")
+
+    path = dict(atoms=natoms, bonds=n_bonds, ms_per_step=wall / steps * 1e3,
+                steps_per_s=steps / wall,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], warm_up_s=warm_s,
+                warm_up_temp=warm_t,
+                warm_up_launches={wkey: warm_launches["pair"][1][wkey]},
+                path_s=path_s, thermo=marks,
+                telemetry=tel, max_cell_count=max(occupancy),
+                filing_cap=geom.fcap, slots_with_1_2_pair_in_cut=near["pair"],
+                small_path_max_pos_err=small_err, profile=prof,
+                full_kernel_ms_per_step=full_ms,
+                full_kernel_thermo=full_marks[0])
+    config = f"lj, 2-channel exclusion, cap {geom.fcap}, p = {geom.p}"
+    kernels = [
+        kernel_line("pair", config, "obmd_tpu/forces/pallas_dpd.py:575",
+                    launches["pair"][1][key], pair),
+        kernel_line("pair", f"lj, 2-channel exclusion, cap {wgeom.fcap}, "
+                    f"p = {wgeom.p}, warm-up",
+                    "obmd_tpu/forces/pallas_dpd.py:324",
+                    warm_launches["pair"][1][wkey], warm_pair),
+        kernel_line("dpd_full", config, None, full_launches["dpd_full"][0],
+                    full),
+    ]
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-12; returns the three paths' figures and the kernel
+    """Phases 2-15; returns the four paths' figures and the kernel
     figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
@@ -1072,9 +1319,14 @@ def run_smoke():
     t0 = time.perf_counter()
     olj_path, olj_kernels = run_obmd_lj()
     wall_s["obmd_lj"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain_path, chain_kernels = run_chain()
+    wall_s["chain"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
-                          lj_melt=lj_path, obmd_lj=olj_path),
-                kernels=obmd_kernels + lj_kernels + olj_kernels)
+                          lj_melt=lj_path, obmd_lj=olj_path,
+                          chain=chain_path),
+                kernels=obmd_kernels + lj_kernels + olj_kernels
+                + chain_kernels)
 
 
 def main():

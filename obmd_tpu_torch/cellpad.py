@@ -120,6 +120,17 @@ def layout_build(geom: PadGeometry, box: Box, state: State) -> State:
                          dtype=src.dtype, device=dev)
         return scatter_rows(out, dest, src[order])
 
+    # bond partner slot references follow the permutation: old -> new
+    # (an atom that did not fit its cell maps to -1)
+    n_cap = state.capacity
+    new_of_old = scatter_rows(
+        torch.full((n_cap,), -1, dtype=I64, device=dev), order,
+        torch.where(ok, dest, -1))
+
+    def remap(bond):
+        return torch.where(
+            bond >= 0, new_of_old[torch.clamp(bond.long(), 0, n_cap - 1)], -1)
+
     x = _center(box, state.x).expand(n_slots, 3).contiguous()
     x = scatter_rows(x, dest, state.x[order])
     alive = scatter_rows(torch.zeros((n_slots,), dtype=torch.bool, device=dev),
@@ -136,8 +147,10 @@ def layout_build(geom: PadGeometry, box: Box, state: State) -> State:
         **kernel_caches(geom, tag, alive))
     return state.replace(
         x=x, v=scat(state.v, 0), f=scat(state.f, 0), type=scat(state.type, 0),
-        tag=tag, alive=alive, cell_overflow=state.cell_overflow + overflow,
-        nbrs=aux)
+        tag=tag, alive=alive, mol=scat(state.mol, 0),
+        bond1=scat(remap(state.bond1).to(I32), -1),
+        bond2=scat(remap(state.bond2).to(I32), -1),
+        cell_overflow=state.cell_overflow + overflow, nbrs=aux)
 
 
 def half_skin_tripped(box: Box, skin: float, state: State) -> torch.Tensor:
@@ -216,13 +229,18 @@ def _column_slots(geom: PadGeometry, cell: torch.Tensor):
 
 
 def relayout_incremental(geom: PadGeometry, box: Box, state: State,
-                         m_max: int = 0, move_f: bool = True) -> State:
+                         m_max: int = 0, move_f: bool = True,
+                         has_bonds: bool = True,
+                         has_mol: bool = True) -> State:
     """Movers-only epoch relayout: each atom whose current cell differs from
     its slot's cell takes a free rank of its current cell (the j-th mover of
     a cell takes the j-th free rank); atoms that cannot be placed stay put
     and are counted in PadAux.overflow.  Moves x, v, tag, alive (and f when
-    move_f); the single-type, neutral, molecule-free scene has no other
-    per-atom field that varies."""
+    move_f); with has_bonds, the partner slot columns move and every
+    partner reference follows its atom; with has_mol, mol moves.  Callers
+    pass engine_cellpad.relayout_flags: a column constant over the scene
+    (no bonds, no molecules) skips its moves.  Types do not move: only
+    single-type scenes are ported."""
     n_slots = geom.n_slots
     if m_max <= 0:
         m_max = max(2048, n_slots // 32)
@@ -268,6 +286,22 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
     upd = dict(x=x, v=move(state.v, 0.0), alive=alive, tag=tag)
     if move_f:
         upd["f"] = move(state.f, 0.0)
+    if has_bonds:
+        # every partner reference follows the moves; a reference to an atom
+        # that stayed put keeps its slot
+        moved_map = scatter_rows(torch.arange(n_slots, dtype=I64, device=dev),
+                                 old, torch.where(landed, slot, 0))
+
+        def remap(bond):
+            return torch.where(
+                bond >= 0,
+                moved_map[torch.clamp(bond.long(), 0, n_slots - 1)],
+                -1).to(I32)
+
+        upd["bond1"] = remap(move(state.bond1, -1))
+        upd["bond2"] = remap(move(state.bond2, -1))
+    if has_mol:
+        upd["mol"] = move(state.mol, 0)
     new = state.replace(**upd)
     return new.replace(nbrs=aux.replace(
         xref=x, rebuilds=aux.rebuilds + 1,
@@ -276,11 +310,11 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
 
 
 def maybe_rebuild(geom: PadGeometry, box: Box, skin: float,
-                  state: State) -> State:
+                  state: State, **field_flags) -> State:
     """Half-skin displacement trigger: relayout when it trips.  The test is
     read on the host (one sync); only setup takes this path."""
     if skin <= 0.0 or bool(half_skin_tripped(box, skin, state)):
-        return relayout_incremental(geom, box, state)
+        return relayout_incremental(geom, box, state, **field_flags)
     return state
 
 

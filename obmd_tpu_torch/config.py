@@ -2,10 +2,13 @@
 
 Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
 `DPDParams`, `LJCutParams`, `UsherParams`, `ObmdParams`, `LangevinParams`,
-`Capacity` and `SceneConfig.finalize`, with the same field names and
-defaults so a test can hold the two packages' configs field by field.
-lj/cut/rf, dpd/tstat, dpd/ext, bonded and molecule configurations are not
-ported yet.
+`BondFENEParams`, `Capacity` and `SceneConfig.finalize`, with the same field
+names and defaults so a test can hold the two packages' configs field by
+field.  lj/cut/rf, dpd/tstat, dpd/ext, harmonic bonds and molecule
+insertion are not ported yet: `SceneConfig` carries their fields so a
+configuration can name them, and the engine refuses them.  Angles,
+dihedrals and impropers have no field yet; they come with the slice that
+ports those styles.
 """
 from __future__ import annotations
 
@@ -178,6 +181,18 @@ class LangevinParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class BondFENEParams:
+    """`bond_style fene` (bench/in.chain: bond_coeff 1 30.0 1.5 1.0 1.0):
+    U = -0.5 K R0^2 ln(1-(r/R0)^2) + WCA(eps, sigma).  `special_bonds fene`
+    semantics are implied: 1-2 pairs are excluded from the pair style."""
+
+    k: float = 30.0
+    r0: float = 1.5
+    epsilon: float = 1.0
+    sigma: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Capacity:
     """Static shapes: particle slots and filing capacity per cell."""
 
@@ -191,8 +206,9 @@ class Capacity:
 
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
-    """Box, masses, pair style, dt, the OBMD stage, the Langevin thermostat
-    and static capacities."""
+    """Box, masses, pair style, dt, the OBMD stage, the bond style, the
+    Langevin thermostat and static capacities.  `branched_topology` (more
+    than two bonds on an atom) is not ported yet: the engine raises on it."""
 
     box: Box
     masses: Tuple[float, ...]
@@ -200,11 +216,13 @@ class SceneConfig:
     dt: float
     capacity: Capacity
     obmd: Optional[ObmdParams] = None
+    bond: Optional[BondFENEParams] = None
     langevin: Optional[LangevinParams] = None
     skin: float = 0.3
     force_path: str = "cellpad"
     rebuild_every: int = 0
     dtype: str = "float32"
+    branched_topology: bool = False
 
     @property
     def ntypes(self) -> int:

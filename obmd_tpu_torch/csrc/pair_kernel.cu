@@ -12,9 +12,13 @@
 // Layout (the TPU kernels' calling convention): fld f32[nb][6][cap][lanes]
 // with channels x, y, z, vx, vy, vz (dead slots at x = y = z = BIG), tag
 // i32[nb][cap][lanes], occ i32[nb] (highest occupied rank + 1 per block),
-// out f32[nb][3][cap][lanes].  Slot (b, r, l) holds rank r of the cell at
-// lane l of block b; lane l covers x-slab b*p + l/s and the (y, z) cell
-// l % s.  With p == 1 the lanes are padded to a multiple of 128 and lanes
+// optional pbond i32[nb][2][cap][lanes] (the tags of each slot's two bond
+// partners, -2 for none; `special_bonds fene`: a pair (i, j) is dropped
+// when j's tag is one of i's partner tags — make_pair_kernel's exclusion
+// channels at n_excl = 2, :582-586 and :641-643, and make_dpd_kernel's,
+// :968-972), out f32[nb][3][cap][lanes].  Slot (b, r, l) holds rank r of
+// the cell at lane l of block b; lane l covers x-slab b*p + l/s and the
+// (y, z) cell l % s.  With p == 1 the lanes are padded to a multiple of 128 and lanes
 // s..lanes-1 are never filed.
 //
 // Design.  Newton-off: one thread per slot sums F_ij over every live atom
@@ -31,10 +35,17 @@
 // (offset, j-rank) step of the j-loop is a near-coalesced row read.  The
 // j-rank loop stops at occ of the neighbour's block.  The pair noise is the
 // reference's counter hash of (salt, smaller tag, larger tag), bit for bit.
+// Exclusion: each thread loads its slot's two partner tags once and skips
+// an in-cutoff j whose tag equals either.  Newton-off visits every pair
+// from both ends and each end checks only its own partners; that equals
+// the TPU kernels' one-sided check because partner lists are symmetric
+// (state.init_state builds both directions of every bond).  -2 matches no
+// tag (live tags are >= 1, dead slots carry -1 and are skipped first).
 //
 // Bound on an H100: the work is the candidate-pair distance tests plus the
-// in-cutoff force evaluations, each unordered pair once; chip_smoke.py
-// counts both, and the bytes, from its run's inputs.  This first version
+// in-cutoff force evaluations of the pairs not excluded, each unordered
+// pair once; chip_smoke.py counts both, and the bytes, from its run's
+// inputs.  This first version
 // does each pair twice (Newton-off) and keeps the j rows in L1/L2 (no
 // shared-memory staging); chip_smoke.py reports its time against the bound.
 #include <cuda_runtime.h>
@@ -66,10 +77,11 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-template <int kLaw, bool kLegacy>
+template <int kLaw, bool kLegacy, bool kExcl>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
-            const int* __restrict__ occ, float* __restrict__ out, Params P) {
+            const int* __restrict__ occ, const int* __restrict__ pbond,
+            float* __restrict__ out, Params P) {
   const int lane = blockIdx.y * kThreads + threadIdx.x;
   const int b = blockIdx.x / P.cap;
   const int r = blockIdx.x % P.cap;
@@ -88,6 +100,12 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
       vyi = fi[4 * plane];
       vzi = fi[5 * plane];
       ti = tag[(size_t)b * plane + row];
+    }
+    int p1 = -2, p2 = -2;
+    if (kExcl) {
+      const int* pb = pbond + (size_t)b * 2 * plane + row;
+      p1 = pb[0];
+      p2 = pb[plane];
     }
     const int within = lane % P.s;
     const int cy = within / P.nz, cz = within % P.nz;
@@ -121,6 +139,10 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             dz = dz - P.lz * rintf(dz * P.inv_lz);
             const float rsq = dx * dx + dy * dy + dz * dz;
             if (!(rsq < cut2 && xj < kBigHalf)) continue;
+            if (kExcl) {
+              const int tjx = tj[o];
+              if (tjx == p1 || tjx == p2) continue;
+            }
             float rr = 0.f;
             if (kLegacy) {
               rr = sqrtf(rsq);
@@ -166,19 +188,34 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
   fo[2 * plane] = fz;
 }
 
+template <int kLaw, bool kLegacy, bool kExcl>
+void start(const dim3& grid, cudaStream_t st, const void* fld,
+           const void* tag, const void* occ, const void* pbond, void* out,
+           const Params& P) {
+  pair_kernel<kLaw, kLegacy, kExcl><<<grid, kThreads, 0, st>>>(
+      (const float*)fld, (const int*)tag, (const int*)occ,
+      (const int*)pbond, (float*)out, P);
+}
+
 template <bool kLegacy>
-int launch(const void* fld, const void* tag, const void* occ, void* out,
-           int law, const Params& P, void* stream) {
+int launch(const void* fld, const void* tag, const void* occ,
+           const void* pbond, void* out, int law, int n_excl,
+           const Params& P, void* stream) {
   if (P.lanes <= 0 || P.lanes % kThreads != 0 || P.cap <= 0 || P.nb <= 0)
     return (int)cudaErrorInvalidValue;
+  if (!(n_excl == 0 || (n_excl == 2 && pbond != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const bool excl = n_excl == 2;
   const dim3 grid((unsigned)(P.nb * P.cap), (unsigned)(P.lanes / kThreads));
   const cudaStream_t st = (cudaStream_t)stream;
-  if (law == kDpd) {
-    pair_kernel<kDpd, kLegacy><<<grid, kThreads, 0, st>>>(
-        (const float*)fld, (const int*)tag, (const int*)occ, (float*)out, P);
+  if (law == kDpd && !excl) {
+    start<kDpd, kLegacy, false>(grid, st, fld, tag, occ, pbond, out, P);
+  } else if (law == kDpd) {
+    start<kDpd, kLegacy, true>(grid, st, fld, tag, occ, pbond, out, P);
+  } else if (law == kLj && !excl) {
+    start<kLj, kLegacy, false>(grid, st, fld, tag, occ, pbond, out, P);
   } else if (law == kLj) {
-    pair_kernel<kLj, kLegacy><<<grid, kThreads, 0, st>>>(
-        (const float*)fld, (const int*)tag, (const int*)occ, (float*)out, P);
+    start<kLj, kLegacy, true>(grid, st, fld, tag, occ, pbond, out, P);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -188,12 +225,12 @@ int launch(const void* fld, const void* tag, const void* occ, void* out,
 }  // namespace
 
 #define OBMD_PAIR_ARGS                                                       \
-  const void *fld, const void *tag, const void *occ, void *out, int nb,     \
-      int cap, int lanes, int nx, int ny, int nz, int s, int p, int per_x,  \
-      int law, float lx, float ly, float lz, float inv_lx, float inv_ly,    \
-      float inv_lz, float a0, float gamma, float sigma, float cut,          \
-      float inv_cut, float dtinvsqrt, float lj1, float lj2, uint32_t salt,  \
-      void *stream
+  const void *fld, const void *tag, const void *occ, const void *pbond,     \
+      void *out, int nb, int cap, int lanes, int nx, int ny, int nz, int s, \
+      int p, int per_x, int law, int n_excl, float lx, float ly, float lz,  \
+      float inv_lx, float inv_ly, float inv_lz, float a0, float gamma,      \
+      float sigma, float cut, float inv_cut, float dtinvsqrt, float lj1,    \
+      float lj2, uint32_t salt, void *stream
 #define OBMD_PAIR_PARAMS                                                     \
   Params{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,       \
          inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,    \
@@ -201,10 +238,12 @@ int launch(const void* fld, const void* tag, const void* occ, void* out,
 
 // make_pair_kernel's function (TPU kernels #1 and #2).
 extern "C" int obmd_pair(OBMD_PAIR_ARGS) {
-  return launch<false>(fld, tag, occ, out, law, OBMD_PAIR_PARAMS, stream);
+  return launch<false>(fld, tag, occ, pbond, out, law, n_excl,
+                       OBMD_PAIR_PARAMS, stream);
 }
 
 // make_dpd_kernel's function (TPU kernel #3).
 extern "C" int obmd_dpd_full(OBMD_PAIR_ARGS) {
-  return launch<true>(fld, tag, occ, out, law, OBMD_PAIR_PARAMS, stream);
+  return launch<true>(fld, tag, occ, pbond, out, law, n_excl,
+                      OBMD_PAIR_PARAMS, stream);
 }

@@ -2,12 +2,13 @@
 
 Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD or lj/cut,
 in an open-x box with ATOM-mode USHER insertion (OBMD_DPD, the open LJ
-fluid) or a closed box without the OBMD stage (the LJ melt), with or
-without the Langevin thermostat.  Step order mirrors Verlet::run: half
-kick, drift + wrap, the epoch relayout on an epoch's first step, the OBMD
-stage (face deletion, buffer census, feedback law, demand-gated subset
-compaction and insertion, boundary-force setpoints), the pair kernel plus
-the boundary force plus the Langevin force, half kick.
+fluid) or a closed box without the OBMD stage (the LJ melt; with FENE
+chains, the chain melt), with or without the Langevin thermostat.  Step
+order mirrors Verlet::run: half kick, drift + wrap, the epoch relayout on an
+epoch's first step, the OBMD stage (face deletion, buffer census, feedback
+law, demand-gated subset compaction and insertion, boundary-force
+setpoints), the pair kernel (1-2 pairs excluded on a bonded scene) plus the
+boundary force plus the bond force plus the Langevin force, half kick.
 
 The pair kernel is make_pair_kernel's (`kernel="pair"`, the default) or the
 legacy full-stencil make_dpd_kernel's (`kernel="full"`); both compute the
@@ -37,9 +38,10 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import DPDParams, LJCutParams, SceneConfig, eval_param
+from .config import (BondFENEParams, DPDParams, LJCutParams, SceneConfig,
+                     eval_param)
 from .geometry import const
-from .forces.bonded import langevin_force
+from .forces.bonded import bond_forces, langevin_force
 from .forces.pair_kernel import (PadGeometry, check_supported as
                                  kernel_check_supported, legacy_kwargs,
                                  make_dpd_kernel, make_pair_kernel)
@@ -71,9 +73,19 @@ def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
     open boxes with ATOM-mode USHER insertion and closed boxes without the
     OBMD stage, each single-type DPD or lj/cut, with or without the
-    Langevin thermostat."""
+    Langevin thermostat; FENE chains (at most two bonds per atom) on a
+    closed box."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
+    if cfg.branched_topology:
+        raise NotImplementedError("branched topologies (more than two bonds "
+                                  "per atom) are not ported yet")
+    if cfg.bond is not None and not isinstance(cfg.bond, BondFENEParams):
+        raise NotImplementedError(
+            f"bond style {type(cfg.bond).__name__} is not ported yet")
+    if cfg.bond is not None and cfg.obmd is not None:
+        raise NotImplementedError("bonds with the OBMD stage (molecule "
+                                  "insertion) are not ported yet")
     if cfg.obmd is not None and cfg.obmd.usher is None:
         raise NotImplementedError("`near` insertion is not ported yet")
     if cfg.obmd is not None and cfg.obmd.group_types is not None:
@@ -106,11 +118,21 @@ def make_geometry(cfg: SceneConfig) -> PadGeometry:
                               cfg.capacity.cell_capacity)
 
 
+def relayout_flags(cfg: SceneConfig) -> dict:
+    """Which optional per-atom columns must follow relayout row-moves: a
+    column constant over the scene (no bonds, no molecules) skips its
+    moves (obmd_tpu/engine_cellpad.py:52-72 for the ported columns)."""
+    has_bonds = cfg.bond is not None
+    return dict(has_bonds=has_bonds, has_mol=has_bonds)
+
+
 def _make_kernel(cfg: SceneConfig, geom: PadGeometry, kernel: str = "pair"):
+    excl = cfg.bond is not None
     if kernel == "pair":
-        return make_pair_kernel(geom, cfg.pair, cfg.dt)
+        return make_pair_kernel(geom, cfg.pair, cfg.dt, exclude_bonded=excl)
     if kernel == "full":
-        return make_dpd_kernel(geom, **legacy_kwargs(cfg.pair, cfg.dt))
+        return make_dpd_kernel(geom, **legacy_kwargs(cfg.pair, cfg.dt),
+                               exclude_bonded=excl)
     raise ValueError(f'kernel must be "pair" or "full", not {kernel!r}')
 
 
@@ -121,24 +143,40 @@ def pair_salt(cfg: SceneConfig, step: int) -> int:
                          PURPOSE_PAIR_NOISE)
 
 
+def partner_tags(geom, state: State) -> torch.Tensor:
+    """pbond i32[nb, 2, cap, lanes]: each slot's bond partners as tags, -2
+    for none, one gather per channel (the kernel compares j tags)."""
+    n = state.capacity
+    chans = [torch.where(b >= 0, state.tag[torch.clamp(b.long(), 0, n - 1)],
+                         -2).reshape(geom.n_blocks, geom.cap, geom.lanes)
+             for b in state.bond_partners]
+    return torch.stack(chans, dim=1)
+
+
 def pack_fields(cfg, geom, state: State):
     """The pair kernel's inputs: (fld f32[nb, 6, cap, lanes] = x (BIG at
-    dead slots), v; tag3d; the step's noise salt; occ)."""
+    dead slots), v; tag3d; the step's noise salt; occ; on a bonded scene
+    the partner tags pbond, else None)."""
     nb, cap, lanes = geom.n_blocks, geom.cap, geom.lanes
     xm = torch.where(state.alive[:, None], state.x, BIG)
     fld = torch.cat([xm, state.v], dim=1).reshape(nb, cap, lanes, 6) \
         .permute(0, 3, 1, 2).contiguous()
     aux: PadAux = state.nbrs
-    return fld, aux.tag3d, pair_salt(cfg, state.step), aux.occ
+    pbond = partner_tags(geom, state) if cfg.bond is not None else None
+    return fld, aux.tag3d, pair_salt(cfg, state.step), aux.occ, pbond
 
 
 def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
-    """Pair kernel on the packed fields, then the boundary force, then the
-    Langevin force."""
+    """Pair kernel on the packed fields, then the boundary force, the bond
+    force and the Langevin force."""
     fpad = kern(*pack_fields(cfg, geom, state))
     f = fpad.permute(0, 2, 3, 1).reshape(-1, 3)
     if cfg.obmd is not None:
         f = _boundary_force_sliced(cfg, geom, state, f)
+    if cfg.bond is not None:
+        fb, _ = bond_forces(cfg.bond, cfg.box, state.x, state.bond1,
+                            state.bond2, state.alive)
+        f = f + fb
     if cfg.langevin is not None:
         f = f + langevin_force(cfg.langevin, cfg, state)
     return torch.where(state.alive[:, None], f, 0.0)
@@ -296,7 +334,8 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
 
     state, vnewl, vnewr = _delete_outside_sliced(cfg, geom, state)
     if with_rebuild:
-        state = maybe_rebuild(geom, box, cfg.skin, state)
+        state = maybe_rebuild(geom, box, cfg.skin, state,
+                              **relayout_flags(cfg))
 
     nins_l = feedback_count(_region_count_sliced(cfg, geom, state,
                                                  obmd.region1),
@@ -368,7 +407,8 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     if relayout:
         if cfg.skin > 0:
             state = note_skin_check(cfg.box, float(cfg.skin), state)
-        state = relayout_incremental(geom, cfg.box, state, move_f=False)
+        state = relayout_incremental(geom, cfg.box, state, move_f=False,
+                                     **relayout_flags(cfg))
     if cfg.obmd is not None:
         state = _obmd_stage(cfg, geom, state, draw, with_rebuild=False)
     f = _forces(cfg, geom, kern, state)

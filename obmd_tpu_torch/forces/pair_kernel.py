@@ -28,13 +28,17 @@ every periodic axis, counted only for 1e-10 < r < rc, with the law
 
 Dead slots carry x = y = z = BIG and are skipped by an explicit test, not
 by distance alone: on a periodic x axis the minimum image folds BIG back
-into the box.
+into the box.  With bonded exclusion (`special_bonds fene`) a pair is also
+dropped when j's tag is one of i's two partner tags, pbond i32[nb, 2, cap,
+lanes] (-2 for no partner); the partner lists are symmetric, so the
+Newton-off sum drops each 1-2 pair from both ends.
 
 Scope: single type, uniform noise, periodic y/z with >= 3 cells each, open
 or periodic x (>= 3 cells), any layout (x-slabs tiling the lanes, p >= 2, or
 one slab per block in lanes padded to a multiple of 128, p == 1), any
-capacity.  lj/cut/rf, 2-4 types, bonded exclusion, the dpd/tstat ramp,
-gaussian noise, single-cell or open y/z axes raise `NotImplementedError`.
+capacity, bonded exclusion with 2 channels.  lj/cut/rf, 2-4 types, 4
+exclusion channels (branched topologies), the dpd/tstat ramp, gaussian
+noise, single-cell or open y/z axes raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from ..rng import pair_bits, uniform01
 EPS = 1.0e-10
 SQRT3 = float(np.sqrt(3.0))
 NF = 6   # x, y, z, vx, vy, vz
+N_EXCL = 2  # partner-tag channels of the bonded exclusion (chains)
 LAWS = ("dpd", "lj")       # the C entry points' law index
 
 
@@ -260,18 +265,24 @@ def _min_image(d, length: float, inv_length: float):
 
 
 def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
-                      tag: torch.Tensor, salt: int,
-                      legacy: bool = False) -> torch.Tensor:
+                      tag: torch.Tensor, salt: int, legacy: bool = False,
+                      pbond=None) -> torch.Tensor:
     """The kernels' function in PyTorch: fld f32[nb, 6, cap, lanes], tag
-    i32[nb, cap, lanes] -> f32[nb, 3, cap, lanes].  Newton-off: each slot
-    of a real column sums over the 27 cells around its column, all ranks of
-    each.  legacy=True takes make_dpd_kernel's arithmetic (r = sqrt(r^2),
-    r > 1e-10), else make_pair_kernel's (r = r^2 / r, r^2 > 1e-20)."""
+    i32[nb, cap, lanes], optional pbond i32[nb, 2, cap, lanes] -> f32[nb,
+    3, cap, lanes].  Newton-off: each slot of a real column sums over the
+    27 cells around its column, all ranks of each, less the pairs whose j
+    tag is one of its partner tags.  legacy=True takes make_dpd_kernel's
+    arithmetic (r = sqrt(r^2), r > 1e-10), else make_pair_kernel's
+    (r = r^2 / r, r^2 > 1e-20)."""
     nb, nf, cap, lanes = fld.shape
     dev = fld.device
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
     tl = tag.permute(0, 2, 1).reshape(nb * lanes, cap)
     icol, cols, oks = _neighbor_columns(geom, dev)
+    pb_i = None
+    if pbond is not None:                            # [R, n_excl, cap_i, 1]
+        pb_i = pbond.permute(0, 3, 1, 2).reshape(
+            nb * lanes, pbond.shape[1], cap)[icol][..., None]
     fi = fl[icol]                                    # [R, NF, cap_i]
     xi = fi[:, :, :, None]                           # [R, NF, cap_i, 1]
     ti = tl[icol][:, :, None]                        # [R, cap_i, 1]
@@ -297,6 +308,10 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
             ok = ok & (rsq > EPS * EPS)
         if o == 13:                                  # the (0, 0, 0) offset
             ok = ok & not_self
+        if pb_i is not None:
+            tj = tl[cols[o]][:, None, :]
+            for c in range(pb_i.shape[1]):
+                ok = ok & (tj != pb_i[:, c])
         if coef.law == "lj":
             r2inv = 1.0 / torch.clamp(rsq, min=EPS * EPS)
             r6inv = r2inv * r2inv * r2inv
@@ -324,34 +339,40 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
 
 
 def _launch(name: str, geom: PadGeometry, coef: PairCoef, fld, tag,
-            salt: int, occ):
+            salt: int, occ, pbond):
     kern = _build.KERNELS[name]
     fn = kern.function()
     nb, _, cap, lanes = fld.shape
     nx, ny, nz = geom.dims
+    n_excl = 0 if pbond is None else pbond.shape[1]
     out = torch.empty((nb, 3, cap, lanes), dtype=torch.float32,
                       device=fld.device)
     with torch.cuda.device(fld.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(fld.data_ptr(), tag.data_ptr(), occ.data_ptr(),
+                None if pbond is None else pbond.data_ptr(),
                 out.data_ptr(), nb, cap, lanes, nx, ny, nz, geom.s, geom.p,
-                int(coef.periodic_x), LAWS.index(coef.law), coef.lx, coef.ly,
-                coef.lz, coef.inv_lx, coef.inv_ly, coef.inv_lz, coef.a0,
-                coef.gamma, coef.sigma, coef.cut, coef.inv_cut,
+                int(coef.periodic_x), LAWS.index(coef.law), n_excl, coef.lx,
+                coef.ly, coef.lz, coef.inv_lx, coef.inv_ly, coef.inv_lz,
+                coef.a0, coef.gamma, coef.sigma, coef.cut, coef.inv_cut,
                 coef.dtinvsqrt, coef.lj1, coef.lj2, salt & 0xFFFFFFFF, stream)
     _build.check(rc, kern)
-    kern.count(f"{coef.law}-cap{geom.fcap}")
+    # the launch's key: law, exclusion channels, filing cap ("lj-excl2-cap18")
+    excl = f"-excl{n_excl}" if n_excl else ""
+    kern.count(f"{coef.law}{excl}-cap{geom.fcap}")
     return out
 
 
-def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool):
+def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
+             exclude_bonded: bool):
     """The kernel's calling convention: checks, then a CUDA tensor goes to
     the Hopper kernel and a CPU tensor to the plain version.  There is no
-    fallback between them."""
+    fallback between them.  With exclude_bonded, pbond is required."""
     shape = (geom.n_blocks, NF, geom.cap, geom.lanes)
+    pshape = (geom.n_blocks, N_EXCL, geom.cap, geom.lanes)
 
     def forces(fld: torch.Tensor, tag: torch.Tensor, salt: int,
-               occ: torch.Tensor) -> torch.Tensor:
+               occ: torch.Tensor, pbond=None) -> torch.Tensor:
         if tuple(fld.shape) != shape or fld.dtype != torch.float32:
             raise ValueError(f"fld must be float32{list(shape)}, got "
                              f"{fld.dtype}{list(fld.shape)}")
@@ -360,28 +381,44 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool):
             raise ValueError("tag must be int32[nb, cap, lanes]")
         if tuple(occ.shape) != (shape[0],) or occ.dtype != torch.int32:
             raise ValueError("occ must be int32[nb]")
-        if not (fld.device == tag.device == occ.device):
-            raise ValueError("fld, tag and occ must share one device")
+        if exclude_bonded != (pbond is not None):
+            raise ValueError("pbond is required with bonded exclusion and "
+                             "refused without it")
+        if pbond is not None and (tuple(pbond.shape) != pshape
+                                  or pbond.dtype != torch.int32):
+            raise ValueError(f"pbond must be int32{list(pshape)}")
+        if not (fld.device == tag.device == occ.device) or (
+                pbond is not None and pbond.device != fld.device):
+            raise ValueError("fld, tag, occ and pbond must share one device")
         if fld.device.type == "cpu":
-            return pair_forces_plain(geom, coef, fld, tag, salt, legacy)
+            return pair_forces_plain(geom, coef, fld, tag, salt, legacy,
+                                     pbond)
         if fld.device.type != "cuda":
             raise ValueError(f"unsupported device {fld.device}")
         return _launch(name, geom, coef, fld.contiguous(), tag.contiguous(),
-                       salt, occ.contiguous())
+                       salt, occ.contiguous(),
+                       None if pbond is None else pbond.contiguous())
 
     return forces
 
 
-def make_pair_kernel(geom: PadGeometry, params, dt: float):
-    """Build pair_forces(fld, tag, salt, occ) -> f32[nb, 3, cap, lanes]:
-    fld f32[nb, 6, cap, lanes] (x, y, z, vx, vy, vz; dead slots at BIG),
-    tag i32[nb, cap, lanes], salt a uint32 python int, occ i32[nb] (per
-    block highest occupied rank + 1; stale-high is safe, stale-low is not).
-    The law comes from `params` (DPDParams or LJCutParams)."""
+def make_pair_kernel(geom: PadGeometry, params, dt: float,
+                     exclude_bonded: bool = False, n_excl: int = N_EXCL):
+    """Build pair_forces(fld, tag, salt, occ, pbond=None) -> f32[nb, 3,
+    cap, lanes]: fld f32[nb, 6, cap, lanes] (x, y, z, vx, vy, vz; dead
+    slots at BIG), tag i32[nb, cap, lanes], salt a uint32 python int, occ
+    i32[nb] (per block highest occupied rank + 1; stale-high is safe,
+    stale-low is not), with exclude_bonded pbond i32[nb, 2, cap, lanes]
+    (partner tags, -2 for none).  The law comes from `params` (DPDParams
+    or LJCutParams)."""
     check_supported(geom, params)
+    if exclude_bonded and n_excl != N_EXCL:
+        raise NotImplementedError(
+            f"pair kernel: {n_excl} exclusion channels (branched "
+            f"topologies) are not ported; chains use {N_EXCL}")
     return _wrapper("pair", geom,
                     PairCoef.create(geom, **legacy_kwargs(params, dt)),
-                    legacy=False)
+                    legacy=False, exclude_bonded=exclude_bonded)
 
 
 def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,
@@ -392,16 +429,9 @@ def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,
     """Build dpd_forces(fld, tag, salt, occ, pbond=None), the counterpart of
     the legacy full-stencil kernel (pallas_dpd.py:877): the calling
     convention of make_pair_kernel's function, law "dpd" or "lj" from
-    scalar coefficients.  Bonded exclusion (pbond) is not ported yet."""
-    if exclude_bonded:
-        raise NotImplementedError(
-            "make_dpd_kernel: bonded exclusion is not ported")
+    scalar coefficients, with exclude_bonded the 2-channel pbond."""
     check_geometry(geom)
-    forces = _wrapper("dpd_full", geom, PairCoef.create(
+    return _wrapper("dpd_full", geom, PairCoef.create(
         geom, law, a0=a0, gamma=gamma, sigma=sigma, cut=cut, dt=dt,
-        lj_eps=lj_eps, lj_sig=lj_sig), legacy=True)
-
-    def dpd_forces(fld, tag, salt, occ, pbond=None):
-        return forces(fld, tag, salt, occ)
-
-    return dpd_forces
+        lj_eps=lj_eps, lj_sig=lj_sig), legacy=True,
+        exclude_bonded=exclude_bonded)

@@ -32,10 +32,15 @@ def compute_forces(cfg: SceneConfig, spec: GridSpec, state: State, *,
     """Stateless force evaluation of the sweep path: cell rebuild + pair
     sweep.  Returns (PairFields, CellTable).  The OBMD boundary force and
     bonded terms of the reference's version are not ported, so a scene with
-    an OBMD stage raises."""
+    an OBMD stage raises; so does a bonded scene, since the sweep has no
+    1-2 exclusion (obmd_tpu/integrate.py:290-293)."""
     if cfg.obmd is not None:
         raise NotImplementedError(
             "compute_forces: the OBMD boundary force is not ported")
+    if cfg.bond is not None:
+        raise NotImplementedError(
+            "compute_forces: the pair sweep has no special-bonds 1-2 "
+            "exclusion; bonded scenes run on the cellpad engine")
     ctab = build_cells(spec, state.x, state.alive)
     pf = pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
                     state.type, state.tag, _salt(cfg, state.step),

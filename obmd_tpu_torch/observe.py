@@ -4,8 +4,12 @@ run audits.
 Counterpart of `obmd_tpu/observe.py`.  Thermo and profiles run the pair
 sweep (`forces/pairs.pair_sweep` over a fresh `cells.build_cells` table),
 independent of the cellpad layout and its kernels.  Pressure convention
-(LAMMPS): P_ab V = sum m v_a v_b + W_ab.  Bonded energies stay zero: no
-bonded configuration is ported yet.
+(LAMMPS): P_ab V = sum m v_a v_b + W_ab.  On a bonded scene E_bond is the
+FENE energy and pe = E_pair + E_bond; E_pair comes from the pair sweep,
+which has no 1-2 exclusion, so it holds the bonded pairs' WCA energy that
+the step leaves out (the JAX package's convention, kept for parity;
+ROADMAP Queue 3).  The pressure omits the bond virial, as the JAX
+package's does.  Angle, dihedral and improper energies stay zero (not ported).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from .cells import build_cells
 from .config import SceneConfig
+from .forces.bonded import bond_forces
 from .forces.pairs import pair_sweep
 from .integrate import _salt, make_grid_spec
 from .state import State, per_atom_mass, temperature
@@ -79,11 +84,16 @@ def make_thermo_fn(cfg: SceneConfig):
             (m * v_[:, 1] * v_[:, 2]).sum()])
         epair = torch.where(alive, pf.pe, 0.0).sum()
         zero = torch.zeros((), dtype=state.dtype, device=state.device)
+        ebond = zero
+        if cfg.bond is not None:
+            _, eb = bond_forces(cfg.bond, cfg.box, state.x, state.bond1,
+                                state.bond2, alive, compute_energy=True)
+            ebond = torch.where(alive, eb, 0.0).sum()
         fa = torch.where(alive[:, None], state.f, 0.0)
         return Thermo(step=state.step, natoms=state.natoms,
-                      temp=temperature(cfg, state), pe=epair,
+                      temp=temperature(cfg, state), pe=epair + ebond,
                       ke=0.5 * mv2.sum(), pressure=pressure, pxx=pxx,
-                      press_tensor=(mvv + w) / vol, epair=epair, ebond=zero,
+                      press_tensor=(mvv + w) / vol, epair=epair, ebond=ebond,
                       eangle=zero, edihed=zero, eimp=zero,
                       fmax=fa.abs().max(), fnorm=torch.sqrt((fa * fa).sum()))
 
@@ -159,6 +169,25 @@ def make_obmd_metrics_fn(cfg: SceneConfig):
             momentum_force_right=sc.momentum_force_right)
 
     return metrics
+
+
+def bond_stats(cfg: SceneConfig, state: State):
+    """(longest bond, bonds at or beyond r0, bonds) of a bonded state, each
+    bond counted once.  FENE clamps a bond at r >= r0 without an error (the
+    reference warns), so a blow-up shows only here and as a hot melt."""
+    n = state.capacity
+    own = torch.arange(n, device=state.device)
+    longest = torch.zeros((), dtype=state.dtype, device=state.device)
+    over = count = 0
+    for partner in state.bond_partners:
+        j = torch.clamp(partner.long(), 0, n - 1)
+        once = state.alive & (partner >= 0) & state.alive[j] & (j > own)
+        d = cfg.box.min_image(state.x - state.x[j])
+        r = torch.where(once, torch.sqrt((d * d).sum(-1)), 0.0)
+        longest = torch.maximum(longest, r.max())
+        over = over + (r >= cfg.bond.r0).sum()
+        count = count + once.sum()
+    return float(longest), int(over), int(count)
 
 
 def check_invariants(cfg: SceneConfig, state: State) -> dict:

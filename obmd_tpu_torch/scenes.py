@@ -1,16 +1,19 @@
 """The ported scenes: OBMD_DPD (examples/OBMD_DPD/input.py:17-124), the LJ
-melt (the reference's code/bench/in.lj) and the open-boundary LJ fluid.
+melt (the reference's code/bench/in.lj), the open-boundary LJ fluid and the
+FENE chain melt (code/bench/in.chain).
 
-Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config`, `obmd_dpd_scene` and
-`lj_melt_scene`.  OBMD_DPD: DPD fluid at rho = 3, T = 1 with open x
-boundaries, constant normal load pxx on both buffers and USHER insertion;
-`scale` stretches the box in x (scale 9 is the ~107k-atom bench size).  LJ
-melt: an fcc lattice in a fully periodic box, NVE.  Initial states are drawn
+Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config`, `obmd_dpd_scene`,
+`lj_melt_scene` and `chain_scene`.  OBMD_DPD: DPD fluid at rho = 3, T = 1
+with open x boundaries, constant normal load pxx on both buffers and USHER
+insertion; `scale` stretches the box in x (scale 9 is the ~107k-atom bench
+size).  LJ melt: an fcc lattice in a fully periodic box, NVE.  Initial states are drawn
 with the same numpy generators as the reference, so both packages start from
 the same positions and velocities.  The open LJ fluid (`obmd_lj_config`,
 `obmd_lj_scene`) assembles configuration objects both packages have: the
 LJ melt's law and lattice in OBMD_DPD's open-x buffer layout under a
-Langevin thermostat.
+Langevin thermostat.  The chain melt reads a data file as the JAX scene
+does, or builds its start in the repository: chains threaded through the
+LJ melt's fcc lattice (`chain_lattice`), warmed up by `chain_warm_up`.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from typing import Optional
 
 import numpy as np
 
-from .config import (Capacity, DPDParams, LangevinParams, LJCutParams,
-                     ObmdParams, SceneConfig, UsherParams)
+from .config import (BondFENEParams, Capacity, DPDParams, LangevinParams,
+                     LJCutParams, ObmdParams, SceneConfig, UsherParams)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -214,3 +217,120 @@ def obmd_lj_scene(nx: int = 128, ny: int = 14, nbuf: Optional[float] = None,
     v = rng.normal(0.0, np.sqrt(1.44), x.shape)
     v -= v.mean(axis=0)
     return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+
+
+# the chain melt (code/bench/in.chain): rho* = 0.8442 on the LJ melt's
+# lattice, 100-bead chains, and the generated start's warm-up settings
+CHAIN_RHO, CHAIN_LEN = 0.8442, 100
+WARM_DT, WARM_STEPS, WARM_CAP = 0.003, 1000, 24
+
+
+def chain_config(box: Box, n_max: int) -> SceneConfig:
+    """bench/in.chain's physics in `box`: lj/cut 1.12 shifted (WCA, eps =
+    sigma = 1) with 1-2 pairs excluded (`special_bonds fene`), bond fene
+    30.0 1.5 1.0 1.0, Langevin T = 1 damp 10 seed 904297, dt 0.012.  Skin
+    0.98 and filing cap 18 are the JAX chain_scene's (cap 18 measured
+    occupancy-tight on the published melt, cap 17 overflows)."""
+    pair = LJCutParams.create(cutoff=1.12, epsilon=1.0, sigma=1.0,
+                              shift=True)
+    return SceneConfig(
+        box=box, masses=(1.0,), pair=pair, dt=0.012,
+        capacity=Capacity(n_max=n_max, cell_capacity=18),
+        bond=BondFENEParams(k=30.0, r0=1.5, epsilon=1.0, sigma=1.0),
+        langevin=LangevinParams(temp=1.0, damp=10.0, seed=904297),
+        skin=0.98, force_path="cellpad")
+
+
+def chain_lattice(nx: int = 20, chain_len: int = CHAIN_LEN):
+    """Chains threaded through the fcc lattice of lj_melt_scene(nx) with
+    nearest-neighbour steps: (positions [N, 3], mol [N], bonds [N - N /
+    chain_len, 2] as 1-based tags), tags 1..N along the chains, mol the
+    chain index from 1.
+
+    In half-spacing units a site is (i, j, k) with i + j + k even.  Plane
+    k (normal to z) is a checkerboard; in the row index r = (j - k) mod 2n
+    it is traversed strip by strip, a strip being rows (2s, 2s + 1) walked
+    along i as a zigzag (i, 2s + i % 2), each step a diagonal
+    nearest-neighbour bond (the strip-to-strip step wraps i periodically).
+    Plane k starts at strip -k mod n, so that its last site lies one
+    nearest-neighbour step below the next plane's first.  The path, cut
+    into pieces of chain_len, gives every bond the length a / sqrt(2)
+    (1.188 at rho* = 0.8442), below FENE's r0 = 1.5, and every non-bonded
+    pair at least that far apart, beyond the WCA cut of 1.12.
+
+    The lattice is shifted by a/12 on every axis: at nx = 20 a cell
+    (33.59 / 15 wide) spans 8/3 half-spacings, so unshifted planes lie on
+    every third cell face and the first relayouts would move more atoms
+    than their mover budget; a sixth of a half-spacing keeps every plane
+    at least 0.14 from a face."""
+    n = nx
+    kk, tt, ii = np.meshgrid(np.arange(2 * n), np.arange(n), np.arange(2 * n),
+                             indexing="ij")
+    strip = (tt - kk) % n
+    j = (2 * strip + ii % 2 + kk) % (2 * n)
+    grid = np.stack([ii, j, kk], axis=-1).reshape(-1, 3)
+    n_sites = len(grid)
+    if n_sites % chain_len:
+        raise ValueError(f"{n_sites} lattice sites do not make chains of "
+                         f"{chain_len}")
+    a = (4.0 / CHAIN_RHO) ** (1.0 / 3.0)
+    x = (grid + 1.0 / 6.0) * (0.5 * a)
+    tags = np.arange(1, n_sites + 1)
+    mol = (tags - 1) // chain_len + 1
+    inner = tags[:-1][(tags[:-1] % chain_len) != 0]
+    bonds = np.stack([inner, inner + 1], axis=1)
+    return x, mol.astype(np.int32), bonds
+
+
+def chain_scene(data_path: Optional[str] = None, nx: int = 20,
+                chain_len: int = CHAIN_LEN, device="cuda") -> Scene:
+    """The reference's chain headline benchmark (bench/in.chain) on
+    `device`: a FENE bead-spring melt of 32,000 beads in 320 chains of 100
+    (chain_config's physics).
+
+    With `data_path`, the published start is read from that `atom_style
+    bond` data file, as the JAX chain_scene does.  Without it, the start is
+    chain_lattice(nx, chain_len) in the lj_melt_scene(nx) box (rho* =
+    0.8442, 33.59 on a side at nx = 20, periodic on every axis) with
+    normal velocities at T = 1 (numpy seed 87287), zero net momentum.  Its
+    bonds sit at 1.188 and relax toward ~0.97 under FENE, which heats the
+    melt far above T = 1 in a few steps at dt 0.012: run chain_warm_up
+    before setup."""
+    if data_path is not None:
+        from .io.lammps_data import read_data
+        df = read_data(data_path, atom_style="bond")
+        cfg = chain_config(df.box(periodic=(True, True, True)), df.natoms)
+        return Scene(cfg=cfg, state=init_state(
+            cfg, df.x, v=df.v, types=df.types, tags=df.tags, mol=df.mol,
+            bonds=df.bonds, device=device))
+    x, mol, bonds = chain_lattice(nx, chain_len)
+    L = nx * (4.0 / CHAIN_RHO) ** (1.0 / 3.0)
+    box = Box((0.0, 0.0, 0.0), (L, L, L), (True, True, True))
+    rng = np.random.default_rng(87287)
+    v = rng.normal(0.0, 1.0, x.shape)
+    v -= v.mean(axis=0)
+    cfg = chain_config(box, len(x))
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, mol=mol,
+                                           bonds=bonds, device=device))
+
+
+def chain_warm_up_config(cfg: SceneConfig) -> SceneConfig:
+    """The warm-up's copy of a chain config: dt WARM_DT and filing capacity
+    WARM_CAP, roomier for the hot transient."""
+    return dataclasses.replace(cfg, dt=WARM_DT, capacity=dataclasses.replace(
+        cfg.capacity, cell_capacity=WARM_CAP))
+
+
+def chain_warm_up(cfg: SceneConfig, state: State,
+                  steps: int = WARM_STEPS) -> State:
+    """The generated start's warm-up, with means the JAX package has:
+    chain_warm_up_config(cfg), setup, then integrate.equilibrate's velocity
+    rescale to the thermostat's T every 25 steps.  Returns the state laid
+    out in the warm-up config's geometry; `integrate.setup(cfg, state)`
+    then files it at the scene's own capacity.  The melt is warm when no
+    bond is longer than r0, T is within 10% of the target and
+    observe.check_invariants passes."""
+    from .integrate import equilibrate, setup
+    wcfg = chain_warm_up_config(cfg)
+    return equilibrate(wcfg, setup(wcfg, state), steps,
+                       temp=cfg.langevin.temp)

@@ -1,10 +1,14 @@
 """Fixed-capacity, validity-masked SoA particle state.
 
-Counterpart of `obmd_tpu/state.py` for the single-type, atom-only OBMD_DPD
-path: dead slots have alive = False, tag = -1 and v = 0; particle counts
-change by mask flips and masked writes under fixed shapes.  The JAX PRNG key
-becomes a `torch.Generator` (the cold path's candidate draws); the step
-counter is a host int, so the pair-noise salt is computed on the host.
+Counterpart of `obmd_tpu/state.py` for single-type scenes with at most two
+bonds per atom: dead slots have alive = False, tag = -1 and v = 0; particle
+counts change by mask flips and masked writes under fixed shapes.  Bonds are
+stored per atom as partner SLOTS (`bond1`, `bond2`, -1 for none), remapped by
+every relayout.  The JAX PRNG key becomes a `torch.Generator` (the cold
+path's candidate draws); the step counter is a host int, so the pair-noise
+salt is computed on the host.  The AdResS and molecule-insertion columns
+(lambdaF, cms_mol, vcms_mol, rep_atom) and the branched topology's bond3,
+bond4 and impr are not ported.
 """
 from __future__ import annotations
 
@@ -62,6 +66,9 @@ class State:
     type: torch.Tensor     # [N] i32
     tag: torch.Tensor      # [N] i32 global id, -1 for dead slots
     alive: torch.Tensor    # [N] bool
+    mol: torch.Tensor      # [N] i32 molecule id (0 = not in a molecule)
+    bond1: torch.Tensor    # [N] i32 slot of the 1st bond partner (-1 = none)
+    bond2: torch.Tensor    # [N] i32 slot of the 2nd bond partner (-1 = none)
     step: int
     sim_time: torch.Tensor  # 0-dim, advanced in the OBMD stage
     maxtag: torch.Tensor   # 0-dim i32
@@ -83,6 +90,12 @@ class State:
         return self.x.dtype
 
     @property
+    def bond_partners(self) -> tuple:
+        """The bond-partner slot columns, the iteration unit of every bonded
+        pass."""
+        return (self.bond1, self.bond2)
+
+    @property
     def natoms(self) -> torch.Tensor:
         return self.alive.sum(dtype=torch.int32)
 
@@ -96,11 +109,37 @@ def make_generator(seed: int, device) -> torch.Generator:
     return g
 
 
+def bond_columns(n_max: int, tags, bonds) -> tuple:
+    """The partner-slot columns of [nb, 2] 1-based tag pairs, filled in the
+    reference's order (obmd_tpu/state.py:171-185): each bond (a, b) puts b
+    in a's first free column, then a in b's."""
+    cols = [np.full((n_max,), -1, dtype=np.int32) for _ in range(2)]
+    if bonds is None:
+        return tuple(cols)
+    tag2row = {int(t): i for i, t in enumerate(tags)}
+    for a, b in np.asarray(bonds, dtype=np.int64).reshape(-1, 2):
+        for me, other in ((int(a), int(b)), (int(b), int(a))):
+            row, orow = tag2row[me], tag2row[other]
+            for col in cols:
+                if col[row] < 0:
+                    col[row] = orow
+                    break
+            else:
+                raise NotImplementedError(
+                    f"atom tag {me} has more than two bonds: the branched "
+                    "topology's bond3/bond4 columns are not ported")
+    return tuple(cols)
+
+
 def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
-               tags=None, device="cuda") -> State:
+               tags=None, mol=None, bonds=None, device="cuda") -> State:
     """Build a State from host arrays of n <= n_max real atoms; dead slots
-    are parked at the box center with tag -1 and v = 0."""
+    are parked at the box center with tag -1 and v = 0.  mol: molecule ids;
+    bonds: [nb, 2] 1-based atom-tag pairs, at most two per atom, stored as
+    partner slots."""
     cfg = cfg.finalize()
+    if cfg.branched_topology:
+        raise NotImplementedError("branched topologies are not ported")
     dev = resolve_device(device)
     npdt = np.dtype(cfg.dtype)
     tdt = getattr(torch, cfg.dtype)
@@ -124,6 +163,10 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
                 else np.arange(1, n + 1, dtype=np.int32))
     alive = np.zeros((n_max,), dtype=bool)
     alive[:n] = True
+    molp = np.zeros((n_max,), dtype=np.int32)
+    if mol is not None:
+        molp[:n] = np.asarray(mol, dtype=np.int32)
+    bond1, bond2 = bond_columns(n_max, tagp[:n], bonds)
 
     def t(a):
         return torch.from_numpy(a).to(dev)
@@ -131,7 +174,8 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     zi = torch.zeros((), dtype=torch.int32, device=dev)
     return State(
         x=t(xp), v=t(vp), f=torch.zeros((n_max, 3), dtype=tdt, device=dev),
-        type=t(tp), tag=t(tagp), alive=t(alive), step=0,
+        type=t(tp), tag=t(tagp), alive=t(alive), mol=t(molp),
+        bond1=t(bond1), bond2=t(bond2), step=0,
         sim_time=torch.zeros((), dtype=tdt, device=dev),
         maxtag=torch.tensor(int(tagp.max(initial=0)), dtype=torch.int32,
                             device=dev),

@@ -22,7 +22,9 @@ def _modules():
 
 def test_imports_with_jax_blocked():
     mods = list(_modules())
-    assert "obmd_tpu_torch.forces.pair_kernel" in mods
+    for m in ("obmd_tpu_torch.forces.pair_kernel",
+              "obmd_tpu_torch.forces.bonded", "obmd_tpu_torch.io.lammps_data"):
+        assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['obmd_tpu'] = None\n"
@@ -58,6 +60,8 @@ def test_default_device_raises_without_gpu():
         scenes.lj_melt_scene(nx=2)
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.obmd_lj_scene(nx=4, ny=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.chain_scene(nx=5)
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

@@ -277,7 +277,7 @@ def test_pair_plain_open_x_matches_sweep_and_tpu_kernel():
     st = psetup(pcfg, pinit_state(pcfg, jittered(jcfg, x), v=v, device=CPU))
     d = convert.to_arrays(st)
     geom = make_geometry(pcfg)
-    fld, tag3d, _, occ = pack_fields(pcfg, geom, st)
+    fld, tag3d, _, occ, _ = pack_fields(pcfg, geom, st)
     f_port = make_pair_kernel(geom, pcfg.pair, pcfg.dt)(fld, tag3d, 0,
                                                         occ).numpy()
     f_tpu = np.asarray(j_make_pair_kernel(

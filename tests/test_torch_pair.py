@@ -88,9 +88,10 @@ def test_forces_with_boundary_force_match_jax(set_up):
 
 
 def test_wrapper_rejects_what_it_does_not_cover():
-    """Wrong dtypes and shapes raise ValueError; 2 types, gaussian noise,
-    open or single-cell y/z axes and bonded exclusion raise
-    NotImplementedError.  p == 1 layouts and periodic x are ported."""
+    """Wrong dtypes and shapes, and a missing or unasked-for pbond, raise
+    ValueError; 2 types, gaussian noise, open or single-cell y/z axes and
+    4 exclusion channels (branched topologies) raise NotImplementedError.
+    p == 1 layouts, periodic x and 2-channel exclusion are ported."""
     jcfg, _, pcfg, _ = lattice_states(scale=0.25, cap=15)
     geom = p_make_geometry(pcfg)
     kern = make_pair_kernel(geom, pcfg.pair, pcfg.dt)
@@ -119,6 +120,16 @@ def test_wrapper_rejects_what_it_does_not_cover():
     with pytest.raises(NotImplementedError):
         make_pair_kernel(geom._replace(dims=(8, 1, 8)), pcfg.pair, 0.01)
     with pytest.raises(NotImplementedError):
-        make_dpd_kernel(geom, exclude_bonded=True)
+        make_pair_kernel(geom, pcfg.pair, 0.01, exclude_bonded=True,
+                         n_excl=4)
+    pbond = torch.full((nb, 2, cap, lanes), -2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kern(fld, tag, 1, occ, pbond)
+    for excl in (make_pair_kernel(geom, pcfg.pair, 0.01, exclude_bonded=True),
+                 make_dpd_kernel(geom, exclude_bonded=True)):
+        with pytest.raises(ValueError):
+            excl(fld, tag, 1, occ)
+        with pytest.raises(ValueError):
+            excl(fld, tag, 1, occ, pbond[:, :1])
     make_pair_kernel(geom._replace(p=1, lanes=128, s=64), pcfg.pair, 0.01)
     make_pair_kernel(geom._replace(periodic_x=True), pcfg.pair, 0.01)

@@ -25,9 +25,9 @@ torch.set_num_threads(1)
 
 CPU = "cpu"
 # state fields held exactly and at float tolerance in whole-slice parity
-EXACT = ("type", "tag", "alive", "step", "maxtag", "cell_overflow",
-         "ndeleted", "ninserted", "insert_fail", "usher_iters", "rebuilds",
-         "overflow", "skin_trips", "tag3d", "occ")
+EXACT = ("type", "tag", "alive", "mol", "bond1", "bond2", "step", "maxtag",
+         "cell_overflow", "ndeleted", "ninserted", "insert_fail",
+         "usher_iters", "rebuilds", "overflow", "skin_trips", "tag3d", "occ")
 CLOSE = ("x", "v", "xref", "sim_time", "momentum_force_left",
          "momentum_force_right", "shear_force_left", "shear_force_right")
 
@@ -115,6 +115,50 @@ def lattice_states(scale=0.25, cap=15, seed=13, **cfg_kw):
         pcfg.capacity, n_max=n_max)).finalize()
     return (jcfg, jinit_state(jcfg, x, v=v), pcfg,
             pinit_state(pcfg, x, v=v, device=CPU))
+
+
+def jax_chain_config(pcfg):
+    """The JAX package's configuration of a port chain_config, built as
+    obmd_tpu.scenes.chain_scene builds it (in.chain's physics)."""
+    from obmd_tpu.config import (BondFENEParams, Capacity, LangevinParams,
+                                 LJCutParams, SceneConfig)
+    from obmd_tpu.geometry import Box
+    return SceneConfig(
+        box=Box(pcfg.box.lo, pcfg.box.hi, pcfg.box.periodic), masses=(1.0,),
+        pair=LJCutParams.create(cutoff=1.12, epsilon=1.0, sigma=1.0,
+                                shift=True),
+        dt=0.012, capacity=Capacity(n_max=pcfg.capacity.n_max,
+                                    cell_capacity=pcfg.capacity.cell_capacity),
+        bond=BondFENEParams(k=30.0, r0=1.5, epsilon=1.0, sigma=1.0),
+        langevin=LangevinParams(temp=1.0, damp=10.0, seed=904297),
+        skin=pcfg.skin, force_path=pcfg.force_path)
+
+
+def chain_states(nx=7, chain_len=49, jitter=0.06, seed=3, cap=18, warm=0):
+    """(jax cfg, jax state, port cfg, port state) of one small chain melt:
+    chain_scene's generated start (nx = 7: 1,372 beads in 28 chains, 5
+    cells per axis at skin 0.98, p == 1 in 5 blocks) moved by a numpy
+    normal jitter of `jitter`, so that some 1-2 pairs and some non-bonded
+    pairs lie inside the WCA cut.  Not nx = 6: its 4 cells per axis lay
+    out p = 4 in one block, where JAX's make_pair_kernel puts ~4e9 on a
+    live slot (ROADMAP Queue 3).  With
+    `warm` > 0 both start instead from the port's chain_warm_up of that
+    many steps (on the CPU), the start the main path steps from."""
+    ps = pscenes.chain_scene(nx=nx, chain_len=chain_len, device=CPU)
+    pcfg = dataclasses.replace(ps.cfg, capacity=dataclasses.replace(
+        ps.cfg.capacity, cell_capacity=cap))
+    x, mol, bonds = pscenes.chain_lattice(nx, chain_len)
+    x = jittered(pcfg, x, seed, jitter)
+    v = ps.state.v.numpy()
+    if warm:
+        st = pscenes.chain_warm_up(pcfg, pinit_state(
+            pcfg, x, v=v, mol=mol, bonds=bonds, device=CPU), steps=warm)
+        order = torch.argsort(st.tag[st.alive])
+        x = st.x[st.alive][order].numpy()
+        v = st.v[st.alive][order].numpy()
+    jcfg = jax_chain_config(pcfg)
+    return (jcfg, jinit_state(jcfg, x, v=v, mol=mol, bonds=bonds), pcfg,
+            pinit_state(pcfg, x, v=v, mol=mol, bonds=bonds, device=CPU))
 
 
 def _mirror(port_obj, jax_obj, path="cfg"):
