@@ -86,7 +86,35 @@ Phases (any failure exits non-zero and prints no result line):
      from it on exactly the slots that have such a pair; a profile of two
      relayout epochs; FULL_STEPS steps through the full-stencil kernel,
      check_invariants;
- 16. the figures of the four paths (with each path's whole wall time,
+ 16. the open charged two-type LJ fluid at a small size
+     (obmd_ljrf_scene(nx=16, ny=9), its lattice thinned to 70% of the
+     sites so that some uniform candidates lie below etarget, nbuf raised,
+     nattempt = 0) on the card against the same path on the CPU
+     (check_small_path, charges and types exact); the first step inserts;
+ 17. its main path: obmd_ljrf_scene() (100,352 atoms, 10,036 ions at
+     +-0.5, net charge 0, two-type lj/cut/rf, x open, cap 44), setup,
+     equilibrate(OLJ_EQUIL, temp=1.44), make_run(400) to settle, two timed
+     make_run(400) windows, check_invariants, T within 5% of 0.722 at both
+     window ends; thermo (E_pair/N with the reaction field, pressure), the
+     net charge and the ion count at each mark; then the insertion phase
+     with nbuf raised to 1.05 x census / alpha, INS_STEPS steps, ninserted
+     > 0 (neutral type-0 solvent), check_invariants.  Launch counts are
+     zeroed before setup and read after the insertion phase: the pair
+     kernel (key ljrf-t2-cap44) once per step and at setup, the USHER
+     kernel's lj/cut/rf rows (usher_search_ljrf) once per step that needs
+     atoms; make_run(kernel="full") refuses the scene;
+ 18. on the ended production state of phase 17: the lj/cut/rf USHER launch
+     against its plain version on the charged two-type subsets, the pair
+     kernel at cap 44 against its plain version and against the port's
+     pair sweep, a profile of two relayout epochs; kernel-only checks
+     against the plain versions: ljrf at fill cap 20 (that state thinned
+     to 40%, relaid out: the big-tile body's configuration), two-type DPD
+     on the OBMD_DPD box at scale 1 (a uniform gas, the noise the same
+     hash of the same tags and salt), four-type lj with per-pair cutoffs
+     on the nx = 20 LJ melt lattice; the fork's LAMMPS golden
+     (validation/ljrf_golden/charged.data, 220 charged atoms) through
+     setup on the card, every force within 5e-5 * max|f| of dump.ref;
+ 19. the figures of the five paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
@@ -100,8 +128,11 @@ bytes (each input read once, each output written once; of a dead slot only
 the x that marks it dead) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (H100 SXM data sheet; the work counted from this run's inputs by
 pair_work and usher_work: a distance test for every candidate pair, the
-law only for the pairs within the cutoff and not excluded; with exclusion
-each alive slot also reads its two partner tags, and the LJ law its tag).
+law only for the pairs within their own cutoff and not excluded, the
+reaction field only for the pairs of two charged atoms within rc_coul;
+with exclusion each alive slot also reads its two partner tags, and the LJ
+law its tag; a charged law reads q and 2-4 types the type of each alive
+slot, and every typed launch its tables once).
 No PyTorch call computes any kernel's function, so library_ms is null.  The OBMD_DPD and open LJ paths
 record the most atoms in one cell after their repack or melt and after each
 production window: the margin left before a cell overflow, which
@@ -110,6 +141,7 @@ check_invariants turns into a failure.
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -130,6 +162,12 @@ OLJ_SMALL = (16, 9)
 # the chain melt: bench/in.chain's 32,000 beads (nx = 20), its windows, and
 # the small path's 28 chains of 49 beads (nx = 7) and their warm-up
 CHAIN_NX, CHAIN_STEPS, CHAIN_SMALL, CHAIN_SMALL_WARM = 20, 400, (7, 49), 300
+# the open charged fluid: the small path's share of lattice sites kept, the
+# kernel-only check at fill cap 20 and the share of the ended state it keeps
+RF_SMALL_KEEP, RF_CAP_SMALL, RF_CAP_SMALL_KEEP = 0.7, 20, 0.4
+# the fork's LAMMPS forces on a charged box (validation/run_ljrf_golden.py)
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "validation", "ljrf_golden")
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -158,6 +196,12 @@ OPS_USHER_TEST = OPS_PAIR_TEST + 1
 # 3-component accumulation (6)
 OPS_USHER_DPD = 19
 OPS_USHER_LJ = 22
+# the reaction field on one in-cutoff pair of charged atoms: the cutoff
+# compare, rsqrt, r^-2 and r^-3 (2), qq qi qj (2), c_rf / rc^3 and the
+# subtraction (2), the product and its add to the force scalar (2); the
+# LJ term's own cutoff compare in a typed law
+OPS_RF_FORCE = 10
+OPS_TYPED_LJ = 1
 
 
 def fail(msg: str):
@@ -215,10 +259,13 @@ class KeepCounts:
 
 def pair_work(geom, fld, coef, tag=None, pbond=None):
     """(alive slots, unordered candidate pairs of alive atoms in the 27-cell
-    stencil, unordered pairs within the cutoff and not excluded) of this
-    input: the least work of the function, each pair visited once."""
+    stencil, unordered pairs within their cutoff and not excluded,
+    unordered pairs of two charged atoms within rc_coul) of this input:
+    the least work of the function, each pair visited once."""
     import torch
-    from obmd_tpu_torch.forces.pair_kernel import _neighbor_columns
+    from obmd_tpu_torch.forces.pair_kernel import (TABLE_ROWS,
+                                                   _neighbor_columns,
+                                                   _table_tensor)
     nb, nf, cap, lanes = fld.shape
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
     icol, cols, oks = _neighbor_columns(geom, fld.device)
@@ -229,7 +276,9 @@ def pair_work(geom, fld, coef, tag=None, pbond=None):
     live = fl[:, 0, :] < 0.5e8
     not_self = ~torch.eye(cap, dtype=torch.bool, device=fld.device)
     lengths = (coef.lx if coef.periodic_x else 0.0, coef.ly, coef.lz)
-    cand = inside = 0
+    if coef.typed:
+        cut2 = _table_tensor(coef, fld.device)[TABLE_ROWS.index("cut2")]
+    cand = inside = coul = 0
     for o in range(cols.shape[0]):
         xj = fl[cols[o]]
         ok = oks[o][:, None, None] & live[icol][:, :, None] \
@@ -242,33 +291,49 @@ def pair_work(geom, fld, coef, tag=None, pbond=None):
             if lengths[c]:
                 d = d - lengths[c] * torch.round(d / lengths[c])
             rsq = rsq + d * d
-        law = ok & (rsq < coef.cut * coef.cut)
+        if coef.ntypes > 1:
+            t = coef.ntypes
+            tp = (fl[icol, nf - 1, :, None].long() * t
+                  + xj[:, nf - 1, None, :].long()).clamp(0, t * t - 1)
+            law = ok & (rsq < cut2[tp])
+        elif coef.typed:
+            law = ok & (rsq < cut2[0])
+        else:
+            law = ok & (rsq < coef.cut * coef.cut)
+        if coef.law == "ljrf":
+            qq = (fl[icol, 6, :, None] * xj[:, 6, None, :]) != 0.0
+            coul += int((ok & qq & (rsq < coef.tables[2])).sum())
         if pbond is not None:
             tj = tl[cols[o]][:, None, :]
             for c in range(pb.shape[1]):
                 law = law & (tj != pb[:, c, :, None])
         cand += int(ok.sum())
         inside += int(law.sum())
-    return int(live.sum()), cand // 2, inside // 2
+    return int(live.sum()), cand // 2, inside // 2, coul // 2
 
 
 def pair_bound(geom, fld, coef, tag=None, pbond=None):
     """(bound_ms, bound_by, candidate pairs, in-cutoff pairs that take the
-    law) of one pair-kernel call on this input."""
-    n_live, n_cand, n_in = pair_work(geom, fld, coef, tag, pbond)
+    law, charged pairs that take the reaction field) of one pair-kernel
+    call on this input."""
+    n_live, n_cand, n_in, n_coul = pair_work(geom, fld, coef, tag, pbond)
     slots = geom.n_slots
     # x of every slot (it tells dead from alive), the other fields the law
-    # reads of the alive slots (dpd: y, z, v and tag; lj: y, z), occ, and
-    # the force of every slot; with exclusion the two partner tags of each
-    # alive slot, and its tag for the lj law
-    per_live = 6 if coef.law == "dpd" else 2
+    # reads of the alive slots (dpd: y, z, v and tag; lj: y, z; ljrf: q
+    # too; with 2-4 types: the type), occ, and the force of every slot;
+    # with exclusion the two partner tags of each alive slot, and its tag
+    # for the lj law; a typed launch's tables once
+    per_live = (6 if coef.law == "dpd" else 2) + (coef.law == "ljrf") \
+        + (coef.ntypes > 1)
     if pbond is not None:
         per_live += pbond.shape[1] + (coef.law != "dpd")
     n_bytes = (slots * 4 + n_live * per_live * 4 + geom.n_blocks * 4
-               + slots * 3 * 4)
+               + slots * 3 * 4 + len(coef.tables) * 4)
     test = OPS_PAIR_TEST + (OPS_MI_X if coef.periodic_x else 0)
-    force = OPS_PAIR_FORCE if coef.law == "dpd" else OPS_LJ_FORCE
-    return bound(n_bytes, n_cand * test + n_in * force) + (n_cand, n_in)
+    force = OPS_PAIR_FORCE if coef.law == "dpd" else (
+        OPS_LJ_FORCE + OPS_TYPED_LJ * coef.typed)
+    return bound(n_bytes, n_cand * test + n_in * force
+                 + n_coul * OPS_RF_FORCE) + (n_cand, n_in, n_coul)
 
 
 def compare_forces(geom, state, got, want, label):
@@ -298,11 +363,10 @@ def check_pair(cfg, geom, state, label, kernel="pair"):
     make_dpd_kernel's) against its plain version on one state.
     Returns its figures and its forces."""
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
-    from obmd_tpu_torch.forces.pair_kernel import (PairCoef, legacy_kwargs,
-                                                   pair_forces_plain)
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, pair_forces_plain
     fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
     kern = _make_kernel(cfg, geom, kernel)
-    coef = PairCoef.create(geom, **legacy_kwargs(cfg.pair, cfg.dt))
+    coef = PairCoef.of(geom, cfg.pair, cfg.dt)
 
     def plain():
         return pair_forces_plain(geom, coef, fld, tag, salt,
@@ -316,11 +380,13 @@ def check_pair(cfg, geom, state, label, kernel="pair"):
                                           f"{kernel} kernel {label}")
         ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond))
         plain_ms = time_ms(plain, reps=5, warmup=1)
-    b_ms, b_by, n_cand, n_in = pair_bound(geom, fld, coef, tag, pbond)
+    b_ms, b_by, n_cand, n_in, n_coul = pair_bound(geom, fld, coef, tag,
+                                                  pbond)
+    coul = f" / {n_coul} charged in rc_coul" if coef.law == "ljrf" else ""
     log(f"{kernel} kernel {label}: max_abs_err {err:.3e} (max|f| "
         f"{scale:.1f}), |sum f| {fsum:.3e}, kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, {n_cand} candidate / {n_in} in-cutoff pairs, "
-        f"bound {b_ms:.5f} ms")
+        f"{plain_ms:.3f} ms, {n_cand} candidate / {n_in} in-cutoff pairs"
+        f"{coul}, bound {b_ms:.5f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), f_k
 
@@ -342,7 +408,7 @@ def usher_work(cfg, sub_l, sub_r, cl, cr, iters, inputs):
     Every evaluation tests every valid subset atom; the law runs only on the
     atoms within the cutoff, counted at those positions."""
     import torch
-    from obmd_tpu_torch.config import LJCutParams
+    from obmd_tpu_torch.config import LJCutParams, LJCutRFParams
     from obmd_tpu_torch.obmd.subset import (pad_subset,
                                             usher_search_subset_batch)
     o = cfg.obmd
@@ -365,7 +431,8 @@ def usher_work(cfg, sub_l, sub_r, cl, cr, iters, inputs):
         live = iters >= n                    # candidates evaluated here
         tests += int((live.to(torch.int64) * sv.sum(-1)[:, None]).sum())
         inside += int((near & live[..., None]).sum())
-    law = OPS_USHER_LJ if isinstance(cfg.pair, LJCutParams) else OPS_USHER_DPD
+    law = OPS_USHER_LJ if isinstance(cfg.pair, (LJCutParams, LJCutRFParams)) \
+        else OPS_USHER_DPD
     # rows, candidates and bounds read once; positions, verdicts and
     # iterations written once
     n_bytes = (rows.numel() + cand.numel() + bounds.numel()) * 4 \
@@ -425,11 +492,11 @@ def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
 
 def check_usher(cfg, geom, state, label):
     """The law's USHER kernel against its plain version on the state's
-    buffer subsets with K uniform candidates per buffer; for lj/cut, the
-    shifted law's rows on the same input too, and at least one candidate
-    must take the overlap step."""
+    buffer subsets with K uniform candidates per buffer; for the LJ family
+    at least one candidate must take the overlap step, and for lj/cut the
+    shifted law's rows run on the same input too."""
     import torch
-    from obmd_tpu_torch.config import LJCutParams
+    from obmd_tpu_torch.config import LJCutParams, LJCutRFParams
     from obmd_tpu_torch.engine_cellpad import _subset_slice
     from obmd_tpu_torch.forces.usher_kernel import kernel_inputs, launch
     from obmd_tpu_torch.obmd.subset import usher_search_subset_batch
@@ -448,7 +515,7 @@ def check_usher(cfg, geom, state, label):
     with KeepCounts():
         ak, ik, err, checked, overlap = usher_compare(
             cfg, sub_l, sub_r, cl, cr, label)
-        if lj and overlap < 1:
+        if isinstance(cfg.pair, (LJCutParams, LJCutRFParams)) and overlap < 1:
             fail(f"USHER {label}: no candidate took the overlap step")
         extra = {}
         if lj:
@@ -496,7 +563,7 @@ class SeededDraws:
         return torch.from_numpy(u).to(state.device) if need else None
 
 
-SMALL_EXACT = ("type", "tag", "alive", "mol", "bond1", "bond2", "step",
+SMALL_EXACT = ("type", "q", "tag", "alive", "mol", "bond1", "bond2", "step",
                "maxtag", "cell_overflow", "ndeleted", "ninserted",
                "insert_fail", "usher_iters", "rebuilds", "overflow",
                "skin_trips", "tag3d", "occ")
@@ -525,6 +592,26 @@ def small_obmd_lj(dev):
     sc = scenes.obmd_lj_scene(nx=OLJ_SMALL[0], ny=OLJ_SMALL[1], nbuf=nbuf,
                               device=dev)
     return sc.cfg, sc.state
+
+
+def small_ljrf(dev):
+    """The open charged fluid's small path: obmd_ljrf_scene(nx=16, ny=9)
+    (9 x 5 x 5 cells) with its lattice thinned to RF_SMALL_KEEP of the
+    sites (numpy seed 1; on the full lattice no uniform candidate lies
+    below etarget) and nbuf raised to 1.05 x the buffer's lattice count /
+    alpha, so that both buffers ask for atoms."""
+    import numpy as np
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.state import init_state
+    o = scenes.obmd_ljrf_config(nx=OLJ_SMALL[0], ny=OLJ_SMALL[1]).obmd
+    sc = scenes.obmd_ljrf_scene(nx=OLJ_SMALL[0], ny=OLJ_SMALL[1],
+                                nbuf=1.05 * o.nbuf / o.alpha ** 2,
+                                device="cpu")
+    st = sc.state
+    n = int(st.natoms)
+    keep = np.random.default_rng(1).random(n) < RF_SMALL_KEEP
+    x, v, t, q = (a[:n][keep].numpy() for a in (st.x, st.v, st.type, st.q))
+    return sc.cfg, init_state(sc.cfg, x, v=v, types=t, q=q, device=dev)
 
 
 @functools.lru_cache(maxsize=1)
@@ -1297,8 +1384,286 @@ def run_chain():
     return path, kernels
 
 
+def charge_marks(cfg, thermo, state, marks):
+    """Thermo through the pair sweep (E_pair with the reaction field), the
+    net charge and the ion count at one mark."""
+    from obmd_tpu_torch.observe import charge_census
+    m = thermo_line(thermo(state))
+    net, ions = charge_census(state)
+    m.update(net_charge=net, ions=ions, natoms=int(state.natoms))
+    marks.append(m)
+    log(f"open charged fluid: step {m['step']} T {m['temp']:.5f} E_pair/N "
+        f"{m['epair_per_atom']:.6f} press {m['press']:.5f} net charge "
+        f"{net:g} ions {ions} atoms {m['natoms']}")
+    return m
+
+
+def check_golden():
+    """The fork's LAMMPS forces on validation/ljrf_golden (220 charged
+    atoms in a periodic 9^3 box, lj/cut/rf 2.2 2.2, eps 0.8, sigma 1,
+    eps_rf 80) through setup on the card: every force within 5e-5 *
+    max|f| of dump.ref (validation/run_ljrf_golden.py's bar).  Returns the
+    max error and max|f|."""
+    import numpy as np
+    from obmd_tpu_torch import config
+    from obmd_tpu_torch.integrate import setup
+    from obmd_tpu_torch.io.lammps_data import read_data
+    from obmd_tpu_torch.state import init_state
+    df = read_data(os.path.join(GOLDEN_DIR, "charged.data"),
+                   atom_style="charge")
+    ref = {}
+    with open(os.path.join(GOLDEN_DIR, "dump.ref")) as fh:
+        lines = fh.read().splitlines()
+    for line in lines[lines.index("ITEM: ATOMS id fx fy fz") + 1:]:
+        t = line.split()
+        ref[int(t[0])] = np.asarray([float(v) for v in t[1:4]])
+    pair = config.LJCutRFParams.create(cut_lj=2.2, cut_coul=2.2,
+                                       epsilon=0.8, sigma=1.0, eps_rf=80.0)
+    cfg = config.SceneConfig(
+        box=df.box(periodic=(True, True, True)), masses=tuple(df.masses),
+        pair=pair, dt=0.002,
+        capacity=config.Capacity(n_max=df.natoms, cell_capacity=48),
+        skin=0.3)
+    with KeepCounts():
+        st = setup(cfg, init_state(cfg, df.x, types=df.types, tags=df.tags,
+                                   q=df.q, device=DEV))
+        sync()
+    f = st.f.cpu().numpy()
+    got = {int(t): f[i] for i, t in enumerate(st.tag.tolist())
+           if bool(st.alive[i])}
+    if set(got) != set(ref):
+        fail("ljrf golden: the atom ids differ from dump.ref")
+    scale = max(float(np.linalg.norm(v)) for v in ref.values())
+    err = max(float(np.abs(got[t] - ref[t]).max()) for t in ref)
+    if not err <= 5e-5 * scale:
+        fail(f"ljrf golden: max force error {err} > 5e-5 * {scale}")
+    log(f"ljrf golden ({len(ref)} atoms): the pair kernel on the card "
+        f"against the fork's LAMMPS forces, max error {err:.3e} (max|f| "
+        f"{scale:.1f}, bar {5e-5 * scale:.3e})")
+    return dict(max_abs_err=err, max_f=scale)
+
+
+def kernel_only_checks(cfg, state):
+    """The typed pair kernel's other configurations against their plain
+    versions: ljrf at fill cap RF_CAP_SMALL (the ended state thinned to
+    RF_CAP_SMALL_KEEP, relaid out), two-type DPD on the OBMD_DPD box at
+    scale 1 (a uniform gas) and four-type lj with per-pair cutoffs on the
+    nx = 20 LJ melt lattice (0.05 normal jitter)."""
+    import numpy as np
+    import torch
+    from obmd_tpu_torch import config, scenes
+    from obmd_tpu_torch.cellpad import layout_build
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.state import init_state
+    out = {}
+    g = torch.Generator(device=DEV)
+    g.manual_seed(RF_CAP_SMALL)
+    keep = state.alive & (torch.rand(state.alive.shape, generator=g,
+                                     device=DEV) < RF_CAP_SMALL_KEEP)
+    cfg20, geom20, st20 = repack(cfg, state.replace(alive=keep), RF_CAP_SMALL)
+    if int(st20.cell_overflow) != int(state.cell_overflow):
+        fail(f"ljrf cap {RF_CAP_SMALL}: the thinned state overflows a cell")
+    out["ljrf_cap20"], _ = check_pair(cfg20, geom20, st20,
+                                      f"ljrf, 2 types, cap {geom20.fcap}")
+
+    r = np.random.default_rng(5)
+    sc = scenes.obmd_dpd_scene(scale=1.0, seed=SEED, device="cpu")
+    pair = config.DPDParams.create(
+        temp=1.0, cutoff=1.0, seed=5, ntypes=2,
+        a0=[[209.6, 150.0], [150.0, 180.0]], gamma=[[4.5, 2.0], [2.0, 6.0]])
+    dcfg = dataclasses.replace(sc.cfg, pair=pair, masses=(1.0, 2.0))
+    n = int(sc.state.natoms)
+    dst = init_state(dcfg, sc.state.x[:n].numpy(), v=sc.state.v[:n].numpy(),
+                     types=r.integers(0, 2, n), device=DEV)
+    dgeom = make_geometry(dcfg)
+    dst = layout_build(dgeom, dcfg.box, dst)
+    if int(dst.cell_overflow):
+        fail("two-type DPD: cell overflow")
+    out["dpd_t2"], _ = check_pair(dcfg, dgeom, dst,
+                                  f"dpd, 2 types, cap {dgeom.fcap}")
+
+    sc = scenes.lj_melt_scene(nx=LJ_NX, device="cpu")
+    eps = np.array([[1.0, 0.8, 0.9, 1.1], [0.8, 0.6, 0.7, 0.9],
+                    [0.9, 0.7, 1.2, 1.0], [1.1, 0.9, 1.0, 0.5]])
+    sig = np.array([[1.0, 0.95, 1.05, 0.9], [0.95, 0.9, 1.0, 0.92],
+                    [1.05, 1.0, 1.1, 0.97], [0.9, 0.92, 0.97, 0.85]])
+    cut = np.where(np.add.outer(np.arange(4), np.arange(4)) % 2, 2.2, 2.5)
+    pair = config.LJCutParams.create(cutoff=2.5, epsilon=eps, sigma=sig,
+                                     cut=cut, ntypes=4)
+    lcfg = dataclasses.replace(sc.cfg, pair=pair, masses=(1.0, 1.2, 0.8, 2.0))
+    x = sc.state.x.numpy() + 0.05 * r.normal(size=sc.state.x.shape)
+    lst = init_state(lcfg, lcfg.box.wrap(torch.from_numpy(x)).numpy(),
+                     v=sc.state.v.numpy(), types=r.integers(0, 4, len(x)),
+                     device=DEV)
+    lgeom = make_geometry(lcfg)
+    lst = layout_build(lgeom, lcfg.box, lst)
+    if int(lst.cell_overflow):
+        fail("four-type lj: cell overflow")
+    out["lj_t4"], _ = check_pair(lcfg, lgeom, lst,
+                                 f"lj, 4 types, cap {lgeom.fcap}")
+    return out
+
+
+def run_ljrf():
+    """Phases 16-18: the open charged two-type fluid's small path against
+    the CPU, its main path with an insertion phase, and its kernel checks."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
+    from obmd_tpu_torch.integrate import (compute_forces, equilibrate,
+                                          make_grid_spec, make_run, setup)
+    from obmd_tpu_torch.observe import (charge_census, check_invariants,
+                                        make_obmd_metrics_fn, make_thermo_fn)
+
+    # ---- phase 16: the path at a small size against the CPU
+    with KeepCounts():
+        small_err = check_small_path("open charged", small_ljrf,
+                                     require_insert=True)
+
+    # ---- phase 17: the main path, then the insertion phase
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    sc = scenes.obmd_ljrf_scene(nx=OLJ_NX, ny=OLJ_NY, device=DEV)
+    cfg = sc.cfg
+    net0, ions0 = charge_census(sc.state)
+    if net0 != 0.0 or ions0 <= 0:
+        fail(f"open charged fluid: start with net charge {net0}, {ions0} ions")
+    geom = make_geometry(cfg)
+    thermo = make_thermo_fn(cfg)
+    metrics = make_obmd_metrics_fn(cfg)
+    st = setup(cfg, sc.state)
+    t_eq = time.perf_counter()
+    st = equilibrate(cfg, st, OLJ_EQUIL, temp=1.44)
+    sync()
+    eq_s = time.perf_counter() - t_eq
+    occupancy = [max_cell_count(geom, st)]
+    run = make_run(cfg, OLJ_STEPS)
+    st = run(st)
+    sync()
+    occupancy.append(max_cell_count(geom, st))
+    marks = []
+    charge_marks(cfg, thermo, st, marks)
+    windows = []
+    for _ in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        charge_marks(cfg, thermo, st, marks)
+    tel = check_invariants(cfg, st)
+    check_finite(st, "open charged main path")
+    natoms = int(st.natoms)
+    st_prod = st
+    t_want = cfg.langevin.temp
+    for m in marks[1:]:
+        if not abs(m["temp"] - t_want) <= 0.05 * t_want:
+            fail(f"open charged fluid: T {m['temp']} at step {m['step']} is "
+                 f"not within 5% of {t_want}")
+    m = metrics(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    deleted = int(st.obmd.ndeleted)
+    log(f"open charged fluid: buffer censuses {int(m.nbuf_left)} and "
+        f"{int(m.nbuf_right)} (alpha * nbuf = "
+        f"{cfg.obmd.alpha * cfg.obmd.nbuf:.1f}), {deleted} deleted, "
+        f"{int(st.obmd.ninserted)} inserted, {natoms} atoms")
+
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=1.05 * census / cfg.obmd.alpha)).finalize()
+    ins0, tag0 = int(st.obmd.ninserted), int(st.maxtag)
+    t_ins = time.perf_counter()
+    st = make_run(cfg_ins, INS_STEPS)(st)
+    sync()
+    ins_s = time.perf_counter() - t_ins
+    tel_ins = check_invariants(cfg_ins, st)
+    inserted = int(st.obmd.ninserted) - ins0
+    if inserted <= 0:
+        fail("open charged insertion phase inserted no atoms")
+    new = st.alive & (st.tag > tag0)
+    if bool((st.type[new] != 0).any()) or bool((st.q[new] != 0.0).any()):
+        fail("open charged insertion phase: an inserted atom is not neutral "
+             "type-0 solvent")
+    check_finite(st, "open charged insertion phase")
+    charge_marks(cfg, thermo, st, marks)
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    n_steps = OLJ_EQUIL // 25 * 25 + 3 * OLJ_STEPS + INS_STEPS
+    key = f"ljrf-t2-cap{geom.fcap}"
+    wall, steps = min(windows)
+    log(f"open charged main path (lattice {OLJ_NX} x {OLJ_NY} x {OLJ_NY}, "
+        f"{geom}) {path_s:.1f} s (equilibrate {eq_s:.1f} s), windows "
+        f"{windows}, {wall / steps * 1e3:.3f} ms/step, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, telemetry "
+        f"{tel}, most atoms in one cell after equilibration and after each "
+        f"production window {occupancy} (filing cap {geom.fcap}); insertion "
+        f"phase: nbuf {cfg_ins.obmd.nbuf:.1f}, {inserted} inserted in "
+        f"{INS_STEPS} steps ({ins_s:.2f} s), {tel_ins}; launches {launches}")
+    require_launches(launches, {"pair": (key,), "usher_search_ljrf": None},
+                     "open charged main path")
+    if launches["pair"][0] != n_steps + 1:
+        fail(f"open charged fluid: {launches['pair'][0]} pair kernel launches "
+             f"for setup and {n_steps} steps")
+    if not INS_STEPS <= launches["usher_search_ljrf"][0] <= n_steps + 1:
+        fail(f"open charged fluid: {launches['usher_search_ljrf'][0]} USHER "
+             f"launches, expected one for each of the {INS_STEPS} insertion "
+             "steps and at most one per step")
+    try:
+        make_run(cfg, 1, kernel="full")
+        fail("open charged fluid: the full-stencil kernel took two types")
+    except NotImplementedError:
+        pass
+
+    # ---- phase 18: the kernels on the ended production state, a profile,
+    # the kernel-only configurations and the LAMMPS golden
+    usher, usher_info = check_usher(cfg, geom, st_prod, "ljrf")
+    pair, _ = check_pair(cfg, geom, st_prod,
+                         f"ljrf, 2 types, cap {geom.fcap}, open x")
+    bare = dataclasses.replace(cfg, obmd=None, langevin=None)
+    pf, ctab = compute_forces(bare, make_grid_spec(bare), st_prod)
+    if int(ctab.overflow) != 0:
+        fail(f"open charged sweep: cell overflow {int(ctab.overflow)}")
+    from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
+    with KeepCounts():
+        f_k = _make_kernel(cfg, geom)(*pack_fields(cfg, geom, st_prod))
+    f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
+        .permute(0, 3, 1, 2)
+    sweep_err, sweep_scale, _ = compare_forces(
+        geom, st_prod, f_k, torch.where(st_prod.alive.reshape(
+            geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
+        "open charged pair kernel against the pair sweep")
+    log(f"open charged pair kernel against the pair sweep: max_abs_err "
+        f"{sweep_err:.3e} (max|f| {sweep_scale:.1f})")
+    r_every = auto_rebuild_every(cfg)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st_prod, 2 * r_every)
+    log(f"open charged profile: {prof}")
+    kernel_only = kernel_only_checks(cfg, st_prod)
+    golden = check_golden()
+
+    path = dict(atoms=natoms, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], equilibrate_s=eq_s,
+                path_s=path_s, thermo=marks, telemetry=tel,
+                start_ions=ions0, buffer_census=[int(m.nbuf_left),
+                                                 int(m.nbuf_right)],
+                deleted=deleted, max_cell_count=max(occupancy),
+                filing_cap=geom.fcap, insertion_phase_inserted=inserted,
+                small_path_max_pos_err=small_err, usher=usher_info,
+                forces_vs_sweep_max_abs_err=sweep_err,
+                forces_vs_sweep_max_f=sweep_scale, profile=prof,
+                kernel_only_checks=kernel_only, golden=golden)
+    kernels = [
+        kernel_line("pair", f"ljrf, 2 types, cap {geom.fcap}, open x, "
+                    f"p = {geom.p}", "obmd_tpu/forces/pallas_dpd.py:324",
+                    launches["pair"][1][key], pair),
+        kernel_line("usher_search_ljrf", "lj/cut/rf rows, 2 types", None,
+                    launches["usher_search_ljrf"][0], usher),
+    ]
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-15; returns the four paths' figures and the kernel
+    """Phases 2-18; returns the five paths' figures and the kernel
     figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
@@ -1322,11 +1687,14 @@ def run_smoke():
     t0 = time.perf_counter()
     chain_path, chain_kernels = run_chain()
     wall_s["chain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rf_path, rf_kernels = run_ljrf()
+    wall_s["obmd_ljrf"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
-                          chain=chain_path),
+                          chain=chain_path, obmd_ljrf=rf_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
-                + chain_kernels)
+                + chain_kernels + rf_kernels)
 
 
 def main():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The open LJ fluid's state point on one NVIDIA GPU: the reading behind
-obmd_tpu_torch.scenes.OBMD_LJ_ETARGET and OBMD_LJ_PXX.
+"""The open LJ fluids' state points on one NVIDIA GPU: the readings behind
+obmd_tpu_torch.scenes.OBMD_LJ_ETARGET and OBMD_LJ_PXX (the open LJ fluid)
+and OBMD_LJRF_ETARGET and OBMD_LJRF_PXX (the open charged two-type fluid).
 
-    python3 lj_state_point.py
+    python3 lj_state_point.py [lj | ljrf]     (no argument: both)
 
 1. The bulk liquid: lj_melt_scene(nx=20) (in.lj, 32,000 atoms, periodic)
    under the open fluid's Langevin thermostat (T* = 0.722, damp 1): setup,
@@ -19,6 +20,14 @@ obmd_tpu_torch.scenes.OBMD_LJ_ETARGET and OBMD_LJ_PXX.
    subset), the plain search on the card at etarget = E_pair/N and at
    2 E_pair/N, with the fix's default steps (ds0 1, dsovlp 1.5, 40
    iterations) and with shorter or longer ones.
+4. The charged fluid's bulk (ljrf): scenes.ljrf_bulk_scene(nx=20), 32,000
+   atoms of the open charged fluid's composition (10% ions at +-0.5, the
+   two-type lj/cut/rf law) in the LJ melt's periodic box under the same
+   thermostat, the same melt, settling and reading: the mean per-atom pair
+   energy of the neutral type-0 solvent (half of each incident pair's
+   energy; the USHER target of neutral type-0 trials), E_pair/N and the
+   pressure (the reaction-field virial included), then USHER acceptance on
+   its ended state at etarget = the solvent's mean energy.
 
 Prints one JSON line; exits non-zero without a GPU.
 """
@@ -35,37 +44,62 @@ K = 128
 STEPS = ((1.0, 1.5, 40), (0.2, 1.5, 40), (0.2, 1.0, 40), (1.0, 1.5, 100))
 
 
-def thermo_means(thermo, run, st, nsteps, every):
+def solvent_energy(cfg, st):
+    """Mean per-atom pair energy of the alive type-0 atoms."""
+    import torch
+    from obmd_tpu_torch.integrate import compute_forces, make_grid_spec
+    pf, _ = compute_forces(cfg, make_grid_spec(cfg), st, compute_energy=True)
+    solvent = st.alive & (st.type == 0)
+    return float(torch.where(solvent, pf.pe, 0.0).sum()) / int(solvent.sum())
+
+
+def marks(cfg, thermo, st):
+    """(T, E_pair/N, pressure, type-0 mean pair energy) of one state."""
+    t = thermo(st)
+    return (float(t.temp), float(t.epair) / int(t.natoms), float(t.pressure),
+            solvent_energy(cfg, st))
+
+
+def thermo_means(cfg, thermo, run, st, nsteps, every):
     rows = []
     for _ in range(nsteps // every):
         st = run(st)
-        t = thermo(st)
-        n = int(t.natoms)
-        rows.append((float(t.temp), float(t.epair) / n, float(t.pressure)))
+        rows.append(marks(cfg, thermo, st))
     return st, np.asarray(rows).mean(0).tolist()
+
+
+def bulk(cfg, state):
+    """Melt, settle and read one periodic bulk liquid (steps 1 and 4)."""
+    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
+    from obmd_tpu_torch.observe import make_thermo_fn
+    thermo = make_thermo_fn(cfg)
+    st = equilibrate(cfg, setup(cfg, state), MELT, temp=1.44)
+    blocks = []
+    run400 = make_run(cfg, 400)
+    for _ in range(SETTLE // 400):
+        st = run400(st)
+        blocks.append([st.step, *marks(cfg, thermo, st)])
+    st, (temp, epair, press, e0) = thermo_means(
+        cfg, thermo, make_run(cfg, EVERY), st, READ, EVERY)
+    return st, dict(temp=temp, epair_per_atom=epair, pressure=press,
+                    type0_pair_energy_per_atom=e0, settle_marks=blocks)
 
 
 def bulk_lj(dev):
     from obmd_tpu_torch import scenes
     from obmd_tpu_torch.config import LangevinParams
-    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
-    from obmd_tpu_torch.observe import make_thermo_fn
     sc = scenes.lj_melt_scene(nx=20, device=dev)
     cfg = dataclasses.replace(sc.cfg, langevin=LangevinParams(
         temp=scenes.OBMD_LJ_TEMP, damp=1.0))
-    thermo = make_thermo_fn(cfg)
-    st = equilibrate(cfg, setup(cfg, sc.state), MELT, temp=1.44)
-    blocks = []
-    run400 = make_run(cfg, 400)
-    for _ in range(SETTLE // 400):
-        st = run400(st)
-        t = thermo(st)
-        blocks.append([st.step, float(t.temp), float(t.epair) / int(t.natoms),
-                       float(t.pressure)])
-    st, (temp, epair, press) = thermo_means(thermo, make_run(cfg, EVERY), st,
-                                            READ, EVERY)
-    return cfg, st, dict(temp=temp, epair_per_atom=epair, pressure=press,
-                         settle_marks=blocks)
+    st, out = bulk(cfg, sc.state)
+    return cfg, st, out
+
+
+def bulk_ljrf(dev):
+    from obmd_tpu_torch import scenes
+    sc = scenes.ljrf_bulk_scene(nx=20, device=dev)
+    st, out = bulk(sc.cfg, sc.state)
+    return sc.cfg, st, out
 
 
 def dpd_deck(dev):
@@ -111,9 +145,10 @@ def acceptance(cfg, st, etarget, ds0, dsovlp, nattempt):
     x = st.x[st.alive]
     b = x.shape[0]
     dev = x.device
-    sub = Subset(x=x, type=torch.zeros((b,), dtype=torch.int32, device=dev),
+    sub = Subset(x=x, type=st.type[st.alive],
                  valid=torch.ones((b,), dtype=torch.bool, device=dev),
-                 overflow=torch.zeros((), dtype=torch.bool, device=dev))
+                 overflow=torch.zeros((), dtype=torch.bool, device=dev),
+                 q=st.q[st.alive])
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     u = torch.rand((2, K, 3), generator=g, device=dev)
@@ -122,7 +157,7 @@ def acceptance(cfg, st, etarget, ds0, dsovlp, nattempt):
     e0, _ = _batched_energy_force(
         cfg.pair, torch.stack([x, x]), torch.stack([sub.type, sub.type]),
         torch.stack([sub.valid, sub.valid]), torch.stack([cl, cr]),
-        torch.stack([ct, ct]), box=cfg.box)
+        torch.stack([ct, ct]), box=cfg.box, sub_q=torch.stack([sub.q, sub.q]))
     _, acc, iters = usher_search_subset_batch(cfg, sub, sub, cl, cr, ct, r_l,
                                               r_r)
     return dict(etarget=etarget, ds0=ds0, dsovlp=dsovlp, nattempt=nattempt,
@@ -135,21 +170,34 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("lj_state_point: FAIL: this reading needs a GPU")
+    which = sys.argv[1:] or ["lj", "ljrf"]
+    if not set(which) <= {"lj", "ljrf"}:
+        sys.exit(f"lj_state_point: unknown reading {which}; use lj or ljrf")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    cfg, st, bulk = bulk_lj("cuda")
-    print(f"bulk LJ: {bulk}", file=sys.stderr, flush=True)
-    dpd = dpd_deck("cuda")
-    print(f"OBMD_DPD deck fluid: {dpd}", file=sys.stderr, flush=True)
-    e = bulk["epair_per_atom"]
-    usher = [acceptance(cfg, st, et, *steps)
-             for et in (e, 2.0 * e) for steps in STEPS]
-    for u in usher:
-        print(f"usher: {u}", file=sys.stderr, flush=True)
+    out = dict(card=card)
+    if "lj" in which:
+        cfg, st, lj = bulk_lj("cuda")
+        print(f"bulk LJ: {lj}", file=sys.stderr, flush=True)
+        dpd = dpd_deck("cuda")
+        print(f"OBMD_DPD deck fluid: {dpd}", file=sys.stderr, flush=True)
+        e = lj["epair_per_atom"]
+        usher = [acceptance(cfg, st, et, *steps)
+                 for et in (e, 2.0 * e) for steps in STEPS]
+        for u in usher:
+            print(f"usher: {u}", file=sys.stderr, flush=True)
+        out.update(bulk_lj=lj, dpd_deck=dpd, usher_acceptance=usher)
+    if "ljrf" in which:
+        cfg, st, rf = bulk_ljrf("cuda")
+        print(f"bulk charged two-type fluid: {rf}", file=sys.stderr,
+              flush=True)
+        e0 = rf["type0_pair_energy_per_atom"]
+        usher = [acceptance(cfg, st, e0, *STEPS[0])]
+        print(f"usher: {usher}", file=sys.stderr, flush=True)
+        out.update(bulk_ljrf=rf, ljrf_usher_acceptance=usher)
     print(card)
-    print(json.dumps(dict(card=card, bulk_lj=bulk, dpd_deck=dpd,
-                          usher_acceptance=usher)))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

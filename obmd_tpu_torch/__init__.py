@@ -5,11 +5,13 @@ A port of `obmd_tpu` (JAX + Pallas for the TPU), which stays the reference.
 This package imports torch and numpy only — never JAX, never `obmd_tpu`.
 Module names mirror the reference's, so each counterpart is easy to find;
 the TPU kernels of the ported paths live in `forces/pair_kernel.py` and
-`forces/usher_kernel.py`, each beside its plain PyTorch version.  Four
+`forces/usher_kernel.py`, each beside its plain PyTorch version.  Five
 paths run: the OBMD_DPD open-boundary run, the LJ melt (with thermo through
 the pair sweep of `forces/pairs.py`), the open-boundary LJ fluid (USHER
-with the lj/cut law under a Langevin thermostat) and the FENE chain melt
-(1-2 pairs excluded in the pair kernels, FENE bonds).
+with the lj/cut law under a Langevin thermostat), the FENE chain melt
+(1-2 pairs excluded in the pair kernels, FENE bonds) and the open-boundary
+charged two-type LJ fluid (lj/cut/rf with 1-4 types in the pair kernel,
+per-atom charges and types).
 
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:
@@ -28,6 +30,9 @@ machine without one raises).  Quick start:
     state = make_run(sc.cfg, 400)(state)
     sc = scenes.chain_scene()
     state = setup(sc.cfg, scenes.chain_warm_up(sc.cfg, sc.state))
+    state = make_run(sc.cfg, 400)(state)
+    sc = scenes.obmd_ljrf_scene()
+    state = equilibrate(sc.cfg, setup(sc.cfg, sc.state), 400, temp=1.44)
     state = make_run(sc.cfg, 400)(state)
 """
 

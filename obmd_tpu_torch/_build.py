@@ -80,8 +80,8 @@ class Kernel:
 
 # fld, tag, occ, pbond, out, nb, cap, lanes, nx, ny, nz, s, p, per_x, law,
 # n_excl, lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma, sigma, cut,
-# inv_cut, dtinvsqrt, lj1, lj2, salt, stream
-_PAIR_ARGS = (_P,) * 5 + (_I,) * 11 + (_F,) * 14 + (_U, _P)
+# inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32), ntypes, stream
+_PAIR_ARGS = (_P,) * 5 + (_I,) * 11 + (_F,) * 14 + (_U, _P, _I, _P)
 # rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt, ly, lz,
 # thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
 _USHER_ARGS = (_P,) * 6 + (_I,) * 3 + (_F,) * 9 + (_P,)
@@ -104,6 +104,12 @@ KERNELS: Dict[str, Kernel] = {
         symbol="obmd_usher_search_lj", argtypes=_USHER_ARGS,
         replaces="obmd_tpu/forces/pallas_usher.py:110 (lj rows :57-75, "
                  "E and F :155-166)"),
+    # the same entry point on the neutral lj/cut/rf rows, counted apart
+    "usher_search_ljrf": Kernel(
+        name="usher_search_ljrf", source="usher_kernel.cu",
+        symbol="obmd_usher_search_lj", argtypes=_USHER_ARGS,
+        replaces="obmd_tpu/forces/pallas_usher.py:110 (neutral lj/cut/rf "
+                 "rows :57-75, E and F :155-166)"),
 }
 
 

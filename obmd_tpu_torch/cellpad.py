@@ -147,7 +147,7 @@ def layout_build(geom: PadGeometry, box: Box, state: State) -> State:
         **kernel_caches(geom, tag, alive))
     return state.replace(
         x=x, v=scat(state.v, 0), f=scat(state.f, 0), type=scat(state.type, 0),
-        tag=tag, alive=alive, mol=scat(state.mol, 0),
+        tag=tag, q=scat(state.q, 0), alive=alive, mol=scat(state.mol, 0),
         bond1=scat(remap(state.bond1).to(I32), -1),
         bond2=scat(remap(state.bond2).to(I32), -1),
         cell_overflow=state.cell_overflow + overflow, nbrs=aux)
@@ -231,16 +231,18 @@ def _column_slots(geom: PadGeometry, cell: torch.Tensor):
 def relayout_incremental(geom: PadGeometry, box: Box, state: State,
                          m_max: int = 0, move_f: bool = True,
                          has_bonds: bool = True,
-                         has_mol: bool = True) -> State:
+                         has_mol: bool = True,
+                         has_charge: bool = True,
+                         has_types: bool = True) -> State:
     """Movers-only epoch relayout: each atom whose current cell differs from
     its slot's cell takes a free rank of its current cell (the j-th mover of
     a cell takes the j-th free rank); atoms that cannot be placed stay put
     and are counted in PadAux.overflow.  Moves x, v, tag, alive (and f when
     move_f); with has_bonds, the partner slot columns move and every
-    partner reference follows its atom; with has_mol, mol moves.  Callers
-    pass engine_cellpad.relayout_flags: a column constant over the scene
-    (no bonds, no molecules) skips its moves.  Types do not move: only
-    single-type scenes are ported."""
+    partner reference follows its atom; with has_mol, mol moves; with
+    has_charge, q; with has_types, type.  Callers pass
+    engine_cellpad.relayout_flags: a column constant over the scene (no
+    bonds, no molecules, no charges, one type) skips its moves."""
     n_slots = geom.n_slots
     if m_max <= 0:
         m_max = max(2048, n_slots // 32)
@@ -300,8 +302,12 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
 
         upd["bond1"] = remap(move(state.bond1, -1))
         upd["bond2"] = remap(move(state.bond2, -1))
+    if has_charge:
+        upd["q"] = move(state.q, 0.0)
     if has_mol:
         upd["mol"] = move(state.mol, 0)
+    if has_types:
+        upd["type"] = move(state.type, 0)
     new = state.replace(**upd)
     return new.replace(nbrs=aux.replace(
         xref=x, rebuilds=aux.rebuilds + 1,

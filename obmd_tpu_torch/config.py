@@ -1,14 +1,14 @@
 """Scene configuration for the OBMD_DPD main path.
 
 Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
-`DPDParams`, `LJCutParams`, `UsherParams`, `ObmdParams`, `LangevinParams`,
-`BondFENEParams`, `Capacity` and `SceneConfig.finalize`, with the same field
-names and defaults so a test can hold the two packages' configs field by
-field.  lj/cut/rf, dpd/tstat, dpd/ext, harmonic bonds and molecule
-insertion are not ported yet: `SceneConfig` carries their fields so a
-configuration can name them, and the engine refuses them.  Angles,
-dihedrals and impropers have no field yet; they come with the slice that
-ports those styles.
+`DPDParams`, `LJCutParams`, `LJCutRFParams`, `UsherParams`, `ObmdParams`,
+`LangevinParams`, `BondFENEParams`, `Capacity` and `SceneConfig.finalize`,
+with the same field names and defaults so a test can hold the two packages'
+configs field by field.  Every law takes per-type-pair tables (`_sym`).
+dpd/tstat, dpd/ext, harmonic bonds and molecule insertion are not ported
+yet: `SceneConfig` carries their fields so a configuration can name them,
+and the engine refuses them.  Angles, dihedrals and impropers have no
+field yet; they come with the slice that ports those styles.
 """
 from __future__ import annotations
 
@@ -99,7 +99,46 @@ class LJCutParams:
         return float(np.max(np.asarray(self.cut))) if self.cut else self.cutoff
 
 
-PairParams = Union[DPDParams, LJCutParams]
+@dataclasses.dataclass(frozen=True)
+class LJCutRFParams:
+    """`pair_style lj/cut/rf rc_lj [rc_rf]`: 12-6 LJ plus reaction-field
+    Coulomb (pair_lj_cut_rf.cpp:118-131 force, :163-171 energy):
+
+      U_rf(r) = C q_i q_j [ 1/r (1 + (eps_rf-1)/(2 eps_rf+1) (r/rc)^3)
+                            - 1/rc * 3 eps_rf/(2 eps_rf+1) ]
+    with C = qqrd2e (1.0 in LJ units).
+    """
+
+    cut_lj: float
+    cut_coul: float
+    ntypes: int = 1
+    epsilon: Tuple[Tuple[float, ...], ...] = ()
+    sigma: Tuple[Tuple[float, ...], ...] = ()
+    cut: Tuple[Tuple[float, ...], ...] = ()        # per-pair LJ cutoff
+    eps_rf: Tuple[Tuple[float, ...], ...] = ()     # dielectric of the RF continuum
+    qqrd2e: float = 1.0
+    shift: bool = False
+
+    @staticmethod
+    def create(cut_lj, epsilon, sigma, eps_rf, cut_coul=None, cut=None,
+               ntypes=1, qqrd2e=1.0, shift=False):
+        cut_coul = cut_lj if cut_coul is None else cut_coul
+        cut = cut_lj if cut is None else cut
+        return LJCutRFParams(cut_lj=float(cut_lj), cut_coul=float(cut_coul),
+                             ntypes=ntypes,
+                             epsilon=_sym(epsilon, ntypes, "epsilon"),
+                             sigma=_sym(sigma, ntypes, "sigma"),
+                             cut=_sym(cut, ntypes, "cut"),
+                             eps_rf=_sym(eps_rf, ntypes, "eps_rf"),
+                             qqrd2e=float(qqrd2e), shift=shift)
+
+    @property
+    def max_cut(self) -> float:
+        mc = float(np.max(np.asarray(self.cut))) if self.cut else self.cut_lj
+        return max(mc, self.cut_coul)
+
+
+PairParams = Union[DPDParams, LJCutParams, LJCutRFParams]
 
 
 @dataclasses.dataclass(frozen=True)

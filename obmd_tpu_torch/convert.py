@@ -2,7 +2,7 @@
 
 The JAX side is handed over as a dict of numpy arrays (so this module needs
 neither JAX nor the JAX package): the `State` fields x, v, f, type, tag,
-alive, mol, bond1, bond2, step, sim_time, maxtag, cell_overflow; the
+q, alive, mol, bond1, bond2, step, sim_time, maxtag, cell_overflow; the
 `ObmdScalars` fields; and the `PadAux` fields xref, rebuilds, overflow,
 skin_trips, tag3d and occ.
 """
@@ -14,7 +14,7 @@ import torch
 from .cellpad import PadAux
 from .state import ObmdScalars, State, make_generator, resolve_device
 
-STATE_FIELDS = ("x", "v", "f", "type", "tag", "alive", "mol", "bond1",
+STATE_FIELDS = ("x", "v", "f", "type", "tag", "q", "alive", "mol", "bond1",
                 "bond2", "step", "sim_time", "maxtag", "cell_overflow")
 OBMD_FIELDS = ("momentum_force_left", "momentum_force_right",
                "shear_force_left", "shear_force_right", "ndeleted",
@@ -36,7 +36,8 @@ def from_arrays(d: dict, seed: int = 0, device="cuda") -> State:
         aux = PadAux(**{k: t(k) for k in AUX_FIELDS})
     return State(
         x=t("x"), v=t("v"), f=t("f"), type=t("type").to(torch.int32),
-        tag=t("tag").to(torch.int32), alive=t("alive").to(torch.bool),
+        tag=t("tag").to(torch.int32), q=t("q"),
+        alive=t("alive").to(torch.bool),
         mol=t("mol").to(torch.int32), bond1=t("bond1").to(torch.int32),
         bond2=t("bond2").to(torch.int32),
         step=int(d["step"]), sim_time=t("sim_time"),

@@ -7,19 +7,35 @@
 // obmd_dpd_full.  They compute one function; the two entry points differ
 // only in the r and cutoff arithmetic each TPU kernel uses (make_pair_kernel:
 // r = r^2 * rsqrt(r^2), r^2 > 1e-20; make_dpd_kernel: r = sqrt(r^2),
-// r > 1e-10).  One template serves both, for each law (dpd, lj).
+// r > 1e-10).  One template serves both, for each law (dpd, lj; ljrf and
+// 1-4 types through obmd_pair only, as make_dpd_kernel has neither).
 //
-// Layout (the TPU kernels' calling convention): fld f32[nb][6][cap][lanes]
-// with channels x, y, z, vx, vy, vz (dead slots at x = y = z = BIG), tag
-// i32[nb][cap][lanes], occ i32[nb] (highest occupied rank + 1 per block),
-// optional pbond i32[nb][2][cap][lanes] (the tags of each slot's two bond
-// partners, -2 for none; `special_bonds fene`: a pair (i, j) is dropped
-// when j's tag is one of i's partner tags — make_pair_kernel's exclusion
-// channels at n_excl = 2, :582-586 and :641-643, and make_dpd_kernel's,
-// :968-972), out f32[nb][3][cap][lanes].  Slot (b, r, l) holds rank r of
-// the cell at lane l of block b; lane l covers x-slab b*p + l/s and the
-// (y, z) cell l % s.  With p == 1 the lanes are padded to a multiple of 128 and lanes
-// s..lanes-1 are never filed.
+// Layout (the TPU kernels' calling convention): fld f32[nb][NF][cap][lanes]
+// with channels x, y, z, vx, vy, vz (dead slots at x = y = z = BIG), then
+// for the ljrf law the charge q (channel 6), then with 2-4 types the type
+// as a float (channel NF - 1; pallas_dpd.py:273-276), so NF = 6, 7 or 8;
+// tag i32[nb][cap][lanes], occ i32[nb] (highest occupied rank + 1 per
+// block), optional pbond i32[nb][2][cap][lanes] (the tags of each slot's
+// two bond partners, -2 for none; `special_bonds fene`: a pair (i, j) is
+// dropped when j's tag is one of i's partner tags — make_pair_kernel's
+// exclusion channels at n_excl = 2, :582-586 and :641-643, and
+// make_dpd_kernel's, :968-972), out f32[nb][3][cap][lanes].  Slot (b, r, l)
+// holds rank r of the cell at lane l of block b; lane l covers x-slab
+// b*p + l/s and the (y, z) cell l % s.  With p == 1 the lanes are padded to
+// a multiple of 128 and lanes s..lanes-1 are never filed.
+//
+// Laws: dpd and lj as pair_kernel.py states them; ljrf (pallas_dpd.py
+// :398-409, pair_lj_cut_rf.cpp:118-131) adds to the lj force, for
+// r^2 < rc_coul^2 and independently of the LJ cutoff, the reaction field
+// qq*qi*qj*(rinv^3 - c_rf/rc_coul^3) with rinv = rsqrt(r^2) and c_rf =
+// 2(eps_rf - 1)/(2 eps_rf + 1).  With types (or the ljrf law) every
+// coefficient — the cutoff, 1/cut, a0, gamma, sigma, lj1, lj2, c_rf — is a
+// per-type-pair table of float32 values indexed by ti*T + tj (the TPU
+// kernel's T^2 one-hot blend of the same values), staged in shared memory;
+// a pair is first tested against the largest cutoff, then the law applies
+// its own per-pair cutoffs.  The type channel holds small integers, exact
+// in float32, so the truncating conversion reads them exactly.  A dead j
+// slot is rejected before any q or type read.
 //
 // Design.  Newton-off: one thread per slot sums F_ij over every live atom
 // filed in the 27 cells around its own FILED cell, so there are no atomics
@@ -41,6 +57,9 @@
 // the TPU kernels' one-sided check because partner lists are symmetric
 // (state.init_state builds both directions of every bond).  -2 matches no
 // tag (live tags are >= 1, dead slots carry -1 and are skipped first).
+// The channel count, the law and the type tables are template parameters,
+// so a 6-channel one-type launch runs the same machine code as before they
+// existed.
 //
 // Bound on an H100: the work is the candidate-pair distance tests plus the
 // in-cutoff force evaluations of the pairs not excluded, each unordered
@@ -59,13 +78,24 @@ constexpr float kEps2 = 1.0e-20f;
 constexpr float kSqrt3 = 1.7320508075688772f;
 constexpr int kThreads = 128;
 
-enum Law { kDpd = 0, kLj = 1 };
+enum Law { kDpd = 0, kLj = 1, kLjrf = 2 };
 
 struct Params {
   int nb, cap, lanes, nx, ny, nz, s, p, per_x;
   float lx, ly, lz, inv_lx, inv_ly, inv_lz;
   float a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1, lj2;
   uint32_t salt;
+};
+
+// The per-type-pair coefficient tables (row-major [kRows][T*T], T <= 4)
+// and the law's scalars, read only by the typed instantiations.
+constexpr int kMaxPairs = 16;
+enum TabRow { kCut2 = 0, kInvCut, kA0, kGamma, kSigma, kLj1, kLj2, kCrf,
+              kRows };
+struct Tables {
+  int ntypes;
+  float cut2_max, qq, cut_coul2, inv_rc3;
+  float v[kRows * kMaxPairs];
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -77,17 +107,28 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-template <int kLaw, bool kLegacy, bool kExcl>
+template <int kLaw, bool kLegacy, bool kExcl, bool kTypes>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             const int* __restrict__ occ, const int* __restrict__ pbond,
-            float* __restrict__ out, Params P) {
+            float* __restrict__ out, Params P, const Tables T) {
+  // channels: x, y, z, vx, vy, vz [, q] [, type]
+  constexpr bool kTyped = kTypes || kLaw == kLjrf;
+  constexpr int kNf = 6 + (kLaw == kLjrf) + kTypes;
+  constexpr int kChQ = 6;
+  constexpr int kChT = kNf - 1;
+  __shared__ float tab[kTyped ? kRows * kMaxPairs : 1];
+  if constexpr (kTyped) {
+    for (int k = threadIdx.x; k < kRows * kMaxPairs; k += kThreads)
+      tab[k] = T.v[k];
+    __syncthreads();
+  }
   const int lane = blockIdx.y * kThreads + threadIdx.x;
   const int b = blockIdx.x / P.cap;
   const int r = blockIdx.x % P.cap;
   const size_t plane = (size_t)P.cap * P.lanes;
   const size_t row = (size_t)r * P.lanes + lane;
-  const float* fi = fld + (size_t)b * 6 * plane + row;
+  const float* fi = fld + (size_t)b * kNf * plane + row;
   const float xi = fi[0], yi = fi[plane], zi = fi[2 * plane];
   const int cx = b * P.p + lane / P.s;
   const bool live = (lane < P.p * P.s) && (cx < P.nx) && (xi < kBigHalf);
@@ -101,6 +142,10 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
       vzi = fi[5 * plane];
       ti = tag[(size_t)b * plane + row];
     }
+    float qi = 0.f;
+    if constexpr (kLaw == kLjrf) qi = fi[kChQ * plane];
+    int tbase = 0;                       // ti * T: the row of i's type
+    if constexpr (kTypes) tbase = (int)fi[kChT * plane] * T.ntypes;
     int p1 = -2, p2 = -2;
     if (kExcl) {
       const int* pb = pbond + (size_t)b * 2 * plane + row;
@@ -109,7 +154,7 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
     }
     const int within = lane % P.s;
     const int cy = within / P.nz, cz = within % P.nz;
-    const float cut2 = P.cut * P.cut;
+    const float cut2 = kTyped ? T.cut2_max : P.cut * P.cut;
     for (int ox = -1; ox <= 1; ++ox) {
       int jx = cx + ox;
       if (P.per_x) {
@@ -120,7 +165,7 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
       const int bj = jx / P.p;
       const int lbase = (jx % P.p) * P.s;
       const int ocj = min(occ[bj], P.cap);
-      const float* fj = fld + (size_t)bj * 6 * plane;
+      const float* fj = fld + (size_t)bj * kNf * plane;
       const int* tj = tag + (size_t)bj * plane;
       for (int oy = -1; oy <= 1; ++oy) {
         const int jy = (cy + oy + P.ny) % P.ny;
@@ -150,15 +195,43 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             } else if (!(rsq > kEps2)) {
               continue;
             }
+            int tp = 0;                    // the type pair's table column
+            if constexpr (kTypes) tp = tbase + (int)fj[kChT * plane + o];
             float fpair;
-            if (kLaw == kLj) {
+            if constexpr (kLaw == kLj && !kTyped) {
               const float r2inv = 1.f / rsq;
               const float r6inv = r2inv * r2inv * r2inv;
               fpair = r6inv * (P.lj1 * r6inv - P.lj2) * r2inv;
+            } else if constexpr (kLaw != kDpd) {
+              fpair = 0.f;
+              if (rsq < tab[kCut2 * kMaxPairs + tp]) {
+                const float r2inv = 1.f / rsq;
+                const float r6inv = r2inv * r2inv * r2inv;
+                fpair = r6inv * (tab[kLj1 * kMaxPairs + tp] * r6inv
+                                 - tab[kLj2 * kMaxPairs + tp]) * r2inv;
+              }
+              if constexpr (kLaw == kLjrf) {
+                if (rsq < T.cut_coul2) {
+                  const float rinv = rsqrtf(rsq);
+                  const float r2i = rinv * rinv;
+                  const float qprod = T.qq * qi * fj[kChQ * plane + o];
+                  fpair += qprod * (r2i * rinv
+                                    - T.inv_rc3 * tab[kCrf * kMaxPairs + tp]);
+                }
+              }
             } else {
+              float a0 = P.a0, gamma = P.gamma, sigma = P.sigma;
+              float inv_cut = P.inv_cut;
+              if constexpr (kTyped) {
+                if (!(rsq < tab[kCut2 * kMaxPairs + tp])) continue;
+                a0 = tab[kA0 * kMaxPairs + tp];
+                gamma = tab[kGamma * kMaxPairs + tp];
+                sigma = tab[kSigma * kMaxPairs + tp];
+                inv_cut = tab[kInvCut * kMaxPairs + tp];
+              }
               const float rinv = rsqrtf(rsq);
               if (!kLegacy) rr = rsq * rinv;
-              const float wd = 1.f - rr * P.inv_cut;
+              const float wd = 1.f - rr * inv_cut;
               const float dot = dx * (vxi - fj[3 * plane + o])
                               + dy * (vyi - fj[4 * plane + o])
                               + dz * (vzi - fj[5 * plane + o]);
@@ -169,9 +242,9 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
                                         ^ (hi * 0x85EBCA77u) ^ P.salt);
               const float u01 = (float)(h >> 8) * (1.0f / 16777216.0f);
               const float noise = kSqrt3 * (2.f * u01 - 1.f);
-              fpair = P.a0 * wd;
-              fpair = fpair - P.gamma * wd * wd * dot * rinv;
-              fpair = fpair + P.sigma * wd * noise * P.dtinvsqrt;
+              fpair = a0 * wd;
+              fpair = fpair - gamma * wd * wd * dot * rinv;
+              fpair = fpair + sigma * wd * noise * P.dtinvsqrt;
               fpair = fpair * rinv;
             }
             fx += fpair * dx;
@@ -188,37 +261,84 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
   fo[2 * plane] = fz;
 }
 
-template <int kLaw, bool kLegacy, bool kExcl>
+template <int kLaw, bool kLegacy, bool kExcl, bool kTypes>
 void start(const dim3& grid, cudaStream_t st, const void* fld,
            const void* tag, const void* occ, const void* pbond, void* out,
-           const Params& P) {
-  pair_kernel<kLaw, kLegacy, kExcl><<<grid, kThreads, 0, st>>>(
+           const Params& P, const Tables& T) {
+  pair_kernel<kLaw, kLegacy, kExcl, kTypes><<<grid, kThreads, 0, st>>>(
       (const float*)fld, (const int*)tag, (const int*)occ,
-      (const int*)pbond, (float*)out, P);
+      (const int*)pbond, (float*)out, P, T);
+}
+
+// The exclusion flag and the type flag at run time -> the instantiation.
+template <int kLaw, bool kLegacy>
+int start_law(const dim3& grid, cudaStream_t st, const void* fld,
+              const void* tag, const void* occ, const void* pbond, void* out,
+              bool excl, bool types, const Params& P, const Tables& T) {
+  if (!types && !excl) {
+    start<kLaw, kLegacy, false, false>(grid, st, fld, tag, occ, pbond, out,
+                                       P, T);
+  } else if (!types) {
+    start<kLaw, kLegacy, true, false>(grid, st, fld, tag, occ, pbond, out,
+                                      P, T);
+  } else if constexpr (kLegacy) {
+    return (int)cudaErrorInvalidValue;    // make_dpd_kernel has one type
+  } else if (!excl) {
+    start<kLaw, kLegacy, false, true>(grid, st, fld, tag, occ, pbond, out,
+                                      P, T);
+  } else {
+    start<kLaw, kLegacy, true, true>(grid, st, fld, tag, occ, pbond, out,
+                                     P, T);
+  }
+  return 0;
 }
 
 template <bool kLegacy>
 int launch(const void* fld, const void* tag, const void* occ,
            const void* pbond, void* out, int law, int n_excl,
-           const Params& P, void* stream) {
+           const float* tables, int ntypes, const Params& P, void* stream) {
   if (P.lanes <= 0 || P.lanes % kThreads != 0 || P.cap <= 0 || P.nb <= 0)
     return (int)cudaErrorInvalidValue;
   if (!(n_excl == 0 || (n_excl == 2 && pbond != nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (ntypes < 1 || ntypes * ntypes > kMaxPairs)
+    return (int)cudaErrorInvalidValue;
+  const bool types = ntypes > 1;
+  Tables T{};
+  if (types || law == kLjrf) {
+    // tables: cut2_max, qq, cut_coul2, inv_rc3, then the kRows rows of
+    // ntypes^2 values each, laid out here at stride kMaxPairs
+    if (tables == nullptr) return (int)cudaErrorInvalidValue;
+    T.ntypes = ntypes;
+    T.cut2_max = tables[0];
+    T.qq = tables[1];
+    T.cut_coul2 = tables[2];
+    T.inv_rc3 = tables[3];
+    const int n = ntypes * ntypes;
+    for (int k = 0; k < kRows; ++k)
+      for (int i = 0; i < n; ++i) T.v[k * kMaxPairs + i] = tables[4 + k * n + i];
+  }
   const bool excl = n_excl == 2;
   const dim3 grid((unsigned)(P.nb * P.cap), (unsigned)(P.lanes / kThreads));
   const cudaStream_t st = (cudaStream_t)stream;
-  if (law == kDpd && !excl) {
-    start<kDpd, kLegacy, false>(grid, st, fld, tag, occ, pbond, out, P);
-  } else if (law == kDpd) {
-    start<kDpd, kLegacy, true>(grid, st, fld, tag, occ, pbond, out, P);
-  } else if (law == kLj && !excl) {
-    start<kLj, kLegacy, false>(grid, st, fld, tag, occ, pbond, out, P);
+  int rc;
+  if (law == kDpd) {
+    rc = start_law<kDpd, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
+                                  types, P, T);
   } else if (law == kLj) {
-    start<kLj, kLegacy, true>(grid, st, fld, tag, occ, pbond, out, P);
+    rc = start_law<kLj, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
+                                 types, P, T);
+  } else if (law == kLjrf) {
+    if constexpr (kLegacy) {
+      return (int)cudaErrorInvalidValue;  // make_dpd_kernel has no charges
+    } else {
+      rc = start_law<kLjrf, kLegacy>(grid, st, fld, tag, occ, pbond, out,
+                                     excl, types, P, T);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
@@ -230,7 +350,8 @@ int launch(const void* fld, const void* tag, const void* occ,
       int p, int per_x, int law, int n_excl, float lx, float ly, float lz,  \
       float inv_lx, float inv_ly, float inv_lz, float a0, float gamma,      \
       float sigma, float cut, float inv_cut, float dtinvsqrt, float lj1,    \
-      float lj2, uint32_t salt, void *stream
+      float lj2, uint32_t salt, const float *tables, int ntypes,            \
+      void *stream
 #define OBMD_PAIR_PARAMS                                                     \
   Params{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,       \
          inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,    \
@@ -238,12 +359,12 @@ int launch(const void* fld, const void* tag, const void* occ,
 
 // make_pair_kernel's function (TPU kernels #1 and #2).
 extern "C" int obmd_pair(OBMD_PAIR_ARGS) {
-  return launch<false>(fld, tag, occ, pbond, out, law, n_excl,
-                       OBMD_PAIR_PARAMS, stream);
+  return launch<false>(fld, tag, occ, pbond, out, law, n_excl, tables,
+                       ntypes, OBMD_PAIR_PARAMS, stream);
 }
 
 // make_dpd_kernel's function (TPU kernel #3).
 extern "C" int obmd_dpd_full(OBMD_PAIR_ARGS) {
-  return launch<true>(fld, tag, occ, pbond, out, law, n_excl,
-                      OBMD_PAIR_PARAMS, stream);
+  return launch<true>(fld, tag, occ, pbond, out, law, n_excl, tables,
+                      ntypes, OBMD_PAIR_PARAMS, stream);
 }

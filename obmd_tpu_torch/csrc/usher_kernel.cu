@@ -1,6 +1,9 @@
 // The USHER steered-insertion search for both buffers in one launch, for
 // Hopper (sm_90a), with the DPD law (entry point obmd_usher_search) or the
-// lj/cut law (obmd_usher_search_lj).
+// lj/cut law (obmd_usher_search_lj).  The lj entry point also runs the
+// lj/cut/rf law's rows: an ATOM-mode trial atom is neutral, so the reaction
+// field adds nothing, and the rows are the lj ones per type pair with
+// eshift = 0 (pallas_usher.py:57-75).
 //
 // Replaces: obmd_tpu/forces/pallas_usher.py make_usher_kernel (:79-254,
 // kernel body :110-229), called through usher_search_pallas (:257-311);

@@ -1,9 +1,12 @@
 """The cellpad engine: the step over the padded cell-major layout.
 
-Counterpart of `obmd_tpu/engine_cellpad.py` for single-type DPD or lj/cut,
-in an open-x box with ATOM-mode USHER insertion (OBMD_DPD, the open LJ
-fluid) or a closed box without the OBMD stage (the LJ melt; with FENE
-chains, the chain melt), with or without the Langevin thermostat.  Step
+Counterpart of `obmd_tpu/engine_cellpad.py` for DPD, lj/cut or lj/cut/rf
+with 1-4 atom types, in an open-x box with ATOM-mode USHER insertion
+(OBMD_DPD, the open LJ fluid, the open charged two-type LJ fluid) or a
+closed box without the OBMD stage (the LJ melt; with FENE chains, the chain
+melt), with or without the Langevin thermostat.  Per-atom charges and types
+follow every relayout on a scene that has them (`relayout_flags`); masses
+are per type.  Step
 order mirrors Verlet::run: half kick, drift + wrap, the epoch relayout on an
 epoch's first step, the OBMD stage (face deletion, buffer census, feedback
 law, demand-gated subset compaction and insertion, boundary-force
@@ -38,9 +41,9 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import (BondFENEParams, DPDParams, LJCutParams, SceneConfig,
-                     eval_param)
-from .geometry import const
+from .config import (BondFENEParams, DPDParams, LJCutParams, LJCutRFParams,
+                     SceneConfig, eval_param)
+from .geometry import const, const_like
 from .forces.bonded import bond_forces, langevin_force
 from .forces.pair_kernel import (PadGeometry, check_supported as
                                  kernel_check_supported, legacy_kwargs,
@@ -72,9 +75,9 @@ def own_draws(cfg: SceneConfig) -> Draw:
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
     open boxes with ATOM-mode USHER insertion and closed boxes without the
-    OBMD stage, each single-type DPD or lj/cut, with or without the
-    Langevin thermostat; FENE chains (at most two bonds per atom) on a
-    closed box."""
+    OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4 types (as many
+    masses as the pair law has types), with or without the Langevin
+    thermostat; FENE chains (at most two bonds per atom) on a closed box."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
     if cfg.branched_topology:
@@ -94,13 +97,16 @@ def check_supported(cfg: SceneConfig) -> None:
                                  or cfg.obmd.nfreq > 1):
         raise NotImplementedError(
             "maxattempt > 1 and nfreq > 1 are not ported yet")
-    if cfg.obmd is not None and not isinstance(cfg.pair,
-                                              (DPDParams, LJCutParams)):
+    if cfg.obmd is not None and not isinstance(
+            cfg.pair, (DPDParams, LJCutParams, LJCutRFParams)):
         raise NotImplementedError(
-            "the OBMD stage is ported for the DPD and lj/cut laws only")
-    if cfg.ntypes != 1 or cfg.dtype != "float32":
-        raise NotImplementedError("only single-type float32 scenes are "
-                                  "ported")
+            "the OBMD stage is ported for the DPD, lj/cut and lj/cut/rf "
+            "laws only")
+    if cfg.ntypes != cfg.pair.ntypes:
+        raise ValueError(f"{cfg.ntypes} masses for a pair law of "
+                         f"{cfg.pair.ntypes} types")
+    if cfg.dtype != "float32":
+        raise NotImplementedError("only float32 scenes are ported")
     kernel_check_supported(make_geometry(cfg), cfg.pair)
 
 
@@ -120,10 +126,13 @@ def make_geometry(cfg: SceneConfig) -> PadGeometry:
 
 def relayout_flags(cfg: SceneConfig) -> dict:
     """Which optional per-atom columns must follow relayout row-moves: a
-    column constant over the scene (no bonds, no molecules) skips its
-    moves (obmd_tpu/engine_cellpad.py:52-72 for the ported columns)."""
+    column constant over the scene (no bonds, no molecules, no charges, one
+    type) skips its moves (obmd_tpu/engine_cellpad.py:52-72 for the ported
+    columns)."""
     has_bonds = cfg.bond is not None
-    return dict(has_bonds=has_bonds, has_mol=has_bonds)
+    return dict(has_bonds=has_bonds, has_mol=has_bonds,
+                has_charge=isinstance(cfg.pair, LJCutRFParams),
+                has_types=cfg.ntypes > 1)
 
 
 def _make_kernel(cfg: SceneConfig, geom: PadGeometry, kernel: str = "pair"):
@@ -131,6 +140,11 @@ def _make_kernel(cfg: SceneConfig, geom: PadGeometry, kernel: str = "pair"):
     if kernel == "pair":
         return make_pair_kernel(geom, cfg.pair, cfg.dt, exclude_bonded=excl)
     if kernel == "full":
+        if cfg.ntypes > 1 or isinstance(cfg.pair, LJCutRFParams):
+            # make_dpd_kernel has one type and no charges
+            # (pallas_dpd.py:877-907)
+            raise NotImplementedError(
+                "the full-stencil kernel takes one neutral type")
         return make_dpd_kernel(geom, **legacy_kwargs(cfg.pair, cfg.dt),
                                exclude_bonded=excl)
     raise ValueError(f'kernel must be "pair" or "full", not {kernel!r}')
@@ -154,12 +168,17 @@ def partner_tags(geom, state: State) -> torch.Tensor:
 
 
 def pack_fields(cfg, geom, state: State):
-    """The pair kernel's inputs: (fld f32[nb, 6, cap, lanes] = x (BIG at
-    dead slots), v; tag3d; the step's noise salt; occ; on a bonded scene
-    the partner tags pbond, else None)."""
+    """The pair kernel's inputs: (fld f32[nb, NF, cap, lanes] = x (BIG at
+    dead slots), v, then q for lj/cut/rf, then the type as a float with 2-4
+    types (obmd_tpu/engine_cellpad.py:81-101); tag3d; the step's noise
+    salt; occ; on a bonded scene the partner tags pbond, else None)."""
     nb, cap, lanes = geom.n_blocks, geom.cap, geom.lanes
-    xm = torch.where(state.alive[:, None], state.x, BIG)
-    fld = torch.cat([xm, state.v], dim=1).reshape(nb, cap, lanes, 6) \
+    chans = [torch.where(state.alive[:, None], state.x, BIG), state.v]
+    if isinstance(cfg.pair, LJCutRFParams):
+        chans.append(state.q[:, None])
+    if cfg.ntypes > 1:
+        chans.append(state.type.to(torch.float32)[:, None])
+    fld = torch.cat(chans, dim=1).reshape(nb, cap, lanes, -1) \
         .permute(0, 3, 1, 2).contiguous()
     aux: PadAux = state.nbrs
     pbond = partner_tags(geom, state) if cfg.bond is not None else None
@@ -185,7 +204,8 @@ def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
 def _boundary_force_sliced(cfg, geom, state: State, f):
     """f_i += F * g_i / sum(g) over each region's contiguous slot slice
     (ref :1414-1516): smooth weights in the buffers, mass weights in the
-    shear sub-regions.  Elementwise scale*F adds only, never a matmul."""
+    shear sub-regions, each atom's mass that of its type.  Elementwise
+    scale*F adds only, never a matmul."""
     obmd = cfg.obmd
     sc = state.obmd
     f = f.clone()
@@ -198,8 +218,7 @@ def _boundary_force_sliced(cfg, geom, state: State, f):
             continue
         a, b = slab_slice_bounds(geom, cfg.box, region.lo[0], region.hi[0])
         xs = state.x[a:b]
-        m = torch.full((b - a,), float(cfg.masses[0]), dtype=f.dtype,
-                       device=f.device)
+        m = _slice_mass(cfg, state, a, b)
         member = state.alive[a:b] & region.match(xs)
         g = torch.where(member, smooth_weight(cfg, xs[:, 0], m) if smooth
                         else m, 0.0)
@@ -207,6 +226,15 @@ def _boundary_force_sliced(cfg, geom, state: State, f):
         scale = torch.where(gsum > 0.0, g / torch.clamp(gsum, min=1e-30), 0.0)
         f[a:b] = f[a:b] + scale[:, None] * F
     return f
+
+
+def _slice_mass(cfg, state: State, a: int, b: int) -> torch.Tensor:
+    """The masses of slots [a, b): masses[type] (one value with one
+    type)."""
+    if cfg.ntypes == 1:
+        return torch.full((b - a,), float(cfg.masses[0]), dtype=state.dtype,
+                          device=state.device)
+    return const_like(cfg.masses, state.x)[state.type[a:b].long()]
 
 
 def _region_count_sliced(cfg, geom, state: State, region) -> torch.Tensor:
@@ -224,7 +252,9 @@ def _subset_bounds(cfg, geom, region, pad):
 
 def _subset_slice(cfg, geom, state, region, pad) -> Subset:
     """Buffer subset: a contiguous slot slice compacted to its live rows
-    (at most b_max = min(n, 0.45 n + 256); more is counted as overflow)."""
+    (at most b_max = min(n, 0.45 n + 256); more is counted as overflow),
+    with the rows' types and charges on a scene that has them (type 0 and
+    no charges otherwise)."""
     a, b, b_max = _subset_bounds(cfg, geom, region, pad)
     n = b - a
     xs = state.x[a:b]
@@ -232,18 +262,27 @@ def _subset_slice(cfg, geom, state, region, pad) -> Subset:
     sel = compact_indices(valid, b_max, n)
     ok = sel < n
     safe = torch.clamp(sel, 0, n - 1)
+    flags = relayout_flags(cfg)
+    if flags["has_types"]:
+        ty = torch.where(ok, state.type[a:b][safe], 0)
+    else:
+        ty = torch.zeros((b_max,), dtype=torch.int32, device=xs.device)
+    q = torch.where(ok, state.q[a:b][safe], 0.0) \
+        if flags["has_charge"] else None
     return Subset(
         x=torch.where(ok[:, None], xs[safe], BIG),
-        type=torch.zeros((b_max,), dtype=torch.int32, device=xs.device),
+        type=ty,
         valid=ok,
-        overflow=valid.sum() > b_max)
+        overflow=valid.sum() > b_max,
+        q=q)
 
 
 def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     """ATOM-mode insertion of up to K candidates per buffer: uniform draws
     -> USHER -> greedy in-order acceptance within the feedback budget ->
-    free-rank placement -> kernel-cache patch.  Only called when a buffer
-    needs atoms; `u` holds the draws [2, 1, K, 3]."""
+    free-rank placement -> kernel-cache patch.  Inserted atoms take type
+    ntype and charge 0 where the scene has those columns.  Only called when
+    a buffer needs atoms; `u` holds the draws [2, 1, K, 3]."""
     obmd = cfg.obmd
     k = obmd.insert_kmax
     n_slots = geom.n_slots
@@ -269,11 +308,17 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     n_landed = landed.sum(dtype=torch.int32)
     want = torch.clamp(nins_l, min=0) + torch.clamp(nins_r, min=0)
     sc = state.obmd
+    flags = relayout_flags(cfg)
+    upd = {}
+    if flags["has_types"] or obmd.ntype != 0:
+        upd["type"] = scatter_rows(state.type, slot, ctype.repeat(2))
+    if flags["has_charge"]:
+        upd["q"] = scatter_rows(state.q, slot, torch.zeros_like(pos[:, 0]))
     return state.replace(
         x=scatter_rows(state.x, slot, pos),
         tag=scatter_rows(state.tag, slot, new_tag),
         alive=scatter_rows(state.alive, slot, torch.ones_like(landed)),
-        nbrs=aux, maxtag=base + n_landed,
+        nbrs=aux, maxtag=base + n_landed, **upd,
         obmd=sc.replace(
             ninserted=sc.ninserted + n_landed,
             insert_fail=sc.insert_fail + torch.clamp(want - n_landed, min=0),
@@ -300,9 +345,7 @@ def _delete_outside_sliced(cfg, geom, state: State):
         al = alive[a:b]
         doomed = al & ((x0 < box.lo[0]) if lo_face else (x0 > box.hi[0]))
         vs = v[a:b]
-        m = torch.full((b - a,), float(cfg.masses[0]), dtype=state.dtype,
-                       device=state.device)
-        mv = m[:, None] * vs
+        mv = _slice_mass(cfg, state, a, b)[:, None] * vs
         vnew.append(torch.where(doomed[:, None], mv, 0.0).sum(0))
         ndel = ndel + doomed.sum(dtype=torch.int32)
         alive[a:b] = al & ~doomed

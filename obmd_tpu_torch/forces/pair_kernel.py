@@ -19,29 +19,43 @@ live atoms j filed in the 27 cells around i's FILED cell (never
 cut + skin cell width absorbs), d_ij = x_i - x_j with the minimum image on
 every periodic axis, counted only for 1e-10 < r < rc, with the law
 
-    dpd: fpair = [a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)] / r,
-         wd = 1 - r/rc,   xi = sqrt(3)*(2u - 1),
-         u = top 24 bits of fmix32((lo*0x9E3779B9) ^ (hi*0x85EBCA77) ^ salt)
-             / 2^24   (lo, hi = smaller and larger tag of the pair);
-    lj:  fpair = r6inv*(lj1*r6inv - lj2)*r2inv,  r2inv = 1/r^2,
-         lj1 = 48 eps sig^12,  lj2 = 24 eps sig^6.
+    dpd:  fpair = [a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)] / r,
+          wd = 1 - r/rc,   xi = sqrt(3)*(2u - 1),
+          u = top 24 bits of fmix32((lo*0x9E3779B9) ^ (hi*0x85EBCA77) ^ salt)
+              / 2^24   (lo, hi = smaller and larger tag of the pair);
+    lj:   fpair = r6inv*(lj1*r6inv - lj2)*r2inv,  r2inv = 1/r^2,
+          lj1 = 48 eps sig^12,  lj2 = 24 eps sig^6;
+    ljrf: the lj force for r < rc, plus for r < rc_coul (its own cutoff) the
+          reaction field qq*qi*qj*(r^-3 - c_rf/rc_coul^3),
+          c_rf = 2(eps_rf - 1)/(2 eps_rf + 1)   (pallas_dpd.py:398-409).
+
+With 2-4 types every coefficient (the cutoff, 1/cut, a0, gamma, sigma,
+lj1, lj2, c_rf) is a per-type-pair table, rounded to float32 as the TPU
+kernel rounds it (`pair_tables`), and the field layout gains channels:
+fld is f32[nb, NF, cap, lanes] with x, y, z, vx, vy, vz, then the charge q
+for the ljrf law, then the type as a float with 2-4 types (NF = 6, 7 or 8,
+pallas_dpd.py:273-276).
 
 Dead slots carry x = y = z = BIG and are skipped by an explicit test, not
 by distance alone: on a periodic x axis the minimum image folds BIG back
-into the box.  With bonded exclusion (`special_bonds fene`) a pair is also
-dropped when j's tag is one of i's two partner tags, pbond i32[nb, 2, cap,
-lanes] (-2 for no partner); the partner lists are symmetric, so the
-Newton-off sum drops each 1-2 pair from both ends.
+into the box; a dead slot's q and type are never read.  With bonded
+exclusion (`special_bonds fene`) a pair is also dropped when j's tag is one
+of i's two partner tags, pbond i32[nb, 2, cap, lanes] (-2 for no partner);
+the partner lists are symmetric, so the Newton-off sum drops each 1-2 pair
+from both ends.
 
-Scope: single type, uniform noise, periodic y/z with >= 3 cells each, open
-or periodic x (>= 3 cells), any layout (x-slabs tiling the lanes, p >= 2, or
-one slab per block in lanes padded to a multiple of 128, p == 1), any
-capacity, bonded exclusion with 2 channels.  lj/cut/rf, 2-4 types, 4
-exclusion channels (branched topologies), the dpd/tstat ramp, gaussian
-noise, single-cell or open y/z axes raise `NotImplementedError`.
+Scope: 1-4 types, the dpd, lj and ljrf laws (ljrf and 2-4 types through
+make_pair_kernel only, as make_dpd_kernel has neither), uniform noise,
+periodic y/z with >= 3 cells each, open or periodic x (>= 3 cells), any
+layout (x-slabs tiling the lanes, p >= 2, or one slab per block in lanes
+padded to a multiple of 128, p == 1), any capacity, bonded exclusion with 2
+channels.  More than 4 types, 4 exclusion channels (branched topologies),
+the dpd/tstat ramp, gaussian noise, single-cell or open y/z axes raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
 from typing import NamedTuple, Tuple
@@ -51,15 +65,18 @@ import torch
 
 from .. import _build
 from ..cells import BIG
-from ..config import DPDParams, LJCutParams
+from ..config import DPDParams, LJCutParams, LJCutRFParams
 from ..geometry import cell_index
 from ..rng import pair_bits, uniform01
 
 EPS = 1.0e-10
 SQRT3 = float(np.sqrt(3.0))
-NF = 6   # x, y, z, vx, vy, vz
+NF = 6   # x, y, z, vx, vy, vz: the channels of a neutral one-type layout
 N_EXCL = 2  # partner-tag channels of the bonded exclusion (chains)
-LAWS = ("dpd", "lj")       # the C entry points' law index
+MAX_TYPES = 4
+LAWS = ("dpd", "lj", "ljrf")       # the C entry points' law index
+# the rows of the per-type-pair tables, in the C kernel's TabRow order
+TABLE_ROWS = ("cut2", "inv_cut", "a0", "gamma", "sigma", "lj1", "lj2", "c_rf")
 
 
 class PadGeometry(NamedTuple):
@@ -163,19 +180,65 @@ def check_geometry(geom: PadGeometry) -> None:
 def check_supported(geom: PadGeometry, params) -> None:
     """Raise for every configuration of the TPU kernel this port does not
     cover yet (ROADMAP.md lists them)."""
-    if not isinstance(params, (DPDParams, LJCutParams)):
+    if not isinstance(params, (DPDParams, LJCutParams, LJCutRFParams)):
         raise NotImplementedError(
             f"pair kernel: the {type(params).__name__} law is not ported")
-    if params.ntypes != 1:
-        raise NotImplementedError("pair kernel: only a single type is ported")
+    if not 1 <= params.ntypes <= MAX_TYPES:
+        raise NotImplementedError(
+            f"pair kernel: {params.ntypes} types (1-{MAX_TYPES} are ported)")
     if getattr(params, "gaussian_noise", False):
         raise NotImplementedError("pair kernel: gaussian pair noise is not ported")
     check_geometry(geom)
 
 
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def pair_tables(params) -> tuple:
+    """The float32 values the kernels read for a config law, as
+    make_pair_kernel rounds them (pallas_dpd.py:278-314): the largest
+    squared cutoff, qq, rc_coul^2 and 1/rc_coul^3, then the TABLE_ROWS rows
+    of ntypes^2 values each, indexed by ti * ntypes + tj.  With one type a
+    coefficient is a host float that the TPU kernel folds in as a float32
+    constant (cut^2 rounded from float64); with 2-4 types each is a float32
+    table entry (cut^2 and 1/cut computed in float32)."""
+    multi = params.ntypes > 1
+    cut = np.asarray(params.cut, np.float64)
+    if multi:
+        c32 = cut.astype(np.float32)
+        cut2 = c32 * c32
+        inv_cut = np.float32(1.0) / c32
+    else:
+        cut2 = (cut * cut).astype(np.float32)
+        inv_cut = (1.0 / cut).astype(np.float32)
+    zero = np.zeros_like(cut)
+    a0 = gamma = sigma = lj1 = lj2 = c_rf = zero
+    qq = cut_coul2 = inv_rc3 = 0.0
+    if isinstance(params, DPDParams):
+        a0 = np.asarray(params.a0, np.float64)
+        gamma = np.asarray(params.gamma, np.float64)
+        sigma = np.asarray(params.sigma, np.float64)
+    else:
+        eps = np.asarray(params.epsilon, np.float64)
+        s6 = np.asarray(params.sigma, np.float64) ** 6
+        lj1, lj2 = 48.0 * eps * s6 * s6, 24.0 * eps * s6
+    if isinstance(params, LJCutRFParams):
+        erf = np.asarray(params.eps_rf, np.float64)
+        c_rf = 2.0 * (erf - 1.0) / (2.0 * erf + 1.0)
+        rc = float(params.cut_coul)
+        qq, cut_coul2, inv_rc3 = (_f32(params.qqrd2e), _f32(rc * rc),
+                                  _f32(1.0 / rc ** 3))
+    rows = (cut2, inv_cut, a0, gamma, sigma, lj1, lj2, c_rf)
+    cut2_max = _f32(max(float(np.max(cut2)), cut_coul2))
+    return (cut2_max, qq, cut_coul2, inv_rc3) + tuple(
+        _f32(v) for r in rows for v in np.asarray(r, np.float32).reshape(-1))
+
+
 class PairCoef(NamedTuple):
     """The law and its scalar constants, each rounded to float32 where it
-    is used, and the box lengths of the minimum image."""
+    is used, the box lengths of the minimum image, and with 2-4 types or
+    the ljrf law the per-type-pair tables (`pair_tables`)."""
 
     law: str
     a0: float
@@ -193,14 +256,26 @@ class PairCoef(NamedTuple):
     inv_lx: float
     inv_ly: float
     inv_lz: float
+    ntypes: int = 1
+    tables: Tuple[float, ...] = ()
+
+    @property
+    def typed(self) -> bool:
+        """The kernel reads its coefficients from the tables."""
+        return self.ntypes > 1 or self.law == "ljrf"
+
+    @property
+    def n_channels(self) -> int:
+        return NF + (self.law == "ljrf") + (self.ntypes > 1)
 
     @staticmethod
     def create(geom: PadGeometry, law: str, *, a0: float = 0.0,
                gamma: float = 0.0, sigma: float = 0.0, cut: float = 1.0,
                dt: float = 0.01, lj_eps: float = 1.0,
                lj_sig: float = 1.0) -> "PairCoef":
-        if law not in LAWS:
-            raise NotImplementedError(f"pair law {law!r} is not ported")
+        if law not in ("dpd", "lj"):
+            raise NotImplementedError(
+                f"pair law {law!r} takes no scalar coefficients")
         lx, ly, lz = (float(n * c) for n, c in zip(geom.dims,
                                                     geom.cell_size))
         s6 = float(lj_sig) ** 6
@@ -213,6 +288,20 @@ class PairCoef(NamedTuple):
                         periodic_x=bool(geom.periodic_x), lx=lx, ly=ly,
                         lz=lz, inv_lx=1.0 / lx, inv_ly=1.0 / ly,
                         inv_lz=1.0 / lz)
+
+    @staticmethod
+    def of(geom: PadGeometry, params, dt: float) -> "PairCoef":
+        """make_pair_kernel's constants for a config law: the scalar ones
+        of a neutral one-type law, the tables otherwise."""
+        check_supported(geom, params)
+        if params.ntypes == 1 and not isinstance(params, LJCutRFParams):
+            return PairCoef.create(geom, **legacy_kwargs(params, dt))
+        law = "ljrf" if isinstance(params, LJCutRFParams) else (
+            "dpd" if isinstance(params, DPDParams) else "lj")
+        base = PairCoef.create(geom, "lj" if law == "ljrf" else law, dt=dt,
+                               cut=params.max_cut)
+        return base._replace(law=law, ntypes=params.ntypes,
+                             tables=pair_tables(params))
 
 
 def legacy_kwargs(params, dt: float) -> dict:
@@ -264,16 +353,25 @@ def _min_image(d, length: float, inv_length: float):
     return d - length * torch.round(d * inv_length)
 
 
+def _table_tensor(coef: PairCoef, device) -> torch.Tensor:
+    """The TABLE_ROWS rows as f32[rows, ntypes^2]."""
+    t = coef.ntypes
+    return torch.tensor(coef.tables[4:], dtype=torch.float32,
+                        device=device).reshape(len(TABLE_ROWS), t * t)
+
+
 def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
                       tag: torch.Tensor, salt: int, legacy: bool = False,
                       pbond=None) -> torch.Tensor:
-    """The kernels' function in PyTorch: fld f32[nb, 6, cap, lanes], tag
+    """The kernels' function in PyTorch: fld f32[nb, NF, cap, lanes], tag
     i32[nb, cap, lanes], optional pbond i32[nb, 2, cap, lanes] -> f32[nb,
     3, cap, lanes].  Newton-off: each slot of a real column sums over the
     27 cells around its column, all ranks of each, less the pairs whose j
     tag is one of its partner tags.  legacy=True takes make_dpd_kernel's
     arithmetic (r = sqrt(r^2), r > 1e-10), else make_pair_kernel's
-    (r = r^2 / r, r^2 > 1e-20)."""
+    (r = r^2 / r, r^2 > 1e-20).  A typed law (2-4 types, or ljrf) reads
+    its coefficients from the tables, as the kernel does: the pair is
+    tested against the largest cutoff, then each term against its own."""
     nb, nf, cap, lanes = fld.shape
     dev = fld.device
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
@@ -288,7 +386,18 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
     ti = tl[icol][:, :, None]                        # [R, cap_i, 1]
     live_i = (fi[:, 0] < 0.5 * BIG)[:, :, None]
     not_self = ~torch.eye(cap, dtype=torch.bool, device=dev)
-    cut2 = coef.cut * coef.cut
+    typed = coef.typed
+    if typed:
+        tab = _table_tensor(coef, dev)
+        row = {name: tab[k] for k, name in enumerate(TABLE_ROWS)}
+        cut2, qq, cut_coul2, inv_rc3 = coef.tables[:4]
+        multi = coef.ntypes > 1
+        nt = coef.ntypes
+        # a dead slot's type is never read as a coefficient index
+        tbase = (torch.clamp(xi[:, nf - 1].long(), 0, nt - 1) * nt) \
+            if multi else None
+    else:
+        cut2 = coef.cut * coef.cut
     f = torch.zeros((icol.shape[0], 3, cap), dtype=torch.float32, device=dev)
     for o in range(cols.shape[0]):
         fj = fl[cols[o]]
@@ -312,22 +421,47 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
             tj = tl[cols[o]][:, None, :]
             for c in range(pb_i.shape[1]):
                 ok = ok & (tj != pb_i[:, c])
-        if coef.law == "lj":
+        if typed:
+            # the pair's table column ti * T + tj, or 0 with one type
+            tp = (tbase + torch.clamp(xj[:, nf - 1].long(), 0, nt - 1)) \
+                if multi else None
+
+            def c(name):
+                v = row[name]
+                return v[tp] if multi else v[0]
+        if coef.law in ("lj", "ljrf"):
             r2inv = 1.0 / torch.clamp(rsq, min=EPS * EPS)
             r6inv = r2inv * r2inv * r2inv
-            fpair = r6inv * (coef.lj1 * r6inv - coef.lj2) * r2inv
+            if typed:
+                fpair = torch.where(
+                    rsq < c("cut2"),
+                    r6inv * (c("lj1") * r6inv - c("lj2")) * r2inv, 0.0)
+            else:
+                fpair = r6inv * (coef.lj1 * r6inv - coef.lj2) * r2inv
+            if coef.law == "ljrf":
+                rinv = torch.rsqrt(torch.clamp(rsq, min=EPS * EPS))
+                r2i = rinv * rinv
+                qprod = qq * xi[:, 6] * xj[:, 6]
+                fcoul = qprod * (r2i * rinv - inv_rc3 * c("c_rf"))
+                fpair = fpair + torch.where(rsq < cut_coul2, fcoul, 0.0)
         else:
+            a0, gamma, sigma, inv_cut = coef.a0, coef.gamma, coef.sigma, \
+                coef.inv_cut
+            if typed:
+                ok = ok & (rsq < c("cut2"))
+                a0, gamma, sigma, inv_cut = (c("a0"), c("gamma"), c("sigma"),
+                                             c("inv_cut"))
             rinv = torch.rsqrt(torch.clamp(rsq, min=EPS * EPS))
             if not legacy:
                 r = rsq * rinv
-            wd = 1.0 - r * coef.inv_cut
+            wd = 1.0 - r * inv_cut
             dot = (dx * (xi[:, 3] - xj[:, 3]) + dy * (xi[:, 4] - xj[:, 4])
                    + dz * (xi[:, 5] - xj[:, 5]))
             u01 = uniform01(pair_bits(salt, ti, tl[cols[o]][:, None, :]))
             noise = SQRT3 * (2.0 * u01 - 1.0)
-            fpair = coef.a0 * wd
-            fpair = fpair - coef.gamma * wd * wd * dot * rinv
-            fpair = fpair + coef.sigma * wd * noise * coef.dtinvsqrt
+            fpair = a0 * wd
+            fpair = fpair - gamma * wd * wd * dot * rinv
+            fpair = fpair + sigma * wd * noise * coef.dtinvsqrt
             fpair = fpair * rinv
         fpair = torch.where(ok, fpair, 0.0)
         f[:, 0] += (fpair * dx).sum(-1)
@@ -338,7 +472,15 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
     return out.reshape(nb, lanes, 3, cap).permute(0, 2, 3, 1).contiguous()
 
 
-def _launch(name: str, geom: PadGeometry, coef: PairCoef, fld, tag,
+def launch_key(geom: PadGeometry, coef: PairCoef, n_excl: int) -> str:
+    """A launch's count key: law, types, exclusion channels, filing cap
+    ("lj-excl2-cap18", "ljrf-t2-cap44")."""
+    types = f"-t{coef.ntypes}" if coef.ntypes > 1 else ""
+    excl = f"-excl{n_excl}" if n_excl else ""
+    return f"{coef.law}{types}{excl}-cap{geom.fcap}"
+
+
+def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
             salt: int, occ, pbond):
     kern = _build.KERNELS[name]
     fn = kern.function()
@@ -355,11 +497,10 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, fld, tag,
                 int(coef.periodic_x), LAWS.index(coef.law), n_excl, coef.lx,
                 coef.ly, coef.lz, coef.inv_lx, coef.inv_ly, coef.inv_lz,
                 coef.a0, coef.gamma, coef.sigma, coef.cut, coef.inv_cut,
-                coef.dtinvsqrt, coef.lj1, coef.lj2, salt & 0xFFFFFFFF, stream)
+                coef.dtinvsqrt, coef.lj1, coef.lj2, salt & 0xFFFFFFFF,
+                tables, coef.ntypes, stream)
     _build.check(rc, kern)
-    # the launch's key: law, exclusion channels, filing cap ("lj-excl2-cap18")
-    excl = f"-excl{n_excl}" if n_excl else ""
-    kern.count(f"{coef.law}{excl}-cap{geom.fcap}")
+    kern.count(launch_key(geom, coef, n_excl))
     return out
 
 
@@ -368,8 +509,12 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
     """The kernel's calling convention: checks, then a CUDA tensor goes to
     the Hopper kernel and a CPU tensor to the plain version.  There is no
     fallback between them.  With exclude_bonded, pbond is required."""
-    shape = (geom.n_blocks, NF, geom.cap, geom.lanes)
+    shape = (geom.n_blocks, coef.n_channels, geom.cap, geom.lanes)
     pshape = (geom.n_blocks, N_EXCL, geom.cap, geom.lanes)
+    # the tables live on the host: the C entry point copies them into the
+    # launch's parameters
+    tables = ((ctypes.c_float * len(coef.tables))(*coef.tables)
+              if coef.typed else None)
 
     def forces(fld: torch.Tensor, tag: torch.Tensor, salt: int,
                occ: torch.Tensor, pbond=None) -> torch.Tensor:
@@ -395,8 +540,8 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
                                      pbond)
         if fld.device.type != "cuda":
             raise ValueError(f"unsupported device {fld.device}")
-        return _launch(name, geom, coef, fld.contiguous(), tag.contiguous(),
-                       salt, occ.contiguous(),
+        return _launch(name, geom, coef, tables, fld.contiguous(),
+                       tag.contiguous(), salt, occ.contiguous(),
                        None if pbond is None else pbond.contiguous())
 
     return forces
@@ -405,20 +550,20 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
 def make_pair_kernel(geom: PadGeometry, params, dt: float,
                      exclude_bonded: bool = False, n_excl: int = N_EXCL):
     """Build pair_forces(fld, tag, salt, occ, pbond=None) -> f32[nb, 3,
-    cap, lanes]: fld f32[nb, 6, cap, lanes] (x, y, z, vx, vy, vz; dead
-    slots at BIG), tag i32[nb, cap, lanes], salt a uint32 python int, occ
-    i32[nb] (per block highest occupied rank + 1; stale-high is safe,
-    stale-low is not), with exclude_bonded pbond i32[nb, 2, cap, lanes]
-    (partner tags, -2 for none).  The law comes from `params` (DPDParams
-    or LJCutParams)."""
-    check_supported(geom, params)
+    cap, lanes]: fld f32[nb, NF, cap, lanes] (x, y, z, vx, vy, vz, [q],
+    [type]; dead slots at BIG; NF = 6, 7 or 8), tag i32[nb, cap,
+    lanes], salt a uint32 python int, occ i32[nb] (per block highest
+    occupied rank + 1; stale-high is safe, stale-low is not), with
+    exclude_bonded pbond i32[nb, 2, cap, lanes] (partner tags, -2 for
+    none).  The law and its tables come from `params` (DPDParams,
+    LJCutParams or LJCutRFParams, 1-4 types)."""
+    coef = PairCoef.of(geom, params, dt)
     if exclude_bonded and n_excl != N_EXCL:
         raise NotImplementedError(
             f"pair kernel: {n_excl} exclusion channels (branched "
             f"topologies) are not ported; chains use {N_EXCL}")
-    return _wrapper("pair", geom,
-                    PairCoef.create(geom, **legacy_kwargs(params, dt)),
-                    legacy=False, exclude_bonded=exclude_bonded)
+    return _wrapper("pair", geom, coef, legacy=False,
+                    exclude_bonded=exclude_bonded)
 
 
 def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,
@@ -428,8 +573,9 @@ def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,
                     exclude_bonded: bool = False):
     """Build dpd_forces(fld, tag, salt, occ, pbond=None), the counterpart of
     the legacy full-stencil kernel (pallas_dpd.py:877): the calling
-    convention of make_pair_kernel's function, law "dpd" or "lj" from
-    scalar coefficients, with exclude_bonded the 2-channel pbond."""
+    convention of make_pair_kernel's function on a 6-channel layout, law
+    "dpd" or "lj" from scalar coefficients (one type, as the TPU kernel),
+    with exclude_bonded the 2-channel pbond."""
     check_geometry(geom)
     return _wrapper("dpd_full", geom, PairCoef.create(
         geom, law, a0=a0, gamma=gamma, sigma=sigma, cut=cut, dt=dt,

@@ -2,8 +2,11 @@
 
 Counterpart of `obmd_tpu/forces/pairs.py` for the ported pair styles:
   * DPD    — DPD-BASIC/pair_dpd.cpp:128-137, uniform pair noise;
-  * LJ cut — 12-6 LJ (pair_lj_cut.cpp), optionally energy-shifted.
-Every other law raises NotImplementedError.
+  * LJ cut — 12-6 LJ (pair_lj_cut.cpp), optionally energy-shifted;
+  * LJ cut/rf — 12-6 LJ plus reaction-field Coulomb (the fork's
+    pair_lj_cut_rf.cpp:118-131 force, :163-171 energy), charges q_i q_j.
+Every law takes per-type-pair coefficient tables.  Every other law raises
+NotImplementedError.
 
 `pair_sweep` is the full-neighbour sweep over a dense cell table
 (`cells.build_cells`): every pair is computed from both sides and each atom
@@ -23,7 +26,7 @@ import torch
 
 from .. import rng
 from ..cells import BIG, CellTable, GridSpec, gather_padded
-from ..config import DPDParams, LJCutParams
+from ..config import DPDParams, LJCutParams, LJCutRFParams
 from ..geometry import Box
 
 EPS_R = 1.0e-10  # reference EPSILON for the r ~ 0 skip (pair_dpd.cpp:117)
@@ -43,6 +46,8 @@ def _table_names(params):
         return ("a0", "gamma", "cut", "sigma")
     if isinstance(params, LJCutParams):
         return ("epsilon", "sigma", "cut")
+    if isinstance(params, LJCutRFParams):
+        return ("epsilon", "sigma", "cut", "eps_rf")
     raise NotImplementedError(
         f"pair law {type(params).__name__} is not ported")
 
@@ -71,8 +76,44 @@ def _lj_consts(eps, sig):
 def make_pair_law(params, dt: float, dtype=torch.float32, device="cpu"):
     """pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt) -> (fpair, e) with
     F_i += fpair * d, d = x_i - x_j (fpair carries the 1/r factors); e is
-    the full pair energy (the caller halves it per atom)."""
+    the full pair energy (the caller halves it per atom).  The lj/cut/rf
+    law's pair_fn also takes the charges qi, qj."""
     tabs = _tables(params, dtype, device)
+
+    if isinstance(params, LJCutRFParams):
+        qq = float(np.float32(params.qqrd2e))
+        cut_coul = float(np.float32(params.cut_coul))
+
+        def pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt, qi=None,
+                    qj=None):
+            cut = _lookup(tabs["cut"], ti, tj)
+            eps = _lookup(tabs["epsilon"], ti, tj)
+            sig = _lookup(tabs["sigma"], ti, tj)
+            erf = _lookup(tabs["eps_rf"], ti, tj)
+            lj1, lj2, lj3, lj4 = _lj_consts(eps, sig)
+            ok = rsq > EPS_R * EPS_R
+            r2inv = torch.where(ok, 1.0 / torch.clamp(rsq, min=EPS_R * EPS_R),
+                                0.0)
+            r6inv = r2inv * r2inv * r2inv
+            in_lj = (rsq < cut * cut) & ok
+            flj = torch.where(in_lj, r6inv * (lj1 * r6inv - lj2) * r2inv, 0.0)
+            elj = torch.where(in_lj, r6inv * (lj3 * r6inv - lj4), 0.0)
+            # reaction field (pair_lj_cut_rf.cpp:118-131, :163-171)
+            rf1 = erf - 1.0
+            rf2 = 1.0 + 2.0 * erf
+            in_coul = (rsq < cut_coul * cut_coul) & ok
+            qprod = qq * qi * qj
+            rinv = torch.sqrt(r2inv)
+            r = torch.sqrt(rsq)
+            fcoul = qprod * (r2inv * rinv
+                             - (1.0 / cut_coul ** 3) * (2.0 * rf1 / rf2))
+            fcoul = torch.where(in_coul, fcoul, 0.0)
+            ecoul = (qprod * rinv * (1.0 + (rf1 / rf2) * (r / cut_coul) ** 3)
+                     - qprod * (1.0 / cut_coul) * (3.0 * erf / rf2))
+            ecoul = torch.where(in_coul, ecoul, 0.0)
+            return flj + fcoul, elj + ecoul
+
+        return pair_fn
 
     if isinstance(params, DPDParams):
         if params.gaussian_noise:
@@ -132,27 +173,29 @@ def _scatter_back(vals: torch.Tensor, idx: torch.Tensor, n: int):
 
 
 def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
-               x, v, types, tag, salt, *, dt: float,
+               x, v, types, tag, salt, *, dt: float, q=None,
                compute_energy: bool = False,
                compute_virial: bool = False,
                compute_virial_atom: bool = False) -> PairFields:
     """Full force sweep over the cell grid: per-atom forces (zero for dead
     slots), optionally per-atom pe (half of each incident pair's energy),
     the global virial 0.5 sum_pairs d (x) F over both orientations, and the
-    per-atom virial shares.  The reference's charge argument is left out:
-    no charged law is ported."""
+    per-atom virial shares.  `q`, the per-atom charges, is read by the
+    lj/cut/rf law only (the reference's positional charge argument)."""
     dtype = x.dtype
     dev = x.device
     n = x.shape[0]
     n_cells = spec.n_cells
     cap = spec.capacity
     pair_fn = make_pair_law(params, dt, dtype, dev)
+    charged = isinstance(params, LJCutRFParams)
 
     idx = ctab.table[:n_cells]                       # [n_cells, cap]
     xi = gather_padded(x, idx, BIG)
     vi = gather_padded(v, idx, 0.0)
     ti = gather_padded(types, idx, 0)
     gi = gather_padded(tag, idx, -1)
+    qi = gather_padded(q, idx, 0.0) if charged else None
 
     nbr = torch.from_numpy(spec.stencil_neighbors()).long().to(dev)
     not_self = ~torch.eye(cap, dtype=torch.bool, device=dev)[None]
@@ -172,6 +215,10 @@ def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
         vj = gather_padded(v, jdx, 0.0)
         tj = gather_padded(types, jdx, 0)
         gj = gather_padded(tag, jdx, -1)
+        kw = {}
+        if charged:
+            kw = dict(qi=qi[:, :, None],
+                      qj=gather_padded(q, jdx, 0.0)[:, None, :])
 
         d = box.min_image(xi[:, :, None, :] - xj[:, None, :, :])
         dv = vi[:, :, None, :] - vj[:, None, :, :]
@@ -180,7 +227,7 @@ def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
         if k == 13:                                  # the (0, 0, 0) offset
             valid = valid & not_self
         fpair, e = pair_fn(rsq, d, dv, ti[:, :, None], tj[:, None, :],
-                           gi[:, :, None], gj[:, None, :], salt)
+                           gi[:, :, None], gj[:, None, :], salt, **kw)
         fvec = torch.where(valid[..., None], fpair[..., None] * d, 0.0)
         f_acc += fvec.sum(2)
         if compute_energy:

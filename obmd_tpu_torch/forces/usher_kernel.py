@@ -1,10 +1,11 @@
 """The whole USHER steered-insertion search in one kernel launch.
 
 Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, its DPD and
-lj/cut branches, and `usher_search_pallas`).  The Hopper kernel
+LJ-family branches, and `usher_search_pallas`).  The Hopper kernel
 `csrc/usher_kernel.cu` replaces `make_usher_kernel`, with one C entry point
-per law (`obmd_usher_search` for DPD, `obmd_usher_search_lj` for lj/cut),
-each with its own launch count; its plain version is
+per law (`obmd_usher_search` for DPD, `obmd_usher_search_lj` for lj/cut and
+the neutral lj/cut/rf rows), each law with its own launch count
+(`usher_search`, `usher_search_lj`, `usher_search_ljrf`); its plain version is
 `obmd.subset.usher_search_subset_batch`, whose arithmetic the kernel follows
 (it is also what the JAX engine runs off the TPU).  A CUDA tensor goes to
 the kernel, a CPU tensor to the plain version; the choice is the tensors'
@@ -12,8 +13,10 @@ device, never an environment variable.
 
 The laws take per-subset-atom coefficient rows against the fix's single
 trial type: DPD E = 0.5*a0*rc*wd^2 (rows a0, cut); lj/cut
-E = r^-6 (lj3 r^-6 - lj4) - eshift (rows lj3, lj4, cut, eshift).  Neutral
-lj/cut/rf rows come with that law's port.
+E = r^-6 (lj3 r^-6 - lj4) - eshift (rows lj3, lj4, cut, eshift).  lj/cut/rf
+takes the lj rows with eshift = 0: an ATOM-mode trial atom is neutral
+(q = 0), so the reaction field adds nothing to its energy or force
+(pallas_usher.py:57-75).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 
 from .. import _build
 from ..cells import BIG
-from ..config import DPDParams, LJCutParams
+from ..config import DPDParams, LJCutParams, LJCutRFParams
 from ..geometry import const
 from ..obmd.subset import EPSILON, Subset, pad_subset, usher_search_subset_batch
 
@@ -39,20 +42,22 @@ def usher_law(pair):
         tabs = [np.asarray(pair.a0, np.float32),
                 np.asarray(pair.cut, np.float32)]
         name, pads = "usher_search", (0.0, 1.0)
-    elif isinstance(pair, LJCutParams):
+    elif isinstance(pair, (LJCutParams, LJCutRFParams)):
         eps = np.asarray(pair.epsilon, np.float64)
         sig = np.asarray(pair.sigma, np.float64)
         cut = np.asarray(pair.cut, np.float64)
         s6 = sig ** 6
         lj3 = 4.0 * eps * s6 * s6
         lj4 = 4.0 * eps * s6
-        if pair.shift:
+        if isinstance(pair, LJCutParams) and pair.shift:
             rc6 = (1.0 / cut ** 2) ** 3
             eshift = rc6 * (lj3 * rc6 - lj4)
         else:
             eshift = np.zeros_like(lj3)
         tabs = [t.astype(np.float32) for t in (lj3, lj4, cut, eshift)]
-        name, pads = "usher_search_lj", (0.0, 0.0, 1.0, 0.0)
+        name = ("usher_search_lj" if isinstance(pair, LJCutParams)
+                else "usher_search_ljrf")
+        pads = (0.0, 0.0, 1.0, 0.0)
     else:
         return None
 
@@ -65,7 +70,8 @@ def usher_law(pair):
 
 def subset_rows(pair, ntype: int, ntypes: int, sub: Subset) -> torch.Tensor:
     """[3 + n_coef, B] kernel input: positions (BIG where invalid) and the
-    law's coefficient rows ([5, B] for DPD, [7, B] for lj/cut)."""
+    law's coefficient rows ([5, B] for DPD, [7, B] for lj/cut and
+    lj/cut/rf)."""
     law = usher_law(pair)
     if law is None:
         raise NotImplementedError(

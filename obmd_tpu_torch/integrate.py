@@ -44,7 +44,7 @@ def compute_forces(cfg: SceneConfig, spec: GridSpec, state: State, *,
     ctab = build_cells(spec, state.x, state.alive)
     pf = pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
                     state.type, state.tag, _salt(cfg, state.step),
-                    dt=cfg.dt, compute_energy=compute_energy,
+                    dt=cfg.dt, q=state.q, compute_energy=compute_energy,
                     compute_virial=compute_virial,
                     compute_virial_atom=compute_virial_atom)
     return pf, ctab

@@ -1,12 +1,13 @@
-"""LAMMPS data files for `atom_style atomic` and `bond`.
+"""LAMMPS data files for `atom_style atomic`, `charge` and `bond`.
 
 The port's own copy of `DataFile`, `read_data` and `write_data` of
 `obmd_tpu/io/lammps_data.py` (read_data.cpp / write_data.cpp for the
-sections the chain melt uses): the header (atoms, atom types, box bounds;
-bond counts are read from their sections), Masses, Atoms (`atomic`: id type
-x y z; `bond`: id mol type x y z), Velocities and Bonds, through the same
-pure-Python parser.  The other atom styles, angles, dihedrals, impropers
-and the native reader are not ported.
+sections the chain melt and the charged fluids use): the header (atoms,
+atom types, box bounds; bond counts are read from their sections), Masses,
+Atoms (`atomic`: id type x y z; `charge`: id type q x y z; `bond`: id mol
+type x y z), Velocities and Bonds, through the same pure-Python parser.
+The other atom styles, angles, dihedrals, impropers and the native reader
+are not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import numpy as np
 
 from ..geometry import Box
 
-STYLES = ("atomic", "bond")
+STYLES = ("atomic", "charge", "bond")
 _SECTIONS = ("Masses", "Atoms", "Velocities", "Bonds", "Angles", "Dihedrals",
              "Impropers", "Pair Coeffs", "PairIJ Coeffs", "Bond Coeffs")
 
@@ -33,6 +34,7 @@ class DataFile:
     types: np.ndarray           # [n] 0-based
     tags: np.ndarray            # [n] original ids
     v: Optional[np.ndarray] = None
+    q: Optional[np.ndarray] = None      # [n] charges (atom_style charge)
     mol: Optional[np.ndarray] = None
     bonds: Optional[np.ndarray] = None  # [nb, 2] atom-tag pairs
 
@@ -61,7 +63,7 @@ def _skip_blank(lines, i):
 
 
 def read_data(path: str, atom_style: str = "atomic") -> DataFile:
-    """Parse a data file of `atom_style` atomic or bond."""
+    """Parse a data file of `atom_style` atomic, charge or bond."""
     _check_style(atom_style)
     with open(path) as fh:
         lines = fh.readlines()
@@ -93,10 +95,10 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
 
     masses = np.ones(max(ntypes, 1))
     x = np.zeros((natoms, 3))
-    v = mol = bonds = None
+    v = q = mol = bonds = None
     types = np.zeros(natoms, np.int32)
     tags = np.zeros(natoms, np.int32)
-    need = {"atomic": 5, "bond": 6}[atom_style]
+    need = {"atomic": 5, "charge": 6, "bond": 6}[atom_style]
 
     while i < n:
         header = lines[i].strip().split("#")[0].strip()
@@ -124,6 +126,12 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
                 if atom_style == "atomic":
                     types[k] = int(t[1]) - 1
                     x[k] = [float(t[2]), float(t[3]), float(t[4])]
+                elif atom_style == "charge":
+                    if q is None:
+                        q = np.zeros(natoms)
+                    types[k] = int(t[1]) - 1
+                    q[k] = float(t[2])
+                    x[k] = [float(t[3]), float(t[4]), float(t[5])]
                 else:
                     if mol is None:
                         mol = np.zeros(natoms, np.int32)
@@ -155,8 +163,8 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
                 i += 1
 
     return DataFile(natoms=natoms, ntypes=ntypes, box_lo=lo, box_hi=hi,
-                    masses=masses, x=x, types=types, tags=tags, v=v, mol=mol,
-                    bonds=bonds)
+                    masses=masses, x=x, types=types, tags=tags, v=v, q=q,
+                    mol=mol, bonds=bonds)
 
 
 def write_data(path: str, df: DataFile, atom_style: str = "atomic"):
@@ -180,6 +188,8 @@ def write_data(path: str, df: DataFile, atom_style: str = "atomic"):
             pos = f"{df.x[k, 0]} {df.x[k, 1]} {df.x[k, 2]}"
             if atom_style == "atomic":
                 fh.write(f"{df.tags[k]} {df.types[k] + 1} {pos}\n")
+            elif atom_style == "charge":
+                fh.write(f"{df.tags[k]} {df.types[k] + 1} {df.q[k]} {pos}\n")
             else:
                 mol_k = df.mol[k] if df.mol is not None else 0
                 fh.write(f"{df.tags[k]} {mol_k} {df.types[k] + 1} {pos}\n")

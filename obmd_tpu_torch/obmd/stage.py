@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from ..config import DPDParams, LJCutParams, SceneConfig
+from ..config import DPDParams, LJCutParams, LJCutRFParams, SceneConfig
 from ..geometry import const, const_like
 
 EPSILON = 1.0e-6  # reference EPSILON (fix_obmd_merged.cpp:62)
@@ -66,10 +66,11 @@ def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
     candidate order, take a candidate when it is ok, conflicts with no
     earlier taken one and the budget is not spent (ref :914 sequential
     insertion).  Two candidates conflict when their pair energy exceeds
-    etarget + eps: the DPD energy 0.5*a0*rc*wd^2, or for lj/cut the
-    reference's conservative stand-in, infinite closer than the cutoff and
-    zero beyond it (so with a negative etarget, as in any LJ liquid, every
-    two candidates conflict and one per call is taken)."""
+    etarget + eps: the DPD energy 0.5*a0*rc*wd^2, or for the LJ family
+    (lj/cut, lj/cut/rf) the reference's conservative stand-in, infinite
+    closer than the largest cutoff and zero beyond it (so with a negative
+    etarget, as in any LJ liquid, every two candidates conflict and one per
+    call is taken)."""
     obmd = cfg.obmd
     k = cand_x.shape[0]
     d = cfg.box.min_image(cand_x[:, None, :] - cand_x[None, :, :])
@@ -86,7 +87,7 @@ def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
         r = torch.sqrt(rsq)
         wd = torch.clamp(1.0 - r / cut, min=0.0)
         epair = 0.5 * a0 * cut * wd * wd
-    elif isinstance(p, LJCutParams):
+    elif isinstance(p, (LJCutParams, LJCutRFParams)):
         epair = torch.where(rsq < p.max_cut ** 2, torch.inf, 0.0)
     else:
         raise NotImplementedError(

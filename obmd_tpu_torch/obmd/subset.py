@@ -1,7 +1,9 @@
 """Buffer subsets and the batched USHER search in PyTorch.
 
 Counterpart of `obmd_tpu/obmd/subset.py` for ATOM-mode insertion: `Subset`,
-`expand_region`, the DPD and lj/cut branches of `_batched_energy_force` and
+`expand_region`, the DPD, lj/cut and lj/cut/rf branches of
+`_batched_energy_force` (`conservative_energy_force`; ATOM-mode trials are
+neutral, so lj/cut/rf's reaction field adds nothing to a trial's energy) and
 `usher_search_subset_batch`, op for op.  Candidates only ever sit inside an
 insertion region, so the atoms that can contribute are those within
 cut + skin of it; the search runs brute force against that subset.  This is
@@ -9,12 +11,12 @@ the plain version of the USHER kernel (forces/usher_kernel.py).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..cells import BIG
-from ..config import DPDParams, LJCutParams, SceneConfig
+from ..config import DPDParams, LJCutParams, LJCutRFParams, SceneConfig
 from ..forces.pairs import make_pair_law
 from ..geometry import RegionBlock, const_like
 
@@ -26,6 +28,7 @@ class Subset(NamedTuple):
     type: torch.Tensor      # [B] i32
     valid: torch.Tensor     # [B] bool
     overflow: torch.Tensor  # 0-dim bool: more region atoms than B
+    q: Optional[torch.Tensor] = None   # [B] charges (None: a neutral scene)
 
 
 def expand_region(region: RegionBlock, pad: float) -> RegionBlock:
@@ -34,10 +37,11 @@ def expand_region(region: RegionBlock, pad: float) -> RegionBlock:
 
 
 def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
-                          box=None):
+                          box=None, sub_q=None):
     """sub_* [S,B,...], pos [S,K,3], cand_type [S,K] -> E [S,K], F [S,K,3]
-    (DPD: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; lj/cut: the pair law of
-    forces/pairs.make_pair_law)."""
+    (DPD: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; lj/cut and lj/cut/rf: the
+    pair law of forces/pairs.make_pair_law, the trials neutral against the
+    subset's charges sub_q [S,B], zero when None)."""
     d = pos[:, :, None, :] - sub_x[:, None, :, :]          # [S,K,B,3]
     if box is not None:
         d = box.min_image(d)
@@ -58,11 +62,16 @@ def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
         inr = ok & (rsq < cutv * cutv) & (r > 1e-10)
         e = torch.where(inr, 0.5 * a0v * cutv * wd * wd, 0.0)
         fp = torch.where(inr, a0v * wd * rinv, 0.0)
-    elif isinstance(pair, LJCutParams):
+    elif isinstance(pair, (LJCutParams, LJCutRFParams)):
         pair_fn = make_pair_law(pair, 1.0, pos.dtype, pos.device)
+        kw = {}
+        if isinstance(pair, LJCutRFParams):
+            qj = torch.zeros_like(sub_x[..., 0]) if sub_q is None else sub_q
+            kw = dict(qi=torch.zeros_like(pos[:, :, None, 0]),
+                      qj=qj[:, None, :])
         zero = torch.zeros((), dtype=torch.int32, device=pos.device)
         fp, e = pair_fn(rsq, d, torch.zeros_like(d), cand_type[:, :, None],
-                        sub_type[:, None, :], zero, zero, 0)
+                        sub_type[:, None, :], zero, zero, 0, **kw)
         fp = torch.where(ok, fp, 0.0)
         e = torch.where(ok, e, 0.0)
     else:
@@ -85,7 +94,9 @@ def pad_subset(sub: Subset, b: int) -> Subset:
                                               device=dev)]),
         valid=torch.cat([sub.valid, torch.zeros((pad,), dtype=torch.bool,
                                                 device=dev)]),
-        overflow=sub.overflow)
+        overflow=sub.overflow,
+        q=None if sub.q is None else torch.cat([
+            sub.q, torch.zeros((pad,), dtype=sub.q.dtype, device=dev)]))
 
 
 def usher_search_subset_batch(cfg: SceneConfig, sub_l: Subset, sub_r: Subset,
@@ -103,6 +114,8 @@ def usher_search_subset_batch(cfg: SceneConfig, sub_l: Subset, sub_r: Subset,
     sub_x = torch.stack([sub_l.x, sub_r.x])
     sub_t = torch.stack([sub_l.type, sub_r.type])
     sub_v = torch.stack([sub_l.valid, sub_r.valid])
+    sub_q = (None if sub_l.q is None or sub_r.q is None
+             else torch.stack([sub_l.q, sub_r.q]))
     pos = torch.stack([cand_l, cand_r])
     ct = torch.stack([cand_type, cand_type])
     lo = torch.tensor([region_l.lo, region_r.lo], dtype=dtype,
@@ -115,7 +128,7 @@ def usher_search_subset_batch(cfg: SceneConfig, sub_l: Subset, sub_r: Subset,
     iters = torch.zeros((2, k), dtype=torch.int32, device=pos.device)
     for _ in range(u.nattempt):
         E, F = _batched_energy_force(cfg.pair, sub_x, sub_t, sub_v, pos, ct,
-                                     box=cfg.box)
+                                     box=cfg.box, sub_q=sub_q)
         ok = E < u.etarget + EPSILON
         newly = active & ok
         fabs = torch.sqrt((F * F).sum(-1))
@@ -135,6 +148,6 @@ def usher_search_subset_batch(cfg: SceneConfig, sub_l: Subset, sub_r: Subset,
         accepted = accepted | newly
         iters = iters + active.to(torch.int32)
     E, _ = _batched_energy_force(cfg.pair, sub_x, sub_t, sub_v, pos, ct,
-                                 box=cfg.box)
+                                 box=cfg.box, sub_q=sub_q)
     accepted = accepted | (active & (E < u.etarget + EPSILON))
     return pos, accepted, iters

@@ -4,7 +4,9 @@ run audits.
 Counterpart of `obmd_tpu/observe.py`.  Thermo and profiles run the pair
 sweep (`forces/pairs.pair_sweep` over a fresh `cells.build_cells` table),
 independent of the cellpad layout and its kernels.  Pressure convention
-(LAMMPS): P_ab V = sum m v_a v_b + W_ab.  On a bonded scene E_bond is the
+(LAMMPS): P_ab V = sum m v_a v_b + W_ab.  Under lj/cut/rf E_pair, pe and
+the virial hold the reaction-field terms (evdwl + ecoul, as LAMMPS's
+thermo pe).  On a bonded scene E_bond is the
 FENE energy and pe = E_pair + E_bond; E_pair comes from the pair sweep,
 which has no 1-2 exclusion, so it holds the bonded pairs' WCA energy that
 the step leaves out (the JAX package's convention, kept for parity;
@@ -58,7 +60,7 @@ def _sweep(cfg: SceneConfig, spec, state: State, **kw):
     ctab = build_cells(spec, state.x, state.alive)
     return pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
                       state.type, state.tag, _salt(cfg, state.step),
-                      dt=cfg.dt, **kw)
+                      dt=cfg.dt, q=state.q, **kw)
 
 
 def make_thermo_fn(cfg: SceneConfig):
@@ -188,6 +190,14 @@ def bond_stats(cfg: SceneConfig, state: State):
         over = over + (r >= cfg.bond.r0).sum()
         count = count + once.sum()
     return float(longest), int(over), int(count)
+
+
+def charge_census(state: State):
+    """(net charge, charged atoms) over the alive atoms: an open charged
+    fluid loses ions at its faces and inserts neutral solvent, so both
+    drift (the reference's ATOM mode does the same)."""
+    q = torch.where(state.alive, state.q, 0.0)
+    return float(q.sum()), int((q != 0.0).sum())
 
 
 def check_invariants(cfg: SceneConfig, state: State) -> dict:

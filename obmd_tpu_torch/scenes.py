@@ -1,6 +1,7 @@
 """The ported scenes: OBMD_DPD (examples/OBMD_DPD/input.py:17-124), the LJ
-melt (the reference's code/bench/in.lj), the open-boundary LJ fluid and the
-FENE chain melt (code/bench/in.chain).
+melt (the reference's code/bench/in.lj), the open-boundary LJ fluid, the
+open-boundary charged two-type LJ fluid and the FENE chain melt
+(code/bench/in.chain).
 
 Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config`, `obmd_dpd_scene`,
 `lj_melt_scene` and `chain_scene`.  OBMD_DPD: DPD fluid at rho = 3, T = 1
@@ -11,7 +12,8 @@ with the same numpy generators as the reference, so both packages start from
 the same positions and velocities.  The open LJ fluid (`obmd_lj_config`,
 `obmd_lj_scene`) assembles configuration objects both packages have: the
 LJ melt's law and lattice in OBMD_DPD's open-x buffer layout under a
-Langevin thermostat.  The chain melt reads a data file as the JAX scene
+Langevin thermostat; the charged fluid (`obmd_ljrf_config`,
+`obmd_ljrf_scene`) puts lj/cut/rf ions into that solvent.  The chain melt reads a data file as the JAX scene
 does, or builds its start in the repository: chains threaded through the
 LJ melt's fcc lattice (`chain_lattice`), warmed up by `chain_warm_up`.
 """
@@ -23,7 +25,8 @@ from typing import Optional
 import numpy as np
 
 from .config import (BondFENEParams, Capacity, DPDParams, LangevinParams,
-                     LJCutParams, ObmdParams, SceneConfig, UsherParams)
+                     LJCutParams, LJCutRFParams, ObmdParams, SceneConfig,
+                     UsherParams)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -171,6 +174,16 @@ def obmd_lj_config(nx: int = 128, ny: int = 14,
     slice's n slots (engine_cellpad._subset_slice, as the reference), and
     at this density that needs cap >= 41; the most atoms in one cell stays
     far below."""
+    pair = LJCutParams.create(cutoff=2.5, epsilon=1.0, sigma=1.0)
+    return _open_lj_config(nx, ny, nbuf, pair, (1.0,), OBMD_LJ_ETARGET,
+                           OBMD_LJ_PXX)
+
+
+def _open_lj_config(nx: int, ny: int, nbuf: Optional[float], pair, masses,
+                    etarget: float, pxx: float) -> SceneConfig:
+    """The open LJ fluid's box, regions, stage, thermostat and layout
+    (obmd_lj_config) with a given pair law, masses, USHER target and
+    normal load."""
     rho = OBMD_LJ_RHO
     a = (4.0 / rho) ** (1.0 / 3.0)          # fcc lattice constant
     xhi = nx * a
@@ -186,15 +199,14 @@ def obmd_lj_config(nx: int = 128, ny: int = 14,
     degenerate = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
     obmd = ObmdParams(
         ntype=0, nfreq=1, seed=872634,
-        pxx=OBMD_LJ_PXX, pxy=0.0, pxz=0.0, dpxx=0.0, freq=0.0,
+        pxx=pxx, pxy=0.0, pxz=0.0, dpxx=0.0, freq=0.0,
         alpha=alpha, tau=dt * (0.005 / 0.001464), nbuf=float(nbuf),
         region1=r1, region2=r2, region3=degenerate, region4=degenerate,
         region5=r1, region6=r2,
         buffer_size=buffer_size, g_fac=0.25, maxattempt=1,
-        usher=UsherParams(etarget=OBMD_LJ_ETARGET), insert_kmax=16)
-    pair = LJCutParams.create(cutoff=2.5, epsilon=1.0, sigma=1.0)
+        usher=UsherParams(etarget=etarget), insert_kmax=16)
     return SceneConfig(
-        box=box, masses=(1.0,), pair=pair, dt=dt,
+        box=box, masses=tuple(masses), pair=pair, dt=dt,
         capacity=Capacity(n_max=4 * nx * ny * ny, cell_capacity=44),
         obmd=obmd, langevin=LangevinParams(temp=OBMD_LJ_TEMP, damp=1.0),
         skin=0.4, force_path="cellpad").finalize()
@@ -211,12 +223,110 @@ def obmd_lj_scene(nx: int = 128, ny: int = 14, nbuf: Optional[float] = None,
     move more atoms than its mover budget (cellpad.relayout_incremental's
     m_max, as the reference's)."""
     cfg = obmd_lj_config(nx=nx, ny=ny, nbuf=nbuf)
+    x, v = _open_lj_start(nx, ny)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+
+
+def _open_lj_start(nx: int, ny: int):
+    """obmd_lj_scene's start: the shifted fcc lattice and normal
+    velocities at T0 = 1.44 with zero net momentum."""
     a = (4.0 / OBMD_LJ_RHO) ** (1.0 / 3.0)
     x = fcc_lattice((nx, ny, ny), a, offset=(0.25 * a, 0.125 * a, 0.125 * a))
     rng = np.random.default_rng(87287)
     v = rng.normal(0.0, np.sqrt(1.44), x.shape)
     v -= v.mean(axis=0)
-    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+    return x, v
+
+
+# The open charged two-type LJ fluid (obmd_ljrf_config): the JAX package's
+# two-type charged lj/cut/rf law (tests/test_cellpad_multitype.py:76-80),
+# eps_rf 80 (validation/ljrf_golden/in.ljrf), ions at q = +-0.5.
+# OBMD_LJRF_ETARGET is the mean per-atom pair energy of the neutral type-0
+# solvent and OBMD_LJRF_PXX the pressure (reaction-field virial included)
+# of the bulk fluid at rho* = 0.8442 and T* = 0.722, read with
+# `lj_state_point.py ljrf` on an NVIDIA H100 80GB HBM3 at 700 W: the
+# periodic ljrf_bulk_scene(nx=20), 32,000 atoms of this composition, melted
+# at T = 1.44 and run under this scene's Langevin thermostat, thermo over
+# its last 400 of 4,000 steps: T 0.7232, type-0 pair energy per atom
+# -5.4640 (E_pair/N of all atoms -5.2861), pressure 0.6612.
+LJRF_EPSILON = ((1.0, 0.8), (0.8, 0.6))
+LJRF_SIGMA = ((1.0, 0.95), (0.95, 0.9))
+LJRF_MASSES = (1.0, 1.5)
+LJRF_EPS_RF, LJRF_Q, LJRF_ION_FRACTION = 80.0, 0.5, 0.1
+OBMD_LJRF_ETARGET = -5.4640
+OBMD_LJRF_PXX = 0.6612
+
+
+def ljrf_pair() -> LJCutRFParams:
+    """The charged fluid's law: lj/cut/rf 2.5 2.5, two types."""
+    return LJCutRFParams.create(cut_lj=2.5, cut_coul=2.5, ntypes=2,
+                                epsilon=LJRF_EPSILON, sigma=LJRF_SIGMA,
+                                eps_rf=LJRF_EPS_RF)
+
+
+def ion_sites(n: int):
+    """(types [n], q [n]) of n lattice sites: an even number of ions,
+    about LJRF_ION_FRACTION of the sites, spread evenly over the site
+    order, type 1 with q = +0.5 and -0.5 in turn (net charge 0); the rest
+    neutral type-0 solvent."""
+    n_ion = 2 * int(round(0.5 * LJRF_ION_FRACTION * n))
+    sites = (np.arange(n_ion) * n) // n_ion
+    types = np.zeros(n, np.int32)
+    q = np.zeros(n)
+    types[sites] = 1
+    q[sites] = LJRF_Q * np.where(np.arange(n_ion) % 2 == 0, 1.0, -1.0)
+    return types, q
+
+
+def obmd_ljrf_config(nx: int = 128, ny: int = 14,
+                     nbuf: Optional[float] = None) -> SceneConfig:
+    """The open-boundary charged two-type LJ fluid: obmd_lj_config's box
+    (128 x 14 x 14 fcc cells, 215.0 x 23.51 x 23.51, x open, y and z
+    periodic), regions, stage (ATOM-mode USHER inserting neutral type-0
+    solvent, maxattempt 1, nfreq 1, K = 16), Langevin at T* = 0.722, damp 1,
+    dt 0.005, skin 0.4 and filing cap 44, with the two-type lj/cut/rf law
+    (ljrf_pair: eps 1.0 / 0.8 / 0.6, sigma 1.0 / 0.95 / 0.9, rc_lj =
+    rc_coul = 2.5, eps_rf 80), masses 1.0 and 1.5, USHER's target and the
+    normal load at this fluid's own bulk values (OBMD_LJRF_ETARGET,
+    OBMD_LJRF_PXX).  max_cut stays 2.5, so the grid is the open LJ fluid's
+    (74 x 8 x 8, p = 2, 208,384 slots).
+
+    It is the ATOM-mode stand-in for BASELINE.json config 5 (open-boundary
+    water under reaction field, Papez and Praprotnik, JCTC 2022): the
+    electrostatics of that deck in an LJ solvent with dissolved ions.
+    Config 5 proper (water with SHAKE, angles and MOL-mode insertion) waits
+    for the slices that port those."""
+    return _open_lj_config(nx, ny, nbuf, ljrf_pair(), LJRF_MASSES,
+                           OBMD_LJRF_ETARGET, OBMD_LJRF_PXX)
+
+
+def obmd_ljrf_scene(nx: int = 128, ny: int = 14,
+                    nbuf: Optional[float] = None, device="cuda") -> Scene:
+    """Config + obmd_lj_scene's start on `device` with ion_sites' types
+    and charges (10,036 ions at full size, net charge 0); the lattice
+    melts under `integrate.equilibrate(..., temp=1.44)`.  Ions deleted at
+    the open faces are not replaced: insertion is neutral solvent."""
+    cfg = obmd_ljrf_config(nx=nx, ny=ny, nbuf=nbuf)
+    x, v = _open_lj_start(nx, ny)
+    types, q = ion_sites(len(x))
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, types=types, q=q,
+                                           device=device))
+
+
+def ljrf_bulk_scene(nx: int = 20, device="cuda") -> Scene:
+    """The charged fluid's bulk: lj_melt_scene(nx)'s periodic box and
+    lattice (rho* = 0.8442, T0 = 1.44, cap 36) with ion_sites' composition,
+    the two-type lj/cut/rf law and masses, under the open fluid's Langevin
+    thermostat (T* = 0.722, damp 1): the state point lj_state_point.py
+    reads."""
+    sc = lj_melt_scene(nx=nx, device="cpu")
+    cfg = dataclasses.replace(
+        sc.cfg, pair=ljrf_pair(), masses=LJRF_MASSES,
+        langevin=LangevinParams(temp=OBMD_LJ_TEMP, damp=1.0))
+    x, v = sc.state.x.numpy(), sc.state.v.numpy()
+    types, q = ion_sites(len(x))
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, types=types, q=q,
+                                           device=device))
 
 
 # the chain melt (code/bench/in.chain): rho* = 0.8442 on the LJ melt's

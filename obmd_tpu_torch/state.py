@@ -1,8 +1,9 @@
 """Fixed-capacity, validity-masked SoA particle state.
 
-Counterpart of `obmd_tpu/state.py` for single-type scenes with at most two
-bonds per atom: dead slots have alive = False, tag = -1 and v = 0; particle
-counts change by mask flips and masked writes under fixed shapes.  Bonds are
+Counterpart of `obmd_tpu/state.py` for scenes of 1-4 types, with per-atom
+charges and at most two bonds per atom: dead slots have alive = False,
+tag = -1 and v = 0; particle counts change by mask flips and masked writes
+under fixed shapes.  Bonds are
 stored per atom as partner SLOTS (`bond1`, `bond2`, -1 for none), remapped by
 every relayout.  The JAX PRNG key becomes a `torch.Generator` (the cold
 path's candidate draws); the step counter is a host int, so the pair-noise
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .config import SceneConfig
+from .geometry import const_like
 
 
 def resolve_device(device) -> torch.device:
@@ -65,6 +67,7 @@ class State:
     f: torch.Tensor        # [N,3] forces of the previous evaluation
     type: torch.Tensor     # [N] i32
     tag: torch.Tensor      # [N] i32 global id, -1 for dead slots
+    q: torch.Tensor        # [N] per-atom charge (0 on a neutral scene)
     alive: torch.Tensor    # [N] bool
     mol: torch.Tensor      # [N] i32 molecule id (0 = not in a molecule)
     bond1: torch.Tensor    # [N] i32 slot of the 1st bond partner (-1 = none)
@@ -132,9 +135,11 @@ def bond_columns(n_max: int, tags, bonds) -> tuple:
 
 
 def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
-               tags=None, mol=None, bonds=None, device="cuda") -> State:
+               tags=None, q=None, mol=None, bonds=None,
+               device="cuda") -> State:
     """Build a State from host arrays of n <= n_max real atoms; dead slots
-    are parked at the box center with tag -1 and v = 0.  mol: molecule ids;
+    are parked at the box center with tag -1 and v = 0.  types: 0-based
+    atom types; q: charges (0 when None); mol: molecule ids;
     bonds: [nb, 2] 1-based atom-tag pairs, at most two per atom, stored as
     partner slots."""
     cfg = cfg.finalize()
@@ -158,6 +163,9 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     tp = np.zeros((n_max,), dtype=np.int32)
     if types is not None:
         tp[:n] = np.asarray(types, dtype=np.int32)
+    qp = np.zeros((n_max,), dtype=npdt)
+    if q is not None:
+        qp[:n] = np.asarray(q, dtype=npdt)
     tagp = np.full((n_max,), -1, dtype=np.int32)
     tagp[:n] = (np.asarray(tags, dtype=np.int32) if tags is not None
                 else np.arange(1, n + 1, dtype=np.int32))
@@ -174,7 +182,7 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     zi = torch.zeros((), dtype=torch.int32, device=dev)
     return State(
         x=t(xp), v=t(vp), f=torch.zeros((n_max, 3), dtype=tdt, device=dev),
-        type=t(tp), tag=t(tagp), alive=t(alive), mol=t(molp),
+        type=t(tp), tag=t(tagp), q=t(qp), alive=t(alive), mol=t(molp),
         bond1=t(bond1), bond2=t(bond2), step=0,
         sim_time=torch.zeros((), dtype=tdt, device=dev),
         maxtag=torch.tensor(int(tagp.max(initial=0)), dtype=torch.int32,
@@ -187,8 +195,7 @@ def per_atom_mass(cfg: SceneConfig, state: State) -> torch.Tensor:
     if cfg.ntypes == 1:
         return torch.full((state.capacity,), float(cfg.masses[0]),
                           dtype=state.dtype, device=state.device)
-    m = torch.tensor(cfg.masses, dtype=state.dtype, device=state.device)
-    return m[state.type.long()]
+    return const_like(cfg.masses, state.x)[state.type.long()]
 
 
 def temperature(cfg: SceneConfig, state: State) -> torch.Tensor:

@@ -85,7 +85,8 @@ def test_config_mirrors_jax():
     for pcfg in (pscenes.chain_config(box, 32000),
                  pscenes.chain_scene(nx=6, chain_len=48, device=CPU).cfg):
         _mirror(pcfg, jax_chain_config(pcfg))
-    assert relayout_flags(pcfg) == dict(has_bonds=True, has_mol=True)
+    assert relayout_flags(pcfg) == dict(has_bonds=True, has_mol=True,
+                                        has_charge=False, has_types=False)
 
 
 def test_fene_matches_jax_and_oracle():

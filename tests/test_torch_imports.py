@@ -62,6 +62,10 @@ def test_default_device_raises_without_gpu():
         scenes.obmd_lj_scene(nx=4, ny=4)
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.chain_scene(nx=5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.obmd_ljrf_scene(nx=4, ny=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.ljrf_bulk_scene(nx=2)
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

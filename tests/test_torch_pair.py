@@ -89,9 +89,10 @@ def test_forces_with_boundary_force_match_jax(set_up):
 
 def test_wrapper_rejects_what_it_does_not_cover():
     """Wrong dtypes and shapes, and a missing or unasked-for pbond, raise
-    ValueError; 2 types, gaussian noise, open or single-cell y/z axes and
-    4 exclusion channels (branched topologies) raise NotImplementedError.
-    p == 1 layouts, periodic x and 2-channel exclusion are ported."""
+    ValueError; more than 4 types, gaussian noise, open or single-cell y/z
+    axes and 4 exclusion channels (branched topologies) raise
+    NotImplementedError.  p == 1 layouts, periodic x, 2-channel exclusion
+    and 2-4 types are ported."""
     jcfg, _, pcfg, _ = lattice_states(scale=0.25, cap=15)
     geom = p_make_geometry(pcfg)
     kern = make_pair_kernel(geom, pcfg.pair, pcfg.dt)
@@ -105,11 +106,11 @@ def test_wrapper_rejects_what_it_does_not_cover():
         kern(fld, tag.long(), 1, occ)
     with pytest.raises(ValueError):
         kern(fld[:, :3], tag, 1, occ)
-    two = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1,
-                                   a0=((25.0, 30.0), (30.0, 25.0)),
-                                   gamma=4.5, ntypes=2)
+    five = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1,
+                                    a0=np.full((5, 5), 25.0), gamma=4.5,
+                                    ntypes=5)
     with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom, two, pcfg.dt)
+        make_pair_kernel(geom, five, pcfg.dt)
     gauss = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1, a0=25.0,
                                      gamma=4.5, gaussian_noise=True)
     with pytest.raises(NotImplementedError):
