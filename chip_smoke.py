@@ -13,13 +13,19 @@ Phases (any failure exits non-zero and prints no result line):
      then each kernel against its plain PyTorch version at bench shapes:
      the pair kernel at filing cap 24 on the set-up scale-9 state, the
      USHER kernel on that state's buffer subsets (K = 16 candidates);
-  4. the main path as bench.py drives it: obmd_dpd_scene(scale=9, seed=7),
-     setup, equilibrate(1500), repack to cap 15, make_run(400) to settle,
-     two timed make_run(400) windows, check_invariants; then an insertion
-     phase on the same scene with nbuf raised to 1.05 x census / alpha (at
-     steady state the feedback budget is zero on almost every step), 25
-     steps at the setup cap, ninserted > 0, check_invariants.  Launch
-     counts are zeroed before setup and read after the insertion phase;
+  4. the main path as bench.py drives it, through bench_torch.py's own
+     functions: obmd_dpd_scene(scale=9, seed=7), setup, equilibrate(1500),
+     repack to cap 15, make_run(400) to settle, two timed make_run(400)
+     windows, check_invariants; at the repack and after each run the
+     kinetic T and the thermal T (observe.profile_temperature over x bins
+     as wide as the reference deck's chunks: the mean flow of each taken
+     out), the thermal T relaxing to within 5% of the thermostat's 1.0
+     (check_thermal);
+     then an insertion phase on the same scene with nbuf raised to 1.05 x
+     census / alpha (at steady state the feedback budget is zero on almost
+     every step), 25 steps at the setup cap, ninserted > 0,
+     check_invariants.  Launch counts are zeroed before setup and read
+     after the insertion phase;
   5. the pair kernel and the legacy full-stencil kernel (make_dpd_kernel's
      counterpart, DPD law) against their plain versions and each other at
      cap 15 on the repacked state of phase 4, and a torch.profiler trace of
@@ -114,7 +120,39 @@ Phases (any failure exits non-zero and prints no result line):
      on the nx = 20 LJ melt lattice; the fork's LAMMPS golden
      (validation/ljrf_golden/charged.data, 220 charged atoms) through
      setup on the card, every force within 5e-5 * max|f| of dump.ref;
- 19. the figures of the five paths (with each path's whole wall time,
+ 19. path A, OBMD_DPD with LAMMPS' gaussian pair noise (the scene with
+     pair.gaussian_noise = True, dataclasses.replace) from phase 4's
+     equilibrated state: repacked at cap 15, the gaussian kernel against
+     its plain version and one launch of the uniform kernel with the same
+     salt, which must differ from it by more than 2e-4 * max|f|; then
+     repacked at filing cap 16 (the same 16-rank store: at cap 15 the
+     gaussian production overflowed a cell in both trial runs, the uniform
+     one never), make_run(400) to settle, two timed make_run(400)
+     windows; the thermal T checked as in phase 4, and the kinetic T at
+     both window ends within 5% of phase 4's at the same steps;
+     check_invariants; then the insertion phase at the setup cap (24) with
+     nbuf raised to 1.05 x census / alpha, ninserted > 0,
+     check_invariants.  Launch counts are zeroed before the production and
+     read after the insertion phase: the gaussian pair kernel (keys
+     dpd-gauss-cap16 and dpd-gauss-cap24) once per step, USHER once per
+     step that needs atoms.
+     Then a profile of two relayout epochs and the gaussian kernel at cap
+     16 (the ended production state) and cap 24 (the ended insertion
+     state) against its plain version;
+ 20. path B, a dpd/tstat heating ramp: dpd_tstat_scene() (100,488 atoms,
+     T 0.4 -> 2.0 over steps 0-1000, cap 28), setup, make_run(100) ten
+     times, T and the ramp's T(step) at each mark; T rises from the first
+     mark to the last, the last within 15% of t_stop, check_invariants
+     (the relayout period printed); the last 400 steps timed.  Launch
+     counts zeroed before setup and read after: the ramp kernel (key
+     dpd-ramp-cap28) once per step and at setup.  Then the ramp kernel
+     against its plain version at sig_scale 1 and at the window's
+     midpoint value, and a profile of two relayout epochs;
+ 21. the reference binary's dpd/tstat golden
+     (validation/dpdtstat_golden/fluid.data, 300 atoms, `pair_style
+     dpd/tstat 0.0 0.0 1.2 999`, `pair_coeff 1 1 3.5`) through setup on
+     the card: every force within 5e-5 * max|f| of dump.ref;
+ 22. the figures of the seven paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
@@ -133,8 +171,9 @@ reaction field only for the pairs of two charged atoms within rc_coul;
 with exclusion each alive slot also reads its two partner tags, and the LJ
 law its tag; a charged law reads q and 2-4 types the type of each alive
 slot, and every typed launch its tables once).
-No PyTorch call computes any kernel's function, so library_ms is null.  The OBMD_DPD and open LJ paths
-record the most atoms in one cell after their repack or melt and after each
+No PyTorch call computes any kernel's function, so library_ms is null.
+The OBMD_DPD and open LJ paths record the most atoms in one cell after
+their repack or melt and after each
 production window: the margin left before a cell overflow, which
 check_invariants turns into a failure.
 """
@@ -148,9 +187,15 @@ import sys
 import time
 
 DEV = "cuda"
-# the main path's sizes: bench.py's scene, equilibration, production cap
-# and windows; the insertion phase's steps; the small path's deck
-SCALE, SEED, EQUIL, NSTEPS, PROD_CAP, INS_STEPS = 9.0, 7, 1500, 400, 15, 25
+# the main path's sizes are bench_torch.py's (bench.py's scene,
+# equilibration, production cap and windows); the insertion phase's steps
+INS_STEPS = 25
+# the width of the x bins whose mean velocity profile_temperature takes
+# out: the reference deck's chunks (validation/run_ref/in.obmd, 50 bins)
+T_BIN = 33.594 / 50
+# path A's production filing cap: the same 16-rank store as cap 15, one
+# more atom per cell (gaussian noise's unbounded kicks overflowed cap 15)
+GAUSS_CAP = 16
 SMALL_SCALE, SMALL_SEED, SMALL_NBUF, SMALL_STEPS = 0.25, 1, 700.0, 4
 # the LJ melt path (bench_lj.py's deck and windows), the kernel-only check's
 # size, and the steps each path runs through the full-stencil kernel
@@ -166,8 +211,15 @@ CHAIN_NX, CHAIN_STEPS, CHAIN_SMALL, CHAIN_SMALL_WARM = 20, 400, (7, 49), 300
 # kernel-only check at fill cap 20 and the share of the ended state it keeps
 RF_SMALL_KEEP, RF_CAP_SMALL, RF_CAP_SMALL_KEEP = 0.7, 20, 0.4
 # the fork's LAMMPS forces on a charged box (validation/run_ljrf_golden.py)
+# and the reference binary's dpd/tstat forces
+# (validation/run_dpdtstat_golden.py)
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "validation", "ljrf_golden")
+TSTAT_GOLDEN_DIR = os.path.join(os.path.dirname(GOLDEN_DIR),
+                                "dpdtstat_golden")
+# path B: the ramp's marks (make_run(TSTAT_MARK) TSTAT_MARKS times) and the
+# timed tail of the ramp
+TSTAT_MARK, TSTAT_MARKS, TSTAT_TIMED = 100, 10, 400
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -202,6 +254,15 @@ OPS_USHER_LJ = 22
 # LJ term's own cutoff compare in a typed law
 OPS_RF_FORCE = 10
 OPS_TYPED_LJ = 1
+# gaussian noise on one in-cutoff DPD pair, beyond the uniform noise it
+# replaces (whose 3 operations it saves): the second fmix32 with its xor
+# (9), u2 (shift, convert, scale: 3), the clamp (1), logf (~20 in CUDA's
+# accurate libdevice expansion), -2 x (1), sqrtf (~8: reciprocal square
+# root and its correction), 2 pi u2 (1), cosf (~25: range reduction and
+# polynomial; its slow path for |x| > 1e5 is never taken), the product (1)
+OPS_GAUSS = 9 + 3 + 1 + 20 + 1 + 8 + 1 + 25 + 1 - 3
+# a dpd/tstat ramp's sig_scale multiply on one in-cutoff pair
+OPS_RAMP = 1
 
 
 def fail(msg: str):
@@ -330,8 +391,9 @@ def pair_bound(geom, fld, coef, tag=None, pbond=None):
     n_bytes = (slots * 4 + n_live * per_live * 4 + geom.n_blocks * 4
                + slots * 3 * 4 + len(coef.tables) * 4)
     test = OPS_PAIR_TEST + (OPS_MI_X if coef.periodic_x else 0)
-    force = OPS_PAIR_FORCE if coef.law == "dpd" else (
-        OPS_LJ_FORCE + OPS_TYPED_LJ * coef.typed)
+    force = OPS_PAIR_FORCE + OPS_GAUSS * coef.gaussian \
+        + OPS_RAMP * coef.ramp if coef.law == "dpd" else (
+            OPS_LJ_FORCE + OPS_TYPED_LJ * coef.typed)
     return bound(n_bytes, n_cand * test + n_in * force
                  + n_coul * OPS_RF_FORCE) + (n_cand, n_in, n_coul)
 
@@ -358,10 +420,10 @@ def compare_forces(geom, state, got, want, label):
     return err, scale, fsum
 
 
-def check_pair(cfg, geom, state, label, kernel="pair"):
+def check_pair(cfg, geom, state, label, kernel="pair", sig_scale=None):
     """A pair kernel ("pair", make_pair_kernel's, or "full",
-    make_dpd_kernel's) against its plain version on one state.
-    Returns its figures and its forces."""
+    make_dpd_kernel's) against its plain version on one state (a ramp
+    law's at sig_scale).  Returns its figures and its forces."""
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
     from obmd_tpu_torch.forces.pair_kernel import PairCoef, pair_forces_plain
     fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
@@ -370,15 +432,17 @@ def check_pair(cfg, geom, state, label, kernel="pair"):
 
     def plain():
         return pair_forces_plain(geom, coef, fld, tag, salt,
-                                 legacy=kernel == "full", pbond=pbond)
+                                 legacy=kernel == "full", pbond=pbond,
+                                 sig_scale=sig_scale)
     with KeepCounts():
-        f_k = kern(fld, tag, salt, occ, pbond)
+        f_k = kern(fld, tag, salt, occ, pbond, sig_scale=sig_scale)
         sync()
         f_p = plain()
         sync()
         err, scale, fsum = compare_forces(geom, state, f_k, f_p,
                                           f"{kernel} kernel {label}")
-        ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond))
+        ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond,
+                                  sig_scale=sig_scale))
         plain_ms = time_ms(plain, reps=5, warmup=1)
     b_ms, b_by, n_cand, n_in, n_coul = pair_bound(geom, fld, coef, tag,
                                                   pbond)
@@ -743,16 +807,6 @@ def profile_steps(run, state, nsteps: int):
                   calls_per_step=n / nsteps) for name, (n, us) in top])
 
 
-def repack(cfg, state, cap):
-    """bench.py's repack: a fresh layout at another filing capacity."""
-    from obmd_tpu_torch.cellpad import layout_build
-    from obmd_tpu_torch.engine_cellpad import make_geometry
-    cfg = dataclasses.replace(cfg, capacity=dataclasses.replace(
-        cfg.capacity, cell_capacity=cap)).finalize()
-    geom = make_geometry(cfg)
-    return cfg, geom, layout_build(geom, cfg.box, state)
-
-
 def max_cell_count(geom, state) -> int:
     """The most alive atoms in one cell: what a fresh layout at this
     state must file (more than the filing cap is a cell overflow)."""
@@ -834,11 +888,53 @@ def run_full_path(cfg, state, label):
     return state, wall / FULL_STEPS * 1e3, launches
 
 
+def window_temps(cfg, geom, label):
+    """A probe for bench_torch.production: the most atoms in one cell, the
+    kinetic T and the thermal T with each T_BIN-wide x bin's mean velocity
+    taken out (profile_temperature)."""
+    from obmd_tpu_torch.observe import profile_temperature
+    from obmd_tpu_torch.state import temperature
+    nbins = round(cfg.box.lengths[0] / T_BIN)
+
+    def probe(state):
+        t, t_thermal = (float(temperature(cfg, state)),
+                        float(profile_temperature(cfg, state, nbins)))
+        log(f"{label}: step {state.step} T {t:.5f}, T without the mean "
+            f"flow of {nbins} x bins {t_thermal:.5f}")
+        return max_cell_count(geom, state), t, t_thermal
+    return probe
+
+
+def check_thermal(probes, label):
+    """The thermal T (window_temps) relaxes to the thermostat's 1.0: over
+    the last three marks, NSTEPS apart, it moves toward one value with
+    shrinking steps, and that value (Aitken's extrapolation) is within 5%
+    of 1.0.  It relaxes, and is not yet 1.0 at the window ends, because
+    equilibrate's rescale set the kinetic T to 1 with a flow along x in
+    it: the long box keeps the flow that the random start set going, the
+    Galilean-invariant DPD thermostat leaves it be, and the rescale cooled
+    the heat by the flow's share.  Returns the extrapolated T."""
+    t1, t2, t3 = (p[2] for p in probes[-3:])
+    d2, d3 = t2 - t1, t3 - t2
+    if not (d2 != 0.0 and 0.0 < d3 / d2 < 1.0):
+        fail(f"{label}: the thermal T at the last three marks {t1}, {t2}, "
+             f"{t3} does not relax to one value")
+    t_inf = t3 + d3 * d3 / (d2 - d3)
+    log(f"{label}: the thermal T relaxes to {t_inf:.5f} (Aitken, from "
+        f"{t1:.5f}, {t2:.5f}, {t3:.5f})")
+    if not abs(t_inf - 1.0) <= 0.05:
+        fail(f"{label}: the thermal T relaxes to {t_inf}, not within 5% of "
+             f"the thermostat's 1.0")
+    return t_inf
+
+
 def run_obmd():
     """Phases 3-6: the OBMD_DPD main path and its kernel checks."""
+    from bench_torch import (PROD_CAP, SCALE, SEED, equilibrated,
+                             production, repack)
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
-    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
+    from obmd_tpu_torch.integrate import make_run, setup
     from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
 
     # ---- phase 3: the whole path at a small size against the CPU, then the
@@ -852,40 +948,31 @@ def run_obmd():
     sync()
     pair24, _ = check_pair(sc.cfg, geom24, st, "dpd cap 24")
     usher, _ = check_usher(sc.cfg, geom24, st, "dpd")
-    del st
+    del sc, st
 
     # ---- phase 4: the main path, then the insertion phase
     _build.reset_launch_counts()
     t_path = time.perf_counter()
-    sc = scenes.obmd_dpd_scene(scale=SCALE, seed=SEED, device=DEV)
-    st = setup(sc.cfg, sc.state)
-    t_eq = time.perf_counter()
-    st = equilibrate(sc.cfg, st, EQUIL)
+    cfg, st_eq = equilibrated(DEV)      # st_eq: path A's start (phase 19)
     sync()
-    eq_s = time.perf_counter() - t_eq
-    cfg15, geom15, st = repack(sc.cfg, st, PROD_CAP)
-    occupancy = [max_cell_count(geom15, st)]
-    run = make_run(cfg15, NSTEPS)
-    st = run(st)
-    sync()
-    occupancy.append(max_cell_count(geom15, st))
-    windows = []
-    for _ in range(2):
-        s0 = st.step
-        t1 = time.perf_counter()
-        st = run(st)
-        sync()
-        windows.append((time.perf_counter() - t1, st.step - s0))
-        occupancy.append(max_cell_count(geom15, st))
+    eq_s = time.perf_counter() - t_path
+    cfg15, geom15, st = repack(cfg, st_eq, PROD_CAP)
+    probe = window_temps(cfg15, geom15, "OBMD_DPD main path")
+    probes = [probe(st)]
+    st, windows, more = production(cfg15, st, probe)
+    probes += more
+    occupancy = [p[0] for p in probes]
+    temps = [p[1:] for p in probes]
+    t_relax = check_thermal(probes, "OBMD_DPD main path")
     tel = check_invariants(cfg15, st)
     natoms = int(st.natoms)
     st15 = st
 
-    m = make_obmd_metrics_fn(sc.cfg)(st)
+    m = make_obmd_metrics_fn(cfg)(st)
     census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
-    cfg_ins = dataclasses.replace(sc.cfg, obmd=dataclasses.replace(
-        sc.cfg.obmd, nbuf=1.05 * census / sc.cfg.obmd.alpha)).finalize()
-    _, _, st = repack(cfg_ins, st, sc.cfg.capacity.cell_capacity)
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=1.05 * census / cfg.obmd.alpha)).finalize()
+    _, _, st = repack(cfg_ins, st, cfg.capacity.cell_capacity)
     ins0 = int(st.obmd.ninserted)
     t_ins = time.perf_counter()
     st = make_run(cfg_ins, INS_STEPS)(st)
@@ -898,8 +985,9 @@ def run_obmd():
     check_finite(st, "OBMD_DPD main path")
     path_s = time.perf_counter() - t_path
     launches = launch_counts()
-    log(f"main path {path_s:.1f} s (equilibrate {eq_s:.1f} s), telemetry "
-        f"{tel}, most atoms in one cell at the repack and after each "
+    log(f"main path {path_s:.1f} s (setup and equilibrate {eq_s:.1f} s), "
+        f"telemetry {tel}, most atoms in one cell at the repack and after "
+        f"each "
         f"production window {occupancy} (filing cap {PROD_CAP}); insertion "
         f"phase: nbuf {cfg_ins.obmd.nbuf:.1f}, {inserted} inserted in "
         f"{INS_STEPS} steps ({ins_s:.2f} s), {tel_ins}; launches {launches}")
@@ -925,7 +1013,8 @@ def run_obmd():
                 main_path_s=path_s, max_cell_count_cap15=max(occupancy),
                 insertion_phase_inserted=inserted,
                 small_path_max_pos_err=small_err, profile=prof,
-                full_kernel_ms_per_step=full_ms)
+                full_kernel_ms_per_step=full_ms,
+                kinetic_thermal_temps=temps, thermal_temp_limit=t_relax)
     by = launches["pair"][1]
     kernels = [
         kernel_line("pair", "dpd, fill cap 15",
@@ -939,7 +1028,7 @@ def run_obmd():
         kernel_line("dpd_full", "dpd, fill cap 15", None,
                     full_launches["dpd_full"][0], full15),
     ]
-    return path, kernels
+    return path, kernels, (cfg, st_eq, [t for t, _ in temps[-2:]])
 
 
 def kernel_line(name, config, replaces, launches, figures):
@@ -1451,6 +1540,7 @@ def kernel_only_checks(cfg, state):
     nx = 20 LJ melt lattice (0.05 normal jitter)."""
     import numpy as np
     import torch
+    from bench_torch import SEED, repack
     from obmd_tpu_torch import config, scenes
     from obmd_tpu_torch.cellpad import layout_build
     from obmd_tpu_torch.engine_cellpad import make_geometry
@@ -1662,8 +1752,257 @@ def run_ljrf():
     return path, kernels
 
 
+def run_gaussian(cfg24, st_eq, uniform_temps):
+    """Phase 19: path A, the OBMD_DPD main path with gaussian pair noise
+    from phase 4's equilibrated state st_eq (cfg24 is the scene's setup-cap
+    configuration), and the gaussian kernel's checks.  uniform_temps: the
+    kinetic T at phase 4's window ends, the same steps after st_eq."""
+    import torch
+    from bench_torch import NSTEPS, PROD_CAP, production, repack
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.engine_cellpad import (_make_kernel,
+                                               auto_rebuild_every,
+                                               pack_fields)
+    from obmd_tpu_torch.integrate import make_run
+    from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
+
+    def gaussian(cfg):
+        return dataclasses.replace(cfg, pair=dataclasses.replace(
+            cfg.pair, gaussian_noise=True))
+    # the bench's cap-15 layout: the gaussian kernel against its plain
+    # version and against the uniform kernel with the same salt
+    cfg15, geom15, st15 = repack(gaussian(cfg24), st_eq, PROD_CAP)
+    pair15, f_gauss = check_pair(cfg15, geom15, st15,
+                                 f"dpd, gaussian, cap {geom15.fcap}")
+    with KeepCounts():
+        uniform = dataclasses.replace(cfg15, pair=cfg24.pair)
+        f_uni = _make_kernel(uniform, geom15)(*pack_fields(uniform, geom15,
+                                                           st15))
+        sync()
+    alive = st15.alive.reshape(geom15.n_blocks, 1, geom15.cap, geom15.lanes)
+    scale = float(torch.where(alive, f_gauss, 0.0).abs().max())
+    differ = float((f_gauss - f_uni).abs().max())
+    if not differ > 2e-4 * scale:
+        fail(f"gaussian OBMD_DPD: the gaussian forces differ from the "
+             f"uniform ones by only {differ} (max|f| {scale})")
+    log(f"gaussian against uniform noise, one salt: max difference "
+        f"{differ:.3e} (max|f| {scale:.1f})")
+
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    cfg, geom, st = repack(gaussian(cfg24), st_eq, GAUSS_CAP)
+    probe = window_temps(cfg, geom, "gaussian OBMD_DPD main path")
+    probes = [probe(st)]
+    st, windows, more = production(cfg, st, probe)
+    probes += more
+    occupancy = [p[0] for p in probes]
+    temps = [p[1:] for p in probes]
+    t_relax = check_thermal(probes, "gaussian OBMD_DPD main path")
+    tel = check_invariants(cfg, st)
+    check_finite(st, "gaussian OBMD_DPD main path")
+    natoms = int(st.natoms)
+    st_prod = st
+    for (t, _), tu in zip(temps[-2:], uniform_temps):
+        if not abs(t - tu) <= 0.05 * tu:
+            fail(f"gaussian OBMD_DPD: kinetic T {t} at a window end is not "
+                 f"within 5% of the uniform run's {tu} at that step")
+    m = make_obmd_metrics_fn(cfg)(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    cfg_ins = gaussian(dataclasses.replace(cfg24, obmd=dataclasses.replace(
+        cfg24.obmd, nbuf=1.05 * census / cfg24.obmd.alpha)).finalize())
+    _, geom24, st = repack(cfg_ins, st, cfg_ins.capacity.cell_capacity)
+    ins0 = int(st.obmd.ninserted)
+    st = make_run(cfg_ins, INS_STEPS)(st)
+    sync()
+    tel_ins = check_invariants(cfg_ins, st)
+    inserted = int(st.obmd.ninserted) - ins0
+    if inserted <= 0:
+        fail("gaussian OBMD_DPD insertion phase inserted no atoms")
+    check_finite(st, "gaussian OBMD_DPD insertion phase")
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    k16, k24 = f"dpd-gauss-cap{geom.fcap}", f"dpd-gauss-cap{geom24.fcap}"
+    wall, steps = min(windows)
+    log(f"gaussian OBMD_DPD main path ({natoms} atoms, {geom}) {path_s:.1f} "
+        f"s, windows {windows}, {wall / steps * 1e3:.3f} ms/step, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, kinetic and "
+        f"thermal T at the repack and after each run {temps} (kinetic at "
+        f"the window ends under uniform noise: {uniform_temps}), telemetry "
+        f"{tel}, most atoms in one cell "
+        f"{occupancy} (filing cap {geom.fcap}); insertion phase: nbuf "
+        f"{cfg_ins.obmd.nbuf:.1f}, {inserted} inserted in {INS_STEPS} steps, "
+        f"{tel_ins}; launches {launches}")
+    require_launches(launches, {"pair": (k16, k24), "usher_search": None},
+                     "gaussian OBMD_DPD main path")
+    if launches["pair"][1][k16] != 3 * NSTEPS \
+            or launches["pair"][1][k24] != INS_STEPS:
+        fail(f"gaussian OBMD_DPD: pair launches {launches['pair'][1]}, "
+             f"expected {3 * NSTEPS} at cap {geom.fcap} and {INS_STEPS} at "
+             f"cap {geom24.fcap}")
+    r_every = auto_rebuild_every(cfg)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st_prod, 2 * r_every)
+    log(f"gaussian OBMD_DPD profile: {prof}")
+    pair16, _ = check_pair(cfg, geom, st_prod,
+                           f"dpd, gaussian, cap {geom.fcap}")
+    pair24, _ = check_pair(cfg_ins, geom24, st,
+                           f"dpd, gaussian, cap {geom24.fcap}")
+    path = dict(atoms=natoms, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], path_s=path_s,
+                kinetic_thermal_temps=temps, thermal_temp_limit=t_relax,
+                uniform_window_end_temps=uniform_temps,
+                telemetry=tel, filing_cap=geom.fcap,
+                max_cell_count=occupancy,
+                kernel_cap15=pair15,
+                insertion_phase_inserted=inserted,
+                usher_launches=launches["usher_search"][0],
+                gaussian_vs_uniform_max_diff=differ, profile=prof)
+    kernels = [
+        kernel_line("pair", f"dpd, gaussian noise, fill cap {geom.fcap}",
+                    "obmd_tpu/forces/pallas_dpd.py:575",
+                    launches["pair"][1][k16], pair16),
+        kernel_line("pair", f"dpd, gaussian noise, fill cap {geom24.fcap}",
+                    "obmd_tpu/forces/pallas_dpd.py:324",
+                    launches["pair"][1][k24], pair24),
+    ]
+    return path, kernels
+
+
+def ramp_target(pair, step):
+    """The ramp's T(step) (pair_dpd_tstat.cpp:52-60)."""
+    b, e = pair.ramp
+    frac = min(max((step - b) / max(e - b, 1), 0.0), 1.0)
+    return pair.temp + frac * (pair.t_stop - pair.temp)
+
+
+def check_tstat_golden():
+    """The reference binary's dpd/tstat forces
+    (validation/dpdtstat_golden: 300 atoms in a periodic 9^3 box at T = 0,
+    gamma 3.5, rc 1.2) through setup on the card: every force within 5e-5
+    * max|f| of dump.ref (validation/run_dpdtstat_golden.py's bar)."""
+    import numpy as np
+    from obmd_tpu_torch import config
+    from obmd_tpu_torch.integrate import setup
+    from obmd_tpu_torch.io.lammps_data import read_data
+    from obmd_tpu_torch.state import init_state
+    df = read_data(os.path.join(TSTAT_GOLDEN_DIR, "fluid.data"),
+                   atom_style="atomic")
+    ref = {}
+    with open(os.path.join(TSTAT_GOLDEN_DIR, "dump.ref")) as fh:
+        lines = fh.read().splitlines()
+    for line in lines[lines.index("ITEM: ATOMS id fx fy fz") + 1:]:
+        t = line.split()
+        ref[int(t[0])] = np.asarray([float(v) for v in t[1:4]])
+    pair = config.DPDTstatParams.create(t_start=0.0, cutoff=1.2, seed=999,
+                                        gamma=3.5)
+    cfg = config.SceneConfig(
+        box=df.box(periodic=(True, True, True)), masses=tuple(df.masses),
+        pair=pair, dt=0.01,
+        capacity=config.Capacity(n_max=df.natoms, cell_capacity=16),
+        skin=0.3)
+    with KeepCounts():
+        st = setup(cfg, init_state(cfg, df.x, v=df.v, tags=df.tags,
+                                   device=DEV))
+        sync()
+    f = st.f.cpu().numpy()
+    got = {int(t): f[i] for i, t in enumerate(st.tag.tolist())
+           if bool(st.alive[i])}
+    if set(got) != set(ref):
+        fail("dpd/tstat golden: the atom ids differ from dump.ref")
+    scale = max(float(np.linalg.norm(v)) for v in ref.values())
+    err = max(float(np.abs(got[t] - ref[t]).max()) for t in ref)
+    if not err <= 5e-5 * scale:
+        fail(f"dpd/tstat golden: max force error {err} > 5e-5 * {scale}")
+    log(f"dpd/tstat golden ({len(ref)} atoms): the pair kernel on the card "
+        f"against the reference binary's forces, max error {err:.3e} "
+        f"(max|f| {scale:.4f}, bar {5e-5 * scale:.3e})")
+    return dict(max_abs_err=err, max_f=scale)
+
+
+def run_tstat():
+    """Phases 20-21: path B, the dpd/tstat heating ramp, its kernel checks,
+    and the reference binary's dpd/tstat golden."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
+    from obmd_tpu_torch.forces.pairs import sig_scale_of
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+    from obmd_tpu_torch.state import temperature
+
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    sc = scenes.dpd_tstat_scene(device=DEV)
+    cfg = sc.cfg
+    pair = cfg.pair
+    geom = make_geometry(cfg)
+    r_every = auto_rebuild_every(cfg)
+    st = setup(cfg, sc.state)
+    run = make_run(cfg, TSTAT_MARK)
+    marks, walls = [], []
+    for _ in range(TSTAT_MARKS):
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        walls.append(time.perf_counter() - t1)
+        m = dict(step=st.step, temp=float(temperature(cfg, st)),
+                 target=ramp_target(pair, st.step),
+                 sig_scale=sig_scale_of(cfg.pair, st.step))
+        marks.append(m)
+        log(f"dpd/tstat ramp: step {m['step']} T {m['temp']:.5f} T(step) "
+            f"{m['target']:.4f} sig_scale {m['sig_scale']:.6f}")
+    occupancy = max_cell_count(geom, st)
+    tel = check_invariants(cfg, st)
+    check_finite(st, "dpd/tstat ramp")
+    natoms = int(st.natoms)
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    if not marks[-1]["temp"] > marks[0]["temp"]:
+        fail(f"dpd/tstat ramp: T did not rise ({marks[0]['temp']} -> "
+             f"{marks[-1]['temp']})")
+    if not abs(marks[-1]["temp"] - pair.t_stop) < 0.15 * pair.t_stop:
+        fail(f"dpd/tstat ramp: T {marks[-1]['temp']} at the end is not "
+             f"within 15% of t_stop = {pair.t_stop}")
+    n_timed = TSTAT_TIMED // TSTAT_MARK
+    tail = sum(walls[-n_timed:])
+    key = f"dpd-ramp-cap{geom.fcap}"
+    log(f"dpd/tstat ramp ({natoms} atoms, {geom}) {path_s:.1f} s, relayout "
+        f"every {r_every} step(s), last {TSTAT_TIMED} steps {tail:.3f} s "
+        f"({tail / TSTAT_TIMED * 1e3:.3f} ms/step, "
+        f"{TSTAT_TIMED / tail * natoms / 1e6:.3f} Mparticle-steps/s), "
+        f"telemetry {tel}, most atoms in one cell at the end {occupancy} "
+        f"(filing cap {geom.fcap}); launches {launches}")
+    require_launches(launches, {"pair": (key,)}, "dpd/tstat ramp")
+    if launches["pair"][0] != TSTAT_MARK * TSTAT_MARKS + 1:
+        fail(f"dpd/tstat ramp: {launches['pair'][0]} pair kernel launches "
+             f"for setup and {TSTAT_MARK * TSTAT_MARKS} steps")
+    mid = sig_scale_of(cfg.pair, (pair.ramp[0] + pair.ramp[1]) // 2)
+    ramp1, _ = check_pair(cfg, geom, st, f"dpd/tstat ramp, cap {geom.fcap}, "
+                          "sig_scale 1", sig_scale=1.0)
+    ramp_mid, _ = check_pair(cfg, geom, st, f"dpd/tstat ramp, cap "
+                             f"{geom.fcap}, sig_scale {mid:.6f}",
+                             sig_scale=mid)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st, 2 * r_every)
+    log(f"dpd/tstat profile: {prof}")
+    golden = check_tstat_golden()
+    path = dict(atoms=natoms, relayout_every=r_every,
+                ms_per_step=tail / TSTAT_TIMED * 1e3,
+                mparticle_steps_per_s=TSTAT_TIMED / tail * natoms / 1e6,
+                mark_walls_s=walls, path_s=path_s, marks=marks,
+                telemetry=tel, max_cell_count=occupancy,
+                filing_cap=geom.fcap,
+                kernel_at_mid_sig_scale=dict(sig_scale=mid, **ramp_mid),
+                profile=prof, golden=golden)
+    figures = dict(ramp_mid, max_abs_err=max(ramp1["max_abs_err"],
+                                             ramp_mid["max_abs_err"]))
+    kernels = [kernel_line(
+        "pair", f"dpd/tstat, ramp sig_scale, fill cap {geom.fcap}, "
+        f"p = {geom.p}", "obmd_tpu/forces/pallas_dpd.py:324",
+        launches["pair"][1][key], figures)]
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-18; returns the five paths' figures and the kernel
+    """Phases 2-21; returns the seven paths' figures and the kernel
     figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
@@ -1676,7 +2015,7 @@ def run_smoke():
     # smoke's time budget
     wall_s = {}
     t0 = time.perf_counter()
-    obmd_path, obmd_kernels = run_obmd()
+    obmd_path, obmd_kernels, obmd_prod = run_obmd()
     wall_s["obmd_dpd"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     lj_path, lj_kernels = run_lj()
@@ -1690,11 +2029,19 @@ def run_smoke():
     t0 = time.perf_counter()
     rf_path, rf_kernels = run_ljrf()
     wall_s["obmd_ljrf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gauss_path, gauss_kernels = run_gaussian(*obmd_prod)
+    wall_s["obmd_dpd_gaussian"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tstat_path, tstat_kernels = run_tstat()
+    wall_s["dpd_tstat_ramp"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
-                          chain=chain_path, obmd_ljrf=rf_path),
+                          chain=chain_path, obmd_ljrf=rf_path,
+                          obmd_dpd_gaussian=gauss_path,
+                          dpd_tstat_ramp=tstat_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
-                + chain_kernels + rf_kernels)
+                + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels)
 
 
 def main():

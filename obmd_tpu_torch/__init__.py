@@ -5,13 +5,15 @@ A port of `obmd_tpu` (JAX + Pallas for the TPU), which stays the reference.
 This package imports torch and numpy only — never JAX, never `obmd_tpu`.
 Module names mirror the reference's, so each counterpart is easy to find;
 the TPU kernels of the ported paths live in `forces/pair_kernel.py` and
-`forces/usher_kernel.py`, each beside its plain PyTorch version.  Five
-paths run: the OBMD_DPD open-boundary run, the LJ melt (with thermo through
-the pair sweep of `forces/pairs.py`), the open-boundary LJ fluid (USHER
-with the lj/cut law under a Langevin thermostat), the FENE chain melt
-(1-2 pairs excluded in the pair kernels, FENE bonds) and the open-boundary
-charged two-type LJ fluid (lj/cut/rf with 1-4 types in the pair kernel,
-per-atom charges and types).
+`forces/usher_kernel.py`, each beside its plain PyTorch version.  These
+paths run: the OBMD_DPD open-boundary run (uniform or, with
+`gaussian_noise`, LAMMPS' gaussian pair noise), the LJ melt (with thermo
+through the pair sweep of `forces/pairs.py`), the open-boundary LJ fluid
+(USHER with the lj/cut law under a Langevin thermostat), the FENE chain
+melt (1-2 pairs excluded in the pair kernels, FENE bonds), the
+open-boundary charged two-type LJ fluid (lj/cut/rf with 1-4 types in the
+pair kernel, per-atom charges and types) and a dpd/tstat heating ramp (the
+noise scaled per step by sqrt(T(step)/t_start)).
 
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:
@@ -34,6 +36,8 @@ machine without one raises).  Quick start:
     sc = scenes.obmd_ljrf_scene()
     state = equilibrate(sc.cfg, setup(sc.cfg, sc.state), 400, temp=1.44)
     state = make_run(sc.cfg, 400)(state)
+    sc = scenes.dpd_tstat_scene()          # T 0.4 -> 2.0 over 1,000 steps
+    state = make_run(sc.cfg, 1000)(setup(sc.cfg, sc.state))
 """
 
 __version__ = "0.1.0"

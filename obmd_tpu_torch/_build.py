@@ -80,8 +80,10 @@ class Kernel:
 
 # fld, tag, occ, pbond, out, nb, cap, lanes, nx, ny, nz, s, p, per_x, law,
 # n_excl, lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma, sigma, cut,
-# inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32), ntypes, stream
-_PAIR_ARGS = (_P,) * 5 + (_I,) * 11 + (_F,) * 14 + (_U, _P, _I, _P)
+# inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32), ntypes,
+# gaussian, ramp, sig_scale, stream
+_PAIR_ARGS = (_P,) * 5 + (_I,) * 11 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F,
+                                                   _P)
 # rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt, ly, lz,
 # thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
 _USHER_ARGS = (_P,) * 6 + (_I,) * 3 + (_F,) * 9 + (_P,)

@@ -1,13 +1,13 @@
 """Scene configuration for the OBMD_DPD main path.
 
 Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
-`DPDParams`, `LJCutParams`, `LJCutRFParams`, `UsherParams`, `ObmdParams`,
-`LangevinParams`, `BondFENEParams`, `Capacity` and `SceneConfig.finalize`,
-with the same field names and defaults so a test can hold the two packages'
-configs field by field.  Every law takes per-type-pair tables (`_sym`).
-dpd/tstat, dpd/ext, harmonic bonds and molecule insertion are not ported
-yet: `SceneConfig` carries their fields so a configuration can name them,
-and the engine refuses them.  Angles, dihedrals and impropers have no
+`DPDParams`, `DPDTstatParams`, `LJCutParams`, `LJCutRFParams`,
+`UsherParams`, `ObmdParams`, `LangevinParams`, `BondFENEParams`, `Capacity`
+and `SceneConfig.finalize`, with the same field names and defaults so a
+test can hold the two packages' configs field by field.  Every law takes
+per-type-pair tables (`_sym`).  dpd/ext, harmonic bonds and molecule
+insertion are not ported yet: `SceneConfig` carries their fields so a
+configuration can name them, and the engine refuses them.  Angles, dihedrals and impropers have no
 field yet; they come with the slice that ports those styles.
 """
 from __future__ import annotations
@@ -62,6 +62,55 @@ class DPDParams:
             temp=float(temp), cutoff=float(cutoff), seed=int(seed), ntypes=ntypes,
             a0=_sym(a0, ntypes, "a0"), gamma=_sym(gamma, ntypes, "gamma"),
             cut=_sym(cut, ntypes, "cut"), gaussian_noise=gaussian_noise)
+
+    @property
+    def sigma(self) -> Tuple[Tuple[float, ...], ...]:
+        g = np.asarray(self.gamma)
+        return tuple(tuple(float(v) for v in row)
+                     for row in np.sqrt(2.0 * self.temp * g))
+
+    @property
+    def max_cut(self) -> float:
+        return float(np.max(np.asarray(self.cut))) if self.cut else self.cutoff
+
+
+@dataclasses.dataclass(frozen=True)
+class DPDTstatParams:
+    """`pair_style dpd/tstat T_start T_stop rc seed` + `pair_coeff gamma
+    [cut]` (pair_dpd_tstat.cpp): DPD's drag and noise with no conservative
+    term.  With t_stop set and different from t_start, T ramps linearly
+    from t_start to t_stop over the step window `ramp` = (begin, end)
+    (:52-60); the noise amplitude then scales by sqrt(T(step) / t_start)
+    (`forces.pairs.sig_scale_of`), since `sigma` is taken at t_start."""
+
+    temp: float
+    cutoff: float
+    seed: int
+    ntypes: int = 1
+    gamma: Tuple[Tuple[float, ...], ...] = ()
+    cut: Tuple[Tuple[float, ...], ...] = ()
+    gaussian_noise: bool = False
+    t_stop: Optional[float] = None          # None or == temp: constant T
+    ramp: Optional[Tuple[int, int]] = None  # (begin_step, end_step)
+
+    @staticmethod
+    def create(t_start, cutoff, seed, gamma, t_stop=None, cut=None,
+               ntypes=1, gaussian_noise=False, ramp=None):
+        if (t_stop is not None and float(t_stop) != float(t_start)
+                and float(t_start) <= 0.0):
+            raise ValueError("dpd/tstat ramp needs t_start > 0 (the noise "
+                             "scale is relative to t_start)")
+        cut = cutoff if cut is None else cut
+        return DPDTstatParams(
+            temp=float(t_start), cutoff=float(cutoff), seed=int(seed),
+            ntypes=ntypes, gamma=_sym(gamma, ntypes, "gamma"),
+            cut=_sym(cut, ntypes, "cut"), gaussian_noise=gaussian_noise,
+            t_stop=None if t_stop is None else float(t_stop),
+            ramp=None if ramp is None else (int(ramp[0]), int(ramp[1])))
+
+    @property
+    def is_ramp(self) -> bool:
+        return self.t_stop is not None and self.t_stop != self.temp
 
     @property
     def sigma(self) -> Tuple[Tuple[float, ...], ...]:
@@ -138,7 +187,7 @@ class LJCutRFParams:
         return max(mc, self.cut_coul)
 
 
-PairParams = Union[DPDParams, LJCutParams, LJCutRFParams]
+PairParams = Union[DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,22 @@
-"""Conversion between the JAX package's state and the port's.
+"""Conversion between the JAX package's state and the port's, and of its
+pair laws.
 
 The JAX side is handed over as a dict of numpy arrays (so this module needs
 neither JAX nor the JAX package): the `State` fields x, v, f, type, tag,
 q, alive, mol, bond1, bond2, step, sim_time, maxtag, cell_overflow; the
 `ObmdScalars` fields; and the `PadAux` fields xref, rebuilds, overflow,
-skin_trips, tag3d and occ.
+skin_trips, tag3d and occ.  A pair law crosses by its class name and
+fields (`pair_params`).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .cellpad import PadAux
+from .config import DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams
 from .state import ObmdScalars, State, make_generator, resolve_device
 
 STATE_FIELDS = ("x", "v", "f", "type", "tag", "q", "alive", "mol", "bond1",
@@ -57,3 +62,19 @@ def to_arrays(state: State) -> dict:
     if isinstance(state.nbrs, PadAux):
         out.update({k: n(getattr(state.nbrs, k)) for k in AUX_FIELDS})
     return out
+
+
+_PAIR_LAWS = {c.__name__: c for c in (DPDParams, DPDTstatParams, LJCutParams,
+                                      LJCutRFParams)}
+
+
+def pair_params(law):
+    """The port's pair law of another package's law object of the same
+    class name, field by field (the noise flag and a dpd/tstat ramp
+    included)."""
+    cls = _PAIR_LAWS.get(type(law).__name__)
+    if cls is None:
+        raise NotImplementedError(
+            f"pair law {type(law).__name__} is not ported")
+    return cls(**{f.name: getattr(law, f.name)
+                  for f in dataclasses.fields(cls)})

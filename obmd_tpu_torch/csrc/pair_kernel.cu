@@ -24,7 +24,8 @@
 // b*p + l/s and the (y, z) cell l % s.  With p == 1 the lanes are padded to
 // a multiple of 128 and lanes s..lanes-1 are never filed.
 //
-// Laws: dpd and lj as pair_kernel.py states them; ljrf (pallas_dpd.py
+// Laws: dpd and lj as pair_kernel.py states them (dpd/tstat is the dpd law
+// with a0 = 0, pallas_dpd.py:243-248); ljrf (pallas_dpd.py
 // :398-409, pair_lj_cut_rf.cpp:118-131) adds to the lj force, for
 // r^2 < rc_coul^2 and independently of the LJ cutoff, the reaction field
 // qq*qi*qj*(rinv^3 - c_rf/rc_coul^3) with rinv = rsqrt(r^2) and c_rf =
@@ -59,7 +60,17 @@
 // tag (live tags are >= 1, dead slots carry -1 and are skipped first).
 // The channel count, the law and the type tables are template parameters,
 // so a 6-channel one-type launch runs the same machine code as before they
-// existed.
+// existed.  So are the DPD law's two variants, instantiated for obmd_pair's
+// dpd law only (make_dpd_kernel has neither):
+//  - gaussian noise (pallas_dpd.py:431-443, :690-696): a second hash
+//    h2 = fmix32(h ^ 0x7F4A7C15), u2 from its top 24 bits, and noise =
+//    sqrt(-2 ln max(u1, 1e-12)) cos(2 pi u2) in place of sqrt(3)(2 u1 - 1),
+//    with the accurate logf, sqrtf and cosf (no fast-math intrinsics), so
+//    the draws stay within a few ulp of XLA's;
+//  - the dpd/tstat temperature ramp (:236-248, :449-451, :849-853): the
+//    noise term times the runtime scalar sig_scale = sqrt(T(step)/t_start)
+//    from Params, computed on the host per step beside the salt.
+// A constant-T or uniform launch compiles neither.
 //
 // Bound on an H100: the work is the candidate-pair distance tests plus the
 // in-cutoff force evaluations of the pairs not excluded, each unordered
@@ -76,6 +87,7 @@ constexpr float kBigHalf = 0.5e8f;
 constexpr float kEps = 1.0e-10f;
 constexpr float kEps2 = 1.0e-20f;
 constexpr float kSqrt3 = 1.7320508075688772f;
+constexpr float kTwoPi = 6.2831855f;      // float32(2 pi), as the TPU kernel
 constexpr int kThreads = 128;
 
 enum Law { kDpd = 0, kLj = 1, kLjrf = 2 };
@@ -85,6 +97,7 @@ struct Params {
   float lx, ly, lz, inv_lx, inv_ly, inv_lz;
   float a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1, lj2;
   uint32_t salt;
+  float sig_scale;                 // read by the ramp instantiations only
 };
 
 // The per-type-pair coefficient tables (row-major [kRows][T*T], T <= 4)
@@ -107,7 +120,8 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-template <int kLaw, bool kLegacy, bool kExcl, bool kTypes>
+template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
+          bool kRamp>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             const int* __restrict__ occ, const int* __restrict__ pbond,
@@ -241,10 +255,23 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
               const uint32_t h = fmix32((lo * 0x9E3779B9u)
                                         ^ (hi * 0x85EBCA77u) ^ P.salt);
               const float u01 = (float)(h >> 8) * (1.0f / 16777216.0f);
-              const float noise = kSqrt3 * (2.f * u01 - 1.f);
+              float noise;
+              if constexpr (kGauss) {
+                const uint32_t h2 = fmix32(h ^ 0x7F4A7C15u);
+                const float u2 = (float)(h2 >> 8) * (1.0f / 16777216.0f);
+                noise = sqrtf(-2.f * logf(fmaxf(u01, 1e-12f)))
+                        * cosf(kTwoPi * u2);
+              } else {
+                noise = kSqrt3 * (2.f * u01 - 1.f);
+              }
               fpair = a0 * wd;
               fpair = fpair - gamma * wd * wd * dot * rinv;
-              fpair = fpair + sigma * wd * noise * P.dtinvsqrt;
+              if constexpr (kRamp) {
+                fpair = fpair
+                        + sigma * wd * noise * P.dtinvsqrt * P.sig_scale;
+              } else {
+                fpair = fpair + sigma * wd * noise * P.dtinvsqrt;
+              }
               fpair = fpair * rinv;
             }
             fx += fpair * dx;
@@ -261,42 +288,70 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
   fo[2 * plane] = fz;
 }
 
-template <int kLaw, bool kLegacy, bool kExcl, bool kTypes>
+template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
+          bool kRamp>
 void start(const dim3& grid, cudaStream_t st, const void* fld,
            const void* tag, const void* occ, const void* pbond, void* out,
            const Params& P, const Tables& T) {
-  pair_kernel<kLaw, kLegacy, kExcl, kTypes><<<grid, kThreads, 0, st>>>(
-      (const float*)fld, (const int*)tag, (const int*)occ,
-      (const int*)pbond, (float*)out, P, T);
+  pair_kernel<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp>
+      <<<grid, kThreads, 0, st>>>((const float*)fld, (const int*)tag,
+                                  (const int*)occ, (const int*)pbond,
+                                  (float*)out, P, T);
+}
+
+// The noise flags at run time -> the instantiation: gaussian noise and the
+// ramp exist for make_pair_kernel's dpd law only.
+template <int kLaw, bool kLegacy, bool kExcl, bool kTypes>
+int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
+                const void* tag, const void* occ, const void* pbond,
+                void* out, bool gauss, bool ramp, const Params& P,
+                const Tables& T) {
+  if (!gauss && !ramp) {
+    start<kLaw, kLegacy, kExcl, kTypes, false, false>(grid, st, fld, tag, occ,
+                                                      pbond, out, P, T);
+  } else if constexpr (kLaw != kDpd || kLegacy) {
+    return (int)cudaErrorInvalidValue;
+  } else if (gauss && ramp) {
+    start<kLaw, kLegacy, kExcl, kTypes, true, true>(grid, st, fld, tag, occ,
+                                                    pbond, out, P, T);
+  } else if (gauss) {
+    start<kLaw, kLegacy, kExcl, kTypes, true, false>(grid, st, fld, tag, occ,
+                                                     pbond, out, P, T);
+  } else {
+    start<kLaw, kLegacy, kExcl, kTypes, false, true>(grid, st, fld, tag, occ,
+                                                     pbond, out, P, T);
+  }
+  return 0;
 }
 
 // The exclusion flag and the type flag at run time -> the instantiation.
 template <int kLaw, bool kLegacy>
 int start_law(const dim3& grid, cudaStream_t st, const void* fld,
               const void* tag, const void* occ, const void* pbond, void* out,
-              bool excl, bool types, const Params& P, const Tables& T) {
+              bool excl, bool types, bool gauss, bool ramp, const Params& P,
+              const Tables& T) {
   if (!types && !excl) {
-    start<kLaw, kLegacy, false, false>(grid, st, fld, tag, occ, pbond, out,
-                                       P, T);
+    return start_noise<kLaw, kLegacy, false, false>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else if (!types) {
-    start<kLaw, kLegacy, true, false>(grid, st, fld, tag, occ, pbond, out,
-                                      P, T);
+    return start_noise<kLaw, kLegacy, true, false>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else if constexpr (kLegacy) {
     return (int)cudaErrorInvalidValue;    // make_dpd_kernel has one type
   } else if (!excl) {
-    start<kLaw, kLegacy, false, true>(grid, st, fld, tag, occ, pbond, out,
-                                      P, T);
+    return start_noise<kLaw, kLegacy, false, true>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else {
-    start<kLaw, kLegacy, true, true>(grid, st, fld, tag, occ, pbond, out,
-                                     P, T);
+    return start_noise<kLaw, kLegacy, true, true>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   }
-  return 0;
 }
 
 template <bool kLegacy>
 int launch(const void* fld, const void* tag, const void* occ,
            const void* pbond, void* out, int law, int n_excl,
-           const float* tables, int ntypes, const Params& P, void* stream) {
+           const float* tables, int ntypes, int gaussian, int ramp,
+           const Params& P, void* stream) {
   if (P.lanes <= 0 || P.lanes % kThreads != 0 || P.cap <= 0 || P.nb <= 0)
     return (int)cudaErrorInvalidValue;
   if (!(n_excl == 0 || (n_excl == 2 && pbond != nullptr)))
@@ -319,21 +374,22 @@ int launch(const void* fld, const void* tag, const void* occ,
       for (int i = 0; i < n; ++i) T.v[k * kMaxPairs + i] = tables[4 + k * n + i];
   }
   const bool excl = n_excl == 2;
+  const bool gauss = gaussian != 0, rmp = ramp != 0;
   const dim3 grid((unsigned)(P.nb * P.cap), (unsigned)(P.lanes / kThreads));
   const cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if (law == kDpd) {
     rc = start_law<kDpd, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
-                                  types, P, T);
+                                  types, gauss, rmp, P, T);
   } else if (law == kLj) {
     rc = start_law<kLj, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
-                                 types, P, T);
+                                 types, gauss, rmp, P, T);
   } else if (law == kLjrf) {
     if constexpr (kLegacy) {
       return (int)cudaErrorInvalidValue;  // make_dpd_kernel has no charges
     } else {
       rc = start_law<kLjrf, kLegacy>(grid, st, fld, tag, occ, pbond, out,
-                                     excl, types, P, T);
+                                     excl, types, gauss, rmp, P, T);
     }
   } else {
     return (int)cudaErrorInvalidValue;
@@ -351,20 +407,20 @@ int launch(const void* fld, const void* tag, const void* occ,
       float inv_lx, float inv_ly, float inv_lz, float a0, float gamma,      \
       float sigma, float cut, float inv_cut, float dtinvsqrt, float lj1,    \
       float lj2, uint32_t salt, const float *tables, int ntypes,            \
-      void *stream
+      int gaussian, int ramp, float sig_scale, void *stream
 #define OBMD_PAIR_PARAMS                                                     \
   Params{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,       \
          inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,    \
-         lj2, salt}
+         lj2, salt, sig_scale}
 
 // make_pair_kernel's function (TPU kernels #1 and #2).
 extern "C" int obmd_pair(OBMD_PAIR_ARGS) {
   return launch<false>(fld, tag, occ, pbond, out, law, n_excl, tables,
-                       ntypes, OBMD_PAIR_PARAMS, stream);
+                       ntypes, gaussian, ramp, OBMD_PAIR_PARAMS, stream);
 }
 
 // make_dpd_kernel's function (TPU kernel #3).
 extern "C" int obmd_dpd_full(OBMD_PAIR_ARGS) {
   return launch<true>(fld, tag, occ, pbond, out, law, n_excl, tables,
-                      ntypes, OBMD_PAIR_PARAMS, stream);
+                      ntypes, gaussian, ramp, OBMD_PAIR_PARAMS, stream);
 }

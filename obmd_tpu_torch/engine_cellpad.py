@@ -1,10 +1,15 @@
 """The cellpad engine: the step over the padded cell-major layout.
 
-Counterpart of `obmd_tpu/engine_cellpad.py` for DPD, lj/cut or lj/cut/rf
-with 1-4 atom types, in an open-x box with ATOM-mode USHER insertion
-(OBMD_DPD, the open LJ fluid, the open charged two-type LJ fluid) or a
-closed box without the OBMD stage (the LJ melt; with FENE chains, the chain
-melt), with or without the Langevin thermostat.  Per-atom charges and types
+Counterpart of `obmd_tpu/engine_cellpad.py` for DPD (uniform or gaussian
+noise), lj/cut or lj/cut/rf with 1-4 atom types, in an open-x box with
+ATOM-mode USHER insertion (OBMD_DPD, the open LJ fluid, the open charged
+two-type LJ fluid) or a closed box without the OBMD stage (the LJ melt;
+with FENE chains, the chain melt), with or without the Langevin
+thermostat; and dpd/tstat, with or without its temperature ramp, without
+the OBMD stage.  The JAX cellpad engine refuses dpd/tstat and runs it on
+its nlist and slab engines through the same TPU kernel; the port runs it
+here, the ramp's noise scale computed on the host per step beside the
+noise salt (`forces.pairs.sig_scale_of`).  Per-atom charges and types
 follow every relayout on a scene that has them (`relayout_flags`); masses
 are per type.  Step
 order mirrors Verlet::run: half kick, drift + wrap, the epoch relayout on an
@@ -41,13 +46,14 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import (BondFENEParams, DPDParams, LJCutParams, LJCutRFParams,
-                     SceneConfig, eval_param)
+from .config import (BondFENEParams, DPDParams, DPDTstatParams, LJCutParams,
+                     LJCutRFParams, SceneConfig, eval_param)
 from .geometry import const, const_like
 from .forces.bonded import bond_forces, langevin_force
 from .forces.pair_kernel import (PadGeometry, check_supported as
                                  kernel_check_supported, legacy_kwargs,
                                  make_dpd_kernel, make_pair_kernel)
+from .forces.pairs import sig_scale_of
 from .forces.usher_kernel import usher_search
 from .obmd.stage import (_sequential_accept, draw_candidates, feedback_count,
                          insertion_tag_base, rounds_of, smooth_weight)
@@ -77,7 +83,8 @@ def check_supported(cfg: SceneConfig) -> None:
     open boxes with ATOM-mode USHER insertion and closed boxes without the
     OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4 types (as many
     masses as the pair law has types), with or without the Langevin
-    thermostat; FENE chains (at most two bonds per atom) on a closed box."""
+    thermostat; dpd/tstat without the OBMD stage; FENE chains (at most two
+    bonds per atom) on a closed box."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
     if cfg.branched_topology:
@@ -99,9 +106,12 @@ def check_supported(cfg: SceneConfig) -> None:
             "maxattempt > 1 and nfreq > 1 are not ported yet")
     if cfg.obmd is not None and not isinstance(
             cfg.pair, (DPDParams, LJCutParams, LJCutRFParams)):
+        # USHER steers by the conservative energy, which dpd/tstat lacks
+        # (the JAX search returns zero for it; its kernel has no rows)
         raise NotImplementedError(
             "the OBMD stage is ported for the DPD, lj/cut and lj/cut/rf "
-            "laws only")
+            "laws only (dpd/tstat has no conservative energy for USHER to "
+            "steer by)")
     if cfg.ntypes != cfg.pair.ntypes:
         raise ValueError(f"{cfg.ntypes} masses for a pair law of "
                          f"{cfg.pair.ntypes} types")
@@ -186,9 +196,11 @@ def pack_fields(cfg, geom, state: State):
 
 
 def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
-    """Pair kernel on the packed fields, then the boundary force, the bond
-    force and the Langevin force."""
-    fpad = kern(*pack_fields(cfg, geom, state))
+    """Pair kernel on the packed fields (with a dpd/tstat ramp's noise
+    scale of the salt's step, obmd_tpu/integrate.py:51-53), then the
+    boundary force, the bond force and the Langevin force."""
+    fpad = kern(*pack_fields(cfg, geom, state),
+                sig_scale=sig_scale_of(cfg.pair, state.step))
     f = fpad.permute(0, 2, 3, 1).reshape(-1, 3)
     if cfg.obmd is not None:
         f = _boundary_force_sliced(cfg, geom, state, f)
@@ -464,7 +476,9 @@ def auto_rebuild_every(cfg: SceneConfig) -> int:
     """Static relayout period from the half-skin budget (the reference's
     calibration: the fastest atom drifts ~9 sqrt(T/m) per unit time, T the
     highest temperature of the pair law and the Langevin thermostat, at
-    least 1)."""
+    least 1).  A dpd/tstat ramp counts its hotter end, max(t_start,
+    t_stop): the JAX function reads only t_start, and the JAX cellpad
+    engine never meets a ramp."""
     if cfg.rebuild_every > 0:
         return cfg.rebuild_every
     if cfg.skin <= 0.0:
@@ -474,6 +488,8 @@ def auto_rebuild_every(cfg: SceneConfig) -> int:
         t = getattr(src, "temp", None)
         if t is not None:
             t_max = max(t_max, float(t))
+    if isinstance(cfg.pair, DPDTstatParams) and cfg.pair.is_ramp:
+        t_max = max(t_max, float(cfg.pair.t_stop))
     m_min = min(cfg.masses)
     v_fast = 9.0 * float(np.sqrt(t_max / m_min))
     r = int(0.45 * cfg.skin / (v_fast * cfg.dt))

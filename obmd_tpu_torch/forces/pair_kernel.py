@@ -21,8 +21,15 @@ every periodic axis, counted only for 1e-10 < r < rc, with the law
 
     dpd:  fpair = [a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)] / r,
           wd = 1 - r/rc,   xi = sqrt(3)*(2u - 1),
-          u = top 24 bits of fmix32((lo*0x9E3779B9) ^ (hi*0x85EBCA77) ^ salt)
-              / 2^24   (lo, hi = smaller and larger tag of the pair);
+          u = top 24 bits of h / 2^24,
+          h = fmix32((lo*0x9E3779B9) ^ (hi*0x85EBCA77) ^ salt)
+              (lo, hi = smaller and larger tag of the pair);
+          with gaussian noise xi = sqrt(-2 ln max(u, 1e-12)) cos(2 pi u2),
+          u2 from fmix32(h ^ 0x7F4A7C15) (pallas_dpd.py:431-443: another
+          stream and clamp than rng.pair_noise's, ROADMAP Queue 3);
+    dpd/tstat: the dpd law with a0 = 0; under a temperature ramp the noise
+          term is multiplied by the runtime scalar sig_scale =
+          sqrt(T(step)/t_start) (pallas_dpd.py:449-451);
     lj:   fpair = r6inv*(lj1*r6inv - lj2)*r2inv,  r2inv = 1/r^2,
           lj1 = 48 eps sig^12,  lj2 = 24 eps sig^6;
     ljrf: the lj force for r < rc, plus for r < rc_coul (its own cutoff) the
@@ -44,13 +51,14 @@ of i's two partner tags, pbond i32[nb, 2, cap, lanes] (-2 for no partner);
 the partner lists are symmetric, so the Newton-off sum drops each 1-2 pair
 from both ends.
 
-Scope: 1-4 types, the dpd, lj and ljrf laws (ljrf and 2-4 types through
-make_pair_kernel only, as make_dpd_kernel has neither), uniform noise,
-periodic y/z with >= 3 cells each, open or periodic x (>= 3 cells), any
-layout (x-slabs tiling the lanes, p >= 2, or one slab per block in lanes
-padded to a multiple of 128, p == 1), any capacity, bonded exclusion with 2
-channels.  More than 4 types, 4 exclusion channels (branched topologies),
-the dpd/tstat ramp, gaussian noise, single-cell or open y/z axes raise
+Scope: 1-4 types, the dpd, dpd/tstat, lj and ljrf laws (ljrf, 2-4 types,
+dpd/tstat and gaussian noise through make_pair_kernel only, as
+make_dpd_kernel has none of them), uniform or gaussian noise, the
+dpd/tstat ramp, periodic y/z with >= 3 cells each, open or periodic x (>= 3
+cells), any layout (x-slabs tiling the lanes, p >= 2, or one slab per block
+in lanes padded to a multiple of 128, p == 1), any capacity, bonded
+exclusion with 2 channels.  More than 4 types, 4 exclusion channels
+(branched topologies), single-cell or open y/z axes raise
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -65,9 +73,9 @@ import torch
 
 from .. import _build
 from ..cells import BIG
-from ..config import DPDParams, LJCutParams, LJCutRFParams
+from ..config import DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams
 from ..geometry import cell_index
-from ..rng import pair_bits, uniform01
+from ..rng import box_muller, pair_bits, uniform01
 
 EPS = 1.0e-10
 SQRT3 = float(np.sqrt(3.0))
@@ -180,14 +188,13 @@ def check_geometry(geom: PadGeometry) -> None:
 def check_supported(geom: PadGeometry, params) -> None:
     """Raise for every configuration of the TPU kernel this port does not
     cover yet (ROADMAP.md lists them)."""
-    if not isinstance(params, (DPDParams, LJCutParams, LJCutRFParams)):
+    if not isinstance(params, (DPDParams, DPDTstatParams, LJCutParams,
+                               LJCutRFParams)):
         raise NotImplementedError(
             f"pair kernel: the {type(params).__name__} law is not ported")
     if not 1 <= params.ntypes <= MAX_TYPES:
         raise NotImplementedError(
             f"pair kernel: {params.ntypes} types (1-{MAX_TYPES} are ported)")
-    if getattr(params, "gaussian_noise", False):
-        raise NotImplementedError("pair kernel: gaussian pair noise is not ported")
     check_geometry(geom)
 
 
@@ -215,8 +222,10 @@ def pair_tables(params) -> tuple:
     zero = np.zeros_like(cut)
     a0 = gamma = sigma = lj1 = lj2 = c_rf = zero
     qq = cut_coul2 = inv_rc3 = 0.0
-    if isinstance(params, DPDParams):
-        a0 = np.asarray(params.a0, np.float64)
+    if isinstance(params, (DPDParams, DPDTstatParams)):
+        # dpd/tstat: the dpd law with a0 = 0 (pallas_dpd.py:243-248)
+        if isinstance(params, DPDParams):
+            a0 = np.asarray(params.a0, np.float64)
         gamma = np.asarray(params.gamma, np.float64)
         sigma = np.asarray(params.sigma, np.float64)
     else:
@@ -237,8 +246,10 @@ def pair_tables(params) -> tuple:
 
 class PairCoef(NamedTuple):
     """The law and its scalar constants, each rounded to float32 where it
-    is used, the box lengths of the minimum image, and with 2-4 types or
-    the ljrf law the per-type-pair tables (`pair_tables`)."""
+    is used, the box lengths of the minimum image, with 2-4 types or the
+    ljrf law the per-type-pair tables (`pair_tables`), and the DPD law's
+    noise variants: gaussian draws, and a dpd/tstat ramp's runtime noise
+    scale."""
 
     law: str
     a0: float
@@ -258,6 +269,8 @@ class PairCoef(NamedTuple):
     inv_lz: float
     ntypes: int = 1
     tables: Tuple[float, ...] = ()
+    gaussian: bool = False
+    ramp: bool = False
 
     @property
     def typed(self) -> bool:
@@ -292,22 +305,29 @@ class PairCoef(NamedTuple):
     @staticmethod
     def of(geom: PadGeometry, params, dt: float) -> "PairCoef":
         """make_pair_kernel's constants for a config law: the scalar ones
-        of a neutral one-type law, the tables otherwise."""
+        of a neutral one-type law, the tables otherwise, and the noise
+        variants."""
         check_supported(geom, params)
+        variants = dict(
+            gaussian=bool(getattr(params, "gaussian_noise", False)),
+            ramp=isinstance(params, DPDTstatParams) and params.is_ramp)
         if params.ntypes == 1 and not isinstance(params, LJCutRFParams):
-            return PairCoef.create(geom, **legacy_kwargs(params, dt))
+            return PairCoef.create(geom, **_scalar_kwargs(params, dt)) \
+                ._replace(**variants)
         law = "ljrf" if isinstance(params, LJCutRFParams) else (
-            "dpd" if isinstance(params, DPDParams) else "lj")
+            "lj" if isinstance(params, LJCutParams) else "dpd")
         base = PairCoef.create(geom, "lj" if law == "ljrf" else law, dt=dt,
                                cut=params.max_cut)
         return base._replace(law=law, ntypes=params.ntypes,
-                             tables=pair_tables(params))
+                             tables=pair_tables(params), **variants)
 
 
-def legacy_kwargs(params, dt: float) -> dict:
-    """make_dpd_kernel's keyword arguments for a single-type config law."""
-    if isinstance(params, DPDParams):
-        return dict(a0=params.a0[0][0], gamma=params.gamma[0][0],
+def _scalar_kwargs(params, dt: float) -> dict:
+    """PairCoef.create's keyword arguments for a single-type neutral law
+    (dpd/tstat: the dpd law with a0 = 0)."""
+    if isinstance(params, (DPDParams, DPDTstatParams)):
+        a0 = params.a0[0][0] if isinstance(params, DPDParams) else 0.0
+        return dict(a0=a0, gamma=params.gamma[0][0],
                     sigma=params.sigma[0][0], cut=params.cut[0][0], dt=dt,
                     law="dpd")
     if isinstance(params, LJCutParams):
@@ -315,6 +335,18 @@ def legacy_kwargs(params, dt: float) -> dict:
                     lj_eps=params.epsilon[0][0], lj_sig=params.sigma[0][0])
     raise NotImplementedError(
         f"pair kernel: the {type(params).__name__} law is not ported")
+
+
+def legacy_kwargs(params, dt: float) -> dict:
+    """make_dpd_kernel's keyword arguments for a single-type config law:
+    dpd or lj with uniform noise (pallas_dpd.py:877-907 takes neither
+    dpd/tstat nor gaussian noise)."""
+    if isinstance(params, DPDTstatParams) or getattr(
+            params, "gaussian_noise", False):
+        raise NotImplementedError(
+            "the full-stencil kernel takes neither dpd/tstat nor gaussian "
+            "noise")
+    return _scalar_kwargs(params, dt)
 
 
 @functools.lru_cache(maxsize=16)
@@ -362,7 +394,7 @@ def _table_tensor(coef: PairCoef, device) -> torch.Tensor:
 
 def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
                       tag: torch.Tensor, salt: int, legacy: bool = False,
-                      pbond=None) -> torch.Tensor:
+                      pbond=None, sig_scale=None) -> torch.Tensor:
     """The kernels' function in PyTorch: fld f32[nb, NF, cap, lanes], tag
     i32[nb, cap, lanes], optional pbond i32[nb, 2, cap, lanes] -> f32[nb,
     3, cap, lanes].  Newton-off: each slot of a real column sums over the
@@ -371,7 +403,8 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
     arithmetic (r = sqrt(r^2), r > 1e-10), else make_pair_kernel's
     (r = r^2 / r, r^2 > 1e-20).  A typed law (2-4 types, or ljrf) reads
     its coefficients from the tables, as the kernel does: the pair is
-    tested against the largest cutoff, then each term against its own."""
+    tested against the largest cutoff, then each term against its own.
+    A ramp law multiplies the noise term by sig_scale (None: 1)."""
     nb, nf, cap, lanes = fld.shape
     dev = fld.device
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
@@ -457,11 +490,17 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
             wd = 1.0 - r * inv_cut
             dot = (dx * (xi[:, 3] - xj[:, 3]) + dy * (xi[:, 4] - xj[:, 4])
                    + dz * (xi[:, 5] - xj[:, 5]))
-            u01 = uniform01(pair_bits(salt, ti, tl[cols[o]][:, None, :]))
-            noise = SQRT3 * (2.0 * u01 - 1.0)
+            bits = pair_bits(salt, ti, tl[cols[o]][:, None, :])
+            if coef.gaussian:
+                noise = box_muller(bits, 0x7F4A7C15, 1e-12)
+            else:
+                noise = SQRT3 * (2.0 * uniform01(bits) - 1.0)
             fpair = a0 * wd
             fpair = fpair - gamma * wd * wd * dot * rinv
-            fpair = fpair + sigma * wd * noise * coef.dtinvsqrt
+            term = sigma * wd * noise * coef.dtinvsqrt
+            if coef.ramp:
+                term = term * (1.0 if sig_scale is None else sig_scale)
+            fpair = fpair + term
             fpair = fpair * rinv
         fpair = torch.where(ok, fpair, 0.0)
         f[:, 0] += (fpair * dx).sum(-1)
@@ -473,15 +512,18 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
 
 
 def launch_key(geom: PadGeometry, coef: PairCoef, n_excl: int) -> str:
-    """A launch's count key: law, types, exclusion channels, filing cap
-    ("lj-excl2-cap18", "ljrf-t2-cap44")."""
+    """A launch's count key: law, types, noise variants, exclusion
+    channels, filing cap ("lj-excl2-cap18", "ljrf-t2-cap44",
+    "dpd-gauss-cap15", "dpd-ramp-cap28")."""
     types = f"-t{coef.ntypes}" if coef.ntypes > 1 else ""
+    noise = ("-gauss" if coef.gaussian else "") + ("-ramp" if coef.ramp
+                                                   else "")
     excl = f"-excl{n_excl}" if n_excl else ""
-    return f"{coef.law}{types}{excl}-cap{geom.fcap}"
+    return f"{coef.law}{types}{noise}{excl}-cap{geom.fcap}"
 
 
 def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
-            salt: int, occ, pbond):
+            salt: int, occ, pbond, sig_scale: float):
     kern = _build.KERNELS[name]
     fn = kern.function()
     nb, _, cap, lanes = fld.shape
@@ -498,7 +540,8 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
                 coef.ly, coef.lz, coef.inv_lx, coef.inv_ly, coef.inv_lz,
                 coef.a0, coef.gamma, coef.sigma, coef.cut, coef.inv_cut,
                 coef.dtinvsqrt, coef.lj1, coef.lj2, salt & 0xFFFFFFFF,
-                tables, coef.ntypes, stream)
+                tables, coef.ntypes, int(coef.gaussian), int(coef.ramp),
+                sig_scale, stream)
     _build.check(rc, kern)
     kern.count(launch_key(geom, coef, n_excl))
     return out
@@ -508,7 +551,9 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
              exclude_bonded: bool):
     """The kernel's calling convention: checks, then a CUDA tensor goes to
     the Hopper kernel and a CPU tensor to the plain version.  There is no
-    fallback between them.  With exclude_bonded, pbond is required."""
+    fallback between them.  With exclude_bonded, pbond is required.
+    sig_scale is a ramp law's noise scale of the step (None: 1); a law
+    without a ramp ignores it, as make_pair_kernel does."""
     shape = (geom.n_blocks, coef.n_channels, geom.cap, geom.lanes)
     pshape = (geom.n_blocks, N_EXCL, geom.cap, geom.lanes)
     # the tables live on the host: the C entry point copies them into the
@@ -517,7 +562,7 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
               if coef.typed else None)
 
     def forces(fld: torch.Tensor, tag: torch.Tensor, salt: int,
-               occ: torch.Tensor, pbond=None) -> torch.Tensor:
+               occ: torch.Tensor, pbond=None, sig_scale=None) -> torch.Tensor:
         if tuple(fld.shape) != shape or fld.dtype != torch.float32:
             raise ValueError(f"fld must be float32{list(shape)}, got "
                              f"{fld.dtype}{list(fld.shape)}")
@@ -537,26 +582,29 @@ def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
             raise ValueError("fld, tag, occ and pbond must share one device")
         if fld.device.type == "cpu":
             return pair_forces_plain(geom, coef, fld, tag, salt, legacy,
-                                     pbond)
+                                     pbond, sig_scale)
         if fld.device.type != "cuda":
             raise ValueError(f"unsupported device {fld.device}")
         return _launch(name, geom, coef, tables, fld.contiguous(),
                        tag.contiguous(), salt, occ.contiguous(),
-                       None if pbond is None else pbond.contiguous())
+                       None if pbond is None else pbond.contiguous(),
+                       1.0 if sig_scale is None else float(sig_scale))
 
     return forces
 
 
 def make_pair_kernel(geom: PadGeometry, params, dt: float,
                      exclude_bonded: bool = False, n_excl: int = N_EXCL):
-    """Build pair_forces(fld, tag, salt, occ, pbond=None) -> f32[nb, 3,
-    cap, lanes]: fld f32[nb, NF, cap, lanes] (x, y, z, vx, vy, vz, [q],
-    [type]; dead slots at BIG; NF = 6, 7 or 8), tag i32[nb, cap,
-    lanes], salt a uint32 python int, occ i32[nb] (per block highest
+    """Build pair_forces(fld, tag, salt, occ, pbond=None, sig_scale=None)
+    -> f32[nb, 3, cap, lanes]: fld f32[nb, NF, cap, lanes] (x, y, z, vx,
+    vy, vz, [q], [type]; dead slots at BIG; NF = 6, 7 or 8), tag i32[nb,
+    cap, lanes], salt a uint32 python int, occ i32[nb] (per block highest
     occupied rank + 1; stale-high is safe, stale-low is not), with
     exclude_bonded pbond i32[nb, 2, cap, lanes] (partner tags, -2 for
-    none).  The law and its tables come from `params` (DPDParams,
-    LJCutParams or LJCutRFParams, 1-4 types)."""
+    none), sig_scale a dpd/tstat ramp's noise scale of the step (a python
+    float; None is 1).  The law, its tables and its noise variants come
+    from `params` (DPDParams, DPDTstatParams, LJCutParams or
+    LJCutRFParams, 1-4 types)."""
     coef = PairCoef.of(geom, params, dt)
     if exclude_bonded and n_excl != N_EXCL:
         raise NotImplementedError(

@@ -16,7 +16,7 @@ from .cells import GridSpec, build_cells
 from .config import SceneConfig
 from .engine_cellpad import Draw, make_run_cellpad, setup_cellpad
 from .engine_cellpad import pair_salt as _salt
-from .forces.pairs import pair_sweep
+from .forces.pairs import pair_sweep, sig_scale_of
 from .state import State, temperature
 
 
@@ -30,7 +30,8 @@ def compute_forces(cfg: SceneConfig, spec: GridSpec, state: State, *,
                    compute_virial: bool = False,
                    compute_virial_atom: bool = False):
     """Stateless force evaluation of the sweep path: cell rebuild + pair
-    sweep.  Returns (PairFields, CellTable).  The OBMD boundary force and
+    sweep (a dpd/tstat ramp's noise scale of the state's step).  Returns
+    (PairFields, CellTable).  The OBMD boundary force and
     bonded terms of the reference's version are not ported, so a scene with
     an OBMD stage raises; so does a bonded scene, since the sweep has no
     1-2 exclusion (obmd_tpu/integrate.py:290-293)."""
@@ -44,7 +45,9 @@ def compute_forces(cfg: SceneConfig, spec: GridSpec, state: State, *,
     ctab = build_cells(spec, state.x, state.alive)
     pf = pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
                     state.type, state.tag, _salt(cfg, state.step),
-                    dt=cfg.dt, q=state.q, compute_energy=compute_energy,
+                    dt=cfg.dt, q=state.q,
+                    sig_scale=sig_scale_of(cfg.pair, state.step),
+                    compute_energy=compute_energy,
                     compute_virial=compute_virial,
                     compute_virial_atom=compute_virial_atom)
     return pf, ctab

@@ -6,7 +6,11 @@ sweep (`forces/pairs.pair_sweep` over a fresh `cells.build_cells` table),
 independent of the cellpad layout and its kernels.  Pressure convention
 (LAMMPS): P_ab V = sum m v_a v_b + W_ab.  Under lj/cut/rf E_pair, pe and
 the virial hold the reaction-field terms (evdwl + ecoul, as LAMMPS's
-thermo pe).  On a bonded scene E_bond is the
+thermo pe).  Under dpd/tstat E_pair is zero (the law has no conservative
+term), and the sweep runs without the ramp's noise scale, as the JAX
+package's thermo does (obmd_tpu/observe.py:64-66): the pressure carries
+the t_start noise amplitude (ROADMAP Queue 3); the temperature is
+kinetic.  On a bonded scene E_bond is the
 FENE energy and pe = E_pair + E_bond; E_pair comes from the pair sweep,
 which has no 1-2 exclusion, so it holds the bonded pairs' WCA energy that
 the step leaves out (the JAX package's convention, kept for parity;
@@ -139,6 +143,29 @@ def make_profile_fn(cfg: SceneConfig, nbins: int = 64):
             count=cnt)
 
     return profiles
+
+
+def profile_temperature(cfg: SceneConfig, state: State,
+                        nbins: int) -> torch.Tensor:
+    """The thermal temperature under a flow along x, as LAMMPS' `compute
+    temp/profile 1 1 1 x nbins`: each atom's velocity less its x-bin's
+    mass-weighted mean velocity, over 3N - 3 - 3 * nbins degrees of
+    freedom (kB = 1).  `temperature` (state.py) counts such a flow as
+    heat."""
+    xlo, xhi = cfg.box.lo[0], cfg.box.hi[0]
+    alive = state.alive
+    m = torch.where(alive, per_atom_mass(cfg, state), 0.0)
+    b = torch.clamp(((state.x[:, 0] - xlo) * (nbins / (xhi - xlo)))
+                    .to(torch.int64), 0, nbins - 1)
+    mv = torch.where(alive[:, None], m[:, None] * state.v, 0.0)
+    zeros = torch.zeros((nbins, 4), dtype=m.dtype, device=m.device)
+    sums = zeros.index_add(0, b, torch.cat([m[:, None], mv], dim=1))
+    msum, mvsum = sums[:, 0], sums[:, 1:]
+    vbin = mvsum / torch.clamp(msum, min=1e-30)[:, None]
+    dv = state.v - vbin[b]
+    ke2 = torch.where(alive[:, None], m[:, None] * dv ** 2, 0.0).sum()
+    dof = torch.clamp(3 * state.natoms - 3 - 3 * nbins, min=1).to(m.dtype)
+    return ke2 / dof
 
 
 class ObmdMetrics(NamedTuple):

@@ -1,7 +1,8 @@
 """Counter-based, stateless random numbers for the pair noise.
 
-Counterpart of `obmd_tpu/rng.py`.  Every function matches the reference bit
-for bit.  torch on the CPU has no uint32 shift, so a uint32 value is held in
+Counterpart of `obmd_tpu/rng.py`.  The hashes and uniform draws match the
+reference bit for bit; the gaussian draws (`box_muller`) take torch's log,
+sqrt and cos, within float32 rounding of XLA's.  torch on the CPU has no uint32 shift, so a uint32 value is held in
 an int64 tensor masked to 32 bits, and each product by a 32-bit constant is
 split into 16-bit halves so no intermediate exceeds 2^49.  The same
 functions take python ints, which is how the step salt is computed on the
@@ -63,11 +64,29 @@ def pair_bits(step_salt, tag_i: torch.Tensor, tag_j: torch.Tensor):
                       ^ u32(step_salt))
 
 
-def pair_noise(step_salt, tag_i: torch.Tensor, tag_j: torch.Tensor,
+def box_muller(bits, stream: int, u1_min: float,
                dtype=torch.float32) -> torch.Tensor:
-    """Zero-mean unit-variance uniform deviate sqrt(3)(2u - 1), symmetric
-    under i <-> j (the gaussian variant is not part of this slice)."""
-    u = uniform01(pair_bits(step_salt, tag_i, tag_j), dtype)
+    """A unit gaussian from the pair bits: u1 = uniform01(bits) clamped at
+    u1_min, u2 = uniform01(fmix32(bits ^ stream)),
+    sqrt(-2 ln u1) cos(2 pi u2), every constant a float32."""
+    u1 = torch.clamp(uniform01(bits, dtype),
+                     min=float(torch.tensor(u1_min, dtype=dtype)))
+    u2 = uniform01(_avalanche(bits ^ stream), dtype)
+    two_pi = float(torch.tensor(2.0 * 3.14159265358979, dtype=dtype))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+
+
+def pair_noise(step_salt, tag_i: torch.Tensor, tag_j: torch.Tensor,
+               gaussian: bool = False,
+               dtype=torch.float32) -> torch.Tensor:
+    """Zero-mean unit-variance deviate, symmetric under i <-> j: the
+    uniform sqrt(3)(2u - 1), or with `gaussian` Box-Muller from the stream
+    0x6C62272E with u1 clamped at 1e-7 (the pair kernel's Box-Muller takes
+    another stream and clamp: forces.pair_kernel)."""
+    bits = pair_bits(step_salt, tag_i, tag_j)
+    if gaussian:
+        return box_muller(bits, 0x6C62272E, 1e-7, dtype)
+    u = uniform01(bits, dtype)
     sqrt3 = torch.sqrt(torch.tensor(3.0, dtype=dtype, device=u.device))
     return sqrt3 * (2.0 * u - 1.0)
 

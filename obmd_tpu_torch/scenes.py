@@ -1,7 +1,7 @@
 """The ported scenes: OBMD_DPD (examples/OBMD_DPD/input.py:17-124), the LJ
 melt (the reference's code/bench/in.lj), the open-boundary LJ fluid, the
-open-boundary charged two-type LJ fluid and the FENE chain melt
-(code/bench/in.chain).
+open-boundary charged two-type LJ fluid, the FENE chain melt
+(code/bench/in.chain) and a dpd/tstat heating ramp.
 
 Counterpart of `obmd_tpu/scenes.py` `obmd_dpd_config`, `obmd_dpd_scene`,
 `lj_melt_scene` and `chain_scene`.  OBMD_DPD: DPD fluid at rho = 3, T = 1
@@ -16,6 +16,9 @@ Langevin thermostat; the charged fluid (`obmd_ljrf_config`,
 `obmd_ljrf_scene`) puts lj/cut/rf ions into that solvent.  The chain melt reads a data file as the JAX scene
 does, or builds its start in the repository: chains threaded through the
 LJ melt's fcc lattice (`chain_lattice`), warmed up by `chain_warm_up`.
+The dpd/tstat ramp (`dpd_tstat_config`, `dpd_tstat_scene`) is the JAX
+package's own ramp test (tests/test_dpd_variants.py:212-253) in a 100k-atom
+box.
 """
 from __future__ import annotations
 
@@ -24,9 +27,9 @@ from typing import Optional
 
 import numpy as np
 
-from .config import (BondFENEParams, Capacity, DPDParams, LangevinParams,
-                     LJCutParams, LJCutRFParams, ObmdParams, SceneConfig,
-                     UsherParams)
+from .config import (BondFENEParams, Capacity, DPDParams, DPDTstatParams,
+                     LangevinParams, LJCutParams, LJCutRFParams, ObmdParams,
+                     SceneConfig, UsherParams)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -444,3 +447,48 @@ def chain_warm_up(cfg: SceneConfig, state: State,
     wcfg = chain_warm_up_config(cfg)
     return equilibrate(wcfg, setup(wcfg, state), steps,
                        temp=cfg.langevin.temp)
+
+
+# The dpd/tstat heating ramp: tests/test_dpd_variants.py:212-253's ideal
+# DPD gas (rho = 1200/512, dt 0.02, gamma 4.5, rc 1, seed 5).
+TSTAT_RHO = 1200.0 / 512.0
+
+
+def dpd_tstat_config(box_l: float = 35.0, t_start: float = 0.4,
+                     t_stop: float = 2.0, ramp=(0, 1000)) -> SceneConfig:
+    """`pair_style dpd/tstat t_start t_stop 1.0 5`, `pair_coeff * * 4.5`
+    in a fully periodic cube of side box_l, dt 0.02, T ramped linearly
+    from t_start to t_stop over the step window `ramp`: a DPD thermostat
+    with no conservative force, which users run to heat or anneal a system
+    while keeping its momentum.
+
+    Skin 0.4, not the JAX test's 0.3: the port relayouts on a static
+    schedule, here every step (engine_cellpad.auto_rebuild_every at the
+    ramp's hot end), and at T = 2 the fastest of 100k atoms moves about
+    0.15 in a step of 0.02, the half-skin at 0.3 (chi tail: ~0.3 half-skin
+    trips per step), against ~1e-5 trips per step at half-skin 0.2.  At
+    box_l = 35 that gives 25 cells per axis, 1.4 wide, 6.4 atoms per cell
+    on average; filing cap 28 leaves the Poisson tail of an ideal gas at
+    ~1e-6 overflowing cells per snapshot."""
+    box = Box((0.0, 0.0, 0.0), (box_l,) * 3, (True, True, True))
+    pair = DPDTstatParams.create(t_start=t_start, t_stop=t_stop, cutoff=1.0,
+                                 seed=5, gamma=4.5, ramp=ramp)
+    n = int(round(TSTAT_RHO * box_l ** 3))
+    return SceneConfig(box=box, masses=(1.0,), pair=pair, dt=0.02,
+                       capacity=Capacity(n_max=n, cell_capacity=28),
+                       skin=0.4, force_path="cellpad")
+
+
+def dpd_tstat_scene(box_l: float = 35.0, t_start: float = 0.4,
+                    t_stop: float = 2.0, ramp=(0, 1000),
+                    device="cuda") -> Scene:
+    """Config + the ramp test's start on `device`: round(rho L^3) atoms
+    (100,488 at box_l = 35) uniform in the box, normal velocities at
+    t_start with zero net momentum, from numpy's generator at seed 1."""
+    cfg = dpd_tstat_config(box_l, t_start, t_stop, ramp)
+    n = cfg.capacity.n_max
+    r = np.random.default_rng(1)
+    x = r.uniform(0.0, box_l, (n, 3))
+    v = r.normal(0.0, np.sqrt(t_start), (n, 3))
+    v -= v.mean(axis=0)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))

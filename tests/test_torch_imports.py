@@ -1,6 +1,6 @@
 """obmd_tpu_torch's import and device rules: it imports with JAX blocked,
-no file of it (nor chip_smoke.py or lj_state_point.py) names JAX or the
-JAX package, and on a machine without a GPU the default device raises
+no file of it (nor chip_smoke.py, lj_state_point.py, bench_torch.py or
+profile_torch.py) names JAX or the JAX package, and on a machine without a GPU the default device raises
 instead of running on the CPU."""
 import pathlib
 import re
@@ -40,7 +40,8 @@ def test_imports_with_jax_blocked():
 
 def test_no_file_names_jax():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) \
-        + [ROOT / "chip_smoke.py", ROOT / "lj_state_point.py"]
+        + [ROOT / name for name in ("chip_smoke.py", "lj_state_point.py",
+                                    "bench_torch.py", "profile_torch.py")]
     pat = re.compile(r"\bjax\b|obmd_tpu\.|import obmd_tpu\b")
     for p in files:
         for i, line in enumerate(p.read_text().splitlines(), 1):
@@ -66,6 +67,8 @@ def test_default_device_raises_without_gpu():
         scenes.obmd_ljrf_scene(nx=4, ny=4)
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.ljrf_bulk_scene(nx=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.dpd_tstat_scene(box_l=5.0)
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

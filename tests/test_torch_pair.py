@@ -7,6 +7,8 @@ Tolerances are tests/test_bigtile.py's: max error <= 2e-4 * max|f| over
 alive slots (the port sums each slot's 27 cells, the TPU kernel a Newton
 half stencil: float32 summation order differs), |sum f| <= 1e-3 * max|f|
 (Newton's third law; the noise is pair-symmetric bit for bit)."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +19,10 @@ from obmd_tpu.forces.pallas_dpd import make_pair_kernel as j_make_pair_kernel
 from obmd_tpu.integrate import setup as jsetup
 from obmd_tpu_torch import config as pconfig
 from obmd_tpu_torch.engine_cellpad import _forces as p_forces
+from obmd_tpu_torch.engine_cellpad import _make_kernel as p_make_kernel
 from obmd_tpu_torch.engine_cellpad import make_geometry as p_make_geometry
 from obmd_tpu_torch.forces.pair_kernel import (NF, PadGeometry,
+                                               legacy_kwargs,
                                                make_dpd_kernel,
                                                make_pair_kernel)
 
@@ -89,10 +93,11 @@ def test_forces_with_boundary_force_match_jax(set_up):
 
 def test_wrapper_rejects_what_it_does_not_cover():
     """Wrong dtypes and shapes, and a missing or unasked-for pbond, raise
-    ValueError; more than 4 types, gaussian noise, open or single-cell y/z
-    axes and 4 exclusion channels (branched topologies) raise
-    NotImplementedError.  p == 1 layouts, periodic x, 2-channel exclusion
-    and 2-4 types are ported."""
+    ValueError; more than 4 types, open or single-cell y/z axes, 4
+    exclusion channels (branched topologies) and dpd/tstat or gaussian
+    noise in the full-stencil kernel raise NotImplementedError.  p == 1
+    layouts, periodic x, 2-channel exclusion, 2-4 types, gaussian noise
+    and dpd/tstat in make_pair_kernel are ported."""
     jcfg, _, pcfg, _ = lattice_states(scale=0.25, cap=15)
     geom = p_make_geometry(pcfg)
     kern = make_pair_kernel(geom, pcfg.pair, pcfg.dt)
@@ -113,8 +118,15 @@ def test_wrapper_rejects_what_it_does_not_cover():
         make_pair_kernel(geom, five, pcfg.dt)
     gauss = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1, a0=25.0,
                                      gamma=4.5, gaussian_noise=True)
-    with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom, gauss, pcfg.dt)
+    tstat = pconfig.DPDTstatParams.create(t_start=1.0, t_stop=2.0,
+                                          cutoff=1.0, seed=1, gamma=4.5,
+                                          ramp=(0, 10))
+    for law in (gauss, tstat):
+        make_pair_kernel(geom, law, pcfg.dt)
+        with pytest.raises(NotImplementedError):
+            legacy_kwargs(law, pcfg.dt)
+        with pytest.raises(NotImplementedError):
+            p_make_kernel(dataclasses.replace(pcfg, pair=law), geom, "full")
     with pytest.raises(NotImplementedError):
         make_pair_kernel(geom._replace(periodic_yz=(False, True)), pcfg.pair,
                          0.01)

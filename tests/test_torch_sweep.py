@@ -138,12 +138,16 @@ def test_pair_law_matches_jax(law):
 
 
 def test_unported_laws_raise():
+    """A law the port lacks raises in the sweep; dpd/tstat, which has no
+    conservative energy for USHER, raises with an OBMD stage."""
+    from obmd_tpu_torch.engine_cellpad import check_supported
     with pytest.raises(NotImplementedError):
         ppairs.make_pair_law(object(), 0.01)
-    gauss = pconfig.DPDParams.create(temp=1.0, cutoff=1.0, seed=1, a0=25.0,
-                                     gamma=4.5, gaussian_noise=True)
-    with pytest.raises(NotImplementedError):
-        ppairs.make_pair_law(gauss, 0.01)
+    tstat = pconfig.DPDTstatParams.create(t_start=1.0, cutoff=1.0, seed=1,
+                                          gamma=4.5)
+    cfg = pscenes.obmd_dpd_config(scale=0.25)
+    with pytest.raises(NotImplementedError, match="dpd/tstat"):
+        check_supported(dataclasses.replace(cfg, pair=tstat))
 
 
 def _thermo_close(pt, jt):
