@@ -152,7 +152,34 @@ Phases (any failure exits non-zero and prints no result line):
      (validation/dpdtstat_golden/fluid.data, 300 atoms, `pair_style
      dpd/tstat 0.0 0.0 1.2 999`, `pair_coeff 1 1 3.5`) through setup on
      the card: every force within 5e-5 * max|f| of dump.ref;
- 22. the figures of the seven paths (with each path's whole wall time,
+ 22. path C, OBMD_DPD with `near 0.35` insertion (the reference's
+     in.obmd_near; the scene's usher=False configuration through
+     dataclasses.replace of obmd) from phase 4's equilibrated state:
+     repacked at cap 15, make_run(400) to settle, two timed make_run(400)
+     windows, check_invariants, then the insertion phase at the setup cap
+     (24) with nbuf raised to 1.05 x census / alpha, ninserted > 0, the
+     USHER iteration count unmoved, check_invariants.  Launch counts are
+     zeroed before the production and read after the insertion phase: the
+     pair kernel (dpd-cap15, dpd-cap24) once per step, USHER never.  Then a
+     profile of two relayout epochs and the kernel at both caps against
+     its plain version;
+ 23. path D, the JAX package's momentum-conservation box
+     (tests/test_conservation.py:34-55, scenes.near_box_scene: 10 x 4 x 4,
+     a 7 x 1 x 1 grid with single-cell periodic y and z, cap 112, `near`
+     insertion): setup and NEAR_BOX_STEPS steps one at a time, sum(f)
+     within test_conservation's bar of the boundary setpoints at every step
+     whose buffers both hold atoms, insertions, check_invariants; launch
+     counts zeroed before setup and read after (key dpd-1cell-cap112); a
+     timed window of NEAR_BOX_STEPS steps and a profile; then both pair
+     kernels against their plain versions, each other and the pair sweep,
+     and FULL_STEPS steps through the full-stencil kernel;
+ 24. a thin DPD film of ~100k atoms (scenes.dpd_film_scene: the OBMD_DPD
+     fluid in 302.3 x 56.0 x 2.0, z one cell), then the same with y open:
+     setup and FILM_STEPS steps (keys dpd-1cell-cap32,
+     dpd-1cell-openyz-cap32), check_invariants, each kernel against its
+     plain version and the pair sweep; the full-stencil kernel on the
+     periodic film (FILM_STEPS steps through it), refused on the open one;
+ 25. the figures of the ten paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
@@ -220,6 +247,10 @@ TSTAT_GOLDEN_DIR = os.path.join(os.path.dirname(GOLDEN_DIR),
 # path B: the ramp's marks (make_run(TSTAT_MARK) TSTAT_MARKS times) and the
 # timed tail of the ramp
 TSTAT_MARK, TSTAT_MARKS, TSTAT_TIMED = 100, 10, 400
+# path C's `near` distance (the reference's in.obmd_near: near 1 0.35),
+# path D's steps (the first insertions come near step 45) and the steps the
+# DPD film runs before its kernel checks
+NEAR, NEAR_BOX_STEPS, FILM_STEPS = 0.35, 200, 10
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -326,17 +357,21 @@ def pair_work(geom, fld, coef, tag=None, pbond=None):
     import torch
     from obmd_tpu_torch.forces.pair_kernel import (TABLE_ROWS,
                                                    _neighbor_columns,
-                                                   _table_tensor)
+                                                   _table_tensor,
+                                                   neighbor_offsets)
     nb, nf, cap, lanes = fld.shape
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
     icol, cols, oks = _neighbor_columns(geom, fld.device)
+    self_o = neighbor_offsets(geom).index((0, 0, 0))
     if pbond is not None:
         tl = tag.permute(0, 2, 1).reshape(nb * lanes, cap)
         pb = pbond.permute(0, 3, 1, 2).reshape(nb * lanes, pbond.shape[1],
                                                cap)[icol]
     live = fl[:, 0, :] < 0.5e8
     not_self = ~torch.eye(cap, dtype=torch.bool, device=fld.device)
-    lengths = (coef.lx if coef.periodic_x else 0.0, coef.ly, coef.lz)
+    per_y, per_z = geom.periodic_yz
+    lengths = (coef.lx if coef.periodic_x else 0.0,
+               coef.ly if per_y else 0.0, coef.lz if per_z else 0.0)
     if coef.typed:
         cut2 = _table_tensor(coef, fld.device)[TABLE_ROWS.index("cut2")]
     cand = inside = coul = 0
@@ -344,7 +379,7 @@ def pair_work(geom, fld, coef, tag=None, pbond=None):
         xj = fl[cols[o]]
         ok = oks[o][:, None, None] & live[icol][:, :, None] \
             & live[cols[o]][:, None, :]
-        if o == 13:                          # the (0, 0, 0) offset
+        if o == self_o:
             ok = ok & not_self
         rsq = 0.0
         for c in range(3):
@@ -390,7 +425,10 @@ def pair_bound(geom, fld, coef, tag=None, pbond=None):
         per_live += pbond.shape[1] + (coef.law != "dpd")
     n_bytes = (slots * 4 + n_live * per_live * 4 + geom.n_blocks * 4
                + slots * 3 * 4 + len(coef.tables) * 4)
-    test = OPS_PAIR_TEST + (OPS_MI_X if coef.periodic_x else 0)
+    # an open y or z axis takes no minimum image (as many operations as
+    # periodic x's)
+    test = OPS_PAIR_TEST + (OPS_MI_X if coef.periodic_x else 0) \
+        - OPS_MI_X * (2 - sum(geom.periodic_yz))
     force = OPS_PAIR_FORCE + OPS_GAUSS * coef.gaussian \
         + OPS_RAMP * coef.ramp if coef.law == "dpd" else (
             OPS_LJ_FORCE + OPS_TYPED_LJ * coef.typed)
@@ -418,6 +456,27 @@ def compare_forces(geom, state, got, want, label):
     if not fsum <= 1e-3 * scale:
         fail(f"{label}: |sum f| {fsum} > 1e-3 * {scale}")
     return err, scale, fsum
+
+
+def against_sweep(cfg, geom, state, f_k, label):
+    """Kernel-layout forces f_k against the port's pair sweep on the same
+    state (the sweep under cfg without its OBMD stage and thermostat;
+    zero sweep overflow).  Returns (max error, max|f|)."""
+    import torch
+    from obmd_tpu_torch.integrate import compute_forces, make_grid_spec
+    cfg = dataclasses.replace(cfg, obmd=None, langevin=None)
+    pf, ctab = compute_forces(cfg, make_grid_spec(cfg), state)
+    if int(ctab.overflow) != 0:
+        fail(f"{label} sweep: cell overflow {int(ctab.overflow)}")
+    f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
+        .permute(0, 3, 1, 2)
+    err, scale, _ = compare_forces(
+        geom, state, f_k, torch.where(state.alive.reshape(
+            geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
+        f"{label} against the pair sweep")
+    log(f"{label} against the pair sweep: max_abs_err {err:.3e} (max|f| "
+        f"{scale:.1f})")
+    return err, scale
 
 
 def check_pair(cfg, geom, state, label, kernel="pair", sig_scale=None):
@@ -1046,8 +1105,7 @@ def run_lj():
     import torch
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
-    from obmd_tpu_torch.integrate import (compute_forces, make_grid_spec,
-                                          make_run, setup)
+    from obmd_tpu_torch.integrate import make_run, setup
     from obmd_tpu_torch.observe import check_invariants, make_thermo_fn
 
     # ---- phase 7: the LJ melt path
@@ -1092,19 +1150,10 @@ def run_lj():
 
     # ---- phase 9: the ended state against the sweep, both kernels against
     # their plain versions and each other, then 512 lanes at nx = 40
-    pf, ctab = compute_forces(cfg, make_grid_spec(cfg), st)
-    if int(ctab.overflow) != 0:
-        fail(f"LJ sweep: cell overflow {int(ctab.overflow)}")
-    f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
-        .permute(0, 3, 1, 2)
     f_path = st.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
         .permute(0, 3, 1, 2)
-    sweep_err, sweep_scale, _ = compare_forces(
-        geom, st, f_path, torch.where(st.alive.reshape(
-            geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
-        "LJ path forces against the pair sweep")
-    log(f"LJ path forces against the pair sweep: max_abs_err "
-        f"{sweep_err:.3e} (max|f| {sweep_scale:.1f})")
+    sweep_err, sweep_scale = against_sweep(cfg, geom, st, f_path,
+                                           "LJ path forces")
     pair36, full36 = check_both(cfg, geom, st, "lj cap 36")
 
     wide = scenes.lj_melt_scene(nx=LJ_WIDE_NX, device=DEV)
@@ -1145,11 +1194,9 @@ def run_lj():
 def run_obmd_lj():
     """Phases 10-12: the open LJ fluid's small path against the CPU, its
     main path with an insertion phase and its kernel checks."""
-    import torch
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
-    from obmd_tpu_torch.integrate import (compute_forces, equilibrate,
-                                          make_grid_spec, make_run, setup)
+    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
     from obmd_tpu_torch.observe import (check_invariants, make_obmd_metrics_fn,
                                         make_thermo_fn)
 
@@ -1241,21 +1288,11 @@ def run_obmd_lj():
     # of two relayout epochs, then FULL_STEPS steps through the full kernel
     usher, usher_info = check_usher(cfg, geom, st_prod, "lj")
     pair, full = check_both(cfg, geom, st_prod, f"lj cap {geom.fcap}, open x")
-    bare = dataclasses.replace(cfg, obmd=None, langevin=None)
-    pf, ctab = compute_forces(bare, make_grid_spec(bare), st_prod)
-    if int(ctab.overflow) != 0:
-        fail(f"open LJ sweep: cell overflow {int(ctab.overflow)}")
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
     with KeepCounts():
         f_k = _make_kernel(cfg, geom)(*pack_fields(cfg, geom, st_prod))
-    f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
-        .permute(0, 3, 1, 2)
-    sweep_err, sweep_scale, _ = compare_forces(
-        geom, st_prod, f_k, torch.where(st_prod.alive.reshape(
-            geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
-        "open LJ pair kernel against the pair sweep")
-    log(f"open LJ pair kernel against the pair sweep: max_abs_err "
-        f"{sweep_err:.3e} (max|f| {sweep_scale:.1f})")
+    sweep_err, sweep_scale = against_sweep(cfg, geom, st_prod, f_k,
+                                           "open LJ pair kernel")
     r_every = auto_rebuild_every(cfg)
     prof = profile_steps(make_run(cfg, 2 * r_every), st_prod, 2 * r_every)
     log(f"open LJ profile: {prof}")
@@ -1597,11 +1634,9 @@ def kernel_only_checks(cfg, state):
 def run_ljrf():
     """Phases 16-18: the open charged two-type fluid's small path against
     the CPU, its main path with an insertion phase, and its kernel checks."""
-    import torch
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
-    from obmd_tpu_torch.integrate import (compute_forces, equilibrate,
-                                          make_grid_spec, make_run, setup)
+    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
     from obmd_tpu_torch.observe import (charge_census, check_invariants,
                                         make_obmd_metrics_fn, make_thermo_fn)
 
@@ -1709,21 +1744,11 @@ def run_ljrf():
     usher, usher_info = check_usher(cfg, geom, st_prod, "ljrf")
     pair, _ = check_pair(cfg, geom, st_prod,
                          f"ljrf, 2 types, cap {geom.fcap}, open x")
-    bare = dataclasses.replace(cfg, obmd=None, langevin=None)
-    pf, ctab = compute_forces(bare, make_grid_spec(bare), st_prod)
-    if int(ctab.overflow) != 0:
-        fail(f"open charged sweep: cell overflow {int(ctab.overflow)}")
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
     with KeepCounts():
         f_k = _make_kernel(cfg, geom)(*pack_fields(cfg, geom, st_prod))
-    f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
-        .permute(0, 3, 1, 2)
-    sweep_err, sweep_scale, _ = compare_forces(
-        geom, st_prod, f_k, torch.where(st_prod.alive.reshape(
-            geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
-        "open charged pair kernel against the pair sweep")
-    log(f"open charged pair kernel against the pair sweep: max_abs_err "
-        f"{sweep_err:.3e} (max|f| {sweep_scale:.1f})")
+    sweep_err, sweep_scale = against_sweep(cfg, geom, st_prod, f_k,
+                                           "open charged pair kernel")
     r_every = auto_rebuild_every(cfg)
     prof = profile_steps(make_run(cfg, 2 * r_every), st_prod, 2 * r_every)
     log(f"open charged profile: {prof}")
@@ -2001,9 +2026,270 @@ def run_tstat():
     return path, kernels
 
 
+def run_near(cfg24, st_eq):
+    """Phase 22: path C, the OBMD_DPD deck with `near 0.35` insertion (the
+    scene's usher=False configuration, dataclasses.replace of obmd) from
+    phase 4's equilibrated state st_eq: repacked at cap 15, production,
+    then the insertion phase at cap 24 with nbuf raised to 1.05 x census /
+    alpha.  The pair kernel's two bodies and the stage's near check run;
+    USHER never does."""
+    from bench_torch import NSTEPS, PROD_CAP, production, repack
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every
+    from obmd_tpu_torch.integrate import make_run
+    from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
+
+    def near(cfg, **obmd):
+        return dataclasses.replace(cfg, obmd=dataclasses.replace(
+            cfg.obmd, usher=None, near=NEAR, **obmd)).finalize()
+
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    cfg, geom, st = repack(near(cfg24), st_eq, PROD_CAP)
+    st, windows, _ = production(cfg, st)
+    tel = check_invariants(cfg, st)
+    check_finite(st, "near OBMD_DPD main path")
+    natoms = int(st.natoms)
+    occupancy = max_cell_count(geom, st)
+    st_prod = st
+    m = make_obmd_metrics_fn(cfg)(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    cfg_ins = near(cfg24, nbuf=1.05 * census / cfg24.obmd.alpha)
+    _, geom24, st = repack(cfg_ins, st, cfg_ins.capacity.cell_capacity)
+    ins0, fail0 = int(st.obmd.ninserted), int(st.obmd.insert_fail)
+    st = make_run(cfg_ins, INS_STEPS)(st)
+    sync()
+    tel_ins = check_invariants(cfg_ins, st)
+    inserted = int(st.obmd.ninserted) - ins0
+    rejected = int(st.obmd.insert_fail) - fail0
+    if inserted <= 0:
+        fail("near OBMD_DPD insertion phase inserted no atoms")
+    if int(st.obmd.usher_iters) != int(st_eq.obmd.usher_iters):
+        fail("near OBMD_DPD: the USHER iteration count moved")
+    check_finite(st, "near OBMD_DPD insertion phase")
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    k15, k24 = f"dpd-cap{geom.fcap}", f"dpd-cap{geom24.fcap}"
+    wall, steps = min(windows)
+    log(f"near OBMD_DPD main path ({natoms} atoms, {geom}) {path_s:.1f} s, "
+        f"windows {windows}, {wall / steps * 1e3:.3f} ms/step, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, telemetry "
+        f"{tel}, most atoms in one cell {occupancy} (filing cap "
+        f"{geom.fcap}); insertion phase: nbuf {cfg_ins.obmd.nbuf:.1f}, "
+        f"{inserted} inserted and {rejected} asked for but not placed in "
+        f"{INS_STEPS} steps, {tel_ins}; launches {launches}")
+    require_launches(launches, {"pair": (k15, k24)},
+                     "near OBMD_DPD main path")
+    if launches["pair"][1][k15] != 3 * NSTEPS \
+            or launches["pair"][1][k24] != INS_STEPS:
+        fail(f"near OBMD_DPD: pair launches {launches['pair'][1]}, "
+             f"expected {3 * NSTEPS} at cap {geom.fcap} and {INS_STEPS} at "
+             f"cap {geom24.fcap}")
+    r_every = auto_rebuild_every(cfg)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st_prod, 2 * r_every)
+    log(f"near OBMD_DPD profile: {prof}")
+    pair15, _ = check_pair(cfg, geom, st_prod, f"dpd, near, cap {geom.fcap}")
+    pair24, _ = check_pair(cfg_ins, geom24, st,
+                           f"dpd, near, cap {geom24.fcap}")
+    path = dict(atoms=natoms, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], path_s=path_s,
+                telemetry=tel, filing_cap=geom.fcap,
+                max_cell_count=occupancy, insertion_phase_inserted=inserted,
+                insertion_phase_not_placed=rejected, profile=prof)
+    kernels = [
+        kernel_line("pair", f"dpd, near path, fill cap {geom.fcap}",
+                    "obmd_tpu/forces/pallas_dpd.py:575",
+                    launches["pair"][1][k15], pair15),
+        kernel_line("pair", f"dpd, near path, fill cap {geom24.fcap}",
+                    "obmd_tpu/forces/pallas_dpd.py:324",
+                    launches["pair"][1][k24], pair24),
+    ]
+    return path, kernels
+
+
+def force_gap(cfg, state):
+    """tests/test_conservation.py's invariant on one state: |sum f -
+    (mfl + mfr + sfl + sfr)| and its bound, 2e-6 x max(2 |pxx| A,
+    2 max|setpoints|), or None when a buffer is empty (its force then has
+    no atom to go to)."""
+    import torch
+    sc = state.obmd
+    for region in (cfg.obmd.region1, cfg.obmd.region2):
+        if not bool((state.alive & region.match(state.x)).any()):
+            return None
+    mf = sum(getattr(sc, k).double() for k in (
+        "momentum_force_left", "momentum_force_right", "shear_force_left",
+        "shear_force_right"))
+    total = torch.where(state.alive[:, None], state.f, 0.0).double().sum(0)
+    gap = float((total - mf).abs().max())
+    load = 2 * abs(cfg.obmd.pxx) * cfg.box.cross_area
+    return gap, 2e-6 * max(load, float(mf.abs().max()) * 2)
+
+
+def run_near_box():
+    """Phase 23: path D, the JAX package's momentum-conservation box with
+    `near` insertion (near_box_scene: 7 x 1 x 1 cells, single-cell periodic
+    y and z, cap 112): setup and NEAR_BOX_STEPS steps one at a time, sum(f)
+    on the boundary setpoints at every step whose buffers both hold atoms,
+    insertions, check_invariants; a timed window of NEAR_BOX_STEPS steps
+    without those checks and a profile; then its pair kernel and
+    full-stencil kernel against their plain versions and the pair sweep,
+    and FULL_STEPS steps through the full-stencil kernel."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import (auto_rebuild_every,
+                                               make_geometry)
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    sc = scenes.near_box_scene(device=DEV)
+    cfg = sc.cfg
+    geom = make_geometry(cfg)
+    st = setup(cfg, sc.state)
+    run = make_run(cfg, 1)
+    gaps = []
+    t_run = time.perf_counter()
+    for _ in range(NEAR_BOX_STEPS):
+        st = run(st)
+        g = force_gap(cfg, st)
+        if g is None:
+            continue
+        if not g[0] < g[1]:
+            fail(f"near box: step {st.step}: |sum f - setpoints| {g[0]} >= "
+                 f"{g[1]}")
+        gaps.append(g[0] / g[1])
+    sync()
+    run_s = time.perf_counter() - t_run
+    tel = check_invariants(cfg, st)
+    check_finite(st, "near box")
+    if len(gaps) < NEAR_BOX_STEPS // 2 or tel["ninserted"] <= 0:
+        fail(f"near box: {len(gaps)} steps checked, telemetry {tel}")
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    key = f"dpd-1cell-cap{geom.fcap}"
+    log(f"near box ({int(st.natoms)} atoms, {geom}) {path_s:.1f} s, "
+        f"{NEAR_BOX_STEPS} steps {run_s:.3f} s, sum(f) on the setpoints at "
+        f"{len(gaps)} steps (largest gap {max(gaps):.3f} of its bound), "
+        f"telemetry {tel}; launches {launches}")
+    require_launches(launches, {"pair": (key,)}, "near box")
+    if launches["pair"][0] != NEAR_BOX_STEPS + 1:
+        fail(f"near box: {launches['pair'][0]} pair launches for setup and "
+             f"{NEAR_BOX_STEPS} steps")
+    # a timed window without the per-step host checks, and a profile
+    t0 = time.perf_counter()
+    st = make_run(cfg, NEAR_BOX_STEPS)(st)
+    sync()
+    window_s = time.perf_counter() - t0
+    check_invariants(cfg, st)
+    r_every = auto_rebuild_every(cfg)
+    prof = profile_steps(make_run(cfg, 2 * r_every), st, 2 * r_every)
+    log(f"near box: {NEAR_BOX_STEPS} steps unchecked {window_s:.3f} s; "
+        f"profile: {prof}")
+    pair, f_k = check_pair(cfg, geom, st, f"dpd, 7 x 1 x 1 cells, cap "
+                           f"{geom.fcap}")
+    full, f_full = check_pair(cfg, geom, st, f"dpd, 7 x 1 x 1 cells, cap "
+                              f"{geom.fcap}", "full")
+    compare_forces(geom, st, f_full, f_k, "near box: full against pair")
+    sweep_err, _ = against_sweep(cfg, geom, st, f_k, "near box pair kernel")
+    _, full_ms, full_launches = run_full_path(cfg, st, "near box")
+    require_launches(full_launches, {"dpd_full": (key,)},
+                     "near box through the full-stencil kernel")
+    path = dict(atoms=int(st.natoms), steps=NEAR_BOX_STEPS,
+                ms_per_step=window_s / NEAR_BOX_STEPS * 1e3,
+                mparticle_steps_per_s=NEAR_BOX_STEPS / window_s
+                * int(st.natoms) / 1e6,
+                checked_ms_per_step=run_s / NEAR_BOX_STEPS * 1e3,
+                path_s=path_s, profile=prof,
+                telemetry=tel, force_sum_checked_steps=len(gaps),
+                force_sum_largest_gap_of_bound=max(gaps),
+                forces_vs_sweep_max_abs_err=sweep_err,
+                full_kernel_ms_per_step=full_ms)
+    kernels = [
+        kernel_line("pair", f"dpd, single-cell y and z, fill cap "
+                    f"{geom.fcap}", "obmd_tpu/forces/pallas_dpd.py:324",
+                    launches["pair"][1][key], pair),
+        kernel_line("dpd_full", f"dpd, single-cell y and z, fill cap "
+                    f"{geom.fcap}", None, full_launches["dpd_full"][0],
+                    full),
+    ]
+    return path, kernels
+
+
+def run_film():
+    """Phase 24: a ~100k-atom DPD film whose z axis is one cell
+    (dpd_film_scene), then the same film with y open: setup and FILM_STEPS
+    steps through the entry points (launch counts zeroed before and read
+    after), check_invariants; then on the ended state each instantiation
+    against its plain version and the pair sweep (the full-stencil kernel
+    on the periodic film only: make_dpd_kernel has no open y/z, and the
+    port refuses it there)."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import _make_kernel, make_geometry
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+
+    out, figures = [], {}
+    for y_open in (False, True):
+        sc = scenes.dpd_film_scene(device=DEV, y_open=y_open)
+        cfg = sc.cfg
+        geom = make_geometry(cfg)
+        label = f"dpd film, {'y open, ' if y_open else ''}z one cell, " \
+            f"fill cap {geom.fcap}"
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = setup(cfg, sc.state)
+        st = make_run(cfg, FILM_STEPS)(st)
+        sync()
+        run_s = time.perf_counter() - t0
+        tel = check_invariants(cfg, st)
+        check_finite(st, label)
+        launches = launch_counts()
+        key = "dpd-1cell" + ("-openyz" if y_open else "") + \
+            f"-cap{geom.fcap}"
+        require_launches(launches, {"pair": (key,)}, label)
+        if launches["pair"][0] != FILM_STEPS + 1:
+            fail(f"{label}: {launches['pair'][0]} pair launches for setup "
+                 f"and {FILM_STEPS} steps")
+        log(f"{label} ({int(st.natoms)} atoms, {geom}): setup and "
+            f"{FILM_STEPS} steps {run_s:.2f} s, telemetry {tel}, launches "
+            f"{launches}")
+        pair, f_k = check_pair(cfg, geom, st, label)
+        sweep_err, _ = against_sweep(cfg, geom, st, f_k, f"{label}: pair")
+        figures[label] = dict(atoms=int(st.natoms), dims=geom.dims,
+                              telemetry=tel,
+                              pair_vs_sweep_max_abs_err=sweep_err)
+        out.append(kernel_line("pair", label,
+                               "obmd_tpu/forces/pallas_dpd.py:324",
+                               launches["pair"][0], pair))
+        if y_open:
+            try:
+                _make_kernel(cfg, geom, "full")
+            except NotImplementedError:
+                pass
+            else:
+                fail("DPD film: the full-stencil kernel took an open y axis")
+        else:
+            full, f_full = check_pair(cfg, geom, st, label, "full")
+            compare_forces(geom, st, f_full, f_k,
+                           f"{label}: full against pair")
+            _build.reset_launch_counts()
+            make_run(cfg, FILM_STEPS, kernel="full")(st)
+            sync()
+            full_launches = launch_counts()
+            require_launches(full_launches, {"dpd_full": (key,)},
+                             f"{label} through the full-stencil kernel")
+            out.append(kernel_line("dpd_full", label, None,
+                                   full_launches["dpd_full"][0], full))
+        del sc, st, f_k
+        torch.cuda.empty_cache()
+    return figures, out
+
+
 def run_smoke():
-    """Phases 2-21; returns the seven paths' figures and the kernel
-    figures."""
+    """Phases 2-24; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build_all()
@@ -2035,13 +2321,24 @@ def run_smoke():
     t0 = time.perf_counter()
     tstat_path, tstat_kernels = run_tstat()
     wall_s["dpd_tstat_ramp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    near_path, near_kernels = run_near(*obmd_prod[:2])
+    wall_s["obmd_dpd_near"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    box_path, box_kernels = run_near_box()
+    wall_s["near_box"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    film, film_kernels = run_film()
+    wall_s["dpd_film_kernels"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
                           chain=chain_path, obmd_ljrf=rf_path,
                           obmd_dpd_gaussian=gauss_path,
-                          dpd_tstat_ramp=tstat_path),
+                          dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
+                          near_box=box_path, dpd_film=film),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
-                + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels)
+                + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
+                + near_kernels + box_kernels + film_kernels)
 
 
 def main():

@@ -78,11 +78,11 @@ class Kernel:
         return self._fn
 
 
-# fld, tag, occ, pbond, out, nb, cap, lanes, nx, ny, nz, s, p, per_x, law,
-# n_excl, lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma, sigma, cut,
-# inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32), ntypes,
-# gaussian, ramp, sig_scale, stream
-_PAIR_ARGS = (_P,) * 5 + (_I,) * 11 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F,
+# fld, tag, occ, pbond, out, nb, cap, lanes, nx, ny, nz, s, p, per_x,
+# per_y, per_z, law, n_excl, lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma,
+# sigma, cut, inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32),
+# ntypes, gaussian, ramp, sig_scale, stream
+_PAIR_ARGS = (_P,) * 5 + (_I,) * 13 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F,
                                                    _P)
 # rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt, ly, lz,
 # thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream

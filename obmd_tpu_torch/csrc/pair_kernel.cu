@@ -39,19 +39,33 @@
 // slot is rejected before any q or type read.
 //
 // Design.  Newton-off: one thread per slot sums F_ij over every live atom
-// filed in the 27 cells around its own FILED cell, so there are no atomics
-// and no cross-block reaction pass (the Newton kernel's out2 shift).  y/z
-// are periodic with >= 3 cells; x is open (neighbour slabs outside [0, nx)
-// are skipped) or periodic with >= 3 cells (the slab index wraps); so the
-// 27 cells are distinct and the minimum image is applied per pair on every
-// periodic axis.  A dead j slot is skipped by testing its x against BIG/2,
-// not by distance: the minimum image on x folds BIG back into the box, and
-// the fused multiply-add nvcc makes of it leaves a residue inside the
-// cutoff.  A CUDA block is 128 lanes of one (block, rank) row (lanes / 128
-// blocks per row): neighbouring threads read neighbouring cells, so each
-// (offset, j-rank) step of the j-loop is a near-coalesced row read.  The
-// j-rank loop stops at occ of the neighbour's block.  The pair noise is the
-// reference's counter hash of (salt, smaller tag, larger tag), bit for bit.
+// filed in the stencil's cells around its own FILED cell (27 where every
+// axis has >= 3 cells), so there are no atomics and no cross-block
+// reaction pass (the Newton kernel's out2 shift).  x is
+// open (neighbour slabs outside [0, nx) are skipped) or periodic with >= 3
+// cells (the slab index wraps); y and z are periodic with >= 3 cells (the
+// cell index wraps), or, in the instantiations with the geometry flags,
+// periodic with a single cell or open:
+//  - kOneCell (pallas_dpd.py:316-322): a periodic axis shorter than 3 cut +
+//    skin widths is one cell, its own neighbour on both sides, so only the
+//    offset 0 is visited on it (the wrapped -1 and +1 would count each
+//    pair three times) and the minimum image picks the pair's nearest
+//    image; the wrapper refuses such an axis shorter than twice the
+//    cutoff, where a second image could lie within it;
+//  - kOpen (pallas_dpd.py:227-228, :511-515): an open y or z axis has no
+//    image: a neighbour cell outside [0, n) is skipped and that axis takes
+//    no minimum image (make_pair_kernel only; make_dpd_kernel has no open
+//    y/z, and its entry point refuses it).
+// So the visited cells are distinct and the minimum image is applied per
+// pair on every periodic axis.  A dead j slot is skipped by testing its x
+// against BIG/2, not by distance: the minimum image on x folds BIG back
+// into the box, and the fused multiply-add nvcc makes of it leaves a
+// residue inside the cutoff.  A CUDA block is 128 lanes of one (block,
+// rank) row (lanes / 128 blocks per row): neighbouring threads read
+// neighbouring cells, so each (offset, j-rank) step of the j-loop is a
+// near-coalesced row read.  The j-rank loop stops at occ of the
+// neighbour's block.  The pair noise is the reference's counter hash of
+// (salt, smaller tag, larger tag), bit for bit.
 // Exclusion: each thread loads its slot's two partner tags once and skips
 // an in-cutoff j whose tag equals either.  Newton-off visits every pair
 // from both ends and each end checks only its own partners; that equals
@@ -98,6 +112,7 @@ struct Params {
   float a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1, lj2;
   uint32_t salt;
   float sig_scale;                 // read by the ramp instantiations only
+  int per_y, per_z;                // read by the kOpen instantiations only
 };
 
 // The per-type-pair coefficient tables (row-major [kRows][T*T], T <= 4)
@@ -121,7 +136,7 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 }
 
 template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
-          bool kRamp>
+          bool kRamp, bool kOneCell, bool kOpen>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             const int* __restrict__ occ, const int* __restrict__ pbond,
@@ -182,9 +197,36 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
       const float* fj = fld + (size_t)bj * kNf * plane;
       const int* tj = tag + (size_t)bj * plane;
       for (int oy = -1; oy <= 1; ++oy) {
-        const int jy = (cy + oy + P.ny) % P.ny;
+        if constexpr (kOneCell) {
+          if (P.ny == 1 && oy != 0) continue;
+        }
+        int jy;
+        if constexpr (kOpen) {
+          jy = cy + oy;
+          if (P.per_y) {
+            jy = (jy + P.ny) % P.ny;
+          } else if (jy < 0 || jy >= P.ny) {
+            continue;
+          }
+        } else {
+          jy = (cy + oy + P.ny) % P.ny;
+        }
         for (int oz = -1; oz <= 1; ++oz) {
-          const int lj = lbase + jy * P.nz + (cz + oz + P.nz) % P.nz;
+          if constexpr (kOneCell) {
+            if (P.nz == 1 && oz != 0) continue;
+          }
+          int lj;
+          if constexpr (kOpen) {
+            int jz = cz + oz;
+            if (P.per_z) {
+              jz = (jz + P.nz) % P.nz;
+            } else if (jz < 0 || jz >= P.nz) {
+              continue;
+            }
+            lj = lbase + jy * P.nz + jz;
+          } else {
+            lj = lbase + jy * P.nz + (cz + oz + P.nz) % P.nz;
+          }
           for (int rj = 0; rj < ocj; ++rj) {
             if (bj == b && lj == lane && rj == r) continue;
             const size_t o = (size_t)rj * P.lanes + lj;
@@ -194,8 +236,8 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             float dy = yi - fj[plane + o];
             float dz = zi - fj[2 * plane + o];
             if (P.per_x) dx = dx - P.lx * rintf(dx * P.inv_lx);
-            dy = dy - P.ly * rintf(dy * P.inv_ly);
-            dz = dz - P.lz * rintf(dz * P.inv_lz);
+            if (!kOpen || P.per_y) dy = dy - P.ly * rintf(dy * P.inv_ly);
+            if (!kOpen || P.per_z) dz = dz - P.lz * rintf(dz * P.inv_lz);
             const float rsq = dx * dx + dy * dy + dz * dz;
             if (!(rsq < cut2 && xj < kBigHalf)) continue;
             if (kExcl) {
@@ -289,14 +331,41 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
 }
 
 template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
-          bool kRamp>
-void start(const dim3& grid, cudaStream_t st, const void* fld,
-           const void* tag, const void* occ, const void* pbond, void* out,
-           const Params& P, const Tables& T) {
-  pair_kernel<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp>
+          bool kRamp, bool kOneCell, bool kOpen>
+void start_geo(const dim3& grid, cudaStream_t st, const void* fld,
+               const void* tag, const void* occ, const void* pbond,
+               void* out, const Params& P, const Tables& T) {
+  pair_kernel<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, kOneCell, kOpen>
       <<<grid, kThreads, 0, st>>>((const float*)fld, (const int*)tag,
                                   (const int*)occ, (const int*)pbond,
                                   (float*)out, P, T);
+}
+
+// The geometry flags at run time -> the instantiation: a single-cell y or
+// z axis, an open y or z axis (make_pair_kernel's only).
+template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
+          bool kRamp>
+int start(const dim3& grid, cudaStream_t st, const void* fld,
+          const void* tag, const void* occ, const void* pbond, void* out,
+          const Params& P, const Tables& T) {
+  const bool one_cell = P.ny == 1 || P.nz == 1;
+  const bool open = !(P.per_y && P.per_z);
+  if (!one_cell && !open) {
+    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, false, false>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
+  } else if (!open) {
+    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, true, false>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
+  } else if constexpr (kLegacy) {
+    return (int)cudaErrorInvalidValue;    // make_dpd_kernel has no open y/z
+  } else if (!one_cell) {
+    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, false, true>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
+  } else {
+    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, true, true>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
+  }
+  return 0;
 }
 
 // The noise flags at run time -> the instantiation: gaussian noise and the
@@ -307,21 +376,20 @@ int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
                 void* out, bool gauss, bool ramp, const Params& P,
                 const Tables& T) {
   if (!gauss && !ramp) {
-    start<kLaw, kLegacy, kExcl, kTypes, false, false>(grid, st, fld, tag, occ,
-                                                      pbond, out, P, T);
+    return start<kLaw, kLegacy, kExcl, kTypes, false, false>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
   } else if constexpr (kLaw != kDpd || kLegacy) {
     return (int)cudaErrorInvalidValue;
   } else if (gauss && ramp) {
-    start<kLaw, kLegacy, kExcl, kTypes, true, true>(grid, st, fld, tag, occ,
-                                                    pbond, out, P, T);
+    return start<kLaw, kLegacy, kExcl, kTypes, true, true>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
   } else if (gauss) {
-    start<kLaw, kLegacy, kExcl, kTypes, true, false>(grid, st, fld, tag, occ,
-                                                     pbond, out, P, T);
+    return start<kLaw, kLegacy, kExcl, kTypes, true, false>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
   } else {
-    start<kLaw, kLegacy, kExcl, kTypes, false, true>(grid, st, fld, tag, occ,
-                                                     pbond, out, P, T);
+    return start<kLaw, kLegacy, kExcl, kTypes, false, true>(
+        grid, st, fld, tag, occ, pbond, out, P, T);
   }
-  return 0;
 }
 
 // The exclusion flag and the type flag at run time -> the instantiation.
@@ -403,7 +471,8 @@ int launch(const void* fld, const void* tag, const void* occ,
 #define OBMD_PAIR_ARGS                                                       \
   const void *fld, const void *tag, const void *occ, const void *pbond,     \
       void *out, int nb, int cap, int lanes, int nx, int ny, int nz, int s, \
-      int p, int per_x, int law, int n_excl, float lx, float ly, float lz,  \
+      int p, int per_x, int per_y, int per_z, int law, int n_excl,         \
+      float lx, float ly, float lz,                                         \
       float inv_lx, float inv_ly, float inv_lz, float a0, float gamma,      \
       float sigma, float cut, float inv_cut, float dtinvsqrt, float lj1,    \
       float lj2, uint32_t salt, const float *tables, int ntypes,            \
@@ -411,7 +480,7 @@ int launch(const void* fld, const void* tag, const void* occ,
 #define OBMD_PAIR_PARAMS                                                     \
   Params{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,       \
          inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,    \
-         lj2, salt, sig_scale}
+         lj2, salt, sig_scale, per_y, per_z}
 
 // make_pair_kernel's function (TPU kernels #1 and #2).
 extern "C" int obmd_pair(OBMD_PAIR_ARGS) {

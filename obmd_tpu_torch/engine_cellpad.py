@@ -2,8 +2,8 @@
 
 Counterpart of `obmd_tpu/engine_cellpad.py` for DPD (uniform or gaussian
 noise), lj/cut or lj/cut/rf with 1-4 atom types, in an open-x box with
-ATOM-mode USHER insertion (OBMD_DPD, the open LJ fluid, the open charged
-two-type LJ fluid) or a closed box without the OBMD stage (the LJ melt;
+ATOM-mode USHER or `near` insertion (OBMD_DPD, the open LJ fluid, the open
+charged two-type LJ fluid) or a closed box without the OBMD stage (the LJ melt;
 with FENE chains, the chain melt), with or without the Langevin
 thermostat; and dpd/tstat, with or without its temperature ramp, without
 the OBMD stage.  The JAX cellpad engine refuses dpd/tstat and runs it on
@@ -57,7 +57,7 @@ from .forces.pairs import sig_scale_of
 from .forces.usher_kernel import usher_search
 from .obmd.stage import (_sequential_accept, draw_candidates, feedback_count,
                          insertion_tag_base, rounds_of, smooth_weight)
-from .obmd.subset import Subset, expand_region
+from .obmd.subset import Subset, expand_region, near_check_subset
 from .state import State, per_atom_mass
 
 PURPOSE_PAIR_NOISE = 1
@@ -80,7 +80,7 @@ def own_draws(cfg: SceneConfig) -> Draw:
 
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
-    open boxes with ATOM-mode USHER insertion and closed boxes without the
+    open boxes with ATOM-mode USHER or `near` insertion and closed boxes without the
     OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4 types (as many
     masses as the pair law has types), with or without the Langevin
     thermostat; dpd/tstat without the OBMD stage; FENE chains (at most two
@@ -96,8 +96,6 @@ def check_supported(cfg: SceneConfig) -> None:
     if cfg.bond is not None and cfg.obmd is not None:
         raise NotImplementedError("bonds with the OBMD stage (molecule "
                                   "insertion) are not ported yet")
-    if cfg.obmd is not None and cfg.obmd.usher is None:
-        raise NotImplementedError("`near` insertion is not ported yet")
     if cfg.obmd is not None and cfg.obmd.group_types is not None:
         raise NotImplementedError("group-restricted census is not ported yet")
     if cfg.obmd is not None and (cfg.obmd.maxattempt > 1
@@ -291,10 +289,12 @@ def _subset_slice(cfg, geom, state, region, pad) -> Subset:
 
 def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     """ATOM-mode insertion of up to K candidates per buffer: uniform draws
-    -> USHER -> greedy in-order acceptance within the feedback budget ->
-    free-rank placement -> kernel-cache patch.  Inserted atoms take type
-    ntype and charge 0 where the scene has those columns.  Only called when
-    a buffer needs atoms; `u` holds the draws [2, 1, K, 3]."""
+    -> USHER (or, under `near` insertion, the distance check of the
+    unmoved candidates, ref engine_cellpad.py:583-586) -> greedy in-order
+    acceptance within the feedback budget -> free-rank placement ->
+    kernel-cache patch.  Inserted atoms take type ntype and charge 0 where
+    the scene has those columns.  Only called when a buffer needs atoms;
+    `u` holds the draws [2, 1, K, 3]."""
     obmd = cfg.obmd
     k = obmd.insert_kmax
     n_slots = geom.n_slots
@@ -302,8 +302,14 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
                        device=state.device)
     cand_l = draw_candidates(u[0, 0], obmd.region5)
     cand_r = draw_candidates(u[1, 0], obmd.region6)
-    pos2, ok2, iters2 = usher_search(cfg, sub_l, sub_r, cand_l, cand_r,
-                                     obmd.region5, obmd.region6)
+    if obmd.usher is not None:
+        pos2, ok2, iters2 = usher_search(cfg, sub_l, sub_r, cand_l, cand_r,
+                                         obmd.region5, obmd.region6)
+    else:
+        pos2 = torch.stack([cand_l, cand_r])
+        ok2 = torch.stack([near_check_subset(cfg, sub_l, cand_l),
+                           near_check_subset(cfg, sub_r, cand_r)])
+        iters2 = torch.zeros((2, k), dtype=torch.int32, device=state.device)
     acc_l, _ = _sequential_accept(cfg, pos2[0], ctype, ok2[0],
                                   torch.clamp(nins_l, 0, k))
     acc_r, _ = _sequential_accept(cfg, pos2[1], ctype, ok2[1],

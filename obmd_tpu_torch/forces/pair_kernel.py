@@ -14,10 +14,10 @@ PyTorch: the CPU tests run it, and `chip_smoke.py` holds each kernel against
 it on the card.
 
 The function: for every live slot i, F_i = sum_j fpair_ij * d_ij over the
-live atoms j filed in the 27 cells around i's FILED cell (never
-`cell_of(x)`: atoms drift up to half a skin inside an epoch, which the
-cut + skin cell width absorbs), d_ij = x_i - x_j with the minimum image on
-every periodic axis, counted only for 1e-10 < r < rc, with the law
+live atoms j filed in the cells around i's FILED cell (the 27 of the
+stencil on a grid of >= 3 cells per axis; never `cell_of(x)`: atoms drift
+up to half a skin inside an epoch, which the cut + skin cell width
+absorbs), d_ij = x_i - x_j with the minimum image on every periodic axis, counted only for 1e-10 < r < rc, with the law
 
     dpd:  fpair = [a0*wd - gamma*wd^2*(rhat . dv) + sigma*wd*xi/sqrt(dt)] / r,
           wd = 1 - r/rc,   xi = sqrt(3)*(2u - 1),
@@ -54,12 +54,14 @@ from both ends.
 Scope: 1-4 types, the dpd, dpd/tstat, lj and ljrf laws (ljrf, 2-4 types,
 dpd/tstat and gaussian noise through make_pair_kernel only, as
 make_dpd_kernel has none of them), uniform or gaussian noise, the
-dpd/tstat ramp, periodic y/z with >= 3 cells each, open or periodic x (>= 3
-cells), any layout (x-slabs tiling the lanes, p >= 2, or one slab per block
-in lanes padded to a multiple of 128, p == 1), any capacity, bonded
-exclusion with 2 channels.  More than 4 types, 4 exclusion channels
-(branched topologies), single-cell or open y/z axes raise
-`NotImplementedError`.
+dpd/tstat ramp, open or periodic x (>= 3 cells), y and z each periodic
+with >= 3 cells, periodic with one cell (the stencil takes the offset 0 on
+that axis and the minimum image; the axis must be at least twice the
+cutoff long, else ValueError) or open (no image; make_pair_kernel only, as
+make_dpd_kernel has no open y/z), any layout (x-slabs tiling the lanes,
+p >= 2, or one slab per block in lanes padded to a multiple of 128, p ==
+1), any capacity, bonded exclusion with 2 channels.  More than 4 types and
+4 exclusion channels (branched topologies) raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -178,11 +180,24 @@ class PadGeometry(NamedTuple):
         return block, lane
 
 
-def check_geometry(geom: PadGeometry) -> None:
-    """Raise for the layouts the kernels do not cover yet."""
-    if geom.periodic_yz != (True, True) or min(geom.dims[1:]) < 3:
+def check_geometry(geom: PadGeometry, cutoff: float,
+                   legacy: bool = False) -> None:
+    """Raise for the layouts the kernels do not cover: open y or z in the
+    full-stencil kernel (make_dpd_kernel always takes the minimum image
+    on y and z, pallas_dpd.py:1015-1016), and a single-cell periodic y or
+    z axis shorter than twice the largest cutoff, where the minimum image
+    would miss a pair's second image within the cutoff (ValueError)."""
+    if legacy and geom.periodic_yz != (True, True):
         raise NotImplementedError(
-            "pair kernel: y and z must be periodic with >= 3 cells each")
+            "full-stencil kernel: y and z must be periodic, as in "
+            "make_dpd_kernel")
+    for axis in (1, 2):
+        if geom.periodic_yz[axis - 1] and geom.dims[axis] == 1 \
+                and geom.cell_size[axis] < 2.0 * cutoff:
+            raise ValueError(
+                f"pair kernel: the single-cell periodic axis {'xyz'[axis]} "
+                f"is {geom.cell_size[axis]} long, less than twice the "
+                f"cutoff {cutoff}: the minimum image would miss pairs")
 
 
 def check_supported(geom: PadGeometry, params) -> None:
@@ -195,7 +210,7 @@ def check_supported(geom: PadGeometry, params) -> None:
     if not 1 <= params.ntypes <= MAX_TYPES:
         raise NotImplementedError(
             f"pair kernel: {params.ntypes} types (1-{MAX_TYPES} are ported)")
-    check_geometry(geom)
+    check_geometry(geom, params.max_cut)
 
 
 def _f32(v) -> float:
@@ -349,14 +364,26 @@ def legacy_kwargs(params, dt: float) -> dict:
     return _scalar_kwargs(params, dt)
 
 
+def neighbor_offsets(geom: PadGeometry):
+    """The (ox, oy, oz) cell offsets of the stencil: -1, 0, 1 on every axis
+    but a single-cell y or z axis, which has 0 only (its one cell is its
+    own neighbour on both sides; the minimum image finds the pair's nearest
+    image, pallas_dpd.py:316-322)."""
+    ys = (0,) if geom.dims[1] == 1 else (-1, 0, 1)
+    zs = (0,) if geom.dims[2] == 1 else (-1, 0, 1)
+    return list(itertools.product((-1, 0, 1), ys, zs))
+
+
 @functools.lru_cache(maxsize=16)
 def _neighbor_columns(geom: PadGeometry, device: torch.device):
     """The real (block, lane) columns (cells) of the layout, flat over the
-    [nb * lanes] cell axis, and for each of the 27 cell offsets the column of
-    each one's neighbour cell and whether it exists (open x ends; periodic
-    axes wrap).  Returns (icol [R], cols [27, R], oks [27, R])."""
+    [nb * lanes] cell axis, and for each stencil offset (neighbor_offsets)
+    the column of each one's neighbour cell and whether it exists (open
+    axes end at the grid; periodic axes wrap).  Returns (icol [R], cols
+    [O, R], oks [O, R])."""
     nx, ny, nz = geom.dims
     s, p, lanes, nb = geom.s, geom.p, geom.lanes, geom.n_blocks
+    per_y, per_z = geom.periodic_yz
     lane = np.arange(lanes)
     slab = np.arange(nb)[:, None] * p + (lane // s)[None, :]
     real = ((lane < p * s)[None, :] & (slab < nx)).reshape(-1)
@@ -366,13 +393,20 @@ def _neighbor_columns(geom: PadGeometry, device: torch.device):
     cy = within // nz
     cz = within % nz
     cols, oks = [], []
-    for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
+    for ox, oy, oz in neighbor_offsets(geom):
         jx = slab + ox
         if geom.periodic_x:
             jx = jx % nx
+        jy, jz = cy + oy, cz + oz
         ok = (jx >= 0) & (jx < nx)
-        jy = (cy + oy) % ny
-        jz = (cz + oz) % nz
+        if per_y:
+            jy = jy % ny
+        else:
+            ok = ok & (jy >= 0) & (jy < ny)
+        if per_z:
+            jz = jz % nz
+        else:
+            ok = ok & (jz >= 0) & (jz < nz)
         col = (jx // p) * lanes + (jx % p) * s + jy * nz + jz
         cols.append(np.where(ok, col, 0))
         oks.append(ok)
@@ -398,10 +432,10 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
     """The kernels' function in PyTorch: fld f32[nb, NF, cap, lanes], tag
     i32[nb, cap, lanes], optional pbond i32[nb, 2, cap, lanes] -> f32[nb,
     3, cap, lanes].  Newton-off: each slot of a real column sums over the
-    27 cells around its column, all ranks of each, less the pairs whose j
-    tag is one of its partner tags.  legacy=True takes make_dpd_kernel's
-    arithmetic (r = sqrt(r^2), r > 1e-10), else make_pair_kernel's
-    (r = r^2 / r, r^2 > 1e-20).  A typed law (2-4 types, or ljrf) reads
+    stencil's cells around its column (neighbor_offsets), all ranks of
+    each, less the pairs whose j tag is one of its partner tags.
+    legacy=True takes make_dpd_kernel's arithmetic (r = sqrt(r^2), r >
+    1e-10), else make_pair_kernel's (r = r^2 / r, r^2 > 1e-20).  A typed law (2-4 types, or ljrf) reads
     its coefficients from the tables, as the kernel does: the pair is
     tested against the largest cutoff, then each term against its own.
     A ramp law multiplies the noise term by sig_scale (None: 1)."""
@@ -410,6 +444,8 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
     fl = fld.permute(0, 3, 1, 2).reshape(nb * lanes, nf, cap)
     tl = tag.permute(0, 2, 1).reshape(nb * lanes, cap)
     icol, cols, oks = _neighbor_columns(geom, dev)
+    self_o = neighbor_offsets(geom).index((0, 0, 0))
+    per_y, per_z = geom.periodic_yz
     pb_i = None
     if pbond is not None:                            # [R, n_excl, cap_i, 1]
         pb_i = pbond.permute(0, 3, 1, 2).reshape(
@@ -436,10 +472,14 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
         fj = fl[cols[o]]
         xj = fj[:, :, None, :]                       # [R, NF, 1, cap_j]
         dx = xi[:, 0] - xj[:, 0]
-        dy = _min_image(xi[:, 1] - xj[:, 1], coef.ly, coef.inv_ly)
-        dz = _min_image(xi[:, 2] - xj[:, 2], coef.lz, coef.inv_lz)
+        dy = xi[:, 1] - xj[:, 1]
+        dz = xi[:, 2] - xj[:, 2]
         if coef.periodic_x:
             dx = _min_image(dx, coef.lx, coef.inv_lx)
+        if per_y:
+            dy = _min_image(dy, coef.ly, coef.inv_ly)
+        if per_z:
+            dz = _min_image(dz, coef.lz, coef.inv_lz)
         rsq = dx * dx + dy * dy + dz * dz
         ok = oks[o][:, None, None] & live_i \
             & (fj[:, 0] < 0.5 * BIG)[:, None, :] & (rsq < cut2)
@@ -448,7 +488,7 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
             ok = ok & (r > EPS)
         else:
             ok = ok & (rsq > EPS * EPS)
-        if o == 13:                                  # the (0, 0, 0) offset
+        if o == self_o:
             ok = ok & not_self
         if pb_i is not None:
             tj = tl[cols[o]][:, None, :]
@@ -513,13 +553,16 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
 
 def launch_key(geom: PadGeometry, coef: PairCoef, n_excl: int) -> str:
     """A launch's count key: law, types, noise variants, exclusion
-    channels, filing cap ("lj-excl2-cap18", "ljrf-t2-cap44",
-    "dpd-gauss-cap15", "dpd-ramp-cap28")."""
+    channels, the y/z geometry variants (a single-cell axis, an open axis),
+    filing cap ("lj-excl2-cap18", "ljrf-t2-cap44", "dpd-gauss-cap15",
+    "dpd-ramp-cap28", "dpd-1cell-cap112", "dpd-1cell-openyz-cap32")."""
     types = f"-t{coef.ntypes}" if coef.ntypes > 1 else ""
     noise = ("-gauss" if coef.gaussian else "") + ("-ramp" if coef.ramp
                                                    else "")
     excl = f"-excl{n_excl}" if n_excl else ""
-    return f"{coef.law}{types}{noise}{excl}-cap{geom.fcap}"
+    axes = ("-1cell" if min(geom.dims[1:]) == 1 else "") + (
+        "-openyz" if geom.periodic_yz != (True, True) else "")
+    return f"{coef.law}{types}{noise}{excl}{axes}-cap{geom.fcap}"
 
 
 def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
@@ -536,10 +579,12 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
         rc = fn(fld.data_ptr(), tag.data_ptr(), occ.data_ptr(),
                 None if pbond is None else pbond.data_ptr(),
                 out.data_ptr(), nb, cap, lanes, nx, ny, nz, geom.s, geom.p,
-                int(coef.periodic_x), LAWS.index(coef.law), n_excl, coef.lx,
-                coef.ly, coef.lz, coef.inv_lx, coef.inv_ly, coef.inv_lz,
-                coef.a0, coef.gamma, coef.sigma, coef.cut, coef.inv_cut,
-                coef.dtinvsqrt, coef.lj1, coef.lj2, salt & 0xFFFFFFFF,
+                int(coef.periodic_x), int(geom.periodic_yz[0]),
+                int(geom.periodic_yz[1]), LAWS.index(coef.law), n_excl,
+                coef.lx, coef.ly, coef.lz, coef.inv_lx, coef.inv_ly,
+                coef.inv_lz, coef.a0, coef.gamma, coef.sigma, coef.cut,
+                coef.inv_cut, coef.dtinvsqrt, coef.lj1, coef.lj2,
+                salt & 0xFFFFFFFF,
                 tables, coef.ntypes, int(coef.gaussian), int(coef.ramp),
                 sig_scale, stream)
     _build.check(rc, kern)
@@ -624,7 +669,7 @@ def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,
     convention of make_pair_kernel's function on a 6-channel layout, law
     "dpd" or "lj" from scalar coefficients (one type, as the TPU kernel),
     with exclude_bonded the 2-channel pbond."""
-    check_geometry(geom)
+    check_geometry(geom, cut, legacy=True)
     return _wrapper("dpd_full", geom, PairCoef.create(
         geom, law, a0=a0, gamma=gamma, sigma=sigma, cut=cut, dt=dt,
         lj_eps=lj_eps, lj_sig=lj_sig), legacy=True,

@@ -2,9 +2,10 @@
 
 Counterpart of the ATOM-mode, uniform-candidate part of
 `obmd_tpu/obmd/stage.py`: `feedback_count`, `smooth_weight`,
-`_sequential_accept`, `draw_candidates`, `rounds_of` and
-`insertion_tag_base`.  Inserted atoms are at rest (the reference's
-`draw_inserted_velocities` without velocity keywords, ref :1076-1078).
+`_sequential_accept` (USHER's energy criterion or `near`'s distance),
+`draw_candidates`, `rounds_of` and `insertion_tag_base`.  Inserted atoms
+are at rest (the reference's `draw_inserted_velocities` without velocity
+keywords, ref :1076-1078).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..config import DPDParams, LJCutParams, LJCutRFParams, SceneConfig
 from ..geometry import const, const_like
+from .subset import near_squared
 
 EPSILON = 1.0e-6  # reference EPSILON (fix_obmd_merged.cpp:62)
 
@@ -61,38 +63,44 @@ def smooth_weight(cfg: SceneConfig, x0: torch.Tensor, mass: torch.Tensor):
     return torch.where(in_left, g_left, torch.where(in_right, g_right, 0.0))
 
 
-def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
-    """Greedy in-order acceptance with candidate-candidate visibility: in
-    candidate order, take a candidate when it is ok, conflicts with no
-    earlier taken one and the budget is not spent (ref :914 sequential
-    insertion).  Two candidates conflict when their pair energy exceeds
-    etarget + eps: the DPD energy 0.5*a0*rc*wd^2, or for the LJ family
-    (lj/cut, lj/cut/rf) the reference's conservative stand-in, infinite
-    closer than the largest cutoff and zero beyond it (so with a negative
-    etarget, as in any LJ liquid, every two candidates conflict and one per
-    call is taken)."""
-    obmd = cfg.obmd
-    k = cand_x.shape[0]
-    d = cfg.box.min_image(cand_x[:, None, :] - cand_x[None, :, :])
-    rsq = (d * d).sum(-1)
-    p = cfg.pair
-    if obmd.usher is None:
-        raise NotImplementedError("acceptance: `near` insertion is not ported")
+def _pair_energy(p, rsq, cand_type, like):
+    """The pair energy of two candidates that USHER's acceptance tests:
+    the DPD energy 0.5*a0*rc*wd^2, or for the LJ family the reference's
+    conservative stand-in (infinite closer than the largest cutoff, zero
+    beyond)."""
     if isinstance(p, DPDParams):
         nt = p.ntypes
         ct = cand_type.long()
         pair_idx = ct[:, None] * nt + ct[None, :]
-        a0 = const_like([v for row in p.a0 for v in row], cand_x)[pair_idx]
-        cut = const_like([v for row in p.cut for v in row], cand_x)[pair_idx]
+        a0 = const_like([v for row in p.a0 for v in row], like)[pair_idx]
+        cut = const_like([v for row in p.cut for v in row], like)[pair_idx]
         r = torch.sqrt(rsq)
         wd = torch.clamp(1.0 - r / cut, min=0.0)
-        epair = 0.5 * a0 * cut * wd * wd
-    elif isinstance(p, (LJCutParams, LJCutRFParams)):
-        epair = torch.where(rsq < p.max_cut ** 2, torch.inf, 0.0)
+        return 0.5 * a0 * cut * wd * wd
+    if isinstance(p, (LJCutParams, LJCutRFParams)):
+        return torch.where(rsq < p.max_cut ** 2, torch.inf, 0.0)
+    raise NotImplementedError(
+        f"acceptance: the {type(p).__name__} law is not ported")
+
+
+def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
+    """Greedy in-order acceptance with candidate-candidate visibility: in
+    candidate order, take a candidate when it is ok, conflicts with no
+    earlier taken one and the budget is not spent (ref :914 sequential
+    insertion).  Under `near` insertion two candidates conflict when they
+    are closer than `near`; under USHER when their pair energy
+    (`_pair_energy`) exceeds etarget + eps (so with a negative etarget, as
+    in any LJ liquid, every two candidates conflict and one per call is
+    taken)."""
+    obmd = cfg.obmd
+    k = cand_x.shape[0]
+    d = cfg.box.min_image(cand_x[:, None, :] - cand_x[None, :, :])
+    rsq = (d * d).sum(-1)
+    if obmd.near is not None:
+        conflict = rsq < near_squared(cfg)
     else:
-        raise NotImplementedError(
-            f"acceptance: the {type(p).__name__} law is not ported")
-    conflict = epair > obmd.usher.etarget + EPSILON
+        conflict = _pair_energy(cfg.pair, rsq, cand_type, cand_x) \
+            > obmd.usher.etarget + EPSILON
     conflict = conflict & ~torch.eye(k, dtype=torch.bool,
                                      device=cand_x.device)
     accepted = torch.zeros((k,), dtype=torch.bool, device=cand_x.device)

@@ -1,10 +1,11 @@
-"""Buffer subsets and the batched USHER search in PyTorch.
+"""Buffer subsets, the batched USHER search and the `near` check in
+PyTorch.
 
 Counterpart of `obmd_tpu/obmd/subset.py` for ATOM-mode insertion: `Subset`,
 `expand_region`, the DPD, lj/cut and lj/cut/rf branches of
 `_batched_energy_force` (`conservative_energy_force`; ATOM-mode trials are
-neutral, so lj/cut/rf's reaction field adds nothing to a trial's energy) and
-`usher_search_subset_batch`, op for op.  Candidates only ever sit inside an
+neutral, so lj/cut/rf's reaction field adds nothing to a trial's energy),
+`usher_search_subset_batch` and `near_check_subset`, op for op.  Candidates only ever sit inside an
 insertion region, so the atoms that can contribute are those within
 cut + skin of it; the search runs brute force against that subset.  This is
 the plain version of the USHER kernel (forces/usher_kernel.py).
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..cells import BIG
@@ -151,3 +153,20 @@ def usher_search_subset_batch(cfg: SceneConfig, sub_l: Subset, sub_r: Subset,
                                  box=cfg.box, sub_q=sub_q)
     accepted = accepted | (active & (E < u.etarget + EPSILON))
     return pos, accepted, iters
+
+
+def near_squared(cfg: SceneConfig) -> float:
+    """The `near` distance squared as the float32 value a float32 distance
+    is compared with (JAX compares with the weakly typed python float
+    near**2, which it rounds to float32)."""
+    return float(np.float32(cfg.obmd.near ** 2))
+
+
+def near_check_subset(cfg: SceneConfig, sub: Subset, cand_x):
+    """`near` insertion's check (ref fix_obmd_merged.cpp near branch): a
+    candidate is ok when its minimum-image distance to every valid subset
+    atom is at least `near`.  cand_x [K, 3] -> ok [K] bool."""
+    d = cfg.box.min_image(cand_x[:, None, :] - sub.x[None, :, :])
+    rsq = (d * d).sum(-1)
+    min_rsq = torch.where(sub.valid[None, :], rsq, torch.inf).min(-1).values
+    return min_rsq >= near_squared(cfg)

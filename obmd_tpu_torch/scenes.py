@@ -18,7 +18,12 @@ does, or builds its start in the repository: chains threaded through the
 LJ melt's fcc lattice (`chain_lattice`), warmed up by `chain_warm_up`.
 The dpd/tstat ramp (`dpd_tstat_config`, `dpd_tstat_scene`) is the JAX
 package's own ramp test (tests/test_dpd_variants.py:212-253) in a 100k-atom
-box.
+box.  The `near` box (`near_box_config`, `near_box_scene`) is the JAX
+package's momentum-conservation box (tests/test_conservation.py:34-55):
+`near` insertion on a 7 x 1 x 1 cell grid, single-cell periodic y and z.
+The DPD film (`dpd_film_config`, `dpd_film_scene`) is a thin slab of the
+OBMD_DPD fluid whose z axis is one cell, and with `y_open` whose y axis is
+open.
 """
 from __future__ import annotations
 
@@ -491,4 +496,75 @@ def dpd_tstat_scene(box_l: float = 35.0, t_start: float = 0.4,
     x = r.uniform(0.0, box_l, (n, 3))
     v = r.normal(0.0, np.sqrt(t_start), (n, 3))
     v -= v.mean(axis=0)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+
+
+def near_box_config() -> SceneConfig:
+    """The JAX package's momentum-conservation box
+    (tests/test_conservation.py:34-55, its cellpad configuration): a 10 x 4
+    x 4 box, x open, DPD a0 25, gamma 4.5, rc 1, T 1, seed 9, dt 0.005,
+    skin 0.4; buffers of 1.5 at both ends (also the insertion regions),
+    degenerate shear regions, pxx 30, alpha 0.9, tau 0.02, nbuf 72 / 0.9
+    (alpha nbuf near the start's buffer census keeps both buffers
+    occupied), `near 0.35` insertion of up to 8 candidates, ntype 0, seed
+    3.  The 4-long periodic y and z axes hold fewer than 3 cut + skin
+    cells, so each is one cell (a 7 x 1 x 1 grid: s = 1, p = 128, one
+    block), and a cell column holds ~70 atoms: filing capacity 112."""
+    box = Box((0.0, 0.0, 0.0), (10.0, 4.0, 4.0), (False, True, True))
+    b = 1.5
+    r1 = RegionBlock((0.0, 0.0, 0.0), (b, 4.0, 4.0))
+    r2 = RegionBlock((10.0 - b, 0.0, 0.0), (10.0, 4.0, 4.0))
+    deg = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    pair = DPDParams.create(temp=1.0, cutoff=1.0, seed=9, a0=25.0,
+                            gamma=4.5)
+    obmd = ObmdParams(ntype=0, nfreq=1, seed=3, pxx=30.0, alpha=0.9,
+                      tau=0.02, nbuf=72.0 / 0.9, region1=r1, region2=r2,
+                      region3=deg, region4=deg, region5=r1, region6=r2,
+                      buffer_size=b, near=0.35, insert_kmax=8, maxattempt=1)
+    return SceneConfig(box=box, masses=(1.0,), pair=pair, dt=0.005,
+                       capacity=Capacity(n_max=1200, cell_capacity=112),
+                       obmd=obmd, skin=0.4).finalize()
+
+
+def near_box_scene(device="cuda") -> Scene:
+    """near_box_config with the JAX test's start: a 20 x 5 x 5 grid over
+    [0.4, 9.6] x [0.3, 3.7]^2 jittered by uniform(-0.12, 0.12), unit normal
+    velocities, both from numpy's default_rng(2)."""
+    cfg = near_box_config()
+    r = np.random.default_rng(2)
+    g = np.stack(np.meshgrid(np.linspace(0.4, 9.6, 20),
+                             np.linspace(0.3, 3.7, 5),
+                             np.linspace(0.3, 3.7, 5),
+                             indexing="ij"), axis=-1).reshape(-1, 3)
+    g = g + r.uniform(-0.12, 0.12, g.shape)
+    v = r.normal(0.0, 1.0, (g.shape[0], 3))
+    return Scene(cfg=cfg, state=init_state(cfg, g, v=v, device=device))
+
+
+def dpd_film_config(y_open: bool = False) -> SceneConfig:
+    """A thin film of the OBMD_DPD deck's DPD fluid (its pair law, dt and
+    skin at rho 3) with no OBMD stage: the bench box's x length (9 x the
+    deck's, x open), 5 x its width in y (periodic, or open with
+    `y_open`), 2.0 in z (periodic).  The z axis is one cut + skin cell
+    and exactly twice the cutoff long, the shortest single-cell axis the
+    kernels take.  217 x 40 x 1 cells, 101,570 atoms; filing capacity 32
+    holds a uniform gas's fullest cell (Poisson of mean 11.7 over 8,680
+    cells)."""
+    base = obmd_dpd_config(scale=1.0)
+    box = Box((0.0, 0.0, 0.0), (33.594 * 9, 11.198 * 5, 2.0),
+              (False, not y_open, True))
+    n = int(3.0 * box.volume)
+    return SceneConfig(box=box, masses=(1.0,), pair=base.pair, dt=base.dt,
+                       capacity=Capacity(n_max=n, cell_capacity=32),
+                       obmd=None, skin=base.skin).finalize()
+
+
+def dpd_film_scene(y_open: bool = False, device="cuda") -> Scene:
+    """dpd_film_config with a uniform gas at rho 3 and unit normal
+    velocities from numpy's default_rng(11)."""
+    cfg = dpd_film_config(y_open)
+    rng = np.random.default_rng(11)
+    n = cfg.capacity.n_max
+    x = rng.uniform(np.asarray(cfg.box.lo), np.asarray(cfg.box.hi), (n, 3))
+    v = rng.normal(0.0, 1.0, (n, 3))
     return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))

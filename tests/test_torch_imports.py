@@ -69,6 +69,10 @@ def test_default_device_raises_without_gpu():
         scenes.ljrf_bulk_scene(nx=2)
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.dpd_tstat_scene(box_l=5.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.near_box_scene()
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.dpd_film_scene(y_open=True)
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

@@ -92,12 +92,14 @@ def test_forces_with_boundary_force_match_jax(set_up):
 
 
 def test_wrapper_rejects_what_it_does_not_cover():
-    """Wrong dtypes and shapes, and a missing or unasked-for pbond, raise
-    ValueError; more than 4 types, open or single-cell y/z axes, 4
-    exclusion channels (branched topologies) and dpd/tstat or gaussian
-    noise in the full-stencil kernel raise NotImplementedError.  p == 1
-    layouts, periodic x, 2-channel exclusion, 2-4 types, gaussian noise
-    and dpd/tstat in make_pair_kernel are ported."""
+    """Wrong dtypes and shapes, a missing or unasked-for pbond, and a
+    single-cell periodic axis shorter than twice the cutoff raise
+    ValueError; more than 4 types, 4 exclusion channels (branched
+    topologies), open y/z axes and dpd/tstat or gaussian noise in the
+    full-stencil kernel raise NotImplementedError.  p == 1 layouts,
+    periodic x, open and single-cell y/z axes (test_open_and_single_cell_y
+    below holds them to the TPU kernel), 2-channel exclusion, 2-4 types,
+    gaussian noise and dpd/tstat in make_pair_kernel are ported."""
     jcfg, _, pcfg, _ = lattice_states(scale=0.25, cap=15)
     geom = p_make_geometry(pcfg)
     kern = make_pair_kernel(geom, pcfg.pair, pcfg.dt)
@@ -127,11 +129,16 @@ def test_wrapper_rejects_what_it_does_not_cover():
             legacy_kwargs(law, pcfg.dt)
         with pytest.raises(NotImplementedError):
             p_make_kernel(dataclasses.replace(pcfg, pair=law), geom, "full")
+    open_y = geom._replace(periodic_yz=(False, True))
+    make_pair_kernel(open_y, pcfg.pair, 0.01)
     with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom._replace(periodic_yz=(False, True)), pcfg.pair,
-                         0.01)
-    with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom._replace(dims=(8, 1, 8)), pcfg.pair, 0.01)
+        make_dpd_kernel(open_y)
+    one_cell = geom._replace(dims=(8, 1, 8), cell_size=(1.4, 2.5, 1.4))
+    make_pair_kernel(one_cell, pcfg.pair, 0.01)
+    make_dpd_kernel(one_cell)
+    with pytest.raises(ValueError):
+        make_pair_kernel(one_cell._replace(cell_size=(1.4, 1.9, 1.4)),
+                         pcfg.pair, 0.01)
     with pytest.raises(NotImplementedError):
         make_pair_kernel(geom, pcfg.pair, 0.01, exclude_bonded=True,
                          n_excl=4)
@@ -146,3 +153,49 @@ def test_wrapper_rejects_what_it_does_not_cover():
             excl(fld, tag, 1, occ, pbond[:, :1])
     make_pair_kernel(geom._replace(p=1, lanes=128, s=64), pcfg.pair, 0.01)
     make_pair_kernel(geom._replace(periodic_x=True), pcfg.pair, 0.01)
+
+
+@pytest.mark.parametrize("layout", ["open-y", "one-cell-y"])
+def test_open_and_single_cell_y(layout):
+    """The layouts the wrapper once refused, held to the TPU kernel: the
+    scale-0.25 lattice with y open, and the lattice cut to a 2.5-long
+    periodic y (one cut + skin cell, at least twice the cutoff), each set
+    up without the OBMD stage; the plain version against make_pair_kernel
+    within 2e-4 * max|f|."""
+    from obmd_tpu.geometry import Box as JBox
+    from obmd_tpu.state import init_state as jinit_state
+    from obmd_tpu_torch.geometry import Box as PBox
+    jcfg, jst, pcfg, _ = lattice_states(scale=0.25, cap=24, seed=21)
+    lo, hi, per = jcfg.box.lo, list(jcfg.box.hi), [False, True, True]
+    if layout == "open-y":
+        per[1] = False
+    else:
+        hi[1] = 2.5
+    x, v = np.asarray(jst.x), np.asarray(jst.v)
+    keep = np.asarray(jst.alive) & (x[:, 1] < hi[1])
+    jcfg = dataclasses.replace(jcfg, box=JBox(lo, tuple(hi), tuple(per)),
+                               obmd=None).finalize()
+    pcfg = dataclasses.replace(pcfg, box=PBox(lo, tuple(hi), tuple(per)),
+                               obmd=None).finalize()
+    jst = jsetup(jcfg, jinit_state(jcfg, x[keep], v=v[keep]))
+    geom = j_make_geometry(jcfg)
+    assert tuple(p_make_geometry(pcfg)) == tuple(geom)
+    assert (geom.dims[1] == 1) == (layout == "one-cell-y")
+    assert geom.periodic_yz[0] == (layout == "one-cell-y")
+    d = jax_arrays(jst)
+    nb, c, lanes = geom.n_blocks, geom.cap, geom.lanes
+    fld = _packed(d, nb, c, lanes)
+    salt = 0x9E3779B1
+    f_tpu = np.asarray(j_make_pair_kernel(geom, params=jcfg.pair,
+                                          dt=jcfg.dt)(
+        jnp.asarray(fld), jnp.asarray(d["tag3d"]), jnp.uint32(salt),
+        jnp.asarray(d["occ"]), None))
+    kern = make_pair_kernel(PadGeometry(*geom), pcfg.pair, pcfg.dt)
+    f_port = kern(torch.from_numpy(fld), torch.from_numpy(d["tag3d"].copy()),
+                  salt, torch.from_numpy(d["occ"].copy())).numpy()
+    alive = d["alive"].reshape(nb, c, lanes)
+    sel = np.broadcast_to(alive[:, None], f_tpu.shape)
+    scale = np.abs(f_tpu[sel]).max()
+    assert scale > 10.0
+    assert np.abs(f_port - f_tpu)[sel].max() <= 2e-4 * scale
+    assert np.all(f_port[~sel] == 0.0)
