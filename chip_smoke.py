@@ -179,7 +179,35 @@ Phases (any failure exits non-zero and prints no result line):
      dpd-1cell-openyz-cap32), check_invariants, each kernel against its
      plain version and the pair sweep; the full-stencil kernel on the
      periodic film (FILM_STEPS steps through it), refused on the open one;
- 25. the figures of the ten paths (with each path's whole wall time,
+ 25. path E, the closed star-polymer melt, at a small size
+     (star_melt_scene(n_stars=307): 1,535 beads, the L = 8 box, warmed up
+     on the card, then copied to the CPU) on the card against the same
+     path on the CPU at the production filing cap (check_small_path: slots,
+     tags, bond1-bond4 and impr exact; x, v and f not held on the slots of
+     ill-conditioned impropers, observe.ill_conditioned_impropers);
+ 26. its main path: star_melt_scene() (20,000 4-arm stars, 100,000 beads,
+     80,000 harmonic bonds, 120,000 angles and 20,000 impropers through an
+     atom_style molecular data file, DPD rho 3, dt 0.0025, a relayout
+     every step), the 4-channel kernel at the random start's cap 40
+     against its plain version, star_warm_up (200 steps at cap 40, 400 at
+     cap 24, velocity rescale to T = 1; launch counts zeroed before and
+     read after: keys dpd-t2-excl4-cap40 and -cap24), the cap-24 kernel
+     (make_pair_kernel's rank-looped body) on the warmed state against its
+     plain version and against itself without pbond (they differ on
+     exactly the slots with a 1-2 pair inside the cut); then setup at
+     production cap 15 (the big-tile body), make_run(400) to settle, two
+     timed make_run(400) windows, check_invariants, T within 5% of 1.0 and
+     no bond reaching 2.0 at every window end (thermo with E_bond,
+     E_angle, E_imp through the pair sweep); launch counts zeroed before
+     setup and read after: key dpd-t2-excl4-cap15 once per step and at
+     setup; the cap-15 kernel on the ended state against its plain
+     version and without pbond; a profile of two relayout epochs;
+ 27. the reference binary's bonded goldens through the port's reader and
+     setup on the card (DPD a0 = 0, T = 0 for `pair zero`):
+     validation/bonded_golden (harmonic bonds, angles, dihedrals) within
+     5e-5 * max|f| and validation/improper_golden (impropers on three-arm
+     stars, 4-channel exclusion) within 2e-4 * max|f| of dump.ref;
+ 28. the figures of the eleven paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
@@ -195,8 +223,8 @@ the x that marks it dead) over 3.35 TB/s and its float32 operations over
 pair_work and usher_work: a distance test for every candidate pair, the
 law only for the pairs within their own cutoff and not excluded, the
 reaction field only for the pairs of two charged atoms within rc_coul;
-with exclusion each alive slot also reads its two partner tags, and the LJ
-law its tag; a charged law reads q and 2-4 types the type of each alive
+with exclusion each alive slot also reads its two or four partner tags,
+and the LJ law its tag; a charged law reads q and 2-4 types the type of each alive
 slot, and every typed launch its tables once).
 No PyTorch call computes any kernel's function, so library_ms is null.
 The OBMD_DPD and open LJ paths record the most atoms in one cell after
@@ -247,6 +275,11 @@ TSTAT_GOLDEN_DIR = os.path.join(os.path.dirname(GOLDEN_DIR),
 # path B: the ramp's marks (make_run(TSTAT_MARK) TSTAT_MARKS times) and the
 # timed tail of the ramp
 TSTAT_MARK, TSTAT_MARKS, TSTAT_TIMED = 100, 10, 400
+# path E, the star-polymer melt: its steps per window, the longest bond
+# allowed (~13 thermal deviations sqrt(kT / 2K) = 0.11 above r0 = 0.55),
+# the small path's 307 stars (the L = 8 box) and its warm-up stages
+STAR_STEPS, STAR_BOND_LIMIT = 400, 2.0
+STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
 # path C's `near` distance (the reference's in.obmd_near: near 1 0.35),
 # path D's steps (the first insertions come near step 45) and the steps the
 # DPD film runs before its kernel checks
@@ -755,7 +788,8 @@ def small_chain(dev):
     return cfg, convert.from_arrays(arrays, device=dev)
 
 
-def check_small_path(label, make, require_insert):
+def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
+                     unsteady=None):
     """The whole path at a small size on the card against the same path on
     the CPU (the plain versions), from one initial state and one stream of
     candidate draws, with nattempt = 0, so that no USHER verdict sits at
@@ -765,8 +799,12 @@ def check_small_path(label, make, require_insert):
     f within 2e-4 * max|f|; after SMALL_STEPS steps the counters and atom
     counts are equal and positions by tag agree within 5e-3 (the CPU
     tests' bars).  `make(device)` gives the scene's (cfg, state);
-    require_insert: the first step must insert atoms.  Returns the largest
-    position difference by tag."""
+    require_insert: the first step must insert atoms; `exact` the columns
+    held exactly; unsteady(cfg, state), where given, a bool [N] of the
+    slots whose x, v and f are not held on that state, from either device
+    (ill-conditioned impropers, where float32 rounding is amplified).
+    Returns
+    the largest position difference by tag."""
     import dataclasses as dc
 
     import numpy as np
@@ -782,25 +820,39 @@ def check_small_path(label, make, require_insert):
                 cfg.obmd, usher=dc.replace(cfg.obmd.usher, nattempt=0)))
             draws = SeededDraws(cfg, SMALL_SEED)
         st = setup(cfg, state, draw=draws)
-        out = [convert.to_arrays(st)]
+
+        def arrays(st):
+            d = convert.to_arrays(st)
+            if unsteady is not None:
+                d["unsteady"] = unsteady(cfg, st).cpu().numpy()
+            return d
+        out = [arrays(st)]
         run = make_run(cfg, 1, draw=draws)
         for _ in range(SMALL_STEPS):
             st = run(st)
-            out.append(convert.to_arrays(st))
+            out.append(arrays(st))
         runs.append(out)
     dev_run, cpu_run = runs
+    unheld = 0
     for i in (0, 1):
         got, want = dev_run[i], cpu_run[i]
-        for k in SMALL_EXACT:
+        for k in exact:
             if not np.array_equal(got[k], want[k]):
                 fail(f"{label} small path, state {i}: {k} differs from the "
                      "CPU's")
+        held = np.ones(len(want["f"]), bool)
+        if unsteady is not None:
+            held = ~(got["unsteady"] | want["unsteady"])
+            unheld = max(unheld, int((~held).sum()))
+
+        def rows(a):
+            return a[held] if a.ndim and len(a) == len(held) else a
         for k in SMALL_CLOSE:
-            d = float(np.abs(got[k] - want[k]).max())
+            d = float(np.abs(rows(got[k]) - rows(want[k])).max())
             if not d <= 1e-4:
                 fail(f"{label} small path, state {i}: {k} differs by {d}")
         fmax = float(np.abs(want["f"]).max())
-        d = float(np.abs(got["f"] - want["f"]).max())
+        d = float(np.abs(rows(got["f"]) - rows(want["f"])).max())
         if not d <= 2e-4 * fmax:
             fail(f"{label} small path, state {i}: f differs by {d} (max|f| "
                  f"{fmax})")
@@ -828,7 +880,9 @@ def check_small_path(label, make, require_insert):
     log(f"{label} small path ({len(mw)} atoms, {int(want['ninserted'])} "
         f"inserted, {int(want['insert_fail'])} insertions failed, "
         f"{int(want['ndeleted'])} deleted): the card agrees with the CPU, "
-        f"positions by tag within {err:.2e} after {SMALL_STEPS} steps")
+        f"positions by tag within {err:.2e} after {SMALL_STEPS} steps"
+        + (f"; x, v and f not held on at most {unheld} slots of "
+           "ill-conditioned impropers" if unsteady is not None else ""))
     return err
 
 
@@ -1338,10 +1392,10 @@ def bond_pair_slots(cfg, geom, state):
     return near.reshape(geom.n_blocks, geom.cap, geom.lanes)
 
 
-def check_exclusion(cfg, geom, state, kernel):
-    """A kernel ("pair" or "full") with pbond against the same kernel
-    without it: they differ on exactly the slots that have a 1-2 pair
-    inside the cut.  Returns that slot count."""
+def check_exclusion(cfg, geom, state, kernel, label="chain"):
+    """A kernel ("pair" or "full") with pbond (2 or 4 partner channels)
+    against the same kernel without it: they differ on exactly the slots
+    that have a 1-2 pair inside the cut.  Returns that slot count."""
     import torch
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
     fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
@@ -1354,13 +1408,14 @@ def check_exclusion(cfg, geom, state, kernel):
     near = bond_pair_slots(cfg, geom, state)
     n_near = int(near.sum())
     if n_near <= 0:
-        fail(f"chain {kernel} kernel: no 1-2 pair inside the cut")
+        fail(f"{label} {kernel} kernel: no 1-2 pair inside the cut")
     if not torch.equal(differs, near):
-        fail(f"chain {kernel} kernel: exclusion changed "
+        fail(f"{label} {kernel} kernel: exclusion changed "
              f"{int(differs.sum())} slots, {n_near} have a 1-2 pair inside "
              f"the cut, {int((differs != near).sum())} disagree")
-    log(f"chain {kernel} kernel: exclusion changes exactly the {n_near} "
-        f"slots with a 1-2 pair inside the cut")
+    log(f"{label} {kernel} kernel: exclusion over {pbond.shape[1]} partner "
+        f"channels changes exactly the {n_near} slots with a 1-2 pair "
+        "inside the cut")
     return n_near
 
 
@@ -2288,8 +2343,244 @@ def run_film():
     return figures, out
 
 
+@functools.lru_cache(maxsize=1)
+def _small_star_start():
+    """The star melt's small path start: star_melt_scene(n_stars=307) (the
+    L = 8 box), warmed up on the card (star_warm_up, STAR_SMALL_WARM
+    steps), as arrays."""
+    from obmd_tpu_torch import convert, scenes
+    sc = scenes.star_melt_scene(n_stars=STAR_SMALL, device=DEV)
+    warm = scenes.star_warm_up(sc.cfg, sc.state, *STAR_SMALL_WARM)
+    return sc.cfg, convert.to_arrays(warm)
+
+
+def small_star(dev):
+    """The star melt's small path: one warmed start, copied to `dev`, at
+    the production filing cap."""
+    from obmd_tpu_torch import convert, scenes
+    cfg, arrays = _small_star_start()
+    return (scenes.with_cap(cfg, scenes.STAR_PROD_CAP),
+            convert.from_arrays(arrays, device=dev))
+
+
+def star_marks(cfg, thermo, state, marks, label):
+    """Thermo through the pair sweep, the bonded energies and the bond
+    figures at a window end; no bond may reach STAR_BOND_LIMIT."""
+    from obmd_tpu_torch.observe import bond_stats
+    t = thermo(state)
+    m = thermo_line(t)
+    n = int(t.natoms)
+    longest, over, count = bond_stats(cfg, state, limit=STAR_BOND_LIMIT)
+    m.update(ebond_per_atom=float(t.ebond) / n,
+             eangle_per_atom=float(t.eangle) / n,
+             eimp_per_atom=float(t.eimp) / n, longest_bond=longest,
+             bonds_beyond_limit=over, bonds=count)
+    log(f"{label}: step {m['step']} T {m['temp']:.5f} E_pair/N "
+        f"{m['epair_per_atom']:.6f} E_bond/N {m['ebond_per_atom']:.6f} "
+        f"E_angle/N {m['eangle_per_atom']:.6f} E_imp/N "
+        f"{m['eimp_per_atom']:.6f} longest bond {longest:.4f}")
+    if over:
+        fail(f"{label}: {over} bonds at or beyond {STAR_BOND_LIMIT} at step "
+             f"{state.step} (longest {longest})")
+    marks.append(m)
+    return m
+
+
+def check_bonded_goldens():
+    """The reference binary's bonded goldens through the port's reader and
+    setup on the card (scenes.golden_scene: DPD a0 = 0, T = 0 for `pair
+    zero`): validation/bonded_golden (harmonic bonds, angles, dihedrals on
+    30 4-bead chains) within 5e-5 * max|f| of dump.ref, and
+    validation/improper_golden (24 three-arm stars, 4-channel exclusion)
+    within 2e-4 * max|f| (float32: near-degenerate stars amplify rounding,
+    validation/run_improper_golden.py:142-150).  Returns each one's max
+    error and max|f|."""
+    import numpy as np
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.integrate import setup
+    out = {}
+    for folder, bar in (("bonded_golden", 5e-5), ("improper_golden", 2e-4)):
+        sc = scenes.golden_scene(folder, device=DEV)
+        with KeepCounts():
+            st = setup(sc.cfg, sc.state)
+            sync()
+        ref = scenes.golden_forces(folder)
+        f = st.f.cpu().numpy()
+        got = {int(t): f[i] for i, t in enumerate(st.tag.tolist())
+               if bool(st.alive[i])}
+        if set(got) != set(ref):
+            fail(f"{folder}: the atom ids differ from dump.ref")
+        scale = max(float(np.linalg.norm(v)) for v in ref.values())
+        err = max(float(np.abs(got[t] - ref[t]).max()) for t in ref)
+        if not err <= bar * scale:
+            fail(f"{folder}: max force error {err} > {bar} * {scale}")
+        log(f"{folder} ({len(ref)} atoms): setup on the card against LAMMPS' "
+            f"forces, max error {err:.3e} (max|f| {scale:.2f}, bar "
+            f"{bar * scale:.3e})")
+        out[folder] = dict(max_abs_err=err, max_f=scale)
+    return out
+
+
+def run_star():
+    """Phases 25-27: path E, the closed star-polymer melt: its small path
+    against the CPU, its main path with the 4-channel pair kernel at the
+    warm-up's caps and the production cap, the kernel and exclusion
+    checks, a profile, and the two bonded goldens."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import (bond_stats, check_invariants,
+                                        ill_conditioned_impropers,
+                                        make_thermo_fn)
+    from obmd_tpu_torch.state import temperature
+
+    # ---- phase 25: the path at a small size against the CPU
+    exact = SMALL_EXACT + ("bond3", "bond4", "impr")
+    with KeepCounts():
+        small_err = check_small_path("star melt", small_star,
+                                     require_insert=False, exact=exact,
+                                     unsteady=ill_conditioned_impropers)
+
+    # ---- phase 26: the main path
+    t_path = time.perf_counter()
+    sc = scenes.star_melt_scene(device=DEV)
+    cfg = sc.cfg
+    n_bonds = bond_stats(cfg, sc.state)[2]
+    caps = (scenes.STAR_START_CAP, scenes.STAR_WARM_CAP)
+    wcfgs = [scenes.with_cap(cfg, c) for c in caps]
+    wgeoms = [make_geometry(c) for c in wcfgs]
+    wkeys = [f"dpd-t2-excl4-cap{g.fcap}" for g in wgeoms]
+    start_max = max_cell_count(wgeoms[0], sc.state)
+    # the start's kernel at its own cap, against its plain version
+    with KeepCounts():
+        st0 = setup(wcfgs[0], sc.state)
+    start_pair, _ = check_pair(wcfgs[0], wgeoms[0], st0,
+                               f"dpd, 2 types, 4-channel exclusion, cap "
+                               f"{wgeoms[0].fcap}, the random start")
+    del st0
+    _build.reset_launch_counts()
+    t_warm = time.perf_counter()
+    st = scenes.star_warm_up(cfg, sc.state)
+    sync()
+    warm_s = time.perf_counter() - t_warm
+    warm_launches = launch_counts()
+    require_launches(warm_launches, {"pair": tuple(wkeys)}, "star warm-up")
+    warm_t = float(temperature(cfg, st))
+    warm_longest, warm_over, _ = bond_stats(cfg, st, limit=STAR_BOND_LIMIT)
+    warm_tel = check_invariants(wcfgs[1], st)
+    warm_max = max_cell_count(wgeoms[1], st)
+    if warm_over or not abs(warm_t - 1.0) <= 0.05:
+        fail(f"star warm-up: T {warm_t}, {warm_over} bonds beyond "
+             f"{STAR_BOND_LIMIT}")
+    log(f"star warm-up: {scenes.STAR_START_STEPS} steps at cap {caps[0]} "
+        f"(the start's fullest cell {start_max}), {scenes.STAR_WARM_STEPS} "
+        f"at cap {caps[1]}, {warm_s:.2f} s; T {warm_t:.4f}, longest bond "
+        f"{warm_longest:.4f}, fullest cell {warm_max}, telemetry {warm_tel}, "
+        f"launches {warm_launches}")
+    # the warm-up's pair kernel (the rank-looped body) on the warmed state,
+    # in the warm-up's layout: against its plain version, and against
+    # itself without pbond
+    warm_pair, _ = check_pair(wcfgs[1], wgeoms[1], st,
+                              f"dpd, 2 types, 4-channel exclusion, cap "
+                              f"{wgeoms[1].fcap}, warm-up")
+    warm_near = check_exclusion(wcfgs[1], wgeoms[1], st, "pair",
+                                label=f"star cap {wgeoms[1].fcap}")
+    pcfg = scenes.with_cap(cfg, scenes.STAR_PROD_CAP)
+    geom = make_geometry(pcfg)
+    key = f"dpd-t2-excl4-cap{geom.fcap}"
+    thermo = make_thermo_fn(pcfg)
+    _build.reset_launch_counts()
+    st = setup(pcfg, st)
+    occupancy = [max_cell_count(geom, st)]
+    run = make_run(pcfg, STAR_STEPS)
+    st = run(st)
+    sync()
+    occupancy.append(max_cell_count(geom, st))
+    marks = []
+    star_marks(pcfg, thermo, st, marks, "star main path")
+    windows = []
+    for _ in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        star_marks(pcfg, thermo, st, marks, "star main path")
+    launches = launch_counts()
+    tel = check_invariants(pcfg, st)
+    check_finite(st, "star main path")
+    natoms = int(st.natoms)
+    path_s = time.perf_counter() - t_path
+    for m in marks[1:]:
+        if not abs(m["temp"] - 1.0) <= 0.05:
+            fail(f"star melt: T {m['temp']} at step {m['step']} is not "
+                 "within 5% of 1.0")
+    wall, steps = min(windows)
+    longest = max(m["longest_bond"] for m in marks)
+    log(f"star main path ({natoms} beads, {n_bonds} bonds, {geom}) "
+        f"{path_s:.1f} s (warm-up {warm_s:.1f} s), windows {windows}, "
+        f"telemetry {tel}, most atoms in one cell at setup and after each "
+        f"window {occupancy} (filing cap {geom.fcap}), longest bond "
+        f"{longest:.4f}, {steps / wall:.1f} steps/s, "
+        f"{wall / steps * 1e3:.3f} ms/step, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s; launches "
+        f"{launches}")
+    require_launches(launches, {"pair": (key,)}, "star main path")
+    if launches["pair"][0] != 3 * STAR_STEPS + 1:
+        fail(f"star melt: {launches['pair'][0]} pair kernel launches for "
+             f"setup and {3 * STAR_STEPS} steps")
+
+    # the production kernel (the big-tile body) on the ended state: against
+    # its plain version and against itself without pbond; a profile of two
+    # relayout epochs
+    pair, _ = check_pair(pcfg, geom, st, f"dpd, 2 types, 4-channel "
+                         f"exclusion, cap {geom.fcap}")
+    near = check_exclusion(pcfg, geom, st, "pair",
+                           label=f"star cap {geom.fcap}")
+    r_every = auto_rebuild_every(pcfg)
+    prof = profile_steps(make_run(pcfg, 2 * r_every), st, 2 * r_every)
+    log(f"star profile: {prof}")
+    if prof is None:
+        fail("star profile: no device activity traced")
+
+    # ---- phase 27: the bonded goldens on the card
+    goldens = check_bonded_goldens()
+
+    path = dict(atoms=natoms, stars=natoms // 5, bonds=n_bonds,
+                ms_per_step=wall / steps * 1e3, steps_per_s=steps / wall,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], warm_up_s=warm_s,
+                warm_up_temp=warm_t, start_max_cell_count=start_max,
+                warm_up_launches=warm_launches["pair"][1],
+                path_s=path_s, thermo=marks, telemetry=tel,
+                max_cell_count=max(occupancy), filing_cap=geom.fcap,
+                relayout_every=r_every, longest_bond=longest,
+                slots_with_1_2_pair_in_cut={wkeys[1]: warm_near, key: near},
+                small_path_max_pos_err=small_err, profile=prof,
+                goldens=goldens)
+    kernels = [
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, cap "
+                    f"{geom.fcap}, star melt",
+                    "obmd_tpu/forces/pallas_dpd.py:575",
+                    launches["pair"][1][key], pair),
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, cap "
+                    f"{wgeoms[1].fcap}, star warm-up",
+                    "obmd_tpu/forces/pallas_dpd.py:324",
+                    warm_launches["pair"][1][wkeys[1]], warm_pair),
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, cap "
+                    f"{wgeoms[0].fcap}, star warm-up start",
+                    "obmd_tpu/forces/pallas_dpd.py:324",
+                    warm_launches["pair"][1][wkeys[0]], start_pair),
+    ]
+    del sc, st
+    torch.cuda.empty_cache()
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-24; returns the paths' figures and the kernel figures."""
+    """Phases 2-27; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build_all()
@@ -2330,15 +2621,19 @@ def run_smoke():
     t0 = time.perf_counter()
     film, film_kernels = run_film()
     wall_s["dpd_film_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    star_path, star_kernels = run_star()
+    wall_s["star_melt"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
                           chain=chain_path, obmd_ljrf=rf_path,
                           obmd_dpd_gaussian=gauss_path,
                           dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
-                          near_box=box_path, dpd_film=film),
+                          near_box=box_path, dpd_film=film,
+                          star_melt=star_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
-                + near_kernels + box_kernels + film_kernels)
+                + near_kernels + box_kernels + film_kernels + star_kernels)
 
 
 def main():

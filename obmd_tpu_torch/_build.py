@@ -17,9 +17,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -159,8 +163,7 @@ def build_all(kernels=None) -> Dict[str, float]:
         log, _ = p.communicate()
         for k in ks:
             k.build_seconds = time.perf_counter() - t0
-            k.ptxas_info = "\n".join(line for line in log.splitlines()
-                                     if "ptxas" in line)
+            k.ptxas_info = ptxas_lines(log)
         if p.returncode != 0:
             failed.append(f"{ks[0].source}: nvcc rc={p.returncode}\n{log}")
             continue
@@ -176,3 +179,101 @@ def check(rc: int, kernel: Kernel) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed with error "
                            f"code {rc}")
+
+
+def ptxas_lines(log: str) -> str:
+    """The resource report of nvcc's -Xptxas -v output: its ptxas lines
+    and the stack-frame line under each function."""
+    return "\n".join(line for line in log.splitlines()
+                     if "ptxas" in line or "bytes stack frame" in line)
+
+
+def ptxas_table(log: str) -> Dict[str, Tuple[int, int, int]]:
+    """{function symbol: (registers, stack bytes, shared bytes)} of a
+    ptxas report (ptxas_lines)."""
+    out: Dict[str, list] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, [0, 0, 0])
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name][2] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def instantiation(symbol: str):
+    """The template arguments of a pair_kernel instantiation as a tuple of
+    ints (law, legacy, exclusion channels, types, gauss, ramp, one cell,
+    open), or None for another function.  The exclusion flag of an older
+    source (a bool, 1 = two channels) reads as 2, so that both sources'
+    instantiations line up."""
+    m = re.search(r"pair_kernelI((?:L[bi]\d+E)+)E", symbol)
+    if m is None:
+        return None
+    args = [int(a) for a in re.findall(r"L[bi](\d+)E", m.group(1))]
+    if re.findall(r"L([bi])\d+E", m.group(1))[2] == "b":
+        args[2] *= 2
+    return tuple(args)
+
+
+def compare_ptxas(old_src: str, new_src: str) -> dict:
+    """Compile two versions of a kernel source with NVCC_FLAGS at once and
+    line up their pair_kernel instantiations: each one present in both with
+    its (registers, stack, shared) unchanged or changed, and those only in
+    one.  Returns the figures and each build's seconds."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs, t0 = [], time.perf_counter()
+        for k, src in enumerate((old_src, new_src)):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", os.path.join(tmp, f"{k}.so"), src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, secs = [], []
+        for p in procs:
+            log, _ = p.communicate()
+            secs.append(time.perf_counter() - t0)
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc rc={p.returncode}\n{log}")
+            logs.append(log)
+    tables = []
+    for log in logs:
+        tab = {}
+        for sym, res in ptxas_table(ptxas_lines(log)).items():
+            key = instantiation(sym)
+            if key is not None:
+                tab[key] = res
+        tables.append(tab)
+    old, new = tables
+    both = sorted(set(old) & set(new))
+
+    def only(a, b):
+        return [dict(args=k, res=a[k]) for k in sorted(set(a) - set(b))]
+    return dict(
+        old=len(old), new=len(new), build_s=secs,
+        unchanged=sum(old[k] == new[k] for k in both),
+        changed=[dict(args=k, old=old[k], new=new[k]) for k in both
+                 if old[k] != new[k]],
+        only_old=only(old, new), only_new=only(new, old))
+
+
+if __name__ == "__main__":
+    # python3 -m obmd_tpu_torch._build OLD.cu NEW.cu: the ptxas resources
+    # (registers, stack, shared memory) of each pair_kernel instantiation
+    # of two versions of a source, lined up, as one JSON line
+    if len(sys.argv) != 3:
+        sys.exit("usage: python3 -m obmd_tpu_torch._build OLD.cu NEW.cu")
+    print(json.dumps(compare_ptxas(sys.argv[1], sys.argv[2])))

@@ -145,11 +145,16 @@ def layout_build(geom: PadGeometry, box: Box, state: State) -> State:
         overflow=(prev.overflow + overflow if prev is not None else overflow),
         skin_trips=(prev.skin_trips if prev is not None else zi),
         **kernel_caches(geom, tag, alive))
+
+    def slots(col):
+        return None if col is None else scat(remap(col).to(I32), -1)
+
     return state.replace(
         x=x, v=scat(state.v, 0), f=scat(state.f, 0), type=scat(state.type, 0),
         tag=tag, q=scat(state.q, 0), alive=alive, mol=scat(state.mol, 0),
-        bond1=scat(remap(state.bond1).to(I32), -1),
-        bond2=scat(remap(state.bond2).to(I32), -1),
+        bond1=slots(state.bond1), bond2=slots(state.bond2),
+        bond3=slots(state.bond3), bond4=slots(state.bond4),
+        impr=slots(state.impr),
         cell_overflow=state.cell_overflow + overflow, nbrs=aux)
 
 
@@ -238,9 +243,10 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
     its slot's cell takes a free rank of its current cell (the j-th mover of
     a cell takes the j-th free rank); atoms that cannot be placed stay put
     and are counted in PadAux.overflow.  Moves x, v, tag, alive (and f when
-    move_f); with has_bonds, the partner slot columns move and every
-    partner reference follows its atom; with has_mol, mol moves; with
-    has_charge, q; with has_types, type.  Callers pass
+    move_f); with has_bonds, the partner slot columns (two or four) and
+    the improper triplets move and every slot reference follows its atom;
+    with has_mol, mol moves; with has_charge, q; with has_types, type.
+    Callers pass
     engine_cellpad.relayout_flags: a column constant over the scene (no
     bonds, no molecules, no charges, one type) skips its moves."""
     n_slots = geom.n_slots
@@ -300,8 +306,10 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
                 moved_map[torch.clamp(bond.long(), 0, n_slots - 1)],
                 -1).to(I32)
 
-        upd["bond1"] = remap(move(state.bond1, -1))
-        upd["bond2"] = remap(move(state.bond2, -1))
+        for name in ("bond1", "bond2", "bond3", "bond4", "impr"):
+            col = getattr(state, name)
+            if col is not None:
+                upd[name] = remap(move(col, -1))
     if has_charge:
         upd["q"] = move(state.q, 0.0)
     if has_mol:

@@ -2,13 +2,15 @@
 
 Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
 `DPDParams`, `DPDTstatParams`, `LJCutParams`, `LJCutRFParams`,
-`UsherParams`, `ObmdParams`, `LangevinParams`, `BondFENEParams`, `Capacity`
+`UsherParams`, `ObmdParams`, `LangevinParams`, `BondFENEParams`,
+`BondHarmonicParams`, `AngleHarmonicParams`, `ImproperHarmonicParams`,
+`DihedralHarmonicParams`, the center-atom table builders
+`derive_center_angle_table` and `derive_center_improper_table`, `Capacity`
 and `SceneConfig.finalize`, with the same field names and defaults so a
 test can hold the two packages' configs field by field.  Every law takes
-per-type-pair tables (`_sym`).  dpd/ext, harmonic bonds and molecule
-insertion are not ported yet: `SceneConfig` carries their fields so a
-configuration can name them, and the engine refuses them.  Angles, dihedrals and impropers have no
-field yet; they come with the slice that ports those styles.
+per-type-pair tables (`_sym`).  dpd/ext and molecule insertion are not
+ported yet: `SceneConfig` carries their fields so a configuration can name
+them, and the engine refuses them.
 """
 from __future__ import annotations
 
@@ -281,6 +283,146 @@ class BondFENEParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class BondHarmonicParams:
+    """`bond_style harmonic` (bond_harmonic.cpp): E = K (r - r0)^2,
+    fbond = -2 K (r - r0) / r.  1-2 pairs are excluded from the pair style
+    (the kernel's partner-tag exclusion); 1-3/1-4 pairs keep full pair
+    interactions (`special_bonds lj/coul 0 1 1` semantics)."""
+
+    k: float = 100.0
+    r0: float = 1.0
+
+
+BondParams = Union[BondFENEParams, BondHarmonicParams]
+
+
+@dataclasses.dataclass(frozen=True)
+class AngleHarmonicParams:
+    """`angle_style harmonic` (angle_harmonic.cpp): E = K (theta -
+    theta0)^2 per angle, theta0 in degrees.
+
+    Center-atom storage (no angle array in the fixed-capacity state): an
+    alive atom of a type with k > 0 is the center of one angle between
+    each pair of its bond partners (two partners on a chain, up to six
+    pairs on a branched center).  derive_center_angle_table builds the
+    table from a data file's Angles section and refuses what the storage
+    cannot hold."""
+
+    k: Tuple[float, ...]        # per CENTER atom type; 0 = bends no angle
+    theta0: Tuple[float, ...]   # degrees, per center atom type
+
+
+@dataclasses.dataclass(frozen=True)
+class ImproperHarmonicParams:
+    """`improper_style harmonic` (improper_harmonic.cpp): E = K (chi -
+    chi0)^2 per improper quadruple (i1, i2, i3, i4), chi0 in degrees, chi
+    the dihedral-like angle over (x1-x2, x3-x2, x4-x3).
+
+    Center-atom storage: the slots of (i1, i3, i4) live in State.impr on
+    the center i2, and the coefficients are keyed by the center's type (0
+    = no improper).  The center must be bonded to all three ends, and
+    carries at most one improper."""
+
+    k: Tuple[float, ...]      # per CENTER atom type
+    chi0: Tuple[float, ...]   # degrees, per center atom type
+
+
+@dataclasses.dataclass(frozen=True)
+class DihedralHarmonicParams:
+    """`dihedral_style harmonic` (dihedral_harmonic.cpp): E = K [1 + d
+    cos(n phi)] per dihedral, d = +-1, n >= 1.
+
+    Center-bond storage: every bonded pair (j, k) whose atoms both have two
+    bond partners spans one dihedral i-j-k-l, i and l the other partners:
+    the quadruples of a linear chain, with one coefficient set."""
+
+    k: float
+    d: int = 1
+    n: int = 1
+
+    def __post_init__(self):
+        if self.d not in (1, -1):
+            raise ValueError("dihedral harmonic: d must be +1 or -1")
+        if self.n < 1:
+            raise ValueError("dihedral harmonic: n must be >= 1")
+
+
+def _center_coeff(k, x0, ct, coeff, what):
+    """Set center type ct's (K, x0) once; two different sets raise."""
+    kk, th = float(coeff[0]), float(coeff[1])
+    if k[ct] not in (0.0, kk) or (k[ct] != 0.0 and x0[ct] != th):
+        raise ValueError(
+            f"center atom type {ct + 1} would carry two different {what} "
+            "coefficient sets — unsupported by the center-atom storage")
+    k[ct], x0[ct] = kk, th
+
+
+def derive_center_improper_table(ntypes: int, impropers, atom_types,
+                                 coeffs) -> ImproperHarmonicParams:
+    """The per-center-type improper table of an improper list (a data
+    file's Impropers section): impropers [(improper_type, i1, i2, i3, i4)]
+    with i2 the center, atom_types {id: 0-based type}, coeffs
+    {improper_type: (K, chi0 in degrees)}.  Two coefficient sets on one
+    center type raise ValueError."""
+    k = [0.0] * ntypes
+    x0 = [0.0] * ntypes
+    for itype, _i1, i2, _i3, _i4 in impropers:
+        if int(itype) not in coeffs:
+            raise ValueError(f"no improper_coeff for improper type {itype}")
+        _center_coeff(k, x0, int(atom_types[int(i2)]), coeffs[int(itype)],
+                      "improper")
+    return ImproperHarmonicParams(k=tuple(k), chi0=tuple(x0))
+
+
+def derive_center_angle_table(ntypes: int, angles, atom_types, bonds,
+                              coeffs) -> AngleHarmonicParams:
+    """The per-center-type angle table of an angle list (a data file's
+    Angles section): angles [(angle_type, a1, a2, a3)] with a2 the center,
+    atom_types {id: 0-based type}, bonds [(i, j)] id pairs, coeffs
+    {angle_type: (K, theta0 in degrees)}.
+
+    Raises ValueError where the storage would differ from the list: an
+    angle whose arms are not bonds, two coefficient sets on one center
+    type, an atom in more than four bonds, and a center of a covered type
+    that declares some but not all of its partner pairs (the step bends
+    every pair of such a center's partners)."""
+    bond_set = set()
+    deg: dict = {}
+    for i, j in bonds:
+        i, j = int(i), int(j)
+        bond_set.update(((i, j), (j, i)))
+        deg[i] = deg.get(i, 0) + 1
+        deg[j] = deg.get(j, 0) + 1
+    k = [0.0] * ntypes
+    t0 = [0.0] * ntypes
+    centers: dict = {}
+    for atype, a1, a2, a3 in angles:
+        a1, a2, a3 = int(a1), int(a2), int(a3)
+        if (a1, a2) not in bond_set or (a2, a3) not in bond_set:
+            raise ValueError(
+                f"angle ({a1},{a2},{a3}): arms must be bonds for the "
+                "center-atom angle storage")
+        if int(atype) not in coeffs:
+            raise ValueError(f"no angle_coeff for angle type {atype}")
+        _center_coeff(k, t0, int(atom_types[a2]), coeffs[int(atype)],
+                      "angle")
+        centers.setdefault(a2, set()).add(frozenset((a1, a3)))
+    for a, d in deg.items():
+        if d > 4:
+            raise ValueError("topology limit: <= 4 bonds/atom")
+        if d >= 2 and k[int(atom_types[a])] > 0:
+            want = d * (d - 1) // 2
+            got = len(centers.get(a, ()))
+            if got != want:
+                raise ValueError(
+                    f"atom {a} has {d} bonds and a covered center type but "
+                    f"declares {got} of its {want} partner-pair angles — "
+                    "the center-atom storage bends EVERY pair of a covered "
+                    "center's partners, so all (or none) must be declared")
+    return AngleHarmonicParams(k=tuple(k), theta0=tuple(t0))
+
+
+@dataclasses.dataclass(frozen=True)
 class Capacity:
     """Static shapes: particle slots and filing capacity per cell."""
 
@@ -294,9 +436,12 @@ class Capacity:
 
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
-    """Box, masses, pair style, dt, the OBMD stage, the bond style, the
-    Langevin thermostat and static capacities.  `branched_topology` (more
-    than two bonds on an atom) is not ported yet: the engine raises on it."""
+    """Box, masses, pair style, dt, the OBMD stage, the bond, angle,
+    dihedral and improper styles, the Langevin thermostat and static
+    capacities.  `branched_topology` (more than two bonds on some atom)
+    gives the state four partner columns (and with `improper` the impr
+    column) and the pair kernel four exclusion channels; set it for a
+    branched data file."""
 
     box: Box
     masses: Tuple[float, ...]
@@ -304,7 +449,10 @@ class SceneConfig:
     dt: float
     capacity: Capacity
     obmd: Optional[ObmdParams] = None
-    bond: Optional[BondFENEParams] = None
+    bond: Optional[BondParams] = None
+    angle: Optional[AngleHarmonicParams] = None
+    dihedral: Optional[DihedralHarmonicParams] = None
+    improper: Optional[ImproperHarmonicParams] = None
     langevin: Optional[LangevinParams] = None
     skin: float = 0.3
     force_path: str = "cellpad"

@@ -3,10 +3,11 @@ pair laws.
 
 The JAX side is handed over as a dict of numpy arrays (so this module needs
 neither JAX nor the JAX package): the `State` fields x, v, f, type, tag,
-q, alive, mol, bond1, bond2, step, sim_time, maxtag, cell_overflow; the
-`ObmdScalars` fields; and the `PadAux` fields xref, rebuilds, overflow,
-skin_trips, tag3d and occ.  A pair law crosses by its class name and
-fields (`pair_params`).
+q, alive, mol, bond1, bond2, step, sim_time, maxtag, cell_overflow, and
+on a branched topology bond3, bond4 and impr; the `ObmdScalars` fields;
+and the `PadAux` fields xref, rebuilds, overflow, skin_trips, tag3d and
+occ.  A pair law and a bond, angle, dihedral or improper style cross by
+their class name and fields (`pair_params`, `bonded_params`).
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from .cellpad import PadAux
-from .config import DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams
+from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
+                     DihedralHarmonicParams, DPDParams, DPDTstatParams,
+                     ImproperHarmonicParams, LJCutParams, LJCutRFParams)
 from .state import ObmdScalars, State, make_generator, resolve_device
 
 STATE_FIELDS = ("x", "v", "f", "type", "tag", "q", "alive", "mol", "bond1",
@@ -25,12 +28,14 @@ OBMD_FIELDS = ("momentum_force_left", "momentum_force_right",
                "shear_force_left", "shear_force_right", "ndeleted",
                "ninserted", "insert_fail", "usher_iters")
 AUX_FIELDS = ("xref", "rebuilds", "overflow", "skin_trips", "tag3d", "occ")
+# the branched topology's columns, present only on a state that has them
+BRANCHED_FIELDS = ("bond3", "bond4", "impr")
 
 
 def from_arrays(d: dict, seed: int = 0, device="cuda") -> State:
     """Port State from the JAX state's arrays; PadAux when `xref` is given.
     The generator is seeded from `seed` (a JAX key has no torch
-    counterpart)."""
+    counterpart); bond3, bond4 and impr are taken where `d` has them."""
     dev = resolve_device(device)
 
     def t(name):
@@ -48,7 +53,9 @@ def from_arrays(d: dict, seed: int = 0, device="cuda") -> State:
         step=int(d["step"]), sim_time=t("sim_time"),
         maxtag=t("maxtag").to(torch.int32), gen=make_generator(seed, dev),
         obmd=ObmdScalars(**{k: t(k) for k in OBMD_FIELDS}),
-        cell_overflow=t("cell_overflow").to(torch.int32), nbrs=aux)
+        cell_overflow=t("cell_overflow").to(torch.int32), nbrs=aux,
+        **{k: t(k).to(torch.int32) for k in BRANCHED_FIELDS
+           if d.get(k) is not None})
 
 
 def to_arrays(state: State) -> dict:
@@ -59,6 +66,8 @@ def to_arrays(state: State) -> dict:
 
     out = {k: n(getattr(state, k)) for k in STATE_FIELDS}
     out.update({k: n(getattr(state.obmd, k)) for k in OBMD_FIELDS})
+    out.update({k: n(getattr(state, k)) for k in BRANCHED_FIELDS
+                if getattr(state, k) is not None})
     if isinstance(state.nbrs, PadAux):
         out.update({k: n(getattr(state.nbrs, k)) for k in AUX_FIELDS})
     return out
@@ -77,4 +86,23 @@ def pair_params(law):
         raise NotImplementedError(
             f"pair law {type(law).__name__} is not ported")
     return cls(**{f.name: getattr(law, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+_BONDED_STYLES = {c.__name__: c for c in (
+    BondFENEParams, BondHarmonicParams, AngleHarmonicParams,
+    DihedralHarmonicParams, ImproperHarmonicParams)}
+
+
+def bonded_params(style):
+    """The port's bond, angle, dihedral or improper style of another
+    package's style object of the same class name, field by field (None
+    stays None)."""
+    if style is None:
+        return None
+    cls = _BONDED_STYLES.get(type(style).__name__)
+    if cls is None:
+        raise NotImplementedError(
+            f"bonded style {type(style).__name__} is not ported")
+    return cls(**{f.name: getattr(style, f.name)
                   for f in dataclasses.fields(cls)})

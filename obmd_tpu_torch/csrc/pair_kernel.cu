@@ -15,11 +15,12 @@
 // for the ljrf law the charge q (channel 6), then with 2-4 types the type
 // as a float (channel NF - 1; pallas_dpd.py:273-276), so NF = 6, 7 or 8;
 // tag i32[nb][cap][lanes], occ i32[nb] (highest occupied rank + 1 per
-// block), optional pbond i32[nb][2][cap][lanes] (the tags of each slot's
-// two bond partners, -2 for none; `special_bonds fene`: a pair (i, j) is
-// dropped when j's tag is one of i's partner tags — make_pair_kernel's
-// exclusion channels at n_excl = 2, :582-586 and :641-643, and
-// make_dpd_kernel's, :968-972), out f32[nb][3][cap][lanes].  Slot (b, r, l)
+// block), optional pbond i32[nb][n_excl][cap][lanes] (the tags of each
+// slot's bond partners, -2 for none, n_excl = 2 for chains and 4 for
+// branched topologies; 1-2 exclusion: a pair (i, j) is dropped when j's tag
+// is one of i's partner tags — make_pair_kernel's exclusion channels,
+// :380-381 and :625-643, and make_dpd_kernel's at n_excl = 2, :968-972),
+// out f32[nb][3][cap][lanes].  Slot (b, r, l)
 // holds rank r of the cell at lane l of block b; lane l covers x-slab
 // b*p + l/s and the (y, z) cell l % s.  With p == 1 the lanes are padded to
 // a multiple of 128 and lanes s..lanes-1 are never filed.
@@ -66,12 +67,16 @@
 // near-coalesced row read.  The j-rank loop stops at occ of the
 // neighbour's block.  The pair noise is the reference's counter hash of
 // (salt, smaller tag, larger tag), bit for bit.
-// Exclusion: each thread loads its slot's two partner tags once and skips
-// an in-cutoff j whose tag equals either.  Newton-off visits every pair
+// Exclusion: each thread loads its slot's kExcl partner tags (2 or 4, a
+// template parameter, so the loads and compares unroll and the tags stay
+// in registers) once and skips an in-cutoff j whose tag equals one.
+// Newton-off visits every pair
 // from both ends and each end checks only its own partners; that equals
 // the TPU kernels' one-sided check because partner lists are symmetric
 // (state.init_state builds both directions of every bond).  -2 matches no
 // tag (live tags are >= 1, dead slots carry -1 and are skipped first).
+// Four channels are instantiated for make_pair_kernel's typed dpd law with
+// uniform noise on periodic y and z (a branched melt's), only.
 // The channel count, the law and the type tables are template parameters,
 // so a 6-channel one-type launch runs the same machine code as before they
 // existed.  So are the DPD law's two variants, instantiated for obmd_pair's
@@ -135,7 +140,7 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
+template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp, bool kOneCell, bool kOpen>
 __global__ void __launch_bounds__(kThreads)
 pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
@@ -175,11 +180,11 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
     if constexpr (kLaw == kLjrf) qi = fi[kChQ * plane];
     int tbase = 0;                       // ti * T: the row of i's type
     if constexpr (kTypes) tbase = (int)fi[kChT * plane] * T.ntypes;
-    int p1 = -2, p2 = -2;
-    if (kExcl) {
-      const int* pb = pbond + (size_t)b * 2 * plane + row;
-      p1 = pb[0];
-      p2 = pb[plane];
+    int pt[4] = {-2, -2, -2, -2};          // the partner tags
+    if constexpr (kExcl > 0) {
+      const int* pb = pbond + (size_t)b * kExcl * plane + row;
+#pragma unroll
+      for (int c = 0; c < kExcl; ++c) pt[c] = pb[c * plane];
     }
     const int within = lane % P.s;
     const int cy = within / P.nz, cz = within % P.nz;
@@ -240,9 +245,14 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
             if (!kOpen || P.per_z) dz = dz - P.lz * rintf(dz * P.inv_lz);
             const float rsq = dx * dx + dy * dy + dz * dz;
             if (!(rsq < cut2 && xj < kBigHalf)) continue;
-            if (kExcl) {
+            if constexpr (kExcl == 2) {
               const int tjx = tj[o];
-              if (tjx == p1 || tjx == p2) continue;
+              if (tjx == pt[0] || tjx == pt[1]) continue;
+            } else if constexpr (kExcl == 4) {
+              const int tjx = tj[o];
+              if (tjx == pt[0] || tjx == pt[1] || tjx == pt[2]
+                  || tjx == pt[3])
+                continue;
             }
             float rr = 0.f;
             if (kLegacy) {
@@ -330,7 +340,7 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
   fo[2 * plane] = fz;
 }
 
-template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
+template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp, bool kOneCell, bool kOpen>
 void start_geo(const dim3& grid, cudaStream_t st, const void* fld,
                const void* tag, const void* occ, const void* pbond,
@@ -343,7 +353,7 @@ void start_geo(const dim3& grid, cudaStream_t st, const void* fld,
 
 // The geometry flags at run time -> the instantiation: a single-cell y or
 // z axis, an open y or z axis (make_pair_kernel's only).
-template <int kLaw, bool kLegacy, bool kExcl, bool kTypes, bool kGauss,
+template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp>
 int start(const dim3& grid, cudaStream_t st, const void* fld,
           const void* tag, const void* occ, const void* pbond, void* out,
@@ -370,7 +380,7 @@ int start(const dim3& grid, cudaStream_t st, const void* fld,
 
 // The noise flags at run time -> the instantiation: gaussian noise and the
 // ramp exist for make_pair_kernel's dpd law only.
-template <int kLaw, bool kLegacy, bool kExcl, bool kTypes>
+template <int kLaw, bool kLegacy, int kExcl, bool kTypes>
 int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
                 const void* tag, const void* occ, const void* pbond,
                 void* out, bool gauss, bool ramp, const Params& P,
@@ -399,18 +409,18 @@ int start_law(const dim3& grid, cudaStream_t st, const void* fld,
               bool excl, bool types, bool gauss, bool ramp, const Params& P,
               const Tables& T) {
   if (!types && !excl) {
-    return start_noise<kLaw, kLegacy, false, false>(
+    return start_noise<kLaw, kLegacy, 0, false>(
         grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else if (!types) {
-    return start_noise<kLaw, kLegacy, true, false>(
+    return start_noise<kLaw, kLegacy, 2, false>(
         grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else if constexpr (kLegacy) {
     return (int)cudaErrorInvalidValue;    // make_dpd_kernel has one type
   } else if (!excl) {
-    return start_noise<kLaw, kLegacy, false, true>(
+    return start_noise<kLaw, kLegacy, 0, true>(
         grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else {
-    return start_noise<kLaw, kLegacy, true, true>(
+    return start_noise<kLaw, kLegacy, 2, true>(
         grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   }
 }
@@ -422,7 +432,7 @@ int launch(const void* fld, const void* tag, const void* occ,
            const Params& P, void* stream) {
   if (P.lanes <= 0 || P.lanes % kThreads != 0 || P.cap <= 0 || P.nb <= 0)
     return (int)cudaErrorInvalidValue;
-  if (!(n_excl == 0 || (n_excl == 2 && pbond != nullptr)))
+  if (!(n_excl == 0 || ((n_excl == 2 || n_excl == 4) && pbond != nullptr)))
     return (int)cudaErrorInvalidValue;
   if (ntypes < 1 || ntypes * ntypes > kMaxPairs)
     return (int)cudaErrorInvalidValue;
@@ -446,6 +456,20 @@ int launch(const void* fld, const void* tag, const void* occ,
   const dim3 grid((unsigned)(P.nb * P.cap), (unsigned)(P.lanes / kThreads));
   const cudaStream_t st = (cudaStream_t)stream;
   int rc;
+  if (n_excl == 4) {
+    // four channels: make_pair_kernel's typed dpd law, uniform noise, y and
+    // z periodic with >= 3 cells (a branched melt's), the one instantiation
+    if constexpr (kLegacy) {
+      return (int)cudaErrorInvalidValue;  // make_dpd_kernel has two
+    } else {
+      if (law != kDpd || !types || gauss || rmp || P.ny == 1 || P.nz == 1
+          || !(P.per_y && P.per_z))
+        return (int)cudaErrorInvalidValue;
+      start_geo<kDpd, false, 4, true, false, false, false, false>(
+          grid, st, fld, tag, occ, pbond, out, P, T);
+      return (int)cudaGetLastError();
+    }
+  }
   if (law == kDpd) {
     rc = start_law<kDpd, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
                                   types, gauss, rmp, P, T);

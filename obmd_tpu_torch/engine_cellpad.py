@@ -3,8 +3,10 @@
 Counterpart of `obmd_tpu/engine_cellpad.py` for DPD (uniform or gaussian
 noise), lj/cut or lj/cut/rf with 1-4 atom types, in an open-x box with
 ATOM-mode USHER or `near` insertion (OBMD_DPD, the open LJ fluid, the open
-charged two-type LJ fluid) or a closed box without the OBMD stage (the LJ melt;
-with FENE chains, the chain melt), with or without the Langevin
+charged two-type LJ fluid) or a closed box without the OBMD stage (the LJ
+melt; with FENE chains, the chain melt; with harmonic bonds, angles,
+dihedrals on chains and impropers on branched topologies of up to four
+bonds per atom, the star-polymer melt), with or without the Langevin
 thermostat; and dpd/tstat, with or without its temperature ramp, without
 the OBMD stage.  The JAX cellpad engine refuses dpd/tstat and runs it on
 its nlist and slab engines through the same TPU kernel; the port runs it
@@ -15,8 +17,10 @@ are per type.  Step
 order mirrors Verlet::run: half kick, drift + wrap, the epoch relayout on an
 epoch's first step, the OBMD stage (face deletion, buffer census, feedback
 law, demand-gated subset compaction and insertion, boundary-force
-setpoints), the pair kernel (1-2 pairs excluded on a bonded scene) plus the
-boundary force plus the bond force plus the Langevin force, half kick.
+setpoints), the pair kernel (1-2 pairs excluded on a bonded scene, 4
+exclusion channels on a branched topology) plus the boundary force plus
+the bond, angle, dihedral and improper forces plus the Langevin force,
+half kick.
 
 The pair kernel is make_pair_kernel's (`kernel="pair"`, the default) or the
 legacy full-stencil make_dpd_kernel's (`kernel="full"`); both compute the
@@ -46,13 +50,15 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import (BondFENEParams, DPDParams, DPDTstatParams, LJCutParams,
-                     LJCutRFParams, SceneConfig, eval_param)
+from .config import (DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams,
+                     SceneConfig, eval_param)
 from .geometry import const, const_like
-from .forces.bonded import bond_forces, langevin_force
-from .forces.pair_kernel import (PadGeometry, check_supported as
-                                 kernel_check_supported, legacy_kwargs,
-                                 make_dpd_kernel, make_pair_kernel)
+from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
+                            improper_forces, langevin_force)
+from .forces.pair_kernel import (N_EXCL, N_EXCL_BRANCHED, PadGeometry,
+                                 check_supported as kernel_check_supported,
+                                 legacy_kwargs, make_dpd_kernel,
+                                 make_pair_kernel)
 from .forces.pairs import sig_scale_of
 from .forces.usher_kernel import usher_search
 from .obmd.stage import (_sequential_accept, draw_candidates, feedback_count,
@@ -83,19 +89,21 @@ def check_supported(cfg: SceneConfig) -> None:
     open boxes with ATOM-mode USHER or `near` insertion and closed boxes without the
     OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4 types (as many
     masses as the pair law has types), with or without the Langevin
-    thermostat; dpd/tstat without the OBMD stage; FENE chains (at most two
-    bonds per atom) on a closed box."""
+    thermostat; dpd/tstat without the OBMD stage; on a closed box FENE or
+    harmonic bonds, harmonic angles, dihedrals (chains only, as
+    obmd_tpu/engine_cellpad.py:149-154) and impropers, on chains or
+    branched topologies (the pair kernel's 4-channel exclusion: its typed
+    dpd law, pair_kernel.check_channels)."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
-    if cfg.branched_topology:
-        raise NotImplementedError("branched topologies (more than two bonds "
-                                  "per atom) are not ported yet")
-    if cfg.bond is not None and not isinstance(cfg.bond, BondFENEParams):
+    molecular = (cfg.bond, cfg.angle, cfg.dihedral, cfg.improper)
+    if cfg.obmd is not None and any(t is not None for t in molecular):
+        raise NotImplementedError("bonded terms with the OBMD stage "
+                                  "(molecule insertion) are not ported yet")
+    if cfg.dihedral is not None and cfg.branched_topology:
         raise NotImplementedError(
-            f"bond style {type(cfg.bond).__name__} is not ported yet")
-    if cfg.bond is not None and cfg.obmd is not None:
-        raise NotImplementedError("bonds with the OBMD stage (molecule "
-                                  "insertion) are not ported yet")
+            "dihedrals on branched topologies (>2 bonds/atom) are not "
+            "supported by the center-bond dihedral storage")
     if cfg.obmd is not None and cfg.obmd.group_types is not None:
         raise NotImplementedError("group-restricted census is not ported yet")
     if cfg.obmd is not None and (cfg.obmd.maxattempt > 1
@@ -116,6 +124,8 @@ def check_supported(cfg: SceneConfig) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError("only float32 scenes are ported")
     kernel_check_supported(make_geometry(cfg), cfg.pair)
+    if cfg.branched_topology and cfg.bond is not None:
+        _make_kernel(cfg, make_geometry(cfg))
 
 
 def supports(cfg: SceneConfig) -> bool:
@@ -136,23 +146,35 @@ def relayout_flags(cfg: SceneConfig) -> dict:
     """Which optional per-atom columns must follow relayout row-moves: a
     column constant over the scene (no bonds, no molecules, no charges, one
     type) skips its moves (obmd_tpu/engine_cellpad.py:52-72 for the ported
-    columns)."""
+    columns).  has_bonds moves the partner columns (two or four) and the
+    improper triplets."""
     has_bonds = cfg.bond is not None
-    return dict(has_bonds=has_bonds, has_mol=has_bonds,
+    has_mol = has_bonds or cfg.angle is not None or cfg.dihedral is not None
+    return dict(has_bonds=has_bonds, has_mol=has_mol,
                 has_charge=isinstance(cfg.pair, LJCutRFParams),
                 has_types=cfg.ntypes > 1)
 
 
 def _make_kernel(cfg: SceneConfig, geom: PadGeometry, kernel: str = "pair"):
+    """The step's pair kernel; on a bonded scene with 1-2 exclusion over 2
+    partner channels, or 4 on a branched topology
+    (obmd_tpu/engine_cellpad.py:75-78)."""
     excl = cfg.bond is not None
     if kernel == "pair":
-        return make_pair_kernel(geom, cfg.pair, cfg.dt, exclude_bonded=excl)
+        return make_pair_kernel(
+            geom, cfg.pair, cfg.dt, exclude_bonded=excl,
+            n_excl=N_EXCL_BRANCHED if cfg.branched_topology else N_EXCL)
     if kernel == "full":
         if cfg.ntypes > 1 or isinstance(cfg.pair, LJCutRFParams):
             # make_dpd_kernel has one type and no charges
             # (pallas_dpd.py:877-907)
             raise NotImplementedError(
                 "the full-stencil kernel takes one neutral type")
+        if excl and cfg.branched_topology:
+            # make_dpd_kernel's exclusion has two channels (:968-971)
+            raise NotImplementedError(
+                "the full-stencil kernel excludes over two partner "
+                "channels: a branched topology needs four")
         return make_dpd_kernel(geom, **legacy_kwargs(cfg.pair, cfg.dt),
                                exclude_bonded=excl)
     raise ValueError(f'kernel must be "pair" or "full", not {kernel!r}')
@@ -166,8 +188,9 @@ def pair_salt(cfg: SceneConfig, step: int) -> int:
 
 
 def partner_tags(geom, state: State) -> torch.Tensor:
-    """pbond i32[nb, 2, cap, lanes]: each slot's bond partners as tags, -2
-    for none, one gather per channel (the kernel compares j tags)."""
+    """pbond i32[nb, n_excl, cap, lanes]: each slot's bond partners as tags,
+    -2 for none, one gather per partner column (2, or 4 on a branched
+    topology; the kernel compares j tags)."""
     n = state.capacity
     chans = [torch.where(b >= 0, state.tag[torch.clamp(b.long(), 0, n - 1)],
                          -2).reshape(geom.n_blocks, geom.cap, geom.lanes)
@@ -196,19 +219,41 @@ def pack_fields(cfg, geom, state: State):
 def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
     """Pair kernel on the packed fields (with a dpd/tstat ramp's noise
     scale of the salt's step, obmd_tpu/integrate.py:51-53), then the
-    boundary force, the bond force and the Langevin force."""
+    boundary force, the bond, angle, dihedral and improper forces and the
+    Langevin force, in the JAX engine's order
+    (obmd_tpu/engine_cellpad.py:131-166)."""
     fpad = kern(*pack_fields(cfg, geom, state),
                 sig_scale=sig_scale_of(cfg.pair, state.step))
     f = fpad.permute(0, 2, 3, 1).reshape(-1, 3)
     if cfg.obmd is not None:
         f = _boundary_force_sliced(cfg, geom, state, f)
-    if cfg.bond is not None:
-        fb, _ = bond_forces(cfg.bond, cfg.box, state.x, state.bond1,
-                            state.bond2, state.alive)
-        f = f + fb
+    f = add_bonded_forces(cfg, state, f)
     if cfg.langevin is not None:
         f = f + langevin_force(cfg.langevin, cfg, state)
     return torch.where(state.alive[:, None], f, 0.0)
+
+
+def add_bonded_forces(cfg, state: State, f) -> torch.Tensor:
+    """f plus the bond, angle, dihedral and improper forces of the state,
+    added in that order (f itself on a scene without them)."""
+    x, alive, more = state.x, state.alive, state.bond_partners[2:]
+    if cfg.bond is not None:
+        f = f + bond_forces(cfg.bond, cfg.box, x, state.bond1, state.bond2,
+                            alive, more_partners=more)[0]
+    if cfg.angle is not None:
+        f = f + angle_forces(cfg.angle, cfg.box, x, state.bond1, state.bond2,
+                             state.type, alive, more_partners=more)[0]
+    if cfg.dihedral is not None:
+        if more:
+            raise NotImplementedError(
+                "dihedrals on branched topologies (>2 bonds/atom) are not "
+                "supported by the center-bond dihedral storage")
+        f = f + dihedral_forces(cfg.dihedral, cfg.box, x, state.bond1,
+                                state.bond2, alive)[0]
+    if cfg.improper is not None and state.impr is not None:
+        f = f + improper_forces(cfg.improper, cfg.box, x, state.bond_partners,
+                                state.impr, state.type, alive)[0]
+    return f
 
 
 def _boundary_force_sliced(cfg, geom, state: State, f):

@@ -46,10 +46,11 @@ pallas_dpd.py:273-276).
 Dead slots carry x = y = z = BIG and are skipped by an explicit test, not
 by distance alone: on a periodic x axis the minimum image folds BIG back
 into the box; a dead slot's q and type are never read.  With bonded
-exclusion (`special_bonds fene`) a pair is also dropped when j's tag is one
-of i's two partner tags, pbond i32[nb, 2, cap, lanes] (-2 for no partner);
-the partner lists are symmetric, so the Newton-off sum drops each 1-2 pair
-from both ends.
+exclusion (1-2 pairs out of the pair style) a pair is also dropped when
+j's tag is one of i's partner tags, pbond i32[nb, n_excl, cap, lanes] (-2
+for no partner; n_excl = 2 for chains, 4 for branched topologies,
+pallas_dpd.py:380-381 and :625-643); the partner lists are symmetric, so
+the Newton-off sum drops each 1-2 pair from both ends.
 
 Scope: 1-4 types, the dpd, dpd/tstat, lj and ljrf laws (ljrf, 2-4 types,
 dpd/tstat and gaussian noise through make_pair_kernel only, as
@@ -60,8 +61,11 @@ that axis and the minimum image; the axis must be at least twice the
 cutoff long, else ValueError) or open (no image; make_pair_kernel only, as
 make_dpd_kernel has no open y/z), any layout (x-slabs tiling the lanes,
 p >= 2, or one slab per block in lanes padded to a multiple of 128, p ==
-1), any capacity, bonded exclusion with 2 channels.  More than 4 types and
-4 exclusion channels (branched topologies) raise `NotImplementedError`.
+1), any capacity, bonded exclusion with 2 channels, and with 4 channels
+(branched topologies) the typed dpd law with uniform noise on periodic y
+and z of >= 3 cells each (make_pair_kernel only: make_dpd_kernel has two).
+More than 4 types and the other 4-channel configurations raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -82,7 +86,8 @@ from ..rng import box_muller, pair_bits, uniform01
 EPS = 1.0e-10
 SQRT3 = float(np.sqrt(3.0))
 NF = 6   # x, y, z, vx, vy, vz: the channels of a neutral one-type layout
-N_EXCL = 2  # partner-tag channels of the bonded exclusion (chains)
+N_EXCL = 2  # partner-tag channels of the bonded exclusion on chains
+N_EXCL_BRANCHED = 4   # ... and on branched topologies (<= 4 bonds/atom)
 MAX_TYPES = 4
 LAWS = ("dpd", "lj", "ljrf")       # the C entry points' law index
 # the rows of the per-type-pair tables, in the C kernel's TabRow order
@@ -430,7 +435,8 @@ def pair_forces_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
                       tag: torch.Tensor, salt: int, legacy: bool = False,
                       pbond=None, sig_scale=None) -> torch.Tensor:
     """The kernels' function in PyTorch: fld f32[nb, NF, cap, lanes], tag
-    i32[nb, cap, lanes], optional pbond i32[nb, 2, cap, lanes] -> f32[nb,
+    i32[nb, cap, lanes], optional pbond i32[nb, n_excl, cap, lanes] (2 or
+    4 partner-tag channels) -> f32[nb,
     3, cap, lanes].  Newton-off: each slot of a real column sums over the
     stencil's cells around its column (neighbor_offsets), all ranks of
     each, less the pairs whose j tag is one of its partner tags.
@@ -593,14 +599,15 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
 
 
 def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
-             exclude_bonded: bool):
+             exclude_bonded: bool, n_excl: int = N_EXCL):
     """The kernel's calling convention: checks, then a CUDA tensor goes to
     the Hopper kernel and a CPU tensor to the plain version.  There is no
-    fallback between them.  With exclude_bonded, pbond is required.
+    fallback between them.  With exclude_bonded, pbond (n_excl channels)
+    is required.
     sig_scale is a ramp law's noise scale of the step (None: 1); a law
     without a ramp ignores it, as make_pair_kernel does."""
     shape = (geom.n_blocks, coef.n_channels, geom.cap, geom.lanes)
-    pshape = (geom.n_blocks, N_EXCL, geom.cap, geom.lanes)
+    pshape = (geom.n_blocks, n_excl, geom.cap, geom.lanes)
     # the tables live on the host: the C entry point copies them into the
     # launch's parameters
     tables = ((ctypes.c_float * len(coef.tables))(*coef.tables)
@@ -645,18 +652,37 @@ def make_pair_kernel(geom: PadGeometry, params, dt: float,
     vy, vz, [q], [type]; dead slots at BIG; NF = 6, 7 or 8), tag i32[nb,
     cap, lanes], salt a uint32 python int, occ i32[nb] (per block highest
     occupied rank + 1; stale-high is safe, stale-low is not), with
-    exclude_bonded pbond i32[nb, 2, cap, lanes] (partner tags, -2 for
-    none), sig_scale a dpd/tstat ramp's noise scale of the step (a python
-    float; None is 1).  The law, its tables and its noise variants come
-    from `params` (DPDParams, DPDTstatParams, LJCutParams or
-    LJCutRFParams, 1-4 types)."""
+    exclude_bonded pbond i32[nb, n_excl, cap, lanes] (partner tags, -2 for
+    none; n_excl 2 for chains, 4 for branched topologies), sig_scale a
+    dpd/tstat ramp's noise scale of the step (a python float; None is 1).
+    The law, its tables and its noise variants come from `params`
+    (DPDParams, DPDTstatParams, LJCutParams or LJCutRFParams, 1-4
+    types)."""
     coef = PairCoef.of(geom, params, dt)
-    if exclude_bonded and n_excl != N_EXCL:
-        raise NotImplementedError(
-            f"pair kernel: {n_excl} exclusion channels (branched "
-            f"topologies) are not ported; chains use {N_EXCL}")
+    if exclude_bonded:
+        check_channels(geom, coef, n_excl)
     return _wrapper("pair", geom, coef, legacy=False,
-                    exclude_bonded=exclude_bonded)
+                    exclude_bonded=exclude_bonded, n_excl=n_excl)
+
+
+def check_channels(geom: PadGeometry, coef: PairCoef, n_excl: int) -> None:
+    """Raise for an exclusion channel count the Hopper kernel is not built
+    for: 2 always, 4 (branched topologies) for the typed dpd law with
+    uniform noise on periodic y and z of >= 3 cells each, the one
+    instantiation of csrc/pair_kernel.cu at 4 channels."""
+    if n_excl == N_EXCL:
+        return
+    if n_excl != N_EXCL_BRANCHED:
+        raise NotImplementedError(
+            f"pair kernel: {n_excl} exclusion channels (2 for chains, 4 for "
+            "branched topologies)")
+    if not (coef.law == "dpd" and coef.ntypes > 1 and not coef.gaussian
+            and not coef.ramp and geom.periodic_yz == (True, True)
+            and min(geom.dims[1:]) >= 3):
+        raise NotImplementedError(
+            "pair kernel: 4 exclusion channels are built for the dpd law "
+            "with 2-4 types and uniform noise on periodic y and z of >= 3 "
+            "cells each (a branched melt's) only")
 
 
 def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,

@@ -1,13 +1,14 @@
-"""LAMMPS data files for `atom_style atomic`, `charge` and `bond`.
+"""LAMMPS data files for `atom_style atomic`, `charge`, `bond` and
+`molecular`.
 
 The port's own copy of `DataFile`, `read_data` and `write_data` of
 `obmd_tpu/io/lammps_data.py` (read_data.cpp / write_data.cpp for the
-sections the chain melt and the charged fluids use): the header (atoms,
-atom types, box bounds; bond counts are read from their sections), Masses,
-Atoms (`atomic`: id type x y z; `charge`: id type q x y z; `bond`: id mol
-type x y z), Velocities and Bonds, through the same pure-Python parser.
-The other atom styles, angles, dihedrals, impropers and the native reader
-are not ported.
+sections the melts and the charged fluids use): the header (atoms, atom
+types, box bounds; bond, angle, dihedral and improper counts are read from
+their sections), Masses, Atoms (`atomic`: id type x y z; `charge`: id type
+q x y z; `bond` and `molecular`: id mol type x y z), Velocities, Bonds,
+Angles, Dihedrals and Impropers, through the same pure-Python parser.  The
+`full` and `adress` styles and the native reader are not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 
 from ..geometry import Box
 
-STYLES = ("atomic", "charge", "bond")
+STYLES = ("atomic", "charge", "bond", "molecular")
 _SECTIONS = ("Masses", "Atoms", "Velocities", "Bonds", "Angles", "Dihedrals",
              "Impropers", "Pair Coeffs", "PairIJ Coeffs", "Bond Coeffs")
 
@@ -37,6 +38,9 @@ class DataFile:
     q: Optional[np.ndarray] = None      # [n] charges (atom_style charge)
     mol: Optional[np.ndarray] = None
     bonds: Optional[np.ndarray] = None  # [nb, 2] atom-tag pairs
+    angles: Optional[np.ndarray] = None     # [na, 4] (type, a1, a2, a3)
+    dihedrals: Optional[np.ndarray] = None  # [nd, 5] (type, a1..a4)
+    impropers: Optional[np.ndarray] = None  # [ni, 5] (type, i1..i4)
 
     def box(self, periodic=(False, True, True)) -> Box:
         return Box(tuple(float(v) for v in self.box_lo),
@@ -62,8 +66,20 @@ def _skip_blank(lines, i):
     return i
 
 
+def _read_rows(lines, i, first: int, last: int):
+    """The rows of a topology section from line i: columns first..last-1
+    of each line up to the next blank one, as int64 [n, last - first]."""
+    i = _skip_blank(lines, i)
+    rows = []
+    while i < len(lines) and _tokens(lines[i]):
+        rows.append([int(v) for v in _tokens(lines[i])[first:last]])
+        i += 1
+    return i, np.asarray(rows, dtype=np.int64)
+
+
 def read_data(path: str, atom_style: str = "atomic") -> DataFile:
-    """Parse a data file of `atom_style` atomic, charge or bond."""
+    """Parse a data file of `atom_style` atomic, charge, bond or
+    molecular."""
     _check_style(atom_style)
     with open(path) as fh:
         lines = fh.readlines()
@@ -95,10 +111,10 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
 
     masses = np.ones(max(ntypes, 1))
     x = np.zeros((natoms, 3))
-    v = q = mol = bonds = None
+    v = q = mol = bonds = angles = dihedrals = impropers = None
     types = np.zeros(natoms, np.int32)
     tags = np.zeros(natoms, np.int32)
-    need = {"atomic": 5, "charge": 6, "bond": 6}[atom_style]
+    need = {"atomic": 5, "charge": 6, "bond": 6, "molecular": 6}[atom_style]
 
     while i < n:
         header = lines[i].strip().split("#")[0].strip()
@@ -140,13 +156,13 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
                     x[k] = [float(t[3]), float(t[4]), float(t[5])]
                 i += 1
         elif header == "Bonds":
-            i = _skip_blank(lines, i)
-            blist = []
-            while i < n and _tokens(lines[i]):
-                t = _tokens(lines[i])
-                blist.append((int(t[2]), int(t[3])))
-                i += 1
-            bonds = np.asarray(blist, dtype=np.int64)
+            i, bonds = _read_rows(lines, i, 2, 4)
+        elif header == "Angles":
+            i, angles = _read_rows(lines, i, 1, 5)
+        elif header == "Dihedrals":
+            i, dihedrals = _read_rows(lines, i, 1, 6)
+        elif header == "Impropers":
+            i, impropers = _read_rows(lines, i, 1, 6)
         elif header == "Velocities":
             i = _skip_blank(lines, i)
             v = np.zeros((natoms, 3))
@@ -164,7 +180,8 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
 
     return DataFile(natoms=natoms, ntypes=ntypes, box_lo=lo, box_hi=hi,
                     masses=masses, x=x, types=types, tags=tags, v=v, q=q,
-                    mol=mol, bonds=bonds)
+                    mol=mol, bonds=bonds, angles=angles,
+                    dihedrals=dihedrals, impropers=impropers)
 
 
 def write_data(path: str, df: DataFile, atom_style: str = "atomic"):
@@ -176,6 +193,11 @@ def write_data(path: str, df: DataFile, atom_style: str = "atomic"):
         fh.write(f"{df.natoms} atoms\n{df.ntypes} atom types\n")
         if df.bonds is not None and len(df.bonds):
             fh.write(f"{len(df.bonds)} bonds\n1 bond types\n")
+        for rows, what in ((df.angles, "angle"), (df.dihedrals, "dihedral"),
+                           (df.impropers, "improper")):
+            if rows is not None and len(rows):
+                ntyp = int(max(int(r[0]) for r in rows))
+                fh.write(f"{len(rows)} {what}s\n{ntyp} {what} types\n")
         fh.write("\n")
         fh.write(f"{df.box_lo[0]} {df.box_hi[0]} xlo xhi\n")
         fh.write(f"{df.box_lo[1]} {df.box_hi[1]} ylo yhi\n")
@@ -202,3 +224,10 @@ def write_data(path: str, df: DataFile, atom_style: str = "atomic"):
             fh.write("\nBonds\n\n")
             for i, (b1, b2) in enumerate(df.bonds):
                 fh.write(f"{i + 1} 1 {int(b1)} {int(b2)}\n")
+        for rows, name in ((df.angles, "Angles"), (df.dihedrals, "Dihedrals"),
+                           (df.impropers, "Impropers")):
+            if rows is not None and len(rows):
+                fh.write(f"\n{name}\n\n")
+                for i, r in enumerate(rows):
+                    cols = " ".join(str(int(v)) for v in r)
+                    fh.write(f"{i + 1} {cols}\n")

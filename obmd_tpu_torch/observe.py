@@ -10,12 +10,13 @@ thermo pe).  Under dpd/tstat E_pair is zero (the law has no conservative
 term), and the sweep runs without the ramp's noise scale, as the JAX
 package's thermo does (obmd_tpu/observe.py:64-66): the pressure carries
 the t_start noise amplitude (ROADMAP Queue 3); the temperature is
-kinetic.  On a bonded scene E_bond is the
-FENE energy and pe = E_pair + E_bond; E_pair comes from the pair sweep,
-which has no 1-2 exclusion, so it holds the bonded pairs' WCA energy that
-the step leaves out (the JAX package's convention, kept for parity;
-ROADMAP Queue 3).  The pressure omits the bond virial, as the JAX
-package's does.  Angle, dihedral and improper energies stay zero (not ported).
+kinetic.  On a bonded scene E_bond, E_angle, E_dihed and E_imp are the
+bond (FENE or harmonic), angle, dihedral and improper energies, and pe =
+E_pair + E_bond + E_angle + E_dihed + E_imp (obmd_tpu/observe.py:85-115);
+E_pair comes from the pair sweep, which has no 1-2 exclusion, so it holds
+the bonded pairs' pair energy that the step leaves out (the JAX package's
+convention, kept for parity; ROADMAP Queue 3).  The pressure omits the
+bonded virial, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 
 from .cells import build_cells
 from .config import SceneConfig
-from .forces.bonded import bond_forces
+from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
+                            improper_forces)
 from .forces.pairs import pair_sweep
 from .integrate import _salt, make_grid_spec
 from .state import State, per_atom_mass, temperature
@@ -89,21 +91,43 @@ def make_thermo_fn(cfg: SceneConfig):
             (m * v_[:, 0] * v_[:, 1]).sum(), (m * v_[:, 0] * v_[:, 2]).sum(),
             (m * v_[:, 1] * v_[:, 2]).sum()])
         epair = torch.where(alive, pf.pe, 0.0).sum()
-        zero = torch.zeros((), dtype=state.dtype, device=state.device)
-        ebond = zero
-        if cfg.bond is not None:
-            _, eb = bond_forces(cfg.bond, cfg.box, state.x, state.bond1,
-                                state.bond2, alive, compute_energy=True)
-            ebond = torch.where(alive, eb, 0.0).sum()
+        ebond, eangle, edihed, eimp = bonded_energies(cfg, state)
         fa = torch.where(alive[:, None], state.f, 0.0)
         return Thermo(step=state.step, natoms=state.natoms,
-                      temp=temperature(cfg, state), pe=epair + ebond,
+                      temp=temperature(cfg, state),
+                      pe=epair + ebond + eangle + edihed + eimp,
                       ke=0.5 * mv2.sum(), pressure=pressure, pxx=pxx,
                       press_tensor=(mvv + w) / vol, epair=epair, ebond=ebond,
-                      eangle=zero, edihed=zero, eimp=zero,
+                      eangle=eangle, edihed=edihed, eimp=eimp,
                       fmax=fa.abs().max(), fnorm=torch.sqrt((fa * fa).sum()))
 
     return thermo
+
+
+def bonded_energies(cfg: SceneConfig, state: State):
+    """(E_bond, E_angle, E_dihed, E_imp) of a state over its alive atoms,
+    0-dim tensors (zero for a term the scene lacks)."""
+    x, alive, more = state.x, state.alive, state.bond_partners[2:]
+    zero = torch.zeros((), dtype=state.dtype, device=state.device)
+    out = [zero] * 4
+    terms = (
+        (cfg.bond, lambda: bond_forces(
+            cfg.bond, cfg.box, x, state.bond1, state.bond2, alive,
+            compute_energy=True, more_partners=more)),
+        (cfg.angle, lambda: angle_forces(
+            cfg.angle, cfg.box, x, state.bond1, state.bond2, state.type,
+            alive, compute_energy=True, more_partners=more)),
+        (cfg.dihedral, lambda: dihedral_forces(
+            cfg.dihedral, cfg.box, x, state.bond1, state.bond2, alive,
+            compute_energy=True)),
+        (cfg.improper if state.impr is not None else None,
+         lambda: improper_forces(cfg.improper, cfg.box, x,
+                                 state.bond_partners, state.impr, state.type,
+                                 alive, compute_energy=True)))
+    for k, (params, energy) in enumerate(terms):
+        if params is not None:
+            out[k] = torch.where(alive, energy()[1], 0.0).sum()
+    return tuple(out)
 
 
 def make_profile_fn(cfg: SceneConfig, nbins: int = 64):
@@ -200,10 +224,11 @@ def make_obmd_metrics_fn(cfg: SceneConfig):
     return metrics
 
 
-def bond_stats(cfg: SceneConfig, state: State):
-    """(longest bond, bonds at or beyond r0, bonds) of a bonded state, each
-    bond counted once.  FENE clamps a bond at r >= r0 without an error (the
-    reference warns), so a blow-up shows only here and as a hot melt."""
+def bond_stats(cfg: SceneConfig, state: State, limit=None):
+    """(longest bond, bonds at or beyond `limit`, bonds) of a bonded state,
+    each bond counted once.  The limit is r0 when None: FENE clamps a bond
+    at r >= r0 without an error (the reference warns), so a blow-up shows
+    only here and as a hot melt; a harmonic melt passes its own limit."""
     n = state.capacity
     own = torch.arange(n, device=state.device)
     longest = torch.zeros((), dtype=state.dtype, device=state.device)
@@ -214,7 +239,7 @@ def bond_stats(cfg: SceneConfig, state: State):
         d = cfg.box.min_image(state.x - state.x[j])
         r = torch.where(once, torch.sqrt((d * d).sum(-1)), 0.0)
         longest = torch.maximum(longest, r.max())
-        over = over + (r >= cfg.bond.r0).sum()
+        over = over + (r >= (cfg.bond.r0 if limit is None else limit)).sum()
         count = count + once.sum()
     return float(longest), int(over), int(count)
 
@@ -225,6 +250,47 @@ def charge_census(state: State):
     drift (the reference's ATOM mode does the same)."""
     q = torch.where(state.alive, state.q, 0.0)
     return float(q.sum()), int((q != 0.0).sum())
+
+
+def ill_conditioned_impropers(cfg: SceneConfig, state: State,
+                              s_min: float = 0.05) -> torch.Tensor:
+    """bool [N]: the slots (center and its three ends) of every improper
+    whose float32 force carries amplified rounding: sin(chi) below s_min
+    (chi near 0 or pi, the acos derivative) or 1 - c^2 below s_min for
+    either of its two bond-angle cosines c1, c2 (arms near collinear,
+    where improper_harmonic.cpp's 1 / (1 - c^2) grows to its cap 1 /
+    SMALL), each taken in float64 as improper_harmonic.cpp constructs it.
+    There two correct float32 evaluations in another operation order
+    differ by far more than elsewhere (validation/run_improper_golden.py
+    :142-150)."""
+    out = torch.zeros_like(state.alive)
+    if cfg.improper is None or state.impr is None:
+        return out
+    x = state.x.double()
+    n = x.shape[0]
+    impr = state.impr.long()
+    k_t = torch.tensor(cfg.improper.k, dtype=torch.float64, device=x.device)
+    ok = state.alive & (k_t[state.type.long().clamp(0, len(k_t) - 1)] > 0)
+    ok = ok & (impr >= 0).all(dim=1)
+    ends = impr.clamp(0, n - 1)
+    x1, x3, x4 = (x[ends[:, c]] for c in range(3))
+    vb1 = cfg.box.min_image(x1 - x)
+    vb2 = cfg.box.min_image(x3 - x)
+    vb3 = cfg.box.min_image(x4 - x3)
+    r1, r2, r3 = (torch.rsqrt(torch.clamp((v * v).sum(-1), min=1e-24))
+                  for v in (vb1, vb2, vb3))
+    c0 = (vb1 * vb3).sum(-1) * r1 * r3
+    c1 = (vb1 * vb2).sum(-1) * r1 * r2
+    c2 = -(vb3 * vb2).sum(-1) * r3 * r2
+    s1, s2 = 1.0 - c1 * c1, 1.0 - c2 * c2
+    c = torch.clamp((c1 * c2 + c0) * torch.rsqrt(
+        torch.clamp(s1 * s2, min=1e-24)), -1.0, 1.0)
+    bad = ok & ((torch.sqrt(1.0 - c * c) < s_min) | (s1 < s_min)
+                | (s2 < s_min))
+    out = out | bad
+    for col in range(3):
+        out[ends[bad, col]] = True
+    return out
 
 
 def check_invariants(cfg: SceneConfig, state: State) -> dict:

@@ -23,18 +23,24 @@ package's momentum-conservation box (tests/test_conservation.py:34-55):
 `near` insertion on a 7 x 1 x 1 cell grid, single-cell periodic y and z.
 The DPD film (`dpd_film_config`, `dpd_film_scene`) is a thin slab of the
 OBMD_DPD fluid whose z axis is one cell, and with `y_open` whose y axis is
-open.
+open.  The star-polymer melt (`star_melt_config`, `star_melt_scene`) is a
+closed melt of the JAX package's 4-arm star (tests/test_branched.py:27-33)
+in a DPD solvent-free box at rho 3, read through an `atom_style molecular`
+data file (`write_star_data`) and warmed up by `star_warm_up`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Optional
 
 import numpy as np
 
-from .config import (BondFENEParams, Capacity, DPDParams, DPDTstatParams,
-                     LangevinParams, LJCutParams, LJCutRFParams, ObmdParams,
-                     SceneConfig, UsherParams)
+from .config import (BondFENEParams, BondHarmonicParams, Capacity, DPDParams,
+                     DPDTstatParams, LangevinParams, LJCutParams,
+                     LJCutRFParams, ObmdParams, SceneConfig, UsherParams,
+                     derive_center_angle_table, derive_center_improper_table)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -568,3 +574,225 @@ def dpd_film_scene(y_open: bool = False, device="cuda") -> Scene:
     x = rng.uniform(np.asarray(cfg.box.lo), np.asarray(cfg.box.hi), (n, 3))
     v = rng.normal(0.0, 1.0, (n, 3))
     return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+
+
+# The star-polymer melt: tests/test_branched.py's 4-arm star (a center of
+# type 2 and four arms of type 1 at 0.55, one improper over arms 1-3 around
+# the center; 0-based template rows below, the center first), its DPD law
+# and bond, the angle coefficients of tests/test_branched.py:238-243 on
+# every partner pair of the center, DPD density 3.
+STAR_DX = ((0.0, 0.0, 0.0), (0.55, 0.0, 0.0), (-0.55, 0.05, 0.0),
+           (0.0, 0.55, 0.05), (0.0, -0.05, 0.55))
+STAR_TYPES = (1, 0, 0, 0, 0)
+STAR_IMPROPER = (1, 0, 2, 3)          # (i1, i2 = center, i3, i4)
+STAR_RHO = 3.0
+STAR_ANGLE = (5.0, 109.5)             # K, theta0 (degrees) on the center
+STAR_IMP = (8.0, 30.0)                # K, chi0 (degrees) on the center
+# dt: a quarter of tests/test_branched.py's 0.01.  Near collinear arms 1
+# and 2 the improper's force grows as 1 / (1 - c1^2) (capped at 1 / SMALL
+# = 1000, as improper_harmonic.cpp caps it) to |f| ~ 3,000, and the
+# integrator then pumps energy into the star.  On 100,000 beads over 1,200
+# steps (obmd_tpu_torch.star_probe) the longest bond reached 6.43 at dt
+# 0.01 (T 1.08-1.09, a half-skin trip on every step), 5.83 at 0.0075,
+# 3.72 at 0.005 (49 trips), 3.21 at 0.004 and 1.49 at 0.0025 (T within
+# 1.1% of 1, no trip).
+STAR_DT = 0.0025
+# a relayout on every step: the auto schedule's period (its 9 sqrt(T / m)
+# calibration knows no such kick) let kicked atoms cross the half skin at
+# 152 of the 400 relayouts of 1,200 steps at dt 0.005 (period 3)
+STAR_REBUILD_EVERY = 1
+# filing caps: the random start (its fullest cell held 30 beads at 20,000
+# stars), the warm-up's (make_pair_kernel's rank-looped body) and
+# production's, the smallest that held (the big-tile body: over 1,200
+# steps from the warmed melt cap 14 left 43 atoms unfiled, cap 15 none,
+# star_probe); the steps of the two warm-up stages
+STAR_START_CAP, STAR_WARM_CAP, STAR_PROD_CAP = 40, 24, 15
+STAR_START_STEPS, STAR_WARM_STEPS = 200, 400
+
+
+def star_melt_config(box_l: float, n_max: int, angle=None, improper=None,
+                     cap: int = STAR_WARM_CAP) -> SceneConfig:
+    """A closed star-polymer melt in a periodic cube of side box_l:
+    tests/test_branched.py:42-43's two-type DPD (a0 25, gamma 4.5, T 1,
+    cutoff 1, seed 3), `bond_style harmonic` K 40 r0 0.55 (:53), skin 0.3,
+    dt STAR_DT, a relayout every STAR_REBUILD_EVERY steps, a branched
+    topology; `angle` and `improper` are the center tables a data file's
+    sections give (star_melt_scene derives them)."""
+    box = Box((0.0, 0.0, 0.0), (box_l,) * 3, (True, True, True))
+    pair = DPDParams.create(temp=1.0, cutoff=1.0, seed=3, a0=25.0, gamma=4.5,
+                            ntypes=2)
+    return SceneConfig(
+        box=box, masses=(1.0, 1.0), pair=pair, dt=STAR_DT,
+        capacity=Capacity(n_max=n_max, cell_capacity=cap),
+        bond=BondHarmonicParams(k=40.0, r0=0.55), angle=angle,
+        improper=improper, skin=0.3, force_path="cellpad",
+        rebuild_every=STAR_REBUILD_EVERY, branched_topology=True)
+
+
+def star_box(n_stars: int) -> float:
+    """The side of the cube that holds n_stars stars at STAR_RHO (32.183
+    at 20,000 stars: 24 cut + skin cells per axis)."""
+    return (len(STAR_DX) * n_stars / STAR_RHO) ** (1.0 / 3.0)
+
+
+def _rotations(r, n: int) -> np.ndarray:
+    """n rotation matrices, uniform over SO(3) (unit quaternions from
+    normal draws)."""
+    q = r.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                  2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                  1 - 2 * (x * x + y * y)], -1)], axis=1)
+
+
+def write_star_data(path: str, n_stars: int, seed: int) -> None:
+    """The star melt's start as an `atom_style molecular` data file: star
+    centers uniform in the star_box(n_stars) cube, each star rotated at
+    random, unit normal velocities less their mean (T = 1, zero momentum),
+    all from numpy's default_rng(seed); sections Masses, Atoms,
+    Velocities, Bonds (the four arms), Angles (all six partner pairs of
+    each center, angle type 1) and Impropers (one per center, type 1)."""
+    from .io.lammps_data import DataFile, write_data
+    L = star_box(n_stars)
+    r = np.random.default_rng(seed)
+    centers = r.uniform(0.0, L, (n_stars, 3))
+    dx = np.einsum("sij,kj->ski", _rotations(r, n_stars), np.asarray(STAR_DX))
+    m = len(STAR_DX)
+    x = np.mod(centers[:, None, :] + dx, L).reshape(-1, 3)
+    n = len(x)
+    v = r.normal(0.0, 1.0, (n, 3))
+    v -= v.mean(axis=0)
+    base = m * np.arange(n_stars)[:, None] + 1       # each star's center tag
+    arms = base + np.arange(1, m)[None, :]
+    bonds = np.stack([np.broadcast_to(base, arms.shape), arms],
+                     axis=-1).reshape(-1, 2)
+    pairs = np.asarray([(a, b) for a in range(1, m) for b in range(a + 1, m)])
+    angles = np.stack([np.ones((n_stars, len(pairs)), np.int64),
+                       base + pairs[None, :, 0], np.broadcast_to(
+                           base, (n_stars, len(pairs))),
+                       base + pairs[None, :, 1]], axis=-1).reshape(-1, 4)
+    impropers = np.concatenate([np.ones((n_stars, 1), np.int64),
+                                base + np.asarray(STAR_IMPROPER)[None, :]],
+                               axis=1)
+    write_data(path, DataFile(
+        natoms=n, ntypes=2, box_lo=np.zeros(3), box_hi=np.full(3, L),
+        masses=np.ones(2), x=x, types=np.tile(STAR_TYPES, n_stars),
+        tags=np.arange(1, n + 1), v=v,
+        mol=np.repeat(np.arange(1, n_stars + 1), m), bonds=bonds,
+        angles=angles, impropers=impropers), atom_style="molecular")
+
+
+def star_melt_scene(n_stars: int = 20_000, seed: int = 2016,
+                    device="cuda") -> Scene:
+    """The closed star-polymer melt on `device`, through the data-file
+    route a user's deck takes: write_star_data into a temporary directory,
+    read it back with io.lammps_data.read_data(atom_style="molecular"),
+    then derive the center tables from its Angles and Impropers sections
+    (STAR_ANGLE and STAR_IMP as the angle and improper coefficients of
+    type 1).  20,000 stars are 100,000 beads, 80,000 bonds, 120,000 angles
+    and 20,000 impropers in a cube of side 32.183.  The random start
+    overlaps beads and files up to ~33 in a cell: run star_warm_up before
+    setup."""
+    from .io.lammps_data import read_data
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stars.data")
+        write_star_data(path, n_stars, seed)
+        df = read_data(path, atom_style="molecular")
+    types = dict(zip(df.tags.tolist(), df.types.tolist()))
+    angle = derive_center_angle_table(df.ntypes, df.angles, types, df.bonds,
+                                      {1: STAR_ANGLE})
+    improper = derive_center_improper_table(df.ntypes, df.impropers, types,
+                                            {1: STAR_IMP})
+    cfg = star_melt_config(float(df.box_hi[0] - df.box_lo[0]), df.natoms,
+                           angle=angle, improper=improper)
+    return Scene(cfg=cfg, state=init_state(
+        cfg, df.x, v=df.v, types=df.types, tags=df.tags, mol=df.mol,
+        bonds=df.bonds, impropers=df.impropers, device=device))
+
+
+def with_cap(cfg: SceneConfig, cap: int) -> SceneConfig:
+    """cfg at filing capacity `cap`."""
+    return dataclasses.replace(
+        cfg, capacity=dataclasses.replace(cfg.capacity, cell_capacity=cap))
+
+
+def star_warm_up(cfg: SceneConfig, state: State,
+                 start_steps: int = STAR_START_STEPS,
+                 steps: int = STAR_WARM_STEPS) -> State:
+    """The random start's warm-up, with means the JAX package has: setup
+    and integrate.equilibrate (velocity rescale to T = 1 every 25 steps),
+    first start_steps at filing cap STAR_START_CAP (the start's fullest
+    cells), then `steps` at STAR_WARM_CAP.  Returns the state laid out at
+    the warm-up's cap; `integrate.setup(with_cap(cfg, STAR_PROD_CAP),
+    state)` then files it for production."""
+    from .integrate import equilibrate, setup
+    for cap, n in ((STAR_START_CAP, start_steps), (STAR_WARM_CAP, steps)):
+        wcfg = with_cap(cfg, cap)
+        state = equilibrate(wcfg, setup(wcfg, state), n, temp=1.0)
+    return state
+
+
+# The reference binary's bonded goldens (validation/run_bonded_golden.py,
+# validation/run_improper_golden.py): each folder's data file, and its
+# bonded styles' coefficients as the decks give them
+VALIDATION = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          os.pardir, "validation")
+GOLDENS = {
+    "bonded_golden": ("chains.data", dict(
+        bond=(60.0, 0.8), angle=(25.0, 110.0), dihedral=(3.0, 1, 2))),
+    "improper_golden": ("stars.data", dict(
+        bond=(0.0, 0.9), improper=(12.5, 25.0))),
+}
+
+
+def golden_scene(folder: str, device="cuda", dtype: str = "float32") -> Scene:
+    """A bonded golden's box through the data-file route: read
+    validation/<folder>'s data file with read_data(atom_style="molecular"),
+    derive the center tables from its sections, and stand DPD with a0 = 0
+    and T = 0 in for `pair_style zero` (validation/run_bonded_golden.py
+    :104-128): bonded_golden is 30 4-bead chains with harmonic bonds (K 60,
+    r0 0.8), angles (K 25, theta0 110) and dihedrals (K 3, d 1, n 2);
+    improper_golden 24 three-arm stars with zero-K bonds and impropers (K
+    12.5, chi0 25) on a branched topology.  LAMMPS' forces are in the
+    folder's dump.ref (golden_forces)."""
+    from .config import DihedralHarmonicParams
+    from .io.lammps_data import read_data
+    name, coeffs = GOLDENS[folder]
+    df = read_data(os.path.join(VALIDATION, folder, name),
+                   atom_style="molecular")
+    types = dict(zip(df.tags.tolist(), df.types.tolist()))
+    kw = dict(bond=BondHarmonicParams(*coeffs["bond"]))
+    if "angle" in coeffs:
+        kw["angle"] = derive_center_angle_table(
+            df.ntypes, df.angles, types, df.bonds, {1: coeffs["angle"]})
+    if "dihedral" in coeffs:
+        kw["dihedral"] = DihedralHarmonicParams(*coeffs["dihedral"])
+    if "improper" in coeffs:
+        kw.update(improper=derive_center_improper_table(
+            df.ntypes, df.impropers, types, {1: coeffs["improper"]}),
+            branched_topology=True)
+    cfg = SceneConfig(
+        box=df.box(periodic=(True, True, True)), masses=tuple(df.masses),
+        pair=DPDParams.create(temp=0.0, cutoff=1.0, seed=1, a0=0.0,
+                              gamma=0.0, ntypes=df.ntypes),
+        dt=0.002, capacity=Capacity(n_max=df.natoms, cell_capacity=12),
+        skin=0.3, dtype=dtype, **kw)
+    return Scene(cfg=cfg, state=init_state(
+        cfg, df.x, types=df.types, tags=df.tags, mol=df.mol, bonds=df.bonds,
+        impropers=df.impropers, device=device))
+
+
+def golden_forces(folder: str) -> dict:
+    """LAMMPS' forces of a golden: {atom id: f [3]} from its dump.ref."""
+    with open(os.path.join(VALIDATION, folder, "dump.ref")) as fh:
+        lines = fh.read().splitlines()
+    rows = {}
+    for line in lines[lines.index("ITEM: ATOMS id fx fy fz") + 1:]:
+        t = line.split()
+        rows[int(t[0])] = np.asarray([float(v) for v in t[1:4]])
+    return rows

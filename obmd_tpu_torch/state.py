@@ -1,15 +1,16 @@
 """Fixed-capacity, validity-masked SoA particle state.
 
 Counterpart of `obmd_tpu/state.py` for scenes of 1-4 types, with per-atom
-charges and at most two bonds per atom: dead slots have alive = False,
+charges and at most four bonds per atom: dead slots have alive = False,
 tag = -1 and v = 0; particle counts change by mask flips and masked writes
-under fixed shapes.  Bonds are
-stored per atom as partner SLOTS (`bond1`, `bond2`, -1 for none), remapped by
-every relayout.  The JAX PRNG key becomes a `torch.Generator` (the cold
-path's candidate draws); the step counter is a host int, so the pair-noise
-salt is computed on the host.  The AdResS and molecule-insertion columns
-(lambdaF, cms_mol, vcms_mol, rep_atom) and the branched topology's bond3,
-bond4 and impr are not ported.
+under fixed shapes.  Bonds are stored per atom as partner SLOTS (`bond1`,
+`bond2`, and on a branched topology `bond3`, `bond4`; -1 for none), and an
+improper per center atom as the slots of its three ends (`impr`, [N, 3]);
+every relayout remaps them.  The JAX PRNG key becomes a `torch.Generator`
+(the cold path's candidate draws); the step counter is a host int, so the
+pair-noise salt is computed on the host.  The AdResS and
+molecule-insertion columns (lambdaF, cms_mol, vcms_mol, rep_atom) are not
+ported.
 """
 from __future__ import annotations
 
@@ -79,6 +80,9 @@ class State:
     obmd: ObmdScalars
     cell_overflow: torch.Tensor  # 0-dim i32
     nbrs: Optional[object] = None  # cellpad.PadAux once laid out
+    bond3: Optional[torch.Tensor] = None  # [N] i32, branched topologies
+    bond4: Optional[torch.Tensor] = None  # [N] i32, branched topologies
+    impr: Optional[torch.Tensor] = None   # [N, 3] i32 slots of (i1, i3, i4)
 
     @property
     def capacity(self) -> int:
@@ -94,9 +98,10 @@ class State:
 
     @property
     def bond_partners(self) -> tuple:
-        """The bond-partner slot columns, the iteration unit of every bonded
-        pass."""
-        return (self.bond1, self.bond2)
+        """The bond-partner slot columns (2 for chains, 4 for branched
+        topologies), the iteration unit of every bonded pass."""
+        more = tuple(c for c in (self.bond3, self.bond4) if c is not None)
+        return (self.bond1, self.bond2) + more
 
     @property
     def natoms(self) -> torch.Tensor:
@@ -113,10 +118,11 @@ def make_generator(seed: int, device) -> torch.Generator:
 
 
 def bond_columns(n_max: int, tags, bonds) -> tuple:
-    """The partner-slot columns of [nb, 2] 1-based tag pairs, filled in the
-    reference's order (obmd_tpu/state.py:171-185): each bond (a, b) puts b
-    in a's first free column, then a in b's."""
-    cols = [np.full((n_max,), -1, dtype=np.int32) for _ in range(2)]
+    """The four partner-slot columns of [nb, 2] 1-based tag pairs, filled
+    in the reference's order (obmd_tpu/state.py:171-185): each bond (a, b)
+    puts b in a's first free column, then a in b's.  A fifth bond on an
+    atom raises ValueError."""
+    cols = [np.full((n_max,), -1, dtype=np.int32) for _ in range(4)]
     if bonds is None:
         return tuple(cols)
     tag2row = {int(t): i for i, t in enumerate(tags)}
@@ -128,23 +134,51 @@ def bond_columns(n_max: int, tags, bonds) -> tuple:
                     col[row] = orow
                     break
             else:
-                raise NotImplementedError(
-                    f"atom tag {me} has more than two bonds: the branched "
-                    "topology's bond3/bond4 columns are not ported")
+                raise ValueError(
+                    f"atom tag {me} has more than four bonds; the "
+                    "per-atom partner-slot storage holds <= 4")
     return tuple(cols)
 
 
+def improper_column(n_max: int, tags, impropers, cols) -> np.ndarray:
+    """The [n_max, 3] impr column of [ni, 4] 1-based tag quadruples (i1,
+    i2, i3, i4), i2 the center (a leading type column is dropped): the
+    slots of (i1, i3, i4) on the center's row.  An end the center is not
+    bonded to, or a second improper on one center, raises ValueError."""
+    impr = np.full((n_max, 3), -1, dtype=np.int32)
+    tag2row = {int(t): i for i, t in enumerate(tags)}
+    for quad in np.asarray(impropers, dtype=np.int64):
+        i1, i2, i3, i4 = (int(v) for v in quad[-4:])
+        c = tag2row[i2]
+        ends = [tag2row[i1], tag2row[i3], tag2row[i4]]
+        bonded = {int(col[c]) for col in cols if col[c] >= 0}
+        for e, t in zip(ends, (i1, i3, i4)):
+            if e not in bonded:
+                raise ValueError(
+                    f"improper ({i1},{i2},{i3},{i4}): center {i2} is not "
+                    f"bonded to {t} — only the out-of-plane convention "
+                    "(center bonded to all three ends) is stored per-center")
+        if impr[c, 0] >= 0:
+            raise ValueError(f"atom tag {i2} is the center of two impropers; "
+                             "the per-center storage holds one")
+        impr[c] = ends
+    return impr
+
+
 def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
-               tags=None, q=None, mol=None, bonds=None,
+               tags=None, q=None, mol=None, bonds=None, impropers=None,
                device="cuda") -> State:
     """Build a State from host arrays of n <= n_max real atoms; dead slots
     are parked at the box center with tag -1 and v = 0.  types: 0-based
-    atom types; q: charges (0 when None); mol: molecule ids;
-    bonds: [nb, 2] 1-based atom-tag pairs, at most two per atom, stored as
-    partner slots."""
+    atom types; q: charges (0 when None); mol: molecule ids; bonds: [nb,
+    2] 1-based atom-tag pairs, at most four per atom, stored as partner
+    slots (bond3 and bond4 exist when some atom has more than two partners
+    or cfg.branched_topology is set, so chain scenes keep two columns);
+    impropers: [ni, 4] 1-based tag quadruples (i1, i2, i3, i4) in
+    improper_harmonic.cpp's order, i2 the center, bonded to the three
+    others, stored per center in impr (which exists with
+    cfg.improper on a branched topology, or when impropers are given)."""
     cfg = cfg.finalize()
-    if cfg.branched_topology:
-        raise NotImplementedError("branched topologies are not ported")
     dev = resolve_device(device)
     npdt = np.dtype(cfg.dtype)
     tdt = getattr(torch, cfg.dtype)
@@ -174,7 +208,15 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     molp = np.zeros((n_max,), dtype=np.int32)
     if mol is not None:
         molp[:n] = np.asarray(mol, dtype=np.int32)
-    bond1, bond2 = bond_columns(n_max, tagp[:n], bonds)
+    cols = bond_columns(n_max, tagp[:n], bonds)
+    branched = bool((cols[2] >= 0).any()) or cfg.branched_topology
+    has_impr = impropers is not None and len(impropers) > 0
+    if has_impr and not branched:
+        raise ValueError("impropers require the center to carry >= 3 bonds")
+    imprp = None
+    if has_impr or (cfg.improper is not None and cfg.branched_topology):
+        imprp = improper_column(n_max, tagp[:n],
+                                impropers if has_impr else [], cols)
 
     def t(a):
         return torch.from_numpy(a).to(dev)
@@ -183,12 +225,15 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     return State(
         x=t(xp), v=t(vp), f=torch.zeros((n_max, 3), dtype=tdt, device=dev),
         type=t(tp), tag=t(tagp), q=t(qp), alive=t(alive), mol=t(molp),
-        bond1=t(bond1), bond2=t(bond2), step=0,
+        bond1=t(cols[0]), bond2=t(cols[1]), step=0,
         sim_time=torch.zeros((), dtype=tdt, device=dev),
         maxtag=torch.tensor(int(tagp.max(initial=0)), dtype=torch.int32,
                             device=dev),
         gen=make_generator(seed, dev), obmd=ObmdScalars.zeros(dev, tdt),
-        cell_overflow=zi)
+        cell_overflow=zi,
+        bond3=t(cols[2]) if branched else None,
+        bond4=t(cols[3]) if branched else None,
+        impr=t(imprp) if imprp is not None else None)
 
 
 def per_atom_mass(cfg: SceneConfig, state: State) -> torch.Tensor:

@@ -92,7 +92,8 @@ def test_config_mirrors_jax():
 def test_fene_matches_jax_and_oracle():
     """fene_forces against JAX's (forces and per-atom energies, within 1e-5
     of their largest value) and against bond_fene.cpp in float64 (1e-4),
-    with bonds past r0 clamped at rlogarg = 0.1 and dead atoms ignored."""
+    with bonds past r0 clamped at rlogarg = 0.1 and dead atoms ignored; a
+    bond style object of another package (the JAX class) is refused."""
     x, b1, b2 = _bonded_box()
     alive = np.ones(len(x), bool)
     alive[20] = False
@@ -141,7 +142,8 @@ def test_fene_matches_jax_and_oracle():
 def test_init_state_partner_columns_match_jax():
     """init_state resolves 1-based tag pairs (shuffled tags, bonds listed in
     random order and direction) into the same partner slots as JAX's; the
-    partner lists are symmetric; a third bond on an atom raises."""
+    partner lists are symmetric; a third bond on an atom gives the state
+    JAX's bond3 and bond4 columns, and a fifth raises ValueError."""
     x, mol, bonds = pscenes.chain_lattice(6, 48)
     r = np.random.default_rng(7)
     n = len(x)
@@ -162,9 +164,17 @@ def test_init_state_partner_columns_match_jax():
         for j in (b1[i], b2[i]):
             if j >= 0:
                 assert i in (b1[j], b2[j])
-    with pytest.raises(NotImplementedError):
+    third = np.concatenate([bonds, [[tags[5], tags[40]]]])
+    js3 = jinit_state(jcfg, x, tags=tags, mol=mol, bonds=third)
+    ps3 = pinit_state(pcfg, x, tags=tags, mol=mol, bonds=third, device=CPU)
+    for k in ("bond1", "bond2", "bond3", "bond4"):
+        assert np.array_equal(getattr(ps3, k).numpy(),
+                              np.asarray(getattr(js3, k))), k
+    assert (ps3.bond3.numpy() >= 0).sum() == 2
+    with pytest.raises(ValueError, match="more than four"):
         pinit_state(pcfg, x, tags=tags, bonds=np.concatenate(
-            [bonds, [[tags[5], tags[40]]]]), device=CPU)
+            [third] + [[[tags[5], tags[k]]] for k in (41, 42, 43)]),
+            device=CPU)
 
 
 def test_layout_and_relayouts_match_jax():
@@ -423,21 +433,33 @@ def test_generated_start_at_full_size():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """check_supported takes FENE chains on a closed box and refuses harmonic
-    bonds, branched topologies and bonds with an OBMD stage; compute_forces (the sweep, no 1-2 exclusion) refuses a
-    bonded scene."""
+    """check_supported takes FENE and harmonic chains and branched
+    topologies on a closed box, and refuses bonds with an OBMD stage,
+    dihedrals on a branched topology and a branched topology under the lj
+    law (the pair kernel's 4-channel exclusion is built for the typed dpd
+    law); the full-stencil kernel refuses 4 exclusion channels;
+    compute_forces (the sweep, no 1-2 exclusion) refuses a bonded
+    scene."""
+    from obmd_tpu_torch.config import (BondHarmonicParams, DPDParams,
+                                       DihedralHarmonicParams)
+    from obmd_tpu_torch.engine_cellpad import _make_kernel
     cfg = pscenes.chain_scene(nx=6, chain_len=48, device=CPU).cfg
     check_supported(cfg)
-    bad = [dataclasses.replace(cfg, bond=JBondHarmonic()),
-           dataclasses.replace(cfg, branched_topology=True),
+    check_supported(dataclasses.replace(cfg, bond=BondHarmonicParams()))
+    star = pscenes.star_melt_config(8.0, 1535)
+    check_supported(star)
+    bad = [dataclasses.replace(cfg, branched_topology=True),
+           dataclasses.replace(star, dihedral=DihedralHarmonicParams(k=1.0)),
            dataclasses.replace(pscenes.obmd_dpd_config(scale=0.25),
                                bond=BondFENEParams())]
     for c in bad:
         with pytest.raises(NotImplementedError):
             check_supported(c)
-    with pytest.raises(NotImplementedError):
-        pinit_state(dataclasses.replace(cfg, branched_topology=True),
-                    [[1.0, 1.0, 1.0]], device=CPU)
+    one_type = dataclasses.replace(star, masses=(1.0,),
+                                   pair=DPDParams.create(1.0, 1.0, 3, 25.0,
+                                                         4.5))
+    with pytest.raises(NotImplementedError, match="four"):
+        _make_kernel(one_type, make_geometry(one_type), "full")
     st = pscenes.chain_scene(nx=6, chain_len=48, device=CPU).state
     with pytest.raises(NotImplementedError):
         compute_forces(cfg, make_grid_spec(cfg), st)

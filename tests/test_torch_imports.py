@@ -73,6 +73,10 @@ def test_default_device_raises_without_gpu():
         scenes.near_box_scene()
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.dpd_film_scene(y_open=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.star_melt_scene(n_stars=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.golden_scene("improper_golden")
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

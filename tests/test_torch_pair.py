@@ -95,8 +95,10 @@ def test_wrapper_rejects_what_it_does_not_cover():
     """Wrong dtypes and shapes, a missing or unasked-for pbond, and a
     single-cell periodic axis shorter than twice the cutoff raise
     ValueError; more than 4 types, 4 exclusion channels (branched
-    topologies), open y/z axes and dpd/tstat or gaussian noise in the
-    full-stencil kernel raise NotImplementedError.  p == 1 layouts,
+    topologies) on a one-type law (they are built for the 2-4 type dpd
+    law only; tests/test_torch_star.py holds those), open y/z axes and
+    dpd/tstat or gaussian noise in the full-stencil kernel raise
+    NotImplementedError.  p == 1 layouts,
     periodic x, open and single-cell y/z axes (test_open_and_single_cell_y
     below holds them to the TPU kernel), 2-channel exclusion, 2-4 types,
     gaussian noise and dpd/tstat in make_pair_kernel are ported."""

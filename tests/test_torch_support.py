@@ -37,6 +37,9 @@ def jax_arrays(state) -> dict:
     d = {k: np.asarray(getattr(state, k)) for k in convert.STATE_FIELDS}
     d.update({k: np.asarray(getattr(state.obmd, k))
               for k in convert.OBMD_FIELDS})
+    d.update({k: np.asarray(getattr(state, k))
+              for k in convert.BRANCHED_FIELDS
+              if getattr(state, k) is not None})
     if state.nbrs is not None:
         d.update({k: np.asarray(getattr(state.nbrs, k))
                   for k in convert.AUX_FIELDS})
