@@ -211,12 +211,22 @@ Phases (any failure exits non-zero and prints no result line):
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
+Every pair-kernel check (check_pair: each instantiation family the paths
+run, dpd at caps 15 and 24, gaussian, the ramp, lj with periodic or open x,
+ljrf with two types, 2- and 4-channel exclusion, single-cell and open y/z,
+and the full-stencil kernel) holds the kernel to its plain version on the
+path's state, then again on a copy with holes (holed_inputs: a seeded third
+of the live slots killed with their tags left stale, occ stale-high, one
+cell filled to the fill cap), and checks that two launches on each input
+give the same bytes.
+
 Tolerances are the CPU tests': pair forces within 2e-4 * max|f| over alive
 slots and |sum f| <= 1e-3 * max|f| (kernel against plain, kernel against
 kernel, and the LJ kernel's forces against the sweep); USHER verdicts equal
 on margin-robust candidates (|E - etarget| >= 0.3 at both final positions),
-positions within 2e-3, at least 6 candidates checked.  A kernel's ms is the
-median of 20 launches timed with CUDA events; bound_ms is the larger of its
+positions within 2e-3, at least 6 candidates checked.  A kernel's ms is
+CUDA events around 20 calls launched back to back, over 20, the median of
+3 such runs (time_ms); bound_ms is the larger of its
 bytes (each input read once, each output written once; of a dead slot only
 the x that marks it dead) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (H100 SXM data sheet; the work counted from this run's inputs by
@@ -226,7 +236,8 @@ reaction field only for the pairs of two charged atoms within rc_coul;
 with exclusion each alive slot also reads its two or four partner tags,
 and the LJ law its tag; a charged law reads q and 2-4 types the type of each alive
 slot, and every typed launch its tables once).
-No PyTorch call computes any kernel's function, so library_ms is null.
+No PyTorch call computes any kernel's function, so library_ms is null;
+x_bound is ms / bound_ms.
 The OBMD_DPD and open LJ paths record the most atoms in one cell after
 their repack or melt and after each
 production window: the margin left before a cell overflow, which
@@ -285,6 +296,8 @@ STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
 # DPD film runs before its kernel checks
 NEAR, NEAR_BOX_STEPS, FILM_STEPS = 0.35, 200, 10
 
+# the seed of the holes each pair-kernel check adds (holed_inputs)
+HOLES_SEED = 9
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 operations of one candidate-pair distance test (3 subtractions;
@@ -343,20 +356,24 @@ def sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median time of one call on the card, timed with CUDA events."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, batches: int = 3) -> float:
+    """One call's time on the card: CUDA events around `reps` calls
+    launched back to back (the host enqueues while the card runs), over
+    reps; the median of `batches` such runs, after `warmup` calls."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -469,13 +486,14 @@ def pair_bound(geom, fld, coef, tag=None, pbond=None):
                  + n_coul * OPS_RF_FORCE) + (n_cand, n_in, n_coul)
 
 
-def compare_forces(geom, state, got, want, label):
+def compare_forces(geom, alive, got, want, label):
     """Kernel-layout forces against a reference: max error over alive slots
-    within 2e-4 * max|f|, finite, zero on dead slots, |sum f| <= 1e-3 *
-    max|f|.  Returns (max error, max|f|, |sum f|)."""
+    (alive: bool over the slots) within 2e-4 * max|f|, finite, zero on dead
+    slots, |sum f| <= 1e-3 * max|f|.  Returns (max error, max|f|, |sum
+    f|)."""
     import torch
-    alive = state.alive.reshape(geom.n_blocks, geom.cap, geom.lanes)
-    sel = alive[:, None].expand_as(want)
+    sel = alive.reshape(geom.n_blocks, 1, geom.cap, geom.lanes) \
+        .expand_as(want)
     scale = float(want[sel].abs().max())
     err = float((got - want)[sel].abs().max())
     if not bool(torch.isfinite(got).all()):
@@ -485,7 +503,7 @@ def compare_forces(geom, state, got, want, label):
     if bool((got[~sel] != 0.0).any()):
         fail(f"{label}: force on a dead slot")
     fsum = float(got.permute(0, 2, 3, 1).reshape(-1, 3)[
-        state.alive].sum(0).abs().max())
+        alive.reshape(-1)].sum(0).abs().max())
     if not fsum <= 1e-3 * scale:
         fail(f"{label}: |sum f| {fsum} > 1e-3 * {scale}")
     return err, scale, fsum
@@ -504,7 +522,7 @@ def against_sweep(cfg, geom, state, f_k, label):
     f_sweep = pf.f.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
         .permute(0, 3, 1, 2)
     err, scale, _ = compare_forces(
-        geom, state, f_k, torch.where(state.alive.reshape(
+        geom, state.alive, f_k, torch.where(state.alive.reshape(
             geom.n_blocks, 1, geom.cap, geom.lanes), f_sweep, 0.0),
         f"{label} against the pair sweep")
     log(f"{label} against the pair sweep: max_abs_err {err:.3e} (max|f| "
@@ -512,37 +530,115 @@ def against_sweep(cfg, geom, state, f_k, label):
     return err, scale
 
 
+def holed_inputs(geom, fld, tag, occ, pbond, seed=HOLES_SEED):
+    """A copy of a pair kernel's inputs with the holes a run leaves: a
+    seeded third of the live slots killed (x = y = z = BIG, v = 0; their
+    tag, q, type and partner tags left stale), occ left as it was (so
+    stale-high), then one seeded cell's dead ranks below the fill cap
+    filled with killed atoms, nearest to that cell first (their fields,
+    tags and partner tags moved there; their old slots stay dead with the
+    same stale tag), and occ of its block raised to the fill cap.  Returns
+    (fld, tag, occ, pbond, alive over the slots)."""
+    import torch
+    from obmd_tpu_torch.cells import BIG
+    nb, nf, cap, lanes = fld.shape
+    g = torch.Generator().manual_seed(seed)
+    f = fld.permute(0, 2, 3, 1).reshape(-1, nf).clone()
+    t = tag.reshape(-1).clone()
+    pb = None if pbond is None else pbond.permute(0, 2, 3, 1).reshape(
+        -1, pbond.shape[1]).clone()
+    live = (f[:, 0] < 0.5 * BIG).nonzero().squeeze(1)
+    kill = live[torch.randperm(len(live), generator=g)[:len(live) // 3]
+                .to(live.device)]
+    moved = (f[kill].clone(), t[kill].clone(),
+             None if pb is None else pb[kill].clone())
+    f[kill, 0:3] = BIG
+    f[kill, 3:6] = 0.0
+    cell = int(torch.randint(geom.n_cells, (1,), generator=g))
+    b, lane = geom.slot_of_cell(cell)
+    _, ny, nz = geom.dims
+    idx = (cell // (ny * nz), cell // nz % ny, cell % nz)
+    centre = torch.tensor([geom.lo[a] + (idx[a] + 0.5) * geom.cell_size[a]
+                           for a in range(3)], device=f.device)
+    order = ((moved[0][:, 0:3] - centre) ** 2).sum(1).argsort()
+    slots = b * cap * lanes + torch.arange(geom.fcap, device=f.device) \
+        * lanes + lane
+    dead = slots[f[slots, 0] >= 0.5 * BIG]
+    take = order[:len(dead)]
+    f[dead] = moved[0][take]
+    t[dead] = moved[1][take]
+    if pb is not None:
+        pb[dead] = moved[2][take]
+    occ = occ.clone()
+    occ[b] = max(int(occ[b]), geom.fcap)
+    alive = f[:, 0] < 0.5 * BIG
+    log(f"holes: {len(kill)} of {len(live)} live slots killed, {len(dead)} "
+        f"moved into cell {cell} (block {b}, lane {lane}), filled to "
+        f"{int(alive[slots].sum())} of fill cap {geom.fcap}")
+    return (f.reshape(nb, cap, lanes, nf).permute(0, 3, 1, 2).contiguous(),
+            t.reshape(tag.shape),
+            occ, None if pb is None else pb.reshape(
+                nb, cap, lanes, -1).permute(0, 3, 1, 2).contiguous(), alive)
+
+
+def same_bytes(kern, args, sig_scale, label):
+    """Two launches on one input give the same bytes (no float atomics, a
+    fixed summation order); returns the first launch's forces."""
+    import torch
+    a = kern(*args, sig_scale=sig_scale)
+    b = kern(*args, sig_scale=sig_scale)
+    sync()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        fail(f"{label}: two launches on one input differ")
+    return a
+
+
 def check_pair(cfg, geom, state, label, kernel="pair", sig_scale=None):
     """A pair kernel ("pair", make_pair_kernel's, or "full",
     make_dpd_kernel's) against its plain version on one state (a ramp
-    law's at sig_scale).  Returns its figures and its forces."""
+    law's at sig_scale), and again on that state with holes
+    (holed_inputs); two launches on each input give the same bytes.
+    Returns its figures and its forces on the state."""
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
-    from obmd_tpu_torch.forces.pair_kernel import PairCoef, pair_forces_plain
+    from obmd_tpu_torch.forces.pair_kernel import (PairCoef, TilePlan,
+                                                   pair_forces_plain)
     fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
     kern = _make_kernel(cfg, geom, kernel)
     coef = PairCoef.of(geom, cfg.pair, cfg.dt)
+    plan = TilePlan.of(geom)
 
-    def plain():
+    def plain(fld, tag, pbond):
         return pair_forces_plain(geom, coef, fld, tag, salt,
                                  legacy=kernel == "full", pbond=pbond,
                                  sig_scale=sig_scale)
     with KeepCounts():
-        f_k = kern(fld, tag, salt, occ, pbond, sig_scale=sig_scale)
+        f_k = same_bytes(kern, (fld, tag, salt, occ, pbond), sig_scale,
+                         f"{kernel} kernel {label}")
+        f_p = plain(fld, tag, pbond)
         sync()
-        f_p = plain()
-        sync()
-        err, scale, fsum = compare_forces(geom, state, f_k, f_p,
+        err, scale, fsum = compare_forces(geom, state.alive, f_k, f_p,
                                           f"{kernel} kernel {label}")
+        h_fld, h_tag, h_occ, h_pbond, h_alive = holed_inputs(
+            geom, fld, tag, occ, pbond)
+        f_h = same_bytes(kern, (h_fld, h_tag, salt, h_occ, h_pbond),
+                         sig_scale, f"{kernel} kernel {label} with holes")
+        h_err, h_scale, _ = compare_forces(
+            geom, h_alive, f_h, plain(h_fld, h_tag, h_pbond),
+            f"{kernel} kernel {label} with holes")
         ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond,
                                   sig_scale=sig_scale))
-        plain_ms = time_ms(plain, reps=5, warmup=1)
+        plain_ms = time_ms(lambda: plain(fld, tag, pbond), reps=3, warmup=1,
+                           batches=1)
     b_ms, b_by, n_cand, n_in, n_coul = pair_bound(geom, fld, coef, tag,
                                                   pbond)
     coul = f" / {n_coul} charged in rc_coul" if coef.law == "ljrf" else ""
     log(f"{kernel} kernel {label}: max_abs_err {err:.3e} (max|f| "
-        f"{scale:.1f}), |sum f| {fsum:.3e}, kernel {ms:.4f} ms, plain "
+        f"{scale:.1f}), |sum f| {fsum:.3e}, with holes {h_err:.3e} (max|f| "
+        f"{h_scale:.1f}), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, {n_cand} candidate / {n_in} in-cutoff pairs"
-        f"{coul}, bound {b_ms:.5f} ms")
+        f"{coul}, bound {b_ms:.5f} ms, tiles of {plan.tile} cells x "
+        f"{plan.split} blocks ({plan.n_blocks} blocks, "
+        f"{plan.smem_bytes} B of shared memory each)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), f_k
 
@@ -551,7 +647,7 @@ def check_both(cfg, geom, state, label):
     """Both pair kernels against their plain versions and each other."""
     pair, f_pair = check_pair(cfg, geom, state, label, "pair")
     full, f_full = check_pair(cfg, geom, state, label, "full")
-    err, _, _ = compare_forces(geom, state, f_full, f_pair,
+    err, _, _ = compare_forces(geom, state.alive, f_full, f_pair,
                                f"full against pair kernel {label}")
     log(f"full against pair kernel {label}: max_abs_err {err:.3e}")
     return pair, full
@@ -686,7 +782,7 @@ def check_usher(cfg, geom, state, label):
         ms = time_ms(lambda: launch(cfg, *inputs))
         plain = time_ms(lambda: usher_search_subset_batch(
             cfg, sub_l, sub_r, cl, cr, ct, o.region5, o.region6),
-            reps=5, warmup=1)
+            reps=5, warmup=1, batches=1)
     t0 = time.perf_counter()
     n_bytes, n_ops, tests, inside = usher_work(cfg, sub_l, sub_r, cl, cr, ik,
                                                inputs)
@@ -1150,7 +1246,7 @@ def kernel_line(name, config, replaces, launches, figures):
     return dict(name=f"{name} ({config})", route="cuda",
                 source=f"obmd_tpu_torch/csrc/{k.source}",
                 replaces=replaces or k.replaces, launches=launches,
-                **figures)
+                x_bound=figures["ms"] / figures["bound_ms"], **figures)
 
 
 def run_lj():
@@ -2246,7 +2342,8 @@ def run_near_box():
                            f"{geom.fcap}")
     full, f_full = check_pair(cfg, geom, st, f"dpd, 7 x 1 x 1 cells, cap "
                               f"{geom.fcap}", "full")
-    compare_forces(geom, st, f_full, f_k, "near box: full against pair")
+    compare_forces(geom, st.alive, f_full, f_k,
+                   "near box: full against pair")
     sweep_err, _ = against_sweep(cfg, geom, st, f_k, "near box pair kernel")
     _, full_ms, full_launches = run_full_path(cfg, st, "near box")
     require_launches(full_launches, {"dpd_full": (key,)},
@@ -2328,7 +2425,7 @@ def run_film():
                 fail("DPD film: the full-stencil kernel took an open y axis")
         else:
             full, f_full = check_pair(cfg, geom, st, label, "full")
-            compare_forces(geom, st, f_full, f_k,
+            compare_forces(geom, st.alive, f_full, f_k,
                            f"{label}: full against pair")
             _build.reset_launch_counts()
             make_run(cfg, FILM_STEPS, kernel="full")(st)

@@ -30,8 +30,12 @@ from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
+# -split-compile=0: nvcc compiles a source's kernels on every core of the
+# host (pair_kernel.cu has 105 instantiations; its build time is in
+# PERF.md §5)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,9 +89,10 @@ class Kernel:
 # fld, tag, occ, pbond, out, nb, cap, lanes, nx, ny, nz, s, p, per_x,
 # per_y, per_z, law, n_excl, lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma,
 # sigma, cut, inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32),
-# ntypes, gaussian, ramp, sig_scale, stream
-_PAIR_ARGS = (_P,) * 5 + (_I,) * 13 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F,
-                                                   _P)
+# ntypes, gaussian, ramp, sig_scale, the tile plan (tile_x, tile_y, tile_z,
+# split, shared memory bytes), stream
+_PAIR_ARGS = (_P,) * 5 + (_I,) * 13 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F) \
+    + (_I,) * 5 + (_P,)
 # rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt, ly, lz,
 # thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
 _USHER_ARGS = (_P,) * 6 + (_I,) * 3 + (_F,) * 9 + (_P,)

@@ -39,14 +39,50 @@
 // in float32, so the truncating conversion reads them exactly.  A dead j
 // slot is rejected before any q or type read.
 //
-// Design.  Newton-off: one thread per slot sums F_ij over every live atom
+// Design.  Newton-off: each live atom i sums F_ij over every live atom
 // filed in the stencil's cells around its own FILED cell (27 where every
 // axis has >= 3 cells), so there are no atomics and no cross-block
-// reaction pass (the Newton kernel's out2 shift).  x is
-// open (neighbour slabs outside [0, nx) are skipped) or periodic with >= 3
-// cells (the slab index wraps); y and z are periodic with >= 3 cells (the
-// cell index wraps), or, in the instantiations with the geometry flags,
-// periodic with a single cell or open:
+// reaction pass (the Newton kernel's out2 shift).  One CUDA block takes one
+// tile of cells, a tx x ty x tz box of the grid (the tile plan,
+// forces/pair_kernel.TilePlan: chosen per geometry so that the staged
+// stencil fits the shared-memory budget with every cell at the storage
+// cap),
+// and runs in three steps:
+//  1. it stages its tile's stencil, the box one cell wider on each side
+//     (the whole axis where that box would wrap onto itself), each cell
+//     once: a pass over (rank, cell) with the cell fastest reads x of
+//     every rank below occ of the cell's block (neighbouring threads on
+//     neighbouring lanes, so the reads coalesce along z) and sets the
+//     rank's bit in the cell's live mask; a second pass writes each live
+//     rank's (x, y, z, rank) as one float4 at the cell's start plus the
+//     live ranks below it (a popcount of the mask), so each cell's live
+//     atoms sit compacted in ascending rank;
+//  2. threads take the tile's live atoms, one atom each, in 32-atom
+//     chunks (a warp's worth) over the tile's cells in order, so a warp
+//     mostly walks the same cells' lists; a chunk goes to block part
+//     chunk % split (split > 1 where the grid has few tiles: the 7 x 1 x 1
+//     box's 7 cells run on 28 blocks, not 7);
+//  3. each thread walks the live atoms of its atom's stencil cells in
+//     the stencil's order (ox, then oy, then oz, pair_kernel.
+//     neighbor_offsets) and, within a cell, in ascending rank: the order of
+//     the thread-per-slot kernel this design replaced, less its dead
+//     slots, with the same per-pair arithmetic.  The self pair is skipped
+//     by slot (same cell, same rank).  v, q, the type and the tag of a j
+//     within the cutoff are read by slot through L1; x, y and z of every
+//     candidate come from shared memory.
+// Every slot of the output is written once: a live i by its thread, a
+// dead rank of a tile cell by block part 0 while staging, the padding
+// lanes (slabs past nx, lanes past p * s) by a grid-stride loop.  There are
+// no float atomics, so two launches on one input give the same bytes.
+// Shared memory, per staged cell: cap float4s (16 B each), five ints (the
+// block, the lane, the ranks to read, the live count, a tile-cell flag)
+// and ceil(cap / 32) mask words; plus (tile cells + 1) ints of the tile's
+// prefix; at most 100 KB (SMEM_BUDGET) so that two blocks fit an SM.
+//
+// Axes: x is open (neighbour slabs outside [0, nx) are skipped) or
+// periodic with >= 3 cells (the slab index wraps); y and z are periodic
+// with >= 3 cells (the cell index wraps), or, in the instantiations with
+// the geometry flags, periodic with a single cell or open:
 //  - kOneCell (pallas_dpd.py:316-322): a periodic axis shorter than 3 cut +
 //    skin widths is one cell, its own neighbour on both sides, so only the
 //    offset 0 is visited on it (the wrapped -1 and +1 would count each
@@ -58,29 +94,26 @@
 //    no minimum image (make_pair_kernel only; make_dpd_kernel has no open
 //    y/z, and its entry point refuses it).
 // So the visited cells are distinct and the minimum image is applied per
-// pair on every periodic axis.  A dead j slot is skipped by testing its x
-// against BIG/2, not by distance: the minimum image on x folds BIG back
-// into the box, and the fused multiply-add nvcc makes of it leaves a
-// residue inside the cutoff.  A CUDA block is 128 lanes of one (block,
-// rank) row (lanes / 128 blocks per row): neighbouring threads read
-// neighbouring cells, so each (offset, j-rank) step of the j-loop is a
-// near-coalesced row read.  The j-rank loop stops at occ of the
-// neighbour's block.  The pair noise is the reference's counter hash of
-// (salt, smaller tag, larger tag), bit for bit.
-// Exclusion: each thread loads its slot's kExcl partner tags (2 or 4, a
+// pair on every periodic axis.  A dead slot is never staged: it is told by
+// its x against BIG/2, not by distance, since the minimum image on x folds
+// BIG back into the box.  The staging reads ranks below occ of the
+// cell's block only (occ may be stale-high, never stale-low).  The pair
+// noise is the reference's counter hash of (salt, smaller tag, larger
+// tag), bit for bit.
+// Exclusion: each thread loads its atom's kExcl partner tags (2 or 4, a
 // template parameter, so the loads and compares unroll and the tags stay
 // in registers) once and skips an in-cutoff j whose tag equals one.
 // Newton-off visits every pair
 // from both ends and each end checks only its own partners; that equals
 // the TPU kernels' one-sided check because partner lists are symmetric
 // (state.init_state builds both directions of every bond).  -2 matches no
-// tag (live tags are >= 1, dead slots carry -1 and are skipped first).
+// tag (live tags are >= 1; a dead slot's stale tag is never read).
 // Four channels are instantiated for make_pair_kernel's typed dpd law with
 // uniform noise on periodic y and z (a branched melt's), only.
 // The channel count, the law and the type tables are template parameters,
-// so a 6-channel one-type launch runs the same machine code as before they
-// existed.  So are the DPD law's two variants, instantiated for obmd_pair's
-// dpd law only (make_dpd_kernel has neither):
+// so a 6-channel one-type launch compiles none of them.  So are the DPD
+// law's two variants, instantiated for obmd_pair's dpd law only
+// (make_dpd_kernel has neither):
 //  - gaussian noise (pallas_dpd.py:431-443, :690-696): a second hash
 //    h2 = fmix32(h ^ 0x7F4A7C15), u2 from its top 24 bits, and noise =
 //    sqrt(-2 ln max(u1, 1e-12)) cos(2 pi u2) in place of sqrt(3)(2 u1 - 1),
@@ -94,9 +127,12 @@
 // Bound on an H100: the work is the candidate-pair distance tests plus the
 // in-cutoff force evaluations of the pairs not excluded, each unordered
 // pair once; chip_smoke.py counts both, and the bytes, from its run's
-// inputs.  This first version
-// does each pair twice (Newton-off) and keeps the j rows in L1/L2 (no
-// shared-memory staging); chip_smoke.py reports its time against the bound.
+// inputs.  This kernel does each pair twice (Newton-off), reads each
+// candidate from shared memory at a few addresses per warp (one per cell
+// its lanes are in), and a warp runs the law for its lanes that found a
+// pair while the others wait: per-lane queues of pairs that let the whole
+// warp take the law at once ran slower on the card (PERF.md §6).
+// chip_smoke.py reports its time against the bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,7 +143,12 @@ constexpr float kEps = 1.0e-10f;
 constexpr float kEps2 = 1.0e-20f;
 constexpr float kSqrt3 = 1.7320508075688772f;
 constexpr float kTwoPi = 6.2831855f;      // float32(2 pi), as the TPU kernel
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;             // pair_kernel.THREADS
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// the most dynamic shared memory a block may take on an H100 (227 KB),
+// less the static coefficient table and a reserve
+constexpr int kSmemMax = 232448 - 1024;
 
 enum Law { kDpd = 0, kLj = 1, kLjrf = 2 };
 
@@ -118,6 +159,9 @@ struct Params {
   uint32_t salt;
   float sig_scale;                 // read by the ramp instantiations only
   int per_y, per_z;                // read by the kOpen instantiations only
+  int tile_x, tile_y, tile_z;      // the tile plan: cells per tile on x, y, z
+  int split;                       // blocks per tile
+  int smem;                        // dynamic shared memory bytes per block
 };
 
 // The per-type-pair coefficient tables (row-major [kRows][T*T], T <= 4)
@@ -140,6 +184,61 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// The shared memory a block takes (TilePlan.smem_bytes): the largest
+// staged stencil, min(t + 2, n) cells on each axis, at cap ranks each.
+__host__ __device__ inline int staged_max(const Params& P) {
+  return imin(P.tile_x + 2, P.nx) * imin(P.tile_y + 2, P.ny)
+         * imin(P.tile_z + 2, P.nz);
+}
+__host__ __device__ inline long long smem_bytes(const Params& P) {
+  const long long cells = staged_max(P);
+  const long long words = (P.cap + 31) / 32;
+  return cells * P.cap * 16 + cells * 5 * 4 + cells * words * 4
+         + (long long)(P.tile_x * P.tile_y * P.tile_z + 1) * 4;
+}
+
+// One axis of a tile's staged stencil: grid cells start, start + 1, ...,
+// start + len - 1 (wrapping on a periodic axis), each once.
+struct Span {
+  int n, start, len;
+  bool per;
+};
+
+__device__ __forceinline__ Span span_of(int t0, int t, int n, bool per) {
+  const int te = min(t, n - t0);
+  Span a{n, 0, n, per};
+  if (per) {
+    if (te + 2 < n) {
+      a.start = (t0 - 1 + n) % n;
+      a.len = te + 2;
+    }
+  } else {
+    a.start = max(t0 - 1, 0);
+    a.len = min(t0 + te + 1, n) - a.start;
+  }
+  return a;
+}
+
+// staged index of grid cell j (j lies in the span) and back
+__device__ __forceinline__ int local_of(const Span& a, int j) {
+  const int l = j - a.start;
+  return (a.per && l < 0) ? l + a.n : l;
+}
+__device__ __forceinline__ int grid_of(const Span& a, int l) {
+  const int j = a.start + l;
+  return j >= a.n ? j - a.n : j;
+}
+
+// staged index of grid cell (jx, jy, jz), which lies in the staged stencil
+__device__ __forceinline__ int staged_index(const Span& sx, const Span& sy,
+                                            const Span& sz, int jx, int jy,
+                                            int jz) {
+  return (local_of(sx, jx) * sy.len + local_of(sy, jy)) * sz.len
+         + local_of(sz, jz);
+}
+
 template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp, bool kOneCell, bool kOpen>
 __global__ void __launch_bounds__(kThreads)
@@ -152,29 +251,155 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
   constexpr int kChQ = 6;
   constexpr int kChT = kNf - 1;
   __shared__ float tab[kTyped ? kRows * kMaxPairs : 1];
+  extern __shared__ float4 smem[];
+  const int tid = threadIdx.x;
+  const int cap = P.cap;
+  const int words = (cap + 31) >> 5;
+  const size_t plane = (size_t)cap * P.lanes;
   if constexpr (kTyped) {
-    for (int k = threadIdx.x; k < kRows * kMaxPairs; k += kThreads)
-      tab[k] = T.v[k];
-    __syncthreads();
+    for (int k = tid; k < kRows * kMaxPairs; k += kThreads) tab[k] = T.v[k];
   }
-  const int lane = blockIdx.y * kThreads + threadIdx.x;
-  const int b = blockIdx.x / P.cap;
-  const int r = blockIdx.x % P.cap;
-  const size_t plane = (size_t)P.cap * P.lanes;
-  const size_t row = (size_t)r * P.lanes + lane;
-  const float* fi = fld + (size_t)b * kNf * plane + row;
-  const float xi = fi[0], yi = fi[plane], zi = fi[2 * plane];
-  const int cx = b * P.p + lane / P.s;
-  const bool live = (lane < P.p * P.s) && (cx < P.nx) && (xi < kBigHalf);
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  if (live) {
+
+  // the padding lanes of every (block, rank) row get no force
+  {
+    const int nblk = gridDim.x * gridDim.y;
+    for (int q = blockIdx.y * gridDim.x + blockIdx.x; q < P.nb * cap;
+         q += nblk) {
+      const int b = q / cap, r = q % cap;
+      const int lp = min(P.nx - b * P.p, P.p) * P.s;
+      float* fo = out + (size_t)b * 3 * plane + (size_t)r * P.lanes;
+      for (int l = lp + tid; l < P.lanes; l += kThreads) {
+        fo[l] = 0.f;
+        fo[plane + l] = 0.f;
+        fo[2 * plane + l] = 0.f;
+      }
+    }
+  }
+
+  // this block's tile and its staged stencil
+  const int ntz = (P.nz + P.tile_z - 1) / P.tile_z;
+  const int nty = (P.ny + P.tile_y - 1) / P.tile_y;
+  const int tz0 = (blockIdx.x % ntz) * P.tile_z;
+  const int ty0 = (blockIdx.x / ntz % nty) * P.tile_y;
+  const int tx0 = blockIdx.x / (ntz * nty) * P.tile_x;
+  const int part = blockIdx.y;
+  const int tex = min(P.tile_x, P.nx - tx0);
+  const int tey = min(P.tile_y, P.ny - ty0);
+  const int tez = min(P.tile_z, P.nz - tz0);
+  const int ntc = tex * tey * tez;
+  const Span sx = span_of(tx0, P.tile_x, P.nx, P.per_x != 0);
+  const Span sy = span_of(ty0, P.tile_y, P.ny, !kOpen || P.per_y);
+  const Span sz = span_of(tz0, P.tile_z, P.nz, !kOpen || P.per_z);
+  const int nst = sx.len * sy.len * sz.len;
+  const int smax = staged_max(P);
+  float4* atom = smem;                         // [smax][cap]
+  int* cblk = reinterpret_cast<int*>(smem + (size_t)smax * cap);
+  int* clane = cblk + smax;
+  int* cread = clane + smax;                   // ranks to read: min(occ, cap)
+  int* ccnt = cread + smax;                    // live atoms
+  int* ctile = ccnt + smax;                    // a cell of the tile
+  unsigned* mask = reinterpret_cast<unsigned*>(ctile + smax);  // [smax][words]
+  int* toff = reinterpret_cast<int*>(mask + (size_t)smax * words);
+
+  for (int c = tid; c < nst; c += kThreads) {
+    const int jx = grid_of(sx, c / (sz.len * sy.len));
+    const int jy = grid_of(sy, c / sz.len % sy.len);
+    const int jz = grid_of(sz, c % sz.len);
+    const int bj = jx / P.p;
+    cblk[c] = bj;
+    clane[c] = (jx % P.p) * P.s + jy * P.nz + jz;
+    cread[c] = min(occ[bj], cap);
+    ctile[c] = jx >= tx0 && jx < tx0 + tex && jy >= ty0 && jy < ty0 + tey
+               && jz >= tz0 && jz < tz0 + tez;
+  }
+  for (int k = tid; k < nst * words; k += kThreads) mask[k] = 0u;
+  __syncthreads();
+  // pass 1: the live masks; a dead rank of a tile cell gets no force
+  for (int e = tid; e < nst * cap; e += kThreads) {
+    const int c = e % nst, r = e / nst;
+    const size_t row = (size_t)r * P.lanes + clane[c];
+    const bool live = r < cread[c]
+        && fld[(size_t)cblk[c] * kNf * plane + row] < kBigHalf;
+    if (live) {
+      atomicOr(&mask[c * words + (r >> 5)], 1u << (r & 31));
+    } else if (ctile[c] && part == 0) {
+      float* fo = out + (size_t)cblk[c] * 3 * plane + row;
+      fo[0] = 0.f;
+      fo[plane] = 0.f;
+      fo[2 * plane] = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < nst; c += kThreads) {
+    int n = 0;
+    for (int w = 0; w < words; ++w) n += __popc(mask[c * words + w]);
+    ccnt[c] = n;
+  }
+  __syncthreads();
+  // pass 2: each live rank's x, y, z at its compacted place; meanwhile
+  // warp 0 sums the tile cells' counts (toff[k] = atoms before tile cell k)
+  for (int e = tid; e < nst * cap; e += kThreads) {
+    const int c = e % nst, r = e / nst;
+    const unsigned* m = mask + c * words;
+    const unsigned bit = 1u << (r & 31);
+    if (!(m[r >> 5] & bit)) continue;
+    int pos = __popc(m[r >> 5] & (bit - 1u));
+    for (int w = 0; w < (r >> 5); ++w) pos += __popc(m[w]);
+    const float* f = fld + (size_t)cblk[c] * kNf * plane
+                     + (size_t)r * P.lanes + clane[c];
+    atom[(size_t)c * cap + pos] =
+        make_float4(f[0], f[plane], f[2 * plane], __int_as_float(r));
+  }
+  if (tid < 32) {
+    int run = 0;
+    for (int k0 = 0; k0 < ntc; k0 += 32) {
+      const int k = k0 + tid;
+      int v = k < ntc ? ccnt[staged_index(sx, sy, sz, tx0 + k / (tez * tey),
+                                          ty0 + k / tez % tey,
+                                          tz0 + k % tez)]
+                      : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(kFull, v, d);
+        if (tid >= d) v += u;
+      }
+      if (k < ntc) toff[k + 1] = run + v;
+      run += __shfl_sync(kFull, v, 31);
+    }
+    if (tid == 0) toff[0] = 0;
+  }
+  __syncthreads();
+
+  const float cut2 = kTyped ? T.cut2_max : P.cut * P.cut;
+  const int natoms = toff[ntc];
+  const int nchunks = (natoms + 31) >> 5;
+  for (int m = 0;; ++m) {
+    const int chunk = (m * kWarps + (tid >> 5)) * P.split + part;
+    const int a = (chunk << 5) + (tid & 31);
+    if (chunk >= nchunks || a >= natoms) break;
+    int k = 0, kh = ntc;                       // toff[k] <= a < toff[kh]
+    while (kh - k > 1) {
+      const int mid = (k + kh) >> 1;
+      if (toff[mid] <= a) k = mid; else kh = mid;
+    }
+    const int cx = tx0 + k / (tez * tey);
+    const int cy = ty0 + k / tez % tey;
+    const int cz = tz0 + k % tez;
+    const int ci = staged_index(sx, sy, sz, cx, cy, cz);
+    const float4 ai = atom[(size_t)ci * cap + (a - toff[k])];
+    const int ri = __float_as_int(ai.w);
+    const int bi = cblk[ci];
+    const size_t row = (size_t)ri * P.lanes + clane[ci];
+    const float* fi = fld + (size_t)bi * kNf * plane + row;
+    const float xi = ai.x, yi = ai.y, zi = ai.z;
+    float fx = 0.f, fy = 0.f, fz = 0.f;
     float vxi = 0.f, vyi = 0.f, vzi = 0.f;
     int ti = 0;
     if (kLaw == kDpd) {
       vxi = fi[3 * plane];
       vyi = fi[4 * plane];
       vzi = fi[5 * plane];
-      ti = tag[(size_t)b * plane + row];
+      ti = tag[(size_t)bi * plane + row];
     }
     float qi = 0.f;
     if constexpr (kLaw == kLjrf) qi = fi[kChQ * plane];
@@ -182,13 +407,10 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
     if constexpr (kTypes) tbase = (int)fi[kChT * plane] * T.ntypes;
     int pt[4] = {-2, -2, -2, -2};          // the partner tags
     if constexpr (kExcl > 0) {
-      const int* pb = pbond + (size_t)b * kExcl * plane + row;
+      const int* pb = pbond + (size_t)bi * kExcl * plane + row;
 #pragma unroll
       for (int c = 0; c < kExcl; ++c) pt[c] = pb[c * plane];
     }
-    const int within = lane % P.s;
-    const int cy = within / P.nz, cz = within % P.nz;
-    const float cut2 = kTyped ? T.cut2_max : P.cut * P.cut;
     for (int ox = -1; ox <= 1; ++ox) {
       int jx = cx + ox;
       if (P.per_x) {
@@ -196,11 +418,6 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
       } else if (jx < 0 || jx >= P.nx) {
         continue;
       }
-      const int bj = jx / P.p;
-      const int lbase = (jx % P.p) * P.s;
-      const int ocj = min(occ[bj], P.cap);
-      const float* fj = fld + (size_t)bj * kNf * plane;
-      const int* tj = tag + (size_t)bj * plane;
       for (int oy = -1; oy <= 1; ++oy) {
         if constexpr (kOneCell) {
           if (P.ny == 1 && oy != 0) continue;
@@ -220,31 +437,36 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
           if constexpr (kOneCell) {
             if (P.nz == 1 && oz != 0) continue;
           }
-          int lj;
+          int jz;
           if constexpr (kOpen) {
-            int jz = cz + oz;
+            jz = cz + oz;
             if (P.per_z) {
               jz = (jz + P.nz) % P.nz;
             } else if (jz < 0 || jz >= P.nz) {
               continue;
             }
-            lj = lbase + jy * P.nz + jz;
           } else {
-            lj = lbase + jy * P.nz + (cz + oz + P.nz) % P.nz;
+            jz = (cz + oz + P.nz) % P.nz;
           }
-          for (int rj = 0; rj < ocj; ++rj) {
-            if (bj == b && lj == lane && rj == r) continue;
-            const size_t o = (size_t)rj * P.lanes + lj;
-            // all three loads first, then one branch for dead or distant
-            const float xj = fj[o];
-            float dx = xi - xj;
-            float dy = yi - fj[plane + o];
-            float dz = zi - fj[2 * plane + o];
+          const int c = staged_index(sx, sy, sz, jx, jy, jz);
+          const float4* aj = atom + (size_t)c * cap;
+          const int nj = ccnt[c];
+          const int self_r = c == ci ? ri : -1;
+          const float* fj = fld + (size_t)cblk[c] * kNf * plane + clane[c];
+          const int* tj = tag + (size_t)cblk[c] * plane + clane[c];
+          for (int q = 0; q < nj; ++q) {
+            const float4 b = aj[q];
+            const int rj = __float_as_int(b.w);
+            if (rj == self_r) continue;
+            float dx = xi - b.x;
+            float dy = yi - b.y;
+            float dz = zi - b.z;
             if (P.per_x) dx = dx - P.lx * rintf(dx * P.inv_lx);
             if (!kOpen || P.per_y) dy = dy - P.ly * rintf(dy * P.inv_ly);
             if (!kOpen || P.per_z) dz = dz - P.lz * rintf(dz * P.inv_lz);
             const float rsq = dx * dx + dy * dy + dz * dz;
-            if (!(rsq < cut2 && xj < kBigHalf)) continue;
+            if (!(rsq < cut2)) continue;
+            const size_t o = (size_t)rj * P.lanes;
             if constexpr (kExcl == 2) {
               const int tjx = tj[o];
               if (tjx == pt[0] || tjx == pt[1]) continue;
@@ -333,22 +555,33 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
         }
       }
     }
+    float* fo = out + (size_t)bi * 3 * plane + row;
+    fo[0] = fx;
+    fo[plane] = fy;
+    fo[2 * plane] = fz;
   }
-  float* fo = out + (size_t)b * 3 * plane + row;
-  fo[0] = fx;
-  fo[plane] = fy;
-  fo[2 * plane] = fz;
 }
 
 template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp, bool kOneCell, bool kOpen>
-void start_geo(const dim3& grid, cudaStream_t st, const void* fld,
-               const void* tag, const void* occ, const void* pbond,
-               void* out, const Params& P, const Tables& T) {
-  pair_kernel<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, kOneCell, kOpen>
-      <<<grid, kThreads, 0, st>>>((const float*)fld, (const int*)tag,
-                                  (const int*)occ, (const int*)pbond,
-                                  (float*)out, P, T);
+int start_geo(const dim3& grid, cudaStream_t st, const void* fld,
+              const void* tag, const void* occ, const void* pbond,
+              void* out, const Params& P, const Tables& T) {
+  auto* kern = pair_kernel<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp,
+                           kOneCell, kOpen>;
+  // above 48 KB a block's dynamic shared memory must be allowed, once per
+  // instantiation and size
+  static int allowed = 48 * 1024;
+  if (P.smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = P.smem;
+  }
+  kern<<<grid, kThreads, P.smem, st>>>((const float*)fld, (const int*)tag,
+                                       (const int*)occ, (const int*)pbond,
+                                       (float*)out, P, T);
+  return 0;
 }
 
 // The geometry flags at run time -> the instantiation: a single-cell y or
@@ -361,21 +594,20 @@ int start(const dim3& grid, cudaStream_t st, const void* fld,
   const bool one_cell = P.ny == 1 || P.nz == 1;
   const bool open = !(P.per_y && P.per_z);
   if (!one_cell && !open) {
-    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, false, false>(
-        grid, st, fld, tag, occ, pbond, out, P, T);
+    return start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, false,
+                     false>(grid, st, fld, tag, occ, pbond, out, P, T);
   } else if (!open) {
-    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, true, false>(
-        grid, st, fld, tag, occ, pbond, out, P, T);
+    return start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, true,
+                     false>(grid, st, fld, tag, occ, pbond, out, P, T);
   } else if constexpr (kLegacy) {
     return (int)cudaErrorInvalidValue;    // make_dpd_kernel has no open y/z
   } else if (!one_cell) {
-    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, false, true>(
-        grid, st, fld, tag, occ, pbond, out, P, T);
+    return start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, false,
+                     true>(grid, st, fld, tag, occ, pbond, out, P, T);
   } else {
-    start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, true, true>(
-        grid, st, fld, tag, occ, pbond, out, P, T);
+    return start_geo<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp, true,
+                     true>(grid, st, fld, tag, occ, pbond, out, P, T);
   }
-  return 0;
 }
 
 // The noise flags at run time -> the instantiation: gaussian noise and the
@@ -430,7 +662,13 @@ int launch(const void* fld, const void* tag, const void* occ,
            const void* pbond, void* out, int law, int n_excl,
            const float* tables, int ntypes, int gaussian, int ramp,
            const Params& P, void* stream) {
-  if (P.lanes <= 0 || P.lanes % kThreads != 0 || P.cap <= 0 || P.nb <= 0)
+  if (P.lanes <= 0 || P.cap <= 0 || P.nb <= 0 || P.p * P.s > P.lanes)
+    return (int)cudaErrorInvalidValue;
+  // the tile plan: tiles within the grid, and the caller's shared memory
+  // figure (TilePlan.smem_bytes) equal to the layout the kernel carves
+  if (P.tile_x < 1 || P.tile_x > P.nx || P.tile_y < 1 || P.tile_y > P.ny
+      || P.tile_z < 1 || P.tile_z > P.nz || P.split < 1
+      || (long long)P.smem != smem_bytes(P) || P.smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   if (!(n_excl == 0 || ((n_excl == 2 || n_excl == 4) && pbond != nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -453,7 +691,10 @@ int launch(const void* fld, const void* tag, const void* occ,
   }
   const bool excl = n_excl == 2;
   const bool gauss = gaussian != 0, rmp = ramp != 0;
-  const dim3 grid((unsigned)(P.nb * P.cap), (unsigned)(P.lanes / kThreads));
+  const int tiles = ((P.nx + P.tile_x - 1) / P.tile_x)
+                    * ((P.ny + P.tile_y - 1) / P.tile_y)
+                    * ((P.nz + P.tile_z - 1) / P.tile_z);
+  const dim3 grid((unsigned)tiles, (unsigned)P.split);
   const cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if (n_excl == 4) {
@@ -465,8 +706,9 @@ int launch(const void* fld, const void* tag, const void* occ,
       if (law != kDpd || !types || gauss || rmp || P.ny == 1 || P.nz == 1
           || !(P.per_y && P.per_z))
         return (int)cudaErrorInvalidValue;
-      start_geo<kDpd, false, 4, true, false, false, false, false>(
+      rc = start_geo<kDpd, false, 4, true, false, false, false, false>(
           grid, st, fld, tag, occ, pbond, out, P, T);
+      if (rc != 0) return rc;
       return (int)cudaGetLastError();
     }
   }
@@ -500,11 +742,13 @@ int launch(const void* fld, const void* tag, const void* occ,
       float inv_lx, float inv_ly, float inv_lz, float a0, float gamma,      \
       float sigma, float cut, float inv_cut, float dtinvsqrt, float lj1,    \
       float lj2, uint32_t salt, const float *tables, int ntypes,            \
-      int gaussian, int ramp, float sig_scale, void *stream
+      int gaussian, int ramp, float sig_scale, int tile_x, int tile_y,     \
+      int tile_z, int split, int smem, void *stream
 #define OBMD_PAIR_PARAMS                                                     \
   Params{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,       \
          inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,    \
-         lj2, salt, sig_scale, per_y, per_z}
+         lj2, salt, sig_scale, per_y, per_z, tile_x, tile_y, tile_z, split, \
+         smem}
 
 // make_pair_kernel's function (TPU kernels #1 and #2).
 extern "C" int obmd_pair(OBMD_PAIR_ARGS) {

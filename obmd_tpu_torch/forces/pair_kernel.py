@@ -9,9 +9,11 @@ the legacy full-stencil make_dpd_kernel.  The Hopper kernel source
 `csrc/pair_kernel.cu` replaces them with one Newton-off kernel that takes any
 capacity, behind two C entry points: `obmd_pair` (make_pair_kernel) and
 `obmd_dpd_full` (make_dpd_kernel, with that kernel's own r and cutoff
-arithmetic).  Beside them, `pair_forces_plain` is the same function in
-PyTorch: the CPU tests run it, and `chip_smoke.py` holds each kernel against
-it on the card.
+arithmetic).  Each CUDA block takes a tile of cells (`TilePlan`), stages
+each live atom of the tile's stencil once in shared memory and runs one
+thread per live atom of the tile.  Beside them, `pair_forces_plain` is
+the same function in PyTorch: the CPU tests run it, and `chip_smoke.py`
+holds each kernel against it on the card.
 
 The function: for every live slot i, F_i = sum_j fpair_ij * d_ij over the
 live atoms j filed in the cells around i's FILED cell (the 27 of the
@@ -420,6 +422,133 @@ def _neighbor_columns(geom: PadGeometry, device: torch.device):
             torch.from_numpy(np.stack(oks)).to(device))
 
 
+def _span(t0: int, t: int, n: int, periodic: bool):
+    """The grid cells one axis of a tile's staged stencil holds, in the
+    kernel's order (csrc/pair_kernel.cu span_of): the tile's cells t0 ..
+    t0 + t - 1 and one more on each side, the whole axis where those would
+    wrap onto themselves on a periodic axis, clipped to the grid on an open
+    one."""
+    te = min(t, n - t0)
+    if periodic:
+        if te + 2 >= n:
+            return list(range(n))
+        return [(t0 - 1 + k) % n for k in range(te + 2)]
+    return list(range(max(t0 - 1, 0), min(t0 + te + 1, n)))
+
+
+class TilePlan(NamedTuple):
+    """How the Hopper pair kernel cuts the cell grid: one CUDA block (or
+    `split` blocks, each taking every split-th 32-atom chunk) per tile of
+    tile = (tx, ty, tz) cells, whose stencil it stages in shared memory.
+    `TilePlan.of(geom)` picks the tile: among the tiles of at most as many
+    cells as the block's THREADS threads hold atoms at half the fill cap
+    per cell, whose worst-case stencil (every cell at the storage cap)
+    fits SMEM_BUDGET and whose z length divides nz, the longest along z
+    (a warp's atoms then sit in neighbouring z cells, whose stencils
+    overlap: the fastest shape of those timed on the card, PERF.md §6),
+    then the one that stages the fewest cells over the grid
+    (`staged_total`), then the longest along y.  Where the grid has fewer
+    than two tiles per SM, split spreads each tile's atoms over more
+    blocks."""
+
+    geom: PadGeometry
+    tile: Tuple[int, int, int]
+    split: int = 1
+
+    @staticmethod
+    def of(geom: PadGeometry) -> "TilePlan":
+        return _tile_plan(geom)
+
+    @property
+    def periodic(self) -> Tuple[bool, bool, bool]:
+        return (self.geom.periodic_x,) + tuple(self.geom.periodic_yz)
+
+    @property
+    def n_tiles(self) -> Tuple[int, int, int]:
+        return tuple(-(-n // t) for n, t in zip(self.geom.dims, self.tile))
+
+    @property
+    def n_blocks(self) -> int:
+        return int(np.prod(self.n_tiles)) * self.split
+
+    @property
+    def staged_max(self) -> int:
+        return int(np.prod([min(t + 2, n)
+                            for t, n in zip(self.tile, self.geom.dims)]))
+
+    @property
+    def staged_total(self) -> int:
+        """The cells all tiles stage together (each tile stages a box, so
+        the total is the product of the axes' sums)."""
+        return int(np.prod([
+            sum(len(_span(k * t, t, n, per)) for k in range(-(-n // t)))
+            for t, n, per in zip(self.tile, self.geom.dims, self.periodic)]))
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block (csrc/pair_kernel.cu
+        smem_bytes): per staged cell cap float4s, five ints and ceil(cap /
+        32) live-mask words; the tile's prefix of (cells + 1) ints."""
+        cells, cap = self.staged_max, self.geom.cap
+        words = -(-cap // 32)
+        return (cells * cap * 16 + cells * 5 * 4 + cells * words * 4
+                + (int(np.prod(self.tile)) + 1) * 4)
+
+    def tiles(self):
+        """Each tile's origin cell, in the kernel's block order (z
+        fastest)."""
+        return [tuple(k * t for k, t in zip(ks, self.tile))
+                for ks in itertools.product(*(range(n)
+                                              for n in self.n_tiles))]
+
+    def tile_cells(self, origin):
+        """The (cx, cy, cz) cells of the tile at `origin`."""
+        return list(itertools.product(*(
+            range(o, min(o + t, n))
+            for o, t, n in zip(origin, self.tile, self.geom.dims))))
+
+    def staged_cells(self, origin):
+        """The (cx, cy, cz) cells the tile at `origin` stages, in the
+        kernel's order."""
+        return list(itertools.product(*(
+            _span(o, t, n, per) for o, t, n, per in zip(
+                origin, self.tile, self.geom.dims, self.periodic))))
+
+
+THREADS = 128                  # a block's threads (kThreads in the kernel)
+SMEM_BUDGET = 100 * 1024       # a block's shared memory: two fit an SM
+SMEM_MAX = 232448 - 1024       # one block's most on an H100 (kSmemMax)
+N_SMS = 132                    # an H100 SXM's multiprocessors
+
+
+@functools.lru_cache(maxsize=32)
+def _tile_plan(geom: PadGeometry) -> TilePlan:
+    dims = geom.dims
+    target = max(1, 2 * THREADS // geom.fcap)
+    best = None
+    for tile in itertools.product(*(range(1, min(n, target) + 1)
+                                    for n in dims)):
+        cells = int(np.prod(tile))
+        if (cells > target or dims[2] % tile[2]) and cells > 1:
+            continue
+        plan = TilePlan(geom, tile)
+        if plan.smem_bytes > SMEM_BUDGET and cells > 1:
+            continue
+        key = (tile[2], -plan.staged_total, tile[1])
+        if best is None or key > best[0]:
+            best = (key, plan)
+    plan = best[1]
+    if plan.smem_bytes > SMEM_MAX:
+        raise NotImplementedError(
+            f"pair kernel: one cell's stencil at cap {geom.cap} needs "
+            f"{plan.smem_bytes} bytes of shared memory (at most {SMEM_MAX})")
+    tiles = int(np.prod(plan.n_tiles))
+    if tiles < 2 * N_SMS:
+        chunks = -(-int(np.prod(plan.tile)) * geom.fcap // 32)
+        plan = plan._replace(split=max(1, min(chunks, -(-2 * N_SMS // tiles))))
+    return plan
+
+
 def _min_image(d, length: float, inv_length: float):
     return d - length * torch.round(d * inv_length)
 
@@ -578,6 +707,7 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
     nb, _, cap, lanes = fld.shape
     nx, ny, nz = geom.dims
     n_excl = 0 if pbond is None else pbond.shape[1]
+    plan = TilePlan.of(geom)
     out = torch.empty((nb, 3, cap, lanes), dtype=torch.float32,
                       device=fld.device)
     with torch.cuda.device(fld.device):
@@ -592,7 +722,7 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
                 coef.inv_cut, coef.dtinvsqrt, coef.lj1, coef.lj2,
                 salt & 0xFFFFFFFF,
                 tables, coef.ntypes, int(coef.gaussian), int(coef.ramp),
-                sig_scale, stream)
+                sig_scale, *plan.tile, plan.split, plan.smem_bytes, stream)
     _build.check(rc, kern)
     kern.count(launch_key(geom, coef, n_excl))
     return out
