@@ -220,13 +220,26 @@ of the live slots killed with their tags left stale, occ stale-high, one
 cell filled to the fill cap), and checks that two launches on each input
 give the same bytes.
 
+Every USHER check (check_usher: dpd, lj with its shifted rows, ljrf) holds
+the kernel to its plain version on the state's buffer subsets, then again
+on three edge inputs (usher_edge_inputs, 4 x K candidates searched 5
+steps: a seeded third of the valid rows made invalid; candidates within
+0.05 of the periodic y and z faces and of the region's x ends; one cell
+crowded to 4x the mean atoms per cell),
+checks that two launches on each input give the same bytes, and logs the
+grid's cells per axis, the mean and largest atoms per cell, the distance
+tests per evaluation (the kernel's stencil and all-pairs), the longest
+candidate's evaluations and the ms per dependent evaluation.
+
 Tolerances are the CPU tests': pair forces within 2e-4 * max|f| over alive
 slots and |sum f| <= 1e-3 * max|f| (kernel against plain, kernel against
 kernel, and the LJ kernel's forces against the sweep); USHER verdicts equal
 on margin-robust candidates (|E - etarget| >= 0.3 at both final positions),
 positions within 2e-3, at least 6 candidates checked.  A kernel's ms is
-CUDA events around 20 calls launched back to back, over 20, the median of
-3 such runs (time_ms); bound_ms is the larger of its
+CUDA events around 20 calls launched back to back behind a sleep kernel
+that holds the card while the host enqueues them, over 20, the median of
+3 such runs (time_ms); an USHER kernel's ms is its whole C call, binning
+and search; bound_ms is the larger of its
 bytes (each input read once, each output written once; of a dead slot only
 the x that marks it dead) over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (H100 SXM data sheet; the work counted from this run's inputs by
@@ -235,7 +248,10 @@ law only for the pairs within their own cutoff and not excluded, the
 reaction field only for the pairs of two charged atoms within rc_coul;
 with exclusion each alive slot also reads its two or four partner tags,
 and the LJ law its tag; a charged law reads q and 2-4 types the type of each alive
-slot, and every typed launch its tables once).
+slot, and every typed launch its tables once; an USHER search tests the
+atoms of the 27 cells around each evaluated position, and reads the
+subsets once and writes and reads its sorted rows and cell table once,
+its all-pairs bound beside it).
 No PyTorch call computes any kernel's function, so library_ms is null;
 x_bound is ms / bound_ms.
 The OBMD_DPD and open LJ paths record the most atoms in one cell after
@@ -296,8 +312,19 @@ STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
 # DPD film runs before its kernel checks
 NEAR, NEAR_BOX_STEPS, FILM_STEPS = 0.35, 200, 10
 
-# the seed of the holes each pair-kernel check adds (holed_inputs)
+# the seed of the holes each pair-kernel check adds (holed_inputs), also
+# the USHER edge inputs' (usher_edge_inputs), which try EDGE_K x K
+# candidates a side, so that each holds enough margin-robust ones
 HOLES_SEED = 9
+EDGE_K = 4
+# the margins of a step-robust USHER step (usher_compare): the two float32
+# summation orders give energies ~1e-7 x |E| apart and positions ~1e-6
+ROBUST_E = 1e-4
+ROBUST_F = 0.1
+ROBUST_X = 1e-4
+# cycles of the sleep kernel that holds the card while time_ms enqueues a
+# batch (~10 ms at an H100's 1.98 GHz boost clock)
+HOLD_CYCLES = 20_000_000
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 operations of one candidate-pair distance test (3 subtractions;
@@ -358,8 +385,10 @@ def sync():
 
 def time_ms(fn, reps: int = 20, warmup: int = 3, batches: int = 3) -> float:
     """One call's time on the card: CUDA events around `reps` calls
-    launched back to back (the host enqueues while the card runs), over
-    reps; the median of `batches` such runs, after `warmup` calls."""
+    launched back to back, over reps; the median of `batches` such runs,
+    after `warmup` calls.  A sleep kernel of HOLD_CYCLES holds the card
+    while the host enqueues the batch, so a call whose host side takes
+    longer than its kernels is still timed on the device."""
     import torch
     for _ in range(warmup):
         fn()
@@ -368,6 +397,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, batches: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
         a.record()
         for _ in range(reps):
             fn()
@@ -653,104 +683,250 @@ def check_both(cfg, geom, state, label):
     return pair, full
 
 
-def usher_work(cfg, sub_l, sub_r, cl, cr, iters, inputs):
-    """(bytes, operations) of one search on this input.  A candidate
-    evaluates its energy iters + 1 times, at the positions the search
-    reaches after 0 .. iters steps (replayed through the plain version).
-    Every evaluation tests every valid subset atom; the law runs only on the
-    atoms within the cutoff, counted at those positions."""
+def usher_work(cfg, sub_l, sub_r, cl, cr, iters):
+    """The work of one search on this input, as the kernel does it.  A
+    candidate evaluates its energy iters + 1 times, at the positions the
+    search reaches after 0 .. iters steps (replayed through the plain
+    version).  Each evaluation tests the valid atoms of the cells the
+    kernel visits (the 27-cell stencil of the position's cell on the
+    side's UsherGrid), and all-pairs every valid subset atom; the law runs
+    only on the atoms within the cutoff, counted at those positions.
+    Bytes: the Subsets (x, type, valid) and the candidates read once and
+    the outputs written once, in both forms; the kernel's own scratch (the
+    sorted float4 rows and the cell starts, written once and read once) is
+    returned apart as scratch_bytes.  Returns a dict of the counts and both
+    (bytes, operations)."""
     import torch
     from obmd_tpu_torch.config import LJCutParams, LJCutRFParams
-    from obmd_tpu_torch.obmd.subset import (pad_subset,
-                                            usher_search_subset_batch)
+    from obmd_tpu_torch.forces.usher_kernel import UsherPlan, bin_rows
+    from obmd_tpu_torch.obmd.subset import usher_search_subset_batch
     o = cfg.obmd
-    rows, cand, bounds = inputs
-    k = cand.shape[1]
-    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
-    sl, sr = pad_subset(sub_l, b), pad_subset(sub_r, b)
-    sx = torch.stack([sl.x, sr.x])
-    sv = torch.stack([sl.valid, sr.valid])
-    ct = torch.zeros((k,), dtype=torch.int32, device=cand.device)
+    k = cl.shape[0]
+    subs = (sub_l, sub_r)
+    grids = UsherPlan.of(cfg, o.region5, o.region6).grids
+    counts = [torch.diff(bin_rows(g, s)[1]).cpu() for g, s in
+              zip(grids, subs)]
+    ct = torch.zeros((k,), dtype=torch.int32, device=cl.device)
     cut2 = cfg.pair.max_cut ** 2
-    tests = inside = 0
+    tests = tests_all = inside = 0
     for n in range(int(iters.max()) + 1):
         cfg_n = dataclasses.replace(cfg, obmd=dataclasses.replace(
             o, usher=dataclasses.replace(o.usher, nattempt=n)))
         pos = usher_search_subset_batch(cfg_n, sub_l, sub_r, cl, cr, ct,
                                         o.region5, o.region6)[0]
-        d = cfg.box.min_image(pos[:, :, None, :] - sx[:, None, :, :])
-        near = sv[:, None, :] & ((d * d).sum(-1) < cut2)
-        live = iters >= n                    # candidates evaluated here
-        tests += int((live.to(torch.int64) * sv.sum(-1)[:, None]).sum())
-        inside += int((near & live[..., None]).sum())
+        live = (iters >= n).cpu()            # candidates evaluated here
+        for side, (g, sub) in enumerate(zip(grids, subs)):
+            d = cfg.box.min_image(pos[side][:, None, :] - sub.x[None, :, :])
+            near = sub.valid[None, :] & ((d * d).sum(-1) < cut2)
+            inside += int(near[live[side].to(near.device)].sum())
+            tests_all += int(live[side].sum()) * int(sub.valid.sum())
+            for kk, c3 in enumerate(g.cell3(pos[side]).tolist()):
+                if live[side, kk]:
+                    tests += int(counts[side][g.stencil_cells(c3)].sum())
     law = OPS_USHER_LJ if isinstance(cfg.pair, (LJCutParams, LJCutRFParams)) \
         else OPS_USHER_DPD
-    # rows, candidates and bounds read once; positions, verdicts and
-    # iterations written once
-    n_bytes = (rows.numel() + cand.numel() + bounds.numel()) * 4 \
-        + 2 * k * (3 * 4 + 4 + 4)
-    return n_bytes, tests * OPS_USHER_TEST + inside * law, tests, inside
+    rows_in = sum(s.x.shape[0] for s in subs) * (12 + 4 + 1) + 2 * k * 12
+    out = 2 * k * (3 * 4 + 4 + 4)
+    nvalid = sum(int(s.valid.sum()) for s in subs)
+    n_cells = sum(g.n_cells + 1 for g in grids)
+    evals = int((iters + 1).sum())
+    return dict(
+        tests=tests, tests_all_pairs=tests_all, inside=inside, evals=evals,
+        bytes=rows_in + out, ops=tests * OPS_USHER_TEST + inside * law,
+        scratch_bytes=2 * (16 * nvalid + 4 * n_cells),
+        bytes_all_pairs=rows_in + out,
+        ops_all_pairs=tests_all * OPS_USHER_TEST + inside * law)
 
 
 def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
-    """The law's USHER kernel against its plain version on one input:
-    verdicts equal on margin-robust candidates, accepted positions within
-    2e-3, at least 6 candidates checked.  Returns (the kernel's accepted
-    and iterations, max position error, candidates checked, candidates
-    that started above uovlp, i.e. took the overlap step first)."""
+    """The law's USHER kernel against its plain version on one input, one
+    step at a time, so that the float32 summation order's drift does not
+    compound over a search.  The kernel runs with nattempt = n for n = 0 ..
+    nattempt: run n + 1 retraces run n and takes one step more, so a
+    candidate that had stopped keeps its position, verdict and iterations
+    to the byte.  Each candidate still searching after n steps takes one
+    step of the plain version from the kernel's position.  On the
+    step-robust ones (the plain energy at least ROBUST_E x max(1, |E|)
+    from the gate etarget + eps at both positions and from uovlp before
+    the step, |F| >= ROBUST_F before it, the stepped position at least
+    ROBUST_X from every face of the region), the kernel's verdict and
+    whether it searches on equal the plain step's, and the positions lie
+    within 2e-3; at least 6 steps are checked.  Two launches of the whole
+    search give the same bytes.  The whole searches' verdicts on
+    candidates with |E - etarget| >= 0.3 at both end positions are logged
+    beside, not held: there the drift has had nattempt steps to grow.
+    Returns (the kernel's accepted and iterations, max position error,
+    steps checked, candidates that started above uovlp, i.e. took the
+    overlap step first)."""
     import torch
     from obmd_tpu_torch.forces.usher_kernel import usher_search
-    from obmd_tpu_torch.obmd.subset import (_batched_energy_force,
+    from obmd_tpu_torch.obmd.subset import (EPSILON, _batched_energy_force,
                                             pad_subset,
                                             usher_search_subset_batch)
     o = cfg.obmd
+    u = o.usher
     ct = torch.zeros((cl.shape[0],), dtype=torch.int32, device=DEV)
-    pk, ak, ik = usher_search(cfg, sub_l, sub_r, cl, cr, o.region5,
-                              o.region6)
-    sync()
-    pp, ap, ip = usher_search_subset_batch(cfg, sub_l, sub_r, cl, cr, ct,
-                                           o.region5, o.region6)
-    sync()
     b = max(sub_l.x.shape[0], sub_r.x.shape[0])
     sl, sr = pad_subset(sub_l, b), pad_subset(sub_r, b)
     sx = torch.stack([sl.x, sr.x])
     st = torch.stack([sl.type, sr.type])
     sv = torch.stack([sl.valid, sr.valid])
     ct2 = torch.stack([ct, ct])
+    lo = torch.tensor([o.region5.lo, o.region6.lo], device=DEV)[:, None]
+    hi = torch.tensor([o.region5.hi, o.region6.hi], device=DEV)[:, None]
 
     def energy(pos):
         return _batched_energy_force(cfg.pair, sx, st, sv, pos, ct2,
-                                     box=cfg.box)[0]
-    ek, ep, e0 = energy(pk), energy(pp), energy(torch.stack([cl, cr]))
-    et = o.usher.etarget
-    robust = ((ek - et).abs() >= 0.3) & ((ep - et).abs() >= 0.3)
-    checked = int(robust.sum())
+                                     box=cfg.box)
+
+    def clear(e, v):
+        return (e - v).abs() >= ROBUST_E * e.abs().clamp(min=1.0)
+
+    def steps_cfg(n):
+        return dataclasses.replace(cfg, obmd=dataclasses.replace(
+            o, usher=dataclasses.replace(u, nattempt=n)))
+
+    def kernel(n):
+        return usher_search(steps_cfg(n), sub_l, sub_r, cl, cr, o.region5,
+                            o.region6)
+
+    def plain(n, pos_l, pos_r):
+        return usher_search_subset_batch(steps_cfg(n), sub_l, sub_r, pos_l,
+                                         pos_r, ct, o.region5, o.region6)
+    gate = u.etarget + EPSILON
+    kern = kernel(0)
+    checked = steps = 0
+    err = 0.0
+    for n in range(u.nattempt):
+        pk, ak, ik = kern
+        nxt = kernel(n + 1)
+        pk1, ak1, ik1 = nxt
+        searching = ik == n
+        done = ~searching[..., None]
+        if not (torch.equal(torch.where(done, pk1, pk), pk)
+                and torch.equal(ak1[~searching], ak[~searching])
+                and torch.equal(ik1[~searching], ik[~searching])):
+            fail(f"USHER {label}: a candidate that stopped within {n} steps "
+                 f"changed in the run of {n + 1}")
+        pp, ap, ip = plain(1, pk[0].contiguous(), pk[1].contiguous())
+        e0, f0 = energy(pk)
+        e1 = energy(pp)[0]
+        face = torch.minimum((pp - lo).abs(), (pp - hi).abs()).amin(-1)
+        robust = (searching & clear(e0, gate) & clear(e0, u.uovlp)
+                  & clear(e1, gate) & (f0.norm(dim=-1) >= ROBUST_F)
+                  & (face >= ROBUST_X))
+        steps += int(searching.sum())
+        checked += int(robust.sum())
+        if not (torch.equal(ak1[robust], ap[robust])
+                and torch.equal((ik1 == n + 1)[robust], (ip == 1)[robust])):
+            fail(f"USHER {label}: step {n + 1}'s verdicts differ from the "
+                 f"plain step's on step-robust candidates")
+        if bool(robust.any()):
+            err = max(err, float((pk1 - pp).abs().amax(-1)[robust].max()))
+        kern = nxt
     if checked < 6:
-        fail(f"USHER {label}: only {checked} margin-robust candidates")
-    if not torch.equal(ak[robust], ap[robust]):
-        fail(f"USHER {label}: verdicts differ on margin-robust candidates")
-    both = robust & ak & ap
-    err = float((pk - pp).abs().amax(-1)[both].max()) \
-        if bool(both.any()) else 0.0
+        fail(f"USHER {label}: only {checked} step-robust steps")
     if not err < 2e-3:
         fail(f"USHER {label}: position error {err} >= 2e-3")
-    overlap = int((e0 > o.usher.uovlp).sum())
-    log(f"usher {label}: B={b}, {checked} robust candidates, accepted "
-        f"{int(ak.sum())}/{ak.numel()} (plain {int(ap.sum())}), iterations "
-        f"{int(ik.sum())} (plain {int(ip.sum())}), {overlap} candidates "
-        f"started above uovlp (the overlap step), max_abs_err {err:.3e}")
+    pk, ak, ik = kern
+    if not all(torch.equal(a, b) for a, b in zip(kern, kernel(u.nattempt))):
+        fail(f"USHER {label}: two launches on one input differ")
+    pp, ap, ip = plain(u.nattempt, cl, cr)
+    ek, ep = energy(pk)[0], energy(pp)[0]
+    et = u.etarget
+    robust = ((ek - et).abs() >= 0.3) & ((ep - et).abs() >= 0.3)
+    overlap = int((energy(torch.stack([cl, cr]))[0] > u.uovlp).sum())
+    log(f"usher {label}: B={sub_l.x.shape[0]},{sub_r.x.shape[0]}, "
+        f"{checked} of {steps} steps step-robust and equal to the plain "
+        f"step, max_abs_err {err:.3e}; accepted {int(ak.sum())}/{ak.numel()}"
+        f" (plain {int(ap.sum())}), iterations {int(ik.sum())} (plain "
+        f"{int(ip.sum())}), whole searches: verdicts differ on "
+        f"{int((ak != ap)[robust].sum())} of {int(robust.sum())} candidates "
+        f"with |E - etarget| >= 0.3; {overlap} candidates started above "
+        f"uovlp (the overlap step); two launches the same bytes")
     return ak, ik, err, checked, overlap
 
 
+def usher_edge_inputs(cfg, sub_l, sub_r, seed=HOLES_SEED):
+    """The three edge inputs of the USHER checks, each (label, sub_l,
+    sub_r, cl, cr) with EDGE_K x K seeded
+    candidates a side: a third of each subset's valid rows made invalid
+    (uniform candidates); candidates within 0.05 of the periodic y and z
+    faces and of the region's x ends; each side's first candidate's cell
+    crowded to at least 4x the mean atoms per cell with valid atoms moved
+    there from farther than 2 cuts in x (uniform candidates)."""
+    import torch
+    from obmd_tpu_torch.forces.usher_kernel import UsherPlan
+    o = cfg.obmd
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    k = EDGE_K * o.insert_kmax
+    u = torch.rand((2, k, 3), generator=g, device=DEV)
+    cl = o.region5.sample_uniform(u[0])
+    cr = o.region6.sample_uniform(u[1])
+
+    def holed(sub):
+        drop = torch.rand(sub.valid.shape, generator=g, device=DEV) < 1 / 3
+        return sub._replace(valid=sub.valid & ~drop)
+
+    def near_faces(region):
+        lo = torch.tensor(region.lo, device=DEV)
+        hi = torch.tensor(region.hi, device=DEV)
+        u = 0.05 * torch.rand((k, 3), generator=g, device=DEV)
+        side = torch.rand((k, 3), generator=g, device=DEV) < 0.5
+        return torch.where(side, lo + u, hi - u).contiguous()
+
+    grids = UsherPlan.of(cfg, o.region5, o.region6).grids
+    cut = cfg.pair.max_cut
+
+    def crowded(sub, grid, c):
+        c3 = grid.cell3(c[None])[0]
+        lo = torch.tensor(grid.lo, device=DEV) + c3 * torch.tensor(
+            grid.side, device=DEV)
+        n_add = int(-(-4 * int(sub.valid.sum()) // grid.n_cells))
+        far = torch.nonzero(sub.valid & ((sub.x[:, 0] - c[0]).abs()
+                                         > 2 * cut)).flatten()
+        move = far[torch.randperm(far.numel(), generator=g,
+                                  device=DEV)[:n_add]]
+        x = sub.x.clone()
+        x[move] = lo + torch.rand((move.numel(), 3), generator=g,
+                                  device=DEV) * torch.tensor(grid.side,
+                                                             device=DEV)
+        return sub._replace(x=x)
+    return [
+        ("holes", holed(sub_l), holed(sub_r), cl, cr),
+        ("faces", sub_l, sub_r, near_faces(o.region5), near_faces(o.region6)),
+        ("crowded", crowded(sub_l, grids[0], cl[0]),
+         crowded(sub_r, grids[1], cr[0]), cl, cr)]
+
+
+def usher_grid_figures(cfg, sub_l, sub_r):
+    """Each side's grid (cells per axis) and its mean and largest valid
+    atoms per cell."""
+    import torch
+    from obmd_tpu_torch.forces.usher_kernel import UsherPlan, bin_rows
+    o = cfg.obmd
+    out = []
+    for g, s in zip(UsherPlan.of(cfg, o.region5, o.region6).grids,
+                    (sub_l, sub_r)):
+        n = torch.diff(bin_rows(g, s)[1])
+        out.append(dict(cells=list(g.cells),
+                        atoms_per_cell_mean=float(n.float().mean()),
+                        atoms_per_cell_max=int(n.max())))
+    return out
+
+
 def check_usher(cfg, geom, state, label):
-    """The law's USHER kernel against its plain version on the state's
-    buffer subsets with K uniform candidates per buffer; for the LJ family
-    at least one candidate must take the overlap step, and for lj/cut the
-    shifted law's rows run on the same input too."""
+    """The law's USHER kernel against its plain version, one step at a time
+    (usher_compare), on the state's buffer subsets with K uniform
+    candidates per buffer, then on the three edge inputs
+    (usher_edge_inputs); two launches on each input give the same bytes; for the LJ family at least one candidate must take the
+    overlap step, and for lj/cut the shifted law's rows run on the same
+    input too.  The kernel's ms is the whole C call (binning and search)."""
     import torch
     from obmd_tpu_torch.config import LJCutParams, LJCutRFParams
     from obmd_tpu_torch.engine_cellpad import _subset_slice
-    from obmd_tpu_torch.forces.usher_kernel import kernel_inputs, launch
+    from obmd_tpu_torch.forces.usher_kernel import launch
     from obmd_tpu_torch.obmd.subset import usher_search_subset_batch
     o = cfg.obmd
     k = o.insert_kmax
@@ -776,27 +952,56 @@ def check_usher(cfg, geom, state, label):
             _, _, err_s, checked_s, _ = usher_compare(
                 cfg_s, sub_l, sub_r, cl, cr, f"{label}, shifted")
             extra = dict(shifted_max_abs_err=err_s,
-                         shifted_robust_checked=checked_s)
-        inputs = kernel_inputs(cfg, sub_l, sub_r, cl, cr, o.region5,
-                               o.region6)
-        ms = time_ms(lambda: launch(cfg, *inputs))
+                         shifted_robust_steps=checked_s)
+        for name, el, er, ecl, ecr in usher_edge_inputs(cfg, sub_l, sub_r):
+            _, _, err_e, checked_e, _ = usher_compare(
+                cfg, el, er, ecl, ecr, f"{label}, {name}")
+            extra[f"{name}_max_abs_err"] = err_e
+            extra[f"{name}_robust_steps"] = checked_e
+            err = max(err, err_e)
+        ms = time_ms(lambda: launch(cfg, sub_l, sub_r, cl, cr, o.region5,
+                                    o.region6))
         plain = time_ms(lambda: usher_search_subset_batch(
             cfg, sub_l, sub_r, cl, cr, ct, o.region5, o.region6),
             reps=5, warmup=1, batches=1)
     t0 = time.perf_counter()
-    n_bytes, n_ops, tests, inside = usher_work(cfg, sub_l, sub_r, cl, cr, ik,
-                                               inputs)
+    w = usher_work(cfg, sub_l, sub_r, cl, cr, ik)
     work_s = time.perf_counter() - t0
-    b_ms, b_by = bound(n_bytes, n_ops)
-    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
-    log(f"usher {label}: B={b}, K={k}, kernel {ms:.4f} ms, plain {plain:.3f} "
-        f"ms, bound {b_ms:.5f} ms ({b_by}; {tests} distance tests, {inside} "
-        f"within the cutoff, counted in {work_s:.2f} s)")
+    b_ms, b_by = bound(w["bytes"], w["ops"])
+    b_all, b_all_by = bound(w["bytes_all_pairs"], w["ops_all_pairs"])
+    grid = usher_grid_figures(cfg, sub_l, sub_r)
+    max_evals = int(ik.max()) + 1
+    evals = w["evals"]
+    figs = dict(
+        grid_cells=[s["cells"] for s in grid],
+        atoms_per_cell_mean=[round(s["atoms_per_cell_mean"], 3)
+                             for s in grid],
+        atoms_per_cell_max=[s["atoms_per_cell_max"] for s in grid],
+        tests_per_eval=w["tests"] / evals,
+        tests_per_eval_all_pairs=w["tests_all_pairs"] / evals,
+        bound_all_pairs_ms=b_all, scratch_bytes=w["scratch_bytes"],
+        max_evals=max_evals,
+        ms_per_eval=ms / max_evals)
+    log(f"usher {label}: B={sub_l.x.shape[0]},{sub_r.x.shape[0]}, K={k}, "
+        f"grid {grid[0]['cells']} / {grid[1]['cells']} cells, atoms per "
+        f"cell mean {figs['atoms_per_cell_mean']} max "
+        f"{figs['atoms_per_cell_max']}, kernel {ms:.4f} ms, plain "
+        f"{plain:.3f} ms, bound {b_ms:.5f} ms ({b_by}; {w['tests']} "
+        f"distance tests, {figs['tests_per_eval']:.1f} per evaluation, "
+        f"{w['inside']} within the cutoff), all-pairs bound {b_all:.5f} ms "
+        f"({b_all_by}; {w['tests_all_pairs']} tests, "
+        f"{figs['tests_per_eval_all_pairs']:.1f} per evaluation), "
+        f"{w['bytes']} bytes in and out, {w['scratch_bytes']} of scratch "
+        f"(not in the bound), "
+        f"{evals} evaluations, longest candidate {max_evals}, "
+        f"{1e3 * figs['ms_per_eval']:.2f} us per dependent evaluation "
+        f"(counted in {work_s:.2f} s)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None), dict(
-        B=b, K=k, robust_checked=checked, accepted=int(ak.sum()),
-        overlap_candidates=overlap, distance_tests=tests,
-        within_cutoff=inside, **extra)
+                bound_by=b_by, library_ms=None, **figs), dict(
+        B=[sub_l.x.shape[0], sub_r.x.shape[0]], K=k, robust_steps=checked,
+        accepted=int(ak.sum()), overlap_candidates=overlap,
+        distance_tests=w["tests"], distance_tests_all_pairs=w[
+            "tests_all_pairs"], within_cutoff=w["inside"], **extra)
 
 
 class SeededDraws:

@@ -93,9 +93,13 @@ class Kernel:
 # split, shared memory bytes), stream
 _PAIR_ARGS = (_P,) * 5 + (_I,) * 13 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F) \
     + (_I,) * 5 + (_P,)
-# rows, cand, bounds, out_pos, out_acc, out_iters, B, K, nattempt, ly, lz,
-# thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps, stream
-_USHER_ARGS = (_P,) * 6 + (_I,) * 3 + (_F,) * 9 + (_P,)
+_L = ctypes.c_longlong
+# per side x, type, valid, B; cand_l, cand_r, K, scratch, scratch words,
+# out_pos, out_acc, out_iters, cells, grid, bounds, coef (host arrays),
+# ntypes, nattempt, ly, lz, thresh, etarget, ds0, uovlp, dsovlp, four_eps,
+# eps, stream
+_USHER_ARGS = ((_P,) * 3 + (_I,)) * 2 + (_P, _P, _I, _P, _L) + (_P,) * 7 \
+    + (_I,) * 2 + (_F,) * 9 + (_P,)
 
 KERNELS: Dict[str, Kernel] = {
     "pair": Kernel(

@@ -1,4 +1,4 @@
-// The USHER steered-insertion search for both buffers in one launch, for
+// The USHER steered-insertion search for both buffers in one C call, for
 // Hopper (sm_90a), with the DPD law (entry point obmd_usher_search) or the
 // lj/cut law (obmd_usher_search_lj).  The lj entry point also runs the
 // lj/cut/rf law's rows: an ATOM-mode trial atom is neutral, so the reaction
@@ -7,110 +7,325 @@
 //
 // Replaces: obmd_tpu/forces/pallas_usher.py make_usher_kernel (:79-254,
 // kernel body :110-229), called through usher_search_pallas (:257-311);
-// the laws' per-atom rows are usher_law's (:42-76), their energy and force
+// the laws' coefficients are usher_law's (:42-76), their energy and force
 // the kernel's energy_force (:135-171).
 //
-// Inputs: rows f32[2][R][B] (per side: x, y, z of each subset atom, then
-// the law's coefficient rows against the trial type; R = 5 for DPD with
-// a0, cut; R = 7 for lj/cut with lj3, lj4, cut, eshift; padding rows at
-// x = BIG with cut = 1 and every other coefficient 0), cand f32[2][K][3],
-// bounds f32[2][6] (region lo xyz, hi xyz).  Outputs: pos f32[2][K][3],
-// accepted i32[2][K], iters i32[2][K].
+// Inputs, per side (left, right): the buffer subset as the engine builds
+// it, x f32[B][3], type i32[B], valid u8[B] (B may differ between the
+// sides), and the candidates f32[K][3]; on the host: each side's cell grid
+// (cells per axis, origin, inverse cell side), the two insertion regions,
+// and the law's coefficients against the trial type by subset-atom type
+// (dpd: a0, cut; lj: lj3, lj4, cut, eshift; at most 4 types).  Scratch
+// i32, laid out per side as scratch_words() says.  Outputs: pos
+// f32[2][K][3], accepted bool[2][K], iters i32[2][K].
 //
 // Function (ref fix_obmd_merged.cpp:1518-1616, with the arithmetic of
 // obmd_tpu/obmd/subset.py usher_search_subset_batch, the plain version):
 // each iteration evaluates the trial energy E and force F of the candidate
-// against all B subset atoms; E < etarget + eps accepts; otherwise the
+// against the valid subset atoms; E < etarget + eps accepts; otherwise the
 // candidate steps along F/|F| by ds_ovlp = dsovlp - (4 eps / E)^(1/12) when
 // E > uovlp, else by ds = min((E - etarget)/|F|, ds0); leaving the
 // insertion region or a degenerate force rejects.  After nattempt
 // iterations a last energy check accepts candidates still active and below
 // target.  The laws, each counted for 1e-10 < r < rc only:
-//   dpd: E = sum 0.5*a0*rc*wd^2, F = sum a0*wd*rhat, wd = 1 - r/rc, with
-//        r = sqrt(r^2) (the TPU kernel: r^2 * rsqrt(r^2));
+//   dpd: E = sum 0.5*a0*rc*wd^2, F = sum a0*wd*rhat, wd = 1 - r/rc;
 //   lj:  E = sum r6inv*(lj3*r6inv - lj4) - eshift,
 //        F = sum r6inv*(12*lj3*r6inv - 6*lj4)*r2inv * d, r2inv = 1/r^2,
-//        r6inv = r2inv^3.  Where this follows the plain version rather
-//        than the TPU kernel: the r ~ 0 test is r^2 > 1e-20 and the
-//        reciprocal 1/max(r^2, 1e-10), as forces/pairs.make_pair_law (the
-//        TPU kernel: r^2 > 1e-12 and 1/max(r^2, 1e-12); no real pair is
-//        that close, so both exclude the same pairs); the plain law takes
-//        48*eps*sig^12 and 24*eps*sig^6 as its force coefficients, which
-//        equal 12*lj3 and 6*lj4 up to one float32 rounding of each (exactly
-//        at eps = sig = 1), and computes the shift in float32 where the rows
-//        carry it rounded from float64.  LJ's r^-12 core takes E far above
-//        uovlp = 1e4 (DPD's soft energy never does), so the overlap step
-//        runs here; its (4 eps / E)^(1/12) is powf in float32, accurate to
-//        an ulp over the 1e4-1e12 range such candidates start in.
+//        r6inv = r2inv^3, with the plain version's r ~ 0 test
+//        (r^2 > 1e-20) and reciprocal 1/max(r^2, 1e-10).
+// The minimum image on periodic y and z is the plain version's
+// d - L*rint(d/L); x is open (OBMD's buffers).
 //
-// Design.  A candidate's iterations are sequential, so its whole search
-// stays inside one thread block: the grid is (K candidates, 2 sides).  Each
-// iteration is a block-wide reduction of (E, Fx, Fy, Fz) over the subset
-// (each thread strides over B), then thread 0 applies the step rule and
-// publishes the new position through shared memory.  A candidate that has
-// stopped leaves its loop at once; the TPU kernel runs all iterations
-// masked, with the same result.  The law is a template parameter of the
-// energy evaluation, so each entry point compiles its own loop.
+// Design.  Four kernels and a memset on the caller's stream, enqueued by
+// one C call.
+//  1. Binning, three grid-wide passes after a memset of the counts:
+//     bin_count files each valid row in its cell of the side's grid and
+//     counts the cells (global atomics), and the side's last row block
+//     scans the counts into each cell's start; bin_scatter scatters the
+//     row indices into their cells' segments; bin_write writes each row's
+//     (x, y, z, type) as one float4 at its cell's start plus its rank
+//     among the cell's rows by ascending row index, so the sorted rows are
+//     the same bytes on every launch.  Cells are numbered with x fastest:
+//     x is open, so a stencil's x neighbours are one contiguous run.
+//  2. usher_kernel, one block of Warps<law> warps per candidate (grid K x
+//     2, spread over the SMs; 4 warps for DPD's ~85 stencil atoms, 8 for
+//     LJ's ~400, the fastest of 1-16 timed by usher_probe.py): each energy
+//     evaluation finds the candidate's cell and the 9 (y, z) runs of up to
+//     3 x cells around it (a periodic axis of fewer than 3 cells visits
+//     each cell once), and the threads stride over the runs' atoms; a
+//     butterfly shuffle sums each warp, the warps' sums meet in shared
+//     memory behind one barrier, and every thread adds them in warp order,
+//     so all hold the same E and F and apply the step rule alike.
+// A cell side is at least the law's largest cut against the trial type
+// (forces/usher_kernel.UsherGrid), so the stencil holds every atom within
+// the cutoff.  The sums run in another order than the plain version's,
+// so a verdict within a float32 ulp of the gate may differ; the smoke
+// compares margin-robust candidates.
 //
-// Bound on an H100: operations.  The subset rows are 2 x R x B floats
-// (~0.9 MB at R = 7, B = 16k), read from L2 on every iteration, while each
-// energy evaluation costs a ~15-flop distance test per subset atom and the
-// law's ~20 more only on the few dozen atoms within the cutoff.
-// With only 2 x K = 32 blocks the card is far from full, and every
-// iteration pays a block barrier and a reduction: latency, not throughput,
-// bounds this first version.
+// Bound on an H100: latency.  The work per call is a few million float32
+// operations, a few microseconds at the card's rate; but a candidate's
+// up to 41 evaluations are a dependent chain, each a cell-table load, a
+// pass or two over the stencil's atoms (~85 for DPD at rho 3, ~400 for LJ
+// at rho* 0.84) from L1/L2, the reductions and the step rule.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
-struct Params {
-  int B, K, nattempt;
-  float ly, lz;
-  float thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps;
-};
+constexpr int kBinThreads = 1024;
+constexpr int kMaxTypes = 4;
+constexpr int kCoef = 4;
+// the scan's copy of one side's counts in bin_count's dynamic shared
+// memory, which shares the default 48 KB with the block's static arrays
+// (warp_tot and last: kBinStatic bytes at most)
+constexpr int kSmemDefault = 48 * 1024;
+constexpr int kBinStatic = 1024;
+constexpr int kMaxCells = (kSmemDefault - kBinStatic) / 4;
+static_assert(sizeof(int) * (kBinThreads / 32) + 16 <= kBinStatic,
+              "bin_count's static shared memory outgrows kBinStatic");
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Law { kDpd = 0, kLj = 1 };
 
-template <int kLaw>
-struct LawRows;
-template <>
-struct LawRows<kDpd> {
-  static constexpr int kRows = 5;   // x, y, z, a0, cut
-};
-template <>
-struct LawRows<kLj> {
-  static constexpr int kRows = 7;   // x, y, z, lj3, lj4, cut, eshift
+struct Side {
+  const float* x;
+  const int* type;
+  const unsigned char* valid;
+  const float* cand;
+  int b;
+  int n[3];          // cells per axis
+  float o[3];        // grid origin
+  float inv_h[3];    // float32 reciprocal of the cell side
+  float lo[3], hi[3];  // the insertion region
+  int* cnt;          // [ncell + 1] rows per cell, then fill cursors; the
+                     // last word counts finished row blocks
+  int* start;        // [ncell + 1] first sorted row of each cell
+  int* cellof;       // [b] each row's cell (-1: invalid)
+  int* tmp;          // [b] row indices scattered by cell
+  float4* rows;      // [b] sorted rows: x, y, z, type
 };
 
+struct Params {
+  Side s[2];
+  int K, nattempt, ntypes;
+  float ly, lz;
+  float thresh, etarget, ds0, uovlp, dsovlp, four_eps, eps;
+  float coef[kMaxTypes * kCoef];
+  float* out_pos;
+  unsigned char* out_acc;  // bool
+  int* out_iters;
+};
+
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// The cell of v on one axis: floor((v - o) * inv_h), wrapped on a periodic
+// axis, clamped to the grid on an open one (forces/usher_kernel.py
+// UsherGrid.cell3 is the same rule).
+__device__ __forceinline__ int axis_cell(float v, float o, float inv_h, int n,
+                                         bool wrap) {
+  float f = floorf((v - o) * inv_h);
+  f = fminf(fmaxf(f, -1.0e6f), 1.0e6f);
+  int c = (int)f;
+  if (wrap) {
+    c %= n;
+    if (c < 0) c += n;
+  } else {
+    c = min(max(c, 0), n - 1);
+  }
+  return c;
+}
+
+// Stencil neighbour c + off on a y or z axis; false where the axis has no
+// such cell (open edge, or a periodic axis of fewer than 3 cells, which
+// visits each of its cells once through the offsets 0 .. n - 1).
+__device__ __forceinline__ bool stencil_cell(int c, int off, int n, bool wrap,
+                                             int* out) {
+  if (wrap) {
+    if (n < 3 && (off < 0 || off >= n)) return false;
+    *out = (c + off + n) % n;
+    return true;
+  }
+  *out = c + off;
+  return *out >= 0 && *out < n;
+}
+
+__device__ __forceinline__ Side pick(const Params& P, int side) {
+  return side ? P.s[1] : P.s[0];
+}
+
+__device__ __forceinline__ int row_cell(const Side& S, int i, bool wy,
+                                        bool wz) {
+  const int cx = axis_cell(S.x[3 * i], S.o[0], S.inv_h[0], S.n[0], false);
+  const int cy = axis_cell(S.x[3 * i + 1], S.o[1], S.inv_h[1], S.n[1], wy);
+  const int cz = axis_cell(S.x[3 * i + 2], S.o[2], S.inv_h[2], S.n[2], wz);
+  return (cz * S.n[1] + cy) * S.n[0] + cx;
+}
+
+// Pass 1, one thread per subset row (grid: row blocks x 2 sides): file
+// each valid row in its cell (cellof, -1 for an invalid row) and count the
+// cells' rows; the side's last block to finish scans the counts into each
+// cell's start and turns the counts into fill cursors.
+__global__ void __launch_bounds__(kBinThreads) bin_count(Params P) {
+  extern __shared__ int sh[];
+  __shared__ int warp_tot[kBinThreads / 32];
+  __shared__ bool last;
+  const Side S = pick(P, blockIdx.y);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int ncell = S.n[0] * S.n[1] * S.n[2];
+  const int i = blockIdx.x * kBinThreads + tid;
+  if (i < S.b) {
+    int c = -1;
+    if (S.valid[i]) {
+      c = row_cell(S, i, P.ly > 0.f, P.lz > 0.f);
+      atomicAdd(&S.cnt[c], 1);
+    }
+    S.cellof[i] = c;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&S.cnt[ncell], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // exclusive scan: thread t owns a contiguous range of cells
+#pragma unroll 4
+  for (int c = tid; c < ncell; c += kBinThreads) sh[c] = __ldcg(S.cnt + c);
+  __syncthreads();
+  const int per = (ncell + kBinThreads - 1) / kBinThreads;
+  const int c0 = min(tid * per, ncell), c1 = min(c0 + per, ncell);
+  int sum = 0;
+  for (int c = c0; c < c1; ++c) sum += sh[c];
+  int incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_tot[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    int v = warp_tot[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, v, o);
+      if (lane >= o) v += u;
+    }
+    warp_tot[lane] = v;
+  }
+  __syncthreads();
+  int run = incl - sum + (w > 0 ? warp_tot[w - 1] : 0);
+  for (int c = c0; c < c1; ++c) {
+    S.start[c] = run;
+    S.cnt[c] = run;                     // now each cell's fill cursor
+    run += sh[c];
+  }
+  if (tid == 0) S.start[ncell] = warp_tot[kBinThreads / 32 - 1];
+}
+
+// Pass 2, one thread per subset row: scatter each valid row's index into
+// its cell's segment (in no fixed order within the cell).
+__global__ void __launch_bounds__(kBinThreads) bin_scatter(Params P) {
+  const Side S = pick(P, blockIdx.y);
+  const int i = blockIdx.x * kBinThreads + threadIdx.x;
+  if (i >= S.b) return;
+  const int c = S.cellof[i];
+  if (c >= 0) S.tmp[atomicAdd(&S.cnt[c], 1)] = i;
+}
+
+// Pass 3, one thread per sorted slot: each scattered row goes to its
+// cell's start plus its rank by row index among the cell's rows, as a
+// float4 of x, y, z and its type clamped to the table, so the sorted rows
+// are the same bytes on every launch.
+__global__ void __launch_bounds__(kBinThreads) bin_write(Params P) {
+  const Side S = pick(P, blockIdx.y);
+  const int p = blockIdx.x * kBinThreads + threadIdx.x;
+  const int ncell = S.n[0] * S.n[1] * S.n[2];
+  if (p >= S.start[ncell]) return;
+  const int i = S.tmp[p];
+  const int c = S.cellof[i];
+  const int s = S.start[c], e = S.start[c + 1];
+  int rank = 0;
+  for (int q = s; q < e; ++q) rank += S.tmp[q] < i;
+  const int t = min(max(S.type[i], 0), P.ntypes - 1);
+  S.rows[s + rank] = make_float4(S.x[3 * i], S.x[3 * i + 1], S.x[3 * i + 2],
+                                 (float)t);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-// Block-wide (E, Fx, Fy, Fz) of the trial position p; the result is valid in
-// thread 0 only.
+// Warps per candidate: the block that searches one candidate.
 template <int kLaw>
-__device__ void energy_force(const float* __restrict__ R, int B, const float p[3],
-                             float ly, float lz, float out[4],
-                             float (*red)[kWarps]) {
+struct Warps;
+template <>
+struct Warps<kDpd> {
+  static constexpr int value = 4;
+};
+template <>
+struct Warps<kLj> {
+  static constexpr int value = 8;
+};
+
+// (E, Fx, Fy, Fz) of the trial position p against the atoms of its
+// stencil, the same in every thread of the block: each warp strides over
+// the stencil's atoms (thread t of the block takes atoms t, t + 32 kW,
+// ...), sums its lanes with a butterfly, and with several warps the
+// warps' sums meet in red[parity] (two buffers, so one barrier an
+// evaluation suffices) and every thread adds them in warp order.
+template <int kLaw, int kW>
+__device__ __forceinline__ void energy_force(const Side& S, const Params& P,
+                                             const float* coef,
+                                             const float p[3], float out[4],
+                                             float (*red)[kW][4],
+                                             int parity) {
+  const int lane = threadIdx.x & 31;
+  const bool wy = P.ly > 0.f, wz = P.lz > 0.f;
+  const int cx = axis_cell(p[0], S.o[0], S.inv_h[0], S.n[0], false);
+  const int cy = axis_cell(p[1], S.o[1], S.inv_h[1], S.n[1], wy);
+  const int cz = axis_cell(p[2], S.o[2], S.inv_h[2], S.n[2], wz);
+  const int xlo = max(cx - 1, 0), xhi = min(cx + 1, S.n[0] - 1);
+  // lane r < 9 holds run r: the x cells xlo..xhi of (y, z) neighbour r
+  int len = 0, first = 0;
+  if (lane < 9) {
+    int yy, zz;
+    if (stencil_cell(cy, lane / 3 - 1, S.n[1], wy, &yy) &&
+        stencil_cell(cz, lane % 3 - 1, S.n[2], wz, &zz)) {
+      const int base = (zz * S.n[1] + yy) * S.n[0];
+      first = __ldg(S.start + base + xlo);
+      len = __ldg(S.start + base + xhi + 1) - first;
+    }
+  }
+  int incl = len;
+  for (int o = 1; o < 16; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const int off = first - (incl - len);   // sorted row = flat index + off
+  int run_end[9], run_off[9];
+#pragma unroll
+  for (int r = 0; r < 9; ++r) {
+    run_end[r] = __shfl_sync(kFull, incl, r);
+    run_off[r] = __shfl_sync(kFull, off, r);
+  }
+  const int total = run_end[8];
   float e = 0.f, fx = 0.f, fy = 0.f, fz = 0.f;
-  for (int j = threadIdx.x; j < B; j += kThreads) {
-    const float dx = p[0] - R[j];
-    float dy = p[1] - R[B + j];
-    float dz = p[2] - R[2 * B + j];
-    if (ly > 0.f) dy = dy - ly * rintf(dy / ly);
-    if (lz > 0.f) dz = dz - lz * rintf(dz / lz);
+  for (int t = threadIdx.x; t < total; t += 32 * kW) {
+    int o = run_off[8];
+#pragma unroll
+    for (int r = 7; r >= 0; --r)
+      if (t < run_end[r]) o = run_off[r];
+    const float4 a = __ldg(S.rows + t + o);
+    const float* cf = coef + kCoef * (int)a.w;
+    const float dx = p[0] - a.x;
+    float dy = p[1] - a.y;
+    float dz = p[2] - a.z;
+    if (wy) dy = dy - P.ly * rintf(dy / P.ly);
+    if (wz) dz = dz - P.lz * rintf(dz / P.lz);
     const float rsq = dx * dx + dy * dy + dz * dz;
     if (kLaw == kDpd) {
-      const float a0 = R[3 * B + j];
-      const float cut = R[4 * B + j];
+      const float a0 = cf[0], cut = cf[1];
       const float r = sqrtf(rsq);
-      const bool inr = (rsq < cut * cut) && (r > 1e-10f);
-      if (inr) {
+      if ((rsq < cut * cut) && (r > 1e-10f)) {
         const float rinv = 1.f / fmaxf(r, 1e-10f);
         const float wd = 1.f - r / cut;
         e += 0.5f * a0 * cut * wd * wd;
@@ -120,12 +335,8 @@ __device__ void energy_force(const float* __restrict__ R, int B, const float p[3
         fz += fp * dz;
       }
     } else {
-      const float lj3 = R[3 * B + j];
-      const float lj4 = R[4 * B + j];
-      const float cut = R[5 * B + j];
-      const float esh = R[6 * B + j];
-      const bool inr = (rsq < cut * cut) && (rsq > 1e-20f);
-      if (inr) {
+      const float lj3 = cf[0], lj4 = cf[1], cut = cf[2], esh = cf[3];
+      if ((rsq < cut * cut) && (rsq > 1e-20f)) {
         const float r2inv = 1.f / fmaxf(rsq, 1e-10f);
         const float r6inv = r2inv * r2inv * r2inv;
         e += r6inv * (lj3 * r6inv - lj4) - esh;
@@ -136,122 +347,190 @@ __device__ void energy_force(const float* __restrict__ R, int B, const float p[3
       }
     }
   }
-  e = warp_sum(e);
-  fx = warp_sum(fx);
-  fy = warp_sum(fy);
-  fz = warp_sum(fz);
-  const int w = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) {
-    red[0][w] = e;
-    red[1][w] = fx;
-    red[2][w] = fy;
-    red[3][w] = fz;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  out[0] = warp_sum(e);
+  out[1] = warp_sum(fx);
+  out[2] = warp_sum(fy);
+  out[3] = warp_sum(fz);
+  if (kW > 1) {
+    const int w = threadIdx.x >> 5;
+    if (lane == 0)
+      for (int c = 0; c < 4; ++c) red[parity][w][c] = out[c];
+    __syncthreads();
     for (int c = 0; c < 4; ++c) {
-      float s = 0.f;
-      for (int i = 0; i < kWarps; ++i) s += red[c][i];
-      out[c] = s;
+      float v = red[parity][0][c];
+      for (int u = 1; u < kW; ++u) v += red[parity][u][c];
+      out[c] = v;
     }
   }
-  __syncthreads();
 }
 
 template <int kLaw>
-__global__ void __launch_bounds__(kThreads)
-usher_kernel(const float* __restrict__ rows, const float* __restrict__ cand,
-             const float* __restrict__ bounds, float* __restrict__ out_pos,
-             int* __restrict__ out_acc, int* __restrict__ out_iters, Params P) {
-  const int k = blockIdx.x;
-  const int side = blockIdx.y;
-  const float* R = rows + (size_t)side * LawRows<kLaw>::kRows * P.B;
-  __shared__ float red[4][kWarps];
-  __shared__ float pos[3];
-  __shared__ int active, accepted, iters;
-  float ef[4];
-  const float* bnd = bounds + side * 6;
+__global__ void __launch_bounds__(32 * Warps<kLaw>::value)
+usher_kernel(Params P) {
+  constexpr int kW = Warps<kLaw>::value;
+  __shared__ float coef[kMaxTypes * kCoef];
+  __shared__ float red[2][kW][4];
+  const int k = blockIdx.x, side = blockIdx.y;
+  const Side S = pick(P, side);
   if (threadIdx.x == 0) {
-    for (int c = 0; c < 3; ++c) pos[c] = cand[((size_t)side * P.K + k) * 3 + c];
-    active = 1;
-    accepted = 0;
-    iters = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxTypes * kCoef; ++i) coef[i] = P.coef[i];
   }
   __syncthreads();
-  for (int it = 0; it < P.nattempt; ++it) {
-    if (!active) break;                 // block-uniform: read after a barrier
-    float p[3] = {pos[0], pos[1], pos[2]};
-    energy_force<kLaw>(R, P.B, p, P.ly, P.lz, ef, red);
-    if (threadIdx.x == 0) {
-      const float E = ef[0];
-      const bool ok = E < P.thresh;
-      const float fabs_ = sqrtf(ef[1] * ef[1] + ef[2] * ef[2] + ef[3] * ef[3]);
-      const bool degen = fabs_ < P.eps;
-      const float ds_ovlp = P.dsovlp - powf(P.four_eps / fmaxf(E, P.eps),
-                                            1.0f / 12.0f);
-      const float ds_norm = fminf((E - P.etarget) / fmaxf(fabs_, P.eps), P.ds0);
-      const float ds = E > P.uovlp ? ds_ovlp : ds_norm;
-      const float fn = fmaxf(fabs_, P.eps);
-      float m[3];
-      bool inside = true;
-      for (int c = 0; c < 3; ++c) {
-        m[c] = p[c] + (ef[c + 1] / fn) * ds;
-        inside = inside && (m[c] >= bnd[c]) && (m[c] <= bnd[3 + c]);
-      }
-      const bool move_now = !ok && !degen;
-      if (move_now)
-        for (int c = 0; c < 3; ++c) pos[c] = m[c];
-      const bool stopped = ok || degen || (move_now && !inside);
-      if (ok) accepted = 1;
-      if (stopped) active = 0;
-      else iters += 1;
+  float p[3];
+  for (int c = 0; c < 3; ++c) p[c] = S.cand[k * 3 + c];
+  // every thread holds the same sums, so the block takes every branch
+  // alike
+  bool active = true, accepted = false;
+  int iters = 0;
+  float ef[4];
+  for (int it = 0; it < P.nattempt && active; ++it) {
+    energy_force<kLaw, kW>(S, P, coef, p, ef, red, it & 1);
+    const float E = ef[0];
+    const bool ok = E < P.thresh;
+    const float fabs_ = sqrtf(ef[1] * ef[1] + ef[2] * ef[2] + ef[3] * ef[3]);
+    const bool degen = fabs_ < P.eps;
+    const float fn = fmaxf(fabs_, P.eps);
+    float ds;
+    if (E > P.uovlp)   // the overlap step
+      ds = P.dsovlp - powf(P.four_eps / fmaxf(E, P.eps), 1.0f / 12.0f);
+    else
+      ds = fminf((E - P.etarget) / fn, P.ds0);
+    float m[3];
+    bool inside = true;
+    for (int c = 0; c < 3; ++c) {
+      m[c] = p[c] + (ef[c + 1] / fn) * ds;
+      inside = inside && (m[c] >= S.lo[c]) && (m[c] <= S.hi[c]);
     }
-    __syncthreads();
+    const bool move_now = !ok && !degen;
+    if (move_now)
+      for (int c = 0; c < 3; ++c) p[c] = m[c];
+    const bool stopped = ok || degen || (move_now && !inside);
+    if (ok) accepted = true;
+    if (stopped) active = false;
+    else iters += 1;
   }
   if (active) {                         // post-loop acceptance check
-    float p[3] = {pos[0], pos[1], pos[2]};
-    energy_force<kLaw>(R, P.B, p, P.ly, P.lz, ef, red);
-    if (threadIdx.x == 0 && ef[0] < P.thresh) accepted = 1;
+    energy_force<kLaw, kW>(S, P, coef, p, ef, red, P.nattempt & 1);
+    if (ef[0] < P.thresh) accepted = true;
   }
   if (threadIdx.x == 0) {
-    const size_t o = (size_t)side * P.K + k;
-    for (int c = 0; c < 3; ++c) out_pos[o * 3 + c] = pos[c];
-    out_acc[o] = accepted;
-    out_iters[o] = iters;
+    const int o = side * P.K + k;
+    for (int c = 0; c < 3; ++c) P.out_pos[o * 3 + c] = p[c];
+    P.out_acc[o] = accepted;
+    P.out_iters[o] = iters;
   }
 }
 
+// Words of scratch one side takes (forces/usher_kernel.py scratch_words):
+// its counts (zeroed by the launch; both sides' come first), its starts,
+// the rows' cells, the scattered indices and the sorted float4 rows.
+long long count_words(int ncell) { return align4(ncell + 1); }
+long long side_words(int ncell, int b) {
+  return count_words(ncell) + align4(ncell + 1) + 2LL * align4(b) + 4LL * b;
+}
+
 template <int kLaw>
-int launch(const void* rows, const void* cand, const void* bounds,
-           void* out_pos, void* out_acc, void* out_iters, const Params& P,
-           void* stream) {
-  if (P.B <= 0 || P.K <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid(P.K, 2);
-  usher_kernel<kLaw><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)cand, (const float*)bounds,
-      (float*)out_pos, (int*)out_acc, (int*)out_iters, P);
+int launch(const void* const* sub, const int* b, const void* const* cand,
+           int K, void* scratch, long long scratch_words, void* out_pos,
+           void* out_acc, void* out_iters, const int* cells,
+           const float* grid, const float* bounds, const float* coef,
+           int ntypes, int nattempt, float ly, float lz, float thresh,
+           float etarget, float ds0, float uovlp, float dsovlp,
+           float four_eps, float eps, void* stream) {
+  if (K <= 0 || ntypes < 1 || ntypes > kMaxTypes || nattempt < 0)
+    return (int)cudaErrorInvalidValue;
+  Params P{};
+  int ncell[2];
+  for (int s = 0; s < 2; ++s) {
+    const int* n = cells + 3 * s;
+    if (b[s] < 0 || n[0] < 1 || n[1] < 1 || n[2] < 1 ||
+        (long long)n[0] * n[1] * n[2] > kMaxCells)
+      return (int)cudaErrorInvalidValue;
+    ncell[s] = n[0] * n[1] * n[2];
+  }
+  // both sides' counts first (one memset zeroes them), then each side's
+  // starts, cells, scattered indices and sorted rows
+  const long long zero_words = count_words(ncell[0]) + count_words(ncell[1]);
+  long long words = zero_words;
+  for (int s = 0; s < 2; ++s) {
+    Side& S = P.s[s];
+    S.x = (const float*)sub[3 * s];
+    S.type = (const int*)sub[3 * s + 1];
+    S.valid = (const unsigned char*)sub[3 * s + 2];
+    S.cand = (const float*)cand[s];
+    S.b = b[s];
+    S.cnt = (int*)scratch + (s ? count_words(ncell[0]) : 0);
+    S.start = (int*)scratch + words;
+    S.cellof = S.start + align4(ncell[s] + 1);
+    S.tmp = S.cellof + align4(b[s]);
+    S.rows = (float4*)(S.tmp + align4(b[s]));
+    for (int c = 0; c < 3; ++c) {
+      S.n[c] = cells[3 * s + c];
+      S.o[c] = grid[6 * s + c];
+      S.inv_h[c] = grid[6 * s + 3 + c];
+      S.lo[c] = bounds[6 * s + c];
+      S.hi[c] = bounds[6 * s + 3 + c];
+    }
+    words += side_words(ncell[s], b[s]) - count_words(ncell[s]);
+  }
+  if (words != scratch_words || ((uintptr_t)scratch & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  P.K = K;
+  P.nattempt = nattempt;
+  P.ntypes = ntypes;
+  P.ly = ly;
+  P.lz = lz;
+  P.thresh = thresh;
+  P.etarget = etarget;
+  P.ds0 = ds0;
+  P.uovlp = uovlp;
+  P.dsovlp = dsovlp;
+  P.four_eps = four_eps;
+  P.eps = eps;
+  for (int i = 0; i < kMaxTypes * kCoef; ++i) P.coef[i] = coef[i];
+  P.out_pos = (float*)out_pos;
+  P.out_acc = (unsigned char*)out_acc;
+  P.out_iters = (int*)out_iters;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemsetAsync(scratch, 0, zero_words * sizeof(int), st);
+  if (rc != cudaSuccess) return (int)rc;
+  const int rows = b[0] > b[1] ? b[0] : b[1];
+  const int row_blocks = rows > 0 ? (rows + kBinThreads - 1) / kBinThreads : 1;
+  const dim3 row_grid(row_blocks, 2);
+  const int ncell_max = ncell[0] > ncell[1] ? ncell[0] : ncell[1];
+  bin_count<<<row_grid, kBinThreads, ncell_max * sizeof(int), st>>>(P);
+  bin_scatter<<<row_grid, kBinThreads, 0, st>>>(P);
+  bin_write<<<row_grid, kBinThreads, 0, st>>>(P);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  constexpr int threads = 32 * Warps<kLaw>::value;
+  usher_kernel<kLaw><<<dim3(K, 2), threads, 0, st>>>(P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 #define OBMD_USHER_ARGS                                                      \
-  const void *rows, const void *cand, const void *bounds, void *out_pos,    \
-      void *out_acc, void *out_iters, int B, int K, int nattempt, float ly, \
-      float lz, float thresh, float etarget, float ds0, float uovlp,        \
-      float dsovlp, float four_eps, float eps, void *stream
-#define OBMD_USHER_PARAMS                                                    \
-  Params{B, K, nattempt, ly, lz, thresh, etarget, ds0, uovlp, dsovlp,       \
-         four_eps, eps}
+  const void *x_l, const void *type_l, const void *valid_l, int b_l,        \
+      const void *x_r, const void *type_r, const void *valid_r, int b_r,    \
+      const void *cand_l, const void *cand_r, int K, void *scratch,         \
+      long long scratch_words, void *out_pos, void *out_acc,                \
+      void *out_iters, const int *cells, const float *grid,                 \
+      const float *bounds, const float *coef, int ntypes, int nattempt,     \
+      float ly, float lz, float thresh, float etarget, float ds0,            \
+      float uovlp, float dsovlp, float four_eps, float eps, void *stream
+#define OBMD_USHER_CALL(law)                                                 \
+  const void* sub[6] = {x_l, type_l, valid_l, x_r, type_r, valid_r};        \
+  const int b[2] = {b_l, b_r};                                              \
+  const void* cand[2] = {cand_l, cand_r};                                   \
+  return launch<law>(sub, b, cand, K, scratch, scratch_words, out_pos,      \
+                     out_acc, out_iters, cells, grid, bounds, coef, ntypes, \
+                     nattempt, ly, lz, thresh, etarget, ds0, uovlp, dsovlp, \
+                     four_eps, eps, stream)
 
-// The DPD law: rows f32[2][5][B].
-extern "C" int obmd_usher_search(OBMD_USHER_ARGS) {
-  return launch<kDpd>(rows, cand, bounds, out_pos, out_acc, out_iters,
-                      OBMD_USHER_PARAMS, stream);
-}
+// The DPD law: coef rows (a0, cut, 0, 0) by subset-atom type.
+extern "C" int obmd_usher_search(OBMD_USHER_ARGS) { OBMD_USHER_CALL(kDpd); }
 
-// The lj/cut law: rows f32[2][7][B].
-extern "C" int obmd_usher_search_lj(OBMD_USHER_ARGS) {
-  return launch<kLj>(rows, cand, bounds, out_pos, out_acc, out_iters,
-                     OBMD_USHER_PARAMS, stream);
-}
+// The lj/cut law: coef rows (lj3, lj4, cut, eshift) by subset-atom type.
+extern "C" int obmd_usher_search_lj(OBMD_USHER_ARGS) { OBMD_USHER_CALL(kLj); }

@@ -1,51 +1,70 @@
-"""The whole USHER steered-insertion search in one kernel launch.
+"""The whole USHER steered-insertion search in one C call.
 
 Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, its DPD and
-LJ-family branches, and `usher_search_pallas`).  The Hopper kernel
-`csrc/usher_kernel.cu` replaces `make_usher_kernel`, with one C entry point
+LJ-family branches, and `usher_search_pallas`).  The Hopper kernels in
+`csrc/usher_kernel.cu` replace `make_usher_kernel`, with one C entry point
 per law (`obmd_usher_search` for DPD, `obmd_usher_search_lj` for lj/cut and
 the neutral lj/cut/rf rows), each law with its own launch count
-(`usher_search`, `usher_search_lj`, `usher_search_ljrf`); its plain version is
-`obmd.subset.usher_search_subset_batch`, whose arithmetic the kernel follows
-(it is also what the JAX engine runs off the TPU).  A CUDA tensor goes to
-the kernel, a CPU tensor to the plain version; the choice is the tensors'
-device, never an environment variable.
+(`usher_search`, `usher_search_lj`, `usher_search_ljrf`); their plain
+version is `obmd.subset.usher_search_subset_batch`, whose arithmetic the
+kernel follows (it is also what the JAX engine runs off the TPU).  A CUDA
+tensor goes to the kernel, a CPU tensor to the plain version; the choice
+is the tensors' device, never an environment variable.
 
-The laws take per-subset-atom coefficient rows against the fix's single
-trial type: DPD E = 0.5*a0*rc*wd^2 (rows a0, cut); lj/cut
-E = r^-6 (lj3 r^-6 - lj4) - eshift (rows lj3, lj4, cut, eshift).  lj/cut/rf
+The kernel bins each side's valid subset rows on a cell grid
+(`UsherGrid`: x spans the insertion region widened by pad = max_cut +
+skin, y and z the box; every cell side at least the law's largest cut
+against the trial type), then runs one warp per candidate over the 27
+cells around it.  `usher_energy_binned_plain` and
+`usher_search_binned_plain` are that algorithm in PyTorch, for the tests.
+
+The laws take coefficients against the fix's single trial type, looked up
+by the subset atom's type: DPD E = 0.5*a0*rc*wd^2 (a0, cut); lj/cut
+E = r^-6 (lj3 r^-6 - lj4) - eshift (lj3, lj4, cut, eshift).  lj/cut/rf
 takes the lj rows with eshift = 0: an ATOM-mode trial atom is neutral
 (q = 0), so the reaction field adds nothing to its energy or force
 (pallas_usher.py:57-75).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
+from typing import NamedTuple, Tuple
+
 import numpy as np
 import torch
 
 from .. import _build
-from ..cells import BIG
 from ..config import DPDParams, LJCutParams, LJCutRFParams
-from ..geometry import const
-from ..obmd.subset import EPSILON, Subset, pad_subset, usher_search_subset_batch
+from ..geometry import Box, RegionBlock, const_like
+from ..obmd.subset import (EPSILON, Subset, _batched_energy_force,
+                           usher_search_subset_batch)
+
+MAX_TYPES = 4        # kMaxTypes: rows of the coefficient table
+N_COEF = 4           # kCoef: coefficients per row
+# kMaxCells: the scan's copy of one side's counts in the default 48 KB of
+# shared memory, less the kBinStatic bytes kept for bin_count's own arrays
+MAX_CELLS = (48 * 1024 - 1024) // 4
+# a cell side exceeds the cut by this share, so that float32 rounding of
+# the cell index never puts a pair within the cutoff two cells apart
+CELL_MARGIN = 1e-3
 
 
-def usher_law(pair):
-    """(kernel name, per-atom coefficient rows, padding) for a pair style:
-    the rows are a function type_row [B] -> list of [B] float32 rows against
-    the trial type, the kernel the `_build.KERNELS` record that evaluates
-    them, the padding each row's value on an invalid subset atom (cut = 1,
-    every other coefficient 0, so that a padding row contributes exactly
-    zero and never divides by zero; pallas_usher.py:276-285); None when this
-    port has no kernel law for the style."""
+def usher_law(pair, ct: int):
+    """(kernel name, coefficient table f32[MAX_TYPES, N_COEF], the cut
+    column) of a pair style against trial type ct: row tj holds the law's
+    coefficients for a subset atom of type tj (dpd: a0, cut, 0, 0; lj/cut
+    and lj/cut/rf: lj3, lj4, cut, eshift), rows past ntypes zero; None when
+    this port has no kernel law for the style."""
     if isinstance(pair, DPDParams):
-        tabs = [np.asarray(pair.a0, np.float32),
-                np.asarray(pair.cut, np.float32)]
-        name, pads = "usher_search", (0.0, 1.0)
+        cols = [np.asarray(pair.a0, np.float64)[ct],
+                np.asarray(pair.cut, np.float64)[ct]]
+        name, cut_col = "usher_search", 1
     elif isinstance(pair, (LJCutParams, LJCutRFParams)):
-        eps = np.asarray(pair.epsilon, np.float64)
-        sig = np.asarray(pair.sigma, np.float64)
-        cut = np.asarray(pair.cut, np.float64)
+        eps = np.asarray(pair.epsilon, np.float64)[ct]
+        sig = np.asarray(pair.sigma, np.float64)[ct]
+        cut = np.asarray(pair.cut, np.float64)[ct]
         s6 = sig ** 6
         lj3 = 4.0 * eps * s6 * s6
         lj4 = 4.0 * eps * s6
@@ -54,87 +73,209 @@ def usher_law(pair):
             eshift = rc6 * (lj3 * rc6 - lj4)
         else:
             eshift = np.zeros_like(lj3)
-        tabs = [t.astype(np.float32) for t in (lj3, lj4, cut, eshift)]
+        cols = [lj3, lj4, cut, eshift]
         name = ("usher_search_lj" if isinstance(pair, LJCutParams)
                 else "usher_search_ljrf")
-        pads = (0.0, 0.0, 1.0, 0.0)
+        cut_col = 2
     else:
         return None
+    nt = len(cols[0])
+    if nt > MAX_TYPES:
+        raise NotImplementedError(
+            f"USHER kernel: {nt} types (at most {MAX_TYPES})")
+    table = np.zeros((MAX_TYPES, N_COEF), np.float32)
+    for c, col in enumerate(cols):
+        table[:nt, c] = col.astype(np.float32)
+    return name, table, cut_col
 
-    def rows(ct: int, tj: torch.Tensor):
-        tj = tj.long()
-        return [const(tuple(t[ct].tolist()), torch.float32, tj.device)[tj]
-                for t in tabs]
-    return name, rows, pads
 
-
-def subset_rows(pair, ntype: int, ntypes: int, sub: Subset) -> torch.Tensor:
-    """[3 + n_coef, B] kernel input: positions (BIG where invalid) and the
-    law's coefficient rows ([5, B] for DPD, [7, B] for lj/cut and
-    lj/cut/rf)."""
-    law = usher_law(pair)
+def _kernel_law(pair, ct: int):
+    """usher_law's (name, table) and the largest cut of the table, which
+    sizes the grid's cells; raises for a style without a kernel law."""
+    law = usher_law(pair, ct)
     if law is None:
         raise NotImplementedError(
             f"USHER kernel: no law for {type(pair).__name__}")
-    _, law_rows, pads = law
-    valid = sub.valid
-    x = torch.where(valid[:, None], sub.x, BIG).to(torch.float32)
-    coef = law_rows(ntype, torch.clamp(sub.type, 0, ntypes - 1))
-    coef = [torch.where(valid, c, pad) for c, pad in zip(coef, pads)]
-    return torch.cat([x.t(), torch.stack(coef)], dim=0)
+    name, table, cut_col = law
+    return name, table, float(table[:, cut_col].max())
 
 
-def launch(cfg, rows, cand, bounds):
-    """Launch the law's kernel on prepared inputs (kernel_inputs): rows
-    f32[2, 3 + n_coef, B], cand f32[2, K, 3], bounds f32[2, 6], all
-    contiguous on one CUDA device."""
-    name, _, pads = usher_law(cfg.pair)
-    b = rows.shape[-1]
-    k = cand.shape[1]
-    for arg, t, shape in (("rows", rows, (2, 3 + len(pads), b)),
-                          ("cand", cand, (2, k, 3)),
-                          ("bounds", bounds, (2, 6))):
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != rows.device
-                or t.device.type != "cuda"):
-            raise ValueError(f"USHER kernel: {arg} must be contiguous "
-                             f"float32{list(shape)} on the card, got "
-                             f"{t.dtype}{list(t.shape)} on {t.device}")
-    kern = _build.KERNELS[name]
+class UsherGrid(NamedTuple):
+    """One buffer side's cell grid: `cells` per axis from `lo`, each cell
+    `side` long (at least the cut), `inv` its float32 reciprocal (the
+    kernel files a position with floor((v - lo) * inv)); x is open and
+    spans the insertion region widened by pad, y and z span the box and
+    wrap where it is periodic."""
+
+    lo: Tuple[float, float, float]
+    cells: Tuple[int, int, int]
+    side: Tuple[float, float, float]
+    inv: Tuple[float, float, float]
+    periodic: Tuple[bool, bool, bool]
+
+    @staticmethod
+    def of(cfg, region: RegionBlock, pad: float) -> "UsherGrid":
+        _, _, cut = _kernel_law(cfg.pair, int(cfg.obmd.ntype))
+        return _grid(cfg.box, cut, region, float(pad))
+
+    @property
+    def n_cells(self) -> int:
+        return int(np.prod(self.cells))
+
+    def stencil(self, axis: int, c: int):
+        """The cells of one axis around cell c, each once: c - 1 .. c + 1
+        wrapped on a periodic axis (all of a periodic axis of fewer than 3
+        cells), clipped to the grid on an open one."""
+        n = self.cells[axis]
+        if self.periodic[axis]:
+            return sorted({(c + o) % n for o in (-1, 0, 1)})
+        return [c + o for o in (-1, 0, 1) if 0 <= c + o < n]
+
+    def cell3(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., 3] float32 positions -> [..., 3] int64 cells per axis (the
+        kernel's axis_cell)."""
+        f = torch.floor((x - const_like(self.lo, x))
+                        * const_like(self.inv, x))
+        c = torch.clamp(f, -1e6, 1e6).to(torch.int64)
+        n = torch.tensor(self.cells, device=x.device)
+        per = torch.tensor(self.periodic, device=x.device)
+        return torch.where(per, torch.remainder(c, n),
+                           torch.minimum(torch.clamp(c, min=0), n - 1))
+
+    def cell_id(self, c3: torch.Tensor) -> torch.Tensor:
+        """Linear cell ids, x fastest."""
+        nx, ny, _ = self.cells
+        return (c3[..., 2] * ny + c3[..., 1]) * nx + c3[..., 0]
+
+    def stencil_cells(self, c3) -> list:
+        """The linear ids of the cells the kernel visits around cell c3
+        (three ints): 9 (y, z) runs of x cells."""
+        nx, ny, _ = self.cells
+        xs = self.stencil(0, int(c3[0]))
+        return [(z * ny + y) * nx + x
+                for y in self.stencil(1, int(c3[1]))
+                for z in self.stencil(2, int(c3[2])) for x in xs]
+
+
+@functools.lru_cache(maxsize=32)
+def _grid(box: Box, cut: float, region: RegionBlock, pad: float) -> UsherGrid:
+    if box.periodic[0]:
+        raise NotImplementedError("USHER kernel: x must be open (the "
+                                  "OBMD buffers' axis)")
+    lo = [region.lo[0] - pad, box.lo[1], box.lo[2]]
+    span = [region.hi[0] - region.lo[0] + 2 * pad, box.lengths[1],
+            box.lengths[2]]
+    cells = [max(1, int(s // (cut * (1 + CELL_MARGIN)))) for s in span]
+    while int(np.prod(cells)) > MAX_CELLS:
+        cells[int(np.argmax(cells))] -= 1
+    side = [s / n for s, n in zip(span, cells)]
+    return UsherGrid(lo=tuple(float(np.float32(v)) for v in lo),
+                     cells=tuple(cells), side=tuple(side),
+                     inv=tuple(float(np.float32(1.0) / np.float32(h))
+                               for h in side),
+                     periodic=(False,) + tuple(box.periodic[1:]))
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def scratch_words(grids, b_l: int, b_r: int) -> int:
+    """int32 words of scratch the kernel takes (usher_kernel.cu side_words):
+    per side each cell's count and start, each row's cell, the scattered
+    row indices and the sorted float4 rows."""
+    return sum(2 * _align4(g.n_cells + 1) + 2 * _align4(b) + 4 * b
+               for g, b in zip(grids, (b_l, b_r)))
+
+
+class UsherPlan(NamedTuple):
+    """Both sides' grids and the C entry point's host arrays, made once per
+    configuration."""
+
+    name: str
+    grids: Tuple[UsherGrid, UsherGrid]
+    cells: object      # ctypes int32[6]
+    grid: object       # ctypes float32[12]: origin, inverse side per side
+    bounds: object     # ctypes float32[12]: region lo, hi per side
+    coef: object       # ctypes float32[16]
+    ntypes: int
+
+    @staticmethod
+    def of(cfg, region_l: RegionBlock, region_r: RegionBlock) -> "UsherPlan":
+        return _plan(cfg.box, cfg.pair, int(cfg.obmd.ntype), cfg.ntypes,
+                     region_l, region_r, float(cfg.pair.max_cut + cfg.skin))
+
+
+@functools.lru_cache(maxsize=32)
+def _plan(box, pair, ct, ntypes, region_l, region_r, pad) -> UsherPlan:
+    name, table, cut = _kernel_law(pair, ct)
+    grids = tuple(_grid(box, cut, r, pad) for r in (region_l, region_r))
+
+    def arr(ctype, values):
+        values = list(values)
+        return (ctype * len(values))(*values)
+    return UsherPlan(
+        name=name, grids=grids,
+        cells=arr(ctypes.c_int, itertools.chain(*(g.cells for g in grids))),
+        grid=arr(ctypes.c_float, itertools.chain(
+            *(g.lo + g.inv for g in grids))),
+        bounds=arr(ctypes.c_float, itertools.chain(
+            *(r.lo + r.hi for r in (region_l, region_r)))),
+        coef=arr(ctypes.c_float, table.reshape(-1).tolist()),
+        ntypes=int(ntypes))
+
+
+def _check(arg, t, dtype, shape, dev):
+    if (tuple(t.shape) != shape or t.dtype != dtype
+            or not t.is_contiguous() or t.device != dev
+            or t.device.type != "cuda"):
+        raise ValueError(f"USHER kernel: {arg} must be contiguous "
+                         f"{dtype}{list(shape)} on the card, got "
+                         f"{t.dtype}{list(t.shape)} on {t.device}")
+
+
+def launch(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r, region_l,
+           region_r):
+    """Bin both subsets and run both buffers' searches on the card: each
+    Subset's x f32[B, 3], type i32[B] and valid bool[B] as they are (B may
+    differ between the sides), candidates f32[K, 3], all contiguous on one
+    CUDA device.  Returns (pos [2, K, 3], accepted [2, K], iters [2, K])."""
+    plan = UsherPlan.of(cfg, region_l, region_r)
+    dev = cand_l.device
+    k = cand_l.shape[0]
+    for side, sub in (("left", sub_l), ("right", sub_r)):
+        b = sub.x.shape[0]
+        _check(f"{side} x", sub.x, torch.float32, (b, 3), dev)
+        _check(f"{side} type", sub.type, torch.int32, (b,), dev)
+        _check(f"{side} valid", sub.valid, torch.bool, (b,), dev)
+    _check("left candidates", cand_l, torch.float32, (k, 3), dev)
+    _check("right candidates", cand_r, torch.float32, (k, 3), dev)
+    b_l, b_r = sub_l.x.shape[0], sub_r.x.shape[0]
+    kern = _build.KERNELS[plan.name]
     fn = kern.function()
     u = cfg.obmd.usher
-    dev = rows.device
     per = cfg.box.periodic
     ly = float(cfg.box.lengths[1]) if per[1] else 0.0
     lz = float(cfg.box.lengths[2]) if per[2] else 0.0
+    words = scratch_words(plan.grids, b_l, b_r)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     pos = torch.empty((2, k, 3), dtype=torch.float32, device=dev)
-    acc = torch.empty((2, k), dtype=torch.int32, device=dev)
+    acc = torch.empty((2, k), dtype=torch.bool, device=dev)
     iters = torch.empty((2, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(rows.data_ptr(), cand.data_ptr(), bounds.data_ptr(),
-                pos.data_ptr(), acc.data_ptr(), iters.data_ptr(), b, k,
+        rc = fn(sub_l.x.data_ptr(), sub_l.type.data_ptr(),
+                sub_l.valid.data_ptr(), b_l, sub_r.x.data_ptr(),
+                sub_r.type.data_ptr(), sub_r.valid.data_ptr(), b_r,
+                cand_l.data_ptr(), cand_r.data_ptr(), k, scratch.data_ptr(),
+                words, pos.data_ptr(), acc.data_ptr(), iters.data_ptr(),
+                plan.cells, plan.grid, plan.bounds, plan.coef, plan.ntypes,
                 int(u.nattempt), ly, lz, float(u.etarget + EPSILON),
                 float(u.etarget), float(u.ds0), float(u.uovlp),
                 float(u.dsovlp), float(4.0 * u.eps), EPSILON, stream)
     _build.check(rc, kern)
-    kern.count(f"B{b}")
-    return pos, acc.bool(), iters
-
-
-def kernel_inputs(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
-                  region_l, region_r):
-    """(rows f32[2, 3 + n_coef, B], cand f32[2, K, 3], bounds f32[2, 6]) on the
-    candidates' device (launch checks them)."""
-    ct = int(cfg.obmd.ntype)
-    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
-    rows = torch.stack([subset_rows(cfg.pair, ct, cfg.ntypes, pad_subset(s, b))
-                        for s in (sub_l, sub_r)]).contiguous()
-    cand = torch.stack([cand_l, cand_r]).contiguous()
-    bounds = const(tuple(region_l.lo) + tuple(region_l.hi) + tuple(region_r.lo)
-                   + tuple(region_r.hi), torch.float32,
-                   cand.device).reshape(2, 6)
-    return rows, cand, bounds
+    kern.count(f"B{b_l},{b_r}")
+    return pos, acc, iters
 
 
 def usher_search(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
@@ -147,5 +288,87 @@ def usher_search(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
                                          ctype, region_l, region_r)
     if cand_l.device.type != "cuda":
         raise ValueError(f"unsupported device {cand_l.device}")
-    return launch(cfg, *kernel_inputs(cfg, sub_l, sub_r, cand_l, cand_r,
-                                      region_l, region_r))
+    return launch(cfg, sub_l, sub_r, cand_l, cand_r, region_l, region_r)
+
+
+# ---- the binned algorithm in PyTorch, for the tests (never on the main path)
+
+def bin_rows(grid: UsherGrid, sub: Subset):
+    """The kernel's binning: (valid row indices sorted by cell, ascending
+    within a cell; each cell's start, [n_cells + 1])."""
+    idx = torch.nonzero(sub.valid).flatten()
+    cell = grid.cell_id(grid.cell3(sub.x[idx]))
+    cell, order = torch.sort(cell, stable=True)
+    start = torch.searchsorted(cell, torch.arange(grid.n_cells + 1,
+                                                  device=cell.device))
+    return idx[order], start
+
+
+def usher_energy_binned_plain(cfg, grid: UsherGrid, sub: Subset, pos):
+    """E [K], F [K, 3] of trial positions pos [K, 3] against the valid
+    subset atoms in the cells the kernel visits (the 27-cell stencil of
+    each position's cell, each cell once), through the plain law
+    (obmd.subset._batched_energy_force)."""
+    rows, start = bin_rows(grid, sub)
+    ct = torch.full((1, 1), int(cfg.obmd.ntype), dtype=torch.int32,
+                    device=pos.device)
+    es, fs = [], []
+    for p, c3 in zip(pos, grid.cell3(pos)):
+        sel = torch.cat([rows[start[c]:start[c + 1]]
+                         for c in grid.stencil_cells(c3.tolist())])
+        ok = torch.ones((1, sel.shape[0]), dtype=torch.bool,
+                        device=pos.device)
+        e, f = _batched_energy_force(cfg.pair, sub.x[sel][None],
+                                     sub.type[sel][None], ok, p[None, None],
+                                     ct, box=cfg.box)
+        es.append(e[0, 0])
+        fs.append(f[0, 0])
+    return torch.stack(es), torch.stack(fs)
+
+
+def usher_search_binned_plain(cfg, sub_l: Subset, sub_r: Subset, cand_l,
+                              cand_r, region_l, region_r):
+    """usher_search_subset_batch's step rule over usher_energy_binned_plain:
+    (pos [2,K,3], accepted [2,K], iters [2,K] i32)."""
+    u = cfg.obmd.usher
+    grids = UsherPlan.of(cfg, region_l, region_r).grids
+    subs = (sub_l, sub_r)
+    pos = torch.stack([cand_l, cand_r])
+    dtype = pos.dtype
+    lo = torch.tensor([region_l.lo, region_r.lo], dtype=dtype)[:, None, :]
+    hi = torch.tensor([region_l.hi, region_r.hi], dtype=dtype)[:, None, :]
+    k = cand_l.shape[0]
+    active = torch.ones((2, k), dtype=torch.bool)
+    accepted = torch.zeros((2, k), dtype=torch.bool)
+    iters = torch.zeros((2, k), dtype=torch.int32)
+
+    def energy(pos):
+        ef = [usher_energy_binned_plain(cfg, grids[s], subs[s], pos[s])
+              for s in range(2)]
+        return (torch.stack([e for e, _ in ef]),
+                torch.stack([f for _, f in ef]))
+    for _ in range(u.nattempt):
+        if not bool(active.any()):
+            break
+        E, F = energy(pos)
+        ok = E < u.etarget + EPSILON
+        newly = active & ok
+        fabs = torch.sqrt((F * F).sum(-1))
+        degen = fabs < EPSILON
+        ds_ovlp = u.dsovlp - (4.0 * u.eps
+                              / torch.clamp(E, min=EPSILON)) ** (1.0 / 12.0)
+        ds_norm = torch.clamp((E - u.etarget) / torch.clamp(fabs, min=EPSILON),
+                              max=u.ds0)
+        ds = torch.where(E > u.uovlp, ds_ovlp, ds_norm)
+        moved = pos + F / torch.clamp(fabs, min=EPSILON)[..., None] \
+            * ds[..., None]
+        ins = torch.all((moved >= lo) & (moved <= hi), dim=-1)
+        move_now = active & ~ok & ~degen
+        pos = torch.where(move_now[..., None], moved, pos)
+        stopped = newly | (active & degen) | (move_now & ~ins)
+        active = active & ~stopped
+        accepted = accepted | newly
+        iters = iters + active.to(torch.int32)
+    E, _ = energy(pos)
+    accepted = accepted | (active & (E < u.etarget + EPSILON))
+    return pos, accepted, iters

@@ -308,6 +308,7 @@ def check_invariants(cfg: SceneConfig, state: State) -> dict:
         tel["ninserted"] = int(state.obmd.ninserted)
         tel["ndeleted"] = int(state.obmd.ndeleted)
         tel["insert_fail"] = int(state.obmd.insert_fail)
+        tel["usher_iters"] = int(state.obmd.usher_iters)
     bad = {k: tel[k] for k in ("cell_overflow", "layout_overflow",
                                "skin_trips") if tel.get(k)}
     if bad:

@@ -54,7 +54,7 @@ from obmd_tpu_torch.engine_cellpad import (make_geometry, pack_fields,
 from obmd_tpu_torch.forces import pairs as ppairs
 from obmd_tpu_torch.forces.pair_kernel import (PairCoef, make_pair_kernel,
                                                pair_tables)
-from obmd_tpu_torch.forces.usher_kernel import subset_rows, usher_law
+from obmd_tpu_torch.forces.usher_kernel import usher_law
 from obmd_tpu_torch.geometry import Box as PBox
 from obmd_tpu_torch.geometry import RegionBlock as PRegion
 from obmd_tpu_torch.integrate import compute_forces, make_grid_spec
@@ -459,16 +459,17 @@ def test_usher_ljrf_matches_pallas(case):
                 assert np.abs(pp[side, i] - rp[side, i]).max() < 2e-3
     assert checked >= 6, checked
     assert (pit >= 0).all() and (pit <= o.usher.nattempt).all()
-    name, _, pads = usher_law(pcfg.pair)
-    assert name == "usher_search_ljrf" and pads == (0.0, 0.0, 1.0, 0.0)
-    rows = subset_rows(pcfg.pair, 0, 2, pl).numpy()
+    name, table, cut_col = usher_law(pcfg.pair, 0)
+    assert name == "usher_search_ljrf" and cut_col == 2
+    rows = table[pl.type.numpy()]          # the kernel's lookup by type
     ok = pl.valid.numpy()
     t1 = pl.type.numpy() == 1
     s6 = 0.95 ** 6
-    np.testing.assert_allclose(rows[3, ok & t1], np.float32(
+    np.testing.assert_allclose(rows[ok & t1, 0], np.float32(
         4.0 * 0.8 * s6 * s6))
-    np.testing.assert_allclose(rows[3, ok & ~t1], np.float32(4.0))
-    assert (rows[6] == 0.0).all()
+    np.testing.assert_allclose(rows[ok & ~t1, 0], np.float32(4.0))
+    assert (rows[:, 2] == 2.5).all() and (table[:, 3] == 0.0).all()
+    assert (table[2:] == 0.0).all()
 
 
 def test_charge_and_type_through_converter_and_relayout():

@@ -136,34 +136,51 @@ def test_plain_matches_batch_and_pallas(case):
 
 
 def test_wrapper_rejects_unported_law():
+    """usher_law gives the DPD law's coefficient table against the trial
+    type (row tj: a0, cut, 0, 0; rows past ntypes zero); a style without a
+    kernel law gives None, and its grid plan raises."""
+    import types
+    from obmd_tpu_torch.forces.usher_kernel import (MAX_TYPES, N_COEF,
+                                                    UsherGrid, usher_law)
     _, pcfg = _configs(a0=60.0, etarget=12.0, nattempt=10)
-    from obmd_tpu_torch.forces.usher_kernel import subset_rows, usher_law
-    assert usher_law(pcfg.pair) is not None
-    r = np.random.default_rng(0)
-    _, p = _subsets(r, 16, [0, 0, 0], [1, 1, 1], 2)
-    rows = subset_rows(pcfg.pair, 0, 1, p)
-    assert rows.shape == (5, 16)
-    assert (rows[0, -2:] == 1e8).all() and (rows[3, -2:] == 0).all()
+    name, table, cut_col = usher_law(pcfg.pair, 0)
+    assert name == "usher_search" and cut_col == 1
+    assert table.shape == (MAX_TYPES, N_COEF) and table.dtype == np.float32
+    np.testing.assert_array_equal(table[0], [60.0, 1.0, 0.0, 0.0])
+    assert (table[1:] == 0).all()
+    assert usher_law(object(), 0) is None
+    bare = types.SimpleNamespace(pair=object(), obmd=pcfg.obmd, box=pcfg.box)
     with pytest.raises(NotImplementedError):
-        subset_rows(object(), 0, 1, p)
+        UsherGrid.of(bare, pcfg.obmd.region5, 1.3)
 
 
 def test_kernel_inputs_and_launch_guards():
-    """kernel_inputs lays out [2, 5, B] rows, [2, K, 3] candidates and
-    [2, 6] region bounds; launch takes only contiguous float32 tensors on
-    the card, so a CPU tensor raises instead of reaching a plain version."""
-    from obmd_tpu_torch.forces.usher_kernel import kernel_inputs, launch
+    """The kernel takes each side's Subset as it is, with its own length
+    (20 and 24 rows here): the plan holds both grids, the regions' bounds
+    and the coefficient table on the host, and the scratch is each side's
+    cell counts and starts, rows' cells, scattered indices and sorted
+    float4 rows;
+    launch takes only contiguous tensors on the card, so a CPU tensor
+    raises instead of reaching a plain version."""
+    from obmd_tpu_torch.forces.usher_kernel import (UsherPlan, launch,
+                                                    scratch_words)
     _, pcfg = _configs(a0=60.0, etarget=12.0, nattempt=10)
     r = np.random.default_rng(0)
     _, pl = _subsets(r, 20, [0, 0, 0], [2.6, 4, 4], 3)
     _, pr = _subsets(r, 24, [5.4, 0, 0], [8, 4, 4], 3)
     o = pcfg.obmd
+    plan = UsherPlan.of(pcfg, o.region5, o.region6)
+    # x: the region (1.6) widened by pad = 1.3 on both sides, 4 cells of
+    # 1.05; y and z: the box, 3 cells of 4/3
+    assert [g.cells for g in plan.grids] == [(4, 3, 3), (4, 3, 3)]
+    assert list(plan.cells) == [4, 3, 3, 4, 3, 3]
+    np.testing.assert_array_equal(
+        list(plan.bounds), np.float32([*o.region5.lo, *o.region5.hi,
+                                       *o.region6.lo, *o.region6.hi]))
+    assert list(plan.coef)[:2] == [60.0, 1.0] and plan.ntypes == 1
+    # per side: 2 * align4(36 + 1) + 2 * align4(B) + 4 * B
+    assert scratch_words(plan.grids, 20, 24) == (80 + 40 + 80) + (80 + 48
+                                                                  + 96)
     cand = torch.from_numpy(r.uniform(0, 1, (8, 3)).astype(np.float32))
-    rows, c, bounds = kernel_inputs(pcfg, pl, pr, cand, cand + 6.0,
-                                    o.region5, o.region6)
-    assert rows.shape == (2, 5, 24) and c.shape == (2, 8, 3)
-    assert torch.equal(bounds, torch.tensor(
-        [[*o.region5.lo, *o.region5.hi], [*o.region6.lo, *o.region6.hi]]))
-    assert (rows[0, 0, 20:] == 1e8).all() and (rows[0, 4, 20:] == 1.0).all()
     with pytest.raises(ValueError, match="on the card"):
-        launch(pcfg, rows, c, bounds)
+        launch(pcfg, pl, pr, cand, cand + 6.0, o.region5, o.region6)

@@ -25,8 +25,8 @@ from obmd_tpu.obmd.subset import Subset as JSubset
 from obmd_tpu.obmd.subset import conservative_energy_force
 from obmd_tpu.obmd.subset import usher_search_subset_batch as j_batch
 from obmd_tpu_torch import config as pconfig
-from obmd_tpu_torch.forces.usher_kernel import (kernel_inputs, launch,
-                                                subset_rows, usher_law,
+from obmd_tpu_torch.forces.usher_kernel import (UsherPlan, bin_rows, launch,
+                                                scratch_words, usher_law,
                                                 usher_search)
 from obmd_tpu_torch.geometry import Box as PBox
 from obmd_tpu_torch.geometry import RegionBlock as PRegion
@@ -150,35 +150,41 @@ def test_plain_lj_matches_batch_and_pallas(case, shift):
 
 @pytest.mark.parametrize("shift", [False, True])
 def test_lj_rows_and_padding(shift):
-    """subset_rows gives [7, B] for lj/cut: x, y, z (BIG on invalid rows),
-    then lj3, lj4, cut, eshift against the trial type, with cut = 1 and 0
-    in every other coefficient row on invalid rows; kernel_inputs pads both
-    sides to one B; launch refuses CPU tensors."""
+    """usher_law's lj/cut table against the trial type: lj3, lj4, cut,
+    eshift (0 unshifted), rows past ntypes zero; the binning (bin_rows, the
+    kernel's) keeps the valid rows only, sorted by cell with x fastest and
+    by row index within a cell; the two sides keep their own lengths in the
+    scratch; launch refuses CPU tensors."""
     _, pcfg = _configs(-5.6354, shift)
-    name, _, pads = usher_law(pcfg.pair)
-    assert name == "usher_search_lj" and pads == (0.0, 0.0, 1.0, 0.0)
-    r = np.random.default_rng(0)
-    _, p = _subsets(r, 0.5, [0, 0, 0], [2, 2, 2], 3)
-    rows = subset_rows(pcfg.pair, 0, 1, p).numpy()
-    b = p.x.shape[0]
-    assert rows.shape == (7, b)
-    ok = p.valid.numpy()
-    np.testing.assert_array_equal(rows[:3, ok], p.x.numpy()[ok].T)
+    name, table, cut_col = usher_law(pcfg.pair, 0)
+    assert name == "usher_search_lj" and cut_col == 2
     rc6 = (1.0 / 2.5 ** 2) ** 3
     esh = rc6 * (4.0 * rc6 - 4.0) if shift else 0.0
-    want = np.asarray([4.0, 4.0, 2.5, esh], np.float32)
-    np.testing.assert_array_equal(rows[3:, ok], np.repeat(
-        want[:, None], ok.sum(), axis=1))
-    assert (rows[:3, ~ok] == 1e8).all()
-    assert (rows[5, ~ok] == 1.0).all()
-    assert (rows[[3, 4, 6]][:, ~ok] == 0.0).all()
+    np.testing.assert_array_equal(
+        table[0], np.asarray([4.0, 4.0, 2.5, esh], np.float32))
+    assert (table[1:] == 0).all()
     o = pcfg.obmd
+    plan = UsherPlan.of(pcfg, o.region5, o.region6)
+    grid = plan.grids[0]
+    r = np.random.default_rng(0)
+    _, p = _subsets(r, 0.5, [0, 0, 0], [5, 6, 6], 9)
+    rows, start = bin_rows(grid, p)
+    ok = p.valid.numpy()
+    assert sorted(rows.tolist()) == np.flatnonzero(ok).tolist()
+    cell = grid.cell_id(grid.cell3(p.x[rows])).numpy()
+    assert (np.diff(cell) >= 0).all()
+    same = np.diff(cell) == 0
+    assert (np.diff(rows.numpy())[same] > 0).all()
+    assert start[0] == 0 and start[-1] == ok.sum()
+    np.testing.assert_array_equal(
+        np.diff(start.numpy()), np.bincount(cell, minlength=grid.n_cells))
     _, pr = _subsets(r, 0.5, [9, 0, 0], [12, 2, 2], 3)
+    b, b2 = p.x.shape[0], pr.x.shape[0]
+    assert b != b2
+    n = grid.n_cells
+    assert scratch_words(plan.grids, b, b2) == sum(
+        2 * ((n + 1 + 3) // 4 * 4) + 2 * ((m + 3) // 4 * 4) + 4 * m
+        for m in (b, b2))
     cand = torch.zeros((o.insert_kmax, 3))
-    rows2, c, bounds = kernel_inputs(pcfg, p, pr, cand, cand + 10.0,
-                                     o.region5, o.region6)
-    b2 = max(b, pr.x.shape[0])
-    assert rows2.shape == (2, 7, b2) and c.shape == (2, o.insert_kmax, 3)
-    assert (rows2[0, 0, b:] == 1e8).all() and (rows2[0, 5, b:] == 1.0).all()
     with pytest.raises(ValueError, match="on the card"):
-        launch(pcfg, rows2, c, bounds)
+        launch(pcfg, p, pr, cand, cand + 10.0, o.region5, o.region6)
