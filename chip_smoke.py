@@ -207,14 +207,45 @@ Phases (any failure exits non-zero and prints no result line):
      validation/bonded_golden (harmonic bonds, angles, dihedrals) within
      5e-5 * max|f| and validation/improper_golden (impropers on three-arm
      stars, 4-channel exclusion) within 2e-4 * max|f| of dump.ref;
- 28. the figures of the eleven paths (with each path's whole wall time,
+ 28. the small molecule-mode paths, one per law of the pair kernel's
+     4-channel rows (scenes.mol_box_scene: "dpd" and "dpd1", the star box
+     with y and z of 6 cells, 1,200 atoms, two types or one; "lj", "lj1"
+     and "ljrf", stars inserted into a stretched LJ lattice of 1,440
+     monomers), each on the card against the same path on the CPU
+     (check_small_path, nattempt = 0, MOL_SMALL_ETARGET: slots, tags,
+     mol, bond1-bond4, impr and rep_atom exact, the first step inserts);
+     the launches on the card of each are its row's path launches;
+ 29. path F, the open star-polymer melt under shear (BASELINE.json config
+     4): scenes.open_star_scene() (20,000 stars, 100,000 beads in 99.535 x
+     18.3 x 18.3, x open, molecule-mode USHER insertion of the star
+     template read from a molecule file, pxy 2.0 on the buffers), the
+     warm-up under the stage (star_warm_up: caps 40 and 24; launch counts
+     zeroed before and read after; keys dpd-t2-excl4-cap40 and -cap24),
+     every molecule whole, the cap-24 kernel against its plain version;
+     setup at cap 15 and two timed windows of OPEN_STEPS (launch counts
+     zeroed before setup and read after: dpd-t2-excl4-cap15 once per step
+     and at setup), check_invariants, T within 5% of 1.0, every molecule
+     whole, the bead count at the start and end; the cap-15 kernel on the
+     ended state against its plain version and without pbond, a profile
+     of two relayout epochs; then the insertion phase at cap 24 with nbuf
+     raised to 1.05 x census / alpha (in molecules), OPEN_INS_STEPS steps:
+     stars inserted in fives, USHER iterations counted, every molecule
+     whole, check_invariants, a profile of two insertion steps;
+ 30. the pair kernel's 4-channel rows a-c on real states whose live atoms
+     are grouped into 5-atom stars (star_groups): dpd with one type on
+     OBMD_DPD's equilibrated state, lj with one type on the open LJ
+     fluid's ended state, lj with two types and lj/cut/rf on the charged
+     fluid's, each against its plain version with holes and same bytes
+     and against itself without pbond;
+ 31. the figures of the twelve paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
 Every pair-kernel check (check_pair: each instantiation family the paths
 run, dpd at caps 15 and 24, gaussian, the ramp, lj with periodic or open x,
-ljrf with two types, 2- and 4-channel exclusion, single-cell and open y/z,
-and the full-stencil kernel) holds the kernel to its plain version on the
+ljrf with two types, 2- and 4-channel exclusion (the 4-channel rows of dpd
+with one or two types, lj with one or two and ljrf), single-cell and open
+y/z, and the full-stencil kernel) holds the kernel to its plain version on the
 path's state, then again on a copy with holes (holed_inputs: a seeded third
 of the live slots killed with their tags left stale, occ stale-high, one
 cell filled to the fill cap), and checks that two launches on each input
@@ -307,6 +338,16 @@ TSTAT_MARK, TSTAT_MARKS, TSTAT_TIMED = 100, 10, 400
 # the small path's 307 stars (the L = 8 box) and its warm-up stages
 STAR_STEPS, STAR_BOND_LIMIT = 400, 2.0
 STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
+# path F, the open star melt under shear: its production windows (two of
+# OPEN_STEPS at scenes.STAR_PROD_CAP, as star_probe --open read it), the
+# insertion phase's steps (at the warm-up's cap), the small molecule-mode
+# paths' USHER targets (nattempt 0: about a third of the trials pass, so
+# that the first step inserts on every law's box) and the stars' partner
+# search in the 4-channel row checks
+OPEN_STEPS, OPEN_INS_STEPS = 200, 50
+MOL_SMALL_ETARGET = {"dpd": 36.0, "dpd1": 36.0, "lj": 20.0, "lj1": 20.0,
+                     "ljrf": 20.0}
+STAR_NEIGHBOURS = 16
 # path C's `near` distance (the reference's in.obmd_near: near 1 0.35),
 # path D's steps (the first insertions come near step 45) and the steps the
 # DPD film runs before its kernel checks
@@ -1010,8 +1051,9 @@ class SeededDraws:
 
     def __init__(self, cfg, seed: int):
         import numpy as np
+        from obmd_tpu_torch.engine_cellpad import mol_mode
         self.rng = np.random.default_rng(seed)
-        self.shape = (2, 1, cfg.obmd.insert_kmax, 3)
+        self.shape = (2, 1, cfg.obmd.insert_kmax, 7 if mol_mode(cfg) else 3)
 
     def __call__(self, state, need):
         import numpy as np
@@ -1090,7 +1132,7 @@ def small_chain(dev):
 
 
 def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
-                     unsteady=None):
+                     unsteady=None, setpoint_rtol=0.0):
     """The whole path at a small size on the card against the same path on
     the CPU (the plain versions), from one initial state and one stream of
     candidate draws, with nattempt = 0, so that no USHER verdict sits at
@@ -1103,8 +1145,10 @@ def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
     require_insert: the first step must insert atoms; `exact` the columns
     held exactly; unsteady(cfg, state), where given, a bool [N] of the
     slots whose x, v and f are not held on that state, from either device
-    (ill-conditioned impropers, where float32 rounding is amplified).
-    Returns
+    (ill-conditioned impropers, where float32 rounding is amplified);
+    setpoint_rtol, where given, adds that share of each boundary setpoint's
+    magnitude to its 1e-4 (a molecule leaving whole puts its momentum over
+    dt, thousands, into one float32 sum).  Returns
     the largest position difference by tag."""
     import dataclasses as dc
 
@@ -1150,7 +1194,10 @@ def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
             return a[held] if a.ndim and len(a) == len(held) else a
         for k in SMALL_CLOSE:
             d = float(np.abs(rows(got[k]) - rows(want[k])).max())
-            if not d <= 1e-4:
+            bar = 1e-4
+            if k.endswith("_force_left") or k.endswith("_force_right"):
+                bar += setpoint_rtol * float(np.abs(want[k]).max())
+            if not d <= bar:
                 fail(f"{label} small path, state {i}: {k} differs by {d}")
         fmax = float(np.abs(want["f"]).max())
         d = float(np.abs(rows(got["f"]) - rows(want["f"])).max())
@@ -1676,7 +1723,7 @@ def run_obmd_lj():
         kernel_line("dpd_full", config, None, full_launches["dpd_full"][0],
                     full),
     ]
-    return path, kernels
+    return path, kernels, (cfg, st_prod)
 
 
 def bond_pair_slots(cfg, geom, state):
@@ -2130,7 +2177,7 @@ def run_ljrf():
         kernel_line("usher_search_ljrf", "lj/cut/rf rows, 2 types", None,
                     launches["usher_search_ljrf"][0], usher),
     ]
-    return path, kernels
+    return path, kernels, (cfg, st_prod)
 
 
 def run_gaussian(cfg24, st_eq, uniform_temps):
@@ -2881,8 +2928,288 @@ def run_star():
     return path, kernels
 
 
+def small_mol(law):
+    """The small molecule-mode path of `law` (scenes.MOL_LAWS): the
+    star box (DPD laws) or the stretched LJ lattice (LJ laws) of
+    scenes.mol_box_scene at MOL_SMALL_ETARGET[law]; `make(device)`."""
+    def make(dev):
+        from obmd_tpu_torch import scenes
+        sc = scenes.mol_box_scene(law, device=dev,
+                                  etarget=MOL_SMALL_ETARGET[law])
+        return sc.cfg, sc.state
+    return make
+
+
+def whole_molecules(cfg, state, label):
+    """(molecules, live atoms) of a molecule-mode state; fails unless every
+    molecule is whole (observe.molecule_census)."""
+    from obmd_tpu_torch.observe import molecule_census
+    n, broken = molecule_census(cfg, state)
+    if broken:
+        fail(f"{label}: {broken} of {n} molecules are not whole")
+    return n, int(state.natoms)
+
+
+def star_groups(cfg, state):
+    """The live atoms of a state grouped into 5-atom stars for the
+    4-channel row checks: in slot order, each atom not yet taken becomes
+    a center and takes its four nearest live atoms not yet taken (of its
+    STAR_NEIGHBOURS nearest, minimum image on the periodic axes; too few
+    left: it stays alone), the bonds written both ways.  Returns the
+    state with the four partner columns set and the star count."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    alive = state.alive.cpu().numpy()
+    slots = np.flatnonzero(alive)
+    x = state.x[state.alive].double().cpu().numpy()
+    lo = np.asarray(cfg.box.lo)
+    lengths = np.asarray(cfg.box.lengths)
+    size = np.where(cfg.box.periodic, lengths, 1e6)
+    tree = cKDTree(np.mod(x - lo, size), boxsize=size)
+    _, nbr = tree.query(np.mod(x - lo, size), k=STAR_NEIGHBOURS + 1)
+    taken = np.zeros(len(x), bool)
+    cols = np.full((4, state.capacity), -1, np.int32)
+    stars = 0
+    for i in range(len(x)):
+        if taken[i]:
+            continue
+        taken[i] = True
+        arms = [j for j in nbr[i, 1:] if not taken[j]][:4]
+        if len(arms) < 4:
+            continue
+        taken[arms] = True
+        cols[:, slots[i]] = slots[arms]
+        cols[0, slots[arms]] = slots[i]
+        stars += 1
+    t = torch.from_numpy(cols).to(state.device)
+    return state.replace(bond1=t[0], bond2=t[1], bond3=t[2], bond4=t[3],
+                         impr=None), stars
+
+
+def check_row(cfg, state, pair, label):
+    """A 4-channel row of the pair kernel on a real state: its live atoms
+    grouped into stars (star_groups), under `pair` (None: the state's own
+    law), held to the plain version with holes and same bytes (check_pair)
+    and against itself without pbond (check_exclusion).  Returns (figures,
+    launch key, stars)."""
+    from obmd_tpu_torch.config import BondHarmonicParams
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    rcfg = dataclasses.replace(cfg, pair=pair or cfg.pair, obmd=None,
+                               langevin=None, bond=BondHarmonicParams(),
+                               branched_topology=True)
+    geom = make_geometry(rcfg)
+    st, stars = star_groups(rcfg, state)
+    key = launch_key(geom, PairCoef.of(geom, rcfg.pair, rcfg.dt), 4)
+    figures, _ = check_pair(rcfg, geom, st, f"{label} ({key}, {stars} "
+                            "stars)")
+    check_exclusion(rcfg, geom, st, "pair", label=f"{label} ({key})")
+    return figures, key, stars
+
+
+def run_open_star(ended):
+    """Phases 28-30: the small molecule-mode paths against the CPU, path F
+    (the open star melt under shear) and the pair kernel's 4-channel rows
+    on the ended states of OBMD_DPD, the open LJ fluid and the charged
+    fluid (`ended`: law -> (cfg, state))."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.config import LJCutParams
+    from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import (check_invariants,
+                                        ill_conditioned_impropers,
+                                        make_obmd_metrics_fn)
+    from obmd_tpu_torch.state import temperature
+
+    # ---- phase 28: each law's small molecule-mode path against the CPU;
+    # its launches on the card are the row's path launches
+    exact = SMALL_EXACT + ("bond3", "bond4", "impr", "rep_atom")
+    small, row_launches = {}, {}
+    for law in scenes.MOL_LAWS:
+        _build.reset_launch_counts()
+        err = check_small_path(f"molecule-mode {law}", small_mol(law),
+                               require_insert=True, exact=exact,
+                               unsteady=ill_conditioned_impropers,
+                               setpoint_rtol=1e-6)
+        by = launch_counts()["pair"][1]
+        small[law] = dict(max_pos_err=err, launches=by)
+        row_launches.update(by)
+
+    # ---- phase 29: path F
+    t_path = time.perf_counter()
+    sc = scenes.open_star_scene(device=DEV)
+    cfg = sc.cfg
+    metrics = make_obmd_metrics_fn(cfg)
+    caps = (scenes.STAR_START_CAP, scenes.STAR_WARM_CAP)
+    wcfgs = [scenes.with_cap(cfg, c) for c in caps]
+    wkeys = [f"dpd-t2-excl4-cap{make_geometry(c).fcap}" for c in wcfgs]
+    start_atoms, start_mols = int(sc.state.natoms), whole_molecules(
+        cfg, sc.state, "path F start")[0]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = scenes.star_warm_up(cfg, sc.state)
+    sync()
+    warm_s = time.perf_counter() - t0
+    warm_launches = launch_counts()
+    require_launches(warm_launches, {"pair": tuple(wkeys)}, "path F warm-up")
+    warm_tel = check_invariants(wcfgs[1], st)
+    warm_mols = whole_molecules(cfg, st, "path F warm-up")
+    m = metrics(st)
+    log(f"path F warm-up: {start_atoms} beads ({start_mols} stars) -> "
+        f"{warm_mols[1]} ({warm_mols[0]} stars, all whole) in "
+        f"{scenes.STAR_START_STEPS} + {scenes.STAR_WARM_STEPS} steps, "
+        f"{warm_s:.2f} s; buffer censuses {int(m.nbuf_left)} and "
+        f"{int(m.nbuf_right)} beads, telemetry {warm_tel}, launches "
+        f"{warm_launches}")
+    warm_pair, _ = check_pair(wcfgs[1], make_geometry(wcfgs[1]), st,
+                              "dpd, 2 types, 4-channel exclusion, cap "
+                              f"{caps[1]}, path F warm-up (open x)")
+
+    pcfg = scenes.with_cap(cfg, scenes.STAR_PROD_CAP)
+    geom = make_geometry(pcfg)
+    key = f"dpd-t2-excl4-cap{geom.fcap}"
+    _build.reset_launch_counts()
+    st = setup(pcfg, st)
+    prod_start = int(st.natoms)
+    occupancy = [max_cell_count(geom, st)]
+    run = make_run(pcfg, OPEN_STEPS)
+    windows, temps = [], []
+    for _ in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        temps.append(float(temperature(pcfg, st)))
+    launches = launch_counts()
+    tel = check_invariants(pcfg, st)
+    check_finite(st, "path F production")
+    prod_mols = whole_molecules(pcfg, st, "path F production")
+    require_launches(launches, {"pair": (key,)}, "path F production")
+    if launches["pair"][0] != 2 * OPEN_STEPS + 1:
+        fail(f"path F: {launches['pair'][0]} pair kernel launches for "
+             f"setup and {2 * OPEN_STEPS} steps")
+    for t in temps:
+        if not abs(t - 1.0) <= 0.05:
+            fail(f"path F production: T {t} is not within 5% of 1.0")
+    wall, steps = min(windows)
+    m = metrics(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right)) / cfg.obmd.mol_len
+    log(f"path F production ({geom}): {steps / wall:.1f} steps/s, "
+        f"{wall / steps * 1e3:.3f} ms/step, windows {windows}, beads "
+        f"{prod_start} -> {prod_mols[1]} ({prod_mols[0]} stars, all whole), "
+        f"T {temps}, telemetry {tel}, most atoms in one cell at setup and "
+        f"after each window {occupancy} (filing cap {geom.fcap}), buffer "
+        f"census {census:.1f} molecules")
+    pair, _ = check_pair(pcfg, geom, st, "dpd, 2 types, 4-channel "
+                         f"exclusion, cap {geom.fcap}, path F (open x)")
+    near = check_exclusion(pcfg, geom, st, "pair",
+                           label=f"path F cap {geom.fcap}")
+    prof = profile_steps(make_run(pcfg, 2 * auto_rebuild_every(pcfg)), st,
+                         2 * auto_rebuild_every(pcfg))
+    log(f"path F profile (production): {prof}")
+    if prof is None:
+        fail("path F profile: no device activity traced")
+
+    # the insertion phase: nbuf raised to 1.05 x census / alpha at the
+    # warm-up's cap, so that both buffers ask for molecules
+    cfg_ins = dataclasses.replace(wcfgs[1], obmd=dataclasses.replace(
+        cfg.obmd, nbuf=1.05 * census / cfg.obmd.alpha)).finalize()
+    ikey = wkeys[1]
+    _build.reset_launch_counts()
+    st = setup(cfg_ins, st)
+    c0 = {k: int(getattr(st.obmd, k)) for k in (
+        "ninserted", "ndeleted", "insert_fail", "usher_iters")}
+    t0 = time.perf_counter()
+    st = make_run(cfg_ins, OPEN_INS_STEPS)(st)
+    sync()
+    ins_s = time.perf_counter() - t0
+    ins_launches = launch_counts()
+    tel_ins = check_invariants(cfg_ins, st)
+    ins = {k: int(getattr(st.obmd, k)) - v for k, v in c0.items()}
+    ins_mols = whole_molecules(cfg_ins, st, "path F insertion phase")
+    require_launches(ins_launches, {"pair": (ikey,)}, "path F insertion")
+    if (ins["ninserted"] <= 0 or ins["ninserted"] % 5
+            or ins["usher_iters"] <= 0):
+        fail(f"path F insertion phase: {ins}")
+    check_finite(st, "path F insertion phase")
+    ins_prof = profile_steps(make_run(cfg_ins, 2), st, 2)
+    log(f"path F insertion phase: nbuf {cfg_ins.obmd.nbuf:.1f}, "
+        f"{ins['ninserted'] // 5} stars inserted, {ins['ndeleted']} beads "
+        f"deleted, {ins['insert_fail']} insertions failed, "
+        f"{ins['usher_iters']} USHER iterations in {OPEN_INS_STEPS} steps "
+        f"({ins_s:.2f} s), {ins_mols[0]} stars, all whole; telemetry "
+        f"{tel_ins}; profile {ins_prof}")
+    path_s = time.perf_counter() - t_path
+
+    # ---- phase 30: the 4-channel rows a-c on real states grouped into
+    # stars: one-type dpd on OBMD_DPD's, lj on the open LJ fluid's, lj
+    # with two types and lj/cut/rf on the charged fluid's
+    rows = []
+    for law, rpair, what in (
+            ("dpd", None, "dpd, 1 type, OBMD_DPD's equilibrated state"),
+            ("lj", None, "lj, 1 type, the open LJ fluid's ended state"),
+            ("ljrf", LJCutParams.create(
+                cutoff=2.5, ntypes=2, epsilon=scenes.LJRF_EPSILON,
+                sigma=scenes.LJRF_SIGMA),
+             "lj, 2 types, the charged fluid's ended state"),
+            ("ljrf", None, "lj/cut/rf, 2 types, the charged fluid's ended "
+             "state")):
+        rcfg, rst = ended[law]
+        figs, rkey, stars = check_row(rcfg, rst, rpair, what)
+        rows.append((what, rkey, stars, figs))
+
+    path = dict(beads_start=start_atoms, stars_start=start_mols,
+                warm_up_s=warm_s, warm_up_launches=warm_launches["pair"][1],
+                warm_up_telemetry=warm_tel, beads_after_warm_up=warm_mols[1],
+                production_beads=[prod_start, prod_mols[1]],
+                production_stars=prod_mols[0], ms_per_step=wall / steps * 1e3,
+                steps_per_s=steps / wall,
+                mparticle_steps_per_s=steps / wall * prod_mols[1] / 1e6,
+                windows_s=[w for w, _ in windows], temps=temps,
+                telemetry=tel, max_cell_count=max(occupancy),
+                filing_cap=geom.fcap, buffer_census_molecules=census,
+                slots_with_1_2_pair_in_cut=near, profile=prof,
+                insertion=dict(nbuf=cfg_ins.obmd.nbuf, steps=OPEN_INS_STEPS,
+                               stars_inserted=ins["ninserted"] // 5,
+                               beads_deleted=ins["ndeleted"],
+                               insert_fail=ins["insert_fail"],
+                               usher_iters=ins["usher_iters"],
+                               stars=ins_mols[0], seconds=ins_s,
+                               telemetry=tel_ins, profile=ins_prof),
+                path_s=path_s, small_paths=small,
+                rows={k: dict(stars=n, **f) for _, k, n, f in rows})
+    kernels = [
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, cap "
+                    f"{geom.fcap}, open x, path F",
+                    "obmd_tpu/forces/pallas_dpd.py:575",
+                    launches["pair"][1][key], pair),
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, cap "
+                    f"{caps[1]}, open x, path F warm-up and insertion",
+                    "obmd_tpu/forces/pallas_dpd.py:324",
+                    warm_launches["pair"][1][wkeys[1]]
+                    + ins_launches["pair"][1][ikey], warm_pair),
+    ]
+    for what, rkey, stars, figs in rows:
+        row = rkey.rsplit("-cap", 1)[0]
+        small_key = next(k for k in row_launches
+                         if k.rsplit("-cap", 1)[0] == row)
+        kernels.append(kernel_line(
+            "pair", f"{rkey}: {what} grouped into {stars} stars; launches: "
+            f"the small molecule-mode path ({small_key})",
+            "obmd_tpu/forces/pallas_dpd.py:"
+            + ("575" if rkey.endswith(("-cap15", "-cap16", "-cap20"))
+               else "324"), row_launches[small_key], figs))
+    del sc, st
+    torch.cuda.empty_cache()
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-27; returns the paths' figures and the kernel figures."""
+    """Phases 2-30; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build_all()
@@ -2900,13 +3227,13 @@ def run_smoke():
     lj_path, lj_kernels = run_lj()
     wall_s["lj_melt"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    olj_path, olj_kernels = run_obmd_lj()
+    olj_path, olj_kernels, olj_end = run_obmd_lj()
     wall_s["obmd_lj"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     chain_path, chain_kernels = run_chain()
     wall_s["chain"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rf_path, rf_kernels = run_ljrf()
+    rf_path, rf_kernels, rf_end = run_ljrf()
     wall_s["obmd_ljrf"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     gauss_path, gauss_kernels = run_gaussian(*obmd_prod)
@@ -2926,16 +3253,21 @@ def run_smoke():
     t0 = time.perf_counter()
     star_path, star_kernels = run_star()
     wall_s["star_melt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    open_path, open_kernels = run_open_star(
+        dict(dpd=obmd_prod[:2], lj=olj_end, ljrf=rf_end))
+    wall_s["open_star"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
                           chain=chain_path, obmd_ljrf=rf_path,
                           obmd_dpd_gaussian=gauss_path,
                           dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
                           near_box=box_path, dpd_film=film,
-                          star_melt=star_path),
+                          star_melt=star_path, open_star=open_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
-                + near_kernels + box_kernels + film_kernels + star_kernels)
+                + near_kernels + box_kernels + film_kernels + star_kernels
+                + open_kernels)
 
 
 def main():

@@ -152,6 +152,8 @@ def layout_build(geom: PadGeometry, box: Box, state: State) -> State:
     return state.replace(
         x=x, v=scat(state.v, 0), f=scat(state.f, 0), type=scat(state.type, 0),
         tag=tag, q=scat(state.q, 0), alive=alive, mol=scat(state.mol, 0),
+        lambdaF=scat(state.lambdaF, 0), cms_mol=scat(state.cms_mol, 0),
+        vcms_mol=scat(state.vcms_mol, 0), rep_atom=scat(state.rep_atom, 0),
         bond1=slots(state.bond1), bond2=slots(state.bond2),
         bond3=slots(state.bond3), bond4=slots(state.bond4),
         impr=slots(state.impr),
@@ -238,14 +240,17 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
                          has_bonds: bool = True,
                          has_mol: bool = True,
                          has_charge: bool = True,
-                         has_types: bool = True) -> State:
+                         has_types: bool = True,
+                         has_mol_com: bool = True) -> State:
     """Movers-only epoch relayout: each atom whose current cell differs from
     its slot's cell takes a free rank of its current cell (the j-th mover of
     a cell takes the j-th free rank); atoms that cannot be placed stay put
     and are counted in PadAux.overflow.  Moves x, v, tag, alive (and f when
     move_f); with has_bonds, the partner slot columns (two or four) and
     the improper triplets move and every slot reference follows its atom;
-    with has_mol, mol moves; with has_charge, q; with has_types, type.
+    with has_mol, mol moves, and with has_mol_com too the molecule columns
+    (lambdaF, cms_mol, vcms_mol, rep_atom); with has_charge, q; with
+    has_types, type.
     Callers pass
     engine_cellpad.relayout_flags: a column constant over the scene (no
     bonds, no molecules, no charges, one type) skips its moves."""
@@ -314,6 +319,11 @@ def relayout_incremental(geom: PadGeometry, box: Box, state: State,
         upd["q"] = move(state.q, 0.0)
     if has_mol:
         upd["mol"] = move(state.mol, 0)
+        if has_mol_com:
+            upd.update(lambdaF=move(state.lambdaF, 0.0),
+                       cms_mol=move(state.cms_mol, 0.0),
+                       vcms_mol=move(state.vcms_mol, 0.0),
+                       rep_atom=move(state.rep_atom, 0))
     if has_types:
         upd["type"] = move(state.type, 0)
     new = state.replace(**upd)

@@ -3,7 +3,8 @@ pair laws.
 
 The JAX side is handed over as a dict of numpy arrays (so this module needs
 neither JAX nor the JAX package): the `State` fields x, v, f, type, tag,
-q, alive, mol, bond1, bond2, step, sim_time, maxtag, cell_overflow, and
+q, alive, mol, lambdaF, cms_mol, vcms_mol, rep_atom, bond1, bond2, step,
+sim_time, maxtag, cell_overflow, and
 on a branched topology bond3, bond4 and impr; the `ObmdScalars` fields;
 and the `PadAux` fields xref, rebuilds, overflow, skin_trips, tag3d and
 occ.  A pair law and a bond, angle, dihedral or improper style cross by
@@ -22,7 +23,8 @@ from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
                      ImproperHarmonicParams, LJCutParams, LJCutRFParams)
 from .state import ObmdScalars, State, make_generator, resolve_device
 
-STATE_FIELDS = ("x", "v", "f", "type", "tag", "q", "alive", "mol", "bond1",
+STATE_FIELDS = ("x", "v", "f", "type", "tag", "q", "alive", "mol",
+                "lambdaF", "cms_mol", "vcms_mol", "rep_atom", "bond1",
                 "bond2", "step", "sim_time", "maxtag", "cell_overflow")
 OBMD_FIELDS = ("momentum_force_left", "momentum_force_right",
                "shear_force_left", "shear_force_right", "ndeleted",
@@ -48,7 +50,10 @@ def from_arrays(d: dict, seed: int = 0, device="cuda") -> State:
         x=t("x"), v=t("v"), f=t("f"), type=t("type").to(torch.int32),
         tag=t("tag").to(torch.int32), q=t("q"),
         alive=t("alive").to(torch.bool),
-        mol=t("mol").to(torch.int32), bond1=t("bond1").to(torch.int32),
+        mol=t("mol").to(torch.int32), lambdaF=t("lambdaF"),
+        cms_mol=t("cms_mol"), vcms_mol=t("vcms_mol"),
+        rep_atom=t("rep_atom").to(torch.int32),
+        bond1=t("bond1").to(torch.int32),
         bond2=t("bond2").to(torch.int32),
         step=int(d["step"]), sim_time=t("sim_time"),
         maxtag=t("maxtag").to(torch.int32), gen=make_generator(seed, dev),

@@ -698,16 +698,32 @@ int launch(const void* fld, const void* tag, const void* occ,
   const cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if (n_excl == 4) {
-    // four channels: make_pair_kernel's typed dpd law, uniform noise, y and
-    // z periodic with >= 3 cells (a branched melt's), the one instantiation
+    // four channels (branched topologies): make_pair_kernel's dpd law with
+    // 1-4 types, lj with 1-4 types and ljrf with 2-4 types, uniform noise,
+    // y and z periodic with >= 3 cells each; five instantiations
     if constexpr (kLegacy) {
       return (int)cudaErrorInvalidValue;  // make_dpd_kernel has two
     } else {
-      if (law != kDpd || !types || gauss || rmp || P.ny == 1 || P.nz == 1
-          || !(P.per_y && P.per_z))
+      if (gauss || rmp || P.ny == 1 || P.nz == 1 || !(P.per_y && P.per_z))
         return (int)cudaErrorInvalidValue;
-      rc = start_geo<kDpd, false, 4, true, false, false, false, false>(
-          grid, st, fld, tag, occ, pbond, out, P, T);
+      if (law == kDpd && types) {
+        rc = start_geo<kDpd, false, 4, true, false, false, false, false>(
+            grid, st, fld, tag, occ, pbond, out, P, T);
+      } else if (law == kDpd) {
+        rc = start_geo<kDpd, false, 4, false, false, false, false, false>(
+            grid, st, fld, tag, occ, pbond, out, P, T);
+      } else if (law == kLj && types) {
+        rc = start_geo<kLj, false, 4, true, false, false, false, false>(
+            grid, st, fld, tag, occ, pbond, out, P, T);
+      } else if (law == kLj) {
+        rc = start_geo<kLj, false, 4, false, false, false, false, false>(
+            grid, st, fld, tag, occ, pbond, out, P, T);
+      } else if (law == kLjrf && types) {
+        rc = start_geo<kLjrf, false, 4, true, false, false, false, false>(
+            grid, st, fld, tag, occ, pbond, out, P, T);
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
       if (rc != 0) return rc;
       return (int)cudaGetLastError();
     }

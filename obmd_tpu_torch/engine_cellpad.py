@@ -3,7 +3,10 @@
 Counterpart of `obmd_tpu/engine_cellpad.py` for DPD (uniform or gaussian
 noise), lj/cut or lj/cut/rf with 1-4 atom types, in an open-x box with
 ATOM-mode USHER or `near` insertion (OBMD_DPD, the open LJ fluid, the open
-charged two-type LJ fluid) or a closed box without the OBMD stage (the LJ
+charged two-type LJ fluid) or MOLECULE-mode insertion of one template with
+its bonds, angles and impropers (the open star-polymer melt: `_insert_mol`,
+whole-molecule deletion, the molecules' centers of mass after every step),
+or a closed box without the OBMD stage (the LJ
 melt; with FENE chains, the chain melt; with harmonic bonds, angles,
 dihedrals on chains and impropers on branched topologies of up to four
 bonds per atom, the star-polymer melt), with or without the Langevin
@@ -27,18 +30,25 @@ legacy full-stencil make_dpd_kernel's (`kernel="full"`); both compute the
 same forces.
 
 Candidate positions go through a draw seam: `draw(state, need)` is called
-once per stage call and returns uniform [0, 1) draws [2, rounds, K, 3]
-(side-major) when `need` is true, else None.  `own_draws` uses the state's
+once per stage call and returns uniform [0, 1) draws [2, rounds, K, D]
+(side-major) when `need` is true, else None: D = 3 in ATOM mode (the
+position), D = 7 in MOLECULE mode (the center, the rotation axis's cube
+draw, the rotation angle's draw).  `own_draws` uses the state's
 generator; a parity test passes a function that replays the JAX engine's
 own random draws.
 
 The demand gate (the reference's `lax.cond` on "either buffer needs
 atoms") is a host-side `if`: one device-to-host read per stage call.  The
 skip branch leaves the state as the reference's skip branch does: no
-subset-overflow count, no USHER iterations, no insertion.
+subset-overflow count, no USHER iterations, no insertion.  In MOLECULE
+mode the JAX engine runs its search on the skip branch's empty subsets
+too; there every trial's energy is 0 and its force 0, so each stops at
+iteration 0 (accepted below a positive etarget, degenerate otherwise) and
+none is taken (the budget is 0): the counters come out the same.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -51,7 +61,7 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       compact_indices)
 from .cells import BIG
 from .config import (DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams,
-                     SceneConfig, eval_param)
+                     SceneConfig, eval_param, template_stacks)
 from .geometry import const, const_like
 from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                             improper_forces, langevin_force)
@@ -61,9 +71,14 @@ from .forces.pair_kernel import (N_EXCL, N_EXCL_BRANCHED, PadGeometry,
                                  make_pair_kernel)
 from .forces.pairs import sig_scale_of
 from .forces.usher_kernel import usher_search
-from .obmd.stage import (_sequential_accept, draw_candidates, feedback_count,
-                         insertion_tag_base, rounds_of, smooth_weight)
-from .obmd.subset import Subset, expand_region, near_check_subset
+from .obmd.stage import (_sequential_accept, delete_outside, draw_candidates,
+                         feedback_count, insertion_tag_base, rounds_of,
+                         smooth_weight)
+from .obmd.subset import (Subset, expand_region, mol_candidates_sel,
+                          mol_sequential_accept, near_check_subset,
+                          near_check_subset_mol, random_rotations,
+                          usher_search_subset_mol)
+from .adress import update_mol_com
 from .state import State, per_atom_mass
 
 PURPOSE_PAIR_NOISE = 1
@@ -71,10 +86,15 @@ PURPOSE_PAIR_NOISE = 1
 Draw = Callable[[State, bool], Optional[torch.Tensor]]
 
 
+def mol_mode(cfg: SceneConfig) -> bool:
+    """The OBMD stage inserts molecules (the fix's `mol` keyword)."""
+    return cfg.obmd is not None and cfg.obmd.mol is not None
+
+
 def own_draws(cfg: SceneConfig) -> Draw:
     """Production draws from the state's generator, only when needed."""
-    shape = (2, rounds_of(cfg), cfg.obmd.insert_kmax, 3) \
-        if cfg.obmd is not None else None
+    shape = (2, rounds_of(cfg), cfg.obmd.insert_kmax,
+             7 if mol_mode(cfg) else 3) if cfg.obmd is not None else None
 
     def draw(state: State, need: bool):
         if not need:
@@ -84,22 +104,49 @@ def own_draws(cfg: SceneConfig) -> Draw:
     return draw
 
 
+# the fix keywords of MOLECULE mode that are not ported, with what each is
+_MOL_UNPORTED = (
+    ("mols", "multi-template insertion (`mols`/`molfrac`)"),
+    ("molfrac", "multi-template insertion (`mols`/`molfrac`)"),
+    ("charged", "`charged 1` trial energies"),
+    ("orient", "the fixed rotation axis `orient`"),
+    ("rigid", "rigid-body insertion (`rigid`)"),
+    ("shake", "SHAKE-constrained insertion (`shake`)"),
+    ("vx", "the inserted-velocity keywords (vx, vy, vz, target)"),
+    ("vy", "the inserted-velocity keywords (vx, vy, vz, target)"),
+    ("vz", "the inserted-velocity keywords (vx, vy, vz, target)"),
+    ("target", "the inserted-velocity keywords (vx, vy, vz, target)"))
+
+
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
     open boxes with ATOM-mode USHER or `near` insertion and closed boxes without the
     OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4 types (as many
     masses as the pair law has types), with or without the Langevin
-    thermostat; dpd/tstat without the OBMD stage; on a closed box FENE or
-    harmonic bonds, harmonic angles, dihedrals (chains only, as
+    thermostat; dpd/tstat without the OBMD stage; FENE or harmonic bonds,
+    harmonic angles, dihedrals (chains only, as
     obmd_tpu/engine_cellpad.py:149-154) and impropers, on chains or
-    branched topologies (the pair kernel's 4-channel exclusion: its typed
-    dpd law, pair_kernel.check_channels)."""
+    branched topologies (the pair kernel's 4-channel exclusion,
+    pair_kernel.check_channels), on a closed box or in an open box whose
+    stage inserts molecules of one template (MOLECULE mode, maxattempt 1,
+    nfreq 1, without the keywords of _MOL_UNPORTED)."""
     if cfg.box.periodic[0] and cfg.obmd is not None:
         raise ValueError("open boundaries require an open x axis")
     molecular = (cfg.bond, cfg.angle, cfg.dihedral, cfg.improper)
-    if cfg.obmd is not None and any(t is not None for t in molecular):
-        raise NotImplementedError("bonded terms with the OBMD stage "
-                                  "(molecule insertion) are not ported yet")
+    if cfg.obmd is not None and not mol_mode(cfg) \
+            and any(t is not None for t in molecular):
+        raise NotImplementedError(
+            "bonded terms with ATOM-mode insertion are not ported (molecule "
+            "mode, the `mol` keyword, is)")
+    if mol_mode(cfg):
+        for name, what in _MOL_UNPORTED:
+            if getattr(cfg.obmd, name) not in (None, False, ()):
+                raise NotImplementedError(
+                    f"molecule insertion: {what} is not ported yet")
+        top = int(template_stacks(cfg.obmd).types.max())
+        if top >= cfg.ntypes:
+            raise ValueError(f"the insertion template reaches type "
+                             f"{top + 1} of a {cfg.ntypes}-type scene")
     if cfg.dihedral is not None and cfg.branched_topology:
         raise NotImplementedError(
             "dihedrals on branched topologies (>2 bonds/atom) are not "
@@ -147,12 +194,16 @@ def relayout_flags(cfg: SceneConfig) -> dict:
     column constant over the scene (no bonds, no molecules, no charges, one
     type) skips its moves (obmd_tpu/engine_cellpad.py:52-72 for the ported
     columns).  has_bonds moves the partner columns (two or four) and the
-    improper triplets."""
-    has_bonds = cfg.bond is not None
+    improper triplets; MOLECULE-mode insertion turns on bonds, molecules
+    and charges (the template's q), and has_mol_com, the molecule columns
+    only it writes (lambdaF, cms_mol, vcms_mol, rep_atom; the JAX engine
+    moves them with has_mol, zeros on every other scene)."""
+    mol = mol_mode(cfg)
+    has_bonds = cfg.bond is not None or mol
     has_mol = has_bonds or cfg.angle is not None or cfg.dihedral is not None
     return dict(has_bonds=has_bonds, has_mol=has_mol,
-                has_charge=isinstance(cfg.pair, LJCutRFParams),
-                has_types=cfg.ntypes > 1)
+                has_charge=isinstance(cfg.pair, LJCutRFParams) or mol,
+                has_types=cfg.ntypes > 1, has_mol_com=mol)
 
 
 def _make_kernel(cfg: SceneConfig, geom: PadGeometry, kernel: str = "pair"):
@@ -388,6 +439,126 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
             usher_iters=sc.usher_iters + iters2.sum(dtype=torch.int32)))
 
 
+@functools.lru_cache(maxsize=8)
+def _template(obmd, device):
+    """The (single) insertion template's stacks as tensors on `device`:
+    dx [m, 3], types [m], q [m], rep [m], natoms, pidx [m, 4], iidx [m, 3]
+    (obmd_tpu/config.py template_stacks, template 0)."""
+    ts = template_stacks(obmd)
+    return dict(dx=torch.tensor(ts.dx[0], dtype=torch.float32, device=device),
+                types=torch.tensor(ts.types[0], dtype=torch.int32,
+                                   device=device),
+                q=torch.tensor(ts.q[0], dtype=torch.float32, device=device),
+                rep=torch.tensor(ts.rep[0], dtype=torch.int32, device=device),
+                natoms=int(ts.natoms[0]),
+                pidx=torch.tensor(ts.pidx[0], dtype=torch.int64,
+                                  device=device),
+                iidx=torch.tensor(ts.iidx[0], dtype=torch.int64,
+                                  device=device))
+
+
+def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
+    """MOLECULE-mode insertion (obmd_tpu/engine_cellpad.py:288-510, one
+    template, one round): per buffer K trials of the template, each at a
+    uniform center with a random rotation (`random_rotations` from the
+    draws' axis and angle uniforms), the molecule USHER search (or the
+    `near` check), every real atom inside the insertion region, greedy
+    in-order acceptance within the feedback budget; then free ranks for all
+    accepted atoms, and a molecule placed whole or not at all.  Placed
+    atoms take consecutive tags in candidate order, the molecule id of the
+    first atom's tag, the template's types, charges and rep_atom flags,
+    lambdaF 0, centers of mass 0 until the step's end, v 0, and partner and
+    improper slots resolved from the template's graph.  `u` holds the draws
+    [2, 1, K, 7]."""
+    obmd = cfg.obmd
+    k = obmd.insert_kmax
+    n_slots = geom.n_slots
+    dev = state.device
+    tpl = _template(obmd, dev)
+    m = tpl["dx"].shape[0]
+    am = torch.ones((k, m), dtype=torch.bool, device=dev)
+    types_k = tpl["types"].expand(k, m)
+    poss, accs = [], []
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    for side, region, budget, sub in ((0, obmd.region5, nins_l, sub_l),
+                                      (1, obmd.region6, nins_r, sub_r)):
+        us = u[side, 0]
+        centers = draw_candidates(us[:, 0:3], region)
+        rots = random_rotations(us[:, 3:6], us[:, 6], axis=obmd.orient)
+        coords = mol_candidates_sel(tpl["dx"].expand(k, m, 3), am, centers,
+                                    rots)
+        if obmd.usher is not None:
+            pos, ok, it = usher_search_subset_mol(cfg, sub, coords, types_k,
+                                                  region, amask=am)
+            iters = iters + it.sum(dtype=torch.int32)
+        else:
+            pos, ok = coords, near_check_subset_mol(cfg, sub, coords)
+        ok = ok & torch.all(region.match(pos) | ~am, dim=1)
+        acc, _ = mol_sequential_accept(cfg, pos, types_k, ok,
+                                       torch.clamp(budget, 0, k))
+        poss.append(pos)
+        accs.append(acc)
+    pos = torch.cat(poss)                                   # [2K, m, 3]
+    accepted = torch.cat(accs)                              # [2K]
+    km = 2 * k
+    apos = pos.reshape(km * m, 3)
+    slot, landed = place_insertions(geom, state, apos,
+                                    accepted.repeat_interleave(m))
+    landed_mol = landed.reshape(km, m).all(1) & accepted
+    act = landed_mol.repeat_interleave(m)
+    slot = torch.where(act, slot, n_slots)                  # atomic commit
+
+    base = insertion_tag_base(cfg, state)
+    placed = torch.where(landed_mol, tpl["natoms"], 0).to(torch.int32)
+    tag_base = base + torch.cumsum(placed, 0, dtype=torch.int32) - placed
+    atom_idx = torch.arange(m, dtype=torch.int32, device=dev).repeat(km)
+    new_tag = tag_base.repeat_interleave(m) + atom_idx + 1
+    mol_id = (tag_base + 1).repeat_interleave(m)
+    base_flat = torch.arange(km * m, device=dev) // m * m
+
+    def pslot(p_idx):
+        """Each placed atom's partner of template index p_idx [m] as a
+        slot (-1 for none)."""
+        p = p_idx.repeat(km)
+        pf = torch.clamp(base_flat + p, 0, km * m - 1)
+        return torch.where((p >= 0) & act, slot[pf], -1)
+
+    upd = {}
+    for c, name in enumerate(("bond1", "bond2", "bond3", "bond4")):
+        if getattr(state, name) is not None:
+            upd[name] = scatter_rows(getattr(state, name), slot,
+                                     pslot(tpl["pidx"][:, c]))
+    if state.impr is not None:
+        upd["impr"] = scatter_rows(state.impr, slot, torch.stack(
+            [pslot(tpl["iidx"][:, c]) for c in range(3)], dim=1))
+    zeros3 = torch.zeros_like(apos)
+    aux: PadAux = state.nbrs
+    aux = aux.replace(xref=scatter_rows(aux.xref, slot, apos))
+    aux = patch_kernel_caches(geom, aux, slot, new_tag, n_slots)
+    n_mols = landed_mol.sum(dtype=torch.int32)
+    n_atoms = placed.sum(dtype=torch.int32)
+    want = torch.clamp(nins_l, min=0) + torch.clamp(nins_r, min=0)
+    sc = state.obmd
+    return state.replace(
+        x=scatter_rows(state.x, slot, apos),
+        v=scatter_rows(state.v, slot, zeros3),
+        f=scatter_rows(state.f, slot, zeros3),
+        type=scatter_rows(state.type, slot, tpl["types"].repeat(km)),
+        tag=scatter_rows(state.tag, slot, new_tag),
+        q=scatter_rows(state.q, slot, tpl["q"].repeat(km)),
+        mol=scatter_rows(state.mol, slot, mol_id),
+        rep_atom=scatter_rows(state.rep_atom, slot, tpl["rep"].repeat(km)),
+        lambdaF=scatter_rows(state.lambdaF, slot, zeros3[:, 0]),
+        cms_mol=scatter_rows(state.cms_mol, slot, zeros3),
+        vcms_mol=scatter_rows(state.vcms_mol, slot, zeros3),
+        alive=scatter_rows(state.alive, slot, torch.ones_like(act)),
+        nbrs=aux, maxtag=base + n_atoms, **upd,
+        obmd=sc.replace(
+            ninserted=sc.ninserted + n_atoms,
+            insert_fail=sc.insert_fail + torch.clamp(want - n_mols, min=0),
+            usher_iters=sc.usher_iters + iters))
+
+
 def _delete_outside_sliced(cfg, geom, state: State):
     """Delete atoms beyond the open x faces, touching only the two face
     blocks (an atom beyond a face was filed in that face's cell column),
@@ -438,7 +609,11 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
     tau = eval_param(obmd.tau, t)
     nbuf = eval_param(obmd.nbuf, t)
 
-    state, vnewl, vnewr = _delete_outside_sliced(cfg, geom, state)
+    if mol_mode(cfg):
+        # doom spreads along bonds beyond the face band: the whole store
+        state, vnewl, vnewr = delete_outside(cfg, state)
+    else:
+        state, vnewl, vnewr = _delete_outside_sliced(cfg, geom, state)
     if with_rebuild:
         state = maybe_rebuild(geom, box, cfg.skin, state,
                               **relayout_flags(cfg))
@@ -458,7 +633,8 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
         state = state.replace(cell_overflow=state.cell_overflow
                               + sub_l.overflow.to(torch.int32)
                               + sub_r.overflow.to(torch.int32))
-        state = _insert(cfg, geom, state, nins_l, nins_r, sub_l, sub_r, u)
+        insert = _insert_mol if mol_mode(cfg) else _insert
+        state = insert(cfg, geom, state, nins_l, nins_r, sub_l, sub_r, u)
 
     sim_time = t + dt
     factor = pxx + dpxx * torch.sin(2.0 * np.pi * freq * sim_time)
@@ -475,19 +651,27 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
 def setup_cellpad(cfg: SceneConfig, state: State,
                   draw: Optional[Draw] = None, kernel: str = "pair") -> State:
     """Pack into the cellpad layout, run the OBMD stage and the initial
-    force evaluation.  Raises if the initial filing drops atoms."""
+    force evaluation.  Raises if the initial filing drops atoms: the atom
+    count after, less this stage call's insertions, plus its deletions,
+    below the count before.  (The JAX engine adds the running counters
+    instead, obmd_tpu/engine_cellpad.py:855-857, which after an earlier
+    run's insertions reports atoms lost that were not, and after its
+    deletions hides atoms that were: ROADMAP Queue 3.)"""
     cfg = cfg.finalize()
     check_supported(cfg)
     draw = draw or own_draws(cfg)
     geom = make_geometry(cfg)
     kern = _make_kernel(cfg, geom, kernel)
     n_before = int(state.alive.sum())
+    lost = n_before
+    if cfg.obmd is not None:
+        lost += int(state.obmd.ndeleted) - int(state.obmd.ninserted)
     state = state.replace(x=cfg.box.wrap(state.x))
     state = layout_build(geom, cfg.box, state)
     if cfg.obmd is not None:
         state = _obmd_stage(cfg, geom, state, draw)
     out = state.replace(f=_forces(cfg, geom, kern, state))
-    lost = n_before - int(out.alive.sum())
+    lost -= int(out.alive.sum())
     if cfg.obmd is not None:
         lost += int(out.obmd.ninserted) - int(out.obmd.ndeleted)
     if lost > 0:
@@ -520,7 +704,10 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     f = _forces(cfg, geom, kern, state)
     m = per_atom_mass(cfg, state)[:, None]
     v = torch.where(state.alive[:, None], state.v + dtf * f / m, state.v)
-    return state.replace(v=v, f=f, step=state.step + 1)
+    state = state.replace(v=v, f=f, step=state.step + 1)
+    if mol_mode(cfg):
+        state = update_mol_com(cfg, state)
+    return state
 
 
 def auto_rebuild_every(cfg: SceneConfig) -> int:

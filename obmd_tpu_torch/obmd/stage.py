@@ -1,11 +1,12 @@
 """Pieces of the OBMD open-boundary stage used by the cellpad engine.
 
-Counterpart of the ATOM-mode, uniform-candidate part of
-`obmd_tpu/obmd/stage.py`: `feedback_count`, `smooth_weight`,
-`_sequential_accept` (USHER's energy criterion or `near`'s distance),
-`draw_candidates`, `rounds_of` and `insertion_tag_base`.  Inserted atoms
-are at rest (the reference's `draw_inserted_velocities` without velocity
-keywords, ref :1076-1078).
+Counterpart of the uniform-candidate part of `obmd_tpu/obmd/stage.py`:
+`delete_outside` (the full-store deletion with MOLECULE mode's doom
+propagation), `feedback_count`, `smooth_weight`, `_sequential_accept`
+(USHER's energy criterion or `near`'s distance), `draw_candidates`,
+`rounds_of` and `insertion_tag_base`.  Inserted atoms are at rest (the
+reference's `draw_inserted_velocities` without velocity keywords, ref
+:1076-1078).
 """
 from __future__ import annotations
 
@@ -29,6 +30,37 @@ def _f32(v, like: torch.Tensor) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(torch.float32)
     return const((float(v),), torch.float32, like.device)[0]
+
+
+def delete_outside(cfg: SceneConfig, state):
+    """Delete every alive atom beyond the open x faces over the whole store
+    and tally sum(m v) by side (left when x < the box's x middle, ref
+    :827-833).  In MOLECULE mode the doom spreads along the bond-partner
+    slot columns for mol_natoms_max - 1 rounds, so a molecule with any atom
+    outside goes whole (ref :709-821).  Dead slots keep v = 0 and tag -1;
+    their partner columns are left as they were."""
+    from ..state import per_atom_mass
+    box = cfg.box
+    x0 = state.x[:, 0]
+    doomed = state.alive & ((x0 < box.lo[0]) | (x0 > box.hi[0]))
+    if cfg.obmd is not None and cfg.obmd.mol is not None:
+        n = state.capacity
+        for _ in range(max(cfg.obmd.mol_natoms_max - 1, 1)):
+            for partner in state.bond_partners:
+                ps = torch.clamp(partner.long(), 0, n - 1)
+                doomed = doomed | (state.alive & (partner >= 0) & doomed[ps])
+    left = doomed & (x0 < 0.5 * (box.lo[0] + box.hi[0]))
+    right = doomed & ~left
+    mv = per_atom_mass(cfg, state)[:, None] * state.v
+    vnewl = torch.where(left[:, None], mv, 0.0).sum(0)
+    vnewr = torch.where(right[:, None], mv, 0.0).sum(0)
+    state = state.replace(
+        alive=state.alive & ~doomed,
+        tag=torch.where(doomed, -1, state.tag),
+        v=torch.where(doomed[:, None], 0.0, state.v),
+        obmd=state.obmd.replace(ndeleted=state.obmd.ndeleted
+                                + doomed.sum(dtype=torch.int32)))
+    return state, vnewl, vnewr
 
 
 def feedback_count(cnt: torch.Tensor, mol_len, alpha, nbuf, dt, tau):

@@ -1,14 +1,21 @@
 """Buffer subsets, the batched USHER search and the `near` check in
 PyTorch.
 
-Counterpart of `obmd_tpu/obmd/subset.py` for ATOM-mode insertion: `Subset`,
+Counterpart of `obmd_tpu/obmd/subset.py`, op for op: `Subset`,
 `expand_region`, the DPD, lj/cut and lj/cut/rf branches of
-`_batched_energy_force` (`conservative_energy_force`; ATOM-mode trials are
-neutral, so lj/cut/rf's reaction field adds nothing to a trial's energy),
-`usher_search_subset_batch` and `near_check_subset`, op for op.  Candidates only ever sit inside an
-insertion region, so the atoms that can contribute are those within
-cut + skin of it; the search runs brute force against that subset.  This is
-the plain version of the USHER kernel (forces/usher_kernel.py).
+`_batched_energy_force` and `conservative_energy_force` (the trials are
+neutral: ATOM-mode insertion places neutral atoms, and MOLECULE mode's
+`charged 1` is not ported, so lj/cut/rf's reaction field adds nothing to a
+trial's energy), `usher_search_subset_batch` and `near_check_subset` for
+ATOM mode, and for MOLECULE mode `random_rotations`, `mol_candidates_sel`,
+`mol_energy_force`, `_axis_angle_rotate`, `usher_search_subset_mol`,
+`near_check_subset_mol` and `mol_sequential_accept`.  Candidates only ever
+sit inside an insertion region, so the atoms that can contribute are those
+within cut + skin of it; the search runs brute force against that subset.
+The ATOM-mode search is the plain version of the USHER kernel
+(forces/usher_kernel.py); the MOLECULE-mode search runs as these PyTorch
+operations on the card too, as the JAX package runs it as XLA array code
+(obmd_tpu/forces/pallas_usher.py:22-26).
 """
 from __future__ import annotations
 
@@ -170,3 +177,191 @@ def near_check_subset(cfg: SceneConfig, sub: Subset, cand_x):
     rsq = (d * d).sum(-1)
     min_rsq = torch.where(sub.valid[None, :], rsq, torch.inf).min(-1).values
     return min_rsq >= near_squared(cfg)
+
+
+def conservative_energy_force(pair, sub: Subset, box, cand_x, cand_type):
+    """The conservative energy E [K] and force F [K, 3] of K neutral trial
+    particles cand_x [K, 3] of types cand_type [K] against one subset
+    (`_batched_energy_force` over a single side)."""
+    q = None if sub.q is None else sub.q[None]
+    e, f = _batched_energy_force(pair, sub.x[None], sub.type[None],
+                                 sub.valid[None], cand_x[None],
+                                 cand_type[None], box=box, sub_q=q)
+    return e[0], f[0]
+
+
+# --------------------------------------------------------------------------
+# MOLECULE-mode insertion (ref try_inserting's MOLECULE branch :989-1026
+# and the USHER molecule steps :1536-1605)
+# --------------------------------------------------------------------------
+
+def random_rotations(u_axis, u_angle, axis=None):
+    """K rotation matrices [K, 3, 3] by the reference's scheme (ref
+    :1001-1024): the axis a uniform cube draw u_axis [K, 3] less 0.5,
+    normalized (or the fixed `orient` axis), the angle 2 pi u_angle [K],
+    axis-angle to matrix.  The uniforms come from the draw seam."""
+    k = u_angle.shape[0]
+    if axis is not None:
+        ax = torch.as_tensor(axis, dtype=u_angle.dtype,
+                             device=u_angle.device).expand(k, 3)
+    else:
+        ax = u_axis - 0.5
+    ax = ax / torch.linalg.norm(ax, dim=-1, keepdim=True)
+    theta = u_angle * (2.0 * np.pi)
+    c = torch.cos(theta)[:, None, None]
+    s = torch.sin(theta)[:, None, None]
+    outer = ax[:, :, None] * ax[:, None, :]
+    eye = torch.eye(3, dtype=ax.dtype, device=ax.device)[None]
+    zero = torch.zeros_like(ax[:, 0])
+    sk = torch.stack([
+        torch.stack([zero, -ax[:, 2], ax[:, 1]], -1),
+        torch.stack([ax[:, 2], zero, -ax[:, 0]], -1),
+        torch.stack([-ax[:, 1], ax[:, 0], zero], -1)], 1)
+    return c * eye + s * sk + (1.0 - c[:, 0, 0])[:, None, None] * outer
+
+
+def mol_candidates_sel(dx_sel, amask, centers, rots):
+    """Trial coordinates [K, m, 3] = center + R dx of each candidate's
+    template displacements dx_sel [K, m, 3]; rows of pad atoms (amask [K,
+    m] false) at BIG."""
+    pos = centers[:, None, :] + torch.einsum("kab,kmb->kma", rots, dx_sel)
+    return torch.where(amask[:, :, None], pos, BIG)
+
+
+def mol_energy_force(cfg, sub: Subset, coords, mol_types,
+                     per_atom: bool = False):
+    """Each K-molecule trial's total conservative energy [K] and net force
+    [K, 3] against the subset, and with per_atom its atoms' forces [K, m,
+    3]; coords [K, m, 3], mol_types [m] or [K, m]."""
+    k, m, _ = coords.shape
+    types = (mol_types.repeat(k) if mol_types.dim() == 1
+             else mol_types.reshape(k * m))
+    e, f = conservative_energy_force(cfg.pair, sub, cfg.box,
+                                     coords.reshape(k * m, 3), types)
+    fa = f.reshape(k, m, 3)
+    e = e.reshape(k, m).sum(1)
+    if per_atom:
+        return e, fa.sum(1), fa
+    return e, fa.sum(1)
+
+
+def _axis_angle_rotate(coords, com, axis, angle):
+    """Rotate coords [K, m, 3] about each candidate's com [K, 3] by its
+    axis [K, 3] and angle [K] (Rodrigues)."""
+    rel = coords - com[:, None, :]
+    c = torch.cos(angle)[:, None, None]
+    s = torch.sin(angle)[:, None, None]
+    ax = axis[:, None, :]
+    cross = torch.cross(ax.expand(rel.shape), rel, dim=-1)
+    dot = (ax * rel).sum(-1, keepdim=True)
+    return com[:, None, :] + (rel * c + cross * s + ax * dot * (1.0 - c))
+
+
+def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
+                            amask=None):
+    """Molecule USHER (ref fix_obmd_merged.cpp:1586-1605): each iteration
+    translates a molecule along its net force as ATOM mode moves an atom,
+    then rotates it about its center of mass along the torque, dtheta =
+    min((E - etarget) / |tau|, dtheta0).  The torque is the all-atom sum
+    tau = sum_a (x_a - com) x F_a, as the JAX package has it (the
+    reference's calc_torque keeps only the last atom).  E < etarget + eps
+    accepts; a degenerate force or a step that takes a real atom out of the
+    region rejects; a post-loop check accepts a molecule still below
+    target.  Returns (coords [K, m, 3], accepted [K], iters [K] i32)."""
+    u = cfg.obmd.usher
+    dtheta0 = float(getattr(u, "dtheta0", 0.0) or 0.0)
+    kk, mm = coords.shape[:2]
+    dev = coords.device
+    mt2 = (mol_types if mol_types.dim() == 2
+           else mol_types[None, :].expand(kk, mm))
+    am = (torch.ones((kk, mm), dtype=torch.bool, device=dev) if amask is None
+          else amask.expand(kk, mm))
+    masses = torch.where(am, const_like(cfg.masses, coords)[mt2.long()], 0.0)
+    wsum = masses.sum(1)
+    pos = coords
+    active = torch.ones((kk,), dtype=torch.bool, device=dev)
+    accepted = torch.zeros((kk,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((kk,), dtype=torch.int32, device=dev)
+    for _ in range(u.nattempt):
+        e, f, fa = mol_energy_force(cfg, sub, pos, mol_types, per_atom=True)
+        ok = e < u.etarget + EPSILON
+        newly = active & ok
+        fabs = torch.sqrt((f * f).sum(-1))
+        degen = fabs < EPSILON
+        ds_ovlp = u.dsovlp - (4.0 * u.eps
+                              / torch.clamp(e, min=EPSILON)) ** (1.0 / 12.0)
+        ds_norm = torch.clamp((e - u.etarget) / torch.clamp(fabs, min=EPSILON),
+                              max=u.ds0)
+        ds = torch.where(e > u.uovlp, ds_ovlp, ds_norm)
+        unit = f / torch.clamp(fabs, min=EPSILON)[:, None]
+        moved = pos + (unit * ds[:, None])[:, None, :]
+        if dtheta0 > 0.0:
+            com = (masses[:, :, None] * moved).sum(1) / wsum[:, None]
+            tau = torch.cross(moved - com[:, None, :], fa, dim=-1).sum(1)
+            tabs = torch.sqrt((tau * tau).sum(-1))
+            dth = torch.clamp((e - u.etarget)
+                              / torch.clamp(tabs, min=EPSILON), max=dtheta0)
+            axis = tau / torch.clamp(tabs, min=EPSILON)[:, None]
+            rotated = _axis_angle_rotate(moved, com, axis, dth)
+            moved = torch.where((tabs > EPSILON)[:, None, None], rotated,
+                                moved)
+        inside = torch.all(region.match(moved) | ~am, dim=1)
+        move_now = active & ~ok & ~degen
+        pos = torch.where(move_now[:, None, None], moved, pos)
+        stopped = newly | (active & degen) | (move_now & ~inside)
+        active = active & ~stopped
+        accepted = accepted | newly
+        iters = iters + active.to(torch.int32)
+    e = mol_energy_force(cfg, sub, pos, mol_types)[0]
+    accepted = accepted | (active & (e < u.etarget + EPSILON))
+    return pos, accepted, iters
+
+
+def near_check_subset_mol(cfg, sub: Subset, coords):
+    """`near` insertion's molecule check (ref :1036-1049): every atom of a
+    trial at least `near` from every valid subset atom.  coords [K, m, 3]
+    -> ok [K]."""
+    k, m, _ = coords.shape
+    d = cfg.box.min_image(coords.reshape(k * m, 1, 3) - sub.x[None, :, :])
+    rsq = (d * d).sum(-1)
+    min_rsq = torch.where(sub.valid[None, :], rsq, torch.inf).min(-1).values
+    return torch.all(min_rsq.reshape(k, m) >= near_squared(cfg), dim=1)
+
+
+def mol_sequential_accept(cfg, coords, mol_types, ok, budget):
+    """Greedy in-order acceptance of K molecule trials coords [K, m, 3]
+    (mol_types, the trials' atom types, are not read, as in the JAX
+    function):
+    take a trial when it is ok, the budget is not spent and, under USHER,
+    its summed pair energy with the trials taken before it stays at most
+    etarget + eps (`near`: no such pair energy above zero).  The pair
+    energy is the DPD energy at the law's first coefficients a0[0][0] and
+    cut[0][0], as the JAX package reads them, or for the LJ family
+    infinite when any two atoms are within the largest cutoff.  Returns
+    (accepted [K], count)."""
+    obmd = cfg.obmd
+    k = coords.shape[0]
+    d = cfg.box.min_image(coords[:, None, :, None, :]
+                          - coords[None, :, None, :, :])     # [K, K, m, m, 3]
+    rsq = (d * d).sum(-1)
+    p = cfg.pair
+    if isinstance(p, DPDParams):
+        a0, cut = float(p.a0[0][0]), float(p.cut[0][0])
+        wd = torch.clamp(1.0 - torch.sqrt(rsq) / cut, min=0.0)
+        epair = (0.5 * a0 * cut * wd * wd).sum((2, 3))
+    else:
+        epair = torch.where((rsq < p.max_cut ** 2).any(3).any(2),
+                            torch.inf, 0.0)
+    thresh = (obmd.usher.etarget if obmd.usher is not None else 0.0) \
+        + EPSILON
+    accepted = torch.zeros((k,), dtype=torch.bool, device=coords.device)
+    count = torch.zeros((), dtype=torch.int32, device=coords.device)
+    for kk in range(k):
+        if obmd.near is not None:
+            clash = ((epair[kk] > 0.0) & accepted).any()
+        else:
+            clash = torch.where(accepted, epair[kk], 0.0).sum() > thresh
+        take = ok[kk] & ~clash & (count < budget)
+        accepted[kk] = take
+        count = count + take.to(torch.int32)
+    return accepted, count

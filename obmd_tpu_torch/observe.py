@@ -224,6 +224,41 @@ def make_obmd_metrics_fn(cfg: SceneConfig):
     return metrics
 
 
+def molecule_census(cfg: SceneConfig, state: State):
+    """(molecules, broken) of a MOLECULE-mode scene whose molecules all
+    follow its insertion template: the live molecule ids (mol != 0), and
+    those not whole: a count of live atoms other than the template's
+    natoms, a bond-partner count other than twice the template's bonds, or
+    an atom with a partner slot that is dead, of another molecule or does
+    not name it back."""
+    tpl = cfg.obmd.mol
+    n = state.capacity
+    member = state.alive & (state.mol != 0)
+    ids = torch.where(member, state.mol, 0).long()
+    size = int(ids.max()) + 1
+    count = torch.bincount(ids[member], minlength=size)
+    me = torch.arange(n, device=state.device)
+    deg = torch.zeros((n,), dtype=torch.int64, device=state.device)
+    bad = torch.zeros((n,), dtype=torch.bool, device=state.device)
+    cols = state.bond_partners
+    for col in cols:
+        has = member & (col >= 0)
+        p = torch.clamp(col.long(), 0, n - 1)
+        back = torch.zeros_like(bad)
+        for other in cols:
+            back = back | (other[p].long() == me)
+        bad = bad | (has & ~(state.alive[p] & (state.mol[p] == state.mol)
+                             & back))
+        deg = deg + has.long()
+    degsum = torch.bincount(ids[member], weights=deg[member].double(),
+                            minlength=size)
+    broken = (count != tpl.natoms) | (degsum != 2 * len(tpl.bonds))
+    broken[ids[member & bad]] = True
+    live = count > 0
+    live[0] = False
+    return int(live.sum()), int((broken & live).sum())
+
+
 def bond_stats(cfg: SceneConfig, state: State, limit=None):
     """(longest bond, bonds at or beyond `limit`, bonds) of a bonded state,
     each bond counted once.  The limit is r0 when None: FENE clamps a bond

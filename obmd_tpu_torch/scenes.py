@@ -37,8 +37,9 @@ from typing import Optional
 
 import numpy as np
 
-from .config import (BondFENEParams, BondHarmonicParams, Capacity, DPDParams,
-                     DPDTstatParams, LangevinParams, LJCutParams,
+from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
+                     Capacity, DPDParams, DPDTstatParams,
+                     ImproperHarmonicParams, LangevinParams, LJCutParams,
                      LJCutRFParams, ObmdParams, SceneConfig, UsherParams,
                      derive_center_angle_table, derive_center_improper_table)
 from .geometry import Box, RegionBlock
@@ -657,14 +658,23 @@ def write_star_data(path: str, n_stars: int, seed: int) -> None:
     all from numpy's default_rng(seed); sections Masses, Atoms,
     Velocities, Bonds (the four arms), Angles (all six partner pairs of
     each center, angle type 1) and Impropers (one per center, type 1)."""
-    from .io.lammps_data import DataFile, write_data
     L = star_box(n_stars)
     r = np.random.default_rng(seed)
     centers = r.uniform(0.0, L, (n_stars, 3))
     dx = np.einsum("sij,kj->ski", _rotations(r, n_stars), np.asarray(STAR_DX))
-    m = len(STAR_DX)
     x = np.mod(centers[:, None, :] + dx, L).reshape(-1, 3)
+    _write_stars(path, r, x, np.zeros(3), np.full(3, L))
+
+
+def _write_stars(path: str, r, x, lo, hi) -> None:
+    """Write stars of positions x [5 n_stars, 3] (star by star, the center
+    first) in the box lo..hi as an `atom_style molecular` data file: unit
+    normal velocities from r less their mean, the four arm bonds, all six
+    partner-pair angles of each center and one improper (type 1 each)."""
+    from .io.lammps_data import DataFile, write_data
+    m = len(STAR_DX)
     n = len(x)
+    n_stars = n // m
     v = r.normal(0.0, 1.0, (n, 3))
     v -= v.mean(axis=0)
     base = m * np.arange(n_stars)[:, None] + 1       # each star's center tag
@@ -680,9 +690,8 @@ def write_star_data(path: str, n_stars: int, seed: int) -> None:
                                 base + np.asarray(STAR_IMPROPER)[None, :]],
                                axis=1)
     write_data(path, DataFile(
-        natoms=n, ntypes=2, box_lo=np.zeros(3), box_hi=np.full(3, L),
-        masses=np.ones(2), x=x, types=np.tile(STAR_TYPES, n_stars),
-        tags=np.arange(1, n + 1), v=v,
+        natoms=n, ntypes=2, box_lo=lo, box_hi=hi, masses=np.ones(2), x=x,
+        types=np.tile(STAR_TYPES, n_stars), tags=np.arange(1, n + 1), v=v,
         mol=np.repeat(np.arange(1, n_stars + 1), m), bonds=bonds,
         angles=angles, impropers=impropers), atom_style="molecular")
 
@@ -735,6 +744,304 @@ def star_warm_up(cfg: SceneConfig, state: State,
         wcfg = with_cap(cfg, cap)
         state = equilibrate(wcfg, setup(wcfg, state), n, temp=1.0)
     return state
+
+
+# The open star-polymer melt under shear (path F, BASELINE.json config 4:
+# Sablic, Soft Matter 2016): the star melt's law, bonds, angle and improper
+# tables, step and layout in an open-x box, molecule-mode insertion of the
+# star template read from a LAMMPS molecule file.  The state point, read
+# with `python3 -m obmd_tpu_torch.star_probe --open --steps 400` on an
+# NVIDIA H100 80GB HBM3 at 700 W: OPEN_STAR_PXX is the warmed closed
+# melt's P_xx (kinetic plus pair virial; thermo has no bonded virial),
+# the mean of 10 readings over steps 820-1,000 (T 1.0030, sd of P_xx
+# 0.121); OPEN_STAR_ETARGET the median energy of 256 stars of that melt
+# at step 1,000, each taken out and tested against the rest
+# (subset.mol_energy_force; quartiles 17.93 and 24.65);
+# OPEN_STAR_CENSUS the open melt's buffer census in molecules after its
+# warm-up (the start's 2,886.8; 512 stars left through the faces in the
+# warm-up, none was inserted).
+OPEN_STAR_LYZ = 18.3          # 14 cells of cut + skin (18.3 / 1.3 = 14.08)
+OPEN_STAR_BUFFER = 0.15       # buffers of 0.15 Lx at each end
+OPEN_STAR_PXY = 2.0           # validation/run_couette.py's shear
+OPEN_STAR_MARGIN = 0.6        # start centers at least an arm inside x
+OPEN_STAR_PXX = 23.5411
+OPEN_STAR_ETARGET = 20.7785
+OPEN_STAR_CENSUS = 2606.9
+STAR_BONDS = ((0, 1), (0, 2), (0, 3), (0, 4))
+
+
+def write_star_molecule(path: str, arm: float = 0.55,
+                        types=STAR_TYPES) -> None:
+    """The star template as a LAMMPS molecule file: STAR_DX with every
+    displacement scaled by arm / 0.55 (arm 0.55: the JAX package's star),
+    `types` (0-based; STAR_TYPES), the four center-arm bonds, the six
+    partner-pair angles of the center and STAR_IMPROPER, each of type 1."""
+    from .io.molecule import MoleculeTemplate, write_molecule
+    pairs = [(a, b) for a in range(1, 5) for b in range(a + 1, 5)]
+    write_molecule(path, MoleculeTemplate(
+        natoms=len(STAR_DX), x=np.asarray(STAR_DX) * (arm / 0.55),
+        types=np.asarray(types), q=np.zeros(len(STAR_DX)),
+        bonds=np.asarray([(1, a + 1, b + 1) for a, b in STAR_BONDS]),
+        angles=np.asarray([(1, a + 1, 1, b + 1) for a, b in pairs]),
+        impropers=np.asarray([(1,) + tuple(i + 1 for i in STAR_IMPROPER)])),
+        title="4-arm star (tests/test_branched.py STAR)")
+
+
+def star_template(arm: float = 0.55, types=STAR_TYPES):
+    """config.MolTemplate of write_star_molecule's file, read back through
+    io.molecule.read_molecule (dx about the template's geometric
+    center)."""
+    from .config import MolTemplate
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "star.mol")
+        write_star_molecule(path, arm, types)
+        return MolTemplate.from_file(path)
+
+
+def open_star_box(n_stars: int) -> float:
+    """Lx of the open box that holds n_stars stars at STAR_RHO with Ly = Lz
+    = OPEN_STAR_LYZ (99.535 at 20,000 stars)."""
+    return len(STAR_DX) * n_stars / STAR_RHO / OPEN_STAR_LYZ ** 2
+
+
+def open_star_obmd(lx: float, lyz: float, etarget: float, pxx: float,
+                   nbuf: float, pxy: float, nattempt: int = 40, **kw):
+    """The stage of an open star box: buffers (= insertion and shear
+    regions) of OPEN_STAR_BUFFER * lx at each end, the OBMD_DPD deck's
+    rules (alpha 0.7, tau 0.005, nfreq 1, maxattempt 1), molecule-mode
+    insertion of star_template() (mol_len 5, K = 4) steered by USHER (ds0
+    1, dtheta0 0.02, uovlp 1e4, dsovlp 1.5, eps 1), the normal load pxx
+    and the shear pxy on the buffers (validation/run_couette.py:19-24).
+    `kw` replaces ObmdParams fields."""
+    b = OPEN_STAR_BUFFER * lx
+    r1 = RegionBlock((0.0, 0.0, 0.0), (b, lyz, lyz))
+    r2 = RegionBlock((lx - b, 0.0, 0.0), (lx, lyz, lyz))
+    args = dict(
+        ntype=0, nfreq=1, seed=2016, pxx=pxx, pxy=pxy, alpha=0.7, tau=0.005,
+        nbuf=float(nbuf), region1=r1, region2=r2, region3=r1, region4=r2,
+        region5=r1, region6=r2, buffer_size=b, g_fac=0.25, maxattempt=1,
+        usher=UsherParams(etarget=etarget, ds0=1.0, dtheta0=0.02,
+                          uovlp=1.0e4, dsovlp=1.5, eps=1.0,
+                          nattempt=nattempt),
+        mol=star_template(), mol_len=len(STAR_DX), insert_kmax=4)
+    args.update(kw)
+    return ObmdParams(**args)
+
+
+def open_star_config(lx: float, n_max: int, angle=None, improper=None,
+                     cap: int = STAR_WARM_CAP, nbuf: float = OPEN_STAR_CENSUS,
+                     etarget: float = OPEN_STAR_ETARGET,
+                     pxx: float = OPEN_STAR_PXX,
+                     pxy: float = OPEN_STAR_PXY) -> SceneConfig:
+    """Path F: star_melt_config's law, bonds, tables, dt, skin and layout
+    in an open-x box lx x OPEN_STAR_LYZ x OPEN_STAR_LYZ (y and z periodic,
+    14 cells each) under open_star_obmd's stage.  nbuf defaults to the
+    warmed open melt's census in molecules (the buffers may drain to alpha
+    of it before the stage inserts, as the OBMD_DPD deck's nbuf lets its
+    buffers drain)."""
+    closed = star_melt_config(1.0, n_max, angle=angle, improper=improper,
+                              cap=cap)
+    box = Box((0.0, 0.0, 0.0), (lx, OPEN_STAR_LYZ, OPEN_STAR_LYZ),
+              (False, True, True))
+    return dataclasses.replace(
+        closed, box=box, obmd=open_star_obmd(lx, OPEN_STAR_LYZ, etarget,
+                                             pxx, nbuf, pxy)).finalize()
+
+
+def write_open_star_data(path: str, n_stars: int, seed: int,
+                         lo=(0.0, 0.0, 0.0), hi=None,
+                         margin: float = OPEN_STAR_MARGIN) -> None:
+    """write_star_data generalised to a box lo..hi (periodic y and z, open
+    x): n_stars star centers uniform with x at least `margin` inside the x
+    faces (so no star straddles an open face), each rotated at random;
+    unit normal velocities less their mean; the same sections."""
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    r = np.random.default_rng(seed)
+    inset = np.asarray([margin, 0.0, 0.0])
+    centers = r.uniform(lo + inset, hi - inset, (n_stars, 3))
+    dx = np.einsum("sij,kj->ski", _rotations(r, n_stars), np.asarray(STAR_DX))
+    x = centers[:, None, :] + dx
+    x[..., 1:] = lo[1:] + np.mod(x[..., 1:] - lo[1:], hi[1:] - lo[1:])
+    _write_stars(path, r, x.reshape(-1, 3), lo, hi)
+
+
+def _star_tables(df):
+    """The center angle and improper tables of a star data file's Angles
+    and Impropers sections (STAR_ANGLE, STAR_IMP as type 1's
+    coefficients)."""
+    types = dict(zip(df.tags.tolist(), df.types.tolist()))
+    return (derive_center_angle_table(df.ntypes, df.angles, types, df.bonds,
+                                      {1: STAR_ANGLE}),
+            derive_center_improper_table(df.ntypes, df.impropers, types,
+                                         {1: STAR_IMP}))
+
+
+def open_star_scene(n_stars: int = 20_000, seed: int = 2016,
+                    device="cuda", **cfg_kw) -> Scene:
+    """Path F on `device`: write_open_star_data for n_stars stars in the
+    open_star_box(n_stars) box (20,000 stars: 100,000 beads, Lx 99.535),
+    read back with io.lammps_data.read_data(atom_style="molecular"), the
+    center tables from its sections, open_star_config (`cfg_kw` passed
+    on).  The random start overlaps beads: run star_warm_up (under the
+    stage) before setup at STAR_PROD_CAP."""
+    from .io.lammps_data import read_data
+    lx = open_star_box(n_stars)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "open_stars.data")
+        write_open_star_data(path, n_stars, seed,
+                             hi=(lx, OPEN_STAR_LYZ, OPEN_STAR_LYZ))
+        df = read_data(path, atom_style="molecular")
+    angle, improper = _star_tables(df)
+    cfg = open_star_config(float(df.box_hi[0] - df.box_lo[0]), df.natoms,
+                           angle=angle, improper=improper, **cfg_kw)
+    return Scene(cfg=cfg, state=init_state(
+        cfg, df.x, v=df.v, types=df.types, tags=df.tags, mol=df.mol,
+        bonds=df.bonds, impropers=df.impropers, device=device))
+
+
+# The small molecule-mode boxes of the CPU tests and the smoke's small
+# paths, one per law of the pair kernel's 4-channel rows (MOL_LAWS).  DPD
+# ("dpd": the star melt's two types; "dpd1": one type, the star all type
+# 0): tests/test_branched.py's star box (_star_cfg: 10 x 4 x 4, stage and
+# USHER settings) with y and z of 6 cells (8.0, where JAX's
+# make_pair_kernel is right, ROADMAP Queue 3) and n_max and nbuf scaled by
+# the volume (x4); the start MOL_BOX_MONOMERS type-0 monomers, uniform,
+# and MOL_BOX_STARS stars, the first one with an arm at x = 0.1, its atoms
+# moving out of the low x face at MOL_BOX_EXIT_V (it leaves whole).  LJ
+# ("lj": two types, "lj1": one; "ljrf": lj/cut/rf, the charged fluid's
+# law, with ion_sites' types and charges on the monomers): the open LJ
+# fluid's lattice of MOL_LJ_CELLS fcc cells stretched to the density
+# MOL_LJ_RHO, where a star with arms of 1.0 fits between the sites, as
+# monomers into which the stage inserts stars.
+MOL_LAWS = ("dpd", "dpd1", "lj", "lj1", "ljrf")
+MOL_BOX = (10.0, 8.0, 8.0)
+MOL_BOX_MONOMERS, MOL_BOX_STARS, MOL_BOX_EXIT_V = 1100, 20, -10.0
+MOL_LJ_CELLS, MOL_LJ_RHO = (10, 6), 0.1
+
+
+def _mol_pair(law: str):
+    """The pair law of a small molecule-mode box."""
+    if law == "dpd":
+        return DPDParams.create(temp=1.0, cutoff=1.0, seed=3, a0=25.0,
+                                gamma=4.5, ntypes=2)
+    if law == "dpd1":
+        return DPDParams.create(temp=1.0, cutoff=1.0, seed=3, a0=25.0,
+                                gamma=4.5)
+    if law == "ljrf":
+        return ljrf_pair()
+    return LJCutParams.create(cutoff=2.5, epsilon=1.0, sigma=1.0,
+                              ntypes=1 if law == "lj1" else 2)
+
+
+def mol_box_config(law: str = "dpd", nattempt: int = 12,
+                   etarget: float = 12.0) -> SceneConfig:
+    """The small molecule-mode box of `law` (MOL_LAWS): DPD with
+    tests/test_branched.py's stage (pxx 5, alpha 0.5, tau 0.01, nbuf 600,
+    buffers of 2.0, K = 4, dt 0.01, skin 0.3, cap 22), or an LJ law (the
+    star scaled to arms of 1.0 with harmonic r0 1.0, buffers of 0.15 Lx,
+    nbuf 300, K = 16, dt 0.005, skin 0.4, cap 44); harmonic bonds K 40,
+    the star's angle and improper tables; with one type the star is all
+    type 0."""
+    if law not in MOL_LAWS:
+        raise ValueError(f"law must be one of {MOL_LAWS}, not {law!r}")
+    lj = law.startswith("lj")
+    pair = _mol_pair(law)
+    if lj:
+        a = (4.0 / MOL_LJ_RHO) ** (1.0 / 3.0)
+        nx, ny = MOL_LJ_CELLS
+        dims = (nx * a, ny * a, ny * a)
+    else:
+        dims = MOL_BOX
+    lx, ly, lz = dims
+    b = 0.15 * lx if lj else 2.0
+    box = Box((0.0, 0.0, 0.0), dims, (False, True, True))
+    r1 = RegionBlock((0.0, 0.0, 0.0), (b, ly, lz))
+    r2 = RegionBlock((lx - b, 0.0, 0.0), (lx, ly, lz))
+    deg = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    arm = 1.0 if lj else 0.55
+    one = pair.ntypes == 1
+    types = (0,) * len(STAR_TYPES) if one else STAR_TYPES
+    masses = LJRF_MASSES if law == "ljrf" else (1.0,) * pair.ntypes
+    obmd = ObmdParams(
+        ntype=0, nfreq=1, seed=11, pxx=5.0, alpha=0.5, tau=0.01,
+        nbuf=300.0 if lj else 600.0,
+        region1=r1, region2=r2, region3=deg, region4=deg, region5=r1,
+        region6=r2, buffer_size=b,
+        usher=UsherParams(etarget=etarget, nattempt=nattempt),
+        mol=star_template(arm, types), mol_len=5,
+        insert_kmax=16 if lj else 4)
+    k_c = 0 if one else 1          # the star center's type
+    tab = [0.0] * pair.ntypes
+    return SceneConfig(
+        box=box, masses=masses, pair=pair, dt=0.005 if lj else 0.01,
+        capacity=Capacity(n_max=3600, cell_capacity=44 if lj else 22),
+        obmd=obmd, bond=BondHarmonicParams(k=40.0, r0=arm),
+        angle=AngleHarmonicParams(
+            k=_at(tab, k_c, STAR_ANGLE[0]), theta0=_at(tab, k_c,
+                                                       STAR_ANGLE[1])),
+        improper=ImproperHarmonicParams(
+            k=_at(tab, k_c, STAR_IMP[0]), chi0=_at(tab, k_c, STAR_IMP[1])),
+        skin=0.4 if lj else 0.3, force_path="cellpad").finalize()
+
+
+def _at(row, k, v):
+    """row (a per-type list) with v at type k, as a tuple."""
+    out = list(row)
+    out[k] = v
+    return tuple(out)
+
+
+def mol_box_start(cfg: SceneConfig, seed: int = 4):
+    """The small box's start as (x, v, types, mol, bonds, impropers): the
+    monomers and stars of the comment above, the stars at random rotations
+    of the template (the first unrotated, an arm at x = 0.1, moving out),
+    everything from numpy's default_rng(seed), positions wrapped on y and
+    z."""
+    r = np.random.default_rng(seed)
+    lo = np.asarray(cfg.box.lo)
+    hi = np.asarray(cfg.box.hi)
+    dx = np.asarray(cfg.obmd.mol.dx)
+    arm = float(np.linalg.norm(dx[1] - dx[0]))
+    centers = r.uniform(lo + [1.0 + arm, 0.0, 0.0], hi - [1.0 + arm, 0, 0],
+                        (MOL_BOX_STARS, 3))
+    rots = _rotations(r, MOL_BOX_STARS)
+    rots[0] = np.eye(3)
+    centers[0] = (0.1 - dx[2, 0], 0.5 * hi[1], 0.5 * hi[2])
+    xs = (centers[:, None, :] + np.einsum("sij,kj->ski", rots, dx)
+          ).reshape(-1, 3)
+    xm = r.uniform(lo + 0.05, hi - 0.05, (MOL_BOX_MONOMERS, 3))
+    x = np.concatenate([xs, xm])
+    x[:, 1:] = lo[1:] + np.mod(x[:, 1:] - lo[1:], (hi - lo)[1:])
+    v = r.normal(0.0, 1.0, x.shape)
+    v[:5] = (MOL_BOX_EXIT_V, 0.0, 0.0)
+    m = len(dx)
+    star_types = np.asarray(cfg.obmd.mol.types) + cfg.obmd.ntype
+    types = np.concatenate([np.tile(star_types, MOL_BOX_STARS),
+                            np.zeros(MOL_BOX_MONOMERS, np.int64)])
+    mol = np.concatenate([np.repeat(np.arange(1, MOL_BOX_STARS + 1), m),
+                          np.zeros(MOL_BOX_MONOMERS, np.int64)])
+    base = m * np.arange(MOL_BOX_STARS)[:, None] + 1
+    bonds = np.stack([np.broadcast_to(base, (MOL_BOX_STARS, 4)),
+                      base + np.arange(1, m)], -1).reshape(-1, 2)
+    impropers = base + np.asarray(STAR_IMPROPER)[None, :]
+    return x, v, types, mol, bonds, impropers
+
+
+def mol_box_scene(law: str = "dpd", device="cuda", **cfg_kw) -> Scene:
+    """mol_box_config with its start on `device`: mol_box_start's for the
+    DPD laws, the stretched lattice for the LJ laws."""
+    cfg = mol_box_config(law, **cfg_kw)
+    if law.startswith("lj"):
+        x, v = _open_lj_start(*MOL_LJ_CELLS)
+        x = x * (OBMD_LJ_RHO / MOL_LJ_RHO) ** (1.0 / 3.0)
+        types, q = ion_sites(len(x)) if law == "ljrf" else (None, None)
+        return Scene(cfg=cfg, state=init_state(cfg, x, v=v, types=types,
+                                               q=q, device=device))
+    x, v, types, mol, bonds, impropers = mol_box_start(cfg)
+    return Scene(cfg=cfg, state=init_state(
+        cfg, x, v=v, types=types, mol=mol, bonds=bonds, impropers=impropers,
+        device=device))
 
 
 # The reference binary's bonded goldens (validation/run_bonded_golden.py,

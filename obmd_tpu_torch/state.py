@@ -6,11 +6,12 @@ tag = -1 and v = 0; particle counts change by mask flips and masked writes
 under fixed shapes.  Bonds are stored per atom as partner SLOTS (`bond1`,
 `bond2`, and on a branched topology `bond3`, `bond4`; -1 for none), and an
 improper per center atom as the slots of its three ends (`impr`, [N, 3]);
-every relayout remaps them.  The JAX PRNG key becomes a `torch.Generator`
-(the cold path's candidate draws); the step counter is a host int, so the
-pair-noise salt is computed on the host.  The AdResS and
-molecule-insertion columns (lambdaF, cms_mol, vcms_mol, rep_atom) are not
-ported.
+every relayout remaps them.  The molecule columns of molecule-mode
+insertion and AdResS (lambdaF, cms_mol, vcms_mol, rep_atom) follow the
+reference's layout; only molecule-mode insertion and `adress.update_mol_com`
+write them here.  The JAX PRNG key becomes a `torch.Generator` (the cold
+path's candidate draws); the step counter is a host int, so the pair-noise
+salt is computed on the host.
 """
 from __future__ import annotations
 
@@ -71,6 +72,10 @@ class State:
     q: torch.Tensor        # [N] per-atom charge (0 on a neutral scene)
     alive: torch.Tensor    # [N] bool
     mol: torch.Tensor      # [N] i32 molecule id (0 = not in a molecule)
+    lambdaF: torch.Tensor  # [N] AdResS resolution parameter
+    cms_mol: torch.Tensor  # [N,3] the molecule's center of mass
+    vcms_mol: torch.Tensor  # [N,3] the molecule's center-of-mass velocity
+    rep_atom: torch.Tensor  # [N] i32 representative-atom flag (template)
     bond1: torch.Tensor    # [N] i32 slot of the 1st bond partner (-1 = none)
     bond2: torch.Tensor    # [N] i32 slot of the 2nd bond partner (-1 = none)
     step: int
@@ -166,8 +171,8 @@ def improper_column(n_max: int, tags, impropers, cols) -> np.ndarray:
 
 
 def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
-               tags=None, q=None, mol=None, bonds=None, impropers=None,
-               device="cuda") -> State:
+               tags=None, q=None, mol=None, bonds=None, lambdaF=None,
+               rep_atom=None, impropers=None, device="cuda") -> State:
     """Build a State from host arrays of n <= n_max real atoms; dead slots
     are parked at the box center with tag -1 and v = 0.  types: 0-based
     atom types; q: charges (0 when None); mol: molecule ids; bonds: [nb,
@@ -177,7 +182,9 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     impropers: [ni, 4] 1-based tag quadruples (i1, i2, i3, i4) in
     improper_harmonic.cpp's order, i2 the center, bonded to the three
     others, stored per center in impr (which exists with
-    cfg.improper on a branched topology, or when impropers are given)."""
+    cfg.improper on a branched topology, or when impropers are given);
+    lambdaF and rep_atom: per-atom values (0 when None; cms_mol and
+    vcms_mol start at 0)."""
     cfg = cfg.finalize()
     dev = resolve_device(device)
     npdt = np.dtype(cfg.dtype)
@@ -208,6 +215,12 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     molp = np.zeros((n_max,), dtype=np.int32)
     if mol is not None:
         molp[:n] = np.asarray(mol, dtype=np.int32)
+    lamp = np.zeros((n_max,), dtype=npdt)
+    if lambdaF is not None:
+        lamp[:n] = np.asarray(lambdaF, dtype=npdt)
+    repp = np.zeros((n_max,), dtype=np.int32)
+    if rep_atom is not None:
+        repp[:n] = np.asarray(rep_atom, dtype=np.int32)
     cols = bond_columns(n_max, tagp[:n], bonds)
     branched = bool((cols[2] >= 0).any()) or cfg.branched_topology
     has_impr = impropers is not None and len(impropers) > 0
@@ -225,6 +238,8 @@ def init_state(cfg: SceneConfig, x, v=None, types=None, seed: int = 0,
     return State(
         x=t(xp), v=t(vp), f=torch.zeros((n_max, 3), dtype=tdt, device=dev),
         type=t(tp), tag=t(tagp), q=t(qp), alive=t(alive), mol=t(molp),
+        lambdaF=t(lamp), cms_mol=torch.zeros_like(t(vp)),
+        vcms_mol=torch.zeros_like(t(vp)), rep_atom=t(repp),
         bond1=t(cols[0]), bond2=t(cols[1]), step=0,
         sim_time=torch.zeros((), dtype=tdt, device=dev),
         maxtag=torch.tensor(int(tagp.max(initial=0)), dtype=torch.int32,

@@ -475,14 +475,18 @@ def test_usher_ljrf_matches_pallas(case):
 def test_charge_and_type_through_converter_and_relayout():
     """A two-type charged state: the converter carries q and type both ways
     bit for bit; layout_build and four epochs of relayout_incremental with
-    relayout_flags (has_charge, has_types: as the JAX engine's flags) give
+    relayout_flags (has_charge, has_types: as the JAX engine's flags;
+    has_mol_com, the port's own, off outside molecule mode) give
     JAX's slots, tags, types and charges exactly, the last epoch with a
     small mover budget so that movers stay put."""
     pcfg, x, v, types, q = charged_start()
     jcfg = to_jax(pcfg)
     flags = relayout_flags(pcfg)
-    assert flags == {k: j_relayout_flags(jcfg)[k] for k in flags}
+    jflags = j_relayout_flags(jcfg)
+    assert {k: flags[k] for k in jflags} == jflags
+    assert set(flags) - set(jflags) == {"has_mol_com"}
     assert flags["has_charge"] and flags["has_types"]
+    assert not flags["has_mol_com"]
     jst = jinit_state(jcfg, x, v=v, types=types, q=q)
     pst = pinit_state(pcfg, x, v=v, types=types, q=q, device=CPU)
     jd = jax_arrays(jst)

@@ -95,9 +95,10 @@ def test_wrapper_rejects_what_it_does_not_cover():
     """Wrong dtypes and shapes, a missing or unasked-for pbond, and a
     single-cell periodic axis shorter than twice the cutoff raise
     ValueError; more than 4 types, 4 exclusion channels (branched
-    topologies) on a one-type law (they are built for the 2-4 type dpd
-    law only; tests/test_torch_star.py holds those), open y/z axes and
-    dpd/tstat or gaussian noise in the full-stencil kernel raise
+    topologies) with gaussian noise or on a single-cell or open y/z axis
+    (they are built for uniform noise on periodic y and z of >= 3 cells;
+    tests/test_torch_star.py and test_torch_excl4.py hold those), open y/z
+    axes and dpd/tstat or gaussian noise in the full-stencil kernel raise
     NotImplementedError.  p == 1 layouts,
     periodic x, open and single-cell y/z axes (test_open_and_single_cell_y
     below holds them to the TPU kernel), 2-channel exclusion, 2-4 types,
@@ -141,9 +142,10 @@ def test_wrapper_rejects_what_it_does_not_cover():
     with pytest.raises(ValueError):
         make_pair_kernel(one_cell._replace(cell_size=(1.4, 1.9, 1.4)),
                          pcfg.pair, 0.01)
-    with pytest.raises(NotImplementedError):
-        make_pair_kernel(geom, pcfg.pair, 0.01, exclude_bonded=True,
-                         n_excl=4)
+    make_pair_kernel(geom, pcfg.pair, 0.01, exclude_bonded=True, n_excl=4)
+    for g, law in ((geom, gauss), (one_cell, pcfg.pair), (open_y, pcfg.pair)):
+        with pytest.raises(NotImplementedError):
+            make_pair_kernel(g, law, 0.01, exclude_bonded=True, n_excl=4)
     pbond = torch.full((nb, 2, cap, lanes), -2, dtype=torch.int32)
     with pytest.raises(ValueError):
         kern(fld, tag, 1, occ, pbond)

@@ -129,7 +129,8 @@ def test_scene_and_start_match_jax(start):
         _mirror(convert.bonded_params(getattr(jcfg, f)), getattr(pcfg, f))
     check_supported(pcfg)
     assert relayout_flags(pcfg) == dict(has_bonds=True, has_mol=True,
-                                        has_charge=False, has_types=True)
+                                        has_charge=False, has_types=True,
+                                        has_mol_com=False)
 
 
 def _lattice_stars(seed=4, side=6, L=8.0):

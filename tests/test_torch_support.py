@@ -82,6 +82,35 @@ class JaxDraws:
         return torch.from_numpy(u.reshape(2, self.rounds, self.k, 3))
 
 
+class JaxMolDraws:
+    """The draw seam of MOLECULE mode fed with the JAX engine's own draws:
+    each stage call advances the key chain as obmd_tpu/engine_cellpad.py
+    _insert_mol does (kl, kr, next = split(fold_in(key, step), 3)), and
+    returns per side, from kc, krot = split(fold_in(side key, 0)), the
+    centers' uniform(kc, (K, 3)), then from ka, kt = split(krot) the
+    rotation axis's uniform(ka, (K, 3)) and angle's uniform(kt, (K,)):
+    [2, 1, K, 7]."""
+
+    def __init__(self, cfg, seed: int):
+        self.key = jax.random.PRNGKey(seed)
+        self.k = cfg.obmd.insert_kmax
+
+    def __call__(self, state, need):
+        key = jax.random.fold_in(self.key, jnp.uint32(state.step))
+        kl, kr, self.key = jax.random.split(key, 3)
+        if not need:
+            return None
+        sides = []
+        for side_key in (kl, kr):
+            kc, krot = jax.random.split(jax.random.fold_in(side_key, 0))
+            ka, kt = jax.random.split(krot)
+            sides.append(np.concatenate([
+                np.asarray(jax.random.uniform(kc, (self.k, 3))),
+                np.asarray(jax.random.uniform(ka, (self.k, 3))),
+                np.asarray(jax.random.uniform(kt, (self.k,)))[:, None]], 1))
+        return torch.from_numpy(np.stack(sides)[:, None])
+
+
 def lattice(cfg, seed=13, jitter=0.18):
     """A jittered rho = 3 simple-cubic lattice filling the box (the
     equilibrated liquid's occupancy fits filing capacity 15) with unit
@@ -222,3 +251,54 @@ def test_state_observables_agree():
     got = pstate.momentum(ps.cfg, ps.state).numpy()
     scale = float(np.abs(np.asarray(js.state.v)).sum())
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_molecule_mode_support_and_refusals():
+    """The engine takes single-template MOLECULE mode with bonded terms
+    (path F, the small star and LJ boxes) and refuses, each with a message,
+    what is not ported: several templates (`mols`/`molfrac`), `charged 1`,
+    `orient`, `rigid`, `shake`, the inserted-velocity keywords, maxattempt
+    > 1, nfreq > 1, dihedrals on the branched template and a template type
+    beyond the scene's; bonded terms with ATOM-mode insertion stay
+    refused."""
+    import pytest
+    from obmd_tpu_torch.config import DihedralHarmonicParams
+    from obmd_tpu_torch.engine_cellpad import check_supported, supports
+    path_f = pscenes.open_star_config(pscenes.open_star_box(20_000), 100_000)
+    small = pscenes.mol_box_config("dpd")
+    for cfg in (path_f, small, pscenes.mol_box_config("lj")):
+        assert supports(cfg)
+    tpl = small.obmd.mol
+    two = dataclasses.replace(tpl, types=(1, 0, 0, 0, 1))
+
+    def obmd(**kw):
+        return dataclasses.replace(small, obmd=dataclasses.replace(
+            small.obmd, **kw))
+    bad = {
+        "mols": obmd(mols=(tpl, two)),
+        "molfrac": obmd(mols=(tpl, two), molfrac=(0.5, 0.5)),
+        "charged": obmd(charged=True),
+        "orient": obmd(orient=(0.0, 0.0, 1.0)),
+        "rigid": obmd(rigid=True),
+        "shake": obmd(shake=True),
+        "inserted-velocity": obmd(vx=(-1.0, 1.0)),
+        "target": obmd(target=(0.0, 0.0, 0.0), vy=(0.0, 1.0)),
+        "maxattempt": obmd(maxattempt=2),
+        "nfreq": obmd(nfreq=2),
+        "dihedrals": dataclasses.replace(
+            small, dihedral=DihedralHarmonicParams(k=1.0)),
+        "type": obmd(mol=dataclasses.replace(tpl, types=(2, 0, 0, 0, 0))),
+        "ATOM-mode": dataclasses.replace(small, obmd=dataclasses.replace(
+            small.obmd, mol=None, mol_len=1)),
+    }
+    words = {"mols": "multi-template", "molfrac": "multi-template",
+             "charged": "charged", "orient": "orient", "rigid": "rigid",
+             "shake": "shake", "inserted-velocity": "inserted-velocity",
+             "target": "inserted-velocity", "maxattempt": "maxattempt",
+             "nfreq": "nfreq", "dihedrals": "dihedrals", "type": "type 3",
+             "ATOM-mode": "ATOM-mode"}
+    for name, cfg in bad.items():
+        assert not supports(cfg), name
+        with pytest.raises((NotImplementedError, ValueError),
+                           match=words[name]):
+            check_supported(cfg.finalize())
