@@ -237,7 +237,32 @@ Phases (any failure exits non-zero and prints no result line):
      fluid's ended state, lj with two types and lj/cut/rf on the charged
      fluid's, each against its plain version with holes and same bytes
      and against itself without pbond;
- 31. the figures of the twelve paths (with each path's whole wall time,
+ 31. path G's checks: phase 4's equilibrated OBMD_DPD state repacked at
+     cap 15 and its Verlet list built on the nlist engine
+     (rebuild_neighbors), nlist_sweep's forces against the dpd-cap15 pair
+     kernel's on one salt within 2e-4 * max|f|, the list's pure pair forces
+     summing to within 1e-3 * max|f| of zero; the reference binary's
+     dpd/ext golden (validation/dpdext_golden, 300 atoms, T = 0) through
+     the nlist engine's setup on the card, every force within 5e-5 *
+     max|f| of dump.ref;
+ 32. path G, the OBMD_DPD deck under `pair_style dpd/ext` (gammaT 2.5, ws
+     0.8, wsT 1.3; the deck's a0, gamma, cut, T and seed) on
+     force_path="nlist" (scenes.obmd_dpdext_config: 302.346 x 11.198 x
+     11.198, K = 72, skin 0.39), from phase 4's equilibrated state (n_max
+     1.25 x the ~113,700 atoms of the start): setup, DPDEXT_RELAX steps,
+     two timed windows of DPDEXT_STEPS (host clock, synchronized),
+     check_invariants (no list or cell overflow), the thermal T relaxing
+     to within 5% of 1.0 over the three marks (check_thermal), the net pair
+     force within 1e-3 * max|f| of zero, a profile of two steps; then the
+     insertion phase with nbuf raised to 1.05 x census / alpha, INS_STEPS
+     steps, ninserted > 0, check_invariants.  Launch counts are zeroed
+     before setup and read after the insertion phase: the USHER kernel's
+     dpd/ext rows (usher_search_dpdext) on every step that needs atoms, no
+     other kernel;
+ 33. the dpd/ext rows on the insertion state's buffer subsets (the nlist
+     stage's region_subset rows, n_max // 2 a side) against their plain
+     version (check_usher), with the kernel's scratch at that size;
+ 34. the figures of the thirteen paths (with each path's whole wall time,
      its checks included), the kernel figures ({"kernels": [...]}), the
      card line, and last {"ok": true, "device": {...}}.
 
@@ -251,7 +276,8 @@ of the live slots killed with their tags left stale, occ stale-high, one
 cell filled to the fill cap), and checks that two launches on each input
 give the same bytes.
 
-Every USHER check (check_usher: dpd, lj with its shifted rows, ljrf) holds
+Every USHER check (check_usher: dpd, lj with its shifted rows, ljrf,
+dpd/ext) holds
 the kernel to its plain version on the state's buffer subsets, then again
 on three edge inputs (usher_edge_inputs, 4 x K candidates searched 5
 steps: a seeded third of the valid rows made invalid; candidates within
@@ -280,9 +306,10 @@ reaction field only for the pairs of two charged atoms within rc_coul;
 with exclusion each alive slot also reads its two or four partner tags,
 and the LJ law its tag; a charged law reads q and 2-4 types the type of each alive
 slot, and every typed launch its tables once; an USHER search tests the
-atoms of the 27 cells around each evaluated position, and reads the
-subsets once and writes and reads its sorted rows and cell table once,
-its all-pairs bound beside it).
+atoms of the 27 cells around each evaluated position, and reads each
+subset row's valid flag and the valid rows' x and type once and writes
+and reads its sorted rows and cell table once, its all-pairs bound beside
+it).
 No PyTorch call computes any kernel's function, so library_ms is null;
 x_bound is ms / bound_ms.
 The OBMD_DPD and open LJ paths record the most atoms in one cell after
@@ -348,6 +375,10 @@ OPEN_STEPS, OPEN_INS_STEPS = 200, 50
 MOL_SMALL_ETARGET = {"dpd": 36.0, "dpd1": 36.0, "lj": 20.0, "lj1": 20.0,
                      "ljrf": 20.0}
 STAR_NEIGHBOURS = 16
+# path G, the OBMD_DPD deck under dpd/ext on the nlist engine: the steps
+# that relax the thermostat after the switch, and the steps of each timed
+# window
+DPDEXT_RELAX, DPDEXT_STEPS = 200, 200
 # path C's `near` distance (the reference's in.obmd_near: near 1 0.35),
 # path D's steps (the first insertions come near step 45) and the steps the
 # DPD film runs before its kernel checks
@@ -732,8 +763,9 @@ def usher_work(cfg, sub_l, sub_r, cl, cr, iters):
     kernel visits (the 27-cell stencil of the position's cell on the
     side's UsherGrid), and all-pairs every valid subset atom; the law runs
     only on the atoms within the cutoff, counted at those positions.
-    Bytes: the Subsets (x, type, valid) and the candidates read once and
-    the outputs written once, in both forms; the kernel's own scratch (the
+    Bytes: each Subset row's valid flag, the valid rows' x and type (the
+    binning reads no other row's) and the candidates read once and the
+    outputs written once, in both forms; the kernel's own scratch (the
     sorted float4 rows and the cell starts, written once and read once) is
     returned apart as scratch_bytes.  Returns a dict of the counts and both
     (bytes, operations)."""
@@ -766,9 +798,10 @@ def usher_work(cfg, sub_l, sub_r, cl, cr, iters):
                     tests += int(counts[side][g.stencil_cells(c3)].sum())
     law = OPS_USHER_LJ if isinstance(cfg.pair, (LJCutParams, LJCutRFParams)) \
         else OPS_USHER_DPD
-    rows_in = sum(s.x.shape[0] for s in subs) * (12 + 4 + 1) + 2 * k * 12
-    out = 2 * k * (3 * 4 + 4 + 4)
     nvalid = sum(int(s.valid.sum()) for s in subs)
+    rows_in = sum(s.x.shape[0] for s in subs) + nvalid * (12 + 4) \
+        + 2 * k * 12
+    out = 2 * k * (3 * 4 + 4 + 4)
     n_cells = sum(g.n_cells + 1 for g in grids)
     evals = int((iters + 1).sum())
     return dict(
@@ -957,9 +990,10 @@ def usher_grid_figures(cfg, sub_l, sub_r):
     return out
 
 
-def check_usher(cfg, geom, state, label):
+def check_usher(cfg, geom, state, label, subsets=None):
     """The law's USHER kernel against its plain version, one step at a time
-    (usher_compare), on the state's buffer subsets with K uniform
+    (usher_compare), on the state's buffer subsets (the cellpad engine's
+    slot slices, or `subsets` as another engine takes them) with K uniform
     candidates per buffer, then on the three edge inputs
     (usher_edge_inputs); two launches on each input give the same bytes; for the LJ family at least one candidate must take the
     overlap step, and for lj/cut the shifted law's rows run on the same
@@ -972,8 +1006,9 @@ def check_usher(cfg, geom, state, label):
     o = cfg.obmd
     k = o.insert_kmax
     pad = cfg.pair.max_cut + cfg.skin
-    sub_l = _subset_slice(cfg, geom, state, o.region5, pad)
-    sub_r = _subset_slice(cfg, geom, state, o.region6, pad)
+    sub_l, sub_r = subsets or (
+        _subset_slice(cfg, geom, state, o.region5, pad),
+        _subset_slice(cfg, geom, state, o.region6, pad))
     g = torch.Generator(device=DEV)
     g.manual_seed(1234)
     u = torch.rand((2, k, 3), generator=g, device=DEV)
@@ -1350,9 +1385,10 @@ def run_full_path(cfg, state, label):
 
 
 def window_temps(cfg, geom, label):
-    """A probe for bench_torch.production: the most atoms in one cell, the
-    kinetic T and the thermal T with each T_BIN-wide x bin's mean velocity
-    taken out (profile_temperature)."""
+    """A probe for bench_torch.production: the most atoms in one cell (with
+    no cellpad geometry, the longest Verlet row), the kinetic T and the
+    thermal T with each T_BIN-wide x bin's mean velocity taken out
+    (profile_temperature)."""
     from obmd_tpu_torch.observe import profile_temperature
     from obmd_tpu_torch.state import temperature
     nbins = round(cfg.box.lengths[0] / T_BIN)
@@ -1362,7 +1398,9 @@ def window_temps(cfg, geom, label):
                         float(profile_temperature(cfg, state, nbins)))
         log(f"{label}: step {state.step} T {t:.5f}, T without the mean "
             f"flow of {nbins} x bins {t_thermal:.5f}")
-        return max_cell_count(geom, state), t, t_thermal
+        fill = (max_cell_count(geom, state) if geom is not None
+                else int(state.nbrs.ncount.max()))
+        return fill, t, t_thermal
     return probe
 
 
@@ -3208,8 +3246,209 @@ def run_open_star(ended):
     return path, kernels
 
 
+def nlist_pair_forces(cfg, state):
+    """The nlist engine's pure pair forces on a state with a NeighborState
+    (no boundary force), [N, 3]."""
+    from obmd_tpu_torch.engine_cellpad import pair_salt
+    from obmd_tpu_torch.forces.nlist import nlist_sweep
+    from obmd_tpu_torch.forces.pairs import sig_scale_of
+    return nlist_sweep(cfg.pair, cfg.box, state.nbrs.nlist, state.x, state.v,
+                       state.type, state.tag, state.q, state.alive,
+                       pair_salt(cfg, state.step), dt=cfg.dt,
+                       sig_scale=sig_scale_of(cfg.pair, state.step)).f
+
+
+def cross_engine_check(cfg24, st_eq):
+    """Path G's first check: phase 4's equilibrated OBMD_DPD state (DPD)
+    repacked at the production cap, its Verlet list built by
+    rebuild_neighbors on the nlist engine; on the state's salt the list's
+    forces (nlist_sweep) against the dpd-cap15 pair kernel's within 2e-4 *
+    max|f| over alive slots, and the list's pure pair forces summing to
+    within 1e-3 * max|f| of zero (compare_forces); no list overflow.
+    Returns the max error and max|f|."""
+    from bench_torch import PROD_CAP, repack
+    from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
+    from obmd_tpu_torch.integrate import rebuild_neighbors
+    cfg15, geom, st = repack(cfg24, st_eq, PROD_CAP)
+    cfg_n = dataclasses.replace(cfg15, force_path="nlist").finalize()
+    st_n = rebuild_neighbors(cfg_n, st)
+    if int(st_n.nbrs.overflow) != 0:
+        fail(f"cross-engine check: Verlet list overflow "
+             f"{int(st_n.nbrs.overflow)}")
+    with KeepCounts():
+        f_k = _make_kernel(cfg15, geom)(*pack_fields(cfg15, geom, st))
+        f_n = nlist_pair_forces(cfg_n, st_n)
+        sync()
+    f_n = f_n.reshape(geom.n_blocks, geom.cap, geom.lanes, 3) \
+        .permute(0, 3, 1, 2)
+    err, scale, fsum = compare_forces(geom, st.alive, f_n, f_k,
+                                      "nlist_sweep against dpd-cap15")
+    log(f"cross-engine check ({int(st.natoms)} atoms): nlist_sweep against "
+        f"the dpd-cap{geom.fcap} pair kernel, max_abs_err {err:.3e} (max|f| "
+        f"{scale:.1f}), |sum f| {fsum:.3e}, rows up to "
+        f"{int(st_n.nbrs.ncount.max())} of {cfg_n.capacity.max_neighbors}")
+    return dict(max_abs_err=err, max_f=scale, sum_f=fsum)
+
+
+def check_dpdext_golden():
+    """validation/dpdext_golden (300 atoms, dpd/ext at T = 0) through the
+    nlist engine's setup on the card: every force within 5e-5 * max|f| of
+    the reference binary's dump.ref (validation/run_dpdext_golden.py's
+    bar).  Returns the max error and max|f|."""
+    import numpy as np
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.integrate import setup
+    sc = scenes.dpdext_golden_scene(device=DEV)
+    ref = scenes.golden_forces("dpdext_golden")
+    with KeepCounts():
+        st = setup(sc.cfg, sc.state)
+        sync()
+    f = st.f.cpu().numpy()
+    got = {int(t): f[i] for i, t in enumerate(st.tag.tolist())
+           if bool(st.alive[i])}
+    if set(got) != set(ref):
+        fail("dpd/ext golden: the atom ids differ from dump.ref")
+    scale = max(float(np.linalg.norm(v)) for v in ref.values())
+    err = max(float(np.abs(got[t] - ref[t]).max()) for t in ref)
+    if not err <= 5e-5 * scale:
+        fail(f"dpd/ext golden: max force error {err} > 5e-5 * {scale}")
+    log(f"dpd/ext golden ({len(ref)} atoms): nlist_sweep on the card "
+        f"against the reference binary's forces, max error {err:.3e} "
+        f"(max|f| {scale:.1f}, bar {5e-5 * scale:.3e})")
+    return dict(max_abs_err=err, max_f=scale)
+
+
+def run_dpdext(cfg24, st_eq):
+    """Phases 31-33: path G, the OBMD_DPD deck under pair_style dpd/ext on
+    the nlist engine.  The cross-engine check and the dpd/ext golden; then
+    from phase 4's equilibrated state st_eq, its atoms in a store of n_max
+    slots (slots_of): setup under
+    scenes.obmd_dpdext_config() (the deck's a0, gamma, cut, T and seed,
+    gammaT 2.5, ws 0.8, wsT 1.3), DPDEXT_RELAX steps, two timed windows of
+    DPDEXT_STEPS, a profile of two steps; the insertion phase with nbuf
+    raised to 1.05 x census / alpha (INS_STEPS steps, insertions > 0);
+    check_invariants, the thermal T relaxing to within 5% of 1.0 over the
+    three marks, the net pair force about zero.  Launch counts are zeroed
+    before setup and read after the insertion phase: the USHER kernel's
+    dpd/ext rows (usher_search_dpdext), and no other kernel, on every step
+    that needs atoms.  Then the USHER kernel on the insertion state's
+    subsets (the nlist stage's region_subset rows) against its plain
+    version (check_usher)."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.obmd.stage import insertion_subsets
+    from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
+    cross = cross_engine_check(cfg24, st_eq)
+    golden = check_dpdext_golden()
+    cfg = scenes.obmd_dpdext_config()
+    start = slots_of(cfg, st_eq)
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    st = setup(cfg, start)
+    natoms0 = int(st.natoms)
+    run = make_run(cfg, DPDEXT_RELAX)
+    st = run(st)
+    sync()
+    probe = window_temps(cfg, None, "path G")
+    probes = [probe(st)]
+    run = make_run(cfg, DPDEXT_STEPS)
+    windows = []
+    for _ in range(2):
+        s0 = st.step
+        t0 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t0, st.step - s0))
+        probes.append(probe(st))
+    t_relax = check_thermal(probes, "path G")
+    tel = check_invariants(cfg, st)
+    check_finite(st, "path G")
+    natoms = int(st.natoms)
+    f_pair = nlist_pair_forces(cfg, st)
+    scale = float(f_pair[st.alive].abs().max())
+    fsum = float(f_pair[st.alive].sum(0).abs().max())
+    if not fsum <= 1e-3 * scale:
+        fail(f"path G: net pair force {fsum} > 1e-3 * {scale}")
+    st_prod = st
+    m = make_obmd_metrics_fn(cfg)(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=1.05 * census / cfg.obmd.alpha)).finalize()
+    ins0, it0 = int(st.obmd.ninserted), int(st.obmd.usher_iters)
+    t_ins = time.perf_counter()
+    st = make_run(cfg_ins, INS_STEPS)(st)
+    sync()
+    ins_s = time.perf_counter() - t_ins
+    tel_ins = check_invariants(cfg_ins, st)
+    inserted = int(st.obmd.ninserted) - ins0
+    iters = int(st.obmd.usher_iters) - it0
+    if inserted <= 0:
+        fail("path G: the insertion phase inserted no atoms")
+    check_finite(st, "path G insertion phase")
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    wall, steps = min(windows)
+    log(f"path G ({natoms0} atoms at setup, {natoms} after the windows, "
+        f"n_max {cfg.capacity.n_max}) {path_s:.1f} s, windows {windows}, "
+        f"{wall / steps * 1e3:.3f} ms/step, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, telemetry "
+        f"{tel}, net pair force {fsum:.3e} (max|f| {scale:.1f}); insertion "
+        f"phase: nbuf {cfg_ins.obmd.nbuf:.1f}, {inserted} inserted, {iters} "
+        f"USHER iterations in {INS_STEPS} steps ({ins_s:.2f} s), {tel_ins}; "
+        f"launches {launches}")
+    require_launches(launches, {"usher_search_dpdext": None}, "path G")
+    prof = profile_steps(make_run(cfg, 2), st_prod, 2)
+    log(f"path G profile: {prof}")
+    subsets = insertion_subsets(cfg_ins, st)
+    scratch = scratch_figure(cfg_ins, subsets)
+    usher, _ = check_usher(cfg_ins, None, st, "dpd/ext", subsets=subsets)
+    log(f"path G USHER: kernel {usher['ms']:.4f} ms, bound "
+        f"{usher['bound_ms']:.5f} ms ({usher['bound_by']}), plain "
+        f"{usher['plain_ms']:.3f} ms, scratch {scratch}")
+    path = dict(atoms_at_setup=natoms0, atoms=natoms,
+                n_max=cfg.capacity.n_max, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], path_s=path_s,
+                telemetry=tel, thermal_temp_limit=t_relax,
+                kinetic_thermal_temps=[p[1:] for p in probes],
+                net_pair_force=fsum, insertion_phase_inserted=inserted,
+                insertion_phase_usher_iters=iters, profile=prof,
+                cross_engine=cross, golden=golden, usher_scratch=scratch)
+    kernels = [kernel_line("usher_search_dpdext", "dpd/ext, path G", None,
+                           launches["usher_search_dpdext"][0], usher)]
+    return path, kernels
+
+
+def slots_of(cfg, state):
+    """The live atoms of a state (a cellpad layout's slots are padded
+    beyond n_max) in a fresh store of cfg's n_max slots, in tag order, with
+    their velocities, tags, step, time and counters."""
+    import torch
+    from obmd_tpu_torch.state import init_state
+    alive = state.alive
+    order = torch.argsort(state.tag[alive])
+    out = init_state(cfg, state.x[alive][order].cpu().numpy(),
+                     v=state.v[alive][order].cpu().numpy(),
+                     tags=state.tag[alive][order].cpu().numpy(),
+                     device=state.device)
+    return out.replace(step=state.step, sim_time=state.sim_time.clone(),
+                       maxtag=state.maxtag.clone(),
+                       obmd=dataclasses.replace(state.obmd))
+
+
+def scratch_figure(cfg, subsets):
+    """The USHER kernel's scratch (int32 words) at these subsets' rows."""
+    from obmd_tpu_torch.forces.usher_kernel import UsherPlan, scratch_words
+    o = cfg.obmd
+    plan = UsherPlan.of(cfg, o.region5, o.region6)
+    return dict(rows=[s.x.shape[0] for s in subsets],
+                valid=[int(s.valid.sum()) for s in subsets],
+                words=scratch_words(plan.grids, *(s.x.shape[0]
+                                                   for s in subsets)))
+
+
 def run_smoke():
-    """Phases 2-30; returns the paths' figures and the kernel figures."""
+    """Phases 2-33; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build_all()
@@ -3257,17 +3496,21 @@ def run_smoke():
     open_path, open_kernels = run_open_star(
         dict(dpd=obmd_prod[:2], lj=olj_end, ljrf=rf_end))
     wall_s["open_star"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ext_path, ext_kernels = run_dpdext(*obmd_prod[:2])
+    wall_s["obmd_dpdext"] = time.perf_counter() - t0
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
                           chain=chain_path, obmd_ljrf=rf_path,
                           obmd_dpd_gaussian=gauss_path,
                           dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
                           near_box=box_path, dpd_film=film,
-                          star_melt=star_path, open_star=open_path),
+                          star_melt=star_path, open_star=open_path,
+                          obmd_dpdext=ext_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
-                + open_kernels)
+                + open_kernels + ext_kernels)
 
 
 def main():

@@ -12,8 +12,10 @@ through the pair sweep of `forces/pairs.py`), the open-boundary LJ fluid
 (USHER with the lj/cut law under a Langevin thermostat), the FENE chain
 melt (1-2 pairs excluded in the pair kernels, FENE bonds), the
 open-boundary charged two-type LJ fluid (lj/cut/rf with 1-4 types in the
-pair kernel, per-atom charges and types) and a dpd/tstat heating ramp (the
-noise scaled per step by sqrt(T(step)/t_start)).
+pair kernel, per-atom charges and types), a dpd/tstat heating ramp (the
+noise scaled per step by sqrt(T(step)/t_start)), and the OBMD_DPD deck
+under dpd/ext on the neighbor-list engine (`neighbors.py`,
+`forces/nlist.py`; `force_path="nlist"` or `"sweep"`).
 
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:
@@ -38,6 +40,8 @@ machine without one raises).  Quick start:
     state = make_run(sc.cfg, 400)(state)
     sc = scenes.dpd_tstat_scene()          # T 0.4 -> 2.0 over 1,000 steps
     state = make_run(sc.cfg, 1000)(setup(sc.cfg, sc.state))
+    sc = scenes.obmd_dpdext_scene()        # dpd/ext on the nlist engine
+    state = make_run(sc.cfg, 400)(setup(sc.cfg, sc.state))
 """
 
 __version__ = "0.1.0"

@@ -114,6 +114,16 @@ KERNELS: Dict[str, Kernel] = {
         name="usher_search", source="usher_kernel.cu",
         symbol="obmd_usher_search", argtypes=_USHER_ARGS,
         replaces="obmd_tpu/forces/pallas_usher.py:110"),
+    # the DPD entry point on dpd/ext's conservative rows, counted apart.
+    # The TPU kernel holds these rows, but no JAX path launches them: its
+    # cellpad engine refuses dpd/ext and its nlist stage searches with
+    # the XLA usher_search_subset (obmd_tpu/obmd/stage.py:397-420), for
+    # which this kernel stands on the port's nlist engine
+    "usher_search_dpdext": Kernel(
+        name="usher_search_dpdext", source="usher_kernel.cu",
+        symbol="obmd_usher_search", argtypes=_USHER_ARGS,
+        replaces="obmd_tpu/forces/pallas_usher.py:110 (dpd/ext rows "
+                 ":48-56)"),
     "usher_search_lj": Kernel(
         name="usher_search_lj", source="usher_kernel.cu",
         symbol="obmd_usher_search_lj", argtypes=_USHER_ARGS,

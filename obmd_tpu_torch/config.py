@@ -1,7 +1,8 @@
 """Scene configuration for the OBMD_DPD main path.
 
 Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
-`DPDParams`, `DPDTstatParams`, `LJCutParams`, `LJCutRFParams`,
+`DPDParams`, `DPDTstatParams`, `DPDExtParams`, `LJCutParams`,
+`LJCutRFParams`,
 `UsherParams`, `MolTemplate`, `ObmdParams` (with the molecule-mode fields),
 `TemplateStacks` and `template_stacks`, `LangevinParams`, `BondFENEParams`,
 `BondHarmonicParams`, `AngleHarmonicParams`, `ImproperHarmonicParams`,
@@ -128,6 +129,60 @@ class DPDTstatParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class DPDExtParams:
+    """`pair_style dpd/ext T rc seed` (DPD-BASIC/pair_dpd_ext.cpp:66-203),
+    or with `tstat_only` dpd/ext/tstat, which drops the conservative term:
+
+      F = [a0*wd - gamma*wdPar^2 (rhat.dv)] rhat + sigma*wdPar*xi/sqrt(dt) rhat
+          - gammaT*wdPerp^2 P.dv + sigmaT*wdPerp P.XI/sqrt(dt)
+    with P = I - rhat rhat^T, wdPar = wd^ws, wdPerp = wd^wsT, XI a 3-vector
+    of unit noises, sigma{,T} = sqrt(2 kB T gamma{,T}).  Coefficients per
+    type pair: a0 gamma gammaT ws wsT [cut] (:275-310)."""
+
+    temp: float
+    cutoff: float
+    seed: int
+    ntypes: int = 1
+    a0: Tuple[Tuple[float, ...], ...] = ()
+    gamma: Tuple[Tuple[float, ...], ...] = ()
+    gammaT: Tuple[Tuple[float, ...], ...] = ()
+    ws: Tuple[Tuple[float, ...], ...] = ()
+    wsT: Tuple[Tuple[float, ...], ...] = ()
+    cut: Tuple[Tuple[float, ...], ...] = ()
+    gaussian_noise: bool = False
+    tstat_only: bool = False
+
+    @staticmethod
+    def create(temp, cutoff, seed, a0, gamma, gammaT, ws=1.0, wsT=1.0,
+               cut=None, ntypes=1, gaussian_noise=False, tstat_only=False):
+        cut = cutoff if cut is None else cut
+        return DPDExtParams(
+            temp=float(temp), cutoff=float(cutoff), seed=int(seed),
+            ntypes=ntypes, a0=_sym(a0, ntypes, "a0"),
+            gamma=_sym(gamma, ntypes, "gamma"),
+            gammaT=_sym(gammaT, ntypes, "gammaT"),
+            ws=_sym(ws, ntypes, "ws"), wsT=_sym(wsT, ntypes, "wsT"),
+            cut=_sym(cut, ntypes, "cut"), gaussian_noise=gaussian_noise,
+            tstat_only=tstat_only)
+
+    @property
+    def sigma(self) -> Tuple[Tuple[float, ...], ...]:
+        g = np.asarray(self.gamma)
+        return tuple(tuple(float(v) for v in row)
+                     for row in np.sqrt(2.0 * self.temp * g))
+
+    @property
+    def sigmaT(self) -> Tuple[Tuple[float, ...], ...]:
+        g = np.asarray(self.gammaT)
+        return tuple(tuple(float(v) for v in row)
+                     for row in np.sqrt(2.0 * self.temp * g))
+
+    @property
+    def max_cut(self) -> float:
+        return float(np.max(np.asarray(self.cut))) if self.cut else self.cutoff
+
+
+@dataclasses.dataclass(frozen=True)
 class LJCutParams:
     """`pair_style lj/cut rc` + eps/sigma per type pair (12-6 LJ, energy
     shifted by the cutoff offset when shift=True)."""
@@ -191,7 +246,8 @@ class LJCutRFParams:
         return max(mc, self.cut_coul)
 
 
-PairParams = Union[DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams]
+PairParams = Union[DPDParams, DPDTstatParams, DPDExtParams, LJCutParams,
+                   LJCutRFParams]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -586,14 +642,23 @@ def derive_center_angle_table(ntypes: int, angles, atom_types, bonds,
 
 @dataclasses.dataclass(frozen=True)
 class Capacity:
-    """Static shapes: particle slots and filing capacity per cell."""
+    """Static shapes: particle slots, filing capacity per cell, and for the
+    nlist and sweep engines the Verlet row capacity K, the movers an
+    incremental table update takes and the buffer subsets' rows (0: n_max
+    // 2)."""
 
     n_max: int
     cell_capacity: int = 16
+    max_neighbors: int = 48
+    movers_max: int = 1024
+    insert_region_max: int = 0
 
     def __post_init__(self):
         if self.n_max <= 0 or self.cell_capacity <= 0:
             raise ValueError("capacities must be positive")
+
+
+FORCE_PATHS = ("cellpad", "nlist", "sweep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -617,6 +682,9 @@ class SceneConfig:
     improper: Optional[ImproperHarmonicParams] = None
     langevin: Optional[LangevinParams] = None
     skin: float = 0.3
+    # "cellpad" (the padded layout and the pair kernel), "nlist" (the
+    # persistent cell table and [N, K] Verlet list, neighbors.py) or
+    # "sweep" (a fresh cell table and the pair sweep every step)
     force_path: str = "cellpad"
     rebuild_every: int = 0
     dtype: str = "float32"
@@ -631,6 +699,9 @@ class SceneConfig:
         and set branched_topology when an insertion template is branched
         (obmd_tpu/config.py:879-883)."""
         out = self
+        if out.force_path not in FORCE_PATHS:
+            raise ValueError(f"force_path must be one of {FORCE_PATHS}, not "
+                             f"{out.force_path!r}")
         if out.obmd is not None and out.obmd.buffer_size == 0.0:
             lx = out.box.lengths[0]
             obmd = dataclasses.replace(out.obmd, buffer_size=0.3 * lx)

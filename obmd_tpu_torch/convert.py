@@ -7,8 +7,10 @@ q, alive, mol, lambdaF, cms_mol, vcms_mol, rep_atom, bond1, bond2, step,
 sim_time, maxtag, cell_overflow, and
 on a branched topology bond3, bond4 and impr; the `ObmdScalars` fields;
 and the `PadAux` fields xref, rebuilds, overflow, skin_trips, tag3d and
-occ.  A pair law and a bond, angle, dihedral or improper style cross by
-their class name and fields (`pair_params`, `bonded_params`).
+occ, or the `neighbors.NeighborState` fields table, cell_id, nlist,
+ncount, xref, tombstone, force_rebuild, rebuilds and overflow.  A pair
+law and a bond, angle, dihedral or improper style cross by their class
+name and fields (`pair_params`, `bonded_params`).
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ import torch
 
 from .cellpad import PadAux
 from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
-                     DihedralHarmonicParams, DPDParams, DPDTstatParams,
-                     ImproperHarmonicParams, LJCutParams, LJCutRFParams)
+                     DihedralHarmonicParams, DPDExtParams, DPDParams,
+                     DPDTstatParams, ImproperHarmonicParams, LJCutParams,
+                     LJCutRFParams)
+from .neighbors import NeighborState
 from .state import ObmdScalars, State, make_generator, resolve_device
 
 STATE_FIELDS = ("x", "v", "f", "type", "tag", "q", "alive", "mol",
@@ -30,21 +34,28 @@ OBMD_FIELDS = ("momentum_force_left", "momentum_force_right",
                "shear_force_left", "shear_force_right", "ndeleted",
                "ninserted", "insert_fail", "usher_iters")
 AUX_FIELDS = ("xref", "rebuilds", "overflow", "skin_trips", "tag3d", "occ")
+NBR_FIELDS = ("table", "cell_id", "nlist", "ncount", "xref", "tombstone",
+              "force_rebuild", "rebuilds", "overflow")
+_NBR_INT = ("table", "cell_id", "nlist", "ncount", "rebuilds", "overflow")
 # the branched topology's columns, present only on a state that has them
 BRANCHED_FIELDS = ("bond3", "bond4", "impr")
 
 
 def from_arrays(d: dict, seed: int = 0, device="cuda") -> State:
-    """Port State from the JAX state's arrays; PadAux when `xref` is given.
-    The generator is seeded from `seed` (a JAX key has no torch
-    counterpart); bond3, bond4 and impr are taken where `d` has them."""
+    """Port State from the JAX state's arrays: with `nlist` in `d` a
+    NeighborState, else with `xref` a PadAux.  The generator is seeded
+    from `seed` (a JAX key has no torch counterpart); bond3, bond4 and
+    impr are taken where `d` has them."""
     dev = resolve_device(device)
 
     def t(name):
         return torch.from_numpy(np.array(d[name], copy=True)).to(dev)
 
     aux = None
-    if "xref" in d:
+    if "nlist" in d:
+        aux = NeighborState(**{k: t(k).to(torch.int32) if k in _NBR_INT
+                               else t(k) for k in NBR_FIELDS})
+    elif "xref" in d:
         aux = PadAux(**{k: t(k) for k in AUX_FIELDS})
     return State(
         x=t("x"), v=t("v"), f=t("f"), type=t("type").to(torch.int32),
@@ -75,11 +86,13 @@ def to_arrays(state: State) -> dict:
                 if getattr(state, k) is not None})
     if isinstance(state.nbrs, PadAux):
         out.update({k: n(getattr(state.nbrs, k)) for k in AUX_FIELDS})
+    elif isinstance(state.nbrs, NeighborState):
+        out.update({k: n(getattr(state.nbrs, k)) for k in NBR_FIELDS})
     return out
 
 
-_PAIR_LAWS = {c.__name__: c for c in (DPDParams, DPDTstatParams, LJCutParams,
-                                      LJCutRFParams)}
+_PAIR_LAWS = {c.__name__: c for c in (DPDParams, DPDTstatParams, DPDExtParams,
+                                      LJCutParams, LJCutRFParams)}
 
 
 def pair_params(law):

@@ -60,9 +60,9 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import (DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams,
-                     SceneConfig, eval_param, template_stacks)
-from .geometry import const, const_like
+from .config import (DPDExtParams, DPDTstatParams, LJCutRFParams,
+                     SceneConfig, template_stacks)
+from .geometry import const_like
 from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                             improper_forces, langevin_force)
 from .forces.pair_kernel import (N_EXCL, N_EXCL_BRANCHED, PadGeometry,
@@ -73,7 +73,7 @@ from .forces.pairs import sig_scale_of
 from .forces.usher_kernel import usher_search
 from .obmd.stage import (_sequential_accept, delete_outside, draw_candidates,
                          feedback_count, insertion_tag_base, rounds_of,
-                         smooth_weight)
+                         setpoints, smooth_weight, stage_params)
 from .obmd.subset import (Subset, expand_region, mol_candidates_sel,
                           mol_sequential_accept, near_check_subset,
                           near_check_subset_mol, random_rotations,
@@ -104,6 +104,42 @@ def own_draws(cfg: SceneConfig) -> Draw:
     return draw
 
 
+def check_scene(cfg: SceneConfig) -> None:
+    """The refusals every engine shares: float32 only, as many masses as
+    the pair law has types, and an OBMD stage only on an open x axis, with
+    one candidate round every step (maxattempt 1, nfreq 1), without the
+    inserted-velocity keywords, without bonded terms in ATOM mode, and
+    under a law with a conservative energy for USHER to steer by."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError("only float32 scenes are ported")
+    if cfg.ntypes != cfg.pair.ntypes:
+        raise ValueError(f"{cfg.ntypes} masses for a pair law of "
+                         f"{cfg.pair.ntypes} types")
+    o = cfg.obmd
+    if o is None:
+        return
+    if cfg.box.periodic[0]:
+        raise ValueError("open boundaries require an open x axis")
+    if not mol_mode(cfg) and any(t is not None for t in (
+            cfg.bond, cfg.angle, cfg.dihedral, cfg.improper)):
+        raise NotImplementedError(
+            "bonded terms with ATOM-mode insertion are not ported (molecule "
+            "mode, the `mol` keyword, is)")
+    if o.maxattempt > 1 or o.nfreq > 1:
+        raise NotImplementedError(
+            "maxattempt > 1 and nfreq > 1 are not ported yet")
+    if any(getattr(o, k) is not None for k in ("vx", "vy", "vz", "target")):
+        raise NotImplementedError(
+            "the inserted-velocity keywords (vx, vy, vz, target) are not "
+            "ported yet")
+    if isinstance(cfg.pair, DPDTstatParams) or (
+            isinstance(cfg.pair, DPDExtParams) and cfg.pair.tstat_only):
+        raise NotImplementedError(
+            "the OBMD stage under a thermostat-only law (dpd/tstat, "
+            "dpd/ext/tstat) is not ported: USHER has no conservative "
+            "energy to steer by")
+
+
 # the fix keywords of MOLECULE mode that are not ported, with what each is
 _MOL_UNPORTED = (
     ("mols", "multi-template insertion (`mols`/`molfrac`)"),
@@ -111,11 +147,7 @@ _MOL_UNPORTED = (
     ("charged", "`charged 1` trial energies"),
     ("orient", "the fixed rotation axis `orient`"),
     ("rigid", "rigid-body insertion (`rigid`)"),
-    ("shake", "SHAKE-constrained insertion (`shake`)"),
-    ("vx", "the inserted-velocity keywords (vx, vy, vz, target)"),
-    ("vy", "the inserted-velocity keywords (vx, vy, vz, target)"),
-    ("vz", "the inserted-velocity keywords (vx, vy, vz, target)"),
-    ("target", "the inserted-velocity keywords (vx, vy, vz, target)"))
+    ("shake", "SHAKE-constrained insertion (`shake`)"))
 
 
 def check_supported(cfg: SceneConfig) -> None:
@@ -129,15 +161,9 @@ def check_supported(cfg: SceneConfig) -> None:
     branched topologies (the pair kernel's 4-channel exclusion,
     pair_kernel.check_channels), on a closed box or in an open box whose
     stage inserts molecules of one template (MOLECULE mode, maxattempt 1,
-    nfreq 1, without the keywords of _MOL_UNPORTED)."""
-    if cfg.box.periodic[0] and cfg.obmd is not None:
-        raise ValueError("open boundaries require an open x axis")
-    molecular = (cfg.bond, cfg.angle, cfg.dihedral, cfg.improper)
-    if cfg.obmd is not None and not mol_mode(cfg) \
-            and any(t is not None for t in molecular):
-        raise NotImplementedError(
-            "bonded terms with ATOM-mode insertion are not ported (molecule "
-            "mode, the `mol` keyword, is)")
+    nfreq 1, without the keywords of _MOL_UNPORTED); check_scene's
+    refusals first."""
+    check_scene(cfg)
     if mol_mode(cfg):
         for name, what in _MOL_UNPORTED:
             if getattr(cfg.obmd, name) not in (None, False, ()):
@@ -152,24 +178,8 @@ def check_supported(cfg: SceneConfig) -> None:
             "dihedrals on branched topologies (>2 bonds/atom) are not "
             "supported by the center-bond dihedral storage")
     if cfg.obmd is not None and cfg.obmd.group_types is not None:
-        raise NotImplementedError("group-restricted census is not ported yet")
-    if cfg.obmd is not None and (cfg.obmd.maxattempt > 1
-                                 or cfg.obmd.nfreq > 1):
-        raise NotImplementedError(
-            "maxattempt > 1 and nfreq > 1 are not ported yet")
-    if cfg.obmd is not None and not isinstance(
-            cfg.pair, (DPDParams, LJCutParams, LJCutRFParams)):
-        # USHER steers by the conservative energy, which dpd/tstat lacks
-        # (the JAX search returns zero for it; its kernel has no rows)
-        raise NotImplementedError(
-            "the OBMD stage is ported for the DPD, lj/cut and lj/cut/rf "
-            "laws only (dpd/tstat has no conservative energy for USHER to "
-            "steer by)")
-    if cfg.ntypes != cfg.pair.ntypes:
-        raise ValueError(f"{cfg.ntypes} masses for a pair law of "
-                         f"{cfg.pair.ntypes} types")
-    if cfg.dtype != "float32":
-        raise NotImplementedError("only float32 scenes are ported")
+        raise NotImplementedError("group-restricted census is not ported "
+                                  "on the cellpad engine")
     kernel_check_supported(make_geometry(cfg), cfg.pair)
     if cfg.branched_topology and cfg.bond is not None:
         _make_kernel(cfg, make_geometry(cfg))
@@ -594,21 +604,7 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
                 with_rebuild: bool = True) -> State:
     obmd = cfg.obmd
     box = cfg.box
-    # float32 scalars on the device (cached): a division by a host scalar
-    # would become a multiplication by its reciprocal on the card
-    dt = const((float(np.float32(cfg.dt)),), state.dtype, state.device)[0]
-    area = const((box.cross_area,), state.dtype, state.device)[0]
-    t = state.sim_time
-
-    pxx = eval_param(obmd.pxx, t)
-    pxy = eval_param(obmd.pxy, t)
-    pxz = eval_param(obmd.pxz, t)
-    dpxx = eval_param(obmd.dpxx, t)
-    freq = eval_param(obmd.freq, t)
-    alpha = eval_param(obmd.alpha, t)
-    tau = eval_param(obmd.tau, t)
-    nbuf = eval_param(obmd.nbuf, t)
-
+    prm = stage_params(cfg, state)
     if mol_mode(cfg):
         # doom spreads along bonds beyond the face band: the whole store
         state, vnewl, vnewr = delete_outside(cfg, state)
@@ -618,12 +614,10 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
         state = maybe_rebuild(geom, box, cfg.skin, state,
                               **relayout_flags(cfg))
 
-    nins_l = feedback_count(_region_count_sliced(cfg, geom, state,
-                                                 obmd.region1),
-                            obmd.mol_len, alpha, nbuf, dt, tau)
-    nins_r = feedback_count(_region_count_sliced(cfg, geom, state,
-                                                 obmd.region2),
-                            obmd.mol_len, alpha, nbuf, dt, tau)
+    nins_l, nins_r = (
+        feedback_count(_region_count_sliced(cfg, geom, state, r),
+                       obmd.mol_len, prm["alpha"], prm["nbuf"], prm["dt"],
+                       prm["tau"]) for r in (obmd.region1, obmd.region2))
     need = bool(((nins_l > 0) | (nins_r > 0)).item())
     u = draw(state, need)
     if need:
@@ -635,17 +629,7 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
                               + sub_r.overflow.to(torch.int32))
         insert = _insert_mol if mol_mode(cfg) else _insert
         state = insert(cfg, geom, state, nins_l, nins_r, sub_l, sub_r, u)
-
-    sim_time = t + dt
-    factor = pxx + dpxx * torch.sin(2.0 * np.pi * freq * sim_time)
-    mfl = torch.stack([vnewl[0] / dt + factor * area, vnewl[1] / dt,
-                       vnewl[2] / dt])
-    mfr = torch.stack([vnewr[0] / dt - pxx * area, vnewr[1] / dt,
-                       vnewr[2] / dt])
-    sfl = torch.stack([torch.zeros_like(area), pxy * area, pxz * area])
-    return state.replace(sim_time=sim_time, obmd=state.obmd.replace(
-        momentum_force_left=mfl, momentum_force_right=mfr,
-        shear_force_left=sfl, shear_force_right=-sfl))
+    return setpoints(cfg, state, prm, vnewl, vnewr)
 
 
 def setup_cellpad(cfg: SceneConfig, state: State,

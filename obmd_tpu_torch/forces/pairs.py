@@ -6,6 +6,12 @@ Counterpart of `obmd_tpu/forces/pairs.py` for the ported pair styles:
   * DPD/tstat — pair_dpd_tstat.cpp:96-136: DPD's drag and noise with no
     conservative term and zero energy; a temperature ramp scales the noise
     by `sig_scale_of` (pair_fn's `sig_scale`, pair_sweep's);
+  * DPD/ext — pair_dpd_ext.cpp:113-185: DPD's terms with the weights
+    wd^ws, plus a transverse drag and noise through the projector
+    I - rhat rhat^T with the weight wd^wsT; its force is not along d, so
+    its pair_fn returns the force vector (`is_vector_law`,
+    `apply_pair_law`); with `tstat_only` (dpd/ext/tstat) no conservative
+    term and zero energy;
   * LJ cut — 12-6 LJ (pair_lj_cut.cpp), optionally energy-shifted;
   * LJ cut/rf — 12-6 LJ plus reaction-field Coulomb (the fork's
     pair_lj_cut_rf.cpp:118-131 force, :163-171 energy), charges q_i q_j.
@@ -30,7 +36,8 @@ import torch
 
 from .. import rng
 from ..cells import BIG, CellTable, GridSpec, gather_padded
-from ..config import DPDParams, DPDTstatParams, LJCutParams, LJCutRFParams
+from ..config import (DPDExtParams, DPDParams, DPDTstatParams, LJCutParams,
+                      LJCutRFParams)
 from ..geometry import Box
 
 EPS_R = 1.0e-10  # reference EPSILON for the r ~ 0 skip (pair_dpd.cpp:117)
@@ -68,6 +75,9 @@ def _table_names(params):
         return ("a0", "gamma", "cut", "sigma")
     if isinstance(params, DPDTstatParams):
         return ("gamma", "cut", "sigma")
+    if isinstance(params, DPDExtParams):
+        return ("a0", "gamma", "gammaT", "ws", "wsT", "cut", "sigma",
+                "sigmaT")
     if isinstance(params, LJCutParams):
         return ("epsilon", "sigma", "cut")
     if isinstance(params, LJCutRFParams):
@@ -97,12 +107,32 @@ def _lj_consts(eps, sig):
         4.0 * eps * s6
 
 
+def is_vector_law(params) -> bool:
+    """True for a law whose force is not along the separation (dpd/ext's
+    transverse friction): its pair_fn returns the force vector."""
+    return isinstance(params, DPDExtParams)
+
+
+def apply_pair_law(params, pair_fn, rsq, d, dv, ti, tj, tag_i, tag_j, salt,
+                   **kw):
+    """(fvec [..., 3], e) of any law: a vector law's own vector, else
+    fpair * d."""
+    if is_vector_law(params):
+        return pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt, **kw)
+    fpair, e = pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt, **kw)
+    return fpair[..., None] * d, e
+
+
 def make_pair_law(params, dt: float, dtype=torch.float32, device="cpu"):
     """pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt) -> (fpair, e) with
     F_i += fpair * d, d = x_i - x_j (fpair carries the 1/r factors); e is
     the full pair energy (the caller halves it per atom).  The lj/cut/rf
-    law's pair_fn also takes the charges qi, qj."""
+    law's pair_fn also takes the charges qi, qj; the dpd/ext law's returns
+    (fvec [..., 3], e) (`apply_pair_law` takes either)."""
     tabs = _tables(params, dtype, device)
+
+    if isinstance(params, DPDExtParams):
+        return _dpd_ext_law(params, tabs, dt, dtype)
 
     if isinstance(params, LJCutRFParams):
         qq = float(np.float32(params.qqrd2e))
@@ -197,6 +227,59 @@ def make_pair_law(params, dt: float, dtype=torch.float32, device="cpu"):
     return pair_fn
 
 
+def _dpd_ext_law(params, tabs, dt: float, dtype):
+    """dpd/ext (pair_dpd_ext.cpp:113-185), op for op as
+    obmd_tpu/forces/pairs.py:170-231: the parallel part is DPD's with wdPar
+    = wd^ws; the transverse drag and noise act through P u = u - rhat
+    (rhat . u) with wdPerp = wd^wsT.  The transverse noise vector is the
+    same for both orientations of a pair and takes the sign of tag_i -
+    tag_j, so the full-neighbour sums keep Newton's third law bit for
+    bit."""
+    dtinvsqrt = float(np.float32(1.0 / np.sqrt(dt)))
+    gaussian = params.gaussian_noise
+    tstat_only = params.tstat_only
+
+    def pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt):
+        cut = _lookup(tabs["cut"], ti, tj)
+        gam = _lookup(tabs["gamma"], ti, tj)
+        gam_t = _lookup(tabs["gammaT"], ti, tj)
+        sig = _lookup(tabs["sigma"], ti, tj)
+        sig_t = _lookup(tabs["sigmaT"], ti, tj)
+        ws = _lookup(tabs["ws"], ti, tj)
+        ws_t = _lookup(tabs["wsT"], ti, tj)
+        r = torch.sqrt(rsq)
+        rinv = torch.where(r > EPS_R, 1.0 / torch.clamp(r, min=EPS_R), 0.0)
+        wd = torch.clamp(1.0 - r * (1.0 / cut), min=0.0)
+        wd_par = wd ** ws
+        wd_perp = wd ** ws_t
+        dot = (d * dv).sum(-1)
+        xi = rng.pair_noise(salt, tag_i, tag_j, gaussian=gaussian,
+                            dtype=dtype)
+        xiv = rng.transverse_noise(salt, tag_i, tag_j, gaussian=gaussian,
+                                   dtype=dtype)
+        sgn = torch.where(tag_i > tag_j, 1.0, -1.0).to(dtype)
+        fpar = 0.0 if tstat_only else _lookup(tabs["a0"], ti, tj) * wd
+        fpar = fpar - gam * wd_par * wd_par * dot * rinv
+        fpar = fpar + sig * wd_par * xi * dtinvsqrt
+        fvec = (fpar * rinv)[..., None] * d
+        rhat = d * rinv[..., None]
+
+        def proj(u):
+            return u - rhat * (rhat * u).sum(-1, keepdim=True)
+
+        fvec = fvec - (gam_t * wd_perp * wd_perp)[..., None] * proj(dv)
+        fvec = fvec + (sig_t * wd_perp * sgn * dtinvsqrt)[..., None] \
+            * proj(xiv)
+        in_range = (rsq < cut * cut) & (r > EPS_R)
+        fvec = torch.where(in_range[..., None], fvec, 0.0)
+        if tstat_only:
+            return fvec, torch.zeros_like(rsq)
+        a0 = _lookup(tabs["a0"], ti, tj)
+        return fvec, torch.where(in_range, 0.5 * a0 * cut * wd * wd, 0.0)
+
+    return pair_fn
+
+
 def _scatter_back(vals: torch.Tensor, idx: torch.Tensor, n: int):
     """Cell-major values back to slot order (idx == n rows dropped)."""
     out = torch.zeros((n + 1,) + tuple(vals.shape[2:]), dtype=vals.dtype,
@@ -235,6 +318,7 @@ def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
 
     nbr = torch.from_numpy(spec.stencil_neighbors()).long().to(dev)
     not_self = ~torch.eye(cap, dtype=torch.bool, device=dev)[None]
+    near2 = (params.max_cut * 1.001) ** 2
 
     f_acc = torch.zeros((n_cells, cap, 3), dtype=dtype, device=dev)
     pe_acc = torch.zeros((n_cells, cap), dtype=dtype, device=dev) \
@@ -264,12 +348,26 @@ def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
         valid = (xi[:, :, None, 0] < BIG * 0.5) & (xj[:, None, :, 0] < BIG * 0.5)
         if k == 13:                                  # the (0, 0, 0) offset
             valid = valid & not_self
-        fpair, e = pair_fn(rsq, d, dv, ti[:, :, None], tj[:, None, :],
-                           gi[:, :, None], gj[:, None, :], salt, **kw)
-        fvec = torch.where(valid[..., None], fpair[..., None] * d, 0.0)
+        # the law runs on the pairs within (a hair over) the largest cut
+        # only: it is zero beyond its own cut, and the sums below run over
+        # the full [cell, i, j] layout, zeros included, in the same order
+        sel = (valid & (rsq < near2)).nonzero(as_tuple=True)
+        shape = rsq.shape
+        kw = {key: (val.expand(shape)[sel] if torch.is_tensor(val) else val)
+              for key, val in kw.items()}
+        fv, ev = apply_pair_law(
+            params, pair_fn, rsq[sel], d[sel], dv[sel],
+            ti[:, :, None].expand(shape)[sel],
+            tj[:, None, :].expand(shape)[sel],
+            gi[:, :, None].expand(shape)[sel],
+            gj[:, None, :].expand(shape)[sel], salt, **kw)
+        fvec = torch.zeros(shape + (3,), dtype=dtype, device=dev)
+        fvec[sel] = fv
         f_acc += fvec.sum(2)
         if compute_energy:
-            pe_acc += 0.5 * torch.where(valid, e, 0.0).sum(2)
+            e = torch.zeros(shape, dtype=dtype, device=dev)
+            e[sel] = ev
+            pe_acc += 0.5 * e.sum(2)
         if compute_virial:
             w_acc += 0.5 * torch.stack([(d[..., a] * fvec[..., b]).sum()
                                         for a, b in pairs6])

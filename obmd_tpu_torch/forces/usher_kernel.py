@@ -1,11 +1,12 @@
 """The whole USHER steered-insertion search in one C call.
 
-Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, its DPD and
-LJ-family branches, and `usher_search_pallas`).  The Hopper kernels in
-`csrc/usher_kernel.cu` replace `make_usher_kernel`, with one C entry point
-per law (`obmd_usher_search` for DPD, `obmd_usher_search_lj` for lj/cut and
-the neutral lj/cut/rf rows), each law with its own launch count
-(`usher_search`, `usher_search_lj`, `usher_search_ljrf`); their plain
+Counterpart of `obmd_tpu/forces/pallas_usher.py` (`usher_law`, its DPD,
+dpd/ext and LJ-family branches, and `usher_search_pallas`).  The Hopper
+kernels in `csrc/usher_kernel.cu` replace `make_usher_kernel`, with one C
+entry point per law (`obmd_usher_search` for DPD and the dpd/ext rows,
+`obmd_usher_search_lj` for lj/cut and the neutral lj/cut/rf rows), each law
+with its own launch count (`usher_search`, `usher_search_dpdext`,
+`usher_search_lj`, `usher_search_ljrf`); their plain
 version is `obmd.subset.usher_search_subset_batch`, whose arithmetic the
 kernel follows (it is also what the JAX engine runs off the TPU).  A CUDA
 tensor goes to the kernel, a CPU tensor to the plain version; the choice
@@ -19,7 +20,9 @@ cells around it.  `usher_energy_binned_plain` and
 `usher_search_binned_plain` are that algorithm in PyTorch, for the tests.
 
 The laws take coefficients against the fix's single trial type, looked up
-by the subset atom's type: DPD E = 0.5*a0*rc*wd^2 (a0, cut); lj/cut
+by the subset atom's type: DPD E = 0.5*a0*rc*wd^2 (a0, cut), which is
+dpd/ext's conservative energy too (its transverse terms have none, and
+dpd/ext/tstat has no kernel law, pallas_usher.py:48-56); lj/cut
 E = r^-6 (lj3 r^-6 - lj4) - eshift (lj3, lj4, cut, eshift).  lj/cut/rf
 takes the lj rows with eshift = 0: an ATOM-mode trial atom is neutral
 (q = 0), so the reaction field adds nothing to its energy or force
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..config import DPDParams, LJCutParams, LJCutRFParams
+from ..config import DPDExtParams, DPDParams, LJCutParams, LJCutRFParams
 from ..geometry import Box, RegionBlock, const_like
 from ..obmd.subset import (EPSILON, Subset, _batched_energy_force,
                            usher_search_subset_batch)
@@ -56,11 +59,17 @@ def usher_law(pair, ct: int):
     column) of a pair style against trial type ct: row tj holds the law's
     coefficients for a subset atom of type tj (dpd: a0, cut, 0, 0; lj/cut
     and lj/cut/rf: lj3, lj4, cut, eshift), rows past ntypes zero; None when
-    this port has no kernel law for the style."""
-    if isinstance(pair, DPDParams):
+    this port has no kernel law for the style (dpd/ext/tstat, as JAX has
+    it, and dpd/tstat).  dpd/ext takes the DPD table of its a0 and cut,
+    counted under its own name."""
+    if isinstance(pair, DPDExtParams) and pair.tstat_only:
+        return None
+    if isinstance(pair, (DPDParams, DPDExtParams)):
         cols = [np.asarray(pair.a0, np.float64)[ct],
                 np.asarray(pair.cut, np.float64)[ct]]
-        name, cut_col = "usher_search", 1
+        name = ("usher_search" if isinstance(pair, DPDParams)
+                else "usher_search_dpdext")
+        cut_col = 1
     elif isinstance(pair, (LJCutParams, LJCutRFParams)):
         eps = np.asarray(pair.epsilon, np.float64)[ct]
         sig = np.asarray(pair.sigma, np.float64)[ct]

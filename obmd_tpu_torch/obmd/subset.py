@@ -2,12 +2,15 @@
 PyTorch.
 
 Counterpart of `obmd_tpu/obmd/subset.py`, op for op: `Subset`,
-`expand_region`, the DPD, lj/cut and lj/cut/rf branches of
-`_batched_energy_force` and `conservative_energy_force` (the trials are
-neutral: ATOM-mode insertion places neutral atoms, and MOLECULE mode's
-`charged 1` is not ported, so lj/cut/rf's reaction field adds nothing to a
-trial's energy), `usher_search_subset_batch` and `near_check_subset` for
-ATOM mode, and for MOLECULE mode `random_rotations`, `mol_candidates_sel`,
+`expand_region`, `region_subset` and `subset_rows` (the nlist engine's
+buffer subsets and the new atoms' Verlet rows), the DPD (dpd/ext's
+conservative term is DPD's; dpd/ext/tstat has none), lj/cut and
+lj/cut/rf branches of `_batched_energy_force` and
+`conservative_energy_force` (the trials are neutral: ATOM-mode
+insertion places neutral atoms, and MOLECULE mode's `charged 1` is not
+ported, so lj/cut/rf's reaction field adds nothing to a trial's
+energy), `usher_search_subset_batch` and `near_check_subset` for ATOM
+mode, and for MOLECULE mode `random_rotations`, `mol_candidates_sel`,
 `mol_energy_force`, `_axis_angle_rotate`, `usher_search_subset_mol`,
 `near_check_subset_mol` and `mol_sequential_accept`.  Candidates only ever
 sit inside an insertion region, so the atoms that can contribute are those
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from ..cells import BIG
-from ..config import DPDParams, LJCutParams, LJCutRFParams, SceneConfig
+from ..config import (DPDExtParams, DPDParams, LJCutParams, LJCutRFParams,
+                      SceneConfig)
 from ..forces.pairs import make_pair_law
 from ..geometry import RegionBlock, const_like
 
@@ -38,6 +42,7 @@ class Subset(NamedTuple):
     valid: torch.Tensor     # [B] bool
     overflow: torch.Tensor  # 0-dim bool: more region atoms than B
     q: Optional[torch.Tensor] = None   # [B] charges (None: a neutral scene)
+    idx: Optional[torch.Tensor] = None  # [B] i64 slots (N for padding)
 
 
 def expand_region(region: RegionBlock, pad: float) -> RegionBlock:
@@ -45,18 +50,62 @@ def expand_region(region: RegionBlock, pad: float) -> RegionBlock:
                        tuple(h + pad for h in region.hi))
 
 
+def region_subset(cfg: SceneConfig, state, region: RegionBlock, pad: float,
+                  b_max: int) -> Subset:
+    """The live atoms inside the region widened by pad, compacted in slot
+    order into b_max rows (x BIG, type 0 and q 0 on padding; more atoms
+    than b_max are counted as overflow and dropped)."""
+    from ..cellpad import compact_indices
+    from ..cells import gather_padded
+    n = state.capacity
+    mask = state.alive & expand_region(region, pad).match(state.x)
+    idx = compact_indices(mask, b_max, n)
+    return Subset(
+        x=gather_padded(state.x, idx, BIG),
+        type=gather_padded(state.type, idx, 0),
+        valid=idx < n,
+        overflow=mask.sum() > b_max,
+        q=gather_padded(state.q, idx, 0.0),
+        idx=idx)
+
+
+def subset_rows(p, box, sub: Subset, pos, new_slots, act):
+    """Verlet rows (within cut + skin) of M new atoms at pos [M, 3], slots
+    new_slots [M], active act [M]: their candidates are the pre-insertion
+    subset's atoms and the other new atoms (so a new-new pair is in both
+    fresh rows), the first K of them by the list's key.  Returns (row [M,
+    K] slots, row_ok [M, K], overflow)."""
+    from ..neighbors import first_k_rows
+    m = pos.shape[0]
+    cand_idx = torch.cat([sub.idx, new_slots.long()])
+    cand_x = torch.cat([sub.x, torch.where(act[:, None], pos, BIG)])
+    cand_valid = torch.cat([sub.valid, act])
+    d = box.min_image(pos[:, None, :] - cand_x[None, :, :])
+    rsq = (d * d).sum(-1)
+    ok = (rsq < p.rlist2) & cand_valid[None, :] & act[:, None]
+    b = sub.x.shape[0]
+    ok[:, b:] &= ~torch.eye(m, dtype=torch.bool, device=pos.device)
+    n_cand = cand_idx.shape[0]
+    row, row_ok, over = first_k_rows(p, cand_idx.expand(m, n_cand), ok, rsq,
+                              n_cand)
+    return row, row_ok, over
+
+
 def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
                           box=None, sub_q=None):
     """sub_* [S,B,...], pos [S,K,3], cand_type [S,K] -> E [S,K], F [S,K,3]
-    (DPD: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; lj/cut and lj/cut/rf: the
-    pair law of forces/pairs.make_pair_law, the trials neutral against the
-    subset's charges sub_q [S,B], zero when None)."""
+    (DPD and dpd/ext: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; dpd/ext/tstat:
+    zero; lj/cut and lj/cut/rf: the pair law of forces/pairs.make_pair_law,
+    the trials neutral against the subset's charges sub_q [S,B], zero when
+    None)."""
     d = pos[:, :, None, :] - sub_x[:, None, :, :]          # [S,K,B,3]
     if box is not None:
         d = box.min_image(d)
     rsq = (d * d).sum(-1)
     ok = sub_valid[:, None, :]
-    if isinstance(pair, DPDParams):
+    if isinstance(pair, DPDExtParams) and pair.tstat_only:
+        return torch.zeros_like(pos[..., 0]), torch.zeros_like(pos)
+    if isinstance(pair, (DPDParams, DPDExtParams)):
         a0 = const_like([v for row in pair.a0 for v in row], pos)
         cut = const_like([v for row in pair.cut for v in row], pos)
         if a0.shape[0] == 1:

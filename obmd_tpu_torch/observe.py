@@ -330,14 +330,17 @@ def ill_conditioned_impropers(cfg: SceneConfig, state: State,
 
 def check_invariants(cfg: SceneConfig, state: State) -> dict:
     """Host-side audit of a finished run's validity counters: nonzero cell
-    overflow, layout overflow or half-skin trips mean pair interactions were
-    dropped or stale.  Returns the counters; raises RuntimeError on a
-    violation."""
+    overflow, layout overflow (on the nlist and sweep engines the cell
+    table's and the Verlet list's dropped candidates) or half-skin trips
+    (the cellpad layout's; a Verlet list rebuilds instead) mean pair
+    interactions were dropped or stale.  Returns the counters; raises
+    RuntimeError on a violation."""
     tel = {"cell_overflow": int(state.cell_overflow)}
     nbrs = state.nbrs
     if nbrs is not None:
         tel["layout_overflow"] = int(nbrs.overflow)
-        tel["skin_trips"] = int(nbrs.skin_trips)
+        if hasattr(nbrs, "skin_trips"):
+            tel["skin_trips"] = int(nbrs.skin_trips)
         tel["rebuilds"] = int(nbrs.rebuilds)
     if cfg.obmd is not None:
         tel["ninserted"] = int(state.obmd.ninserted)
@@ -349,6 +352,6 @@ def check_invariants(cfg: SceneConfig, state: State) -> dict:
     if bad:
         raise RuntimeError(
             f"run invariants violated: {bad} — pair interactions were "
-            f"dropped or stale (raise Capacity.cell_capacity or lower "
-            f"rebuild_every). Full telemetry: {tel}")
+            f"dropped or stale (raise Capacity.cell_capacity or "
+            f"max_neighbors, or lower rebuild_every). Full telemetry: {tel}")
     return tel

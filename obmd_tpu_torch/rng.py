@@ -91,6 +91,22 @@ def pair_noise(step_salt, tag_i: torch.Tensor, tag_j: torch.Tensor,
     return sqrt3 * (2.0 * u - 1.0)
 
 
+# dpd/ext's three transverse noise streams: pair_noise of the salt xor each
+# (obmd_tpu/forces/pairs.py:199-203)
+TRANSVERSE_STREAMS = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35)
+
+
+def transverse_noise(step_salt, tag_i: torch.Tensor, tag_j: torch.Tensor,
+                     gaussian: bool = False,
+                     dtype=torch.float32) -> torch.Tensor:
+    """[..., 3] the pair's transverse noise vector of dpd/ext: one
+    pair_noise per stream of TRANSVERSE_STREAMS, symmetric under i <-> j
+    (the law antisymmetrizes it by the tag order)."""
+    return torch.stack([pair_noise(u32(step_salt) ^ c, tag_i, tag_j,
+                                   gaussian=gaussian, dtype=dtype)
+                        for c in TRANSVERSE_STREAMS], dim=-1)
+
+
 def step_salt(seed, step, purpose=0):
     """Per-(seed, step, purpose) uint32 salt for counter-based draws."""
     return hash3(seed, step, purpose)

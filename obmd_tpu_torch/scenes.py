@@ -23,7 +23,9 @@ package's momentum-conservation box (tests/test_conservation.py:34-55):
 `near` insertion on a 7 x 1 x 1 cell grid, single-cell periodic y and z.
 The DPD film (`dpd_film_config`, `dpd_film_scene`) is a thin slab of the
 OBMD_DPD fluid whose z axis is one cell, and with `y_open` whose y axis is
-open.  The star-polymer melt (`star_melt_config`, `star_melt_scene`) is a
+open.  Path G (`obmd_dpdext_config`, `obmd_dpdext_scene`) is the
+OBMD_DPD deck under dpd/ext on the nlist engine.  The star-polymer melt
+(`star_melt_config`, `star_melt_scene`) is a
 closed melt of the JAX package's 4-arm star (tests/test_branched.py:27-33)
 in a DPD solvent-free box at rho 3, read through an `atom_style molecular`
 data file (`write_star_data`) and warmed up by `star_warm_up`.
@@ -38,7 +40,7 @@ from typing import Optional
 import numpy as np
 
 from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
-                     Capacity, DPDParams, DPDTstatParams,
+                     Capacity, DPDExtParams, DPDParams, DPDTstatParams,
                      ImproperHarmonicParams, LangevinParams, LJCutParams,
                      LJCutRFParams, ObmdParams, SceneConfig, UsherParams,
                      derive_center_angle_table, derive_center_improper_table)
@@ -94,9 +96,46 @@ def obmd_dpd_config(scale: float = 1.0, n_max: Optional[int] = None,
     )
     return SceneConfig(
         box=box, masses=(1.0,), pair=pair, dt=0.001464,
-        capacity=Capacity(n_max=n_max, cell_capacity=cell_capacity),
+        # max_neighbors: rho 3 within cut + skin = 1.39 averages ~34
+        # neighbours; 72 clears the tail (obmd_tpu/scenes.py:76-79)
+        capacity=Capacity(n_max=n_max, cell_capacity=cell_capacity,
+                          max_neighbors=72),
         obmd=obmd, dtype=dtype, force_path=force_path, skin=skin,
     ).finalize()
+
+
+# path G's dpd/ext coefficients beyond the deck's a0, gamma, cut, T and
+# seed: the only gammaT, ws and wsT the repository holds against the
+# reference binary (validation/dpdext_golden/in.dpdext)
+DPDEXT_GAMMA_T, DPDEXT_WS, DPDEXT_WS_T = 2.5, 0.8, 1.3
+
+
+def dpdext_pair(pair: DPDParams) -> DPDExtParams:
+    """dpd/ext with a DPD law's T, cut, seed, a0 and gamma and the
+    golden's transverse coefficients."""
+    return DPDExtParams.create(
+        temp=pair.temp, cutoff=pair.cutoff, seed=pair.seed,
+        a0=pair.a0[0][0], gamma=pair.gamma[0][0], gammaT=DPDEXT_GAMMA_T,
+        ws=DPDEXT_WS, wsT=DPDEXT_WS_T)
+
+
+def obmd_dpdext_config(scale: float = 9.0, force_path: str = "nlist",
+                       **kwargs) -> SceneConfig:
+    """Path G: the OBMD_DPD deck (obmd_dpd_config, scale 9 by default:
+    302.346 x 11.198 x 11.198, ~113,700 atoms) under `pair_style dpd/ext`
+    on the nlist engine.  The conservative term is the deck's, so USHER's
+    etarget and the load pxx stay valid."""
+    cfg = obmd_dpd_config(scale=scale, force_path=force_path, **kwargs)
+    return dataclasses.replace(cfg, pair=dpdext_pair(cfg.pair)).finalize()
+
+
+def obmd_dpdext_scene(scale: float = 9.0, seed: int = 12345,
+                      temp: float = 1.0, device="cuda", **kwargs) -> Scene:
+    """obmd_dpdext_config with obmd_dpd_scene's uniform gas at rho = 3."""
+    sc = obmd_dpd_scene(scale=scale, seed=seed, temp=temp, device=device,
+                        **kwargs)
+    return Scene(cfg=dataclasses.replace(sc.cfg, pair=dpdext_pair(
+        sc.cfg.pair)).finalize(), state=sc.state)
 
 
 def obmd_dpd_scene(scale: float = 1.0, seed: int = 12345,
@@ -1103,3 +1142,26 @@ def golden_forces(folder: str) -> dict:
         t = line.split()
         rows[int(t[0])] = np.asarray([float(v) for v in t[1:4]])
     return rows
+
+
+# the reference binary's dpd/ext forces at T = 0 (validation/
+# run_dpdext_golden.py: pair_style dpd/ext 0.0 1.4 48152, pair_coeff 1 1
+# 18.0 4.0 2.5 0.8 1.3)
+DPDEXT_GOLDEN = dict(temp=0.0, cutoff=1.4, seed=48152, a0=18.0, gamma=4.0,
+                     gammaT=2.5, ws=0.8, wsT=1.3)
+
+
+def dpdext_golden_scene(device="cuda", force_path: str = "nlist") -> Scene:
+    """validation/dpdext_golden's box (300 atoms with velocities in a
+    periodic 9^3 box) under its dpd/ext law, on `force_path`; LAMMPS'
+    forces are in the folder's dump.ref (golden_forces)."""
+    from .io.lammps_data import read_data
+    df = read_data(os.path.join(VALIDATION, "dpdext_golden", "fluid.data"),
+                   atom_style="atomic")
+    cfg = SceneConfig(
+        box=df.box(periodic=(True, True, True)), masses=tuple(df.masses),
+        pair=DPDExtParams.create(**DPDEXT_GOLDEN), dt=0.002,
+        capacity=Capacity(n_max=df.natoms, cell_capacity=12), skin=0.3,
+        force_path=force_path).finalize()
+    return Scene(cfg=cfg, state=init_state(cfg, df.x, v=df.v, types=df.types,
+                                           tags=df.tags, device=device))

@@ -84,7 +84,9 @@ class State:
     gen: torch.Generator   # candidate draws
     obmd: ObmdScalars
     cell_overflow: torch.Tensor  # 0-dim i32
-    nbrs: Optional[object] = None  # cellpad.PadAux once laid out
+    # cellpad.PadAux once laid out, or on the nlist and sweep engines a
+    # neighbors.NeighborState
+    nbrs: Optional[object] = None
     bond3: Optional[torch.Tensor] = None  # [N] i32, branched topologies
     bond4: Optional[torch.Tensor] = None  # [N] i32, branched topologies
     impr: Optional[torch.Tensor] = None   # [N, 3] i32 slots of (i1, i3, i4)

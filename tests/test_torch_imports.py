@@ -77,6 +77,10 @@ def test_default_device_raises_without_gpu():
         scenes.star_melt_scene(n_stars=8)
     with pytest.raises(RuntimeError, match="cuda"):
         scenes.golden_scene("improper_golden")
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.obmd_dpdext_scene(scale=0.25)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scenes.dpdext_golden_scene()
     cfg = scenes.obmd_dpd_config(scale=0.25)
     with pytest.raises(RuntimeError, match="cuda"):
         init_state(cfg, [[1.0, 1.0, 1.0]])

@@ -33,7 +33,8 @@ CLOSE = ("x", "v", "xref", "sim_time", "momentum_force_left",
 
 
 def jax_arrays(state) -> dict:
-    """The converter's dict of numpy arrays from a JAX State (+ PadAux)."""
+    """The converter's dict of numpy arrays from a JAX State (+ PadAux or
+    NeighborState)."""
     d = {k: np.asarray(getattr(state, k)) for k in convert.STATE_FIELDS}
     d.update({k: np.asarray(getattr(state.obmd, k))
               for k in convert.OBMD_FIELDS})
@@ -41,8 +42,9 @@ def jax_arrays(state) -> dict:
               for k in convert.BRANCHED_FIELDS
               if getattr(state, k) is not None})
     if state.nbrs is not None:
-        d.update({k: np.asarray(getattr(state.nbrs, k))
-                  for k in convert.AUX_FIELDS})
+        fields = (convert.NBR_FIELDS if hasattr(state.nbrs, "nlist")
+                  else convert.AUX_FIELDS)
+        d.update({k: np.asarray(getattr(state.nbrs, k)) for k in fields})
     return d
 
 
