@@ -262,9 +262,40 @@ Phases (any failure exits non-zero and prints no result line):
  33. the dpd/ext rows on the insertion state's buffer subsets (the nlist
      stage's region_subset rows, n_max // 2 a side) against their plain
      version (check_usher), with the kernel's scratch at that size;
- 34. the figures of the thirteen paths (with each path's whole wall time,
-     its checks included), the kernel figures ({"kernels": [...]}), the
-     card line, and last {"ok": true, "device": {...}}.
+ 34. the fix's other keywords on the card against the CPU at a small size
+     (check_small_path, nattempt 0, SMALL_STEPS steps): the OBMD_DPD small
+     deck on the cellpad engine with maxattempt 3, `local`, `vx`/`vy`/`vz`,
+     `target` and `id max`; on the nlist engine under dpd/tstat (a
+     thermostat-only law) with maxattempt 2, nfreq 2, `gaussian` and
+     `rate`, stepped through make_step; the open charged two-type fluid's
+     small deck with a census of type 0 (`group_types`), maxattempt 2 and
+     `global`;
+ 35. path H, the OBMD_DPD deck with `maxattempt 4`, `nfreq 2`, `vx`, `vy`
+     and `vz -1.732 1.732` and `id max` (scenes.obmd_dpd_keywords_config,
+     scale 9) from phase 4's equilibrated state: repack to cap 15,
+     make_run(400) to settle, two timed make_run(400) windows,
+     check_invariants, the thermal T relaxing to within 5% of 1.0, a
+     profile of two relayout epochs.  Launch counts are zeroed before the
+     repack and read after phase 36's run;
+ 36. path H's insertion phase: H_DRAIN of each buffer's atoms taken out
+     and nbuf set to the census before it over alpha, so that the feedback
+     law asks for more than 3 K atoms a side, at the setup cap.  One stage
+     call on the card against the same call on the CPU (nattempt 0, seeded
+     draws): slots, tags and counters equal, the setpoints within 1e-5
+     relative plus 1e-3, and the setpoints less those of the call without
+     the velocity keywords equal to -mass x v / dt of the atoms each side
+     inserted; the USHER kernel on that call's four rounds, each round's
+     subsets with the earlier rounds' accepted candidates appended, against
+     its plain version one step at a time (usher_compare), then on the
+     last round's subsets with the edge inputs (check_usher); then
+     H_INS_STEPS steps (H_INS_STEPS / 2 stage calls): a stage call that
+     inserted more than 2 K atoms (one round inserts at most K a side),
+     the USHER kernel launched 4 times on every stage call that needed
+     atoms and on no other, check_invariants;
+ 37. the figures of the fourteen paths (with each path's whole wall time,
+     its checks included, and the smoke's total), the kernel figures
+     ({"kernels": [...]}), the card line, and last {"ok": true, "device":
+     {...}}.
 
 Every pair-kernel check (check_pair: each instantiation family the paths
 run, dpd at caps 15 and 24, gaussian, the ramp, lj with periodic or open x,
@@ -279,10 +310,15 @@ give the same bytes.
 Every USHER check (check_usher: dpd, lj with its shifted rows, ljrf,
 dpd/ext) holds
 the kernel to its plain version on the state's buffer subsets, then again
-on three edge inputs (usher_edge_inputs, 4 x K candidates searched 5
-steps: a seeded third of the valid rows made invalid; candidates within
-0.05 of the periodic y and z faces and of the region's x ends; one cell
-crowded to 4x the mean atoms per cell),
+on four edge inputs (usher_edge_inputs, 4 x K candidates each: a seeded
+third of the valid rows made invalid; candidates within 0.05 of the
+periodic y and z faces and of the region's x ends; one cell crowded to 4x
+the mean atoms per cell; candidates off the grid, the box or their region,
+as `gaussian` draws and the deposit keywords place them: up to a cell
+beyond either x end of the grid, far outside the box, beyond the periodic
+faces and two box lengths up in z, and with an infinite coordinate), and
+one launch with a NaN coordinate in every candidate against the plain
+search (verdicts and iterations equal, positions NaN alike),
 checks that two launches on each input give the same bytes, and logs the
 grid's cells per axis, the mean and largest atoms per cell, the distance
 tests per evaluation (the kernel's stencil and all-pairs), the longest
@@ -389,6 +425,11 @@ NEAR, NEAR_BOX_STEPS, FILM_STEPS = 0.35, 200, 10
 # candidates a side, so that each holds enough margin-robust ones
 HOLES_SEED = 9
 EDGE_K = 4
+# path H's insertion phase: the share of each buffer's atoms taken out, the
+# steps (two per stage call at nfreq 2) and the seed of its one-call checks
+H_DRAIN = 0.25
+H_INS_STEPS = 50
+H_SEED = 13
 # the margins of a step-robust USHER step (usher_compare): the two float32
 # summation orders give energies ~1e-7 x |E| apart and positions ~1e-6
 ROBUST_E = 1e-4
@@ -868,6 +909,13 @@ def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
         return usher_search_subset_batch(steps_cfg(n), sub_l, sub_r, pos_l,
                                          pos_r, ct, o.region5, o.region6)
     gate = u.etarget + EPSILON
+
+    def same(a, b):
+        """Equal to the byte, a NaN position equal to a NaN (a candidate
+        with an infinite coordinate moves to NaN where its force is
+        NaN)."""
+        return bool(((a == b) | (a.isnan() & b.isnan())).all()) \
+            if a.is_floating_point() else torch.equal(a, b)
     kern = kernel(0)
     checked = steps = 0
     err = 0.0
@@ -877,7 +925,7 @@ def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
         pk1, ak1, ik1 = nxt
         searching = ik == n
         done = ~searching[..., None]
-        if not (torch.equal(torch.where(done, pk1, pk), pk)
+        if not (same(torch.where(done, pk1, pk), pk)
                 and torch.equal(ak1[~searching], ak[~searching])
                 and torch.equal(ik1[~searching], ik[~searching])):
             fail(f"USHER {label}: a candidate that stopped within {n} steps "
@@ -903,7 +951,7 @@ def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
     if not err < 2e-3:
         fail(f"USHER {label}: position error {err} >= 2e-3")
     pk, ak, ik = kern
-    if not all(torch.equal(a, b) for a, b in zip(kern, kernel(u.nattempt))):
+    if not all(same(a, b) for a, b in zip(kern, kernel(u.nattempt))):
         fail(f"USHER {label}: two launches on one input differ")
     pp, ap, ip = plain(u.nattempt, cl, cr)
     ek, ep = energy(pk)[0], energy(pp)[0]
@@ -921,14 +969,44 @@ def usher_compare(cfg, sub_l, sub_r, cl, cr, label):
     return ak, ik, err, checked, overlap
 
 
+def off_grid(cfg, grid, region, k, g):
+    """k seeded candidates off the USHER grid, the box or the region, as
+    `gaussian` draws and the deposit keywords place them, in turn: within
+    a cell below and above the grid's x ends, far outside the box in x, a
+    hair below the periodic y face, two box lengths up in z, 0.3 beyond
+    the z face (outside the region), and with an infinite coordinate; y
+    and z uniform over the box."""
+    import torch
+    lx, ly, lz = cfg.box.lengths
+    top = grid.lo[0] + grid.cells[0] * grid.side[0]
+    xm = 0.5 * (region.lo[0] + region.hi[0])
+    u = torch.rand((k, 3), generator=g, device=DEV)
+    y, z = u[:, 1] * ly, u[:, 2] * lz
+    kinds = [(grid.lo[0] - (0.05 + 0.9 * u[:, 0]) * grid.side[0], y, z),
+             (top + (0.05 + 0.9 * u[:, 0]) * grid.side[0], y, z),
+             (-30.0 - lx * u[:, 0], y, z),
+             (lx + 30.0 + lx * u[:, 0], y, z),
+             (xm + 0 * y, -0.03 * u[:, 0], z),
+             (xm + 0 * y, y, z + 2 * lz),
+             (xm + 0 * y, y, lz + 0.3 + 0 * z),
+             (xm + 0 * y, y + torch.inf, z)]
+    out = torch.empty((k, 3), device=DEV)
+    for i in range(k):
+        c = kinds[i % len(kinds)]
+        out[i] = torch.stack([t[i] if torch.is_tensor(t) else
+                              torch.tensor(t, device=DEV) for t in c])
+    return out.contiguous()
+
+
 def usher_edge_inputs(cfg, sub_l, sub_r, seed=HOLES_SEED):
-    """The three edge inputs of the USHER checks, each (label, sub_l,
+    """The four edge inputs of the USHER checks, each (label, sub_l,
     sub_r, cl, cr) with EDGE_K x K seeded
     candidates a side: a third of each subset's valid rows made invalid
     (uniform candidates); candidates within 0.05 of the periodic y and z
     faces and of the region's x ends; each side's first candidate's cell
     crowded to at least 4x the mean atoms per cell with valid atoms moved
-    there from farther than 2 cuts in x (uniform candidates)."""
+    there from farther than 2 cuts in x (uniform candidates); candidates
+    off the grid, the box or the region (off_grid)."""
     import torch
     from obmd_tpu_torch.forces.usher_kernel import UsherPlan
     o = cfg.obmd
@@ -971,7 +1049,35 @@ def usher_edge_inputs(cfg, sub_l, sub_r, seed=HOLES_SEED):
         ("holes", holed(sub_l), holed(sub_r), cl, cr),
         ("faces", sub_l, sub_r, near_faces(o.region5), near_faces(o.region6)),
         ("crowded", crowded(sub_l, grids[0], cl[0]),
-         crowded(sub_r, grids[1], cr[0]), cl, cr)]
+         crowded(sub_r, grids[1], cr[0]), cl, cr),
+        ("off-grid", sub_l, sub_r, off_grid(cfg, grids[0], o.region5, k, g),
+         off_grid(cfg, grids[1], o.region6, k, g))]
+
+
+def check_nan_candidates(cfg, sub_l, sub_r, label):
+    """One launch with a NaN coordinate in every candidate (x, y or z in
+    turn) against the plain search: verdicts and iterations equal, every
+    position NaN where the plain version's is."""
+    import torch
+    from obmd_tpu_torch.forces.usher_kernel import launch
+    from obmd_tpu_torch.obmd.subset import usher_search_subset_batch
+    o = cfg.obmd
+    k = o.insert_kmax
+    cand = []
+    for region in (o.region5, o.region6):
+        c = region.sample_uniform(torch.full((k, 3), 0.5, device=DEV))
+        c[torch.arange(k), torch.arange(k) % 3] = torch.nan
+        cand.append(c.contiguous())
+    pk, ak, ik = launch(cfg, sub_l, sub_r, *cand, o.region5, o.region6)
+    ct = torch.zeros((k,), dtype=torch.int32, device=DEV)
+    pp, ap, ip = usher_search_subset_batch(cfg, sub_l, sub_r, *cand, ct,
+                                           o.region5, o.region6)
+    if not (torch.equal(ak, ap) and torch.equal(ik, ip)
+            and torch.equal(pk.isnan(), pp.isnan())):
+        fail(f"USHER {label}: NaN candidates differ from the plain search "
+             f"(accepted {ak.tolist()} / {ap.tolist()})")
+    log(f"usher {label}: {2 * k} NaN candidates as the plain search: "
+        f"{int(ak.sum())} accepted, iterations {int(ik.sum())}")
 
 
 def usher_grid_figures(cfg, sub_l, sub_r):
@@ -1035,6 +1141,7 @@ def check_usher(cfg, geom, state, label, subsets=None):
             extra[f"{name}_max_abs_err"] = err_e
             extra[f"{name}_robust_steps"] = checked_e
             err = max(err, err_e)
+        check_nan_candidates(cfg, sub_l, sub_r, label)
         ms = time_ms(lambda: launch(cfg, sub_l, sub_r, cl, cr, o.region5,
                                     o.region6))
         plain = time_ms(lambda: usher_search_subset_batch(
@@ -1082,19 +1189,36 @@ def check_usher(cfg, geom, state, label, subsets=None):
 
 class SeededDraws:
     """The engine's draw seam fed from one numpy generator, so that a run on
-    the card and a run on the CPU try the same candidate positions."""
+    the card and a run on the CPU try the same candidates: uniform
+    positions' draws (standard normals under `gaussian`) and, where their
+    keywords are set, the deposit z's and the velocities' uniforms
+    (obmd.stage.Draws), drawn on every stage call."""
 
     def __init__(self, cfg, seed: int):
         import numpy as np
         from obmd_tpu_torch.engine_cellpad import mol_mode
+        from obmd_tpu_torch.obmd.stage import draw_shapes, rounds_of
         self.rng = np.random.default_rng(seed)
-        self.shape = (2, 1, cfg.obmd.insert_kmax, 7 if mol_mode(cfg) else 3)
+        self.shapes = draw_shapes(cfg, rounds_of(cfg), cfg.obmd.insert_kmax,
+                                  7 if mol_mode(cfg) else 3)
+        self.gauss = cfg.obmd.gaussian is not None
 
     def __call__(self, state, need):
         import numpy as np
         import torch
-        u = self.rng.random(self.shape, dtype=np.float32)
-        return torch.from_numpy(u).to(state.device) if need else None
+        from obmd_tpu_torch.obmd.stage import Draws
+        f32 = np.float32
+        pos = (self.rng.standard_normal(self.shapes["pos"], dtype=f32)
+               if self.gauss else self.rng.random(self.shapes["pos"],
+                                                  dtype=f32))
+        more = [None if self.shapes[f] is None
+                else self.rng.random(self.shapes[f], dtype=f32)
+                for f in ("z", "vel")]
+        if not need:
+            return None
+        return Draws(*(None if a is None else
+                       torch.from_numpy(a).to(state.device)
+                       for a in [pos] + more))
 
 
 SMALL_EXACT = ("type", "q", "tag", "alive", "mol", "bond1", "bond2", "step",
@@ -1167,7 +1291,7 @@ def small_chain(dev):
 
 
 def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
-                     unsteady=None, setpoint_rtol=0.0):
+                     unsteady=None, setpoint_rtol=0.0, runner="run"):
     """The whole path at a small size on the card against the same path on
     the CPU (the plain versions), from one initial state and one stream of
     candidate draws, with nattempt = 0, so that no USHER verdict sits at
@@ -1183,13 +1307,15 @@ def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
     (ill-conditioned impropers, where float32 rounding is amplified);
     setpoint_rtol, where given, adds that share of each boundary setpoint's
     magnitude to its 1e-4 (a molecule leaving whole puts its momentum over
-    dt, thousands, into one float32 sum).  Returns
+    dt, thousands, into one float32 sum); runner "step" steps through
+    make_step (the stage where step % nfreq == 0) instead of make_run(1)
+    calls (each of which starts a stage group).  Returns
     the largest position difference by tag."""
     import dataclasses as dc
 
     import numpy as np
     from obmd_tpu_torch import convert
-    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.integrate import make_run, make_step, setup
 
     runs = []
     for dev in (DEV, "cpu"):
@@ -1207,7 +1333,8 @@ def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
                 d["unsteady"] = unsteady(cfg, st).cpu().numpy()
             return d
         out = [arrays(st)]
-        run = make_run(cfg, 1, draw=draws)
+        run = (make_step(cfg, draw=draws) if runner == "step"
+               else make_run(cfg, 1, draw=draws))
         for _ in range(SMALL_STEPS):
             st = run(st)
             out.append(arrays(st))
@@ -1228,6 +1355,8 @@ def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
         def rows(a):
             return a[held] if a.ndim and len(a) == len(held) else a
         for k in SMALL_CLOSE:
+            if k not in want:
+                continue
             d = float(np.abs(rows(got[k]) - rows(want[k])).max())
             bar = 1e-4
             if k.endswith("_force_left") or k.endswith("_force_right"):
@@ -3419,6 +3548,313 @@ def run_dpdext(cfg24, st_eq):
     return path, kernels
 
 
+NLIST_SMALL_EXACT = ("type", "q", "tag", "alive", "mol", "bond1", "bond2",
+                     "step", "maxtag", "cell_overflow", "ndeleted",
+                     "ninserted", "insert_fail", "usher_iters", "rebuilds",
+                     "overflow", "table", "cell_id", "nlist", "ncount",
+                     "tombstone", "force_rebuild")
+
+
+def small_keywords(kind):
+    """make(device) of phase 34's small paths: "cellpad" the OBMD_DPD
+    small deck with maxattempt 3, `local`, `vx`/`vy`/`vz`, `target` and
+    `id max`; "nlist" the same deck on the nlist engine under dpd/tstat
+    (every candidate taken at iteration 0) with maxattempt 2, nfreq 2,
+    `gaussian` (around region5's middle, sigma 1: the other side's draws
+    invalid) and `rate`; "census" the open charged fluid's small deck (two
+    types) counting type 0 only, with maxattempt 2 and `global`."""
+    def make(dev):
+        from obmd_tpu_torch.config import DPDTstatParams
+        v = (-1.732, 1.732)
+        if kind == "census":
+            cfg, st = small_ljrf(dev)
+            kw = dict(maxattempt=2, group_types=(0,),
+                      deposit_global=(-1.0, -0.2))
+        else:
+            cfg, st = small_dpd(dev)
+            if kind == "cellpad":
+                kw = dict(maxattempt=3, deposit_local=(0.0, 0.5, 1.0),
+                          vx=v, vy=v, vz=v, target=(4.2, 5.6, 5.6),
+                          id_policy="max")
+            else:
+                cfg = dataclasses.replace(
+                    cfg, force_path="nlist", pair=DPDTstatParams.create(
+                        t_start=1.0, cutoff=1.0, seed=9, gamma=4.5))
+                kw = dict(maxattempt=2, nfreq=2, rate=2.0,
+                          gaussian=(0.6, 5.6, 5.6, 1.0))
+        return dataclasses.replace(cfg, obmd=dataclasses.replace(
+            cfg.obmd, **kw)).finalize(), st
+    return make
+
+
+def drained(cfg, state, share, seed):
+    """The state with a seeded `share` of the atoms in region1 and region2
+    taken out (alive False, tag -1, v 0): buffers drained, as a strong
+    outflow leaves them."""
+    import torch
+    o = cfg.obmd
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    band = state.alive & (o.region1.match(state.x) | o.region2.match(state.x))
+    out = band & (torch.rand(band.shape, generator=g, device=DEV) < share)
+    keep = state.alive & ~out
+    return state.replace(alive=keep, tag=torch.where(keep, state.tag, -1),
+                         v=torch.where(keep[:, None], state.v, 0.0))
+
+
+class StageLog:
+    """A draw seam that notes, on each stage call, whether a buffer needs
+    atoms, the inserted count and the USHER kernel's launches before the
+    call (one device read a call), then hands over the production
+    draws."""
+
+    def __init__(self, cfg):
+        from obmd_tpu_torch.engine_cellpad import own_draws
+        self.draw = own_draws(cfg)
+        self.calls = []
+
+    def __call__(self, state, need):
+        from obmd_tpu_torch import _build
+        self.calls.append((need, int(state.obmd.ninserted),
+                           _build.KERNELS["usher_search"].launches))
+        return self.draw(state, need)
+
+    def per_call(self, state):
+        """[(need, inserted, USHER launches)] of each call."""
+        from obmd_tpu_torch import _build
+        ends = self.calls[1:] + [(None, int(state.obmd.ninserted),
+                                  _build.KERNELS["usher_search"].launches)]
+        return [(need, n1 - n0, l1 - l0) for (need, n0, l0), (_, n1, l1)
+                in zip(self.calls, ends)]
+
+
+def stage_call_checks(cfg, geom, state, label):
+    """One stage call of path H's insertion phase (nattempt 0, SeededDraws)
+    on the card against the same call on the CPU, and against the call
+    without the velocity keywords: the inserted momentum in the tally.
+    Returns the figures."""
+    import numpy as np
+    from obmd_tpu_torch import convert
+    from obmd_tpu_torch.engine_cellpad import _obmd_stage
+    o = cfg.obmd
+    cfg0 = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        o, usher=dataclasses.replace(o.usher, nattempt=0))).finalize()
+    draws = SeededDraws(cfg0, H_SEED)(state, True)
+    cpu = convert.from_arrays(convert.to_arrays(state), device="cpu")
+    with KeepCounts():
+        a = _obmd_stage(cfg0, geom, state, lambda s, n: draws)
+        b = _obmd_stage(dataclasses.replace(cfg0, obmd=dataclasses.replace(
+            cfg0.obmd, vx=None, vy=None, vz=None)).finalize(), geom, state,
+            lambda s, n: draws._replace(vel=None))
+    c = _obmd_stage(cfg0, geom, cpu, lambda s, n: draws._replace(
+        **{f: None if t is None else t.cpu()
+           for f, t in draws._asdict().items()}))
+    ga, gc = convert.to_arrays(a), convert.to_arrays(c)
+    for k in ("tag", "alive", "maxtag", "ninserted", "insert_fail",
+              "ndeleted", "tag3d", "occ"):
+        if not np.array_equal(ga[k], gc[k]):
+            fail(f"{label}: one stage call's {k} differs from the CPU's")
+    inserted = int(ga["ninserted"]) - int(state.obmd.ninserted)
+    if inserted <= 0:
+        fail(f"{label}: the checked stage call inserted no atoms")
+    gaps = {}
+    for k in ("momentum_force_left", "momentum_force_right"):
+        d = float(np.abs(ga[k] - gc[k]).max())
+        if not d <= 1e-5 * float(np.abs(gc[k]).max()) + 1e-3:
+            fail(f"{label}: {k} differs from the CPU's by {d}")
+        gaps[k] = d
+    new = a.alive & ~state.alive
+    mid = 0.5 * (cfg.box.lo[0] + cfg.box.hi[0])
+    left = new & (a.x[:, 0] < mid)
+    mass = float(cfg.masses[o.ntype])
+    dt = float(np.float32(cfg.dt))
+    tally = []
+    for side, sel, k in ((0, left, "momentum_force_left"),
+                         (1, new & ~left, "momentum_force_right")):
+        pins = mass * a.v[sel].sum(0)
+        want = -pins / dt
+        got = getattr(a.obmd, k) - getattr(b.obmd, k)
+        tol = 4e-6 * float(getattr(a.obmd, k).abs().max()) \
+            + 1e-4 * float(want.abs().max()) + 1e-3
+        d = float((got - want).abs().max())
+        if not d <= tol or not float(pins.abs().max()) > 0.0:
+            fail(f"{label}: side {side}'s setpoint less the at-rest call's "
+                 f"is {got.tolist()}, not -m v / dt = {want.tolist()}")
+        tally.append(dict(pins=pins.tolist(), err=d))
+    log(f"{label}: one stage call (nattempt 0) inserted {inserted} (K "
+        f"{o.insert_kmax}, {int(new.sum())} new slots) as on the CPU, "
+        f"setpoints within {gaps}; inserted momentum in the tally {tally}")
+    return dict(inserted=inserted, setpoint_gap_cpu=gaps, tally=tally)
+
+
+def round_checks(cfg, geom, state, label):
+    """The USHER kernel on each round of one stage call (seeded draws):
+    each round's subsets with the earlier rounds' accepted candidates
+    appended, held to its plain version one step at a time
+    (usher_compare); the budgets are the feedback law's.  Returns the
+    last round's subsets and the figures."""
+    import torch
+    from obmd_tpu_torch.engine_cellpad import (_region_count_sliced,
+                                               _subset_slice)
+    from obmd_tpu_torch.forces.usher_kernel import usher_search
+    from obmd_tpu_torch.obmd.stage import (_append_subset,
+                                           _sequential_accept,
+                                           draw_candidates, feedback_count,
+                                           rounds_of, stage_params)
+    o = cfg.obmd
+    k = o.insert_kmax
+    pad = cfg.pair.max_cut + cfg.skin
+    subs = [_subset_slice(cfg, geom, state, r, pad)
+            for r in (o.region5, o.region6)]
+    prm = stage_params(cfg, state)
+    rem = [torch.clamp(feedback_count(
+        _region_count_sliced(cfg, geom, state, r), o.mol_len, prm["alpha"],
+        prm["nbuf"], prm["dt"], prm["tau"]), 0, rounds_of(cfg) * k)
+        for r in (o.region1, o.region2)]
+    draws = SeededDraws(cfg, H_SEED + 1)(state, True)
+    ct = torch.full((k,), o.ntype, dtype=torch.int32, device=DEV)
+    regions = (o.region5, o.region6)
+    figs = []
+    with KeepCounts():
+        for r in range(rounds_of(cfg)):
+            cand = [draw_candidates(cfg, draws.pos[s, r], None, regions[s],
+                                    state)[0] for s in (0, 1)]
+            _, _, err, checked, _ = usher_compare(
+                cfg, subs[0], subs[1], cand[0], cand[1],
+                f"{label}, round {r + 1}")
+            pos, ok, _ = usher_search(cfg, subs[0], subs[1], *cand,
+                                      *regions)
+            took = []
+            for s in (0, 1):
+                acc, cnt = _sequential_accept(cfg, pos[s], ct, ok[s],
+                                              torch.clamp(rem[s], max=k))
+                rem[s] = rem[s] - cnt
+                subs[s] = _append_subset(subs[s], pos[s], acc, ct,
+                                         geom.n_slots)
+                took.append(int(cnt))
+            figs.append(dict(rows=[int(x.x.shape[0]) for x in subs],
+                             taken=took, max_abs_err=err,
+                             robust_steps=checked))
+    log(f"{label}: the USHER kernel on each round's appended subsets "
+        f"against its plain version: {figs}")
+    return subs, figs
+
+
+def run_keywords(cfg24, st_eq):
+    """Phases 34-36: the fix's keywords at a small size, then path H from
+    phase 4's equilibrated state st_eq."""
+    from bench_torch import PROD_CAP, production, repack
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import (_region_count_sliced,
+                                               auto_rebuild_every)
+    from obmd_tpu_torch.integrate import make_run
+    from obmd_tpu_torch.obmd.stage import feedback_count, stage_params
+    from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
+    # ---- phase 34: the keywords at a small size against the CPU
+    small = {}
+    with KeepCounts():
+        # the inserted momentum over dt enters the setpoints from a
+        # float32 sum in another order on each device
+        for kind, kw in (("cellpad", dict(require_insert=True,
+                                          setpoint_rtol=2e-6)),
+                         ("nlist", dict(require_insert=True,
+                                        exact=NLIST_SMALL_EXACT,
+                                        runner="step")),
+                         ("census", dict(require_insert=False))):
+            small[kind] = check_small_path(f"keywords {kind}",
+                                           small_keywords(kind), **kw)
+
+    # ---- phase 35: path H's production
+    cfg = scenes.obmd_dpd_keywords_config()
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    cfg15, geom15, st = repack(cfg, st_eq, PROD_CAP)
+    probe = window_temps(cfg15, geom15, "path H")
+    probes = [probe(st)]
+    st, windows, more = production(cfg15, st, probe)
+    probes += more
+    t_relax = check_thermal(probes, "path H")
+    tel = check_invariants(cfg15, st)
+    check_finite(st, "path H")
+    natoms = int(st.natoms)
+    prod_s = time.perf_counter() - t_path
+    r_every = auto_rebuild_every(cfg15)
+    r_every = max(1, r_every // cfg15.obmd.nfreq) * cfg15.obmd.nfreq
+    with KeepCounts():
+        prof = profile_steps(make_run(cfg15, 2 * r_every), st, 2 * r_every)
+    log(f"path H profile: {prof}")
+
+    # ---- phase 36: the insertion phase from drained buffers
+    m = make_obmd_metrics_fn(cfg15)(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=census / cfg.obmd.alpha)).finalize()
+    _, geom_ins, st = repack(cfg_ins, drained(cfg15, st, H_DRAIN, H_SEED),
+                             cfg.capacity.cell_capacity)
+    prm = stage_params(cfg_ins, st)
+    k = cfg_ins.obmd.insert_kmax
+    demand = [int(feedback_count(
+        _region_count_sliced(cfg_ins, geom_ins, st, r), 1, prm["alpha"],
+        prm["nbuf"], prm["dt"], prm["tau"]))
+        for r in (cfg_ins.obmd.region1, cfg_ins.obmd.region2)]
+    if not min(demand) > 3 * k:
+        fail(f"path H: the first stage call asks for {demand}, not more "
+             f"than 3 K = {3 * k} a side")
+    one = stage_call_checks(cfg_ins, geom_ins, st, "path H")
+    subs, rounds = round_checks(cfg_ins, geom_ins, st, "path H")
+    usher, _ = check_usher(cfg_ins, geom_ins, st, "dpd, path H appended",
+                           subsets=tuple(subs))
+    stage_log = StageLog(cfg_ins)
+    ins0 = int(st.obmd.ninserted)
+    t_ins = time.perf_counter()
+    st = make_run(cfg_ins, H_INS_STEPS, draw=stage_log)(st)
+    sync()
+    ins_s = time.perf_counter() - t_ins
+    tel_ins = check_invariants(cfg_ins, st)
+    check_finite(st, "path H insertion phase")
+    calls = stage_log.per_call(st)
+    if len(calls) != H_INS_STEPS // cfg_ins.obmd.nfreq:
+        fail(f"path H: {len(calls)} stage calls in {H_INS_STEPS} steps")
+    rounds_n = cfg_ins.obmd.maxattempt
+    for need, n, launched in calls:
+        if launched != (rounds_n if need else 0):
+            fail(f"path H: a stage call (need {need}) launched the USHER "
+                 f"kernel {launched} times, not {rounds_n if need else 0}")
+    most = max(n for _, n, _ in calls)
+    if not most > 2 * k:
+        fail(f"path H: no stage call inserted more than 2 K = {2 * k} "
+             f"(most {most}): rounds 2-4 never inserted")
+    inserted = int(st.obmd.ninserted) - ins0
+    launches = launch_counts()
+    path_s = time.perf_counter() - t_path
+    wall, steps = min(windows)
+    log(f"path H ({natoms} atoms) production {prod_s:.1f} s, windows "
+        f"{windows}, {wall / steps * 1e3:.3f} ms/step, "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, telemetry "
+        f"{tel}; insertion phase: {H_DRAIN} of the buffers drained, nbuf "
+        f"{cfg_ins.obmd.nbuf:.1f}, first demand {demand}, {inserted} "
+        f"inserted in {H_INS_STEPS} steps ({ins_s:.2f} s; per stage call "
+        f"{[n for _, n, _ in calls]}), {tel_ins}; launches {launches}; "
+        f"path {path_s:.1f} s")
+    require_launches(launches, {"pair": ("dpd-cap15", "dpd-cap24"),
+                                "usher_search": None}, "path H")
+    path = dict(atoms=natoms, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                windows_s=[w for w, _ in windows], production_s=prod_s,
+                path_s=path_s, telemetry=tel, thermal_temp_limit=t_relax,
+                kinetic_thermal_temps=[p[1:] for p in probes], profile=prof,
+                small_paths_max_pos_err=small, first_demand=demand,
+                insertion_phase_inserted=inserted,
+                inserted_per_stage_call=[n for _, n, _ in calls],
+                usher_launches_per_stage_call=[n for _, _, n in calls],
+                one_stage_call=one, rounds=rounds, insertion_s=ins_s,
+                pair_launches=launches["pair"][1])
+    kernels = [kernel_line("usher_search",
+                           "dpd, path H: 4 rounds, appended subsets", None,
+                           launches["usher_search"][0], usher)]
+    return path, kernels
+
+
 def slots_of(cfg, state):
     """The live atoms of a state (a cellpad layout's slots are padded
     beyond n_max) in a fresh store of cfg's n_max slots, in tag order, with
@@ -3448,8 +3884,9 @@ def scratch_figure(cfg, subsets):
 
 
 def run_smoke():
-    """Phases 2-33; returns the paths' figures and the kernel figures."""
+    """Phases 2-36; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
+    t_all = time.perf_counter()
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -3499,6 +3936,12 @@ def run_smoke():
     t0 = time.perf_counter()
     ext_path, ext_kernels = run_dpdext(*obmd_prod[:2])
     wall_s["obmd_dpdext"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kw_path, kw_kernels = run_keywords(*obmd_prod[:2])
+    wall_s["obmd_dpd_keywords"] = time.perf_counter() - t0
+    wall_s["total"] = time.perf_counter() - t_all
+    log(f"the smoke's paths took {wall_s['total']:.1f} s, the build "
+        f"included")
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
                           lj_melt=lj_path, obmd_lj=olj_path,
                           chain=chain_path, obmd_ljrf=rf_path,
@@ -3506,11 +3949,12 @@ def run_smoke():
                           dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
                           near_box=box_path, dpd_film=film,
                           star_melt=star_path, open_star=open_path,
-                          obmd_dpdext=ext_path),
+                          obmd_dpdext=ext_path,
+                          obmd_dpd_keywords=kw_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
-                + open_kernels + ext_kernels)
+                + open_kernels + ext_kernels + kw_kernels)
 
 
 def main():

@@ -349,6 +349,16 @@ class ObmdParams:
     orient: Optional[Tuple[float, float, float]] = None
     rigid: bool = False
     shake: bool = False
+    # fix deposit's candidate keywords (ref :880, :930-932, :947-985):
+    # `gaussian xmid ymid zmid sigma` draws candidates normally around one
+    # point (those outside the insertion region are invalid); `rate r`
+    # shifts candidate z by r * sim_time; `global lo hi` puts it lo..hi
+    # above the highest alive atom, `local lo hi delta` above the highest
+    # alive atom within lateral distance delta of the candidate
+    gaussian: Optional[Tuple[float, float, float, float]] = None
+    deposit_global: Optional[Tuple[float, float]] = None
+    deposit_local: Optional[Tuple[float, float, float]] = None
+    rate: Optional[float] = None
     id_policy: str = "next"
     vx: Optional[Tuple[float, float]] = None
     vy: Optional[Tuple[float, float]] = None
@@ -397,6 +407,9 @@ class ObmdParams:
                 raise ValueError(
                     f"fix obmd: `{name}` is required "
                     "(fix_obmd_merged.cpp init() :421-438)")
+        if self.deposit_global is not None and self.deposit_local is not None:
+            raise ValueError("global and local are mutually exclusive "
+                             "(fix_obmd_merged.cpp:2088-2095)")
         if self.region3 is None or self.region4 is None:
             for name in ("pxy", "pxz"):
                 v = getattr(self, name)

@@ -9,8 +9,9 @@ on a branched topology bond3, bond4 and impr; the `ObmdScalars` fields;
 and the `PadAux` fields xref, rebuilds, overflow, skin_trips, tag3d and
 occ, or the `neighbors.NeighborState` fields table, cell_id, nlist,
 ncount, xref, tombstone, force_rebuild, rebuilds and overflow.  A pair
-law and a bond, angle, dihedral or improper style cross by their class
-name and fields (`pair_params`, `bonded_params`).
+law, a bond, angle, dihedral or improper style and the fix's parameters
+cross by their class name and fields (`pair_params`, `bonded_params`,
+`obmd_params`).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from .cellpad import PadAux
 from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
                      DihedralHarmonicParams, DPDExtParams, DPDParams,
                      DPDTstatParams, ImproperHarmonicParams, LJCutParams,
-                     LJCutRFParams)
+                     LJCutRFParams, MolTemplate, ObmdParams, UsherParams)
+from .geometry import RegionBlock
 from .neighbors import NeighborState
 from .state import ObmdScalars, State, make_generator, resolve_device
 
@@ -123,4 +125,25 @@ def bonded_params(style):
         raise NotImplementedError(
             f"bonded style {type(style).__name__} is not ported")
     return cls(**{f.name: getattr(style, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+_OBMD_PARTS = {c.__name__: c for c in (ObmdParams, UsherParams, MolTemplate,
+                                       RegionBlock)}
+
+
+def obmd_params(obmd):
+    """The port's fix parameters (`ObmdParams`, its regions, USHER
+    parameters and templates) of another package's object of the same
+    class names, field by field: every keyword the port knows crosses, the
+    deposit keywords (gaussian, global, local, rate), the inserted-velocity
+    keywords and `id` included (None stays None)."""
+    if obmd is None:
+        return None
+    if isinstance(obmd, (tuple, list)):
+        return type(obmd)(obmd_params(v) for v in obmd)
+    cls = _OBMD_PARTS.get(type(obmd).__name__)
+    if cls is None or not dataclasses.is_dataclass(obmd):
+        return obmd
+    return cls(**{f.name: obmd_params(getattr(obmd, f.name))
                   for f in dataclasses.fields(cls)})

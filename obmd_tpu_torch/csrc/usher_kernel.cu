@@ -379,6 +379,14 @@ usher_kernel(Params P) {
   __syncthreads();
   float p[3];
   for (int c = 0; c < 3; ++c) p[c] = S.cand[k * 3 + c];
+  // A candidate with a non-finite coordinate meets no atom within the
+  // cut, but the plain version's force sums 0 x inf over every subset row
+  // (obmd/subset.py _batched_energy_force pads both sides to one length),
+  // which is NaN: its force is NaN here too, so it stops where the plain
+  // search stops.
+  const bool nan_force =
+      !(isfinite(p[0]) && isfinite(p[1]) && isfinite(p[2])) &&
+      (P.s[0].b > 0 || P.s[1].b > 0);
   // every thread holds the same sums, so the block takes every branch
   // alike
   bool active = true, accepted = false;
@@ -386,6 +394,8 @@ usher_kernel(Params P) {
   float ef[4];
   for (int it = 0; it < P.nattempt && active; ++it) {
     energy_force<kLaw, kW>(S, P, coef, p, ef, red, it & 1);
+    if (nan_force)
+      for (int c = 1; c < 4; ++c) ef[c] = __int_as_float(0x7fc00000);
     const float E = ef[0];
     const bool ok = E < P.thresh;
     const float fabs_ = sqrtf(ef[1] * ef[1] + ef[2] * ef[2] + ef[3] * ef[3]);

@@ -10,15 +10,16 @@ or a closed box without the OBMD stage (the LJ
 melt; with FENE chains, the chain melt; with harmonic bonds, angles,
 dihedrals on chains and impropers on branched topologies of up to four
 bonds per atom, the star-polymer melt), with or without the Langevin
-thermostat; and dpd/tstat, with or without its temperature ramp, without
-the OBMD stage.  The JAX cellpad engine refuses dpd/tstat and runs it on
-its nlist and slab engines through the same TPU kernel; the port runs it
-here, the ramp's noise scale computed on the host per step beside the
-noise salt (`forces.pairs.sig_scale_of`).  Per-atom charges and types
-follow every relayout on a scene that has them (`relayout_flags`); masses
-are per type.  Step
-order mirrors Verlet::run: half kick, drift + wrap, the epoch relayout on an
-epoch's first step, the OBMD stage (face deletion, buffer census, feedback
+thermostat; and dpd/tstat, with or without its temperature ramp (under
+the OBMD stage its insertion search is the plain one: USHER has no
+energy to steer by).  The JAX cellpad engine refuses dpd/tstat and runs
+it on its nlist and slab engines through the same TPU kernel; the port
+runs it here, the ramp's noise scale computed on the host per step
+beside the noise salt (`forces.pairs.sig_scale_of`).  Per-atom charges
+and types follow every relayout on a scene that has them
+(`relayout_flags`); masses are per type.  Step order mirrors
+Verlet::run: half kick, drift + wrap, the epoch relayout on an epoch's
+first step, the OBMD stage (face deletion, buffer census, feedback
 law, demand-gated subset compaction and insertion, boundary-force
 setpoints), the pair kernel (1-2 pairs excluded on a bonded scene, 4
 exclusion channels on a branched topology) plus the boundary force plus
@@ -29,18 +30,23 @@ The pair kernel is make_pair_kernel's (`kernel="pair"`, the default) or the
 legacy full-stencil make_dpd_kernel's (`kernel="full"`); both compute the
 same forces.
 
-Candidate positions go through a draw seam: `draw(state, need)` is called
-once per stage call and returns uniform [0, 1) draws [2, rounds, K, D]
-(side-major) when `need` is true, else None: D = 3 in ATOM mode (the
-position), D = 7 in MOLECULE mode (the center, the rotation axis's cube
-draw, the rotation angle's draw).  `own_draws` uses the state's
-generator; a parity test passes a function that replays the JAX engine's
-own random draws.
+ATOM-mode insertion runs `maxattempt` candidate rounds per stage call,
+each round's accepted candidates appended to the subsets the next round
+searches, with the fix deposit's candidate keywords (`gaussian`, `rate`,
+`global`, `local`) and inserted velocities (`vx`/`vy`/`vz`, `target`)
+whose momentum enters the setpoints' tally; the census may count a group
+of types (`group_types`); the stage may run every `nfreq` steps.
+
+Random numbers go through a draw seam: `draw(state, need)` is called
+once per stage call and returns the call's `obmd.stage.Draws` when `need`
+is true, else None.  `own_draws` uses the state's generator; a parity
+test passes a function that replays the JAX engine's own random draws.
 
 The demand gate (the reference's `lax.cond` on "either buffer needs
 atoms") is a host-side `if`: one device-to-host read per stage call.  The
 skip branch leaves the state as the reference's skip branch does: no
-subset-overflow count, no USHER iterations, no insertion.  In MOLECULE
+subset-overflow count, no USHER iterations, no insertion, and under `id
+max` the running maximum tag recomputed.  In MOLECULE
 mode the JAX engine runs its search on the skip branch's empty subsets
 too; there every trial's energy is 0 and its force 0, so each stops at
 iteration 0 (accepted below a positive etarget, degenerate otherwise) and
@@ -60,8 +66,8 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import (DPDExtParams, DPDTstatParams, LJCutRFParams,
-                     SceneConfig, template_stacks)
+from .config import (DPDTstatParams, LJCutRFParams, SceneConfig,
+                     template_stacks)
 from .geometry import const_like
 from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                             improper_forces, langevin_force)
@@ -70,14 +76,15 @@ from .forces.pair_kernel import (N_EXCL, N_EXCL_BRANCHED, PadGeometry,
                                  legacy_kwargs, make_dpd_kernel,
                                  make_pair_kernel)
 from .forces.pairs import sig_scale_of
-from .forces.usher_kernel import usher_search
-from .obmd.stage import (_sequential_accept, delete_outside, draw_candidates,
-                         feedback_count, insertion_tag_base, rounds_of,
-                         setpoints, smooth_weight, stage_params)
+from .obmd.stage import (Draws, delete_outside, draw_candidates,
+                         draw_inserted_velocities, draw_shapes,
+                         feedback_count, insertion_tag_base,
+                         inserted_momenta, rounds_of, search_rounds,
+                         setpoints, skipped_insertion, smooth_weight,
+                         stage_params)
 from .obmd.subset import (Subset, expand_region, mol_candidates_sel,
-                          mol_sequential_accept, near_check_subset,
-                          near_check_subset_mol, random_rotations,
-                          usher_search_subset_mol)
+                          mol_sequential_accept, near_check_subset_mol,
+                          random_rotations, usher_search_subset_mol)
 from .adress import update_mol_com
 from .state import State, per_atom_mass
 
@@ -92,24 +99,32 @@ def mol_mode(cfg: SceneConfig) -> bool:
 
 
 def own_draws(cfg: SceneConfig) -> Draw:
-    """Production draws from the state's generator, only when needed."""
-    shape = (2, rounds_of(cfg), cfg.obmd.insert_kmax,
-             7 if mol_mode(cfg) else 3) if cfg.obmd is not None else None
+    """Production draws from the state's generator, only when needed:
+    normal positions' draws under `gaussian`, else uniform ones, and the
+    uniforms of the deposit z and the velocities where their keywords are
+    set."""
+    if cfg.obmd is None:
+        return lambda state, need: None
+    shapes = draw_shapes(cfg, rounds_of(cfg), cfg.obmd.insert_kmax,
+                         7 if mol_mode(cfg) else 3)
+    gauss = cfg.obmd.gaussian is not None
 
     def draw(state: State, need: bool):
         if not need:
             return None
-        return torch.rand(shape, generator=state.gen, dtype=state.dtype,
-                          device=state.device)
+        kw = dict(generator=state.gen, dtype=state.dtype,
+                  device=state.device)
+        pos = (torch.randn if gauss else torch.rand)(shapes["pos"], **kw)
+        return Draws(pos, *(None if shapes[f] is None
+                            else torch.rand(shapes[f], **kw)
+                            for f in ("z", "vel")))
     return draw
 
 
 def check_scene(cfg: SceneConfig) -> None:
     """The refusals every engine shares: float32 only, as many masses as
-    the pair law has types, and an OBMD stage only on an open x axis, with
-    one candidate round every step (maxattempt 1, nfreq 1), without the
-    inserted-velocity keywords, without bonded terms in ATOM mode, and
-    under a law with a conservative energy for USHER to steer by."""
+    the pair law has types, and an OBMD stage only on an open x axis,
+    without bonded terms in ATOM mode."""
     if cfg.dtype != "float32":
         raise NotImplementedError("only float32 scenes are ported")
     if cfg.ntypes != cfg.pair.ntypes:
@@ -125,48 +140,50 @@ def check_scene(cfg: SceneConfig) -> None:
         raise NotImplementedError(
             "bonded terms with ATOM-mode insertion are not ported (molecule "
             "mode, the `mol` keyword, is)")
-    if o.maxattempt > 1 or o.nfreq > 1:
-        raise NotImplementedError(
-            "maxattempt > 1 and nfreq > 1 are not ported yet")
-    if any(getattr(o, k) is not None for k in ("vx", "vy", "vz", "target")):
-        raise NotImplementedError(
-            "the inserted-velocity keywords (vx, vy, vz, target) are not "
-            "ported yet")
-    if isinstance(cfg.pair, DPDTstatParams) or (
-            isinstance(cfg.pair, DPDExtParams) and cfg.pair.tstat_only):
-        raise NotImplementedError(
-            "the OBMD stage under a thermostat-only law (dpd/tstat, "
-            "dpd/ext/tstat) is not ported: USHER has no conservative "
-            "energy to steer by")
 
 
 # the fix keywords of MOLECULE mode that are not ported, with what each is
+# (a value other than these defaults refuses)
 _MOL_UNPORTED = (
-    ("mols", "multi-template insertion (`mols`/`molfrac`)"),
-    ("molfrac", "multi-template insertion (`mols`/`molfrac`)"),
-    ("charged", "`charged 1` trial energies"),
-    ("orient", "the fixed rotation axis `orient`"),
-    ("rigid", "rigid-body insertion (`rigid`)"),
-    ("shake", "SHAKE-constrained insertion (`shake`)"))
+    ("mols", "multi-template insertion (`mols`/`molfrac`)", ()),
+    ("molfrac", "multi-template insertion (`mols`/`molfrac`)", None),
+    ("charged", "`charged 1` trial energies", False),
+    ("orient", "the fixed rotation axis `orient`", None),
+    ("rigid", "rigid-body insertion (`rigid`)", False),
+    ("shake", "SHAKE-constrained insertion (`shake`)", False),
+    ("maxattempt", "candidate rounds (maxattempt > 1)", 1),
+    ("nfreq", "a stage every nfreq > 1 steps", 1),
+    ("vx", "the inserted-velocity keywords (vx, vy, vz, target)", None),
+    ("vy", "the inserted-velocity keywords (vx, vy, vz, target)", None),
+    ("vz", "the inserted-velocity keywords (vx, vy, vz, target)", None),
+    ("target", "the inserted-velocity keywords (vx, vy, vz, target)",
+     None),
+    ("gaussian", "the candidate keyword `gaussian`", None),
+    ("deposit_global", "the candidate keyword `global`", None),
+    ("deposit_local", "the candidate keyword `local`", None),
+    ("rate", "the candidate keyword `rate`", None))
 
 
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
-    open boxes with ATOM-mode USHER or `near` insertion and closed boxes without the
-    OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4 types (as many
-    masses as the pair law has types), with or without the Langevin
-    thermostat; dpd/tstat without the OBMD stage; FENE or harmonic bonds,
-    harmonic angles, dihedrals (chains only, as
+    open boxes with ATOM-mode USHER or `near` insertion (any maxattempt
+    and nfreq, the deposit and inserted-velocity keywords, a census of
+    `group_types`) and closed boxes without the OBMD stage, each DPD,
+    lj/cut or lj/cut/rf with 1-4 types (as many masses as the pair law has
+    types), with or without the Langevin thermostat; dpd/tstat; FENE or
+    harmonic bonds, harmonic angles, dihedrals (chains only, as
     obmd_tpu/engine_cellpad.py:149-154) and impropers, on chains or
     branched topologies (the pair kernel's 4-channel exclusion,
     pair_kernel.check_channels), on a closed box or in an open box whose
-    stage inserts molecules of one template (MOLECULE mode, maxattempt 1,
-    nfreq 1, without the keywords of _MOL_UNPORTED); check_scene's
-    refusals first."""
+    stage inserts molecules of one template (MOLECULE mode, without the
+    keywords of _MOL_UNPORTED); check_scene's refusals first."""
     check_scene(cfg)
     if mol_mode(cfg):
-        for name, what in _MOL_UNPORTED:
-            if getattr(cfg.obmd, name) not in (None, False, ()):
+        for name, what, default in _MOL_UNPORTED:
+            v = getattr(cfg.obmd, name)
+            if name in ("maxattempt", "nfreq"):
+                v = max(1, int(v))         # 0 counts as 1 (rounds_of)
+            if v != default:
                 raise NotImplementedError(
                     f"molecule insertion: {what} is not ported yet")
         top = int(template_stacks(cfg.obmd).types.max())
@@ -177,9 +194,6 @@ def check_supported(cfg: SceneConfig) -> None:
         raise NotImplementedError(
             "dihedrals on branched topologies (>2 bonds/atom) are not "
             "supported by the center-bond dihedral storage")
-    if cfg.obmd is not None and cfg.obmd.group_types is not None:
-        raise NotImplementedError("group-restricted census is not ported "
-                                  "on the cellpad engine")
     kernel_check_supported(make_geometry(cfg), cfg.pair)
     if cfg.branched_topology and cfg.bond is not None:
         _make_kernel(cfg, make_geometry(cfg))
@@ -354,9 +368,19 @@ def _slice_mass(cfg, state: State, a: int, b: int) -> torch.Tensor:
 
 
 def _region_count_sliced(cfg, geom, state: State, region) -> torch.Tensor:
+    """stage.region_count over the region's contiguous slot slice: the
+    live atoms inside it, of the census group's types when `group_types`
+    is set (obmd_tpu/engine_cellpad.py:212-225)."""
     a, b = slab_slice_bounds(geom, cfg.box, region.lo[0], region.hi[0])
-    return (state.alive[a:b] & region.match(state.x[a:b])).sum(
-        dtype=torch.int32)
+    m = state.alive[a:b] & region.match(state.x[a:b])
+    gt = cfg.obmd.group_types
+    if gt is not None:
+        ty = state.type[a:b]
+        gm = torch.zeros_like(m)
+        for t in gt:
+            gm = gm | (ty == int(t))
+        m = m & gm
+    return m.sum(dtype=torch.int32)
 
 
 def _subset_bounds(cfg, geom, region, pad):
@@ -394,35 +418,26 @@ def _subset_slice(cfg, geom, state, region, pad) -> Subset:
 
 
 def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
-    """ATOM-mode insertion of up to K candidates per buffer: uniform draws
-    -> USHER (or, under `near` insertion, the distance check of the
-    unmoved candidates, ref engine_cellpad.py:583-586) -> greedy in-order
-    acceptance within the feedback budget -> free-rank placement ->
-    kernel-cache patch.  Inserted atoms take type ntype and charge 0 where
-    the scene has those columns.  Only called when a buffer needs atoms;
-    `u` holds the draws [2, 1, K, 3]."""
+    """ATOM-mode insertion (obmd_tpu/engine_cellpad.py:513-697):
+    `maxattempt` rounds of up to K candidates per buffer
+    (stage.search_rounds: the candidate draws, USHER or, under `near`
+    insertion, the distance check of the unmoved candidates, greedy
+    in-order acceptance within the budget left, the round appended to the
+    subsets), then free-rank placement of all 2 x rounds x K candidates,
+    the kernel-cache patch, and the drawn velocities written where a
+    velocity keyword is set (a dead slot's v is 0, so at rest the column
+    is left alone).  Inserted atoms take type ntype and charge 0 where the
+    scene has those columns.  Only called when a buffer needs atoms; `u`
+    holds the call's draws.  Returns (state, pins_l, pins_r), the inserted
+    momenta by side."""
     obmd = cfg.obmd
-    k = obmd.insert_kmax
     n_slots = geom.n_slots
-    ctype = torch.full((k,), obmd.ntype, dtype=torch.int32,
-                       device=state.device)
-    cand_l = draw_candidates(u[0, 0], obmd.region5)
-    cand_r = draw_candidates(u[1, 0], obmd.region6)
-    if obmd.usher is not None:
-        pos2, ok2, iters2 = usher_search(cfg, sub_l, sub_r, cand_l, cand_r,
-                                         obmd.region5, obmd.region6)
-    else:
-        pos2 = torch.stack([cand_l, cand_r])
-        ok2 = torch.stack([near_check_subset(cfg, sub_l, cand_l),
-                           near_check_subset(cfg, sub_r, cand_r)])
-        iters2 = torch.zeros((2, k), dtype=torch.int32, device=state.device)
-    acc_l, _ = _sequential_accept(cfg, pos2[0], ctype, ok2[0],
-                                  torch.clamp(nins_l, 0, k))
-    acc_r, _ = _sequential_accept(cfg, pos2[1], ctype, ok2[1],
-                                  torch.clamp(nins_r, 0, k))
-    pos = pos2.reshape(2 * k, 3)
-    accepted = torch.cat([acc_l, acc_r])
+    pos, accepted, iters = search_rounds(cfg, state, nins_l, nins_r, sub_l,
+                                         sub_r, u, n_slots)
+    m2 = pos.shape[0]
     slot, landed = place_insertions(geom, state, pos, accepted)
+    vnew = draw_inserted_velocities(cfg, u.vel, pos)
+    pins_l, pins_r = inserted_momenta(cfg, vnew, landed)
     order = torch.cumsum(landed.to(torch.int32), 0, dtype=torch.int32) - 1
     base = insertion_tag_base(cfg, state)
     new_tag = base + 1 + order
@@ -434,8 +449,11 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     sc = state.obmd
     flags = relayout_flags(cfg)
     upd = {}
+    if vnew is not None:
+        upd["v"] = scatter_rows(state.v, slot, vnew)
     if flags["has_types"] or obmd.ntype != 0:
-        upd["type"] = scatter_rows(state.type, slot, ctype.repeat(2))
+        upd["type"] = scatter_rows(state.type, slot, torch.full(
+            (m2,), obmd.ntype, dtype=torch.int32, device=state.device))
     if flags["has_charge"]:
         upd["q"] = scatter_rows(state.q, slot, torch.zeros_like(pos[:, 0]))
     return state.replace(
@@ -446,7 +464,7 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
         obmd=sc.replace(
             ninserted=sc.ninserted + n_landed,
             insert_fail=sc.insert_fail + torch.clamp(want - n_landed, min=0),
-            usher_iters=sc.usher_iters + iters2.sum(dtype=torch.int32)))
+            usher_iters=sc.usher_iters + iters)), pins_l, pins_r
 
 
 @functools.lru_cache(maxsize=8)
@@ -479,8 +497,10 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     first atom's tag, the template's types, charges and rep_atom flags,
     lambdaF 0, centers of mass 0 until the step's end, v 0, and partner and
     improper slots resolved from the template's graph.  `u` holds the draws
-    [2, 1, K, 7]."""
+    [2, 1, K, 7].  Returns (state, pins_l, pins_r), the inserted momenta
+    (zero: molecules are inserted at rest)."""
     obmd = cfg.obmd
+    u = u.pos
     k = obmd.insert_kmax
     n_slots = geom.n_slots
     dev = state.device
@@ -493,7 +513,7 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     for side, region, budget, sub in ((0, obmd.region5, nins_l, sub_l),
                                       (1, obmd.region6, nins_r, sub_r)):
         us = u[side, 0]
-        centers = draw_candidates(us[:, 0:3], region)
+        centers = draw_candidates(cfg, us[:, 0:3], None, region, state)[0]
         rots = random_rotations(us[:, 3:6], us[:, 6], axis=obmd.orient)
         coords = mol_candidates_sel(tpl["dx"].expand(k, m, 3), am, centers,
                                     rots)
@@ -549,6 +569,7 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     n_atoms = placed.sum(dtype=torch.int32)
     want = torch.clamp(nins_l, min=0) + torch.clamp(nins_r, min=0)
     sc = state.obmd
+    zero = torch.zeros((3,), dtype=state.dtype, device=dev)
     return state.replace(
         x=scatter_rows(state.x, slot, apos),
         v=scatter_rows(state.v, slot, zeros3),
@@ -566,7 +587,7 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
         obmd=sc.replace(
             ninserted=sc.ninserted + n_atoms,
             insert_fail=sc.insert_fail + torch.clamp(want - n_mols, min=0),
-            usher_iters=sc.usher_iters + iters))
+            usher_iters=sc.usher_iters + iters)), zero, zero
 
 
 def _delete_outside_sliced(cfg, geom, state: State):
@@ -602,6 +623,12 @@ def _delete_outside_sliced(cfg, geom, state: State):
 
 def _obmd_stage(cfg, geom, state: State, draw: Draw,
                 with_rebuild: bool = True) -> State:
+    """The stage (obmd_tpu/engine_cellpad.py:750-831): face deletion with
+    the momentum tally, the relayout test when with_rebuild, the census
+    and the feedback law, then, when a buffer needs atoms, the subsets and
+    the insertion, else the skipped insertion (the running maximum tag
+    recomputed under `id max`); the inserted momentum leaves the tally
+    before the setpoints."""
     obmd = cfg.obmd
     box = cfg.box
     prm = stage_params(cfg, state)
@@ -628,7 +655,13 @@ def _obmd_stage(cfg, geom, state: State, draw: Draw,
                               + sub_l.overflow.to(torch.int32)
                               + sub_r.overflow.to(torch.int32))
         insert = _insert_mol if mol_mode(cfg) else _insert
-        state = insert(cfg, geom, state, nins_l, nins_r, sub_l, sub_r, u)
+        state, pins_l, pins_r = insert(cfg, geom, state, nins_l, nins_r,
+                                       sub_l, sub_r, u)
+        # inserted momentum enters the tally with the opposite sign to a
+        # deletion's (obmd_tpu/engine_cellpad.py:814-818)
+        vnewl, vnewr = vnewl - pins_l, vnewr - pins_r
+    else:
+        state = skipped_insertion(cfg, state)
     return setpoints(cfg, state, prm, vnewl, vnewr)
 
 
@@ -668,9 +701,11 @@ def setup_cellpad(cfg: SceneConfig, state: State,
 
 
 def _plain_step(cfg, geom, kern, state: State, draw: Draw,
-                relayout: bool = False) -> State:
+                relayout: bool = False, with_stage: bool = True) -> State:
     """One step; relayout=True runs the epoch relayout between the drift
-    and the force pass (f is dead there and skips the move)."""
+    and the force pass (f is dead there and skips the move); with_stage
+    False leaves out the OBMD stage (a step between two of an nfreq
+    group's stages)."""
     dt = float(np.float32(cfg.dt))          # float32 values as python floats
     dtf = float(np.float32(0.5 * cfg.dt))
     m = per_atom_mass(cfg, state)[:, None]
@@ -683,8 +718,15 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
             state = note_skin_check(cfg.box, float(cfg.skin), state)
         state = relayout_incremental(geom, cfg.box, state, move_f=False,
                                      **relayout_flags(cfg))
-    if cfg.obmd is not None:
+    if cfg.obmd is not None and with_stage:
         state = _obmd_stage(cfg, geom, state, draw, with_rebuild=False)
+    return _finish_step(cfg, geom, kern, state)
+
+
+def _finish_step(cfg, geom, kern, state: State) -> State:
+    """The force pass and the second half kick (and the molecules'
+    centers of mass in MOLECULE mode)."""
+    dtf = float(np.float32(0.5 * cfg.dt))
     f = _forces(cfg, geom, kern, state)
     m = per_atom_mass(cfg, state)[:, None]
     v = torch.where(state.alive[:, None], state.v + dtf * f / m, state.v)
@@ -692,6 +734,46 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     if mol_mode(cfg):
         state = update_mol_com(cfg, state)
     return state
+
+
+def stage_every(cfg: SceneConfig) -> int:
+    """Steps per OBMD stage call (`nfreq`; 1 without the stage)."""
+    return max(1, int(cfg.obmd.nfreq)) if cfg.obmd is not None else 1
+
+
+def make_step_cellpad(cfg: SceneConfig, draw: Optional[Draw] = None):
+    """The per-step runner (obmd_tpu/engine_cellpad.py:867-926): half kick,
+    drift and wrap, then on an OBMD scene the stage when step % nfreq ==
+    0 (with the half-skin relayout test inside it, read on the host), and
+    nothing on its other steps (the reference runs no relayout test
+    there), or without the stage the relayout test every step
+    (cellpad.maybe_rebuild); the force pass and the second half kick.
+    The step is the state's host int, so the cadence reads nothing from
+    the device."""
+    cfg = cfg.finalize()
+    check_supported(cfg)
+    draw = draw or own_draws(cfg)
+    geom = make_geometry(cfg)
+    kern = _make_kernel(cfg, geom)
+    nfreq = stage_every(cfg)
+    dt = float(np.float32(cfg.dt))
+    dtf = float(np.float32(0.5 * cfg.dt))
+
+    def step(state: State) -> State:
+        m = per_atom_mass(cfg, state)[:, None]
+        a3 = state.alive[:, None]
+        v = torch.where(a3, state.v + dtf * state.f / m, state.v)
+        x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
+        state = state.replace(x=x, v=v)
+        if cfg.obmd is not None:
+            if state.step % nfreq == 0:
+                state = _obmd_stage(cfg, geom, state, draw)
+        else:
+            state = maybe_rebuild(geom, cfg.box, cfg.skin, state,
+                                  **relayout_flags(cfg))
+        return _finish_step(cfg, geom, kern, state)
+
+    return step
 
 
 def auto_rebuild_every(cfg: SceneConfig) -> int:
@@ -722,18 +804,27 @@ def make_run_cellpad(cfg: SceneConfig, nsteps: int,
                      draw: Optional[Draw] = None, kernel: str = "pair"):
     """Runner of nsteps on a static relayout schedule: every
     auto_rebuild_every steps an epoch starts with a relayout; the half-skin
-    criterion is telemetry (PadAux.skin_trips), not a trigger."""
+    criterion is telemetry (PadAux.skin_trips), not a trigger.  Under
+    nfreq > 1 the period is rounded down to a multiple of nfreq, and the
+    stage runs on the first step of each group of nfreq counted from the
+    run's start, the final remainder keeping the group phase
+    (obmd_tpu/engine_cellpad.py:1030-1073): the loop index decides, on the
+    host."""
     cfg = cfg.finalize()
     check_supported(cfg)
     draw = draw or own_draws(cfg)
     geom = make_geometry(cfg)
     kern = _make_kernel(cfg, geom, kernel)
+    nfreq = stage_every(cfg)
     r_every = auto_rebuild_every(cfg)
+    if nfreq > 1:
+        r_every = max(1, r_every // nfreq) * nfreq
 
     def run(state: State) -> State:
         for i in range(nsteps):
             state = _plain_step(cfg, geom, kern, state, draw,
-                                relayout=(i % r_every == 0))
+                                relayout=(i % r_every == 0),
+                                with_stage=(i % nfreq == 0))
         return state
 
     return run

@@ -145,6 +145,8 @@ class UsherGrid(NamedTuple):
         kernel's axis_cell)."""
         f = torch.floor((x - const_like(self.lo, x))
                         * const_like(self.inv, x))
+        # fminf(fmaxf(f, -1e6), 1e6): a NaN coordinate files as -1e6
+        f = torch.nan_to_num(f, nan=-1e6)
         c = torch.clamp(f, -1e6, 1e6).to(torch.int64)
         n = torch.tensor(self.cells, device=x.device)
         per = torch.tensor(self.periodic, device=x.device)
@@ -289,10 +291,16 @@ def launch(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r, region_l,
 
 def usher_search(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r,
                  region_l, region_r):
-    """Both buffers' searches: (pos [2,K,3], accepted [2,K], iters [2,K])."""
-    if cand_l.device.type == "cpu":
+    """Both buffers' searches: (pos [2,K,3], accepted [2,K], iters [2,K]).
+    A thermostat-only law (dpd/tstat, dpd/ext/tstat) has no kernel law: it
+    searches with usher_search_subset_batch's PyTorch operations on every
+    device, which is the JAX package's own path for it (its XLA search,
+    obmd_tpu/engine_cellpad.py:566-577 and obmd/stage.py:419-421, at E = 0
+    accepts every candidate at iteration 0), not a stand-in for a kernel."""
+    no_law = usher_law(cfg.pair, int(cfg.obmd.ntype)) is None
+    if cand_l.device.type == "cpu" or no_law:
         ctype = torch.full((cand_l.shape[0],), int(cfg.obmd.ntype),
-                           dtype=torch.int32)
+                           dtype=torch.int32, device=cand_l.device)
         return usher_search_subset_batch(cfg, sub_l, sub_r, cand_l, cand_r,
                                          ctype, region_l, region_r)
     if cand_l.device.type != "cuda":
@@ -351,11 +359,17 @@ def usher_search_binned_plain(cfg, sub_l: Subset, sub_r: Subset, cand_l,
     accepted = torch.zeros((2, k), dtype=torch.bool)
     iters = torch.zeros((2, k), dtype=torch.int32)
 
+    rows = max(sub_l.x.shape[0], sub_r.x.shape[0]) > 0
+
     def energy(pos):
         ef = [usher_energy_binned_plain(cfg, grids[s], subs[s], pos[s])
               for s in range(2)]
+        f = torch.stack([f for _, f in ef])
+        # the kernel's force of a non-finite candidate: NaN, as the plain
+        # version's 0 x inf over the padded rows gives
+        bad = ~torch.isfinite(pos).all(-1)[..., None] & rows
         return (torch.stack([e for e, _ in ef]),
-                torch.stack([f for _, f in ef]))
+                torch.where(bad, torch.nan, f))
     for _ in range(u.nattempt):
         if not bool(active.any()):
             break

@@ -5,7 +5,8 @@ evaluation.
 Counterpart of `obmd_tpu/integrate.py`.  Three engines, by
 `cfg.force_path`:
   * "cellpad" (engine_cellpad): the padded cell-major layout and the pair
-    kernel, relaid out on a static schedule;
+    kernel, relaid out on a static schedule by make_run, or on the
+    half-skin test by the per-step runner make_step;
   * "nlist": a persistent cell table and [N, K] Verlet list
     (neighbors.py), rebuilt when an atom has moved half the skin, forces
     by forces/nlist.nlist_sweep, and the OBMD stage against the persistent
@@ -32,9 +33,9 @@ from .cells import GridSpec, build_cells
 from .cellpad import layout_build
 from .config import SceneConfig
 from .engine_cellpad import (Draw, add_bonded_forces, check_scene,
-                             make_geometry,
-                             make_run_cellpad, mol_mode, own_draws,
-                             setup_cellpad)
+                             make_geometry, make_run_cellpad,
+                             make_step_cellpad, mol_mode, own_draws,
+                             setup_cellpad, stage_every)
 from .engine_cellpad import pair_salt as _salt
 from .forces.bonded import langevin_force
 from .forces.nlist import nlist_sweep
@@ -43,8 +44,8 @@ from .neighbors import (NeighborParams, apply_new_rows, full_rebuild,
                         maybe_rebuild, rebuild_needed)
 from .obmd.stage import (apply_boundary_force, delete_outside,
                          insert_particles_subset, insertion_budgets,
-                         insertion_subsets, pre_exchange, setpoints,
-                         skipped_insertion, stage_params)
+                         insertion_subsets, pre_exchange, rounds_of,
+                         setpoints, skipped_insertion, stage_params)
 from .obmd.subset import expand_region, subset_rows
 from .state import State, per_atom_mass, temperature
 
@@ -185,10 +186,12 @@ def _obmd_stage_fast(cfg: SceneConfig, nparams: NeighborParams,
     """The OBMD stage against the persistent structures
     (obmd_tpu/integrate.py:178-273): delete beyond the faces and tombstone
     the freed slots, rebuild when due, census and feedback law, then, when
-    a buffer needs atoms, insertion against the buffer subsets into free
-    slots that are not tombstoned, the new atoms' rows from the subsets
-    appended to the list; the setpoints.  The rebuild test and the demand
-    gate are read on the host in one copy."""
+    a buffer needs atoms, insertion (`maxattempt` rounds) against the
+    buffer subsets into free slots that are not tombstoned, the new atoms'
+    rows from the subsets appended to the list (each side's block of
+    rounds x K rows); the inserted momentum out of the tally; the
+    setpoints.  The rebuild test and the demand gate are read on the host
+    in one copy."""
     box = cfg.box
     n = state.capacity
     prm = stage_params(cfg, state)
@@ -214,11 +217,11 @@ def _obmd_stage_fast(cfg: SceneConfig, nparams: NeighborParams,
         added = torch.zeros((n + 1,), dtype=torch.bool, device=state.device)
         added[new_slots] = True
         state = ins.replace(alive=state.alive | added[:n])
-        k = cfg.obmd.insert_kmax
+        m = rounds_of(cfg) * cfg.obmd.insert_kmax
         act = new_slots < n
         pos = state.x[torch.clamp(new_slots, 0, n - 1)]
         rows = [subset_rows(nparams, box, sub, pos[s], new_slots[s], act[s])
-                for sub, s in ((sub_l, slice(0, k)), (sub_r, slice(k, None)))]
+                for sub, s in ((sub_l, slice(0, m)), (sub_r, slice(m, None)))]
         nbrs = apply_new_rows(nparams, state.nbrs, state.x, new_slots,
                               torch.cat([rows[0][0], rows[1][0]]),
                               torch.cat([rows[0][1], rows[1][1]]),
@@ -235,18 +238,20 @@ def _obmd_stage_fast(cfg: SceneConfig, nparams: NeighborParams,
 
 
 def make_step(cfg: SceneConfig, draw: Optional[Draw] = None):
-    """The one-step function of the nlist or sweep engine (the cellpad
-    engine runs on a static relayout schedule: use make_run)."""
+    """The one-step function: the cellpad engine's per-step runner
+    (engine_cellpad.make_step_cellpad), or the nlist or sweep engine's
+    step.  On an OBMD scene the stage runs when step %
+    nfreq == 0; on the nlist engine its other steps run no rebuild test
+    (obmd_tpu/integrate.py:318-336 tests only without the stage)."""
     cfg = cfg.finalize()
     if cfg.force_path == "cellpad":
-        raise NotImplementedError(
-            "the cellpad engine relays out on a static schedule over a "
-            "run: use make_run")
+        return make_step_cellpad(cfg, draw)
     check_supported(cfg)
     draw = draw or own_draws(cfg)
     spec = make_grid_spec(cfg)
     nparams = make_neighbor_params(cfg)
     fast = cfg.force_path == "nlist"
+    nfreq = stage_every(cfg)
     dt = float(np.float32(cfg.dt))          # float32 values as python floats
     dtf = float(np.float32(0.5 * cfg.dt))
 
@@ -256,7 +261,7 @@ def make_step(cfg: SceneConfig, draw: Optional[Draw] = None):
         v = torch.where(a3, state.v + dtf * state.f / m, state.v)
         x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
         state = state.replace(x=x, v=v)
-        if cfg.obmd is not None:
+        if cfg.obmd is not None and state.step % nfreq == 0:
             state = (_obmd_stage_fast(cfg, nparams, state, draw) if fast
                      else pre_exchange(cfg, state, draw))
         if fast:
@@ -319,20 +324,14 @@ def equilibrate(cfg: SceneConfig, state: State, nsteps: int,
 
 def run_loop(cfg: SceneConfig, state: State, nsteps: int, callback=None,
              callback_every: int = 0, draw: Optional[Draw] = None) -> State:
-    """Host-driven loop of nsteps steps with callback(state) after every
-    callback_every of them (the thermo and dump path, output.cpp): runs of
-    callback_every steps through make_run, then the remainder."""
-    every = callback_every if callback is not None and callback_every > 0 \
-        else nsteps
-    if every <= 0:
-        return state
-    run = make_run(cfg, every, draw)
-    done = 0
-    while done + every <= nsteps:
-        state = run(state)
-        done += every
-        if callback is not None:
+    """Host-driven loop of nsteps steps through make_step (on the cellpad
+    engine its per-step runner, whose relayout test runs with the stage)
+    with callback(state) after every callback_every of them (the thermo
+    and dump path, output.cpp; obmd_tpu/integrate.py run_loop)."""
+    step = make_step(cfg, draw)
+    for i in range(nsteps):
+        state = step(state)
+        if callback is not None and callback_every \
+                and (i + 1) % callback_every == 0:
             callback(state)
-    if nsteps > done:
-        state = make_run(cfg, nsteps - done, draw)(state)
     return state

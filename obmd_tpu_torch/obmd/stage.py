@@ -1,33 +1,37 @@
 """The OBMD open-boundary stage.
 
-Counterpart of the uniform-candidate part of `obmd_tpu/obmd/stage.py`:
-`delete_outside` (the full-store deletion with MOLECULE mode's doom
-propagation), `region_count`, `feedback_count`, `smooth_weight`,
-`_sequential_accept` (USHER's energy criterion or `near`'s distance),
-`draw_candidates`, `rounds_of` and `insertion_tag_base`, which the cellpad
-engine uses; and for the nlist and sweep engines, in ATOM mode with one
-candidate round, `insert_particles_subset`, `pre_exchange` and
-`apply_boundary_force`.  Inserted atoms are at rest (the reference's
-`draw_inserted_velocities` without velocity keywords, ref :1076-1078).
+Counterpart of `obmd_tpu/obmd/stage.py` in ATOM mode: `delete_outside`
+(the full-store deletion with MOLECULE mode's doom propagation),
+`region_count`, `feedback_count`, `smooth_weight`, `_sequential_accept`
+(USHER's energy criterion or `near`'s distance), `draw_candidates` (uniform
+or `gaussian` draws, then the deposit keywords `rate`, `global` and
+`local` on z), `draw_inserted_velocities` (`vx`/`vy`/`vz` and `target`),
+`rounds_of`, `_append_subset` and `insertion_tag_base`, which the cellpad
+engine uses; and for the nlist and sweep engines
+`insert_particles_subset` (`maxattempt` rounds), `pre_exchange` and
+`apply_boundary_force`.  Inserted atoms are at rest unless a velocity
+keyword is set; their momentum then enters the setpoints' tally.
 
-Candidates come from the draw seam (`engine_cellpad.Draw`), and the
-search runs only when a buffer needs atoms: the reference's stage searches
-on every call, which on a call that needs none inserts nothing and changes
-nothing but its USHER iteration counter; so `usher_iters` counts the
-iterations of the calls that need atoms only (as in the cellpad engine,
-whose reference gates its search the same way).
+Random numbers come from the draw seam (`Draws`, handed out by an
+engine's `Draw`), and the search runs only when a buffer needs atoms: the
+reference's stage searches on every call, which on a call that needs none
+inserts nothing and changes nothing but its USHER iteration counter; so
+`usher_iters` counts the iterations of the calls that need atoms only (as
+in the cellpad engine, whose reference gates its search the same way).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..config import (DPDExtParams, DPDParams, LJCutParams, LJCutRFParams,
-                      SceneConfig, eval_param)
+from ..cells import BIG
+from ..config import (DPDExtParams, DPDParams, DPDTstatParams, LJCutParams,
+                      LJCutRFParams, SceneConfig, eval_param)
 from ..geometry import const, const_like
-from .subset import near_check_subset, near_squared, region_subset
+from .subset import Subset, near_check_subset, near_squared, region_subset
 
 EPSILON = 1.0e-6  # reference EPSILON (fix_obmd_merged.cpp:62)
 
@@ -120,9 +124,9 @@ def smooth_weight(cfg: SceneConfig, x0: torch.Tensor, mass: torch.Tensor):
 
 def _pair_energy(p, rsq, cand_type, like):
     """The pair energy of two candidates that USHER's acceptance tests:
-    the DPD energy 0.5*a0*rc*wd^2, or for the LJ family the reference's
-    conservative stand-in (infinite closer than the largest cutoff, zero
-    beyond)."""
+    the DPD energy 0.5*a0*rc*wd^2 (zero under dpd/ext/tstat), or for the
+    LJ family and dpd/tstat the reference's conservative stand-in
+    (infinite closer than the largest cutoff, zero beyond)."""
     if isinstance(p, DPDExtParams) and p.tstat_only:
         return torch.zeros_like(rsq)
     if isinstance(p, (DPDParams, DPDExtParams)):
@@ -134,7 +138,10 @@ def _pair_energy(p, rsq, cand_type, like):
         r = torch.sqrt(rsq)
         wd = torch.clamp(1.0 - r / cut, min=0.0)
         return 0.5 * a0 * cut * wd * wd
-    if isinstance(p, (LJCutParams, LJCutRFParams)):
+    if isinstance(p, (LJCutParams, LJCutRFParams, DPDTstatParams)):
+        # dpd/tstat takes this branch in the reference too
+        # (obmd_tpu/obmd/stage.py:241-244): within the cut, two candidates
+        # conflict
         return torch.where(rsq < p.max_cut ** 2, torch.inf, 0.0)
     raise NotImplementedError(
         f"acceptance: the {type(p).__name__} law is not ported")
@@ -170,12 +177,193 @@ def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
     return accepted, count
 
 
-def draw_candidates(u: torch.Tensor, region) -> torch.Tensor:
-    """Uniform candidates in the insertion region (ref :921-927) from
-    uniform [0, 1) triples `u` [K, 3] (the draw seam: the engine's own
-    generator in production, injected draws in parity tests).  The gaussian
-    and deposit keywords are not part of this slice."""
-    return region.sample_uniform(u)
+class Draws(NamedTuple):
+    """The random numbers of one stage call, from an engine's draw seam
+    (the state's generator in production, the JAX engine's own draws in
+    parity tests).  pos [2, rounds, K, D] (side-major): uniform [0, 1)
+    draws, or standard normals under `gaussian`; D = 3 in ATOM mode (the
+    position), 7 in MOLECULE mode (the center, the rotation axis's cube
+    draw, the rotation angle's draw).  z [2, rounds, K]: the uniform that
+    places z under `global` / `local` (else None).  vel [3, 2 rounds K]:
+    one uniform per velocity component and candidate in draw order (left
+    rounds, then right), under a velocity keyword (else None)."""
+
+    pos: torch.Tensor
+    z: Optional[torch.Tensor] = None
+    vel: Optional[torch.Tensor] = None
+
+
+def deposit_z(obmd) -> bool:
+    """The deposit keyword that draws z anew (`global` or `local`) is
+    set."""
+    return obmd.deposit_global is not None or obmd.deposit_local is not None
+
+
+def has_velocity(obmd) -> bool:
+    """An inserted-velocity keyword is set (`target` alone is not one: it
+    only redirects drawn velocities, ref :1081-1093)."""
+    return any(v is not None for v in (obmd.vx, obmd.vy, obmd.vz))
+
+
+def draw_shapes(cfg: SceneConfig, rounds: int, k: int, dim: int) -> dict:
+    """The shapes of one stage call's Draws fields (None: not drawn)."""
+    o = cfg.obmd
+    return dict(pos=(2, rounds, k, dim),
+                z=(2, rounds, k) if deposit_z(o) else None,
+                vel=(3, 2 * rounds * k) if has_velocity(o) else None)
+
+
+def draw_candidates(cfg: SceneConfig, u, uz, region, state):
+    """Candidate positions [K, 3] and their initial validity [K] (ref
+    :921-985, obmd_tpu/obmd/stage.py:263-313): uniform in the insertion
+    region from uniform draws u [K, 3], or under `gaussian` normal draws u
+    around its point (a draw outside the region is invalid); then `rate`
+    moves z by rate * sim_time, or `global` / `local` put it at zmax + lo
+    + uz (hi - lo) from the uniforms uz [K], zmax the highest z of the
+    alive atoms (under `local` those within lateral minimum-image distance
+    delta of the candidate; the box's lower z face when none is)."""
+    obmd = cfg.obmd
+    if obmd.gaussian is not None:
+        xm, ym, zm, sg = (float(v) for v in obmd.gaussian)
+        cand = const_like((xm, ym, zm), u) + _f32(sg, u) * u
+        ok = region.match(cand)
+    else:
+        cand = region.sample_uniform(u)
+        ok = torch.ones(u.shape[:1], dtype=torch.bool, device=u.device)
+    if obmd.rate is None and not deposit_z(obmd):
+        return cand, ok
+    z = cand[:, 2]
+    if obmd.rate is not None:
+        z = z + _f32(obmd.rate, u) * state.sim_time
+    dep = obmd.deposit_global or obmd.deposit_local
+    if dep is not None:
+        lo, hi = float(dep[0]), float(dep[1])
+        zs = state.x[:, 2]
+        floor = _f32(cfg.box.lo[2], u)
+        if obmd.deposit_local is not None:
+            delta = float(obmd.deposit_local[2])
+            d = cfg.box.min_image(cand[:, None, :] - state.x[None, :, :])
+            lat2 = d[..., 0] ** 2 + d[..., 1] ** 2
+            sel = state.alive[None, :] & (lat2 <= _f32(delta * delta, u))
+            zmax = torch.where(sel, zs[None, :], floor).max(dim=1).values
+        else:
+            zmax = torch.where(state.alive, zs, floor).max()
+        z = zmax + _f32(lo, u) + uz * _f32(hi - lo, u)
+    return torch.cat([cand[:, :2], z[:, None]], dim=1), ok
+
+
+def draw_inserted_velocities(cfg: SceneConfig, uv, pos):
+    """The inserted atoms' velocities [M, 3] at candidate positions pos
+    [M, 3] (obmd_tpu/obmd/stage.py:316-347): each component with a `vx`,
+    `vy` or `vz lo hi` keyword lo + u (hi - lo) from its uniforms uv[c]
+    [M], the others 0; then `target` points each velocity at the target,
+    keeping its magnitude (ref :1081-1093).  None when no velocity keyword
+    is set (insertion at rest, the reference's :1076-1078).  The uniform is
+    scaled as the reference's uniform(minval=lo, maxval=hi) scales it:
+    u (hi - lo) + lo, clipped below at lo."""
+    obmd = cfg.obmd
+    if not has_velocity(obmd):
+        return None
+    cols = []
+    for c, rng_range in enumerate((obmd.vx, obmd.vy, obmd.vz)):
+        if rng_range is None:
+            cols.append(torch.zeros_like(pos[:, 0]))
+        else:
+            lo, hi = _f32(rng_range[0], pos), _f32(rng_range[1], pos)
+            cols.append(torch.maximum(lo, uv[c] * (hi - lo) + lo))
+    v = torch.stack(cols, dim=1)
+    if obmd.target is not None:
+        vel = torch.sqrt((v * v).sum(1))
+        d = const_like(tuple(float(t) for t in obmd.target), pos)[None, :] \
+            - pos
+        rsq = (d * d).sum(1)
+        rinv = torch.where(rsq > 0.0,
+                           1.0 / torch.sqrt(torch.clamp(rsq, min=1e-30)), 0.0)
+        v = torch.where((rsq > 0.0)[:, None], d * (rinv * vel)[:, None], v)
+    return v
+
+
+def inserted_momenta(cfg: SceneConfig, vnew, landed):
+    """(pins_l, pins_r): mass x v of the landed atoms of each side's block
+    (the first half of the candidates left, the rest right), zero without
+    velocities."""
+    if vnew is None:
+        z = torch.zeros((3,), dtype=torch.float32, device=landed.device)
+        return z, z
+    mass = _f32(cfg.masses[cfg.obmd.ntype], vnew)
+    mv = mass * torch.where(landed[:, None], vnew, 0.0)
+    half = vnew.shape[0] // 2
+    return mv[:half].sum(0), mv[half:].sum(0)
+
+
+def _append_subset(sub: Subset, pos, acc, ctype, n: int) -> Subset:
+    """This round's candidates appended to the subset, valid where
+    accepted, so later rounds' searches and distance checks see them
+    (obmd_tpu/obmd/stage.py:367-380; the reference inserts sequentially,
+    so attempt m sees insertions 0..m-1).  The appended rows take x BIG
+    where not accepted, the trial type, charge 0 and slot n."""
+    k = pos.shape[0]
+    dev = pos.device
+    return Subset(
+        x=torch.cat([sub.x, torch.where(acc[:, None], pos, BIG)]),
+        type=torch.cat([sub.type, ctype.to(sub.type.dtype)]),
+        valid=torch.cat([sub.valid, acc]),
+        overflow=sub.overflow,
+        q=None if sub.q is None else torch.cat(
+            [sub.q, torch.zeros((k,), dtype=sub.q.dtype, device=dev)]),
+        idx=None if sub.idx is None else torch.cat(
+            [sub.idx, torch.full((k,), n, dtype=sub.idx.dtype,
+                                 device=dev)]))
+
+
+def search_rounds(cfg: SceneConfig, state, nins_l, nins_r, sub_l, sub_r,
+                  draws: Draws, n_pad: int):
+    """`maxattempt` rounds of both buffers' candidates (the loop of
+    obmd_tpu/engine_cellpad.py:551-603 and obmd/stage.py:410-433): per
+    round fresh candidates per side (`draw_candidates`), one search of
+    both sides on the round's subsets (forces/usher_kernel.usher_search,
+    every round even when the budget left is zero, as the reference
+    searches), or `near`'s check; greedy in-order acceptance within the
+    budget left (each side's clipped to rounds x K at the start); with
+    rounds > 1 the round's candidates appended to the subsets (slot
+    n_pad).  Returns (pos [2M, 3], accepted [2M], usher iterations), M =
+    rounds x K, the left side's rounds first."""
+    from ..forces.usher_kernel import usher_search
+    obmd = cfg.obmd
+    k = obmd.insert_kmax
+    rounds = rounds_of(cfg)
+    dev = state.device
+    ctype = torch.full((k,), obmd.ntype, dtype=torch.int32, device=dev)
+    rem = [torch.clamp(b, 0, rounds * k) for b in (nins_l, nins_r)]
+    subs = [sub_l, sub_r]
+    regions = (obmd.region5, obmd.region6)
+    poss, accs = ([], []), ([], [])
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    for r in range(rounds):
+        cands = [draw_candidates(cfg, draws.pos[s, r],
+                                 None if draws.z is None else draws.z[s, r],
+                                 regions[s], state) for s in (0, 1)]
+        if obmd.usher is not None:
+            pos2, ok2, it2 = usher_search(cfg, subs[0], subs[1],
+                                          cands[0][0], cands[1][0],
+                                          *regions)
+            iters = iters + it2.sum(dtype=torch.int32)
+        else:
+            pos2 = torch.stack([cands[0][0], cands[1][0]])
+            ok2 = torch.stack([near_check_subset(cfg, subs[s], cands[s][0])
+                               for s in (0, 1)])
+        for s in (0, 1):
+            acc, cnt = _sequential_accept(cfg, pos2[s], ctype,
+                                          ok2[s] & cands[s][1],
+                                          torch.clamp(rem[s], max=k))
+            rem[s] = rem[s] - cnt
+            if rounds > 1:
+                subs[s] = _append_subset(subs[s], pos2[s], acc, ctype, n_pad)
+            poss[s].append(pos2[s])
+            accs[s].append(acc)
+    pos = torch.cat(poss[0] + poss[1])
+    accepted = torch.cat(accs[0] + accs[1])
+    return pos, accepted, iters
 
 
 def insertion_tag_base(cfg: SceneConfig, state):
@@ -192,49 +380,35 @@ def rounds_of(cfg: SceneConfig) -> int:
 
 
 def insert_particles_subset(cfg: SceneConfig, state, ninsert_left,
-                            ninsert_right, sub_l, sub_r, u):
-    """ATOM-mode insertion on both buffers against their subsets, one round
-    (obmd_tpu/obmd/stage.py:383-503 at maxattempt 1): K uniform candidates
-    per insertion region from the draws u [2, 1, K, 3], the USHER search
-    of both sides at once (forces/usher_kernel.usher_search) or `near`'s
-    check, greedy in-order acceptance within each side's budget; the j-th
-    accepted candidate takes the j-th free slot (state.alive marks the
-    taken ones) at rest, type ntype, charge 0, no bonds, the tag base + 1 +
-    j.  Returns (state, new_slots [2K]: left block then right, N where
-    nothing landed, the inserted momenta by side (zero: at rest))."""
+                            ninsert_right, sub_l, sub_r, draws: Draws):
+    """ATOM-mode insertion on both buffers against their subsets
+    (obmd_tpu/obmd/stage.py:383-503): `search_rounds` over the draws;
+    the j-th accepted candidate takes the j-th free slot (state.alive
+    marks the taken ones) with its drawn velocity (at rest without a
+    velocity keyword), type ntype, charge 0, no bonds, the tag base + 1 +
+    j.  Returns (state, new_slots [2M]: left block then right, N where
+    nothing landed, the inserted momenta by side)."""
     from ..cellpad import compact_indices, scatter_rows
-    from ..forces.usher_kernel import usher_search
     obmd = cfg.obmd
-    k = obmd.insert_kmax
     n = state.capacity
     dev = state.device
-    ctype = torch.full((k,), obmd.ntype, dtype=torch.int32, device=dev)
-    cand_l = draw_candidates(u[0, 0], obmd.region5)
-    cand_r = draw_candidates(u[1, 0], obmd.region6)
-    if obmd.usher is not None:
-        pos2, ok2, iters = usher_search(cfg, sub_l, sub_r, cand_l, cand_r,
-                                        obmd.region5, obmd.region6)
-    else:
-        pos2 = torch.stack([cand_l, cand_r])
-        ok2 = torch.stack([near_check_subset(cfg, sub_l, cand_l),
-                           near_check_subset(cfg, sub_r, cand_r)])
-        iters = torch.zeros((2, k), dtype=torch.int32, device=dev)
-    acc_l, _ = _sequential_accept(cfg, pos2[0], ctype, ok2[0],
-                                  torch.clamp(ninsert_left, 0, k))
-    acc_r, _ = _sequential_accept(cfg, pos2[1], ctype, ok2[1],
-                                  torch.clamp(ninsert_right, 0, k))
-    pos = pos2.reshape(2 * k, 3)
-    accepted = torch.cat([acc_l, acc_r])
-    free = compact_indices(~state.alive, 2 * k, n)
+    pos, accepted, iters = search_rounds(cfg, state, ninsert_left,
+                                         ninsert_right, sub_l, sub_r, draws,
+                                         n)
+    m2 = pos.shape[0]
+    free = compact_indices(~state.alive, m2, n)
     order = torch.cumsum(accepted.to(torch.int32), 0, dtype=torch.int32) - 1
     slot = torch.where(accepted,
-                       free[torch.clamp(order, 0, 2 * k - 1).long()], n)
+                       free[torch.clamp(order, 0, m2 - 1).long()], n)
     landed = accepted & (slot < n)
     base = insertion_tag_base(cfg, state)
     new_tag = base + 1 + order
+    vnew = draw_inserted_velocities(cfg, draws.vel, pos)
+    pins_l, pins_r = inserted_momenta(cfg, vnew, landed)
     z3 = torch.zeros_like(pos)
     z1 = z3[:, 0]
-    zi = torch.zeros((2 * k,), dtype=torch.int32, device=dev)
+    zi = torch.zeros((m2,), dtype=torch.int32, device=dev)
+    ctype = torch.full((m2,), obmd.ntype, dtype=torch.int32, device=dev)
 
     def put(arr, vals):
         return scatter_rows(arr, slot, vals)
@@ -243,8 +417,9 @@ def insert_particles_subset(cfg: SceneConfig, state, ninsert_left,
                                                           min=0)
     sc = state.obmd
     state = state.replace(
-        x=put(state.x, pos), v=put(state.v, z3), f=put(state.f, z3),
-        type=put(state.type, ctype.repeat(2)), tag=put(state.tag, new_tag),
+        x=put(state.x, pos), v=put(state.v, z3 if vnew is None else vnew),
+        f=put(state.f, z3),
+        type=put(state.type, ctype), tag=put(state.tag, new_tag),
         q=put(state.q, z1), mol=put(state.mol, zi),
         lambdaF=put(state.lambdaF, z1), cms_mol=put(state.cms_mol, z3),
         vcms_mol=put(state.vcms_mol, z3), rep_atom=put(state.rep_atom, zi),
@@ -254,9 +429,8 @@ def insert_particles_subset(cfg: SceneConfig, state, ninsert_left,
         obmd=sc.replace(
             ninserted=sc.ninserted + n_landed,
             insert_fail=sc.insert_fail + torch.clamp(want - n_landed, min=0),
-            usher_iters=sc.usher_iters + iters.sum(dtype=torch.int32)))
-    zero = torch.zeros((3,), dtype=state.dtype, device=dev)
-    return state, torch.where(landed, slot, n), zero, zero
+            usher_iters=sc.usher_iters + iters))
+    return state, torch.where(landed, slot, n), pins_l, pins_r
 
 
 def stage_params(cfg: SceneConfig, state) -> dict:

@@ -4,7 +4,8 @@ PyTorch.
 Counterpart of `obmd_tpu/obmd/subset.py`, op for op: `Subset`,
 `expand_region`, `region_subset` and `subset_rows` (the nlist engine's
 buffer subsets and the new atoms' Verlet rows), the DPD (dpd/ext's
-conservative term is DPD's; dpd/ext/tstat has none), lj/cut and
+conservative term is DPD's; dpd/tstat and dpd/ext/tstat have none),
+lj/cut and
 lj/cut/rf branches of `_batched_energy_force` and
 `conservative_energy_force` (the trials are neutral: ATOM-mode
 insertion places neutral atoms, and MOLECULE mode's `charged 1` is not
@@ -12,13 +13,16 @@ ported, so lj/cut/rf's reaction field adds nothing to a trial's
 energy), `usher_search_subset_batch` and `near_check_subset` for ATOM
 mode, and for MOLECULE mode `random_rotations`, `mol_candidates_sel`,
 `mol_energy_force`, `_axis_angle_rotate`, `usher_search_subset_mol`,
-`near_check_subset_mol` and `mol_sequential_accept`.  Candidates only ever
-sit inside an insertion region, so the atoms that can contribute are those
-within cut + skin of it; the search runs brute force against that subset.
-The ATOM-mode search is the plain version of the USHER kernel
-(forces/usher_kernel.py); the MOLECULE-mode search runs as these PyTorch
-operations on the card too, as the JAX package runs it as XLA array code
-(obmd_tpu/forces/pallas_usher.py:22-26).
+`near_check_subset_mol` and `mol_sequential_accept`.  The subset holds the
+atoms within cut + skin of an insertion region, and the search runs brute
+force against it, wherever a candidate lies (a `gaussian` draw or a z set
+by the deposit keywords can lie outside the region or the box: such a
+candidate is searched all the same and masked afterwards).  The ATOM-mode
+search is the plain version of the USHER kernel (forces/usher_kernel.py);
+under a thermostat-only law (dpd/tstat, dpd/ext/tstat), which has no
+kernel law, and in MOLECULE mode the search runs as these PyTorch
+operations on the card too, as the JAX package runs them as XLA array code
+(obmd_tpu/forces/pallas_usher.py:22-26, :48-49).
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ import numpy as np
 import torch
 
 from ..cells import BIG
-from ..config import (DPDExtParams, DPDParams, LJCutParams, LJCutRFParams,
-                      SceneConfig)
+from ..config import (DPDExtParams, DPDParams, DPDTstatParams, LJCutParams,
+                      LJCutRFParams, SceneConfig)
 from ..forces.pairs import make_pair_law
 from ..geometry import RegionBlock, const_like
 
@@ -94,16 +98,17 @@ def subset_rows(p, box, sub: Subset, pos, new_slots, act):
 def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
                           box=None, sub_q=None):
     """sub_* [S,B,...], pos [S,K,3], cand_type [S,K] -> E [S,K], F [S,K,3]
-    (DPD and dpd/ext: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; dpd/ext/tstat:
-    zero; lj/cut and lj/cut/rf: the pair law of forces/pairs.make_pair_law,
-    the trials neutral against the subset's charges sub_q [S,B], zero when
-    None)."""
+    (DPD and dpd/ext: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; dpd/tstat and
+    dpd/ext/tstat: zero; lj/cut and lj/cut/rf: the pair law of
+    forces/pairs.make_pair_law, the trials neutral against the subset's
+    charges sub_q [S,B], zero when None)."""
     d = pos[:, :, None, :] - sub_x[:, None, :, :]          # [S,K,B,3]
     if box is not None:
         d = box.min_image(d)
     rsq = (d * d).sum(-1)
     ok = sub_valid[:, None, :]
-    if isinstance(pair, DPDExtParams) and pair.tstat_only:
+    if isinstance(pair, DPDTstatParams) or (
+            isinstance(pair, DPDExtParams) and pair.tstat_only):
         return torch.zeros_like(pos[..., 0]), torch.zeros_like(pos)
     if isinstance(pair, (DPDParams, DPDExtParams)):
         a0 = const_like([v for row in pair.a0 for v in row], pos)

@@ -24,7 +24,10 @@ package's momentum-conservation box (tests/test_conservation.py:34-55):
 The DPD film (`dpd_film_config`, `dpd_film_scene`) is a thin slab of the
 OBMD_DPD fluid whose z axis is one cell, and with `y_open` whose y axis is
 open.  Path G (`obmd_dpdext_config`, `obmd_dpdext_scene`) is the
-OBMD_DPD deck under dpd/ext on the nlist engine.  The star-polymer melt
+OBMD_DPD deck under dpd/ext on the nlist engine.  Path H
+(`obmd_dpd_keywords_config`, `obmd_dpd_keywords_scene`) is the OBMD_DPD
+deck with the fix's `maxattempt 4`, `nfreq 2`, `vx`/`vy`/`vz` and `id
+max`.  The star-polymer melt
 (`star_melt_config`, `star_melt_scene`) is a
 closed melt of the JAX package's 4-arm star (tests/test_branched.py:27-33)
 in a DPD solvent-free box at rho 3, read through an `atom_style molecular`
@@ -136,6 +139,38 @@ def obmd_dpdext_scene(scale: float = 9.0, seed: int = 12345,
                         **kwargs)
     return Scene(cfg=dataclasses.replace(sc.cfg, pair=dpdext_pair(
         sc.cfg.pair)).finalize(), state=sc.state)
+
+
+# path H's inserted-velocity range: a uniform draw on [-V, V] has variance
+# V^2 / 3 = 1, the fluid's T = 1 per component at mass 1
+PATH_H_V = 1.732
+
+
+def obmd_dpd_keywords_config(scale: float = 9.0, maxattempt: int = 4,
+                             nfreq: int = 2, **kwargs) -> SceneConfig:
+    """Path H: the OBMD_DPD deck (obmd_dpd_config, scale 9 by default:
+    302.346 x 11.198 x 11.198, ~106k atoms once equilibrated) with the
+    fix's keywords `maxattempt 4` (four candidate rounds per stage call,
+    each round's accepted candidates seen by the next), `nfreq 2` (the
+    stage every second step), `vx`, `vy` and `vz -1.732 1.732` (inserted
+    atoms drawn at the fluid's T = 1 rather than at rest, their momentum
+    in the setpoints' tally) and `id max` (tags from the largest alive
+    tag, recomputed every stage call); USHER, pxx 188, the regions and K
+    are the deck's."""
+    cfg = obmd_dpd_config(scale=scale, **kwargs)
+    v = (-PATH_H_V, PATH_H_V)
+    return dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, maxattempt=maxattempt, nfreq=nfreq, vx=v, vy=v, vz=v,
+        id_policy="max")).finalize()
+
+
+def obmd_dpd_keywords_scene(scale: float = 9.0, seed: int = 12345,
+                            temp: float = 1.0, device="cuda",
+                            **kwargs) -> Scene:
+    """obmd_dpd_keywords_config with obmd_dpd_scene's uniform gas."""
+    sc = obmd_dpd_scene(scale=scale, seed=seed, temp=temp, device=device)
+    return Scene(cfg=obmd_dpd_keywords_config(scale=scale, **kwargs),
+                 state=sc.state)
 
 
 def obmd_dpd_scene(scale: float = 1.0, seed: int = 12345,

@@ -300,14 +300,15 @@ SHARED_FAULTS = {
         c.box, periodic=(True, True, True))), "open x axis"),
     "atom-mode-bonds": (lambda c: dataclasses.replace(
         c, bond=pconfig.BondHarmonicParams()), "ATOM-mode"),
+    # refused until the rest of the ATOM-mode stage was ported: now every
+    # engine takes them (words None)
     "maxattempt": (lambda c: dataclasses.replace(c, obmd=dataclasses.replace(
-        c.obmd, maxattempt=2)), "maxattempt"),
+        c.obmd, maxattempt=2, nfreq=2)), None),
     "inserted-velocity": (lambda c: dataclasses.replace(
-        c, obmd=dataclasses.replace(c.obmd, vx=(-1.0, 1.0))),
-        "inserted-velocity"),
+        c, obmd=dataclasses.replace(c.obmd, vx=(-1.0, 1.0))), None),
     "dpd-tstat": (lambda c: dataclasses.replace(
         c, pair=pconfig.DPDTstatParams.create(
-            t_start=1.0, cutoff=1.0, seed=1, gamma=4.5)), "thermostat-only"),
+            t_start=1.0, cutoff=1.0, seed=1, gamma=4.5)), None),
 }
 
 
@@ -315,7 +316,9 @@ SHARED_FAULTS = {
 def test_engines_share_their_refusals(fault):
     """engine_cellpad.check_scene's refusals hold on every engine, with
     one message: the cellpad engine's check_supported and the nlist and
-    sweep engines' both raise it for the same faulty OBMD_DPD deck."""
+    sweep engines' both raise it for the same faulty OBMD_DPD deck.  The
+    deck with maxattempt 2 and nfreq 2, with `vx`, or under dpd/tstat, once
+    refused, every engine now takes alike."""
     from obmd_tpu_torch.engine_cellpad import \
         check_supported as cellpad_supported
     from obmd_tpu_torch.integrate import check_supported
@@ -324,5 +327,8 @@ def test_engines_share_their_refusals(fault):
         good = pscenes.obmd_dpd_config(scale=0.5, force_path=path)
         check = cellpad_supported if path == "cellpad" else check_supported
         check(good)
+        if words is None:
+            check(make(good).finalize())
+            continue
         with pytest.raises((NotImplementedError, ValueError), match=words):
             check(make(good))

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import obmd_tpu.obmd.subset as jsubset
-import obmd_tpu_torch.engine_cellpad as pengine
+import obmd_tpu_torch.forces.usher_kernel as pusher
 from obmd_tpu import scenes as jscenes
 from obmd_tpu.integrate import make_run as jmake_run
 from obmd_tpu.integrate import setup as jsetup
@@ -48,7 +48,7 @@ def steered():
     (pos, ok, iters, subsets) per search])."""
     jrec, prec = [], []
     jsearch = jsubset.usher_search_subset_batch
-    psearch = pengine.usher_search
+    psearch = pusher.usher_search
 
     def jax_recorded(*a, **k):
         out = jsearch(*a, **k)
@@ -68,7 +68,7 @@ def steered():
     draws = JaxDraws(js.cfg, STEER_SEED)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jsubset, "usher_search_subset_batch", jax_recorded)
-        mp.setattr(pengine, "usher_search", port_recorded)
+        mp.setattr(pusher, "usher_search", port_recorded)
         jst = jsetup(js.cfg, js.state)
         pst = psetup(ps.cfg, ps.state, draw=draws)
         out = [(jax_arrays(jst), convert.to_arrays(pst))]

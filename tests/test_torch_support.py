@@ -61,27 +61,49 @@ def assert_states_match(jd, pd):
 
 
 class JaxDraws:
-    """The port's draw seam fed with the JAX engine's own candidate draws:
-    each stage call advances the key chain exactly as
-    obmd_tpu/engine_cellpad.py _insert does (keys = split(fold_in(key,
-    step), 2R + 1), the last key carried), and returns
-    jax.random.uniform(keys[i], (K, 3)) for sides x rounds when asked."""
+    """The port's draw seam fed with the JAX engine's own draws: each stage
+    call advances the key chain exactly as obmd_tpu/engine_cellpad.py
+    _insert does (keys = split(fold_in(key, step), 2R + 1), the last key
+    carried), and returns, when asked, the positions' draws of sides x
+    rounds (jax.random.uniform(keys[i], (K, 3)), or under `gaussian`
+    jax.random.normal), and where their keywords are set the deposit z's
+    uniform(fold_in(keys[i], 0x5a), (K,)) and the velocities'
+    uniform(split(fold_in(fold_in(key, step), 7), 3)[c], (2RK,))
+    (obmd_tpu/obmd/stage.py:263-347), as a Draws."""
 
     def __init__(self, cfg, seed: int):
         self.key = jax.random.PRNGKey(seed)
         self.rounds = max(1, int(cfg.obmd.maxattempt))
         self.k = cfg.obmd.insert_kmax
+        self.obmd = cfg.obmd
 
     def __call__(self, state, need):
-        key = jax.random.fold_in(self.key, jnp.uint32(state.step))
-        keys = jax.random.split(key, 2 * self.rounds + 1)
+        from obmd_tpu_torch.obmd.stage import Draws, deposit_z, has_velocity
+        step_key = jax.random.fold_in(self.key, jnp.uint32(state.step))
+        keys = jax.random.split(step_key, 2 * self.rounds + 1)
         self.key = keys[-1]
         if not need:
             return None
-        u = np.stack([np.asarray(jax.random.uniform(keys[i], (self.k, 3),
-                                                    dtype=jnp.float32))
+        o = self.obmd
+        draw = jax.random.normal if o.gaussian is not None \
+            else jax.random.uniform
+        shape = (2, self.rounds, self.k)
+        u = np.stack([np.asarray(draw(keys[i], (self.k, 3),
+                                      dtype=jnp.float32))
                       for i in range(2 * self.rounds)])
-        return torch.from_numpy(u.reshape(2, self.rounds, self.k, 3))
+        pos = torch.from_numpy(u.reshape(shape + (3,)))
+        z = vel = None
+        if deposit_z(o):
+            z = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+                jax.random.fold_in(keys[i], 0x5a), (self.k,),
+                dtype=jnp.float32)) for i in range(2 * self.rounds)])
+                .reshape(shape))
+        if has_velocity(o):
+            kv = jax.random.split(jax.random.fold_in(step_key, 7), 3)
+            m2 = 2 * self.rounds * self.k
+            vel = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+                kc, (m2,), dtype=jnp.float32)) for kc in kv]))
+        return Draws(pos, z, vel)
 
 
 class JaxMolDraws:
@@ -91,7 +113,7 @@ class JaxMolDraws:
     returns per side, from kc, krot = split(fold_in(side key, 0)), the
     centers' uniform(kc, (K, 3)), then from ka, kt = split(krot) the
     rotation axis's uniform(ka, (K, 3)) and angle's uniform(kt, (K,)):
-    [2, 1, K, 7]."""
+    positions' draws [2, 1, K, 7]."""
 
     def __init__(self, cfg, seed: int):
         self.key = jax.random.PRNGKey(seed)
@@ -110,7 +132,8 @@ class JaxMolDraws:
                 np.asarray(jax.random.uniform(kc, (self.k, 3))),
                 np.asarray(jax.random.uniform(ka, (self.k, 3))),
                 np.asarray(jax.random.uniform(kt, (self.k,)))[:, None]], 1))
-        return torch.from_numpy(np.stack(sides)[:, None])
+        from obmd_tpu_torch.obmd.stage import Draws
+        return Draws(torch.from_numpy(np.stack(sides)[:, None]))
 
 
 def lattice(cfg, seed=13, jitter=0.18):

@@ -138,16 +138,20 @@ def test_pair_law_matches_jax(law):
 
 
 def test_unported_laws_raise():
-    """A law the port lacks raises in the sweep; dpd/tstat, which has no
-    conservative energy for USHER, raises with an OBMD stage."""
+    """A law the port lacks raises in the sweep, and a law the pair kernel
+    lacks (dpd/ext) raises on the cellpad engine; dpd/tstat, which has no
+    conservative energy for USHER, runs under an OBMD stage there with the
+    plain search (as the JAX package's stage runs it)."""
     from obmd_tpu_torch.engine_cellpad import check_supported
     with pytest.raises(NotImplementedError):
         ppairs.make_pair_law(object(), 0.01)
     tstat = pconfig.DPDTstatParams.create(t_start=1.0, cutoff=1.0, seed=1,
                                           gamma=4.5)
     cfg = pscenes.obmd_dpd_config(scale=0.25)
-    with pytest.raises(NotImplementedError, match="dpd/tstat"):
-        check_supported(dataclasses.replace(cfg, pair=tstat))
+    with pytest.raises(NotImplementedError, match="DPDExtParams"):
+        check_supported(pscenes.obmd_dpdext_config(
+            scale=0.25, force_path="cellpad"))
+    check_supported(dataclasses.replace(cfg, pair=tstat).finalize())
 
 
 def _thermo_close(pt, jt):
