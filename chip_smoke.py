@@ -227,7 +227,11 @@ Phases (any failure exits non-zero and prints no result line):
      and at setup), check_invariants, T within 5% of 1.0, every molecule
      whole, the bead count at the start and end; the cap-15 kernel on the
      ended state against its plain version and without pbond, a profile
-     of two relayout epochs; then the insertion phase at cap 24 with nbuf
+     of two relayout epochs; from that ended state GAUSS_F_STEPS steps
+     under gaussian pair noise at cap 15 (launch key
+     dpd-t2-gauss-excl4-cap15 the only one, T within 5% of 1.0, every
+     molecule whole, the row against its plain version); then the
+     insertion phase at cap 24 with nbuf
      raised to 1.05 x census / alpha (in molecules), OPEN_INS_STEPS steps:
      stars inserted in fives, USHER iterations counted, every molecule
      whole, check_invariants, a profile of two insertion steps;
@@ -292,7 +296,29 @@ Phases (any failure exits non-zero and prints no result line):
      inserted more than 2 K atoms (one round inserts at most K a side),
      the USHER kernel launched 4 times on every stage call that needed
      atoms and on no other, check_invariants;
- 37. the figures of the fourteen paths (with each path's whole wall time,
+ 37. the pair kernel's 4-channel rows under the dpd/tstat ramp and on thin
+     axes (run_excl4_small): the small star melt of phase 25 under a
+     dpd/tstat ramp, a film of it whose z axis is one cell, then that
+     film with y open, EXCL4_SMALL_STEPS steps each on the card (its own
+     launch key), each row held to its plain version;
+ 38. path I, BASELINE config 5's open SPC/E water (open_water_scene:
+     99,636 atoms, lj/cut/rf, `charged 1`, `shake`, MOLECULE-mode USHER
+     insertion, vx/vy/vz): the lattice melted by water_warm_up under the
+     stage, setup, equilibrate(WATER_EQUIL) at 2/3 kT; an insertion phase
+     on a copy with WATER_DRAIN of the buffers' waters taken out (nbuf at
+     census / alpha, every stage call asking): waters inserted, the share
+     of trials that inserted; WATER_PROD production steps from the warmed
+     state; after each phase every molecule id 3 atoms or none, the
+     constraint error within WATER_CONSTRAINT nm, the net charge within
+     WATER_CHARGE e, finite x, v and f, check_invariants, and in
+     production thermo's T within WATER_T_WINDOW of 2/3 kT; profiles of a
+     production and an insertion step; the row ljrf-t2-excl2-cap150
+     against its plain version;
+ 39. the molecule keywords at a small size on the card against the CPU
+     (small_mol_keywords: path I's stage on a dilute water box; the dimer
+     and trimer at molfrac with rounds, `orient`, velocities and
+     `target`; `gaussian`, `rate` and nfreq 2; `local` with rounds);
+ 40. the figures of the fifteen paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -435,6 +461,19 @@ H_SEED = 13
 ROBUST_E = 1e-4
 ROBUST_F = 0.1
 ROBUST_X = 1e-4
+# path I, BASELINE config 5's open SPC/E water: the steps equilibrate runs
+# after setup (thermo's T rescaled to 2/3 kT, scenes.WATER_THERMO_T), the
+# insertion phase's share of each buffer's waters taken out, its steps and
+# seed, the production's steps (two windows), the window that thermo's T
+# keeps about 2/3 kT, and the largest constraint error and net charge
+# allowed
+WATER_EQUIL, WATER_INS_STEPS, WATER_PROD = 200, 60, 1000
+WATER_DRAIN, WATER_SEED = 0.25, 17
+WATER_T_WINDOW = 0.05
+WATER_CONSTRAINT, WATER_CHARGE = 1e-5, 1e-3
+# path F under gaussian noise: its steps; the small 4-channel boxes' steps
+# (the ramp box and the films)
+GAUSS_F_STEPS, EXCL4_SMALL_STEPS = 200, 20
 # cycles of the sleep kernel that holds the card while time_ms enqueues a
 # batch (~10 ms at an H100's 1.98 GHz boost clock)
 HOLD_CYCLES = 20_000_000
@@ -1190,18 +1229,22 @@ def check_usher(cfg, geom, state, label, subsets=None):
 class SeededDraws:
     """The engine's draw seam fed from one numpy generator, so that a run on
     the card and a run on the CPU try the same candidates: uniform
-    positions' draws (standard normals under `gaussian`) and, where their
-    keywords are set, the deposit z's and the velocities' uniforms
-    (obmd.stage.Draws), drawn on every stage call."""
+    positions' draws (standard normals under `gaussian`, the rotation's
+    uniform in MOLECULE mode) and, where their keywords are set, the
+    deposit z's and the velocities' uniforms and the trials' templates by
+    `molfrac` (obmd.stage.Draws), drawn on every stage call."""
 
     def __init__(self, cfg, seed: int):
         import numpy as np
         from obmd_tpu_torch.engine_cellpad import mol_mode
         from obmd_tpu_torch.obmd.stage import draw_shapes, rounds_of
+        from obmd_tpu_torch.config import template_stacks
         self.rng = np.random.default_rng(seed)
+        self.mol = mol_mode(cfg)
         self.shapes = draw_shapes(cfg, rounds_of(cfg), cfg.obmd.insert_kmax,
-                                  7 if mol_mode(cfg) else 3)
+                                  7 if self.mol else 3)
         self.gauss = cfg.obmd.gaussian is not None
+        self.frac = template_stacks(cfg.obmd).frac if self.mol else None
 
     def __call__(self, state, need):
         import numpy as np
@@ -1211,14 +1254,22 @@ class SeededDraws:
         pos = (self.rng.standard_normal(self.shapes["pos"], dtype=f32)
                if self.gauss else self.rng.random(self.shapes["pos"],
                                                   dtype=f32))
+        if self.mol and self.gauss:
+            # the rotation's draws stay uniform
+            pos[..., 3:] = self.rng.random(pos[..., 3:].shape, dtype=f32)
         more = [None if self.shapes[f] is None
                 else self.rng.random(self.shapes[f], dtype=f32)
                 for f in ("z", "vel")]
+        tpl = None
+        if self.shapes["tpl"] is not None:
+            p = np.asarray(self.frac, np.float64)
+            tpl = self.rng.choice(len(p), self.shapes["tpl"],
+                                  p=p / p.sum()).astype(np.int32)
         if not need:
             return None
         return Draws(*(None if a is None else
                        torch.from_numpy(a).to(state.device)
-                       for a in [pos] + more))
+                       for a in [pos] + more + [tpl]))
 
 
 SMALL_EXACT = ("type", "q", "tag", "alive", "mol", "bond1", "bond2", "step",
@@ -3275,6 +3326,7 @@ def run_open_star(ended):
                          f"exclusion, cap {geom.fcap}, path F (open x)")
     near = check_exclusion(pcfg, geom, st, "pair",
                            label=f"path F cap {geom.fcap}")
+    gauss = run_open_star_gaussian(pcfg, geom, st)
     prof = profile_steps(make_run(pcfg, 2 * auto_rebuild_every(pcfg)), st,
                          2 * auto_rebuild_every(pcfg))
     log(f"path F profile (production): {prof}")
@@ -3347,7 +3399,7 @@ def run_open_star(ended):
                                usher_iters=ins["usher_iters"],
                                stars=ins_mols[0], seconds=ins_s,
                                telemetry=tel_ins, profile=ins_prof),
-                path_s=path_s, small_paths=small,
+                path_s=path_s, small_paths=small, gaussian=gauss[0],
                 rows={k: dict(stars=n, **f) for _, k, n, f in rows})
     kernels = [
         kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, cap "
@@ -3359,6 +3411,7 @@ def run_open_star(ended):
                     "obmd_tpu/forces/pallas_dpd.py:324",
                     warm_launches["pair"][1][wkeys[1]]
                     + ins_launches["pair"][1][ikey], warm_pair),
+        gauss[1],
     ]
     for what, rkey, stars, figs in rows:
         row = rkey.rsplit("-cap", 1)[0]
@@ -3373,6 +3426,52 @@ def run_open_star(ended):
     del sc, st
     torch.cuda.empty_cache()
     return path, kernels
+
+
+def run_open_star_gaussian(pcfg, geom, state):
+    """Path F's production under gaussian pair noise (LAMMPS pair dpd's
+    own: the kernel's stream, 0x7F4A7C15 with the clamp 1e-12) from the
+    production's ended state at its filing cap: GAUSS_F_STEPS steps after
+    setup, the row `dpd-t2-gauss-excl4-capNN` the only pair launch, T
+    within 5% of 1, every star whole; the row held to its plain version.
+    Returns (figures, kernel line)."""
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+    from obmd_tpu_torch.state import temperature
+    gcfg = dataclasses.replace(pcfg, pair=dataclasses.replace(
+        pcfg.pair, gaussian_noise=True))
+    key = f"dpd-t2-gauss-excl4-cap{geom.fcap}"
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = make_run(gcfg, GAUSS_F_STEPS)(setup(gcfg, state))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    require_launches(launches, {"pair": (key,)}, "path F gaussian")
+    if launches["pair"][0] != GAUSS_F_STEPS + 1:
+        fail(f"path F gaussian: {launches['pair'][0]} pair launches for "
+             f"setup and {GAUSS_F_STEPS} steps")
+    tel = check_invariants(gcfg, st)
+    check_finite(st, "path F gaussian")
+    mols = whole_molecules(gcfg, st, "path F gaussian")
+    temp = float(temperature(gcfg, st))
+    if not abs(temp - 1.0) <= 0.05:
+        fail(f"path F gaussian: T {temp} is not within 5% of 1.0")
+    most = max_cell_count(geom, st)
+    log(f"path F gaussian ({key}): {GAUSS_F_STEPS} steps in {wall:.2f} s "
+        f"({wall / GAUSS_F_STEPS * 1e3:.3f} ms/step with setup), T {temp}, "
+        f"{mols[0]} stars, all whole, telemetry {tel}, most atoms in one "
+        f"cell {most} (filing cap {geom.fcap})")
+    figs, _ = check_pair(gcfg, geom, st, "dpd, 2 types, gaussian noise, "
+                         f"4-channel exclusion, cap {geom.fcap}, path F")
+    path = dict(steps=GAUSS_F_STEPS, wall_s=wall, temp=temp, telemetry=tel,
+                stars=mols[0], max_cell_count=most,
+                launches=launches["pair"][1])
+    return path, kernel_line(
+        "pair", f"{key}: dpd, 2 types, gaussian noise, 4-channel "
+        f"exclusion, cap {geom.fcap}, open x, path F under gaussian noise",
+        "obmd_tpu/forces/pallas_dpd.py:575", launches["pair"][1][key], figs)
 
 
 def nlist_pair_forces(cfg, state):
@@ -3855,6 +3954,380 @@ def run_keywords(cfg24, st_eq):
     return path, kernels
 
 
+def film_of_stars(cfg, arrays, y_open: bool, dev, cap: int = 24):
+    """A film of the warmed small star melt (arrays of an L-cube, periodic):
+    the stars whose atoms, unwrapped about their first atom, all lie at z
+    in [0.05, 2.15] (and with y_open at y in [0.05, L - 0.05]), in an L x
+    L x 2.2 box (z one periodic cell, at least twice the cutoff; y open
+    with y_open), with their bonds and impropers, at filing cap `cap`.
+    Returns (cfg, state)."""
+    import numpy as np
+    from obmd_tpu_torch.geometry import Box
+    from obmd_tpu_torch.scenes import with_cap
+    from obmd_tpu_torch.state import init_state
+    lz = 2.2
+    L = np.asarray(cfg.box.lengths)
+    alive = arrays["alive"]
+    x, mol, tag = arrays["x"].astype(np.float64), arrays["mol"], arrays["tag"]
+    keep = np.zeros(len(x), bool)
+    pos = x.copy()
+    for m in np.unique(mol[alive & (mol != 0)]):
+        a = np.flatnonzero(alive & (mol == m))
+        d = x[a] - x[a[0]]
+        d -= L * np.round(d / L)
+        p = x[a[0]] + d
+        ok = (p[:, 2] >= 0.05).all() and (p[:, 2] <= lz - 0.05).all()
+        if y_open:
+            ok = ok and (p[:, 1] >= 0.05).all() and (p[:, 1] <= L[1] - 0.05
+                                                     ).all()
+        if ok:
+            keep[a] = True
+            pos[a] = p
+    slots = np.flatnonzero(keep)
+    bonds = []
+    for c in ("bond1", "bond2", "bond3", "bond4"):
+        col = arrays[c]
+        for i in slots:
+            j = int(col[i])
+            if j >= 0 and tag[i] < tag[j]:
+                bonds.append((tag[i], tag[j]))
+    imps = [(tag[int(r[0])], tag[i], tag[int(r[1])], tag[int(r[2])])
+            for i in slots for r in [arrays["impr"][i]] if r[0] >= 0]
+    box = Box((0.0, 0.0, 0.0), (L[0], L[1], lz), (True, not y_open, True))
+    fcfg = with_cap(dataclasses.replace(cfg, box=box, capacity=dataclasses
+                                        .replace(cfg.capacity,
+                                                 n_max=len(slots))), cap)
+    p = pos[slots]
+    p[:, 0] = np.mod(p[:, 0], L[0])
+    if not y_open:
+        p[:, 1] = np.mod(p[:, 1], L[1])
+    return fcfg, init_state(fcfg, p, v=arrays["v"][slots],
+                            types=arrays["type"][slots], tags=tag[slots],
+                            mol=mol[slots], bonds=np.asarray(bonds),
+                            impropers=np.asarray(imps), device=dev)
+
+
+def run_small_row(cfg, state, label, ramp=False):
+    """A 4-channel row on a small box: setup and EXCL4_SMALL_STEPS steps on
+    the card (its launches, one key), the invariants, finite positions,
+    then the row against its plain version (a ramp's at the state's step).
+    Returns (launch key, launches, figures)."""
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    from obmd_tpu_torch.forces.pairs import sig_scale_of
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+    geom = make_geometry(cfg)
+    key = launch_key(geom, PairCoef.of(geom, cfg.pair, cfg.dt), 4)
+    _build.reset_launch_counts()
+    st = make_run(cfg, EXCL4_SMALL_STEPS)(setup(cfg, state))
+    sync()
+    launches = launch_counts()
+    require_launches(launches, {"pair": (key,)}, label)
+    tel = check_invariants(cfg, st)
+    check_finite(st, label)
+    figs, _ = check_pair(cfg, geom, st, f"{label} ({key})",
+                         sig_scale=sig_scale_of(cfg.pair, st.step)
+                         if ramp else None)
+    log(f"{label} ({key}, {geom}): {int(st.natoms)} atoms, "
+        f"{EXCL4_SMALL_STEPS} steps, telemetry {tel}")
+    return key, launches["pair"][1][key], figs
+
+
+def run_excl4_small():
+    """The pair kernel's 4-channel rows under the dpd/tstat ramp and on
+    thin axes, on small boxes of the warmed small star melt (307 stars,
+    L = 8, two types): the closed melt under dpd/tstat with a ramp (T 1 to
+    2 over 1,000 steps) at the warm-up's cap, a film whose z axis is one
+    cell, then that film with y open.  Returns (figures, kernel lines)."""
+    from obmd_tpu_torch.config import DPDTstatParams
+    from obmd_tpu_torch import convert
+    from obmd_tpu_torch.scenes import STAR_WARM_CAP, with_cap
+    cfg, arrays = _small_star_start()
+    ramp = DPDTstatParams.create(t_start=1.0, cutoff=1.0, seed=3, gamma=4.5,
+                                 t_stop=2.0, ramp=(0, 1000), ntypes=2)
+    rows = [("the small star melt under a dpd/tstat ramp", True,
+             dataclasses.replace(with_cap(cfg, STAR_WARM_CAP), pair=ramp),
+             convert.from_arrays(arrays, device=DEV))]
+    for y_open in (False, True):
+        fcfg, fst = film_of_stars(cfg, arrays, y_open, DEV)
+        rows.append((f"a film of the small star melt (z one cell"
+                     + (", y open)" if y_open else ")"), False, fcfg, fst))
+    out, kernels = {}, []
+    for what, is_ramp, rcfg, rst in rows:
+        key, n, figs = run_small_row(rcfg, rst, what, ramp=is_ramp)
+        out[key] = dict(what=what, atoms=int(rst.natoms), launches=n, **figs)
+        kernels.append(kernel_line(
+            "pair", f"{key}: {what}, {EXCL4_SMALL_STEPS} steps",
+            "obmd_tpu/forces/pallas_dpd.py:"
+            + ("575" if key.endswith(("-cap15", "-cap16", "-cap20"))
+               else "324"), n, figs))
+    return out, kernels
+
+
+# the dimer and trimer of tests/test_molfrac.py
+MOL_DIMER = (((-0.45, 0.0, 0.0), (0.45, 0.0, 0.0)), ((0, 1),))
+MOL_TRIMER = (((-0.5, -0.15, 0.0), (0.0, 0.25, 0.0), (0.5, -0.15, 0.0)),
+              ((0, 1), (1, 2)))
+
+
+def small_mol_keywords(kind):
+    """make(device) of the small molecule-keyword paths: "water" path I's
+    stage (charged 1, shake, vx/vy/vz) on 125 waters in the 33-plane water
+    box (cap 24, etarget 0); on a monomer gas under one-type DPD (10 x 4 x
+    4, 200 atoms, harmonic bonds K 40): "molfrac" the dimer and trimer at
+    molfrac 0.3 / 0.7 with maxattempt 3, `orient` and vx/vy/vz with
+    `target`; "deposit" the trimer with `gaussian`, `rate` and nfreq 2
+    (stepped through make_step); "local" the dimer with `local` and
+    maxattempt 2."""
+    def make(dev):
+        import numpy as np
+        from obmd_tpu_torch import scenes
+        from obmd_tpu_torch.config import (BondHarmonicParams, Capacity,
+                                           DPDParams, MolTemplate,
+                                           ObmdParams, SceneConfig,
+                                           UsherParams)
+        from obmd_tpu_torch.geometry import Box, RegionBlock
+        from obmd_tpu_torch.state import init_state
+        r = np.random.default_rng(4)
+        if kind == "water":
+            cfg = scenes.open_water_config(
+                planes=33, cap=24, n_max=1200, nbuf=60.0,
+                usher=UsherParams(etarget=0.0, nattempt=0))
+            tpl = scenes.water_template_coords()
+            tpl = tpl - tpl.mean(0)
+            g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"),
+                         -1).reshape(-1, 3) * 1.1 + [0.6, 0.3, 0.3]
+            x = (g[:, None] + np.einsum("sij,kj->ski",
+                                        scenes._rotations(r, 125), tpl)
+                 ).reshape(-1, 3)
+            types, q, mol, bonds = scenes._water_topology(125)
+            return cfg, init_state(cfg, x, v=r.normal(0.0, 0.3, x.shape),
+                                   types=types, q=q, mol=mol, bonds=bonds,
+                                   device=dev)
+        dimer, trimer = (MolTemplate(dx=dx, types=(0,) * len(dx),
+                                     bonds=b)
+                         for dx, b in (MOL_DIMER, MOL_TRIMER))
+        v = (-1.732, 1.732)
+        kw = {"molfrac": dict(mol=dimer, mols=(dimer, trimer),
+                              molfrac=(0.3, 0.7), maxattempt=3,
+                              orient=(0.0, 0.0, 1.0), vx=v, vy=v,
+                              vz=(0.0, 2.0), target=(5.0, 2.0, 2.0)),
+              "deposit": dict(mol=trimer, gaussian=(1.0, 2.0, 2.0, 0.6),
+                              rate=0.5, nfreq=2),
+              "local": dict(mol=dimer, maxattempt=2,
+                            deposit_local=(-2.0, -0.5, 0.9))}[kind]
+        box = Box((0.0, 0.0, 0.0), (10.0, 4.0, 4.0), (False, True, True))
+        r1 = RegionBlock((0.0, 0.0, 0.0), (2.0, 4.0, 4.0))
+        r2 = RegionBlock((8.0, 0.0, 0.0), (10.0, 4.0, 4.0))
+        deg = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+        args = dict(
+            ntype=0, nfreq=1, seed=11, pxx=5.0, alpha=0.5, tau=0.01,
+            nbuf=200.0, region1=r1, region2=r2, region3=deg, region4=deg,
+            region5=r1, region6=r2, buffer_size=2.0,
+            usher=UsherParams(etarget=40.0, nattempt=0), mol_len=2,
+            insert_kmax=6)
+        obmd = ObmdParams(**{**args, **kw})
+        cfg = SceneConfig(
+            box=box, masses=(1.0,), dt=0.01,
+            pair=DPDParams.create(temp=1.0, cutoff=1.0, seed=3, a0=25.0,
+                                  gamma=4.5),
+            capacity=Capacity(n_max=900, cell_capacity=22), obmd=obmd,
+            bond=BondHarmonicParams(k=40.0, r0=0.6), skin=0.3,
+            force_path="cellpad").finalize()
+        x = r.uniform([1.05, 0.05, 0.05], [8.95, 3.95, 3.95], (200, 3))
+        return cfg, init_state(cfg, x, v=r.normal(0.0, 1.0, x.shape),
+                               device=dev)
+    return make
+
+
+def drained_molecules(cfg, state, share, seed):
+    """The state with a seeded `share` of the molecules that have an atom in
+    region1 or region2 taken out whole (alive False, tag -1, v 0)."""
+    import torch
+    o = cfg.obmd
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    band = state.alive & (o.region1.match(state.x) | o.region2.match(state.x))
+    ids = torch.unique(state.mol[band])
+    pick = ids[torch.rand(ids.shape, generator=g, device=DEV) < share]
+    out = state.alive & torch.isin(state.mol, pick)
+    keep = state.alive & ~out
+    return state.replace(alive=keep, tag=torch.where(keep, state.tag, -1),
+                         v=torch.where(keep[:, None], state.v, 0.0))
+
+
+def check_water(cfg, state, label):
+    """Path I's checks on a state: every molecule id holds 3 live atoms or
+    none, the largest constraint error at most WATER_CONSTRAINT nm, the net
+    charge within WATER_CHARGE e, finite positions, velocities and forces.
+    Returns observe.molecule_report's figures."""
+    import torch
+    from obmd_tpu_torch.observe import molecule_report, molecule_sizes
+    rep = molecule_report(cfg, state)
+    sizes = molecule_sizes(state)[1:]
+    if bool(((sizes != 0) & (sizes != 3)).any()) or rep["broken"]:
+        fail(f"{label}: molecules not of 3 atoms: {rep}")
+    if not rep["constraint_error"] <= WATER_CONSTRAINT:
+        fail(f"{label}: constraint error {rep['constraint_error']} nm")
+    if not abs(rep["net_charge"]) <= WATER_CHARGE:
+        fail(f"{label}: net charge {rep['net_charge']}")
+    check_finite(state, label)
+    if not bool(torch.isfinite(state.f[state.alive]).all()):
+        fail(f"{label}: non-finite forces")
+    return rep
+
+
+def run_water():
+    """Phases 37-39: path I, BASELINE config 5's open SPC/E water
+    (scenes.open_water_scene: 33,212 waters, 99,636 atoms, `charged 1`,
+    `shake`, USHER molecule insertion, vx/vy/vz): the lattice melted by
+    water_warm_up under the stage, setup and equilibrate, an insertion
+    phase on a copy whose buffers are a quarter drained (nbuf = census /
+    alpha, so every stage call asks for molecules), WATER_PROD production
+    steps from the warmed state in two windows, check_invariants; the checks of check_water and thermo's T
+    within WATER_T_WINDOW of 2/3 kT after each window; the pair row
+    ljrf-t2-excl2-cap150 against its plain version with holes and same
+    bytes; then the small molecule-keyword paths against the CPU.
+    Returns (figures, kernel lines)."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
+    from obmd_tpu_torch.observe import check_invariants, make_thermo_fn
+    from obmd_tpu_torch.star_probe import census
+    t_path = time.perf_counter()
+    sc = scenes.open_water_scene(device=DEV)
+    cfg = sc.cfg
+    geom = make_geometry(cfg)
+    key = launch_key(geom, PairCoef.of(geom, cfg.pair, cfg.dt), 2)
+    thermo = make_thermo_fn(cfg)
+    start = (int(sc.state.natoms), census(cfg, sc.state))
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = scenes.water_warm_up(cfg, sc.state)
+    st = equilibrate(cfg, setup(cfg, st), WATER_EQUIL,
+                     temp=scenes.WATER_THERMO_T)
+    sync()
+    warm_s = time.perf_counter() - t0
+    warm_tel = check_invariants(cfg, st)
+    warm_rep = check_water(cfg, st, "path I warm-up")
+    occupancy = [max_cell_count(geom, st)]
+    warmed = census(cfg, st)
+    log(f"path I warm-up ({geom}): {start[0]} atoms, census {start[1]} -> "
+        f"{int(st.natoms)} atoms, census {warmed} molecules in "
+        f"{scenes.WATER_WARM_STEPS} + {WATER_EQUIL} steps, {warm_s:.1f} s; "
+        f"{warm_rep}; telemetry {warm_tel}; most atoms in one cell "
+        f"{occupancy[0]}")
+
+    # the insertion phase
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=warmed / cfg.obmd.alpha)).finalize()
+    st_ins = setup(cfg_ins, drained_molecules(cfg, st, WATER_DRAIN,
+                                              WATER_SEED))
+    c0 = {k: int(getattr(st_ins.obmd, k)) for k in (
+        "ninserted", "ndeleted", "insert_fail", "usher_iters")}
+    stage_log = StageLog(cfg_ins)
+    t0 = time.perf_counter()
+    st_ins = make_run(cfg_ins, WATER_INS_STEPS, draw=stage_log)(st_ins)
+    sync()
+    ins_s = time.perf_counter() - t0
+    ins_tel = check_invariants(cfg_ins, st_ins)
+    ins = {k: int(getattr(st_ins.obmd, k)) - v for k, v in c0.items()}
+    ins_rep = check_water(cfg_ins, st_ins, "path I insertion phase")
+    needed = sum(need for need, _, _ in stage_log.calls)
+    trials = 2 * cfg.obmd.insert_kmax * cfg.obmd.maxattempt * needed
+    if ins["ninserted"] <= 0 or ins["ninserted"] % 3 or ins["usher_iters"] <= 0:
+        fail(f"path I insertion phase: {ins}")
+    if needed != WATER_INS_STEPS:
+        fail(f"path I insertion phase: {needed} of {WATER_INS_STEPS} stage "
+             "calls asked for molecules")
+    share = ins["ninserted"] / 3 / trials
+    log(f"path I insertion phase: nbuf {cfg_ins.obmd.nbuf:.1f}, "
+        f"{ins['ninserted'] // 3} waters inserted of {trials} trials "
+        f"({share:.4f}), {ins['ndeleted']} atoms deleted, "
+        f"{ins['insert_fail']} insertions failed, {ins['usher_iters']} USHER "
+        f"iterations in {WATER_INS_STEPS} steps ({ins_s:.2f} s); {ins_rep}; "
+        f"telemetry {ins_tel}")
+
+    # the production, from the warmed state (the drained copy's inflow
+    # would heat it) at the warmed census
+    st = setup(cfg, st)
+    prod_start = int(st.natoms)
+    run = make_run(cfg, WATER_PROD // 2)
+    windows, temps = [], []
+    for _ in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        temps.append(float(thermo(st).temp))
+    launches = launch_counts()
+    tel = check_invariants(cfg, st)
+    rep = check_water(cfg, st, "path I production")
+    for t in temps:
+        if not abs(t - scenes.WATER_THERMO_T) <= \
+                WATER_T_WINDOW * scenes.WATER_THERMO_T:
+            fail(f"path I production: thermo's T {t} is not within "
+                 f"{WATER_T_WINDOW:.0%} of 2/3 kT = {scenes.WATER_THERMO_T}")
+    require_launches(launches, {"pair": (key,)}, "path I")
+    wall, steps = min(windows)
+    m_atoms = steps / wall * int(st.natoms) / 1e6
+    log(f"path I production: {wall / steps * 1e3:.3f} ms/step, "
+        f"{m_atoms:.3f} Mparticle-steps/s, windows {windows}, atoms "
+        f"{prod_start} -> {int(st.natoms)}, thermo T {temps} (2/3 kT "
+        f"{scenes.WATER_THERMO_T:.4f}), {rep}, telemetry {tel}, most atoms "
+        f"in one cell at the warm-up's end and after each window "
+        f"{occupancy} (filing cap {geom.fcap})")
+    with KeepCounts():
+        prof = profile_steps(make_run(cfg, 4), st, 4)
+        ins_prof = profile_steps(make_run(cfg_ins, 2), st_ins, 2)
+    log(f"path I profile (production): {prof}")
+    log(f"path I profile (insertion phase): {ins_prof}")
+    if prof is None:
+        fail("path I profile: no device activity traced")
+    pair, _ = check_pair(cfg, geom, st, "ljrf, 2 types, 2-channel "
+                         f"exclusion, cap {geom.fcap}, path I (open x)")
+    path_s = time.perf_counter() - t_path
+
+    # the small molecule-keyword paths against the CPU
+    small = {}
+    with KeepCounts():
+        for kind, kw in (("water", {}), ("molfrac", {}),
+                         ("deposit", dict(runner="step")), ("local", {})):
+            small[kind] = check_small_path(
+                f"molecule keywords {kind}", small_mol_keywords(kind),
+                require_insert=True, setpoint_rtol=2e-6, **kw)
+    path = dict(atoms_start=start[0], census_start=start[1],
+                census_warmed=warmed, warm_up_s=warm_s,
+                warm_up_telemetry=warm_tel, warm_up=warm_rep,
+                insertion=dict(nbuf=cfg_ins.obmd.nbuf, steps=WATER_INS_STEPS,
+                               waters_inserted=ins["ninserted"] // 3,
+                               trials=trials, inserted_share=share,
+                               atoms_deleted=ins["ndeleted"],
+                               insert_fail=ins["insert_fail"],
+                               usher_iters=ins["usher_iters"],
+                               seconds=ins_s, report=ins_rep,
+                               telemetry=ins_tel, profile=ins_prof),
+                production_atoms=[prod_start, int(st.natoms)],
+                ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=m_atoms,
+                windows_s=[w for w, _ in windows], thermo_temps=temps,
+                report=rep, telemetry=tel, max_cell_count=max(occupancy),
+                filing_cap=geom.fcap, profile=prof, path_s=path_s,
+                pair_launches=launches["pair"][1],
+                small_paths_max_pos_err=small)
+    kernels = [kernel_line(
+        "pair", f"{key}: ljrf, 2 types, 2-channel exclusion, cap "
+        f"{geom.fcap}, open x, path I (SPC/E water)",
+        "obmd_tpu/forces/pallas_dpd.py:324", launches["pair"][1][key],
+        pair)]
+    return path, kernels
+
+
 def slots_of(cfg, state):
     """The live atoms of a state (a cellpad layout's slots are padded
     beyond n_max) in a fresh store of cfg's n_max slots, in tag order, with
@@ -3884,7 +4357,7 @@ def scratch_figure(cfg, subsets):
 
 
 def run_smoke():
-    """Phases 2-36; returns the paths' figures and the kernel figures."""
+    """Phases 2-39; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -3939,6 +4412,12 @@ def run_smoke():
     t0 = time.perf_counter()
     kw_path, kw_kernels = run_keywords(*obmd_prod[:2])
     wall_s["obmd_dpd_keywords"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    excl4_path, excl4_kernels = run_excl4_small()
+    wall_s["excl4_small_rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    water_path, water_kernels = run_water()
+    wall_s["open_water"] = time.perf_counter() - t0
     wall_s["total"] = time.perf_counter() - t_all
     log(f"the smoke's paths took {wall_s['total']:.1f} s, the build "
         f"included")
@@ -3950,11 +4429,14 @@ def run_smoke():
                           near_box=box_path, dpd_film=film,
                           star_melt=star_path, open_star=open_path,
                           obmd_dpdext=ext_path,
-                          obmd_dpd_keywords=kw_path),
+                          obmd_dpd_keywords=kw_path,
+                          excl4_small_rows=excl4_path,
+                          open_water=water_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
-                + open_kernels + ext_kernels + kw_kernels)
+                + open_kernels + ext_kernels + kw_kernels + excl4_kernels
+                + water_kernels)
 
 
 def main():

@@ -31,7 +31,7 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 # -split-compile=0: nvcc compiles a source's kernels on every core of the
-# host (pair_kernel.cu has 105 instantiations; its build time is in
+# host (pair_kernel.cu has 148 instantiations; its build time is in
 # PERF.md §5)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -6,14 +6,14 @@ Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
 `UsherParams`, `MolTemplate`, `ObmdParams` (with the molecule-mode fields),
 `TemplateStacks` and `template_stacks`, `LangevinParams`, `BondFENEParams`,
 `BondHarmonicParams`, `AngleHarmonicParams`, `ImproperHarmonicParams`,
-`DihedralHarmonicParams`, the center-atom table builders
-`derive_center_angle_table` and `derive_center_improper_table`, `Capacity`
+`DihedralHarmonicParams`, `ShakeParams` and the table functions
+`shake_table_from_templates`, `derive_center_angle_table` and
+`derive_center_improper_table`, `Capacity`
 and `SceneConfig.finalize`, with the same field names and defaults so a
 test can hold the two packages' configs field by field.  Every law takes
-per-type-pair tables (`_sym`).  The fix's keywords the engine does not run
-yet (`mols`/`molfrac`, `charged 1`, `orient`, `rigid`, `shake`, the
-inserted-velocity keywords) are fields here so a configuration can name
-them, and `engine_cellpad.check_supported` refuses them.
+per-type-pair tables (`_sym`).  The fix's `rigid` keyword, which the
+engines do not run yet, is a field here so a configuration can name it,
+and `engine_cellpad.check_scene` refuses it.
 """
 from __future__ import annotations
 
@@ -508,6 +508,50 @@ class DihedralHarmonicParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShakeParams:
+    """SHAKE/RATTLE distance constraints (RIGID/fix_shake.cpp; reached
+    through fix obmd's `shake` keyword, fix_obmd_merged.cpp:1163-1168).
+    d0 [ntypes, ntypes]: the target distance of a bonded pair by its
+    endpoint types (0: that pair is not constrained), built from the
+    insertion template's own geometry by shake_table_from_templates."""
+
+    d0: Tuple[Tuple[float, ...], ...]
+    iters: int = 30          # Jacobi position sweeps per step
+    vel_iters: int = 10      # RATTLE velocity sweeps per kick
+
+    def __post_init__(self):
+        a = np.asarray(self.d0, dtype=np.float64)
+        if a.ndim != 2 or a.shape[0] != a.shape[1]:
+            raise ValueError("shake d0 must be a square [ntypes, ntypes]")
+        if not np.allclose(a, a.T):
+            raise ValueError("shake d0 must be symmetric")
+
+
+def shake_table_from_templates(templates, ntypes: int,
+                               **kw) -> ShakeParams:
+    """The constraint table of the templates' bonded pairs: each bond (a,
+    b) holds |x_a - x_b| at the template's own distance, keyed by the
+    endpoint types (types as the template gives them).  Two different
+    distances on one type pair raise ValueError."""
+    d0 = np.zeros((ntypes, ntypes), dtype=np.float64)
+    for t in templates:
+        dx = np.asarray(t.dx, dtype=np.float64)
+        types = list(t.types) if t.types else [0] * t.natoms
+        for a, b in t.bonds:
+            d = float(np.linalg.norm(dx[a] - dx[b]))
+            ta, tb = types[a], types[b]
+            for i, j in ((ta, tb), (tb, ta)):
+                if d0[i, j] > 0 and abs(d0[i, j] - d) > 1e-10:
+                    raise ValueError(
+                        f"shake: type pair ({i},{j}) carries two different "
+                        f"template distances ({d0[i, j]} vs {d}); give the "
+                        "atoms distinct types")
+                d0[i, j] = d
+    return ShakeParams(d0=tuple(tuple(float(v) for v in row) for row in d0),
+                       **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class TemplateStacks:
     """Numpy stacks of all insertion templates, padded to the largest
     natoms m (pad rows are masked by `amask`)."""
@@ -677,10 +721,11 @@ FORCE_PATHS = ("cellpad", "nlist", "sweep")
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
     """Box, masses, pair style, dt, the OBMD stage, the bond, angle,
-    dihedral and improper styles, the Langevin thermostat and static
-    capacities.  `branched_topology` (more than two bonds on some atom)
-    gives the state four partner columns (and with `improper` the impr
-    column) and the pair kernel four exclusion channels; set it for a
+    dihedral and improper styles, the rigid-body flag (refused by every
+    engine), the SHAKE/RATTLE constraints, the Langevin thermostat and
+    static capacities.  `branched_topology` (more than two bonds on some
+    atom) gives the state four partner columns (and with `improper` the
+    impr column) and the pair kernel four exclusion channels; set it for a
     branched data file."""
 
     box: Box
@@ -693,6 +738,11 @@ class SceneConfig:
     angle: Optional[AngleHarmonicParams] = None
     dihedral: Optional[DihedralHarmonicParams] = None
     improper: Optional[ImproperHarmonicParams] = None
+    # fix rigid: every mol != 0 atom a rigid body (fix obmd's `rigid`)
+    rigid: bool = False
+    # fix shake: distance constraints over the bond columns (fix obmd's
+    # `shake`, where finalize derives the table from the templates)
+    shake: Optional[ShakeParams] = None
     langevin: Optional[LangevinParams] = None
     skin: float = 0.3
     # "cellpad" (the padded layout and the pair kernel), "nlist" (the
@@ -709,8 +759,10 @@ class SceneConfig:
 
     def finalize(self) -> "SceneConfig":
         """Apply the buffersize default 0.3*Lx (fix_obmd_merged.cpp:1912),
-        and set branched_topology when an insertion template is branched
-        (obmd_tpu/config.py:879-883)."""
+        set `rigid` from the fix's keyword, set branched_topology when an
+        insertion template is branched, derive the SHAKE table from the
+        templates under the fix's `shake`, and refuse rigid with shake and
+        a table of another type count (obmd_tpu/config.py:868-893)."""
         out = self
         if out.force_path not in FORCE_PATHS:
             raise ValueError(f"force_path must be one of {FORCE_PATHS}, not "
@@ -719,8 +771,19 @@ class SceneConfig:
             lx = out.box.lengths[0]
             obmd = dataclasses.replace(out.obmd, buffer_size=0.3 * lx)
             out = dataclasses.replace(out, obmd=obmd)
+        if out.obmd is not None and out.obmd.rigid and not out.rigid:
+            out = dataclasses.replace(out, rigid=True)
         if (out.obmd is not None and out.obmd.mol is not None
                 and not out.branched_topology
                 and template_stacks(out.obmd).branched):
             out = dataclasses.replace(out, branched_topology=True)
+        if out.obmd is not None and out.obmd.shake and out.shake is None:
+            out = dataclasses.replace(out, shake=shake_table_from_templates(
+                out.obmd.templates, out.ntypes))
+        if out.shake is not None and out.rigid:
+            raise ValueError("rigid and shake are mutually exclusive")
+        if out.shake is not None and len(out.shake.d0) != out.ntypes:
+            raise ValueError(
+                f"shake d0 table is {len(out.shake.d0)} types, scene has "
+                f"{out.ntypes}")
         return out

@@ -9,9 +9,12 @@ on a branched topology bond3, bond4 and impr; the `ObmdScalars` fields;
 and the `PadAux` fields xref, rebuilds, overflow, skin_trips, tag3d and
 occ, or the `neighbors.NeighborState` fields table, cell_id, nlist,
 ncount, xref, tombstone, force_rebuild, rebuilds and overflow.  A pair
-law, a bond, angle, dihedral or improper style and the fix's parameters
-cross by their class name and fields (`pair_params`, `bonded_params`,
-`obmd_params`).
+law, a bond, angle, dihedral or improper style, the SHAKE table and the
+fix's parameters cross by their class name and fields (`pair_params`,
+`bonded_params`, `shake_params`, `obmd_params`: every keyword, `mols` /
+`molfrac`, `charged`, `orient`, `shake` and the molecule-mode keywords
+included), and a whole scene configuration through them
+(`scene_config`).
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ import torch
 
 from .cellpad import PadAux
 from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
-                     DihedralHarmonicParams, DPDExtParams, DPDParams,
-                     DPDTstatParams, ImproperHarmonicParams, LJCutParams,
-                     LJCutRFParams, MolTemplate, ObmdParams, UsherParams)
-from .geometry import RegionBlock
+                     Capacity, DihedralHarmonicParams, DPDExtParams,
+                     DPDParams, DPDTstatParams, ImproperHarmonicParams,
+                     LangevinParams, LJCutParams, LJCutRFParams, MolTemplate,
+                     ObmdParams, SceneConfig, ShakeParams, UsherParams)
+from .geometry import Box, RegionBlock
 from .neighbors import NeighborState
 from .state import ObmdScalars, State, make_generator, resolve_device
 
@@ -128,6 +132,15 @@ def bonded_params(style):
                   for f in dataclasses.fields(cls)})
 
 
+def shake_params(shake):
+    """The port's SHAKE table (d0, iters, vel_iters) of another package's
+    ShakeParams (None stays None)."""
+    if shake is None:
+        return None
+    return ShakeParams(**{f.name: getattr(shake, f.name)
+                          for f in dataclasses.fields(ShakeParams)})
+
+
 _OBMD_PARTS = {c.__name__: c for c in (ObmdParams, UsherParams, MolTemplate,
                                        RegionBlock)}
 
@@ -145,5 +158,33 @@ def obmd_params(obmd):
     cls = _OBMD_PARTS.get(type(obmd).__name__)
     if cls is None or not dataclasses.is_dataclass(obmd):
         return obmd
-    return cls(**{f.name: obmd_params(getattr(obmd, f.name))
+    fields = {f.name: obmd_params(getattr(obmd, f.name))
+              for f in dataclasses.fields(cls)}
+    if cls is ObmdParams and fields["mols"]:
+        fields["mol"] = fields["mols"][0]   # ObmdParams checks it by identity
+    return cls(**fields)
+
+
+def _same(cls, obj):
+    """cls built from obj's fields of the same names (None stays None)."""
+    if obj is None:
+        return None
+    return cls(**{f.name: getattr(obj, f.name)
                   for f in dataclasses.fields(cls)})
+
+
+def scene_config(cfg) -> SceneConfig:
+    """The port's SceneConfig of another package's, field by field: the
+    box, capacities and thermostat by their fields, the pair law, the
+    bonded styles, the SHAKE table and the fix's parameters through the
+    converters above; fields the port has no counterpart for are not
+    read."""
+    conv = dict(box=lambda b: _same(Box, b),
+                capacity=lambda c: _same(Capacity, c),
+                langevin=lambda t: _same(LangevinParams, t),
+                pair=pair_params, obmd=obmd_params, shake=shake_params,
+                bond=bonded_params, angle=bonded_params,
+                dihedral=bonded_params, improper=bonded_params)
+    return SceneConfig(**{
+        f.name: conv.get(f.name, lambda v: v)(getattr(cfg, f.name))
+        for f in dataclasses.fields(SceneConfig)})

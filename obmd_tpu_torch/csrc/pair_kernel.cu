@@ -108,8 +108,8 @@
 // the TPU kernels' one-sided check because partner lists are symmetric
 // (state.init_state builds both directions of every bond).  -2 matches no
 // tag (live tags are >= 1; a dead slot's stale tag is never read).
-// Four channels are instantiated for make_pair_kernel's typed dpd law with
-// uniform noise on periodic y and z (a branched melt's), only.
+// Four channels are instantiated for every law, type flag, noise variant
+// and y/z geometry of make_pair_kernel (make_dpd_kernel has two).
 // The channel count, the law and the type tables are template parameters,
 // so a 6-channel one-type launch compiles none of them.  So are the DPD
 // law's two variants, instantiated for obmd_pair's dpd law only
@@ -634,26 +634,44 @@ int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
   }
 }
 
-// The exclusion flag and the type flag at run time -> the instantiation.
+// The type flag at run time -> the instantiation (make_dpd_kernel has one
+// type).
+template <int kLaw, bool kLegacy, int kExcl>
+int start_types(const dim3& grid, cudaStream_t st, const void* fld,
+                const void* tag, const void* occ, const void* pbond,
+                void* out, bool types, bool gauss, bool ramp,
+                const Params& P, const Tables& T) {
+  if (!types) {
+    return start_noise<kLaw, kLegacy, kExcl, false>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
+  }
+  if constexpr (kLegacy) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return start_noise<kLaw, kLegacy, kExcl, true>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
+  }
+}
+
+// The exclusion channels at run time -> the instantiation: none, two (chains)
+// or four (branched topologies; make_pair_kernel's only, as make_dpd_kernel
+// has two).
 template <int kLaw, bool kLegacy>
 int start_law(const dim3& grid, cudaStream_t st, const void* fld,
               const void* tag, const void* occ, const void* pbond, void* out,
-              bool excl, bool types, bool gauss, bool ramp, const Params& P,
+              int n_excl, bool types, bool gauss, bool ramp, const Params& P,
               const Tables& T) {
-  if (!types && !excl) {
-    return start_noise<kLaw, kLegacy, 0, false>(
-        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
-  } else if (!types) {
-    return start_noise<kLaw, kLegacy, 2, false>(
-        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
+  if (n_excl == 0) {
+    return start_types<kLaw, kLegacy, 0>(grid, st, fld, tag, occ, pbond, out,
+                                         types, gauss, ramp, P, T);
+  } else if (n_excl == 2) {
+    return start_types<kLaw, kLegacy, 2>(grid, st, fld, tag, occ, pbond, out,
+                                         types, gauss, ramp, P, T);
   } else if constexpr (kLegacy) {
-    return (int)cudaErrorInvalidValue;    // make_dpd_kernel has one type
-  } else if (!excl) {
-    return start_noise<kLaw, kLegacy, 0, true>(
-        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
+    return (int)cudaErrorInvalidValue;
   } else {
-    return start_noise<kLaw, kLegacy, 2, true>(
-        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
+    return start_types<kLaw, kLegacy, 4>(grid, st, fld, tag, occ, pbond, out,
+                                         types, gauss, ramp, P, T);
   }
 }
 
@@ -689,7 +707,6 @@ int launch(const void* fld, const void* tag, const void* occ,
     for (int k = 0; k < kRows; ++k)
       for (int i = 0; i < n; ++i) T.v[k * kMaxPairs + i] = tables[4 + k * n + i];
   }
-  const bool excl = n_excl == 2;
   const bool gauss = gaussian != 0, rmp = ramp != 0;
   const int tiles = ((P.nx + P.tile_x - 1) / P.tile_x)
                     * ((P.ny + P.tile_y - 1) / P.tile_y)
@@ -697,49 +714,18 @@ int launch(const void* fld, const void* tag, const void* occ,
   const dim3 grid((unsigned)tiles, (unsigned)P.split);
   const cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (n_excl == 4) {
-    // four channels (branched topologies): make_pair_kernel's dpd law with
-    // 1-4 types, lj with 1-4 types and ljrf with 2-4 types, uniform noise,
-    // y and z periodic with >= 3 cells each; five instantiations
-    if constexpr (kLegacy) {
-      return (int)cudaErrorInvalidValue;  // make_dpd_kernel has two
-    } else {
-      if (gauss || rmp || P.ny == 1 || P.nz == 1 || !(P.per_y && P.per_z))
-        return (int)cudaErrorInvalidValue;
-      if (law == kDpd && types) {
-        rc = start_geo<kDpd, false, 4, true, false, false, false, false>(
-            grid, st, fld, tag, occ, pbond, out, P, T);
-      } else if (law == kDpd) {
-        rc = start_geo<kDpd, false, 4, false, false, false, false, false>(
-            grid, st, fld, tag, occ, pbond, out, P, T);
-      } else if (law == kLj && types) {
-        rc = start_geo<kLj, false, 4, true, false, false, false, false>(
-            grid, st, fld, tag, occ, pbond, out, P, T);
-      } else if (law == kLj) {
-        rc = start_geo<kLj, false, 4, false, false, false, false, false>(
-            grid, st, fld, tag, occ, pbond, out, P, T);
-      } else if (law == kLjrf && types) {
-        rc = start_geo<kLjrf, false, 4, true, false, false, false, false>(
-            grid, st, fld, tag, occ, pbond, out, P, T);
-      } else {
-        return (int)cudaErrorInvalidValue;
-      }
-      if (rc != 0) return rc;
-      return (int)cudaGetLastError();
-    }
-  }
   if (law == kDpd) {
-    rc = start_law<kDpd, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
-                                  types, gauss, rmp, P, T);
+    rc = start_law<kDpd, kLegacy>(grid, st, fld, tag, occ, pbond, out,
+                                  n_excl, types, gauss, rmp, P, T);
   } else if (law == kLj) {
-    rc = start_law<kLj, kLegacy>(grid, st, fld, tag, occ, pbond, out, excl,
-                                 types, gauss, rmp, P, T);
+    rc = start_law<kLj, kLegacy>(grid, st, fld, tag, occ, pbond, out,
+                                 n_excl, types, gauss, rmp, P, T);
   } else if (law == kLjrf) {
     if constexpr (kLegacy) {
       return (int)cudaErrorInvalidValue;  // make_dpd_kernel has no charges
     } else {
       rc = start_law<kLjrf, kLegacy>(grid, st, fld, tag, occ, pbond, out,
-                                     excl, types, gauss, rmp, P, T);
+                                     n_excl, types, gauss, rmp, P, T);
     }
   } else {
     return (int)cudaErrorInvalidValue;

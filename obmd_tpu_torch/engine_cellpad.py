@@ -3,9 +3,12 @@
 Counterpart of `obmd_tpu/engine_cellpad.py` for DPD (uniform or gaussian
 noise), lj/cut or lj/cut/rf with 1-4 atom types, in an open-x box with
 ATOM-mode USHER or `near` insertion (OBMD_DPD, the open LJ fluid, the open
-charged two-type LJ fluid) or MOLECULE-mode insertion of one template with
-its bonds, angles and impropers (the open star-polymer melt: `_insert_mol`,
-whole-molecule deletion, the molecules' centers of mass after every step),
+charged two-type LJ fluid) or MOLECULE-mode insertion of one or several
+templates with their bonds, angles, impropers and charges (the open
+star-polymer melt, the open SPC/E water: `_insert_mol` with every keyword
+of the fix but `rigid`, whole-molecule deletion, the molecules' centers of
+mass after every step), with SHAKE/RATTLE constraints after the drift and
+the second half kick (`shake.py`),
 or a closed box without the OBMD stage (the LJ
 melt; with FENE chains, the chain melt; with harmonic bonds, angles,
 dihedrals on chains and impropers on branched topologies of up to four
@@ -68,7 +71,8 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
 from .cells import BIG
 from .config import (DPDTstatParams, LJCutRFParams, SceneConfig,
                      template_stacks)
-from .geometry import const_like
+from .geometry import const, const_like
+from .shake import rattle_velocities, shake_positions
 from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                             improper_forces, langevin_force)
 from .forces.pair_kernel import (N_EXCL, N_EXCL_BRANCHED, PadGeometry,
@@ -100,14 +104,17 @@ def mol_mode(cfg: SceneConfig) -> bool:
 
 def own_draws(cfg: SceneConfig) -> Draw:
     """Production draws from the state's generator, only when needed:
-    normal positions' draws under `gaussian`, else uniform ones, and the
-    uniforms of the deposit z and the velocities where their keywords are
-    set."""
+    normal positions' draws under `gaussian`, else uniform ones (in
+    MOLECULE mode the rotation's draws uniform either way), the template
+    of each trial by `molfrac` with several templates, and the uniforms of
+    the deposit z and the velocities where their keywords are set."""
     if cfg.obmd is None:
         return lambda state, need: None
+    mol = mol_mode(cfg)
     shapes = draw_shapes(cfg, rounds_of(cfg), cfg.obmd.insert_kmax,
-                         7 if mol_mode(cfg) else 3)
+                         7 if mol else 3)
     gauss = cfg.obmd.gaussian is not None
+    frac = template_stacks(cfg.obmd).frac if mol else None
 
     def draw(state: State, need: bool):
         if not need:
@@ -115,9 +122,19 @@ def own_draws(cfg: SceneConfig) -> Draw:
         kw = dict(generator=state.gen, dtype=state.dtype,
                   device=state.device)
         pos = (torch.randn if gauss else torch.rand)(shapes["pos"], **kw)
-        return Draws(pos, *(None if shapes[f] is None
-                            else torch.rand(shapes[f], **kw)
-                            for f in ("z", "vel")))
+        if mol and gauss:
+            pos[..., 3:] = torch.rand(pos[..., 3:].shape, **kw)
+        z, vel = (None if shapes[f] is None else torch.rand(shapes[f], **kw)
+                  for f in ("z", "vel"))
+        tpl = None
+        if shapes["tpl"] is not None:
+            p = const(tuple(float(f) for f in frac), torch.float32,
+                      state.device)
+            n = int(np.prod(shapes["tpl"][:-1]))
+            tpl = torch.multinomial(p.expand(n, -1), shapes["tpl"][-1],
+                                    replacement=True, generator=state.gen
+                                    ).reshape(shapes["tpl"]).to(torch.int32)
+        return Draws(pos, z, vel, tpl)
     return draw
 
 
@@ -127,6 +144,10 @@ def check_scene(cfg: SceneConfig) -> None:
     without bonded terms in ATOM mode."""
     if cfg.dtype != "float32":
         raise NotImplementedError("only float32 scenes are ported")
+    if cfg.rigid:
+        raise NotImplementedError(
+            "rigid bodies (`rigid`, obmd_tpu/rigid.py) are not ported yet: "
+            "the slice after SHAKE ports them")
     if cfg.ntypes != cfg.pair.ntypes:
         raise ValueError(f"{cfg.ntypes} masses for a pair law of "
                          f"{cfg.pair.ntypes} types")
@@ -142,50 +163,21 @@ def check_scene(cfg: SceneConfig) -> None:
             "mode, the `mol` keyword, is)")
 
 
-# the fix keywords of MOLECULE mode that are not ported, with what each is
-# (a value other than these defaults refuses)
-_MOL_UNPORTED = (
-    ("mols", "multi-template insertion (`mols`/`molfrac`)", ()),
-    ("molfrac", "multi-template insertion (`mols`/`molfrac`)", None),
-    ("charged", "`charged 1` trial energies", False),
-    ("orient", "the fixed rotation axis `orient`", None),
-    ("rigid", "rigid-body insertion (`rigid`)", False),
-    ("shake", "SHAKE-constrained insertion (`shake`)", False),
-    ("maxattempt", "candidate rounds (maxattempt > 1)", 1),
-    ("nfreq", "a stage every nfreq > 1 steps", 1),
-    ("vx", "the inserted-velocity keywords (vx, vy, vz, target)", None),
-    ("vy", "the inserted-velocity keywords (vx, vy, vz, target)", None),
-    ("vz", "the inserted-velocity keywords (vx, vy, vz, target)", None),
-    ("target", "the inserted-velocity keywords (vx, vy, vz, target)",
-     None),
-    ("gaussian", "the candidate keyword `gaussian`", None),
-    ("deposit_global", "the candidate keyword `global`", None),
-    ("deposit_local", "the candidate keyword `local`", None),
-    ("rate", "the candidate keyword `rate`", None))
-
-
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
-    open boxes with ATOM-mode USHER or `near` insertion (any maxattempt
-    and nfreq, the deposit and inserted-velocity keywords, a census of
-    `group_types`) and closed boxes without the OBMD stage, each DPD,
-    lj/cut or lj/cut/rf with 1-4 types (as many masses as the pair law has
-    types), with or without the Langevin thermostat; dpd/tstat; FENE or
+    open boxes with ATOM-mode USHER or `near` insertion or MOLECULE-mode
+    insertion (any maxattempt and nfreq, the deposit and inserted-velocity
+    keywords, a census of `group_types`; in MOLECULE mode several
+    templates by `molfrac`, `charged 1`, `orient` and `shake`) and closed
+    boxes without the OBMD stage, each DPD, lj/cut or lj/cut/rf with 1-4
+    types (as many masses as the pair law has types), with or without the
+    Langevin thermostat and SHAKE/RATTLE constraints; dpd/tstat; FENE or
     harmonic bonds, harmonic angles, dihedrals (chains only, as
     obmd_tpu/engine_cellpad.py:149-154) and impropers, on chains or
-    branched topologies (the pair kernel's 4-channel exclusion,
-    pair_kernel.check_channels), on a closed box or in an open box whose
-    stage inserts molecules of one template (MOLECULE mode, without the
-    keywords of _MOL_UNPORTED); check_scene's refusals first."""
+    branched topologies (the pair kernel's 4-channel exclusion); rigid
+    bodies are refused (check_scene's refusals first)."""
     check_scene(cfg)
     if mol_mode(cfg):
-        for name, what, default in _MOL_UNPORTED:
-            v = getattr(cfg.obmd, name)
-            if name in ("maxattempt", "nfreq"):
-                v = max(1, int(v))         # 0 counts as 1 (rounds_of)
-            if v != default:
-                raise NotImplementedError(
-                    f"molecule insertion: {what} is not ported yet")
         top = int(template_stacks(cfg.obmd).types.max())
         if top >= cfg.ntypes:
             raise ValueError(f"the insertion template reaches type "
@@ -468,78 +460,125 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
 
 
 @functools.lru_cache(maxsize=8)
-def _template(obmd, device):
-    """The (single) insertion template's stacks as tensors on `device`:
-    dx [m, 3], types [m], q [m], rep [m], natoms, pidx [m, 4], iidx [m, 3]
-    (obmd_tpu/config.py template_stacks, template 0)."""
+def _templates(obmd, device):
+    """The insertion templates' stacks as tensors on `device`, padded to the
+    largest template's m atoms (config.template_stacks): dx [T, m, 3], amask
+    [T, m], types [T, m], q [T, m], rep [T, m], natoms [T], pidx [T, m, 4],
+    iidx [T, m, 3]."""
     ts = template_stacks(obmd)
-    return dict(dx=torch.tensor(ts.dx[0], dtype=torch.float32, device=device),
-                types=torch.tensor(ts.types[0], dtype=torch.int32,
-                                   device=device),
-                q=torch.tensor(ts.q[0], dtype=torch.float32, device=device),
-                rep=torch.tensor(ts.rep[0], dtype=torch.int32, device=device),
-                natoms=int(ts.natoms[0]),
-                pidx=torch.tensor(ts.pidx[0], dtype=torch.int64,
-                                  device=device),
-                iidx=torch.tensor(ts.iidx[0], dtype=torch.int64,
-                                  device=device))
+
+    def t(a, dtype):
+        return torch.tensor(a, dtype=dtype, device=device)
+    return dict(dx=t(ts.dx, torch.float32), amask=t(ts.amask, torch.bool),
+                types=t(ts.types, torch.int32), q=t(ts.q, torch.float32),
+                rep=t(ts.rep, torch.int32), natoms=t(ts.natoms, torch.int32),
+                pidx=t(ts.pidx, torch.int64), iidx=t(ts.iidx, torch.int64))
 
 
-def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
-    """MOLECULE-mode insertion (obmd_tpu/engine_cellpad.py:288-510, one
-    template, one round): per buffer K trials of the template, each at a
-    uniform center with a random rotation (`random_rotations` from the
-    draws' axis and angle uniforms), the molecule USHER search (or the
-    `near` check), every real atom inside the insertion region, greedy
-    in-order acceptance within the feedback budget; then free ranks for all
-    accepted atoms, and a molecule placed whole or not at all.  Placed
-    atoms take consecutive tags in candidate order, the molecule id of the
-    first atom's tag, the template's types, charges and rep_atom flags,
-    lambdaF 0, centers of mass 0 until the step's end, v 0, and partner and
-    improper slots resolved from the template's graph.  `u` holds the draws
-    [2, 1, K, 7].  Returns (state, pins_l, pins_r), the inserted momenta
-    (zero: molecules are inserted at rest)."""
+def _append_mol(sub: Subset, pos, acc, types_k, q_k, am_k) -> Subset:
+    """This round's molecule trials appended to the subset, their real
+    atoms valid where accepted (x BIG elsewhere), so later rounds see them
+    (obmd_tpu/engine_cellpad.py:336-354)."""
+    kk, m = am_k.shape
+    accr = acc.repeat_interleave(m) & am_k.reshape(kk * m)
+    return Subset(
+        x=torch.cat([sub.x, torch.where(accr[:, None],
+                                        pos.reshape(kk * m, 3), BIG)]),
+        type=torch.cat([sub.type, types_k.reshape(kk * m)]),
+        valid=torch.cat([sub.valid, accr]),
+        overflow=sub.overflow,
+        q=None if sub.q is None else torch.cat([sub.q,
+                                                q_k.reshape(kk * m)]))
+
+
+def _mol_rounds(cfg, state, side, region, budget, sub, u, tpl):
+    """One buffer's `maxattempt` rounds (obmd_tpu/engine_cellpad.py:356-399):
+    per round K trials, each of the template u.tpl picks (template 0 where
+    None) at the candidate draw (`draw_candidates`: uniform, `gaussian`,
+    `rate`, `global`, `local`) with the rotation of the axis and angle
+    uniforms (the axis draws unread under `orient`), the molecule USHER
+    search (with the template charges under `charged 1`) or the `near`
+    check, every real atom inside the region, greedy in-order acceptance
+    within the budget left; with rounds > 1 the round's accepted molecules
+    appended to the subset.  Returns (pos [M, m, 3], accepted [M], tsel
+    [M], usher iterations)."""
     obmd = cfg.obmd
-    u = u.pos
     k = obmd.insert_kmax
-    n_slots = geom.n_slots
+    rounds = rounds_of(cfg)
     dev = state.device
-    tpl = _template(obmd, dev)
-    m = tpl["dx"].shape[0]
-    am = torch.ones((k, m), dtype=torch.bool, device=dev)
-    types_k = tpl["types"].expand(k, m)
-    poss, accs = [], []
+    rem = torch.clamp(budget, 0, rounds * k)
+    poss, accs, tsels = [], [], []
     iters = torch.zeros((), dtype=torch.int32, device=dev)
-    for side, region, budget, sub in ((0, obmd.region5, nins_l, sub_l),
-                                      (1, obmd.region6, nins_r, sub_r)):
-        us = u[side, 0]
-        centers = draw_candidates(cfg, us[:, 0:3], None, region, state)[0]
+    for r in range(rounds):
+        us = u.pos[side, r]
+        tsel = (torch.zeros((k,), dtype=torch.int64, device=dev)
+                if u.tpl is None else u.tpl[side, r].long())
+        centers, ok0 = draw_candidates(
+            cfg, us[:, 0:3], None if u.z is None else u.z[side, r], region,
+            state)
         rots = random_rotations(us[:, 3:6], us[:, 6], axis=obmd.orient)
-        coords = mol_candidates_sel(tpl["dx"].expand(k, m, 3), am, centers,
-                                    rots)
+        am_k = tpl["amask"][tsel]
+        types_k = tpl["types"][tsel]
+        q_k = tpl["q"][tsel]
+        coords = mol_candidates_sel(tpl["dx"][tsel], am_k, centers, rots)
         if obmd.usher is not None:
-            pos, ok, it = usher_search_subset_mol(cfg, sub, coords, types_k,
-                                                  region, amask=am)
+            pos, ok, it = usher_search_subset_mol(
+                cfg, sub, coords, types_k, region,
+                mol_q=q_k if obmd.charged else None, amask=am_k)
             iters = iters + it.sum(dtype=torch.int32)
         else:
             pos, ok = coords, near_check_subset_mol(cfg, sub, coords)
-        ok = ok & torch.all(region.match(pos) | ~am, dim=1)
-        acc, _ = mol_sequential_accept(cfg, pos, types_k, ok,
-                                       torch.clamp(budget, 0, k))
+        ok = ok & ok0 & torch.all(region.match(pos) | ~am_k, dim=1)
+        acc, cnt = mol_sequential_accept(cfg, pos, types_k, ok,
+                                         torch.clamp(rem, max=k))
+        rem = rem - cnt
+        if rounds > 1:
+            sub = _append_mol(sub, pos, acc, types_k, q_k, am_k)
         poss.append(pos)
         accs.append(acc)
-    pos = torch.cat(poss)                                   # [2K, m, 3]
-    accepted = torch.cat(accs)                              # [2K]
-    km = 2 * k
+        tsels.append(tsel)
+    return torch.cat(poss), torch.cat(accs), torch.cat(tsels), iters
+
+
+def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
+    """MOLECULE-mode insertion (obmd_tpu/engine_cellpad.py:288-510): each
+    buffer's rounds of trials (`_mol_rounds`), then free ranks for all
+    accepted atoms, and a molecule placed whole or not at all.  Placed
+    atoms take consecutive tags in candidate order (left rounds, then
+    right), the molecule id of the first atom's tag, their template's
+    types, charges and rep_atom flags, lambdaF 0, centers of mass 0 until
+    the step's end, and partner and improper slots resolved from the
+    template's graph; a template's pad rows are masked out.  Without a
+    velocity keyword a molecule is inserted at rest; with one, every atom
+    of a molecule takes the velocity drawn at its trial's geometric
+    center (`draw_inserted_velocities`, `target` pointing from there), and
+    the molecules' momenta, by the masses of the template's types, are
+    returned per side for the tally.  `u` holds the call's Draws.  Returns
+    (state, pins_l, pins_r)."""
+    obmd = cfg.obmd
+    n_slots = geom.n_slots
+    dev = state.device
+    tpl = _templates(obmd, dev)
+    m = tpl["dx"].shape[1]
+    pos_l, acc_l, ts_l, it_l = _mol_rounds(cfg, state, 0, obmd.region5,
+                                           nins_l, sub_l, u, tpl)
+    pos_r, acc_r, ts_r, it_r = _mol_rounds(cfg, state, 1, obmd.region6,
+                                           nins_r, sub_r, u, tpl)
+    pos = torch.cat([pos_l, pos_r])                         # [2M, m, 3]
+    accepted = torch.cat([acc_l, acc_r])                    # [2M]
+    tsel = torch.cat([ts_l, ts_r])                          # [2M]
+    km = pos.shape[0]
+    am_k = tpl["amask"][tsel]                               # [2M, m]
+    am_flat = am_k.reshape(km * m)
     apos = pos.reshape(km * m, 3)
-    slot, landed = place_insertions(geom, state, apos,
-                                    accepted.repeat_interleave(m))
-    landed_mol = landed.reshape(km, m).all(1) & accepted
-    act = landed_mol.repeat_interleave(m)
+    slot, landed = place_insertions(
+        geom, state, apos, accepted.repeat_interleave(m) & am_flat)
+    landed_mol = (landed.reshape(km, m) | ~am_k).all(1) & accepted
+    act = landed_mol.repeat_interleave(m) & am_flat
     slot = torch.where(act, slot, n_slots)                  # atomic commit
 
     base = insertion_tag_base(cfg, state)
-    placed = torch.where(landed_mol, tpl["natoms"], 0).to(torch.int32)
+    placed = torch.where(landed_mol, tpl["natoms"][tsel], 0)
     tag_base = base + torch.cumsum(placed, 0, dtype=torch.int32) - placed
     atom_idx = torch.arange(m, dtype=torch.int32, device=dev).repeat(km)
     new_tag = tag_base.repeat_interleave(m) + atom_idx + 1
@@ -547,21 +586,38 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     base_flat = torch.arange(km * m, device=dev) // m * m
 
     def pslot(p_idx):
-        """Each placed atom's partner of template index p_idx [m] as a
+        """Each placed atom's partner of template index p_idx [2M, m] as a
         slot (-1 for none)."""
-        p = p_idx.repeat(km)
+        p = p_idx.reshape(km * m)
         pf = torch.clamp(base_flat + p, 0, km * m - 1)
         return torch.where((p >= 0) & act, slot[pf], -1)
 
     upd = {}
+    pidx, iidx = tpl["pidx"][tsel], tpl["iidx"][tsel]
     for c, name in enumerate(("bond1", "bond2", "bond3", "bond4")):
         if getattr(state, name) is not None:
             upd[name] = scatter_rows(getattr(state, name), slot,
-                                     pslot(tpl["pidx"][:, c]))
+                                     pslot(pidx[:, :, c]))
     if state.impr is not None:
         upd["impr"] = scatter_rows(state.impr, slot, torch.stack(
-            [pslot(tpl["iidx"][:, c]) for c in range(3)], dim=1))
+            [pslot(iidx[:, :, c]) for c in range(3)], dim=1))
     zeros3 = torch.zeros_like(apos)
+    ones = torch.ones_like(am_k, dtype=state.dtype)
+    com_k = (torch.where(am_k[:, :, None], pos, 0.0).sum(1)
+             / torch.clamp(torch.where(am_k, ones, 0.0).sum(1), min=1.0)
+             [:, None])
+    vnew = draw_inserted_velocities(cfg, u.vel, com_k)
+    if vnew is None:
+        av = zeros3
+        pins_l = pins_r = torch.zeros((3,), dtype=state.dtype, device=dev)
+    else:
+        av = vnew.repeat_interleave(m, dim=0)
+        types_k = tpl["types"][tsel]
+        mol_mass = torch.where(am_k, const_like(cfg.masses, pos)[
+            types_k.long()], 0.0).sum(1)
+        mv = mol_mass[:, None] * torch.where(landed_mol[:, None], vnew, 0.0)
+        half = km // 2
+        pins_l, pins_r = mv[:half].sum(0), mv[half:].sum(0)
     aux: PadAux = state.nbrs
     aux = aux.replace(xref=scatter_rows(aux.xref, slot, apos))
     aux = patch_kernel_caches(geom, aux, slot, new_tag, n_slots)
@@ -569,16 +625,16 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     n_atoms = placed.sum(dtype=torch.int32)
     want = torch.clamp(nins_l, min=0) + torch.clamp(nins_r, min=0)
     sc = state.obmd
-    zero = torch.zeros((3,), dtype=state.dtype, device=dev)
     return state.replace(
         x=scatter_rows(state.x, slot, apos),
-        v=scatter_rows(state.v, slot, zeros3),
+        v=scatter_rows(state.v, slot, av),
         f=scatter_rows(state.f, slot, zeros3),
-        type=scatter_rows(state.type, slot, tpl["types"].repeat(km)),
+        type=scatter_rows(state.type, slot, tpl["types"][tsel].reshape(-1)),
         tag=scatter_rows(state.tag, slot, new_tag),
-        q=scatter_rows(state.q, slot, tpl["q"].repeat(km)),
+        q=scatter_rows(state.q, slot, tpl["q"][tsel].reshape(-1)),
         mol=scatter_rows(state.mol, slot, mol_id),
-        rep_atom=scatter_rows(state.rep_atom, slot, tpl["rep"].repeat(km)),
+        rep_atom=scatter_rows(state.rep_atom, slot,
+                              tpl["rep"][tsel].reshape(-1)),
         lambdaF=scatter_rows(state.lambdaF, slot, zeros3[:, 0]),
         cms_mol=scatter_rows(state.cms_mol, slot, zeros3),
         vcms_mol=scatter_rows(state.vcms_mol, slot, zeros3),
@@ -587,7 +643,7 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
         obmd=sc.replace(
             ninserted=sc.ninserted + n_atoms,
             insert_fail=sc.insert_fail + torch.clamp(want - n_mols, min=0),
-            usher_iters=sc.usher_iters + iters)), zero, zero
+            usher_iters=sc.usher_iters + it_l + it_r)), pins_l, pins_r
 
 
 def _delete_outside_sliced(cfg, geom, state: State):
@@ -708,11 +764,7 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     group's stages)."""
     dt = float(np.float32(cfg.dt))          # float32 values as python floats
     dtf = float(np.float32(0.5 * cfg.dt))
-    m = per_atom_mass(cfg, state)[:, None]
-    a3 = state.alive[:, None]
-    v = torch.where(a3, state.v + dtf * state.f / m, state.v)
-    x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
-    state = state.replace(x=x, v=v)
+    state = kick_drift(cfg, state, dt, dtf)
     if relayout:
         if cfg.skin > 0:
             state = note_skin_check(cfg.box, float(cfg.skin), state)
@@ -723,14 +775,41 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     return _finish_step(cfg, geom, kern, state)
 
 
+def kick_drift(cfg, state: State, dt: float, dtf: float) -> State:
+    """The first half kick and the drift with the periodic wrap, live atoms
+    only, then under SHAKE the position constraints (the pre-drift
+    positions giving the bonds' directions, the more partner columns of a
+    branched topology included)."""
+    m = per_atom_mass(cfg, state)[:, None]
+    a3 = state.alive[:, None]
+    v = torch.where(a3, state.v + dtf * state.f / m, state.v)
+    x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
+    if cfg.shake is not None:
+        x, v = shake_positions(cfg, state.x, x, v, state.type, state.bond1,
+                               state.bond2, state.alive, 1.0 / m[:, 0],
+                               more_partners=state.bond_partners[2:])
+    return state.replace(x=x, v=v)
+
+
+def kick(cfg, state: State, f, dtf: float) -> torch.Tensor:
+    """The second half kick's velocities from the forces f, live atoms
+    only, then under SHAKE the RATTLE velocity constraints."""
+    m = per_atom_mass(cfg, state)[:, None]
+    v = torch.where(state.alive[:, None], state.v + dtf * f / m, state.v)
+    if cfg.shake is not None:
+        v = rattle_velocities(cfg, state.x, v, state.type, state.bond1,
+                              state.bond2, state.alive, 1.0 / m[:, 0],
+                              more_partners=state.bond_partners[2:])
+    return v
+
+
 def _finish_step(cfg, geom, kern, state: State) -> State:
     """The force pass and the second half kick (and the molecules'
     centers of mass in MOLECULE mode)."""
     dtf = float(np.float32(0.5 * cfg.dt))
     f = _forces(cfg, geom, kern, state)
-    m = per_atom_mass(cfg, state)[:, None]
-    v = torch.where(state.alive[:, None], state.v + dtf * f / m, state.v)
-    state = state.replace(v=v, f=f, step=state.step + 1)
+    state = state.replace(v=kick(cfg, state, f, dtf), f=f,
+                          step=state.step + 1)
     if mol_mode(cfg):
         state = update_mol_com(cfg, state)
     return state
@@ -760,11 +839,7 @@ def make_step_cellpad(cfg: SceneConfig, draw: Optional[Draw] = None):
     dtf = float(np.float32(0.5 * cfg.dt))
 
     def step(state: State) -> State:
-        m = per_atom_mass(cfg, state)[:, None]
-        a3 = state.alive[:, None]
-        v = torch.where(a3, state.v + dtf * state.f / m, state.v)
-        x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
-        state = state.replace(x=x, v=v)
+        state = kick_drift(cfg, state, dt, dtf)
         if cfg.obmd is not None:
             if state.step % nfreq == 0:
                 state = _obmd_stage(cfg, geom, state, draw)

@@ -64,11 +64,9 @@ cutoff long, else ValueError) or open (no image; make_pair_kernel only, as
 make_dpd_kernel has no open y/z), any layout (x-slabs tiling the lanes,
 p >= 2, or one slab per block in lanes padded to a multiple of 128, p ==
 1), any capacity, bonded exclusion with 2 channels, and with 4 channels
-(branched topologies) the dpd and lj laws with 1-4 types and the ljrf law
-with 2-4 types, uniform noise, on periodic y and z of >= 3 cells each
-(make_pair_kernel only: make_dpd_kernel has two; `check_channels`).  More
-than 4 types and the other 4-channel configurations raise
-`NotImplementedError`.
+(branched topologies) every law, type count, noise variant and y/z
+geometry of make_pair_kernel (make_dpd_kernel has two; `check_channels`).
+More than 4 types and other channel counts raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -798,30 +796,14 @@ def make_pair_kernel(geom: PadGeometry, params, dt: float,
 
 def check_channels(geom: PadGeometry, coef: PairCoef, n_excl: int) -> None:
     """Raise for an exclusion channel count the Hopper kernel is not built
-    for: 2 always, 4 (branched topologies) for the dpd law with 1-4 types,
-    the lj law with 1-4 types and the ljrf law with 2-4 types, each with
-    uniform noise on periodic y and z of >= 3 cells each: the five
-    instantiations of csrc/pair_kernel.cu at 4 channels.  Gaussian noise,
-    the dpd/tstat ramp and single-cell or open y/z at 4 channels are not
-    built."""
-    if n_excl == N_EXCL:
-        return
-    if n_excl != N_EXCL_BRANCHED:
+    for: csrc/pair_kernel.cu instantiates 2 channels (chains) and 4
+    (branched topologies) for every law, type count, noise variant and
+    y/z geometry of make_pair_kernel; the JAX engines build only those two
+    counts (obmd_tpu/engine_cellpad.py:75-78)."""
+    if n_excl not in (N_EXCL, N_EXCL_BRANCHED):
         raise NotImplementedError(
             f"pair kernel: {n_excl} exclusion channels (2 for chains, 4 for "
-            "branched topologies)")
-    if coef.law == "ljrf" and coef.ntypes == 1:
-        raise NotImplementedError(
-            "pair kernel: 4 exclusion channels are built for the ljrf law "
-            "with 2-4 types only")
-    if coef.gaussian or coef.ramp:
-        raise NotImplementedError(
-            "pair kernel: 4 exclusion channels are built for uniform noise "
-            "only (no gaussian noise, no dpd/tstat ramp)")
-    if geom.periodic_yz != (True, True) or min(geom.dims[1:]) < 3:
-        raise NotImplementedError(
-            "pair kernel: 4 exclusion channels are built for periodic y and "
-            "z of >= 3 cells each only (not single-cell or open y/z)")
+            "branched topologies, as obmd_tpu/engine_cellpad.py:75-78)")
 
 
 def make_dpd_kernel(geom: PadGeometry, *, a0: float = 0.0,

@@ -32,8 +32,8 @@ import torch
 from .cells import GridSpec, build_cells
 from .cellpad import layout_build
 from .config import SceneConfig
-from .engine_cellpad import (Draw, add_bonded_forces, check_scene,
-                             make_geometry, make_run_cellpad,
+from .engine_cellpad import (Draw, add_bonded_forces, check_scene, kick,
+                             kick_drift, make_geometry, make_run_cellpad,
                              make_step_cellpad, mol_mode, own_draws,
                              setup_cellpad, stage_every)
 from .engine_cellpad import pair_salt as _salt
@@ -47,7 +47,7 @@ from .obmd.stage import (apply_boundary_force, delete_outside,
                          insertion_subsets, pre_exchange, rounds_of,
                          setpoints, skipped_insertion, stage_params)
 from .obmd.subset import expand_region, subset_rows
-from .state import State, per_atom_mass, temperature
+from .state import State, temperature
 
 I32 = torch.int32
 
@@ -256,11 +256,7 @@ def make_step(cfg: SceneConfig, draw: Optional[Draw] = None):
     dtf = float(np.float32(0.5 * cfg.dt))
 
     def step(state: State) -> State:
-        m = per_atom_mass(cfg, state)[:, None]
-        a3 = state.alive[:, None]
-        v = torch.where(a3, state.v + dtf * state.f / m, state.v)
-        x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
-        state = state.replace(x=x, v=v)
+        state = kick_drift(cfg, state, dt, dtf)
         if cfg.obmd is not None and state.step % nfreq == 0:
             state = (_obmd_stage_fast(cfg, nparams, state, draw) if fast
                      else pre_exchange(cfg, state, draw))
@@ -274,11 +270,9 @@ def make_step(cfg: SceneConfig, draw: Optional[Draw] = None):
             f = pf.f
             state = state.replace(
                 cell_overflow=state.cell_overflow + ctab.overflow)
-        alive3 = state.alive[:, None]
-        f = torch.where(alive3, f, 0.0)
-        m = per_atom_mass(cfg, state)[:, None]
-        v = torch.where(alive3, state.v + dtf * f / m, state.v)
-        return state.replace(v=v, f=f, step=state.step + 1)
+        f = torch.where(state.alive[:, None], f, 0.0)
+        return state.replace(v=kick(cfg, state, f, dtf), f=f,
+                             step=state.step + 1)
 
     return step
 

@@ -186,11 +186,15 @@ class Draws(NamedTuple):
     draw, the rotation angle's draw).  z [2, rounds, K]: the uniform that
     places z under `global` / `local` (else None).  vel [3, 2 rounds K]:
     one uniform per velocity component and candidate in draw order (left
-    rounds, then right), under a velocity keyword (else None)."""
+    rounds, then right), under a velocity keyword (else None).  tpl [2,
+    rounds, K] i32: each MOLECULE-mode trial's template index, drawn by
+    `molfrac` where there are several templates (else None: template
+    0)."""
 
     pos: torch.Tensor
     z: Optional[torch.Tensor] = None
     vel: Optional[torch.Tensor] = None
+    tpl: Optional[torch.Tensor] = None
 
 
 def deposit_z(obmd) -> bool:
@@ -210,7 +214,9 @@ def draw_shapes(cfg: SceneConfig, rounds: int, k: int, dim: int) -> dict:
     o = cfg.obmd
     return dict(pos=(2, rounds, k, dim),
                 z=(2, rounds, k) if deposit_z(o) else None,
-                vel=(3, 2 * rounds * k) if has_velocity(o) else None)
+                vel=(3, 2 * rounds * k) if has_velocity(o) else None,
+                tpl=(2, rounds, k) if o.mol is not None
+                and len(o.templates) > 1 else None)
 
 
 def draw_candidates(cfg: SceneConfig, u, uz, region, state):

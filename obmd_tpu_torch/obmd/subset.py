@@ -7,10 +7,9 @@ buffer subsets and the new atoms' Verlet rows), the DPD (dpd/ext's
 conservative term is DPD's; dpd/tstat and dpd/ext/tstat have none),
 lj/cut and
 lj/cut/rf branches of `_batched_energy_force` and
-`conservative_energy_force` (the trials are neutral: ATOM-mode
-insertion places neutral atoms, and MOLECULE mode's `charged 1` is not
-ported, so lj/cut/rf's reaction field adds nothing to a trial's
-energy), `usher_search_subset_batch` and `near_check_subset` for ATOM
+`conservative_energy_force` (ATOM-mode trials are neutral; under
+MOLECULE mode's `charged 1` a trial's atoms carry the template charges,
+`cand_q` / `mol_q`, against the subset's), `usher_search_subset_batch` and `near_check_subset` for ATOM
 mode, and for MOLECULE mode `random_rotations`, `mol_candidates_sel`,
 `mol_energy_force`, `_axis_angle_rotate`, `usher_search_subset_mol`,
 `near_check_subset_mol` and `mol_sequential_accept`.  The subset holds the
@@ -96,12 +95,12 @@ def subset_rows(p, box, sub: Subset, pos, new_slots, act):
 
 
 def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
-                          box=None, sub_q=None):
+                          box=None, sub_q=None, cand_q=None):
     """sub_* [S,B,...], pos [S,K,3], cand_type [S,K] -> E [S,K], F [S,K,3]
     (DPD and dpd/ext: E = 0.5*a0*rc*wd^2, F = a0*wd*rhat; dpd/tstat and
     dpd/ext/tstat: zero; lj/cut and lj/cut/rf: the pair law of
-    forces/pairs.make_pair_law, the trials neutral against the subset's
-    charges sub_q [S,B], zero when None)."""
+    forces/pairs.make_pair_law, the trials' charges cand_q [S,K] against
+    the subset's sub_q [S,B], each zero when None)."""
     d = pos[:, :, None, :] - sub_x[:, None, :, :]          # [S,K,B,3]
     if box is not None:
         d = box.min_image(d)
@@ -130,8 +129,8 @@ def _batched_energy_force(pair, sub_x, sub_type, sub_valid, pos, cand_type,
         kw = {}
         if isinstance(pair, LJCutRFParams):
             qj = torch.zeros_like(sub_x[..., 0]) if sub_q is None else sub_q
-            kw = dict(qi=torch.zeros_like(pos[:, :, None, 0]),
-                      qj=qj[:, None, :])
+            qi = torch.zeros_like(pos[..., 0]) if cand_q is None else cand_q
+            kw = dict(qi=qi[:, :, None], qj=qj[:, None, :])
         zero = torch.zeros((), dtype=torch.int32, device=pos.device)
         fp, e = pair_fn(rsq, d, torch.zeros_like(d), cand_type[:, :, None],
                         sub_type[:, None, :], zero, zero, 0, **kw)
@@ -233,14 +232,17 @@ def near_check_subset(cfg: SceneConfig, sub: Subset, cand_x):
     return min_rsq >= near_squared(cfg)
 
 
-def conservative_energy_force(pair, sub: Subset, box, cand_x, cand_type):
-    """The conservative energy E [K] and force F [K, 3] of K neutral trial
-    particles cand_x [K, 3] of types cand_type [K] against one subset
-    (`_batched_energy_force` over a single side)."""
+def conservative_energy_force(pair, sub: Subset, box, cand_x, cand_type,
+                              cand_q=None):
+    """The conservative energy E [K] and force F [K, 3] of K trial
+    particles cand_x [K, 3] of types cand_type [K] and charges cand_q [K]
+    (neutral when None) against one subset (`_batched_energy_force` over a
+    single side; obmd_tpu/obmd/subset.py:65-111)."""
     q = None if sub.q is None else sub.q[None]
-    e, f = _batched_energy_force(pair, sub.x[None], sub.type[None],
-                                 sub.valid[None], cand_x[None],
-                                 cand_type[None], box=box, sub_q=q)
+    e, f = _batched_energy_force(
+        pair, sub.x[None], sub.type[None], sub.valid[None], cand_x[None],
+        cand_type[None], box=box, sub_q=q,
+        cand_q=None if cand_q is None else cand_q[None])
     return e[0], f[0]
 
 
@@ -283,15 +285,20 @@ def mol_candidates_sel(dx_sel, amask, centers, rots):
 
 
 def mol_energy_force(cfg, sub: Subset, coords, mol_types,
-                     per_atom: bool = False):
+                     per_atom: bool = False, mol_q=None):
     """Each K-molecule trial's total conservative energy [K] and net force
     [K, 3] against the subset, and with per_atom its atoms' forces [K, m,
-    3]; coords [K, m, 3], mol_types [m] or [K, m]."""
+    3]; coords [K, m, 3], mol_types [m] or [K, m], and under `charged 1`
+    the trials' charges mol_q [m] or [K, m] (obmd_tpu/obmd/subset.py:
+    241-259; None: neutral trials)."""
     k, m, _ = coords.shape
     types = (mol_types.repeat(k) if mol_types.dim() == 1
              else mol_types.reshape(k * m))
+    cq = None if mol_q is None else (
+        mol_q.repeat(k) if mol_q.dim() == 1 else mol_q.reshape(k * m))
     e, f = conservative_energy_force(cfg.pair, sub, cfg.box,
-                                     coords.reshape(k * m, 3), types)
+                                     coords.reshape(k * m, 3), types,
+                                     cand_q=cq)
     fa = f.reshape(k, m, 3)
     e = e.reshape(k, m).sum(1)
     if per_atom:
@@ -312,7 +319,7 @@ def _axis_angle_rotate(coords, com, axis, angle):
 
 
 def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
-                            amask=None):
+                            mol_q=None, amask=None):
     """Molecule USHER (ref fix_obmd_merged.cpp:1586-1605): each iteration
     translates a molecule along its net force as ATOM mode moves an atom,
     then rotates it about its center of mass along the torque, dtheta =
@@ -321,7 +328,8 @@ def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
     reference's calc_torque keeps only the last atom).  E < etarget + eps
     accepts; a degenerate force or a step that takes a real atom out of the
     region rejects; a post-loop check accepts a molecule still below
-    target.  Returns (coords [K, m, 3], accepted [K], iters [K] i32)."""
+    target.  mol_q: the trials' charges under `charged 1` (None:
+    neutral).  Returns (coords [K, m, 3], accepted [K], iters [K] i32)."""
     u = cfg.obmd.usher
     dtheta0 = float(getattr(u, "dtheta0", 0.0) or 0.0)
     kk, mm = coords.shape[:2]
@@ -337,7 +345,8 @@ def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
     accepted = torch.zeros((kk,), dtype=torch.bool, device=dev)
     iters = torch.zeros((kk,), dtype=torch.int32, device=dev)
     for _ in range(u.nattempt):
-        e, f, fa = mol_energy_force(cfg, sub, pos, mol_types, per_atom=True)
+        e, f, fa = mol_energy_force(cfg, sub, pos, mol_types, per_atom=True,
+                                    mol_q=mol_q)
         ok = e < u.etarget + EPSILON
         newly = active & ok
         fabs = torch.sqrt((f * f).sum(-1))
@@ -366,7 +375,7 @@ def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
         active = active & ~stopped
         accepted = accepted | newly
         iters = iters + active.to(torch.int32)
-    e = mol_energy_force(cfg, sub, pos, mol_types)[0]
+    e = mol_energy_force(cfg, sub, pos, mol_types, mol_q=mol_q)[0]
     accepted = accepted | (active & (e < u.etarget + EPSILON))
     return pos, accepted, iters
 
@@ -387,8 +396,13 @@ def mol_sequential_accept(cfg, coords, mol_types, ok, budget):
     (mol_types, the trials' atom types, are not read, as in the JAX
     function):
     take a trial when it is ok, the budget is not spent and, under USHER,
-    its summed pair energy with the trials taken before it stays at most
-    etarget + eps (`near`: no such pair energy above zero).  The pair
+    no trial was taken before it or its summed pair energy with those
+    stays at most etarget + eps (`near`: no such pair energy above zero).
+    The JAX function compares the empty sum too, so at a negative etarget
+    (a liquid's, path I's water) it refuses every trial and MOLECULE mode
+    never inserts (ROADMAP Queue 3); the port takes the first ok trial, as
+    ATOM mode's acceptance does (obmd_tpu/obmd/stage.py:207-262), and at
+    etarget >= 0 both agree.  The pair
     energy is the DPD energy at the law's first coefficients a0[0][0] and
     cut[0][0], as the JAX package reads them, or for the LJ family
     infinite when any two atoms are within the largest cutoff.  Returns
@@ -414,7 +428,8 @@ def mol_sequential_accept(cfg, coords, mol_types, ok, budget):
         if obmd.near is not None:
             clash = ((epair[kk] > 0.0) & accepted).any()
         else:
-            clash = torch.where(accepted, epair[kk], 0.0).sum() > thresh
+            clash = accepted.any() & (
+                torch.where(accepted, epair[kk], 0.0).sum() > thresh)
         take = ok[kk] & ~clash & (count < budget)
         accepted[kk] = take
         count = count + take.to(torch.int32)

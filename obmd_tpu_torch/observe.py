@@ -22,6 +22,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+__all__ = ("Thermo", "Profiles", "make_thermo_fn", "bonded_energies",
+           "make_profile_fn", "profile_temperature", "make_obmd_metrics_fn",
+           "molecule_census", "molecule_sizes", "molecule_report",
+           "molecular_pxx",
+           "bond_stats", "charge_census", "constraint_error",
+           "ill_conditioned_impropers", "check_invariants")
+
+import numpy as np
 import torch
 
 from .cells import build_cells
@@ -30,6 +38,7 @@ from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                             improper_forces)
 from .forces.pairs import pair_sweep
 from .integrate import _salt, make_grid_spec
+from .shake import constraint_error
 from .state import State, per_atom_mass, temperature
 
 
@@ -224,14 +233,13 @@ def make_obmd_metrics_fn(cfg: SceneConfig):
     return metrics
 
 
-def molecule_census(cfg: SceneConfig, state: State):
+def molecule_census(cfg: SceneConfig, state: State, templates=None):
     """(molecules, broken) of a MOLECULE-mode scene whose molecules all
-    follow its insertion template: the live molecule ids (mol != 0), and
-    those not whole: a count of live atoms other than the template's
-    natoms, a bond-partner count other than twice the template's bonds, or
-    an atom with a partner slot that is dead, of another molecule or does
-    not name it back."""
-    tpl = cfg.obmd.mol
+    follow one of its insertion templates: the live molecule ids (mol !=
+    0), and those not whole: a count of live atoms and a bond-partner
+    count that are not some template's natoms and twice its bonds, or an
+    atom with a partner slot that is dead, of another molecule or does not
+    name it back.  `templates`: those of the stage when None."""
     n = state.capacity
     member = state.alive & (state.mol != 0)
     ids = torch.where(member, state.mol, 0).long()
@@ -252,7 +260,11 @@ def molecule_census(cfg: SceneConfig, state: State):
         deg = deg + has.long()
     degsum = torch.bincount(ids[member], weights=deg[member].double(),
                             minlength=size)
-    broken = (count != tpl.natoms) | (degsum != 2 * len(tpl.bonds))
+    shapes = {(t.natoms, 2 * len(t.bonds))
+              for t in templates or cfg.obmd.templates}
+    broken = torch.ones_like(count, dtype=torch.bool)
+    for natoms, degs in shapes:
+        broken = broken & ~((count == natoms) & (degsum == degs))
     broken[ids[member & bad]] = True
     live = count > 0
     live[0] = False
@@ -285,6 +297,96 @@ def charge_census(state: State):
     drift (the reference's ATOM mode does the same)."""
     q = torch.where(state.alive, state.q, 0.0)
     return float(q.sum()), int((q != 0.0).sum())
+
+
+def molecule_sizes(state: State) -> torch.Tensor:
+    """The census of the molecules: i64 [max mol id + 1], each molecule
+    id's live atoms (0 for an id no live atom carries; index 0 counts the
+    atoms outside any molecule)."""
+    ids = torch.where(state.alive, state.mol, 0).long()
+    return torch.bincount(ids[state.alive], minlength=1)
+
+
+def molecule_report(cfg: SceneConfig, state: State, templates=None) -> dict:
+    """A molecule path's audit figures: the live molecules and those not
+    whole (molecule_census), the molecules by atom count (from
+    molecule_sizes: {atoms: molecules}), the net charge over the live
+    atoms and, under SHAKE, the largest constraint error (nm in the
+    water scenes; shake.constraint_error); `templates` as
+    molecule_census's."""
+    n, broken = molecule_census(cfg, state, templates)
+    sizes = molecule_sizes(state)[1:]
+    by = torch.bincount(sizes[sizes > 0])
+    out = dict(molecules=n, broken=broken,
+               atoms_per_molecule={int(k): int(c) for k, c in enumerate(by)
+                                   if c > 0},
+               net_charge=charge_census(state)[0])
+    if cfg.shake is not None:
+        out["constraint_error"] = float(constraint_error(cfg, state))
+    return out
+
+
+def molecular_pxx(cfg: SceneConfig, state: State, k_max: int = 640,
+                  cell_capacity: int = 0):
+    """The molecular P_xx of a molecule scene whose intramolecular pairs
+    are all excluded (a bond style on, every pair of a molecule bonded:
+    path I's rigid water), and the atomic one thermo would read with the
+    exclusion: (P_xx molecular, P_xx atomic).  V P_xx,mol = sum_mol M
+    V_x^2 + W_xx - sum_a (r_a - R_mol(a))_x f_a,x, with W the pair virial
+    0.5 sum d (x) F over the intermolecular pairs (nlist_sweep on a fresh
+    Verlet list of k_max rows, 1-2 pairs out), f_a each atom's pair force
+    alone (no Langevin term), V_com the molecules' centre-of-mass
+    velocities and r_a - R_mol(a) taken by minimum image from one atom of
+    the molecule; atoms of mol 0 are molecules of one.  A SHAKE scene's
+    constraint forces are internal to a molecule and do no molecular
+    virial, which is why this form holds where thermo's atomic one (no
+    constraint virial, obmd_tpu/observe.py:56-72) does not."""
+    from .cells import GridSpec
+    from .forces.nlist import nlist_sweep
+    from .neighbors import NeighborParams, full_rebuild
+    box = cfg.box
+    n = state.capacity
+    dev = state.device
+    spec = GridSpec.create(box, cfg.pair.max_cut + cfg.skin,
+                           cell_capacity or cfg.capacity.cell_capacity)
+    p = NeighborParams(spec=spec, k_max=k_max, cutoff=cfg.pair.max_cut,
+                       skin=cfg.skin)
+    x, v, alive = state.x, state.v, state.alive
+    nb = full_rebuild(p, box, x, alive)
+    if int(nb.overflow):
+        raise RuntimeError(f"molecular_pxx: the Verlet list dropped "
+                           f"{int(nb.overflow)} candidates (raise k_max or "
+                           "cell_capacity)")
+    more = state.bond_partners[2:]
+    pf = nlist_sweep(cfg.pair, box, nb.nlist, x, v, state.type, state.tag,
+                     state.q, alive, 0, dt=cfg.dt, bond1=state.bond1,
+                     bond2=state.bond2, more_bonds=more,
+                     compute_virial=True)
+    f = torch.where(alive[:, None], pf.f, 0.0).double()
+    m = torch.where(alive, per_atom_mass(cfg, state), 0.0).double()
+    slot = torch.arange(n, device=dev)
+    key = torch.where(alive & (state.mol != 0), state.mol.long(),
+                      -1 - slot)
+    _, mid = torch.unique(key, return_inverse=True)
+    n_mol = int(mid.max()) + 1
+    ref = torch.zeros((n_mol,), dtype=torch.long, device=dev)
+    ref[mid] = slot
+    d = box.min_image(x - x[ref[mid]]).double()
+    msum = torch.zeros((n_mol,), dtype=torch.float64,
+                       device=dev).index_add_(0, mid, m)
+    safe = torch.clamp(msum, min=1e-30)[:, None]
+    dcom = torch.zeros((n_mol, 3), dtype=torch.float64,
+                       device=dev).index_add_(0, mid, m[:, None] * d) / safe
+    vcom = torch.zeros((n_mol, 3), dtype=torch.float64,
+                       device=dev).index_add_(0, mid, m[:, None]
+                                              * v.double()) / safe
+    rel = d - dcom[mid]
+    kin_mol = (msum * vcom[:, 0] ** 2).sum()
+    kin_atom = (m * v[:, 0].double() ** 2).sum()
+    w = float(pf.virial[0])
+    inner = (rel[:, 0] * f[:, 0]).sum()
+    vol = float(np.prod(box.lengths))
+    return (float(kin_mol + w - inner) / vol, float(kin_atom + w) / vol)
 
 
 def ill_conditioned_impropers(cfg: SceneConfig, state: State,

@@ -31,7 +31,11 @@ max`.  The star-polymer melt
 (`star_melt_config`, `star_melt_scene`) is a
 closed melt of the JAX package's 4-arm star (tests/test_branched.py:27-33)
 in a DPD solvent-free box at rho 3, read through an `atom_style molecular`
-data file (`write_star_data`) and warmed up by `star_warm_up`.
+data file (`write_star_data`) and warmed up by `star_warm_up`.  Path F
+(`open_star_config`, `open_star_scene`) is that melt in an open box under
+shear, with molecule-mode insertion; path I (`open_water_config`,
+`open_water_scene`, `closed_water_scene` for its state point,
+`water_warm_up`) is BASELINE config 5's open SPC/E water under SHAKE.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
                      Capacity, DPDExtParams, DPDParams, DPDTstatParams,
                      ImproperHarmonicParams, LangevinParams, LJCutParams,
                      LJCutRFParams, ObmdParams, SceneConfig, UsherParams,
-                     derive_center_angle_table, derive_center_improper_table)
+                     derive_center_angle_table, derive_center_improper_table,
+                     shake_table_from_templates)
 from .geometry import Box, RegionBlock
 from .state import State, init_state
 
@@ -380,11 +385,11 @@ def obmd_ljrf_config(nx: int = 128, ny: int = 14,
     OBMD_LJRF_PXX).  max_cut stays 2.5, so the grid is the open LJ fluid's
     (74 x 8 x 8, p = 2, 208,384 slots).
 
-    It is the ATOM-mode stand-in for BASELINE.json config 5 (open-boundary
-    water under reaction field, Papez and Praprotnik, JCTC 2022): the
-    electrostatics of that deck in an LJ solvent with dissolved ions.
-    Config 5 proper (water with SHAKE, angles and MOL-mode insertion) waits
-    for the slices that port those."""
+    It carries the electrostatics of BASELINE.json config 5 (open-boundary
+    water under reaction field, Papez and Praprotnik, JCTC 2022) in an LJ
+    solvent with dissolved ions, under ATOM-mode insertion; config 5
+    itself, SPC/E water with SHAKE and MOL-mode insertion, is path I
+    (open_water_config, open_water_scene)."""
     return _open_lj_config(nx, ny, nbuf, ljrf_pair(), LJRF_MASSES,
                            OBMD_LJRF_ETARGET, OBMD_LJRF_PXX)
 
@@ -1116,6 +1121,277 @@ def mol_box_scene(law: str = "dpd", device="cuda", **cfg_kw) -> Scene:
     return Scene(cfg=cfg, state=init_state(
         cfg, x, v=v, types=types, mol=mol, bonds=bonds, impropers=impropers,
         device=device))
+
+
+# Path I: BASELINE.json config 5, open-boundary liquid water under a
+# reaction field (Papez and Praprotnik, JCTC 2022): SPC/E water (Berendsen,
+# Grigera and Straatsma, J. Phys. Chem. 91, 6269, 1987) in consistent
+# GROMACS units (nm, ps, amu, kJ/mol, e; the engine has F = m a with kB =
+# 1, so T is given as kT: 2.4943 kJ/mol is 300 K; qqrd2e 138.935458), held
+# rigid by SHAKE/RATTLE, MOLECULE-mode insertion with `charged 1`.  O is
+# type 0, H type 1; only O-O pairs have LJ (every pair with H has eps 0, its
+# sigma the O's so that no table holds a zero sigma).
+WATER_KT = 2.4943
+WATER_MASSES = (15.9994, 1.008)
+WATER_Q = (-0.8476, 0.4238)
+WATER_SIGMA, WATER_EPS = 0.316557, 0.650194
+WATER_OH, WATER_HOH = 0.1, 109.47     # nm, degrees
+WATER_QQRD2E = 138.935458
+WATER_RC, WATER_EPS_RF = 0.9, 78.5
+WATER_DT, WATER_SKIN, WATER_DAMP = 0.002, 0.1, 1.0
+WATER_LYZ, WATER_SITES, WATER_RHO = 6.0, 19, 33.37   # nm, sites, nm^-3
+WATER_PLANES, WATER_CLOSED_PLANES = 92, 20
+# thermo counts 3 degrees of freedom an atom; a rigid water has 6 of its 9,
+# so thermo's T of water at kT reads 6/9 of it
+WATER_THERMO_T = WATER_KT * 6.0 / 9.0
+# vx, vy, vz of an inserted water's center: uniform in +-WATER_V, whose
+# variance WATER_V^2 / 3 is kT / M at 300 K (M = 18.0154)
+WATER_V = 0.644
+WATER_WARM_STEPS = 500
+# Jacobi SHAKE sweeps a step: at the JAX package's 30 the warmed open box
+# read a largest constraint error of 9.1e-6 nm (water_probe.py), a hair
+# under the 1e-5 nm (1e-4 relative, fix shake's usual tolerance) the runs
+# are held to; 10 more cut the residual about tenfold
+WATER_SHAKE_ITERS = 40
+# The state point, read with `python3 -m obmd_tpu_torch.water_probe
+# --steps 2000 --warm 500` on an NVIDIA H100 80GB HBM3 at 700 W (at 30
+# SHAKE sweeps, before WATER_SHAKE_ITERS):
+# closed_water_scene() (7,220 waters, 6.009 x 6 x 6 nm, periodic), melted
+# by water_warm_up, then 2,000 steps under the Langevin thermostat, thermo
+# T 1.6818 (2/3 of kT is 1.6629).  OPEN_WATER_PXX (kJ/mol/nm^3; 14.09 is
+# 234 bar) is the molecular P_xx, the mean of 50 readings every 20 steps
+# over the second half (sd 13.64 a reading):
+#     V P_xx = sum_mol M V_com,x^2 + W_xx - sum_a (r_a - R_mol(a))_x f_a,x
+# with W the intermolecular pair virial and f_a the pair force alone
+# (observe.molecular_pxx); thermo's atomic P_xx read 1775.1, as it has no
+# constraint virial.  OPEN_WATER_ETARGET (kJ/mol) is the median energy of
+# 256 waters of the ended box, each taken out and tested against the rest
+# with its charges (subset.mol_energy_force(..., mol_q=q); quartiles
+# -101.72 and -80.90).  OPEN_WATER_CENSUS is the open box's buffer census
+# in molecules after water_warm_up (5,054 at the start; 301 waters left
+# through the faces in the warm-up, none was inserted).  WATER_CAP: the
+# fullest 1.0 nm cell held 116 atoms in the closed box and 123 and 120 in
+# the open one after the warm-up and 500 production steps.
+OPEN_WATER_ETARGET = -92.0050
+OPEN_WATER_PXX = 14.0929
+OPEN_WATER_CENSUS = 4838.5
+WATER_CAP = 150
+
+
+def water_template_coords() -> np.ndarray:
+    """O, H, H of SPC/E: O-H WATER_OH, H-O-H WATER_HOH (H-H 0.163299)."""
+    half = np.radians(WATER_HOH / 2.0)
+    return np.asarray([(0.0, 0.0, 0.0),
+                       (WATER_OH * np.sin(half), WATER_OH * np.cos(half), 0.0),
+                       (-WATER_OH * np.sin(half), WATER_OH * np.cos(half),
+                        0.0)])
+
+
+def write_water_molecule(path: str) -> None:
+    """SPC/E water as a LAMMPS molecule file: Coords
+    (water_template_coords), Types (O 0, H 1, 0-based), Charges
+    (WATER_Q) and Bonds (O-H twice and the H-H bond that closes the
+    triangle, as fix shake's angle constraint does)."""
+    from .io.molecule import MoleculeTemplate, write_molecule
+    write_molecule(path, MoleculeTemplate(
+        natoms=3, x=water_template_coords(), types=np.asarray([0, 1, 1]),
+        q=np.asarray([WATER_Q[0], WATER_Q[1], WATER_Q[1]]),
+        bonds=np.asarray([(1, 1, 2), (1, 1, 3), (1, 2, 3)])),
+        title="SPC/E water (Berendsen, Grigera and Straatsma 1987)")
+
+
+def water_template():
+    """config.MolTemplate of write_water_molecule's file, read back through
+    io.molecule.read_molecule (dx about the template's geometric
+    center)."""
+    from .config import MolTemplate
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "water.mol")
+        write_water_molecule(path)
+        return MolTemplate.from_file(path)
+
+
+def water_pair() -> LJCutRFParams:
+    """lj/cut/rf 0.9 0.9, O-O LJ only, eps_rf 78.5, qqrd2e in kJ/mol nm
+    / e^2."""
+    return LJCutRFParams.create(
+        cut_lj=WATER_RC, cut_coul=WATER_RC, ntypes=2,
+        epsilon=((WATER_EPS, 0.0), (0.0, 0.0)), sigma=WATER_SIGMA,
+        eps_rf=WATER_EPS_RF, qqrd2e=WATER_QQRD2E)
+
+
+def water_lattice(planes: int, seed: int, min_dist: float = 0.18):
+    """(x [3 n, 3], v [3 n, 3]) of n = planes x WATER_SITES^2 waters: centers
+    on a lattice of WATER_SITES^2 sites per x plane (spacing WATER_LYZ /
+    WATER_SITES) and `planes` planes at the spacing that gives WATER_RHO,
+    the first half a spacing inside x = 0; each water at a random
+    orientation, drawn again (numpy default_rng(seed)) while any of its
+    atoms lies within min_dist of an atom of a neighbouring site (periodic
+    in y and z, and in x across the planes' period); each molecule's atoms
+    at one velocity, normal at kT / M per component, less the mean."""
+    r = np.random.default_rng(seed)
+    a = WATER_LYZ / WATER_SITES
+    ax = 1.0 / (WATER_RHO * a * a)
+    dims = (planes, WATER_SITES, WATER_SITES)
+    period = np.asarray([planes * ax, WATER_LYZ, WATER_LYZ])
+    centers = (np.stack(np.meshgrid(*[np.arange(n) for n in dims],
+                                    indexing="ij"), -1) + 0.5) \
+        * np.asarray([ax, a, a])
+    tpl = water_template_coords() - water_template_coords().mean(0)
+    rot = _rotations(r, int(np.prod(dims))).reshape(dims + (3, 3))
+    offsets = [o for o in np.ndindex(3, 3, 3) if o != (1, 1, 1)]
+    for _ in range(200):
+        x = centers[..., None, :] + np.einsum("...ij,kj->...ki", rot, tpl)
+        bad = np.zeros(dims, bool)
+        for o in offsets:
+            shift = tuple(k - 1 for k in o)
+            other = np.roll(x, shift, axis=(0, 1, 2))
+            d = x[..., :, None, :] - other[..., None, :, :]
+            d -= period * np.round(d / period)
+            bad |= (np.sqrt((d * d).sum(-1)) < min_dist).any((-1, -2))
+        if not bad.any():
+            break
+        rot[bad] = _rotations(r, int(bad.sum()))
+    else:
+        raise RuntimeError("water_lattice: close contacts remain")
+    mass = np.asarray(WATER_MASSES)[[0, 1, 1]].sum()
+    vc = r.normal(0.0, np.sqrt(WATER_KT / mass), dims + (3,))
+    vc -= vc.reshape(-1, 3).mean(0)
+    v = np.broadcast_to(vc[..., None, :], x.shape)
+    return x.reshape(-1, 3), np.ascontiguousarray(v).reshape(-1, 3)
+
+
+def _water_topology(n_w: int):
+    """(types, q, mol, bonds) of n_w waters in O, H, H order."""
+    types = np.tile([0, 1, 1], n_w)
+    q = np.tile([WATER_Q[0], WATER_Q[1], WATER_Q[1]], n_w)
+    mol = np.repeat(np.arange(1, n_w + 1), 3)
+    base = 3 * np.arange(n_w)[:, None] + 1
+    bonds = (base[:, None, :] + np.asarray([(0, 1), (0, 2), (1, 2)])[None]
+             ).reshape(-1, 2)
+    return types, q, mol, bonds
+
+
+def _water_base(box: Box, n_max: int, cap: int) -> SceneConfig:
+    """The water law, masses, bond exclusion, SHAKE table (from the
+    template, WATER_SHAKE_ITERS sweeps), dt, skin, thermostat and layout of
+    a box."""
+    return SceneConfig(
+        shake=shake_table_from_templates([water_template()], 2,
+                                         iters=WATER_SHAKE_ITERS),
+        box=box, masses=WATER_MASSES, pair=water_pair(), dt=WATER_DT,
+        capacity=Capacity(n_max=n_max, cell_capacity=cap),
+        bond=BondHarmonicParams(k=0.0, r0=WATER_OH),
+        langevin=LangevinParams(temp=WATER_KT, damp=WATER_DAMP),
+        skin=WATER_SKIN, force_path="cellpad")
+
+
+def open_water_config(planes: int = WATER_PLANES, cap: int = WATER_CAP,
+                      etarget: float = OPEN_WATER_ETARGET,
+                      pxx: float = OPEN_WATER_PXX,
+                      nbuf: float = OPEN_WATER_CENSUS,
+                      n_max: Optional[int] = None, **obmd_kw) -> SceneConfig:
+    """Path I, BASELINE.json config 5: SPC/E water in an open-x box of
+    `planes` lattice planes (92: Lx 27.64 nm) x WATER_LYZ x WATER_LYZ nm
+    (y and z periodic).
+
+    The law: lj/cut/rf with rc_lj = rc_coul = 0.9 nm, eps_rf 78.5
+    (water_pair).  bond_style zero's part is played by a harmonic bond of
+    K = 0 (r0 0.1): it switches on the pair kernel's 1-2 exclusion over
+    the bond columns (the JAX engine excludes only with a bond style,
+    obmd_tpu/engine_cellpad.py:75-78), so all three intramolecular pairs
+    are out of the pair law (SPC/E's special_bonds 0 0 0) and no bond
+    force acts; SHAKE holds the three distances (the fix's `shake`, the
+    table from the template: (0, 1) 0.1 and (1, 1) 0.163299).  dt 0.002
+    ps, skin 0.1 nm (1.0 nm cells: 27 x 6 x 6, ~100 atoms a cell),
+    Langevin at kT 2.4943 kJ/mol, damp 1 ps.
+
+    The stage: buffers of 0.15 Lx at each end, also the insertion regions;
+    degenerate shear regions, g_fac 0.25; alpha 0.7, tau = dt 0.005 /
+    0.001464 (as _open_lj_config); MOLECULE-mode insertion of
+    water_template() with mol_len 3, K = 8, `charged 1`, `shake`, and
+    `vx`/`vy`/`vz` in +-WATER_V nm/ps; USHER with ds0 0.1 nm, dtheta0 0.1,
+    uovlp 1e4, dsovlp 0.05, eps 1.0 and nattempt 40, a first setting in
+    these units, kept: on the warmed box with a quarter of the buffers
+    taken out 3 of 64 searches succeeded (water_probe.py on the H100),
+    and as many with the LJ-unit overlap step converted to nm (dsovlp 1.5
+    sigma, eps eps_OO sigma^12), so the overlap branch is not what holds
+    the share down;
+    etarget and the normal load pxx at the bulk state point, nbuf the
+    warmed box's buffer census in molecules (OPEN_WATER_ETARGET,
+    OPEN_WATER_PXX, OPEN_WATER_CENSUS).
+
+    The filing cap: WATER_CAP = 150, above the most atoms the warmed state
+    put in one cell (123, the comment at OPEN_WATER_ETARGET; the smoke
+    reads it again, chip_smoke.max_cell_count) with room for the
+    insertions and the density's fluctuations.  n_max: the start's
+    atoms and 10% more.  `obmd_kw` replaces ObmdParams fields."""
+    ax = 1.0 / (WATER_RHO * (WATER_LYZ / WATER_SITES) ** 2)
+    lx = planes * ax
+    b = 0.15 * lx
+    r1 = RegionBlock((0.0, 0.0, 0.0), (b, WATER_LYZ, WATER_LYZ))
+    r2 = RegionBlock((lx - b, 0.0, 0.0), (lx, WATER_LYZ, WATER_LYZ))
+    deg = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    v = (-WATER_V, WATER_V)
+    args = dict(
+        ntype=0, nfreq=1, seed=5, pxx=pxx, alpha=0.7,
+        tau=WATER_DT * (0.005 / 0.001464), nbuf=float(nbuf),
+        region1=r1, region2=r2, region3=deg, region4=deg, region5=r1,
+        region6=r2, buffer_size=b, g_fac=0.25, maxattempt=1,
+        usher=UsherParams(etarget=etarget, ds0=0.1, dtheta0=0.1,
+                          uovlp=1.0e4, dsovlp=0.05, eps=1.0, nattempt=40),
+        mol=water_template(), mol_len=3, insert_kmax=8, charged=True,
+        shake=True, vx=v, vy=v, vz=v)
+    args.update(obmd_kw)
+    n = 3 * planes * WATER_SITES ** 2
+    box = Box((0.0, 0.0, 0.0), (lx, WATER_LYZ, WATER_LYZ),
+              (False, True, True))
+    return dataclasses.replace(
+        _water_base(box, n_max or int(1.1 * n), cap),
+        obmd=ObmdParams(**args)).finalize()
+
+
+def open_water_scene(planes: int = WATER_PLANES, seed: int = 1987,
+                     device="cuda", **cfg_kw) -> Scene:
+    """Path I on `device`: water_lattice(planes) in open_water_config's
+    box (92 planes: 33,212 waters, 99,636 atoms), O, H, H with the
+    template's types and charges, one molecule id and three bonds a water
+    (`cfg_kw` passed on).  Warm it up with water_warm_up, then setup at
+    the production cap."""
+    cfg = open_water_config(planes=planes, **cfg_kw)
+    x, v = water_lattice(planes, seed)
+    types, q, mol, bonds = _water_topology(len(x) // 3)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, types=types, q=q,
+                                           mol=mol, bonds=bonds,
+                                           device=device))
+
+
+def closed_water_scene(planes: int = WATER_CLOSED_PLANES, seed: int = 1987,
+                       cap: int = WATER_CAP, device="cuda") -> Scene:
+    """The bulk of path I for its state point: open_water_config's law,
+    bonds, SHAKE table, dt, skin and thermostat in a periodic box of
+    `planes` planes (20: 6.009 x 6 x 6 nm, 6 cells a side, 7,220 waters)
+    at the same density."""
+    ax = 1.0 / (WATER_RHO * (WATER_LYZ / WATER_SITES) ** 2)
+    box = Box((0.0, 0.0, 0.0), (planes * ax, WATER_LYZ, WATER_LYZ),
+              (True, True, True))
+    x, v = water_lattice(planes, seed)
+    n_w = len(x) // 3
+    cfg = _water_base(box, len(x), cap).finalize()
+    types, q, mol, bonds = _water_topology(n_w)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, types=types, q=q,
+                                           mol=mol, bonds=bonds,
+                                           device=device))
+
+
+def water_warm_up(cfg: SceneConfig, state: State,
+                  steps: int = WATER_WARM_STEPS) -> State:
+    """The lattice's melt: setup, then integrate.equilibrate for `steps`
+    steps with thermo's T rescaled to WATER_THERMO_T every 25 steps (2/3
+    of kT: thermo counts 9 degrees of freedom a water, SHAKE leaves 6),
+    under the Langevin thermostat (and on an open box the stage)."""
+    from .integrate import equilibrate, setup
+    return equilibrate(cfg, setup(cfg, state), steps, temp=WATER_THERMO_T)
 
 
 # The reference binary's bonded goldens (validation/run_bonded_golden.py,

@@ -435,10 +435,10 @@ def test_generated_start_at_full_size():
 
 def test_engine_refuses_what_is_not_ported():
     """check_supported takes FENE and harmonic chains and branched
-    topologies on a closed box, and refuses bonds with an ATOM-mode OBMD
-    stage, dihedrals on a branched topology and a branched topology under
-    gaussian pair noise (the pair kernel's 4-channel exclusion is built for
-    uniform noise); the full-stencil kernel refuses 4 exclusion channels;
+    topologies on a closed box, also under gaussian pair noise (the pair
+    kernel's 4-channel exclusion is built for every noise variant), and
+    refuses bonds with an ATOM-mode OBMD stage and dihedrals on a branched
+    topology; the full-stencil kernel refuses 4 exclusion channels;
     compute_forces (the sweep, no 1-2 exclusion) refuses a bonded
     scene."""
     from obmd_tpu_torch.config import (BondHarmonicParams, DPDParams,
@@ -449,9 +449,9 @@ def test_engine_refuses_what_is_not_ported():
     check_supported(dataclasses.replace(cfg, bond=BondHarmonicParams()))
     star = pscenes.star_melt_config(8.0, 1535)
     check_supported(star)
-    bad = [dataclasses.replace(star, pair=dataclasses.replace(
-               star.pair, gaussian_noise=True)),
-           dataclasses.replace(star, dihedral=DihedralHarmonicParams(k=1.0)),
+    check_supported(dataclasses.replace(star, pair=dataclasses.replace(
+        star.pair, gaussian_noise=True)))
+    bad = [dataclasses.replace(star, dihedral=DihedralHarmonicParams(k=1.0)),
            dataclasses.replace(pscenes.obmd_dpd_config(scale=0.25),
                                bond=BondFENEParams())]
     for c in bad:

@@ -15,9 +15,8 @@ slots' BIG sentinel back into the box); under lj/cut/rf every third bead
 charged +-0.5.  Forces within 2e-4 * max|f| and |sum f| <= 1e-3
 * max|f| (tests/test_newton_kernel.py's bar); without pbond the forces
 differ on exactly the slots with a 1-2 partner inside the cut, so the
-exclusions bite.  check_channels takes these rows and still refuses
-gaussian noise, the dpd/tstat ramp and single-cell or open y/z at four
-channels."""
+exclusions bite.  check_channels takes these rows and every other
+four-channel setting (tests/test_torch_excl4_rows.py holds those)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -128,17 +127,12 @@ def test_four_channel_rows_match_tpu_kernel(row, cap):
 
 
 def test_check_channels_rows_and_refusals():
-    """check_channels takes rows a-c and the typed dpd row at 4 channels;
-    it refuses ljrf with one type, gaussian noise, the dpd/tstat ramp, a
-    single-cell y axis and open y/z at 4 channels, each with a message;
-    any law passes at 2 channels."""
+    """check_channels takes rows a-c, the typed dpd row, ljrf with one
+    type, gaussian noise, the dpd/tstat ramp, a single-cell y axis and
+    open y/z at 4 channels, and any law at 2 channels; it refuses another
+    channel count, with a message that names the JAX engines' counts."""
     _, geom, _, _ = _inputs("lj", 16)
     _, dgeom, _, _ = _inputs("dpd", 16)
-    ok = [(dgeom, _law("dpd")), (geom, _law("lj")), (geom, _law("lj-t2")),
-          (geom, _law("ljrf-t2")),
-          (dgeom, DPDParams.create(1.0, 1.0, 3, 25.0, 4.5, ntypes=2))]
-    for g, law in ok:
-        check_channels(g, PairCoef.of(g, law, 0.005), 4)
     gauss = dataclasses.replace(_law("dpd"), gaussian_noise=True)
     ramp = DPDTstatParams.create(1.0, 1.0, 3, 4.5, t_stop=2.0,
                                  ramp=(0, 100))
@@ -147,10 +141,15 @@ def test_check_channels_rows_and_refusals():
     thin = dgeom._replace(dims=(6, 1, 6), cell_size=(
         dgeom.cell_size[0], 8.0, dgeom.cell_size[2]))
     open_yz = dgeom._replace(periodic_yz=(False, True))
-    for g, law, words in ((dgeom, gauss, "gaussian"), (dgeom, ramp, "ramp"),
-                          (geom, rf1, "ljrf"), (thin, _law("dpd"), "single"),
-                          (open_yz, _law("dpd"), "open")):
+    ok = [(dgeom, _law("dpd")), (geom, _law("lj")), (geom, _law("lj-t2")),
+          (geom, _law("ljrf-t2")),
+          (dgeom, DPDParams.create(1.0, 1.0, 3, 25.0, 4.5, ntypes=2)),
+          (dgeom, gauss), (dgeom, ramp), (geom, rf1), (thin, _law("dpd")),
+          (open_yz, _law("dpd"))]
+    for g, law in ok:
         coef = PairCoef.of(g, law, 0.005)
-        with pytest.raises(NotImplementedError, match=words):
-            check_channels(g, coef, 4)
+        check_channels(g, coef, 4)
         check_channels(g, coef, 2)
+        with pytest.raises(NotImplementedError,
+                           match="engine_cellpad.py:75-78"):
+            check_channels(g, coef, 3)

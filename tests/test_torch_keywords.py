@@ -235,15 +235,15 @@ MOL_REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(MOL_REFUSED))
 def test_molecule_mode_refuses_the_new_keywords(name):
-    """MOLECULE mode keeps refusing the candidate and velocity keywords
-    (its rounds and centre-of-mass velocities are not ported), with a
-    message; ATOM mode takes them."""
+    """MOLECULE mode now takes the candidate and velocity keywords (its
+    rounds and centre-of-mass velocities are ported; only `rigid` is
+    refused, tests/test_torch_support.py), as ATOM mode does; each is held
+    to the JAX engine in tests/test_torch_mol_keywords.py."""
     from obmd_tpu_torch.engine_cellpad import check_supported, supports
-    kw, words = MOL_REFUSED[name]
+    kw, _words = MOL_REFUSED[name]
     small = pscenes.mol_box_config("dpd")
     cfg = dataclasses.replace(small, obmd=dataclasses.replace(
         small.obmd, **kw))
-    assert not supports(cfg)
-    with pytest.raises(NotImplementedError, match=words):
-        check_supported(cfg.finalize())
+    assert supports(cfg)
+    check_supported(cfg.finalize())
     assert supports(configs(**kw)[1])

@@ -94,12 +94,11 @@ def test_forces_with_boundary_force_match_jax(set_up):
 def test_wrapper_rejects_what_it_does_not_cover():
     """Wrong dtypes and shapes, a missing or unasked-for pbond, and a
     single-cell periodic axis shorter than twice the cutoff raise
-    ValueError; more than 4 types, 4 exclusion channels (branched
-    topologies) with gaussian noise or on a single-cell or open y/z axis
-    (they are built for uniform noise on periodic y and z of >= 3 cells;
-    tests/test_torch_star.py and test_torch_excl4.py hold those), open y/z
-    axes and dpd/tstat or gaussian noise in the full-stencil kernel raise
-    NotImplementedError.  p == 1 layouts,
+    ValueError; more than 4 types, a channel count other than 2 or 4
+    (4, branched topologies, is built with gaussian noise and on single-cell
+    or open y/z axes too: tests/test_torch_excl4_rows.py holds those), open
+    y/z axes and dpd/tstat or gaussian noise in the full-stencil kernel
+    raise NotImplementedError.  p == 1 layouts,
     periodic x, open and single-cell y/z axes (test_open_and_single_cell_y
     below holds them to the TPU kernel), 2-channel exclusion, 2-4 types,
     gaussian noise and dpd/tstat in make_pair_kernel are ported."""
@@ -144,8 +143,9 @@ def test_wrapper_rejects_what_it_does_not_cover():
                          pcfg.pair, 0.01)
     make_pair_kernel(geom, pcfg.pair, 0.01, exclude_bonded=True, n_excl=4)
     for g, law in ((geom, gauss), (one_cell, pcfg.pair), (open_y, pcfg.pair)):
+        make_pair_kernel(g, law, 0.01, exclude_bonded=True, n_excl=4)
         with pytest.raises(NotImplementedError):
-            make_pair_kernel(g, law, 0.01, exclude_bonded=True, n_excl=4)
+            make_pair_kernel(g, law, 0.01, exclude_bonded=True, n_excl=3)
     pbond = torch.full((nb, 2, cap, lanes), -2, dtype=torch.int32)
     with pytest.raises(ValueError):
         kern(fld, tag, 1, occ, pbond)

@@ -110,30 +110,66 @@ class JaxMolDraws:
     """The draw seam of MOLECULE mode fed with the JAX engine's own draws:
     each stage call advances the key chain as obmd_tpu/engine_cellpad.py
     _insert_mol does (kl, kr, next = split(fold_in(key, step), 3)), and
-    returns per side, from kc, krot = split(fold_in(side key, 0)), the
-    centers' uniform(kc, (K, 3)), then from ka, kt = split(krot) the
-    rotation axis's uniform(ka, (K, 3)) and angle's uniform(kt, (K,)):
-    positions' draws [2, 1, K, 7]."""
+    returns, per side and round r, from kc, krot[, kt] = split(fold_in(side
+    key, r)) (three ways with several templates) the centers' uniform(kc,
+    (K, 3)) (normal under `gaussian`), then from ka, ka2 = split(krot) the
+    rotation axis's uniform(ka, (K, 3)) and angle's uniform(ka2, (K,)):
+    positions' draws [2, rounds, K, 7]; with several templates the
+    templates choice(kt, T, (K,), p=frac); under `global` / `local` the
+    deposit z's uniform(fold_in(kc, 0x5a), (K,)); under a velocity keyword
+    the velocities' uniform(split(fold_in(next, 7), 3)[c], (2 rounds K,))
+    (obmd_tpu/obmd/stage.py:263-347)."""
 
     def __init__(self, cfg, seed: int):
         self.key = jax.random.PRNGKey(seed)
+        self.obmd = cfg.obmd
         self.k = cfg.obmd.insert_kmax
+        self.rounds = max(1, int(cfg.obmd.maxattempt))
+        self.frac = (np.asarray(cfg.obmd.molfrac, np.float32)
+                     if cfg.obmd.molfrac is not None else None)
 
     def __call__(self, state, need):
+        from obmd_tpu_torch.obmd.stage import Draws, deposit_z, has_velocity
+        o, k = self.obmd, self.k
         key = jax.random.fold_in(self.key, jnp.uint32(state.step))
         kl, kr, self.key = jax.random.split(key, 3)
         if not need:
             return None
-        sides = []
+        n_t = len(o.templates)
+        centre = jax.random.normal if o.gaussian is not None \
+            else jax.random.uniform
+        pos, tpl, z = [], [], []
         for side_key in (kl, kr):
-            kc, krot = jax.random.split(jax.random.fold_in(side_key, 0))
-            ka, kt = jax.random.split(krot)
-            sides.append(np.concatenate([
-                np.asarray(jax.random.uniform(kc, (self.k, 3))),
-                np.asarray(jax.random.uniform(ka, (self.k, 3))),
-                np.asarray(jax.random.uniform(kt, (self.k,)))[:, None]], 1))
-        from obmd_tpu_torch.obmd.stage import Draws
-        return Draws(torch.from_numpy(np.stack(sides)[:, None]))
+            for r in range(self.rounds):
+                ks = jax.random.split(jax.random.fold_in(side_key, r),
+                                      3 if n_t > 1 else 2)
+                kc, krot = ks[0], ks[1]
+                ka, ka2 = jax.random.split(krot)
+                pos.append(np.concatenate([
+                    np.asarray(centre(kc, (k, 3), dtype=jnp.float32)),
+                    np.asarray(jax.random.uniform(ka, (k, 3))),
+                    np.asarray(jax.random.uniform(ka2, (k,)))[:, None]],
+                    1))
+                frac = (self.frac if self.frac is not None
+                        else np.full((n_t,), 1.0 / n_t, np.float32))
+                tpl.append(np.asarray(jax.random.choice(
+                    ks[2], n_t, (k,), p=jnp.asarray(frac))) if n_t > 1
+                    else np.zeros((k,), np.int32))
+                z.append(np.asarray(jax.random.uniform(
+                    jax.random.fold_in(kc, 0x5a), (k,), dtype=jnp.float32)))
+        shape = (2, self.rounds, k)
+        vel = None
+        if has_velocity(o):
+            kv = jax.random.split(jax.random.fold_in(self.key, 7), 3)
+            vel = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
+                kc, (2 * self.rounds * k,), dtype=jnp.float32))
+                for kc in kv]))
+        return Draws(
+            torch.from_numpy(np.stack(pos).reshape(shape + (7,))),
+            torch.from_numpy(np.stack(z).reshape(shape))
+            if deposit_z(o) else None, vel,
+            torch.from_numpy(np.stack(tpl).astype(np.int32).reshape(shape))
+            if n_t > 1 else None)
 
 
 def lattice(cfg, seed=13, jitter=0.18):
@@ -279,48 +315,59 @@ def test_state_observables_agree():
 
 
 def test_molecule_mode_support_and_refusals():
-    """The engine takes single-template MOLECULE mode with bonded terms
-    (path F, the small star and LJ boxes) and refuses, each with a message,
-    what is not ported: several templates (`mols`/`molfrac`), `charged 1`,
-    `orient`, `rigid`, `shake`, the inserted-velocity keywords, maxattempt
-    > 1, nfreq > 1, dihedrals on the branched template and a template type
-    beyond the scene's; bonded terms with ATOM-mode insertion stay
-    refused."""
+    """The engine takes MOLECULE mode with bonded terms (path F, the small
+    star and LJ boxes) and every keyword of the fix but `rigid`: several
+    templates (`mols`/`molfrac`), `charged 1`, `orient`, `shake`, the
+    inserted-velocity keywords, maxattempt > 1, nfreq > 1 and the
+    candidate keywords; it refuses, each with a message, `rigid` (naming
+    the slice that ports it), dihedrals on the branched template and a
+    template type beyond the scene's; bonded terms with ATOM-mode
+    insertion stay refused."""
     import pytest
-    from obmd_tpu_torch.config import DihedralHarmonicParams
+    from obmd_tpu_torch.config import DihedralHarmonicParams, MolTemplate
     from obmd_tpu_torch.engine_cellpad import check_supported, supports
     path_f = pscenes.open_star_config(pscenes.open_star_box(20_000), 100_000)
     small = pscenes.mol_box_config("dpd")
-    for cfg in (path_f, small, pscenes.mol_box_config("lj")):
+    for cfg in (path_f, small, pscenes.mol_box_config("lj"),
+                pscenes.open_water_config()):
         assert supports(cfg)
     tpl = small.obmd.mol
     two = dataclasses.replace(tpl, types=(1, 0, 0, 0, 1))
+    dimer = MolTemplate(dx=((-0.3, 0.0, 0.0), (0.3, 0.0, 0.0)),
+                        types=(0, 0), bonds=((0, 1),))
 
     def obmd(**kw):
         return dataclasses.replace(small, obmd=dataclasses.replace(
             small.obmd, **kw))
-    bad = {
+    good = {
         "mols": obmd(mols=(tpl, two)),
         "molfrac": obmd(mols=(tpl, two), molfrac=(0.5, 0.5)),
         "charged": obmd(charged=True),
         "orient": obmd(orient=(0.0, 0.0, 1.0)),
-        "rigid": obmd(rigid=True),
-        "shake": obmd(shake=True),
+        "shake": obmd(mol=dimer, shake=True),
         "inserted-velocity": obmd(vx=(-1.0, 1.0)),
         "target": obmd(target=(0.0, 0.0, 0.0), vy=(0.0, 1.0)),
         "maxattempt": obmd(maxattempt=2),
         "nfreq": obmd(nfreq=2),
+        "gaussian": obmd(gaussian=(1.0, 4.0, 4.0, 0.5)),
+        "global": obmd(deposit_global=(-1.0, -0.2)),
+        "local": obmd(deposit_local=(-1.0, -0.2, 1.0)),
+        "rate": obmd(rate=0.5),
+    }
+    for name, cfg in good.items():
+        assert supports(cfg), name
+        check_supported(cfg.finalize())
+    assert good["shake"].finalize().shake is not None
+    bad = {
+        "rigid": obmd(rigid=True),
         "dihedrals": dataclasses.replace(
             small, dihedral=DihedralHarmonicParams(k=1.0)),
         "type": obmd(mol=dataclasses.replace(tpl, types=(2, 0, 0, 0, 0))),
         "ATOM-mode": dataclasses.replace(small, obmd=dataclasses.replace(
             small.obmd, mol=None, mol_len=1)),
     }
-    words = {"mols": "multi-template", "molfrac": "multi-template",
-             "charged": "charged", "orient": "orient", "rigid": "rigid",
-             "shake": "shake", "inserted-velocity": "inserted-velocity",
-             "target": "inserted-velocity", "maxattempt": "maxattempt",
-             "nfreq": "nfreq", "dihedrals": "dihedrals", "type": "type 3",
+    words = {"rigid": "rigid bodies .* slice after SHAKE",
+             "dihedrals": "dihedrals", "type": "type 3",
              "ATOM-mode": "ATOM-mode"}
     for name, cfg in bad.items():
         assert not supports(cfg), name
