@@ -318,7 +318,33 @@ Phases (any failure exits non-zero and prints no result line):
      (small_mol_keywords: path I's stage on a dilute water box; the dimer
      and trimer at molfrac with rounds, `orient`, velocities and
      `target`; `gaussian`, `rate` and nfreq 2; `local` with rounds);
- 40. the figures of the fifteen paths (with each path's whole wall time,
+ 40. path J, the LAMMPS input-deck front end (run_decks, through
+     obmd_tpu_torch.io.script.Interpreter on the card, each deck a file in
+     a temporary directory): the reference's bench/in.lj verbatim
+     (LJ_DECK, 32,000 atoms; T 1.44 at step 0 to 1e-4, T in LJ_DECK_T100
+     at step 100, the lj row at the Interpreter's cap against its plain
+     version, then FIRE appended: energy falls, fmax falls at least 10x,
+     positions finite); examples/OBMD_DPD/in.simulation reading a data
+     file written from obmd_dpd_scene(scale=1, seed=7) after equilibrate,
+     its run cut to DECK_SMALL_STEPS (thermo lines, check_invariants, its
+     configuration against obmd_dpd_config(scale=1), differences logged);
+     a deck whose fix obmd takes `v_p` (p = 188+60*sin(2*PI*2*time)),
+     pxx evaluated on the card at TPARAM_TIMES against host math; and
+     validation/run_ref/in.obmd 9x longer in x (regions, buffersize from
+     obmd_dpd_config(scale=9), nbuf 1.05 x census / alpha, read_data of
+     phase 4's equilibrated state written by write_data, ave/chunk
+     DECK_CHUNK, thermo DECK_THERMO) with dumps, run, write_restart,
+     read_restart, run and write_data appended: both kernels launched at
+     the deck's cap, atoms inserted, thermo finite with atoms equal to
+     the state's, the custom and DCD frames equal to the state at their
+     step, the restart equal to the saved state to the byte and the step
+     count carried on, write_data reading back to the alive atoms, the
+     profile's DECK_BINS bins a block with the bulk's density within
+     DECK_RHO_TOL of DECK_RHO, the pair row and USHER against their plain
+     versions; ms/step of each run and of the same first run without
+     outputs, write_data / read_data and one host copy of each output
+     timed;
+ 41. the figures of the sixteen paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -4328,6 +4354,624 @@ def run_water():
     return path, kernels
 
 
+# ---------------------------------------------------------------------------
+# path J: the LAMMPS input-deck front end (obmd_tpu_torch.io.script)
+# ---------------------------------------------------------------------------
+
+# LAMMPS' own benchmark deck, the reference's code/bench/in.lj (32,000
+# atoms at x = y = z = 1)
+LJ_DECK = """# 3d Lennard-Jones melt
+
+variable\tx index 1
+variable\ty index 1
+variable\tz index 1
+
+variable\txx equal 20*$x
+variable\tyy equal 20*$y
+variable\tzz equal 20*$z
+
+units\t\tlj
+atom_style\tatomic
+
+lattice\t\tfcc 0.8442
+region\t\tbox block 0 ${xx} 0 ${yy} 0 ${zz}
+create_box\t1 box
+create_atoms\t1 box
+mass\t\t1 1.0
+
+velocity\tall create 1.44 87287 loop geom
+
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0 2.5
+
+neighbor\t0.3 bin
+neigh_modify\tdelay 0 every 20 check no
+
+fix\t\t1 all nve
+
+run\t\t100
+"""
+LJ_DECK_T0, LJ_DECK_T100 = 1.44, (0.65, 0.85)
+LJ_DECK_MIN = ("min_style fire", "minimize 0.0 1.0e-4 1000 1000")
+# examples/OBMD_DPD/in.simulation's `run 2000000`, cut for the smoke
+DECK_SMALL_STEPS = 2000
+DECK_SMALL_EQUIL = 1000
+# the scaled validation/run_ref/in.obmd: its two runs, output cadences and
+# the ave/chunk bins' expected count
+DECK_RUNS = (1000, 500)
+DECK_DUMP_EVERY, DECK_DCD_EVERY = 500, 1000
+DECK_CHUNK, DECK_THERMO = "10 10 100", 100
+DECK_BINS = 450
+DECK_RHO, DECK_RHO_TOL = 3.0, 0.05
+# the time-dependent parameter's sample times and tolerance (relative)
+TPARAM_TIMES = (0.0, 0.125, 0.37, 3.1)
+TPARAM_TOL = 1e-4
+
+
+def state_data(cfg, state):
+    """A lammps_data.DataFile of the alive atoms in tag order (positions,
+    velocities, types, tags)."""
+    import numpy as np
+    from obmd_tpu_torch.io import lammps_data
+    alive = state.alive
+    order = np.argsort(state.tag[alive].cpu().numpy())
+
+    def host(t):
+        return t[alive].cpu().numpy()[order]
+    return lammps_data.DataFile(
+        natoms=len(order), ntypes=cfg.ntypes,
+        box_lo=np.asarray(cfg.box.lo), box_hi=np.asarray(cfg.box.hi),
+        masses=np.asarray(cfg.masses), x=host(state.x), types=host(state.type),
+        tags=host(state.tag), v=host(state.v))
+
+
+def write_state_data(path, cfg, state) -> float:
+    """Write state_data with the port's write_data; returns the seconds."""
+    from obmd_tpu_torch.io import lammps_data
+    t0 = time.perf_counter()
+    lammps_data.write_data(path, state_data(cfg, state))
+    return time.perf_counter() - t0
+
+
+def edit_deck(text, edits):
+    """edits: [(first tokens of a line, its replacement or None to drop
+    it)]; each must match exactly one line of the deck."""
+    lines = text.splitlines()
+    for head, new in edits:
+        hits = [i for i, ln in enumerate(lines)
+                if ln.split()[:len(head.split())] == head.split()]
+        if len(hits) != 1:
+            fail(f"deck edit {head!r}: {len(hits)} matching lines")
+        if new is None:
+            del lines[hits[0]]
+        else:
+            lines[hits[0]] = new
+    return "\n".join(lines) + "\n"
+
+
+def thermo_rows(lines, ncols):
+    """The thermo lines of a deck's log as float rows of ncols values."""
+    import math
+    rows = []
+    for ln in lines:
+        vals = ln.split()
+        if len(vals) != ncols:
+            continue
+        try:
+            row = [float(v) for v in vals]
+        except ValueError:
+            continue
+        if not all(math.isfinite(v) for v in row):
+            fail(f"deck thermo line not finite: {ln!r}")
+        rows.append(row)
+    return rows
+
+
+def timed_lines(it, lines):
+    t0 = time.perf_counter()
+    it.run_lines(lines)
+    sync()
+    return time.perf_counter() - t0
+
+
+def pair_replaces(cap):
+    """The TPU body a fill cap's row ports (kernel_bigtile up to 20)."""
+    return ("obmd_tpu/forces/pallas_dpd.py:575" if cap <= 20
+            else "obmd_tpu/forces/pallas_dpd.py:324")
+
+
+def deck_lj(tmp):
+    """in.lj verbatim (32,000 atoms): T at step 0 and 100, the lj row at
+    the Interpreter's cap against its plain version on the final state,
+    then FIRE appended."""
+    import torch
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.io.script import Interpreter
+    from obmd_tpu_torch.minimize import _force_energy_fn
+    path = os.path.join(tmp, "in.lj")
+    with open(path, "w") as fh:
+        fh.write(LJ_DECK)
+    out = []
+    it = Interpreter(log_fn=out.append)
+    _build.reset_launch_counts()
+    wall = timed_lines(it, open(path).read().splitlines())
+    launches = launch_counts()
+    cap = it.cfg.capacity.cell_capacity
+    key = f"lj-cap{cap}"
+    require_launches(launches, {"pair": (key,)}, "in.lj deck")
+    rows = thermo_rows(out, 2)
+    natoms = int(it.state.natoms)
+    t0, t100 = rows[0][1], rows[-1][1]
+    log(f"in.lj deck: {natoms} atoms, engine {it.cfg.force_path}, cap "
+        f"{cap}, max_neighbors {it.cfg.capacity.max_neighbors}, thermo "
+        f"{out}, {wall:.2f} s (setup included), launches {launches}")
+    if natoms != 32000 or rows[0][0] != 0 or rows[-1][0] != 100:
+        fail(f"in.lj deck: {natoms} atoms, thermo {out}")
+    if not abs(t0 - LJ_DECK_T0) <= 1e-4 * LJ_DECK_T0:
+        fail(f"in.lj deck: T {t0} at step 0, not {LJ_DECK_T0}")
+    if not LJ_DECK_T100[0] <= t100 <= LJ_DECK_T100[1]:
+        fail(f"in.lj deck: T {t100} at step 100 outside {LJ_DECK_T100}")
+    fig, _ = check_pair(it.cfg, make_geometry(it.cfg), it.state,
+                        f"in.lj deck cap {cap}")
+    fe = _force_energy_fn(it.cfg.finalize())
+
+    def rms(f):
+        return float(torch.sqrt((f * f).sum() / (3 * natoms)))
+    f0, pe0 = fe(it.state)
+    fmax0, pe0, rms0 = float(f0.abs().max()), float(pe0), rms(f0)
+    min_s = timed_lines(it, list(LJ_DECK_MIN))
+    # "  minimize: N iterations, fmax F, energy E" (cmd_minimize's line)
+    words = out[-1].replace(",", "").split()
+    iters, fmax1, pe1 = int(words[1]), float(words[4]), float(words[6])
+    st = it.state
+    rms1 = rms(torch.where(st.alive[:, None], st.f, 0.0))
+    log(f"in.lj deck FIRE: {iters} iterations in {min_s:.2f} s "
+        f"({min_s / max(iters, 1) * 1e3:.3f} ms each), energy {pe0:.6g} "
+        f"-> {pe1:.6g}, fmax {fmax0:.4g} -> {fmax1:.4g}, rms force "
+        f"{rms0:.4g} -> {rms1:.4g}; log {out[-1]}")
+    if not bool(torch.isfinite(st.x[st.alive]).all()):
+        fail("in.lj deck FIRE: non-finite positions")
+    if not (pe1 < pe0 and fmax1 * 10.0 <= fmax0):
+        fail(f"in.lj deck FIRE: energy {pe0} -> {pe1}, fmax {fmax0} -> "
+             f"{fmax1} (must fall, fmax at least 10x)")
+    kern = kernel_line("pair", f"lj, in.lj deck, fill cap {cap}",
+                       pair_replaces(cap), launches["pair"][1][key], fig)
+    return dict(atoms=natoms, cap=cap, t_step0=t0, t_step100=t100,
+                run_s=wall, fire_iters=iters, fire_s=min_s,
+                fire_energy=[pe0, pe1], fire_fmax=[fmax0, fmax1],
+                fire_rms_force=[rms0, rms1]), [kern]
+
+
+def config_differences(got, want):
+    """The fields in which two SceneConfigs differ in the pair law, dt,
+    box, skin, the six regions and the fix's parameters: {name: (got,
+    want)}."""
+    diff = {}
+    for f in dataclasses.fields(got.pair):
+        a, b = getattr(got.pair, f.name), getattr(want.pair, f.name)
+        if a != b:
+            diff[f"pair.{f.name}"] = (a, b)
+    for name in ("dt", "box", "skin"):
+        if getattr(got, name) != getattr(want, name):
+            diff[name] = (getattr(got, name), getattr(want, name))
+    for f in dataclasses.fields(got.obmd):
+        a, b = getattr(got.obmd, f.name), getattr(want.obmd, f.name)
+        if a != b:
+            diff[f"obmd.{f.name}"] = (a, b)
+    return diff
+
+
+def deck_small(tmp):
+    """examples/OBMD_DPD/in.simulation on its own 33.6 x 11.2 x 11.2 box:
+    the data file the deck reads written from obmd_dpd_scene(scale=1,
+    seed=7) after equilibrate, its run cut to DECK_SMALL_STEPS; thermo
+    lines, check_invariants, and its SceneConfig against
+    obmd_dpd_config(scale=1), differences logged.  Returns (figures, the
+    data file)."""
+    from bench_torch import SEED
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.integrate import equilibrate, setup
+    from obmd_tpu_torch.io.script import Interpreter
+    from obmd_tpu_torch.observe import check_invariants
+    sc = scenes.obmd_dpd_scene(scale=1, seed=SEED, device=DEV)
+    st = equilibrate(sc.cfg, setup(sc.cfg, sc.state), DECK_SMALL_EQUIL)
+    data = os.path.join(tmp, "dpd_8map_obmd.data")
+    write_s = write_state_data(data, sc.cfg, st)
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = open(os.path.join(here, "examples", "OBMD_DPD",
+                            "in.simulation")).read()
+    deck = os.path.join(tmp, "in.simulation")
+    with open(deck, "w") as fh:
+        fh.write(edit_deck(src, [
+            ("read_data", f"read_data       {data}"),
+            ("run", f"run             {DECK_SMALL_STEPS}")]))
+    out = []
+    it = Interpreter(log_fn=out.append)
+    lines = open(deck).read().splitlines()
+    i_run = max(i for i, ln in enumerate(lines) if ln.startswith("run"))
+    it.run_lines(lines[:i_run])
+    t0 = time.perf_counter()
+    it._build()
+    sync()
+    build_s = time.perf_counter() - t0
+    run_s = timed_lines(it, lines[i_run:])
+    rows = thermo_rows(out, 2)
+    tel = check_invariants(it.cfg, it.state)
+    every = it.thermo_every
+    want = sorted({0, DECK_SMALL_STEPS} | set(range(every, DECK_SMALL_STEPS,
+                                                      every)))
+    if [r[0] for r in rows] != want:
+        fail(f"in.simulation deck: thermo lines {out}, steps {want} wanted")
+    diff = config_differences(it.cfg, scenes.obmd_dpd_config(scale=1))
+    log(f"in.simulation deck: {int(it.state.natoms)} atoms, engine "
+        f"{it.cfg.force_path}, cap {it.cfg.capacity.cell_capacity}, "
+        f"thermo {out}, setup {build_s:.2f} s, {DECK_SMALL_STEPS} steps "
+        f"{run_s:.2f} s ({run_s / DECK_SMALL_STEPS * 1e3:.3f} ms/step), "
+        f"telemetry {tel}; data file written in {write_s:.2f} s")
+    for k, (a, b) in diff.items():
+        log(f"in.simulation deck against obmd_dpd_config(scale=1): {k}: "
+            f"deck {a!r}, scene {b!r}")
+    return dict(atoms=int(it.state.natoms), cap=it.cfg.capacity.cell_capacity,
+                ms_per_step=run_s / DECK_SMALL_STEPS * 1e3, thermo=rows,
+                telemetry=tel,
+                config_differences=sorted(diff)), data
+
+
+def deck_time_param(tmp, data):
+    """A deck whose fix obmd takes `v_p` with p = 188+60*sin(2*PI*2*time)
+    (tests/test_script.py:104-142's shape, on in.simulation's regions and
+    the deck-2 data): the built pxx evaluated on the card at several
+    sim_time tensors against host math."""
+    import math
+    import torch
+    from obmd_tpu_torch.io.script import Interpreter
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = open(os.path.join(here, "examples", "OBMD_DPD",
+                            "in.simulation")).read()
+    text = edit_deck(src, [
+        ("read_data", f"read_data       {data}"),
+        ("fix 2 all obmd", "variable        p equal 188+60*sin(2*PI*2*time)\n"
+         "fix             2 all obmd 1 1 7566 v_p 0.0 0.0 0.0 0.0 0.7 0.005 "
+         "1327 &"),
+        ("run", "run             0")])
+    out = []
+    it = Interpreter(log_fn=out.append)
+    it.run_lines(text.splitlines())
+    pxx = it.cfg.obmd.pxx
+    if not callable(pxx):
+        fail("time-dependent deck: pxx was not built as a function of time")
+    errs = []
+    for t in TPARAM_TIMES:
+        got = pxx(torch.tensor(t, dtype=torch.float32, device=DEV))
+        if got.device.type != torch.device(DEV).type or got.dim() != 0:
+            fail(f"time-dependent deck: pxx({t}) is {got!r}")
+        want = 188.0 + 60.0 * math.sin(4.0 * math.pi * t)
+        errs.append(abs(float(got) - want) / abs(want))
+    log(f"time-dependent deck: pxx at t = {TPARAM_TIMES} within "
+        f"{max(errs):.3e} (relative) of host math; thermo {out}")
+    if not max(errs) <= TPARAM_TOL:
+        fail(f"time-dependent deck: pxx off by {errs} (relative)")
+    return dict(times=list(TPARAM_TIMES), max_rel_err=max(errs))
+
+
+def obmd_deck_text(data, cfg9, nbuf, tmp, outputs=True):
+    """validation/run_ref/in.obmd 9x longer in x: x extents, the
+    right-hand regions, buffersize and nbuf from obmd_dpd_config(scale=9)
+    and `nbuf`, read_data from `data`; with outputs the cadences cut
+    (ave/chunk DECK_CHUNK, thermo DECK_THERMO, custom thermo columns) and
+    the dumps and the run-restart-run commands appended, without them
+    every thermo, chunk and dump command dropped and one run of
+    DECK_RUNS[0] steps."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = open(os.path.join(here, "validation", "run_ref",
+                            "in.obmd")).read()
+    o = cfg9.obmd
+    bs, xhi = o.buffer_size, cfg9.box.hi[0]
+    lyz = "0.0 11.198208286674133 0.0 11.198208286674133"
+    left = f"0.0 {o.region1.hi[0]!r} {lyz}"
+    right = f"{o.region2.lo[0]!r} {xhi!r} {lyz}"
+    fix = [ln for ln in src.splitlines() if ln.startswith("fix             2")]
+    fix = fix[0].replace(" 1327 ", f" {nbuf!r} ").replace(
+        "buffersize 5.039193729003359", f"buffersize {bs!r}")
+    edits = [("region leftB", f"region          leftB block {left}"),
+             ("region rightB", f"region          rightB block {right}"),
+             ("region leftBin", f"region          leftBin block {left}"),
+             ("region rightBin", f"region          rightBin block {right}"),
+             ("read_data", f"read_data       {data}"),
+             ("fix 2 all obmd", fix), ("run", None)]
+    if outputs:
+        prof = os.path.join(tmp, "profile.out")
+        edits += [("fix 3 all ave/chunk",
+                   f"fix             3 all ave/chunk {DECK_CHUNK} cc "
+                   f"density/number vx temp file {prof}"),
+                  ("thermo", f"thermo          {DECK_THERMO}"),
+                  ("thermo_style", "thermo_style    custom step temp atoms "
+                   "press pxx")]
+        more = [f"dump 1 all custom {DECK_DUMP_EVERY} "
+                f"{os.path.join(tmp, 'deck.custom')} id type x y z vx vy vz",
+                f"dump 2 all dcd {DECK_DCD_EVERY} "
+                f"{os.path.join(tmp, 'deck.dcd')}",
+                f"run {DECK_RUNS[0]}",
+                f"write_restart {os.path.join(tmp, 'deck.restart')}",
+                f"read_restart {os.path.join(tmp, 'deck.restart')}",
+                f"run {DECK_RUNS[1]}",
+                f"write_data {os.path.join(tmp, 'deck.final.data')}"]
+    else:
+        edits += [("compute cc", None), ("fix 3 all ave/chunk", None),
+                  ("thermo", None), ("thermo_style", None)]
+        more = [f"run {DECK_RUNS[0]}"]
+    return edit_deck(src, edits) + "\n".join(more) + "\n"
+
+
+def last_custom_frame(path):
+    """(step, [n, 8] float32 rows id type x y z vx vy vz) of a dump custom
+    file's last frame."""
+    import numpy as np
+    lines = open(path).read().splitlines()
+    at = max(i for i, ln in enumerate(lines) if ln == "ITEM: TIMESTEP")
+    step, n = int(lines[at + 1]), int(lines[at + 3])
+    rows = lines[at + 9:at + 9 + n]
+    if len(rows) != n:
+        fail(f"dump custom: the last frame holds {len(rows)} of {n} rows")
+    ids = np.asarray([int(r.split()[0]) for r in rows])
+    types = np.asarray([int(r.split()[1]) for r in rows])
+    vals = np.asarray([[np.float32(v) for v in r.split()[2:]] for r in rows],
+                      dtype=np.float32)
+    return step, ids, types, vals
+
+
+def profile_blocks(path):
+    """The ave/chunk file's blocks: [(step, [nbins, 3] density vx temp)]."""
+    import numpy as np
+    blocks = []
+    lines = [ln for ln in open(path).read().splitlines()
+             if not ln.startswith("#")]
+    i = 0
+    while i < len(lines):
+        step, nbins, _ = lines[i].split()
+        rows = lines[i + 1:i + 1 + int(nbins)]
+        blocks.append((int(step), np.asarray(
+            [[float(v) for v in r.split()[3:]] for r in rows])))
+        i += 1 + int(nbins)
+    return blocks
+
+
+def check_deck_frames(it, tmp, label):
+    """The last custom frame and the DCD frame against the state at their
+    step (slot order and tag order), bytes of float32 equal."""
+    import numpy as np
+    from obmd_tpu_torch.io.dump_dcd import read_dcd
+    st = it.state
+    alive = st.alive.cpu().numpy()
+    x = st.x.cpu().numpy()[alive]
+    v = st.v.cpu().numpy()[alive]
+    tags = st.tag.cpu().numpy()[alive]
+    step, ids, types, vals = last_custom_frame(
+        os.path.join(tmp, "deck.custom"))
+    if not (step == it.total_steps and np.array_equal(ids, tags)
+            and np.array_equal(types, st.type.cpu().numpy()[alive] + 1)
+            and np.array_equal(vals[:, :3], x)
+            and np.array_equal(vals[:, 3:], v)):
+        fail(f"{label}: the custom frame of step {step} differs from the "
+             f"state at step {it.total_steps}")
+    icntrl, cells, frames = read_dcd(os.path.join(tmp, "deck.dcd"))
+    order = np.argsort(tags)
+    if not (icntrl[3] == it.total_steps
+            and np.array_equal(frames[-1], x[order])):
+        fail(f"{label}: the DCD frame of step {icntrl[3]} differs from the "
+             f"state at step {it.total_steps}")
+    return dict(custom_step=step, dcd_step=icntrl[3], dcd_frames=icntrl[0])
+
+
+def check_restart(it, path, label):
+    """The checkpoint at `path` against the state it was written from:
+    every tensor, the step and the generator state equal to the byte."""
+    import torch
+    from obmd_tpu_torch.io.checkpoint import _tensor_fields, load_checkpoint
+    _, ld = load_checkpoint(path, device=DEV)
+    st = it.state
+    bad = [n for n in _tensor_fields(st)
+           if (getattr(st, n) is None) != (getattr(ld, n) is None)
+           or (getattr(st, n) is not None
+               and not torch.equal(getattr(st, n), getattr(ld, n)))]
+    bad += [f"obmd.{n}" for n in _tensor_fields(st.obmd)
+            if not torch.equal(getattr(st.obmd, n), getattr(ld.obmd, n))]
+    if ld.step != st.step:
+        bad.append("step")
+    if not torch.equal(ld.gen.get_state(), st.gen.get_state()):
+        bad.append("generator state")
+    if bad:
+        fail(f"{label}: the restart differs from the saved state in {bad}")
+    return os.path.getsize(path)
+
+
+def host_copy_figures(it, tmp):
+    """The seconds of one host-side sample of each output on the deck's
+    state: an ave/chunk sample, a custom frame, a DCD frame and a thermo
+    line."""
+    out = {}
+    t0 = time.perf_counter()
+    it._chunk_sample(it.ave_chunks[0])
+    out["chunk_sample_s"] = time.perf_counter() - t0
+    cols = ("id", "type", "x", "y", "z", "vx", "vy", "vz")
+    for name, style, args in (("custom_frame_s", "custom", cols),
+                              ("dcd_frame_s", "dcd", ())):
+        t0 = time.perf_counter()
+        it._write_dump(os.path.join(tmp, f"probe.{style}"), style, args)
+        out[name] = time.perf_counter() - t0
+    log_fn, it.log = it.log, (lambda *a: None)
+    t0 = time.perf_counter()
+    it._emit_thermo()
+    out["thermo_line_s"] = time.perf_counter() - t0
+    it.log = log_fn
+    return out
+
+
+def deck_big(tmp, cfg_eq, st_eq, scene_ms):
+    """validation/run_ref/in.obmd 9x longer in x (~113k atoms) from phase
+    4's equilibrated state through write_data / read_data, nbuf raised so
+    every stage call asks for atoms; dumps, run, write_restart,
+    read_restart, run, write_data; the checks of path J; then the same
+    first run with no thermo, chunk or dump command."""
+    import numpy as np
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.io import lammps_data
+    from obmd_tpu_torch.io.script import Interpreter
+    from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
+    label = "in.obmd deck"
+    data = os.path.join(tmp, "obmd_scale9.data")
+    write_s = write_state_data(data, cfg_eq, st_eq)
+    m = make_obmd_metrics_fn(cfg_eq)(st_eq)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    cfg9 = scenes.obmd_dpd_config(scale=9)
+    nbuf = 1.05 * census / cfg9.obmd.alpha
+    deck = os.path.join(tmp, "in.obmd")
+    with open(deck, "w") as fh:
+        fh.write(obmd_deck_text(data, cfg9, nbuf, tmp))
+    lines = open(deck).read().splitlines()
+    runs = [i for i, ln in enumerate(lines) if ln.startswith("run ")]
+    out = []
+    it = Interpreter(log_fn=out.append)
+    _build.reset_launch_counts()
+    read_s = timed_lines(it, lines[:runs[0]])
+    t0 = time.perf_counter()
+    it._build()
+    sync()
+    setup_s = time.perf_counter() - t0
+    cap = it.cfg.capacity.cell_capacity
+    n0 = int(it.state.natoms)
+    run1_s = timed_lines(it, [lines[runs[0]]])
+    tel1 = check_invariants(it.cfg, it.state)
+    frames = check_deck_frames(it, tmp, label)
+    rows1 = thermo_rows(out, 5)
+    if rows1[-1][2] != int(it.state.natoms):
+        fail(f"{label}: thermo counts {rows1[-1][2]} atoms, the state "
+             f"{int(it.state.natoms)}")
+    restart_s = timed_lines(it, [lines[runs[0] + 1]])
+    restart_bytes = check_restart(it, lines[runs[0] + 1].split()[1], label)
+    step_saved = it.state.step
+    read_restart_s = timed_lines(it, [lines[runs[0] + 2]])
+    if not (it.state.step == step_saved == it.total_steps == DECK_RUNS[0]):
+        fail(f"{label}: step {it.state.step} after read_restart, "
+             f"{step_saved} saved, {it.total_steps} counted")
+    run2_s = timed_lines(it, [lines[runs[1]]])
+    tel2 = check_invariants(it.cfg, it.state)
+    if it.state.step != sum(DECK_RUNS):
+        fail(f"{label}: step {it.state.step} after both runs")
+    write_data_s = timed_lines(it, lines[runs[1] + 1:])
+    launches = launch_counts()
+    key = f"dpd-cap{cap}"
+    require_launches(launches, {"pair": (key,), "usher_search": None},
+                     label)
+    rows = thermo_rows(out, 5)
+    if rows[-1][2] != int(it.state.natoms):
+        fail(f"{label}: thermo counts {rows[-1][2]} atoms, the state "
+             f"{int(it.state.natoms)}")
+    inserted = int(it.state.obmd.ninserted)
+    if inserted <= 0:
+        fail(f"{label}: no atom inserted")
+    back = lammps_data.read_data(lines[-1].split()[1])
+    alive = it.state.alive.cpu().numpy()
+    if not (np.array_equal(back.tags, it.state.tag.cpu().numpy()[alive])
+            and np.array_equal(back.x.astype(np.float32),
+                               it.state.x.cpu().numpy()[alive])
+            and np.array_equal(back.v.astype(np.float32),
+                               it.state.v.cpu().numpy()[alive])):
+        fail(f"{label}: write_data does not read back to the alive atoms")
+    blocks = profile_blocks(os.path.join(tmp, "profile.out"))
+    sizes = {len(b) for _, b in blocks}
+    # the bulk's bins: centers outside both buffers, where the load holds
+    # the fluid at its density (the buffers' outer bins run sparse)
+    bs, xhi = it.cfg.obmd.buffer_size, it.cfg.box.hi[0]
+    centers = (np.arange(DECK_BINS) + 0.5) * (xhi / DECK_BINS)
+    bulk = (centers > bs) & (centers < xhi - bs)
+    rho_all = float(np.mean([b[:, 0].mean() for _, b in blocks]))
+    rho = float(np.mean([b[bulk, 0].mean() for _, b in blocks]))
+    if sizes != {DECK_BINS} or not abs(rho - DECK_RHO) <= DECK_RHO_TOL * DECK_RHO:
+        fail(f"{label}: profile blocks of {sizes} bins, mean density "
+             f"{rho} in the {int(bulk.sum())} bulk bins ({rho_all} over "
+             f"all)")
+    copies = host_copy_figures(it, tmp)
+    geom = make_geometry(it.cfg)
+    fig_pair, _ = check_pair(it.cfg, geom, it.state, f"{label} cap {cap}")
+    fig_usher, usher_more = check_usher(it.cfg, geom, it.state, label)
+    # the same first run with no thermo, chunk or dump command, relaid out
+    # as often as the outputs' chunks relay the deck out (DECK_CHUNK's
+    # nevery): at the auto period of one uninterrupted run an inserted
+    # atom outran the half skin (check_invariants failed)
+    quiet = os.path.join(tmp, "in.obmd.quiet")
+    with open(quiet, "w") as fh:
+        fh.write(obmd_deck_text(data, cfg9, nbuf, tmp, outputs=False))
+    qlines = open(quiet).read().splitlines()
+    qi = Interpreter(log_fn=lambda *a: None)
+    qi.run_lines(qlines[:-1])
+    qi._build()
+    qi.cfg = dataclasses.replace(qi.cfg, rebuild_every=int(
+        DECK_CHUNK.split()[0]))
+    sync()
+    quiet_s = timed_lines(qi, qlines[-1:])
+    per = [run1_s / DECK_RUNS[0] * 1e3, run2_s / DECK_RUNS[1] * 1e3]
+    quiet_ms = quiet_s / DECK_RUNS[0] * 1e3
+    log(f"{label}: {n0} atoms read ({read_s:.2f} s, written by write_data "
+        f"in {write_s:.2f} s), nbuf {nbuf:.1f}, engine "
+        f"{it.cfg.force_path}, cap {cap}, n_max {it.cfg.capacity.n_max}, "
+        f"setup {setup_s:.2f} s; run {DECK_RUNS[0]} {per[0]:.3f} ms/step, "
+        f"run {DECK_RUNS[1]} {per[1]:.3f} ms/step, without outputs "
+        f"{quiet_ms:.3f} ms/step (the scene path's production "
+        f"{scene_ms:.3f}); write_restart {restart_s:.2f} s "
+        f"({restart_bytes} B), read_restart {read_restart_s:.2f} s, "
+        f"write_data {write_data_s:.2f} s; host copies {copies}; "
+        f"{inserted} inserted, telemetry {tel1} / {tel2}; frames {frames}; "
+        f"{len(blocks)} profile blocks, mean density {rho:.4f} in the "
+        f"bulk's {int(bulk.sum())} bins, {rho_all:.4f} over all; thermo "
+        f"{out}; launches {launches}")
+    kernels = [
+        kernel_line("pair", f"dpd, in.obmd deck, fill cap {cap}",
+                    pair_replaces(cap), launches["pair"][1][key], fig_pair),
+        kernel_line("usher_search", "dpd, in.obmd deck", None,
+                    launches["usher_search"][0], fig_usher)]
+    return dict(atoms_read=n0, atoms_end=int(it.state.natoms), cap=cap,
+                n_max=it.cfg.capacity.n_max, nbuf=nbuf, inserted=inserted,
+                ms_per_step=per, ms_per_step_without_outputs=quiet_ms,
+                scene_ms_per_step=scene_ms, write_data_s=write_s,
+                read_data_s=read_s, setup_s=setup_s,
+                write_restart_s=restart_s, read_restart_s=read_restart_s,
+                final_write_data_s=write_data_s, host_copies=copies,
+                profile_blocks=len(blocks), mean_density_bulk=rho,
+                mean_density_all=rho_all,
+                frames=frames, usher=usher_more), kernels
+
+
+def run_decks(cfg_eq, st_eq, scene_ms):
+    """Phase 40, path J: the deck front end on the card (in.lj, the
+    OBMD_DPD deck at its own size, the scaled in.obmd, a time-dependent
+    fix parameter).  Returns (figures, kernel lines)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="obmd_decks_")
+    try:
+        wall = {}
+        t0 = time.perf_counter()
+        lj, lj_kernels = deck_lj(tmp)
+        wall["in_lj"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small, data = deck_small(tmp)
+        wall["in_simulation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tparam = deck_time_param(tmp, data)
+        wall["time_param"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big, big_kernels = deck_big(tmp, cfg_eq, st_eq, scene_ms)
+        wall["in_obmd"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"path J: {wall}")
+    return dict(wall_s=wall, in_lj=lj, in_simulation=small,
+                time_param=tparam, in_obmd=big), lj_kernels + big_kernels
+
+
 def slots_of(cfg, state):
     """The live atoms of a state (a cellpad layout's slots are padded
     beyond n_max) in a fresh store of cfg's n_max slots, in tag order, with
@@ -4357,7 +5001,7 @@ def scratch_figure(cfg, subsets):
 
 
 def run_smoke():
-    """Phases 2-39; returns the paths' figures and the kernel figures."""
+    """Phases 2-40; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -4418,6 +5062,10 @@ def run_smoke():
     t0 = time.perf_counter()
     water_path, water_kernels = run_water()
     wall_s["open_water"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deck_path, deck_kernels = run_decks(*obmd_prod[:2],
+                                        obmd_path["ms_per_step"])
+    wall_s["decks"] = time.perf_counter() - t0
     wall_s["total"] = time.perf_counter() - t_all
     log(f"the smoke's paths took {wall_s['total']:.1f} s, the build "
         f"included")
@@ -4431,12 +5079,12 @@ def run_smoke():
                           obmd_dpdext=ext_path,
                           obmd_dpd_keywords=kw_path,
                           excl4_small_rows=excl4_path,
-                          open_water=water_path),
+                          open_water=water_path, decks=deck_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
-                + water_kernels)
+                + water_kernels + deck_kernels)
 
 
 def main():

@@ -17,6 +17,11 @@ noise scaled per step by sqrt(T(step)/t_start)), and the OBMD_DPD deck
 under dpd/ext on the neighbor-list engine (`neighbors.py`,
 `forces/nlist.py`; `force_path="nlist"` or `"sweep"`).
 
+A LAMMPS input deck runs through `io/script.py` (`run_script(path)`,
+`Interpreter`), with its leaves `io/expr.py`, `io/dump.py`,
+`io/dump_dcd.py`, `io/checkpoint.py`, `io/lammps_data.py` and
+`minimize.py` (FIRE).
+
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:
 
@@ -42,6 +47,8 @@ machine without one raises).  Quick start:
     state = make_run(sc.cfg, 1000)(setup(sc.cfg, sc.state))
     sc = scenes.obmd_dpdext_scene()        # dpd/ext on the nlist engine
     state = make_run(sc.cfg, 400)(setup(sc.cfg, sc.state))
+    from obmd_tpu_torch.io.script import run_script
+    it = run_script("in.deck")             # a LAMMPS input deck
 """
 
 __version__ = "0.1.0"

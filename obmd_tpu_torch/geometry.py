@@ -1,7 +1,8 @@
 """Box geometry, periodic wrapping, minimum image and axis-aligned regions.
 
-PyTorch counterpart of `obmd_tpu/geometry.py` (`Box`, `RegionBlock`), kept
-as its own copy so the port never imports the JAX package.  The formulas are
+PyTorch counterpart of `obmd_tpu/geometry.py` (`Box`, `RegionBlock`,
+`RegionSphere`, `RegionCylinder`), kept as its own copy so the port never
+imports the JAX package.  The formulas are
 the reference's op for op, so positions wrap and fold bit for bit.
 """
 from __future__ import annotations
@@ -98,3 +99,87 @@ class RegionBlock:
         lo = const_like(self.lo, u)
         hi = const_like(self.hi, u)
         return lo + u * (hi - lo)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionSphere:
+    """`region ID sphere x y z R` (region_sphere.cpp::inside): a point
+    matches when its distance from the center is <= R, inclusive like
+    every LAMMPS region.  The deck front end fills it with create_atoms;
+    fix obmd's six regions stay blocks."""
+
+    center: Tuple[float, float, float]
+    radius: float
+
+    def match(self, x: torch.Tensor) -> torch.Tensor:
+        d = x - const_like(self.center, x)
+        r2 = torch.full((), self.radius * self.radius, dtype=x.dtype,
+                        device=x.device)
+        return torch.sum(d * d, dim=-1) <= r2
+
+    @property
+    def lo(self) -> Tuple[float, float, float]:
+        return tuple(c - self.radius for c in self.center)
+
+    @property
+    def hi(self) -> Tuple[float, float, float]:
+        return tuple(c + self.radius for c in self.center)
+
+    @property
+    def volume(self) -> float:
+        return 4.0 / 3.0 * np.pi * self.radius ** 3
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionCylinder:
+    """`region ID cylinder dim c1 c2 radius lo hi`
+    (region_cylinder.cpp::inside): a cylinder along `axis` ('x', 'y' or
+    'z'); (c1, c2) is the center in the other two dimensions in x, y, z
+    order, LAMMPS' argument convention.  Inclusive bounds."""
+
+    axis: str
+    c1: float
+    c2: float
+    radius: float
+    lo_axis: float
+    hi_axis: float
+
+    def __post_init__(self):
+        if self.axis not in ("x", "y", "z"):
+            raise ValueError("cylinder axis must be x, y or z")
+
+    def _dims(self):
+        ax = "xyz".index(self.axis)
+        return ax, [d for d in range(3) if d != ax]
+
+    def match(self, x: torch.Tensor) -> torch.Tensor:
+        ax, (d1, d2) = self._dims()
+
+        def c(v):
+            return torch.full((), v, dtype=x.dtype, device=x.device)
+        e1 = x[..., d1] - c(self.c1)
+        e2 = x[..., d2] - c(self.c2)
+        a = x[..., ax]
+        return ((e1 * e1 + e2 * e2 <= c(self.radius * self.radius))
+                & (a >= c(self.lo_axis)) & (a <= c(self.hi_axis)))
+
+    def _bounds(self, axis_value: float, sign: float):
+        ax, (d1, d2) = self._dims()
+        out = [0.0, 0.0, 0.0]
+        out[ax] = axis_value
+        out[d1] = self.c1 + sign * self.radius
+        out[d2] = self.c2 + sign * self.radius
+        return tuple(out)
+
+    @property
+    def lo(self) -> Tuple[float, float, float]:
+        return self._bounds(self.lo_axis, -1.0)
+
+    @property
+    def hi(self) -> Tuple[float, float, float]:
+        return self._bounds(self.hi_axis, 1.0)
+
+    @property
+    def volume(self) -> float:
+        return np.pi * self.radius ** 2 * max(self.hi_axis - self.lo_axis,
+                                              0.0)

@@ -1,0 +1,4 @@
+"""Input and output of the port: the LAMMPS deck front end (`script`)
+and its expressions (`expr`), data files (`lammps_data`), molecule
+templates (`molecule`), trajectory dumps (`dump`, `dump_dcd`) and
+checkpoints (`checkpoint`)."""

@@ -1,14 +1,14 @@
-"""LAMMPS data files for `atom_style atomic`, `charge`, `bond` and
-`molecular`.
+"""LAMMPS data files for `atom_style atomic`, `charge`, `bond`,
+`molecular`, `full` and `adress`.
 
 The port's own copy of `DataFile`, `read_data` and `write_data` of
 `obmd_tpu/io/lammps_data.py` (read_data.cpp / write_data.cpp for the
-sections the melts and the charged fluids use): the header (atoms, atom
-types, box bounds; bond, angle, dihedral and improper counts are read from
-their sections), Masses, Atoms (`atomic`: id type x y z; `charge`: id type
-q x y z; `bond` and `molecular`: id mol type x y z), Velocities, Bonds,
-Angles, Dihedrals and Impropers, through the same pure-Python parser.  The
-`full` and `adress` styles and the native reader are not ported.
+sections the OBMD workloads use): the header (atoms, atom types, box
+bounds; bond, angle, dihedral and improper counts are read from their
+sections), Masses, Atoms (`atomic`: id type x y z; `charge`: id type q x y
+z; `bond`, `molecular` and `adress`: id mol type x y z; `full`: id mol
+type q x y z), Velocities, Bonds, Angles, Dihedrals and Impropers, through
+the same pure-Python parser.  The native reader is not ported.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import numpy as np
 
 from ..geometry import Box
 
-STYLES = ("atomic", "charge", "bond", "molecular")
+STYLES = ("atomic", "charge", "bond", "molecular", "full", "adress")
 _SECTIONS = ("Masses", "Atoms", "Velocities", "Bonds", "Angles", "Dihedrals",
              "Impropers", "Pair Coeffs", "PairIJ Coeffs", "Bond Coeffs")
 
@@ -78,8 +78,8 @@ def _read_rows(lines, i, first: int, last: int):
 
 
 def read_data(path: str, atom_style: str = "atomic") -> DataFile:
-    """Parse a data file of `atom_style` atomic, charge, bond or
-    molecular."""
+    """Parse a data file of `atom_style` atomic, charge, bond, molecular,
+    full or adress."""
     _check_style(atom_style)
     with open(path) as fh:
         lines = fh.readlines()
@@ -114,7 +114,8 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
     v = q = mol = bonds = angles = dihedrals = impropers = None
     types = np.zeros(natoms, np.int32)
     tags = np.zeros(natoms, np.int32)
-    need = {"atomic": 5, "charge": 6, "bond": 6, "molecular": 6}[atom_style]
+    need = {"atomic": 5, "charge": 6, "bond": 6, "molecular": 6,
+            "adress": 6, "full": 7}[atom_style]
 
     while i < n:
         header = lines[i].strip().split("#")[0].strip()
@@ -148,6 +149,15 @@ def read_data(path: str, atom_style: str = "atomic") -> DataFile:
                     types[k] = int(t[1]) - 1
                     q[k] = float(t[2])
                     x[k] = [float(t[3]), float(t[4]), float(t[5])]
+                elif atom_style == "full":
+                    if mol is None:
+                        mol = np.zeros(natoms, np.int32)
+                    if q is None:
+                        q = np.zeros(natoms)
+                    mol[k] = int(t[1])
+                    types[k] = int(t[2]) - 1
+                    q[k] = float(t[3])
+                    x[k] = [float(t[4]), float(t[5]), float(t[6])]
                 else:
                     if mol is None:
                         mol = np.zeros(natoms, np.int32)
@@ -212,6 +222,9 @@ def write_data(path: str, df: DataFile, atom_style: str = "atomic"):
                 fh.write(f"{df.tags[k]} {df.types[k] + 1} {pos}\n")
             elif atom_style == "charge":
                 fh.write(f"{df.tags[k]} {df.types[k] + 1} {df.q[k]} {pos}\n")
+            elif atom_style == "full":
+                fh.write(f"{df.tags[k]} {df.mol[k]} {df.types[k] + 1} "
+                         f"{df.q[k]} {pos}\n")
             else:
                 mol_k = df.mol[k] if df.mol is not None else 0
                 fh.write(f"{df.tags[k]} {mol_k} {df.types[k] + 1} {pos}\n")

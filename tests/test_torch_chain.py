@@ -377,7 +377,9 @@ def test_data_file_matches_jax(tmp_path):
     _mirror(ps.cfg, js.cfg)
     jd, pd = jax_arrays(js.state), convert.to_arrays(ps.state)
     _same(jd, pd, ("x", "v", "type", "tag", "alive", "mol", "bond1", "bond2"))
-    with pytest.raises(NotImplementedError):
+    # `full` is ported: a file of another style's columns is refused as
+    # read_data.cpp refuses it
+    with pytest.raises(ValueError, match="expects 7"):
         pio.read_data(str(path), atom_style="full")
 
 
