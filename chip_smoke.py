@@ -342,9 +342,22 @@ Phases (any failure exits non-zero and prints no result line):
      profile's DECK_BINS bins a block with the bulk's density within
      DECK_RHO_TOL of DECK_RHO, the pair row and USHER against their plain
      versions; ms/step of each run and of the same first run without
-     outputs, write_data / read_data and one host copy of each output
-     timed;
- 41. the figures of the sixteen paths (with each path's whole wall time,
+     outputs, at the deck's own schedule (neigh_modify check yes: the
+     half-skin test every step) and at a static relayout every 10 steps,
+     each passing check_invariants; write_data / read_data and one host
+     copy of each output timed;
+ 41. path K, phase 38's water as rigid bodies (run_rigid:
+     open_water_config(rigid=True), the tree template, from phase 38's
+     warmed state by tag): setup, equilibrate(WATER_EQUIL), an insertion
+     phase as phase 38's, WATER_PROD production steps in two windows; the
+     bodies within RIGID_GEOMETRY nm of the template after each phase and
+     window, whole waters, the net charge, check_invariants, thermo's T
+     within WATER_T_WINDOW of 2/3 kT; profiles of a production and an
+     insertion step; the row ljrf-t2-excl2-cap150 on its state against
+     its plain version; the binned observables evaluated twice to the
+     same bytes; validation/rigid_golden on the card against dump.ref,
+     dump.rv and the CPU; the small rigid-water box against the CPU;
+ 42. the figures of the seventeen paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -497,6 +510,19 @@ WATER_EQUIL, WATER_INS_STEPS, WATER_PROD = 200, 60, 1000
 WATER_DRAIN, WATER_SEED = 0.25, 17
 WATER_T_WINDOW = 0.05
 WATER_CONSTRAINT, WATER_CHARGE = 1e-5, 1e-3
+# path K, path I's water as rigid bodies: the largest distance error of a
+# body against the template allowed (nm; float32 rounding at |x| ~ 28 nm is
+# ~2e-6 a step, a wrong body sum tears a water apart within a few steps);
+# the rigid golden's gates (validation/run_rigid_golden.py: positions 5e-3,
+# arms 1e-4; velocities against dump.rv 5e-3) and the card's positions
+# against the CPU's after its 40 steps
+RIGID_GEOMETRY = 5e-4
+RIGID_GOLDEN_POS, RIGID_GOLDEN_ARM, RIGID_GOLDEN_VEL = 5e-3, 1e-4, 5e-3
+RIGID_GOLDEN_CPU = 1e-4
+# path J's quiet deck also under a static relayout every 10 steps (the
+# outputs' chunk), beside the deck's own schedule (neigh_modify check yes:
+# the half-skin test every step)
+DECK_STATIC_SCHEDULE = "neigh_modify every 10 check no"
 # path F under gaussian noise: its steps; the small 4-channel boxes' steps
 # (the ramp box and the films)
 GAUSS_F_STEPS, EXCL4_SMALL_STEPS = 200, 20
@@ -4101,8 +4127,10 @@ MOL_TRIMER = (((-0.5, -0.15, 0.0), (0.0, 0.25, 0.0), (0.5, -0.15, 0.0)),
 def small_mol_keywords(kind):
     """make(device) of the small molecule-keyword paths: "water" path I's
     stage (charged 1, shake, vx/vy/vz) on 125 waters in the 33-plane water
-    box (cap 24, etarget 0); on a monomer gas under one-type DPD (10 x 4 x
-    4, 200 atoms, harmonic bonds K 40): "molfrac" the dimer and trimer at
+    box (cap 24, etarget 0), "rigid-water" path K's (rigid bodies on the
+    tree template) on the same box; on a monomer gas under one-type DPD
+    (10 x 4 x 4, 200 atoms, harmonic bonds K 40): "molfrac" the dimer and
+    trimer at
     molfrac 0.3 / 0.7 with maxattempt 3, `orient` and vx/vy/vz with
     `target`; "deposit" the trimer with `gaussian`, `rate` and nfreq 2
     (stepped through make_step); "local" the dimer with `local` and
@@ -4117,9 +4145,10 @@ def small_mol_keywords(kind):
         from obmd_tpu_torch.geometry import Box, RegionBlock
         from obmd_tpu_torch.state import init_state
         r = np.random.default_rng(4)
-        if kind == "water":
+        if kind in ("water", "rigid-water"):
+            rigid = kind == "rigid-water"
             cfg = scenes.open_water_config(
-                planes=33, cap=24, n_max=1200, nbuf=60.0,
+                planes=33, cap=24, n_max=1200, nbuf=60.0, rigid=rigid,
                 usher=UsherParams(etarget=0.0, nattempt=0))
             tpl = scenes.water_template_coords()
             tpl = tpl - tpl.mean(0)
@@ -4128,7 +4157,7 @@ def small_mol_keywords(kind):
             x = (g[:, None] + np.einsum("sij,kj->ski",
                                         scenes._rotations(r, 125), tpl)
                  ).reshape(-1, 3)
-            types, q, mol, bonds = scenes._water_topology(125)
+            types, q, mol, bonds = scenes._water_topology(125, tree=rigid)
             return cfg, init_state(cfg, x, v=r.normal(0.0, 0.3, x.shape),
                                    types=types, q=q, mol=mol, bonds=bonds,
                                    device=dev)
@@ -4216,7 +4245,7 @@ def run_water():
     within WATER_T_WINDOW of 2/3 kT after each window; the pair row
     ljrf-t2-excl2-cap150 against its plain version with holes and same
     bytes; then the small molecule-keyword paths against the CPU.
-    Returns (figures, kernel lines)."""
+    Returns (figures, kernel lines, the warmed state: path K's start)."""
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import make_geometry
     from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
@@ -4237,6 +4266,7 @@ def run_water():
                      temp=scenes.WATER_THERMO_T)
     sync()
     warm_s = time.perf_counter() - t0
+    warmed_state = st
     warm_tel = check_invariants(cfg, st)
     warm_rep = check_water(cfg, st, "path I warm-up")
     occupancy = [max_cell_count(geom, st)]
@@ -4351,10 +4381,276 @@ def run_water():
         f"{geom.fcap}, open x, path I (SPC/E water)",
         "obmd_tpu/forces/pallas_dpd.py:324", launches["pair"][1][key],
         pair)]
-    return path, kernels
+    return path, kernels, warmed_state
 
 
 # ---------------------------------------------------------------------------
+# path K: path I's water as rigid bodies (obmd_tpu_torch/rigid.py)
+# ---------------------------------------------------------------------------
+
+def check_rigid_water(cfg, state, label):
+    """Path K's checks on a state: every molecule id holds 3 live atoms or
+    none, the bodies' largest distance error against the template (O-H and
+    H-H) at most RIGID_GEOMETRY nm, the net charge within WATER_CHARGE e,
+    finite positions, velocities and forces.  Returns
+    observe.molecule_report's figures."""
+    import torch
+    from obmd_tpu_torch.observe import molecule_report, molecule_sizes
+    rep = molecule_report(cfg, state)
+    sizes = molecule_sizes(state)[1:]
+    if bool(((sizes != 0) & (sizes != 3)).any()) or rep["broken"]:
+        fail(f"{label}: molecules not of 3 atoms: {rep}")
+    if not rep["rigid_error"] <= RIGID_GEOMETRY:
+        fail(f"{label}: rigid bodies {rep['rigid_error']} nm off the "
+             f"template (gate {RIGID_GEOMETRY})")
+    if not abs(rep["net_charge"]) <= WATER_CHARGE:
+        fail(f"{label}: net charge {rep['net_charge']}")
+    check_finite(state, label)
+    if not bool(torch.isfinite(state.f[state.alive]).all()):
+        fail(f"{label}: non-finite forces")
+    return rep
+
+
+def check_binned_repeat(cfg, state, label, nbins: int = 450):
+    """The binned observables (observe.Bins: make_profile_fn,
+    profile_temperature, molecular_pxx) evaluated twice on one state give
+    the same bytes.  Returns their values."""
+    import torch
+    from obmd_tpu_torch.observe import (make_profile_fn, molecular_pxx,
+                                        profile_temperature)
+    prof = make_profile_fn(cfg, nbins)
+    outs = []
+    for _ in range(2):
+        p = prof(state)
+        outs.append(([getattr(p, k).cpu() for k in p._fields],
+                     profile_temperature(cfg, state, nbins).cpu(),
+                     molecular_pxx(cfg, state)))
+    (p0, t0, m0), (p1, t1, m1) = outs
+    differ = [name for name, same in (
+        ("make_profile_fn", all(torch.equal(a, b) for a, b in zip(p0, p1))),
+        ("profile_temperature", torch.equal(t0, t1)),
+        ("molecular_pxx", m0 == m1)) if not same]
+    if differ:
+        fail(f"{label}: {differ} differ between two evaluations of one "
+             f"state ({t0} / {t1}, {m0} / {m1})")
+    return dict(profile_temperature=float(t0), molecular_pxx=m0[0],
+                atomic_pxx=m0[1], density_mean=float(p0[1].mean()))
+
+
+def check_rigid_golden():
+    """validation/rigid_golden on the card (the cellpad engine, the pair
+    kernel at its fill cap) against dump.ref (in.rigid's DPD law) and
+    dump.rv (pair_style zero: positions and velocities) at
+    run_rigid_golden.py's gates, and against the same 40 steps on the CPU.
+    Returns the largest differences."""
+    import numpy as np
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.integrate import make_run, setup
+    out = {}
+    for free in (False, True):
+        ref = scenes.golden_dump("rigid_golden",
+                                 "dump.rv" if free else "dump.ref")
+        runs = {}
+        for dev in (DEV, "cpu"):
+            sc = scenes.rigid_golden_scene(device=dev, force_path="cellpad",
+                                           free=free)
+            st = make_run(sc.cfg, scenes.RIGID_GOLDEN_STEPS)(
+                setup(sc.cfg, sc.state))
+            al = st.alive.cpu().numpy()
+            x, v = st.x.cpu().numpy(), st.v.cpu().numpy()
+            runs[dev] = {int(t): (x[i], v[i]) for i, t in
+                         enumerate(st.tag.cpu().numpy()) if al[i]}
+        card, cpu = runs[DEV], runs["cpu"]
+        length = sc.cfg.box.lengths[0]
+
+        def unwrap(d):
+            return d - length * np.round(d / length)
+        arm = float(np.hypot(0.5, 0.4))
+        pos = max(np.abs(unwrap(ref[t][:3] - card[t][0])).max() for t in ref)
+        vel = (max(np.abs(ref[t][3:] - card[t][1]).max() for t in ref)
+               if free else 0.0)
+        arms = max(abs(np.linalg.norm(unwrap(card[3 * m + a][0]
+                                             - card[3 * m + 2][0])) - arm)
+                   for m in range(len(card) // 3) for a in (1, 3))
+        vs_cpu = max(np.abs(unwrap(card[t][0] - cpu[t][0])).max()
+                     for t in ref)
+        label = "rigid golden" + (" (pair_style zero)" if free else "")
+        if set(ref) != set(card) or not (
+                pos < RIGID_GOLDEN_POS and vel < RIGID_GOLDEN_VEL
+                and arms < RIGID_GOLDEN_ARM and vs_cpu < RIGID_GOLDEN_CPU):
+            fail(f"{label}: positions {pos} from the reference's, "
+                 f"velocities {vel}, arms {arms} off the template, "
+                 f"{vs_cpu} from the CPU's run")
+        out["free" if free else "dpd"] = dict(
+            max_pos_err=float(pos), max_vel_err=float(vel),
+            max_arm_err=float(arms), card_vs_cpu=float(vs_cpu))
+    log(f"rigid golden on the card: {out}")
+    return out
+
+
+def run_rigid(warm_i, water_ms):
+    """Phase 41: path K, path I's open SPC/E water (99,636 atoms) with
+    rigid bodies in place of SHAKE on the tree template
+    (scenes.open_water_config(rigid=True)), from path I's warmed state
+    mapped by tag (scenes.rigid_water_start): setup, equilibrate
+    (WATER_EQUIL) at 2/3 kT; an insertion phase on a copy with WATER_DRAIN
+    of the buffers' waters taken out (nbuf = census / alpha); WATER_PROD
+    production steps in two windows; after each phase check_rigid_water
+    (whole waters, the bodies within RIGID_GEOMETRY nm of the template, the
+    net charge, finite values) and check_invariants, and in production
+    thermo's T within WATER_T_WINDOW of 2/3 kT; profiles of a production
+    and an insertion step; the row ljrf-t2-excl2-cap150 against its plain
+    version on path K's state (its H-H pair now in the law); the binned
+    observables twice on that state (check_binned_repeat); then the rigid
+    golden and the small rigid-water box against the CPU.  water_ms: path
+    I's ms/step from this smoke.  Returns (figures, kernel lines)."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
+    from obmd_tpu_torch.observe import check_invariants, make_thermo_fn
+    from obmd_tpu_torch.star_probe import census
+    t_path = time.perf_counter()
+    cfg = scenes.open_water_config(rigid=True)
+    geom = make_geometry(cfg)
+    key = launch_key(geom, PairCoef.of(geom, cfg.pair, cfg.dt), 2)
+    thermo = make_thermo_fn(cfg)
+    start = scenes.rigid_water_start(cfg, warm_i)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = setup(cfg, start)
+    start_rep = check_rigid_water(cfg, st, "path K start")
+    st = equilibrate(cfg, st, WATER_EQUIL, temp=scenes.WATER_THERMO_T)
+    sync()
+    equil_s = time.perf_counter() - t0
+    equil_tel = check_invariants(cfg, st)
+    equil_rep = check_rigid_water(cfg, st, "path K equilibrate")
+    warmed = census(cfg, st)
+    log(f"path K start ({geom}): {int(start.natoms)} atoms of path I's "
+        f"warmed state, bodies {start_rep['rigid_error']:.3e} nm off the "
+        f"template; after {WATER_EQUIL} steps of equilibrate "
+        f"({equil_s:.1f} s, setup included) census {warmed} molecules, "
+        f"{equil_rep}; telemetry {equil_tel}")
+
+    # the insertion phase
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=warmed / cfg.obmd.alpha)).finalize()
+    st_ins = setup(cfg_ins, drained_molecules(cfg, st, WATER_DRAIN,
+                                              WATER_SEED))
+    c0 = {k: int(getattr(st_ins.obmd, k)) for k in (
+        "ninserted", "ndeleted", "insert_fail", "usher_iters")}
+    stage_log = StageLog(cfg_ins)
+    t0 = time.perf_counter()
+    st_ins = make_run(cfg_ins, WATER_INS_STEPS, draw=stage_log)(st_ins)
+    sync()
+    ins_s = time.perf_counter() - t0
+    ins_tel = check_invariants(cfg_ins, st_ins)
+    ins = {k: int(getattr(st_ins.obmd, k)) - v for k, v in c0.items()}
+    ins_rep = check_rigid_water(cfg_ins, st_ins, "path K insertion phase")
+    needed = sum(need for need, _, _ in stage_log.calls)
+    trials = 2 * cfg.obmd.insert_kmax * cfg.obmd.maxattempt * needed
+    if ins["ninserted"] <= 0 or ins["ninserted"] % 3 \
+            or ins["usher_iters"] <= 0:
+        fail(f"path K insertion phase: {ins}")
+    if needed != WATER_INS_STEPS:
+        fail(f"path K insertion phase: {needed} of {WATER_INS_STEPS} stage "
+             "calls asked for molecules")
+    share = ins["ninserted"] / 3 / trials
+    log(f"path K insertion phase: nbuf {cfg_ins.obmd.nbuf:.1f}, "
+        f"{ins['ninserted'] // 3} waters inserted of {trials} trials "
+        f"({share:.4f}), {ins['ndeleted']} atoms deleted, "
+        f"{ins['insert_fail']} insertions failed, {ins['usher_iters']} USHER "
+        f"iterations in {WATER_INS_STEPS} steps ({ins_s:.2f} s, "
+        f"{ins_s / WATER_INS_STEPS * 1e3:.1f} ms/step); {ins_rep}; "
+        f"telemetry {ins_tel}")
+
+    # the production, from the equilibrated state
+    st = setup(cfg, st)
+    prod_start = int(st.natoms)
+    run = make_run(cfg, WATER_PROD // 2)
+    windows, temps = [], []
+    errors = [equil_rep["rigid_error"]]
+    occupancy = [max_cell_count(geom, st)]
+    for w in range(2):
+        s0 = st.step
+        t1 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t1, st.step - s0))
+        occupancy.append(max_cell_count(geom, st))
+        temps.append(float(thermo(st).temp))
+        rep = check_rigid_water(cfg, st, f"path K production window {w}")
+        errors.append(rep["rigid_error"])
+        log(f"path K window {w}: bodies {errors[-1]:.3e} nm off the "
+            f"template (growth {errors[-1] - errors[-2]:+.3e} nm over "
+            f"{WATER_PROD // 2} steps)")
+    launches = launch_counts()
+    tel = check_invariants(cfg, st)
+    for t in temps:
+        if not abs(t - scenes.WATER_THERMO_T) <= \
+                WATER_T_WINDOW * scenes.WATER_THERMO_T:
+            fail(f"path K production: thermo's T {t} is not within "
+                 f"{WATER_T_WINDOW:.0%} of 2/3 kT = {scenes.WATER_THERMO_T}")
+    require_launches(launches, {"pair": (key,)}, "path K")
+    wall, steps = min(windows)
+    m_atoms = steps / wall * int(st.natoms) / 1e6
+    log(f"path K production: {wall / steps * 1e3:.3f} ms/step (path I "
+        f"{water_ms:.3f} in this smoke), {m_atoms:.3f} Mparticle-steps/s, "
+        f"windows {windows}, atoms {prod_start} -> {int(st.natoms)}, thermo "
+        f"T {temps} (2/3 kT {scenes.WATER_THERMO_T:.4f}), {rep}, "
+        f"telemetry {tel}, most atoms in one cell {occupancy} (filing cap "
+        f"{geom.fcap})")
+    with KeepCounts():
+        prof = profile_steps(make_run(cfg, 4), st, 4)
+        ins_prof = profile_steps(make_run(cfg_ins, 2), st_ins, 2)
+    log(f"path K profile (production): {prof}")
+    log(f"path K profile (insertion phase): {ins_prof}")
+    if prof is None:
+        fail("path K profile: no device activity traced")
+    pair, _ = check_pair(cfg, geom, st, "ljrf, 2 types, 2-channel "
+                         f"exclusion, cap {geom.fcap}, path K (rigid water, "
+                         "H-H in the law)")
+    binned = check_binned_repeat(cfg, st, "path K")
+    log(f"path K binned observables, the same bytes twice: {binned}")
+    path_s = time.perf_counter() - t_path
+
+    with KeepCounts():
+        golden = check_rigid_golden()
+        small = check_small_path(
+            "rigid water", small_mol_keywords("rigid-water"),
+            require_insert=True, setpoint_rtol=2e-6)
+    path = dict(atoms_start=int(start.natoms),
+                start_rigid_error=start_rep["rigid_error"],
+                census_equilibrated=warmed, equilibrate_s=equil_s,
+                equilibrate_telemetry=equil_tel, equilibrate=equil_rep,
+                insertion=dict(nbuf=cfg_ins.obmd.nbuf, steps=WATER_INS_STEPS,
+                               waters_inserted=ins["ninserted"] // 3,
+                               trials=trials, inserted_share=share,
+                               atoms_deleted=ins["ndeleted"],
+                               insert_fail=ins["insert_fail"],
+                               usher_iters=ins["usher_iters"],
+                               seconds=ins_s,
+                               ms_per_step=ins_s / WATER_INS_STEPS * 1e3,
+                               report=ins_rep, telemetry=ins_tel,
+                               profile=ins_prof),
+                production_atoms=[prod_start, int(st.natoms)],
+                ms_per_step=wall / steps * 1e3,
+                path_i_ms_per_step=water_ms,
+                mparticle_steps_per_s=m_atoms,
+                windows_s=[w for w, _ in windows], thermo_temps=temps,
+                rigid_errors=errors, report=rep, telemetry=tel,
+                max_cell_count=max(occupancy), filing_cap=geom.fcap,
+                profile=prof, binned=binned, path_s=path_s,
+                pair_launches=launches["pair"][1], golden=golden,
+                small_path_max_pos_err=small)
+    kernels = [kernel_line(
+        "pair", f"{key}: ljrf, 2 types, 2-channel exclusion, cap "
+        f"{geom.fcap}, open x, path K (rigid SPC/E water)",
+        "obmd_tpu/forces/pallas_dpd.py:324", launches["pair"][1][key],
+        pair)]
+    return path, kernels
+
+
 # path J: the LAMMPS input-deck front end (obmd_tpu_torch.io.script)
 # ---------------------------------------------------------------------------
 
@@ -4897,29 +5193,32 @@ def deck_big(tmp, cfg_eq, st_eq, scene_ms):
     geom = make_geometry(it.cfg)
     fig_pair, _ = check_pair(it.cfg, geom, it.state, f"{label} cap {cap}")
     fig_usher, usher_more = check_usher(it.cfg, geom, it.state, label)
-    # the same first run with no thermo, chunk or dump command, relaid out
-    # as often as the outputs' chunks relay the deck out (DECK_CHUNK's
-    # nevery): at the auto period of one uninterrupted run an inserted
-    # atom outran the half skin (check_invariants failed)
+    # the same first run with no thermo, chunk or dump command: one run of
+    # the deck's own schedule (neigh_modify's check yes, the half-skin test
+    # every step), then one of a static relayout every 10 steps
+    # (DECK_STATIC_SCHEDULE), each ending in the Interpreter's
+    # check_invariants
     quiet = os.path.join(tmp, "in.obmd.quiet")
     with open(quiet, "w") as fh:
         fh.write(obmd_deck_text(data, cfg9, nbuf, tmp, outputs=False))
     qlines = open(quiet).read().splitlines()
-    qi = Interpreter(log_fn=lambda *a: None)
-    qi.run_lines(qlines[:-1])
-    qi._build()
-    qi.cfg = dataclasses.replace(qi.cfg, rebuild_every=int(
-        DECK_CHUNK.split()[0]))
-    sync()
-    quiet_s = timed_lines(qi, qlines[-1:])
+    quiet_ms, quiet_tel = {}, {}
+    for name, extra in (("check_yes", []),
+                        ("every_10", [DECK_STATIC_SCHEDULE])):
+        qi = Interpreter(log_fn=lambda *a: None)
+        qi.run_lines(qlines[:-1] + extra)
+        qi._build()
+        sync()
+        quiet_ms[name] = timed_lines(qi, qlines[-1:]) / DECK_RUNS[0] * 1e3
+        quiet_tel[name] = check_invariants(qi.cfg, qi.state)
     per = [run1_s / DECK_RUNS[0] * 1e3, run2_s / DECK_RUNS[1] * 1e3]
-    quiet_ms = quiet_s / DECK_RUNS[0] * 1e3
     log(f"{label}: {n0} atoms read ({read_s:.2f} s, written by write_data "
         f"in {write_s:.2f} s), nbuf {nbuf:.1f}, engine "
         f"{it.cfg.force_path}, cap {cap}, n_max {it.cfg.capacity.n_max}, "
         f"setup {setup_s:.2f} s; run {DECK_RUNS[0]} {per[0]:.3f} ms/step, "
         f"run {DECK_RUNS[1]} {per[1]:.3f} ms/step, without outputs "
-        f"{quiet_ms:.3f} ms/step (the scene path's production "
+        f"{quiet_ms} ms/step, telemetry {quiet_tel} (the scene path's "
+        f"production "
         f"{scene_ms:.3f}); write_restart {restart_s:.2f} s "
         f"({restart_bytes} B), read_restart {read_restart_s:.2f} s, "
         f"write_data {write_data_s:.2f} s; host copies {copies}; "
@@ -4935,6 +5234,7 @@ def deck_big(tmp, cfg_eq, st_eq, scene_ms):
     return dict(atoms_read=n0, atoms_end=int(it.state.natoms), cap=cap,
                 n_max=it.cfg.capacity.n_max, nbuf=nbuf, inserted=inserted,
                 ms_per_step=per, ms_per_step_without_outputs=quiet_ms,
+                without_outputs_telemetry=quiet_tel,
                 scene_ms_per_step=scene_ms, write_data_s=write_s,
                 read_data_s=read_s, setup_s=setup_s,
                 write_restart_s=restart_s, read_restart_s=read_restart_s,
@@ -5001,7 +5301,7 @@ def scratch_figure(cfg, subsets):
 
 
 def run_smoke():
-    """Phases 2-40; returns the paths' figures and the kernel figures."""
+    """Phases 2-41; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -5060,12 +5360,17 @@ def run_smoke():
     excl4_path, excl4_kernels = run_excl4_small()
     wall_s["excl4_small_rows"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    water_path, water_kernels = run_water()
+    water_path, water_kernels, water_warm = run_water()
     wall_s["open_water"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     deck_path, deck_kernels = run_decks(*obmd_prod[:2],
                                         obmd_path["ms_per_step"])
     wall_s["decks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rigid_path, rigid_kernels = run_rigid(water_warm,
+                                          water_path["ms_per_step"])
+    del water_warm
+    wall_s["open_rigid_water"] = time.perf_counter() - t0
     wall_s["total"] = time.perf_counter() - t_all
     log(f"the smoke's paths took {wall_s['total']:.1f} s, the build "
         f"included")
@@ -5079,12 +5384,13 @@ def run_smoke():
                           obmd_dpdext=ext_path,
                           obmd_dpd_keywords=kw_path,
                           excl4_small_rows=excl4_path,
-                          open_water=water_path, decks=deck_path),
+                          open_water=water_path,
+                          open_rigid_water=rigid_path, decks=deck_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
-                + water_kernels + deck_kernels)
+                + water_kernels + deck_kernels + rigid_kernels)
 
 
 def main():

@@ -1,12 +1,15 @@
 """Molecule center-of-mass columns (cms_mol, vcms_mol).
 
-Counterpart of `mol_com_rounds` and `update_mol_com` of
-`obmd_tpu/adress.py` (the rest of AdResS is not ported).  The reference
+Counterpart of `mol_com_rounds` and `update_mol_com`, the whole of
+`obmd_tpu/adress.py`.  The reference
 computes molecule COMs with a scan over all atoms and an MPI reduce
 (`mol_center_of_mass`, fix_obmd_merged.cpp:1734-1754); here, as in the JAX
 package, by directed message passing over the bond-partner slot graph:
 msg(i -> p) carries the mass-weighted sums of the subtree reached from i
 away from p, exact on trees after as many rounds as the graph's diameter.
+On a cycle (path I's water triangle) both packages count atoms more than
+once, so cms_mol and vcms_mol there are not the molecule's centre of mass
+(tests/test_torch_rigid.py pins how far they lie from it).
 """
 from __future__ import annotations
 

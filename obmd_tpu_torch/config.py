@@ -11,9 +11,10 @@ Own copy of the ported part of `obmd_tpu/config.py`: `eval_param`,
 `derive_center_improper_table`, `Capacity`
 and `SceneConfig.finalize`, with the same field names and defaults so a
 test can hold the two packages' configs field by field.  Every law takes
-per-type-pair tables (`_sym`).  The fix's `rigid` keyword, which the
-engines do not run yet, is a field here so a configuration can name it,
-and `engine_cellpad.check_scene` refuses it.
+per-type-pair tables (`_sym`).  Under the fix's `rigid` keyword
+`SceneConfig.finalize` refuses a template whose bonds close a cycle
+(`bond_graph_cyclic`): the rigid integrator's message passing sums a body
+exactly only on a tree (rigid.py), where the JAX package accepts it.
 """
 from __future__ import annotations
 
@@ -304,6 +305,24 @@ class MolTemplate:
             bonds=tuple(r[1:] for r in rows(m.bonds, 3)),
             angles=rows(m.angles, 4), dihedrals=rows(m.dihedrals, 5),
             impropers=rows(m.impropers, 5))
+
+
+def bond_graph_cyclic(natoms: int, bonds) -> bool:
+    """Whether a template's bonds ((i, j) 0-based pairs) close a cycle:
+    union-find over the atoms."""
+    root = list(range(natoms))
+
+    def find(i):
+        while root[i] != i:
+            root[i] = root[root[i]]
+            i = root[i]
+        return i
+    for i, j in bonds:
+        a, b = find(int(i)), find(int(j))
+        if a == b:
+            return True
+        root[a] = b
+    return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -721,8 +740,8 @@ FORCE_PATHS = ("cellpad", "nlist", "sweep")
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
     """Box, masses, pair style, dt, the OBMD stage, the bond, angle,
-    dihedral and improper styles, the rigid-body flag (refused by every
-    engine), the SHAKE/RATTLE constraints, the Langevin thermostat and
+    dihedral and improper styles, the rigid-body flag (rigid.py), the
+    SHAKE/RATTLE constraints, the Langevin thermostat and
     static capacities.  `branched_topology` (more than two bonds on some
     atom) gives the state four partner columns (and with `improper` the
     impr column) and the pair kernel four exclusion channels; set it for a
@@ -761,8 +780,10 @@ class SceneConfig:
         """Apply the buffersize default 0.3*Lx (fix_obmd_merged.cpp:1912),
         set `rigid` from the fix's keyword, set branched_topology when an
         insertion template is branched, derive the SHAKE table from the
-        templates under the fix's `shake`, and refuse rigid with shake and
-        a table of another type count (obmd_tpu/config.py:868-893)."""
+        templates under the fix's `shake`, and refuse rigid with shake, a
+        table of another type count (obmd_tpu/config.py:868-893) and, where
+        the JAX package does not, rigid with a template whose bonds close a
+        cycle."""
         out = self
         if out.force_path not in FORCE_PATHS:
             raise ValueError(f"force_path must be one of {FORCE_PATHS}, not "
@@ -782,6 +803,14 @@ class SceneConfig:
                 out.obmd.templates, out.ntypes))
         if out.shake is not None and out.rigid:
             raise ValueError("rigid and shake are mutually exclusive")
+        if out.rigid and out.obmd is not None:
+            for k, t in enumerate(out.obmd.templates):
+                if bond_graph_cyclic(t.natoms, t.bonds):
+                    raise ValueError(
+                        f"`rigid`: template {k}'s bond graph has a cycle; "
+                        f"the rigid integrator sums a body by message "
+                        f"passing over its bonds, exact only on a tree "
+                        f"(bond a water O-H twice, not H-H as well)")
         if out.shake is not None and len(out.shake.d0) != out.ntypes:
             raise ValueError(
                 f"shake d0 table is {len(out.shake.d0)} types, scene has "

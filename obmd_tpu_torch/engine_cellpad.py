@@ -6,9 +6,10 @@ ATOM-mode USHER or `near` insertion (OBMD_DPD, the open LJ fluid, the open
 charged two-type LJ fluid) or MOLECULE-mode insertion of one or several
 templates with their bonds, angles, impropers and charges (the open
 star-polymer melt, the open SPC/E water: `_insert_mol` with every keyword
-of the fix but `rigid`, whole-molecule deletion, the molecules' centers of
-mass after every step), with SHAKE/RATTLE constraints after the drift and
-the second half kick (`shake.py`),
+of the fix, whole-molecule deletion, the molecules' centers of mass after
+every step), with SHAKE/RATTLE constraints (`shake.py`) or rigid bodies
+(`rigid.py`: the bodies moved whole in the drift, their velocities
+projected after the second half kick),
 or a closed box without the OBMD stage (the LJ
 melt; with FENE chains, the chain melt; with harmonic bonds, angles,
 dihedrals on chains and impropers on branched topologies of up to four
@@ -72,6 +73,7 @@ from .cells import BIG
 from .config import (DPDTstatParams, LJCutRFParams, SceneConfig,
                      template_stacks)
 from .geometry import const, const_like
+from .rigid import check_bodies, rigid_drift, rigid_project
 from .shake import rattle_velocities, shake_positions
 from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                             improper_forces, langevin_force)
@@ -141,13 +143,11 @@ def own_draws(cfg: SceneConfig) -> Draw:
 def check_scene(cfg: SceneConfig) -> None:
     """The refusals every engine shares: float32 only, as many masses as
     the pair law has types, and an OBMD stage only on an open x axis,
-    without bonded terms in ATOM mode."""
+    without bonded terms in ATOM mode (where the JAX engines bond a
+    survivor of a deleted partner to the next atom inserted into its
+    slot)."""
     if cfg.dtype != "float32":
         raise NotImplementedError("only float32 scenes are ported")
-    if cfg.rigid:
-        raise NotImplementedError(
-            "rigid bodies (`rigid`, obmd_tpu/rigid.py) are not ported yet: "
-            "the slice after SHAKE ports them")
     if cfg.ntypes != cfg.pair.ntypes:
         raise ValueError(f"{cfg.ntypes} masses for a pair law of "
                          f"{cfg.pair.ntypes} types")
@@ -158,9 +158,17 @@ def check_scene(cfg: SceneConfig) -> None:
         raise ValueError("open boundaries require an open x axis")
     if not mol_mode(cfg) and any(t is not None for t in (
             cfg.bond, cfg.angle, cfg.dihedral, cfg.improper)):
+        # the JAX engines run this case: ATOM-mode deletion takes single
+        # atoms, a survivor's partner column stays on the dead slot, and the
+        # next insertion there bonds the survivor to a stranger; LAMMPS
+        # stops ("Bond atoms missing"), and so does the port
         raise NotImplementedError(
-            "bonded terms with ATOM-mode insertion are not ported (molecule "
-            "mode, the `mol` keyword, is)")
+            "bonded terms with ATOM-mode insertion are refused: deletion at "
+            "a face takes single atoms, and a bonded survivor would keep its "
+            "dead partner's slot, which an insertion refills with a "
+            "stranger (tests/test_torch_atom_bonded.py; the reference stops "
+            "with 'Bond atoms missing'); insert molecules with the `mol` "
+            "keyword")
 
 
 def check_supported(cfg: SceneConfig) -> None:
@@ -175,7 +183,8 @@ def check_supported(cfg: SceneConfig) -> None:
     harmonic bonds, harmonic angles, dihedrals (chains only, as
     obmd_tpu/engine_cellpad.py:149-154) and impropers, on chains or
     branched topologies (the pair kernel's 4-channel exclusion); rigid
-    bodies are refused (check_scene's refusals first)."""
+    bodies, whose trees setup checks (rigid.check_bodies; check_scene's
+    refusals first)."""
     check_scene(cfg)
     if mol_mode(cfg):
         top = int(template_stacks(cfg.obmd).types.max())
@@ -210,12 +219,15 @@ def relayout_flags(cfg: SceneConfig) -> dict:
     column constant over the scene (no bonds, no molecules, no charges, one
     type) skips its moves (obmd_tpu/engine_cellpad.py:52-72 for the ported
     columns).  has_bonds moves the partner columns (two or four) and the
-    improper triplets; MOLECULE-mode insertion turns on bonds, molecules
+    improper triplets, on a scene with a bond style, SHAKE or rigid
+    bodies (both read the partner columns, rigid bodies the molecule ids
+    too); MOLECULE-mode insertion turns on bonds, molecules
     and charges (the template's q), and has_mol_com, the molecule columns
     only it writes (lambdaF, cms_mol, vcms_mol, rep_atom; the JAX engine
     moves them with has_mol, zeros on every other scene)."""
     mol = mol_mode(cfg)
-    has_bonds = cfg.bond is not None or mol
+    has_bonds = (cfg.bond is not None or mol or cfg.shake is not None
+                 or cfg.rigid)
     has_mol = has_bonds or cfg.angle is not None or cfg.dihedral is not None
     return dict(has_bonds=has_bonds, has_mol=has_mol,
                 has_charge=isinstance(cfg.pair, LJCutRFParams) or mol,
@@ -735,6 +747,8 @@ def setup_cellpad(cfg: SceneConfig, state: State,
     draw = draw or own_draws(cfg)
     geom = make_geometry(cfg)
     kern = _make_kernel(cfg, geom, kernel)
+    if cfg.rigid:
+        check_bodies(cfg, state)
     n_before = int(state.alive.sum())
     lost = n_before
     if cfg.obmd is not None:
@@ -777,13 +791,17 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
 
 def kick_drift(cfg, state: State, dt: float, dtf: float) -> State:
     """The first half kick and the drift with the periodic wrap, live atoms
-    only, then under SHAKE the position constraints (the pre-drift
-    positions giving the bonds' directions, the more partner columns of a
-    branched topology included)."""
+    only (rigid bodies moved and turned whole by rigid.rigid_drift), then
+    under SHAKE the position constraints (the pre-drift positions giving
+    the bonds' directions, the more partner columns of a branched topology
+    included).  Every engine's step drifts here."""
     m = per_atom_mass(cfg, state)[:, None]
     a3 = state.alive[:, None]
     v = torch.where(a3, state.v + dtf * state.f / m, state.v)
-    x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
+    if cfg.rigid:
+        x, v = rigid_drift(cfg, state, v)
+    else:
+        x = cfg.box.wrap(torch.where(a3, state.x + dt * v, state.x))
     if cfg.shake is not None:
         x, v = shake_positions(cfg, state.x, x, v, state.type, state.bond1,
                                state.bond2, state.alive, 1.0 / m[:, 0],
@@ -793,9 +811,13 @@ def kick_drift(cfg, state: State, dt: float, dtf: float) -> State:
 
 def kick(cfg, state: State, f, dtf: float) -> torch.Tensor:
     """The second half kick's velocities from the forces f, live atoms
-    only, then under SHAKE the RATTLE velocity constraints."""
+    only, then rigid bodies' velocities projected onto their rigid field
+    (rigid.rigid_project) or under SHAKE the RATTLE velocity constraints.
+    Every engine's step kicks here."""
     m = per_atom_mass(cfg, state)[:, None]
     v = torch.where(state.alive[:, None], state.v + dtf * f / m, state.v)
+    if cfg.rigid:
+        v = rigid_project(cfg, state, v)
     if cfg.shake is not None:
         v = rattle_velocities(cfg, state.x, v, state.type, state.bond1,
                               state.bond2, state.alive, 1.0 / m[:, 0],

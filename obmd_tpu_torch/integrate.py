@@ -47,6 +47,7 @@ from .obmd.stage import (apply_boundary_force, delete_outside,
                          insertion_subsets, pre_exchange, rounds_of,
                          setpoints, skipped_insertion, stage_params)
 from .obmd.subset import expand_region, subset_rows
+from .rigid import check_bodies
 from .state import State, temperature
 
 I32 = torch.int32
@@ -149,6 +150,8 @@ def setup(cfg: SceneConfig, state: State, draw: Optional[Draw] = None,
         return setup_cellpad(cfg, state, draw, kernel)
     _pair_kernel_only(cfg, kernel)
     check_supported(cfg)
+    if cfg.rigid:
+        check_bodies(cfg, state)
     if cfg.obmd is not None:
         state = pre_exchange(cfg, state, draw or own_draws(cfg))
     state = state.replace(x=cfg.box.wrap(state.x))

@@ -25,7 +25,7 @@ from typing import NamedTuple
 __all__ = ("Thermo", "Profiles", "make_thermo_fn", "bonded_energies",
            "make_profile_fn", "profile_temperature", "make_obmd_metrics_fn",
            "molecule_census", "molecule_sizes", "molecule_report",
-           "molecular_pxx",
+           "molecular_pxx", "rigid_error", "Bins",
            "bond_stats", "charge_census", "constraint_error",
            "ill_conditioned_impropers", "check_invariants")
 
@@ -69,6 +69,33 @@ class Profiles(NamedTuple):
     temp: torch.Tensor         # local temperature
     pxx: torch.Tensor          # local P_xx (kinetic + virial share)
     count: torch.Tensor
+
+
+class Bins:
+    """Sums of rows into bins in a fixed order, where index_add would run
+    as float atomics on CUDA (two evaluations on one state could differ in
+    their last digits): the rows stably sorted by bin, each put at (bin,
+    rank in its bin) of a zero-padded [nbins, most rows a bin, ...] table,
+    summed over the rank axis.  The same bins and rows give the same bytes
+    on every call."""
+
+    def __init__(self, idx: torch.Tensor, nbins: int):
+        idx = idx.long()
+        self.nbins = nbins
+        self.order = torch.sort(idx, stable=True).indices
+        self.bin = idx[self.order]
+        count = torch.bincount(idx, minlength=nbins)
+        first = torch.cumsum(count, 0) - count
+        self.rank = torch.arange(idx.numel(), device=idx.device) \
+            - first[self.bin]
+        self.width = int(count.max()) if idx.numel() else 0
+
+    def sum(self, vals: torch.Tensor) -> torch.Tensor:
+        """[nbins, ...] sums of vals [rows, ...] by bin."""
+        table = torch.zeros((self.nbins, self.width) + vals.shape[1:],
+                            dtype=vals.dtype, device=vals.device)
+        table[self.bin, self.rank] = vals[self.order]
+        return table.sum(1)
 
 
 def _sweep(cfg: SceneConfig, spec, state: State, **kw):
@@ -155,12 +182,11 @@ def make_profile_fn(cfg: SceneConfig, nbins: int = 64):
         alive = state.alive
         m = per_atom_mass(cfg, state)
         b = torch.clamp(((state.x[:, 0] - xlo) / dx).to(torch.int32), 0,
-                        nbins - 1)
-        b = torch.where(alive, b, nbins).long()
+                        nbins - 1).long()
+        bins = Bins(b[alive], nbins)
 
         def binsum(vals):
-            out = torch.zeros((nbins + 1,), dtype=dtype, device=state.device)
-            return out.index_add(0, b, torch.where(alive, vals, 0.0))[:nbins]
+            return bins.sum(vals[alive])
 
         cnt = binsum(torch.ones_like(m))
         safe = torch.clamp(cnt, min=1.0)
@@ -191,8 +217,7 @@ def profile_temperature(cfg: SceneConfig, state: State,
     b = torch.clamp(((state.x[:, 0] - xlo) * (nbins / (xhi - xlo)))
                     .to(torch.int64), 0, nbins - 1)
     mv = torch.where(alive[:, None], m[:, None] * state.v, 0.0)
-    zeros = torch.zeros((nbins, 4), dtype=m.dtype, device=m.device)
-    sums = zeros.index_add(0, b, torch.cat([m[:, None], mv], dim=1))
+    sums = Bins(b[alive], nbins).sum(torch.cat([m[:, None], mv], dim=1)[alive])
     msum, mvsum = sums[:, 0], sums[:, 1:]
     vbin = mvsum / torch.clamp(msum, min=1e-30)[:, None]
     dv = state.v - vbin[b]
@@ -323,7 +348,46 @@ def molecule_report(cfg: SceneConfig, state: State, templates=None) -> dict:
                net_charge=charge_census(state)[0])
     if cfg.shake is not None:
         out["constraint_error"] = float(constraint_error(cfg, state))
+    if cfg.rigid:
+        out["rigid_error"] = rigid_error(cfg, state, templates)
     return out
+
+
+def rigid_error(cfg: SceneConfig, state: State, templates=None) -> float:
+    """The rigid bodies' largest distance error against their template
+    (nm in the water scenes): over every live molecule whose atoms, in tag
+    order, have a template's count and types (insertion and the water
+    lattice write a molecule in template order), the largest |r_ij -
+    r_ij(template)| over all its pairs, bonded or not (a water's H-H
+    too).  `templates`: those of the stage when None; 0.0 without
+    any."""
+    if templates is None:
+        templates = cfg.obmd.templates if cfg.obmd is not None else ()
+    member = state.alive & (state.mol != 0)
+    err = 0.0
+    if not templates or not bool(member.any()):
+        return err
+    rows = torch.nonzero(member).flatten()
+    key = state.mol[rows].long() * (int(state.tag.max()) + 1) \
+        + state.tag[rows].long()
+    rows = rows[torch.argsort(key)]
+    _, count = torch.unique_consecutive(state.mol[rows], return_counts=True)
+    first = torch.cumsum(count, 0) - count
+    for t in templates:
+        m = t.natoms
+        start = first[count == m]
+        if start.numel() == 0:
+            continue
+        idx = rows[start[:, None] + torch.arange(m, device=rows.device)]
+        types = torch.as_tensor(t.types, device=rows.device)
+        idx = idx[(state.type[idx] == types).all(1)]
+        d = cfg.box.min_image(state.x[idx] - state.x[idx[:, :1]]).double()
+        dx = torch.as_tensor(t.dx, dtype=torch.float64, device=rows.device)
+        got = (d[:, :, None] - d[:, None]).norm(dim=-1)
+        want = (dx[:, None] - dx[None]).norm(dim=-1)
+        if got.numel():
+            err = max(err, float((got - want).abs().max()))
+    return err
 
 
 def molecular_pxx(cfg: SceneConfig, state: State, k_max: int = 640,
@@ -369,17 +433,17 @@ def molecular_pxx(cfg: SceneConfig, state: State, k_max: int = 640,
                       -1 - slot)
     _, mid = torch.unique(key, return_inverse=True)
     n_mol = int(mid.max()) + 1
-    ref = torch.zeros((n_mol,), dtype=torch.long, device=dev)
-    ref[mid] = slot
+    # each molecule's lowest slot as its reference atom (an index_put of
+    # every slot would keep an arbitrary one on CUDA, and the frame of
+    # the sums with it)
+    ref = torch.full((n_mol,), n, dtype=torch.long, device=dev)
+    ref = ref.scatter_reduce(0, mid, slot, reduce="amin")
     d = box.min_image(x - x[ref[mid]]).double()
-    msum = torch.zeros((n_mol,), dtype=torch.float64,
-                       device=dev).index_add_(0, mid, m)
+    mols = Bins(mid, n_mol)
+    msum = mols.sum(m)
     safe = torch.clamp(msum, min=1e-30)[:, None]
-    dcom = torch.zeros((n_mol, 3), dtype=torch.float64,
-                       device=dev).index_add_(0, mid, m[:, None] * d) / safe
-    vcom = torch.zeros((n_mol, 3), dtype=torch.float64,
-                       device=dev).index_add_(0, mid, m[:, None]
-                                              * v.double()) / safe
+    dcom = mols.sum(m[:, None] * d) / safe
+    vcom = mols.sum(m[:, None] * v.double()) / safe
     rel = d - dcom[mid]
     kin_mol = (msum * vcom[:, 0] ** 2).sum()
     kin_atom = (m * v[:, 0].double() ** 2).sum()
@@ -435,7 +499,9 @@ def check_invariants(cfg: SceneConfig, state: State) -> dict:
     overflow, layout overflow (on the nlist and sweep engines the cell
     table's and the Verlet list's dropped candidates) or half-skin trips
     (the cellpad layout's; a Verlet list rebuilds instead) mean pair
-    interactions were dropped or stale.  Returns the counters; raises
+    interactions were dropped or stale.  Under `rigid` with insertion
+    templates it reports the bodies' largest distance error against them
+    (`rigid_error`, a figure, not a gate).  Returns the counters; raises
     RuntimeError on a violation."""
     tel = {"cell_overflow": int(state.cell_overflow)}
     nbrs = state.nbrs
@@ -444,6 +510,8 @@ def check_invariants(cfg: SceneConfig, state: State) -> dict:
         if hasattr(nbrs, "skin_trips"):
             tel["skin_trips"] = int(nbrs.skin_trips)
         tel["rebuilds"] = int(nbrs.rebuilds)
+    if cfg.rigid and cfg.obmd is not None and cfg.obmd.templates:
+        tel["rigid_error"] = rigid_error(cfg, state)
     if cfg.obmd is not None:
         tel["ninserted"] = int(state.obmd.ninserted)
         tel["ndeleted"] = int(state.obmd.ndeleted)

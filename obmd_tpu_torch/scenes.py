@@ -35,7 +35,11 @@ data file (`write_star_data`) and warmed up by `star_warm_up`.  Path F
 (`open_star_config`, `open_star_scene`) is that melt in an open box under
 shear, with molecule-mode insertion; path I (`open_water_config`,
 `open_water_scene`, `closed_water_scene` for its state point,
-`water_warm_up`) is BASELINE config 5's open SPC/E water under SHAKE.
+`water_warm_up`) is BASELINE config 5's open SPC/E water under SHAKE;
+path K (`open_water_config(rigid=True)`, `open_water_scene(rigid=True)`,
+`rigid_water_start` from path I's warmed state) the same water as rigid
+bodies on the tree template.  `rigid_golden_scene` is
+validation/rigid_golden's box of rigid trimers.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import tempfile
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .config import (AngleHarmonicParams, BondFENEParams, BondHarmonicParams,
                      Capacity, DPDExtParams, DPDParams, DPDTstatParams,
@@ -1187,27 +1192,36 @@ def water_template_coords() -> np.ndarray:
                         0.0)])
 
 
-def write_water_molecule(path: str) -> None:
+# a water's bonds as 0-based (O, H1, H2) pairs: the triangle of path I
+# (SHAKE's three distances) or the tree of path K (rigid bodies: the
+# message passing sums a body exactly only on a tree)
+WATER_BONDS = ((0, 1), (0, 2), (1, 2))
+WATER_TREE_BONDS = ((0, 1), (0, 2))
+
+
+def write_water_molecule(path: str, tree: bool = False) -> None:
     """SPC/E water as a LAMMPS molecule file: Coords
     (water_template_coords), Types (O 0, H 1, 0-based), Charges
-    (WATER_Q) and Bonds (O-H twice and the H-H bond that closes the
-    triangle, as fix shake's angle constraint does)."""
+    (WATER_Q) and Bonds: O-H twice and the H-H bond that closes the
+    triangle, as fix shake's angle constraint does, or with `tree` the
+    two O-H bonds alone."""
     from .io.molecule import MoleculeTemplate, write_molecule
+    bonds = WATER_TREE_BONDS if tree else WATER_BONDS
     write_molecule(path, MoleculeTemplate(
         natoms=3, x=water_template_coords(), types=np.asarray([0, 1, 1]),
         q=np.asarray([WATER_Q[0], WATER_Q[1], WATER_Q[1]]),
-        bonds=np.asarray([(1, 1, 2), (1, 1, 3), (1, 2, 3)])),
+        bonds=np.asarray([(1, i + 1, j + 1) for i, j in bonds])),
         title="SPC/E water (Berendsen, Grigera and Straatsma 1987)")
 
 
-def water_template():
-    """config.MolTemplate of write_water_molecule's file, read back through
-    io.molecule.read_molecule (dx about the template's geometric
-    center)."""
+def water_template(tree: bool = False):
+    """config.MolTemplate of write_water_molecule's file (`tree` as
+    there), read back through io.molecule.read_molecule (dx about the
+    template's geometric center)."""
     from .config import MolTemplate
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "water.mol")
-        write_water_molecule(path)
+        write_water_molecule(path, tree)
         return MolTemplate.from_file(path)
 
 
@@ -1261,24 +1275,26 @@ def water_lattice(planes: int, seed: int, min_dist: float = 0.18):
     return x.reshape(-1, 3), np.ascontiguousarray(v).reshape(-1, 3)
 
 
-def _water_topology(n_w: int):
-    """(types, q, mol, bonds) of n_w waters in O, H, H order."""
+def _water_topology(n_w: int, tree: bool = False):
+    """(types, q, mol, bonds) of n_w waters in O, H, H order (`tree`: the
+    O-H bonds alone)."""
     types = np.tile([0, 1, 1], n_w)
     q = np.tile([WATER_Q[0], WATER_Q[1], WATER_Q[1]], n_w)
     mol = np.repeat(np.arange(1, n_w + 1), 3)
     base = 3 * np.arange(n_w)[:, None] + 1
-    bonds = (base[:, None, :] + np.asarray([(0, 1), (0, 2), (1, 2)])[None]
-             ).reshape(-1, 2)
+    pairs = np.asarray(WATER_TREE_BONDS if tree else WATER_BONDS)
+    bonds = (base[:, None, :] + pairs[None]).reshape(-1, 2)
     return types, q, mol, bonds
 
 
-def _water_base(box: Box, n_max: int, cap: int) -> SceneConfig:
+def _water_base(box: Box, n_max: int, cap: int,
+                rigid: bool = False) -> SceneConfig:
     """The water law, masses, bond exclusion, SHAKE table (from the
-    template, WATER_SHAKE_ITERS sweeps), dt, skin, thermostat and layout of
-    a box."""
+    template, WATER_SHAKE_ITERS sweeps) or with `rigid` rigid bodies in
+    its place, dt, skin, thermostat and layout of a box."""
     return SceneConfig(
-        shake=shake_table_from_templates([water_template()], 2,
-                                         iters=WATER_SHAKE_ITERS),
+        shake=None if rigid else shake_table_from_templates(
+            [water_template()], 2, iters=WATER_SHAKE_ITERS), rigid=rigid,
         box=box, masses=WATER_MASSES, pair=water_pair(), dt=WATER_DT,
         capacity=Capacity(n_max=n_max, cell_capacity=cap),
         bond=BondHarmonicParams(k=0.0, r0=WATER_OH),
@@ -1290,7 +1306,8 @@ def open_water_config(planes: int = WATER_PLANES, cap: int = WATER_CAP,
                       etarget: float = OPEN_WATER_ETARGET,
                       pxx: float = OPEN_WATER_PXX,
                       nbuf: float = OPEN_WATER_CENSUS,
-                      n_max: Optional[int] = None, **obmd_kw) -> SceneConfig:
+                      n_max: Optional[int] = None, rigid: bool = False,
+                      **obmd_kw) -> SceneConfig:
     """Path I, BASELINE.json config 5: SPC/E water in an open-x box of
     `planes` lattice planes (92: Lx 27.64 nm) x WATER_LYZ x WATER_LYZ nm
     (y and z periodic).
@@ -1325,7 +1342,17 @@ def open_water_config(planes: int = WATER_PLANES, cap: int = WATER_CAP,
     put in one cell (123, the comment at OPEN_WATER_ETARGET; the smoke
     reads it again, chip_smoke.max_cell_count) with room for the
     insertions and the density's fluctuations.  n_max: the start's
-    atoms and 10% more.  `obmd_kw` replaces ObmdParams fields."""
+    atoms and 10% more.  `obmd_kw` replaces ObmdParams fields.
+
+    With `rigid`, path K: rigid bodies in place of SHAKE on SceneConfig
+    and ObmdParams, and the tree template (water_template(tree=True), O-H
+    twice): the rigid integrator sums a body exactly only on a tree.  The
+    K = 0 bond then excludes the two O-H pairs, and the H-H pair (0.163
+    nm) is in the pair law: a central force inside one rigid body, so it
+    adds no net force or torque to a water, but a constant to thermo's
+    E_pair (its reaction-field energy per water).  observe.molecular_pxx
+    stays consistent: its W and its f_a come from one list sweep, so the
+    H-H pair enters both and cancels."""
     ax = 1.0 / (WATER_RHO * (WATER_LYZ / WATER_SITES) ** 2)
     lx = planes * ax
     b = 0.15 * lx
@@ -1340,14 +1367,14 @@ def open_water_config(planes: int = WATER_PLANES, cap: int = WATER_CAP,
         region6=r2, buffer_size=b, g_fac=0.25, maxattempt=1,
         usher=UsherParams(etarget=etarget, ds0=0.1, dtheta0=0.1,
                           uovlp=1.0e4, dsovlp=0.05, eps=1.0, nattempt=40),
-        mol=water_template(), mol_len=3, insert_kmax=8, charged=True,
-        shake=True, vx=v, vy=v, vz=v)
+        mol=water_template(tree=rigid), mol_len=3, insert_kmax=8,
+        charged=True, shake=not rigid, rigid=rigid, vx=v, vy=v, vz=v)
     args.update(obmd_kw)
     n = 3 * planes * WATER_SITES ** 2
     box = Box((0.0, 0.0, 0.0), (lx, WATER_LYZ, WATER_LYZ),
               (False, True, True))
     return dataclasses.replace(
-        _water_base(box, n_max or int(1.1 * n), cap),
+        _water_base(box, n_max or int(1.1 * n), cap, rigid=rigid),
         obmd=ObmdParams(**args)).finalize()
 
 
@@ -1356,11 +1383,11 @@ def open_water_scene(planes: int = WATER_PLANES, seed: int = 1987,
     """Path I on `device`: water_lattice(planes) in open_water_config's
     box (92 planes: 33,212 waters, 99,636 atoms), O, H, H with the
     template's types and charges, one molecule id and three bonds a water
-    (`cfg_kw` passed on).  Warm it up with water_warm_up, then setup at
-    the production cap."""
+    (two with `rigid=True`, path K; `cfg_kw` passed on).  Warm it up with
+    water_warm_up, then setup at the production cap."""
     cfg = open_water_config(planes=planes, **cfg_kw)
     x, v = water_lattice(planes, seed)
-    types, q, mol, bonds = _water_topology(len(x) // 3)
+    types, q, mol, bonds = _water_topology(len(x) // 3, tree=cfg.rigid)
     return Scene(cfg=cfg, state=init_state(cfg, x, v=v, types=types, q=q,
                                            mol=mol, bonds=bonds,
                                            device=device))
@@ -1392,6 +1419,82 @@ def water_warm_up(cfg: SceneConfig, state: State,
     under the Langevin thermostat (and on an open box the stage)."""
     from .integrate import equilibrate, setup
     return equilibrate(cfg, setup(cfg, state), steps, temp=WATER_THERMO_T)
+
+
+def rigid_water_start(cfg: SceneConfig, state: State, device=None) -> State:
+    """Path K's state from a water state of path I (SHAKE, the triangle's
+    bonds): its live atoms in tag order with their positions, velocities,
+    types, charges and molecule ids, and each molecule's two O-H bonds
+    (its atoms by tag: O, H, H) in place of three, in cfg's store on
+    `device` (the state's when None).  SHAKE and RATTLE leave a water
+    moving as a rigid body, so the velocities need no projection."""
+    alive = state.alive
+    order = torch.argsort(state.tag[alive])
+
+    def host(t):
+        return t[alive][order].cpu().numpy()
+    tags, mol = host(state.tag), host(state.mol)
+    if len(tags) % 3 or np.any(mol[0::3] != mol[2::3]) \
+            or np.any(mol[0::3] != mol[1::3]):
+        raise ValueError("rigid_water_start: the live atoms are not whole "
+                         "waters in tag order")
+    t3 = tags.reshape(-1, 3)
+    bonds = np.stack([t3[:, list(b)] for b in WATER_TREE_BONDS],
+                     1).reshape(-1, 2)
+    return init_state(cfg, host(state.x), v=host(state.v),
+                      types=host(state.type), tags=tags, q=host(state.q),
+                      mol=mol, bonds=bonds,
+                      device=state.device if device is None else device)
+
+
+# validation/rigid_golden (validation/run_rigid_golden.py): 8 bent trimers
+# free in a periodic 12^3 box under `pair_style dpd 0.0 1.0 12345`,
+# `pair_coeff 1 1 8.0 2.0`, fix rigid/small molecule, dt 0.004, 40 steps,
+# skin 0.3; the reference's positions after 40 steps in dump.ref, and in
+# dump.rv those and the velocities of the same bodies under `pair_style
+# zero` (in.r2)
+RIGID_GOLDEN = dict(temp=0.0, cutoff=1.0, seed=12345, a0=8.0, gamma=2.0)
+RIGID_GOLDEN_DT, RIGID_GOLDEN_STEPS = 0.004, 40
+
+
+def rigid_golden_scene(device="cuda", force_path: str = "nlist",
+                       free: bool = False) -> Scene:
+    """validation/rigid_golden's trimers.data through the port's read_data
+    (atom_style molecular: positions, velocities, molecule ids and the two
+    bonds of each trimer) as a scene-level rigid body per molecule under
+    RIGID_GOLDEN's DPD law (with `free`, a0 = gamma = 0: in.r2's pair_style
+    zero), on `force_path`.  No bond style: the pair law acts inside a
+    body too, where its central forces cancel (the JAX run of
+    run_rigid_golden.py does the same)."""
+    from .io.lammps_data import read_data
+    df = read_data(os.path.join(VALIDATION, "rigid_golden", "trimers.data"),
+                   atom_style="molecular")
+    law = dict(RIGID_GOLDEN, **(dict(a0=0.0, gamma=0.0) if free else {}))
+    cfg = SceneConfig(
+        box=df.box(periodic=(True, True, True)), masses=tuple(df.masses),
+        pair=DPDParams.create(**law), dt=RIGID_GOLDEN_DT,
+        capacity=Capacity(n_max=df.natoms, cell_capacity=24), rigid=True,
+        skin=0.3, force_path=force_path).finalize()
+    return Scene(cfg=cfg, state=init_state(
+        cfg, df.x, v=df.v, types=df.types, tags=df.tags, mol=df.mol,
+        bonds=df.bonds, device=device))
+
+
+def golden_dump(folder: str, name: str) -> dict:
+    """{atom id: row of floats} of the last frame of validation/<folder>'s
+    dump `name` (columns after the id as the dump's ATOMS line lists
+    them)."""
+    with open(os.path.join(VALIDATION, folder, name)) as fh:
+        lines = fh.read().splitlines()
+    start = max(i for i, ln in enumerate(lines)
+                if ln.startswith("ITEM: ATOMS"))
+    rows = {}
+    for line in lines[start + 1:]:
+        t = line.split()
+        if not t or t[0] == "ITEM:":
+            break
+        rows[int(t[0])] = np.asarray([float(v) for v in t[1:]])
+    return rows
 
 
 # The reference binary's bonded goldens (validation/run_bonded_golden.py,
@@ -1445,14 +1548,9 @@ def golden_scene(folder: str, device="cuda", dtype: str = "float32") -> Scene:
 
 
 def golden_forces(folder: str) -> dict:
-    """LAMMPS' forces of a golden: {atom id: f [3]} from its dump.ref."""
-    with open(os.path.join(VALIDATION, folder, "dump.ref")) as fh:
-        lines = fh.read().splitlines()
-    rows = {}
-    for line in lines[lines.index("ITEM: ATOMS id fx fy fz") + 1:]:
-        t = line.split()
-        rows[int(t[0])] = np.asarray([float(v) for v in t[1:4]])
-    return rows
+    """LAMMPS' forces of a golden: {atom id: f [3]} from its dump.ref (one
+    frame of `id fx fy fz`)."""
+    return golden_dump(folder, "dump.ref")
 
 
 # the reference binary's dpd/ext forces at T = 0 (validation/

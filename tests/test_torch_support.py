@@ -316,11 +316,11 @@ def test_state_observables_agree():
 
 def test_molecule_mode_support_and_refusals():
     """The engine takes MOLECULE mode with bonded terms (path F, the small
-    star and LJ boxes) and every keyword of the fix but `rigid`: several
-    templates (`mols`/`molfrac`), `charged 1`, `orient`, `shake`, the
+    star and LJ boxes) and every keyword of the fix: several templates
+    (`mols`/`molfrac`), `charged 1`, `orient`, `shake`, `rigid`, the
     inserted-velocity keywords, maxattempt > 1, nfreq > 1 and the
-    candidate keywords; it refuses, each with a message, `rigid` (naming
-    the slice that ports it), dihedrals on the branched template and a
+    candidate keywords; it refuses, each with a message, `rigid` on a
+    template whose bonds close a cycle, dihedrals on the branched template and a
     template type beyond the scene's; bonded terms with ATOM-mode
     insertion stay refused."""
     import pytest
@@ -353,20 +353,23 @@ def test_molecule_mode_support_and_refusals():
         "global": obmd(deposit_global=(-1.0, -0.2)),
         "local": obmd(deposit_local=(-1.0, -0.2, 1.0)),
         "rate": obmd(rate=0.5),
+        "rigid": obmd(rigid=True),
     }
     for name, cfg in good.items():
         assert supports(cfg), name
         check_supported(cfg.finalize())
     assert good["shake"].finalize().shake is not None
     bad = {
-        "rigid": obmd(rigid=True),
+        "rigid": obmd(rigid=True, mol=dataclasses.replace(
+            dimer, dx=dimer.dx + ((0.0, 0.5, 0.0),), types=(0, 0, 0),
+            bonds=((0, 1), (1, 2), (0, 2)))),
         "dihedrals": dataclasses.replace(
             small, dihedral=DihedralHarmonicParams(k=1.0)),
         "type": obmd(mol=dataclasses.replace(tpl, types=(2, 0, 0, 0, 0))),
         "ATOM-mode": dataclasses.replace(small, obmd=dataclasses.replace(
             small.obmd, mol=None, mol_len=1)),
     }
-    words = {"rigid": "rigid bodies .* slice after SHAKE",
+    words = {"rigid": "template 0's bond graph has a cycle",
              "dihedrals": "dihedrals", "type": "type 3",
              "ATOM-mode": "ATOM-mode"}
     for name, cfg in bad.items():
