@@ -45,7 +45,8 @@ def production(cfg, state, probe=None):
     """make_run(NSTEPS) once to settle, then two timed NSTEPS windows.
     probe(state), if given, is called after the settle and after each
     window, outside the timing.  Returns (state, [(seconds, steps)] of the
-    windows, the probes' results)."""
+    windows, the probes' results).  bench_lj_torch.py and
+    bench_chain_torch.py time their windows through it too."""
     import torch
     from obmd_tpu_torch.integrate import make_run
     run = make_run(cfg, NSTEPS)

@@ -7,7 +7,8 @@ the port builds, is right and runs its main path on the card.
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from obmd_tpu_torch/csrc (one nvcc per source,
-     all started together);
+     all started together) and, beside them, the host libraries
+     (csrc/obmdio.cpp, csrc/obmdc_torch.cpp; one g++ each);
   3. the OBMD_DPD path at a small size (scale 0.25) on the card against the
      same path on the CPU through the plain versions (check_small_path);
      then each kernel against its plain PyTorch version at bench shapes:
@@ -34,7 +35,8 @@ Phases (any failure exits non-zero and prints no result line):
   6. the main path through the full-stencil kernel: FULL_STEPS steps of
      phase 4's production from the same state, make_run(kernel="full"),
      launch counts zeroed before and read after, check_invariants;
-  7. the LJ melt path as bench_lj.py drives it: lj_melt_scene(nx=20)
+  7. the LJ melt path as bench_lj.py drives it, through bench_lj_torch.py's
+     own functions (scene, production): lj_melt_scene(nx=20)
      (32,000 atoms, fully periodic, cap 36, a p == 1 layout), setup,
      make_run(400) warm, two timed make_run(400) windows, check_invariants;
      thermo (through the pair sweep) at the start and end of the timed
@@ -73,7 +75,8 @@ Phases (any failure exits non-zero and prints no result line):
      49 beads, warmed up on the card, then copied to the CPU) on the card
      against the same path on the CPU (check_small_path: slots, tags and
      partner columns exact);
- 14. the chain melt's main path (bench/in.chain at full width):
+ 14. the chain melt's main path (bench/in.chain at full width), through
+     bench_chain_torch.py's own functions (start, production):
      chain_scene() (32,000 beads, 320 chains of 100, 31,680 bonds, the
      generated lattice start), chain_warm_up (WARM_STEPS at dt 0.003 and
      filing cap 24, velocity rescale to T = 1; launch counts zeroed before
@@ -195,12 +198,12 @@ Phases (any failure exits non-zero and prints no result line):
      (make_pair_kernel's rank-looped body) on the warmed state against its
      plain version and against itself without pbond (they differ on
      exactly the slots with a 1-2 pair inside the cut); then setup at
-     production cap 15 (the big-tile body), make_run(400) to settle, two
-     timed make_run(400) windows, check_invariants, T within 5% of 1.0 and
-     no bond reaching 2.0 at every window end (thermo with E_bond,
-     E_angle, E_imp through the pair sweep); launch counts zeroed before
-     setup and read after: key dpd-t2-excl4-cap15 once per step and at
-     setup; the cap-15 kernel on the ended state against its plain
+     production cap 15 (the big-tile body), make_run(STAR_STEPS) to
+     settle, two timed make_run(STAR_STEPS) windows, check_invariants, T
+     within 5% of 1.0 and no bond reaching 2.0 at every window end
+     (thermo with E_bond, E_angle, E_imp through the pair sweep); launch
+     counts zeroed before setup and read after: key dpd-t2-excl4-cap15
+     once per step and at setup; the cap-15 kernel on the ended state against its plain
      version and without pbond; a profile of two relayout epochs;
  27. the reference binary's bonded goldens through the port's reader and
      setup on the card (DPD a0 = 0, T = 0 for `pair zero`):
@@ -346,6 +349,22 @@ Phases (any failure exits non-zero and prints no result line):
      half-skin test every step) and at a static relayout every 10 steps,
      each passing check_invariants; write_data / read_data and one host
      copy of each output timed;
+ 40b. the port's native I/O and C library API (run_native, after path J,
+     on its final state and deck.final.data, ~109k atoms): the data file
+     read by the native reader (io/native.py over csrc/obmdio.cpp) and by
+     the Python parser, every DataFile field equal, arrays and dtypes,
+     native having run, each timed best of NATIVE_REPEATS; the final state
+     as an 11-column custom frame natively and in Python, ids and types
+     equal and every float within NATIVE_FRAME_TOL (%.6f rounding), and as
+     an xyz frame both ways, the same bytes, each timed; the C API on the
+     card: tests/test_c_api.py's C client (tests/torch_capi_support.py)
+     built with gcc against obmdc_torch and run in a subprocess with
+     OBMD_PLATFORM unset on examples/OBMD_DPD/in.simulation (the data
+     file of path J's in.simulation deck, 11,214 atoms) cut to CAPI_STEPS
+     steps, its checks (ids, the velocity scatter, run 5 after the
+     position scatter) required, its tag-ordered positions against two
+     in-process capi.Session("cuda") runs of the same calls: equal to the
+     byte where the two are, else within their difference (printed);
  41. path K, phase 38's water as rigid bodies (run_rigid:
      open_water_config(rigid=True), the tree template, from phase 38's
      warmed state by tag): setup, equilibrate(WATER_EQUIL), an insertion
@@ -438,16 +457,18 @@ T_BIN = 33.594 / 50
 # more atom per cell (gaussian noise's unbounded kicks overflowed cap 15)
 GAUSS_CAP = 16
 SMALL_SCALE, SMALL_SEED, SMALL_NBUF, SMALL_STEPS = 0.25, 1, 700.0, 4
-# the LJ melt path (bench_lj.py's deck and windows), the kernel-only check's
-# size, and the steps each path runs through the full-stencil kernel
-LJ_NX, LJ_STEPS, LJ_WIDE_NX, FULL_STEPS = 20, 400, 40, 200
+# the LJ melt path's sizes are bench_lj_torch.py's (bench_lj.py's deck and
+# window); the kernel-only check's size, and the steps each path runs
+# through the full-stencil kernel
+LJ_WIDE_NX, FULL_STEPS = 40, 200
 # the open LJ fluid: its lattice (128 x 14 x 14 fcc cells, 100,352 atoms),
 # the melt at T0 = 1.44, the production windows, the small path's lattice
 OLJ_NX, OLJ_NY, OLJ_EQUIL, OLJ_STEPS = 128, 14, 400, 400
 OLJ_SMALL = (16, 9)
-# the chain melt: bench/in.chain's 32,000 beads (nx = 20), its windows, and
-# the small path's 28 chains of 49 beads (nx = 7) and their warm-up
-CHAIN_NX, CHAIN_STEPS, CHAIN_SMALL, CHAIN_SMALL_WARM = 20, 400, (7, 49), 300
+# the chain melt's sizes are bench_chain_torch.py's (bench/in.chain's
+# 32,000 beads, its window); the small path's 28 chains of 49 beads (nx =
+# 7) and their warm-up
+CHAIN_SMALL, CHAIN_SMALL_WARM = (7, 49), 300
 # the open charged fluid: the small path's share of lattice sites kept, the
 # kernel-only check at fill cap 20 and the share of the ended state it keeps
 RF_SMALL_KEEP, RF_CAP_SMALL, RF_CAP_SMALL_KEEP = 0.7, 20, 0.4
@@ -464,7 +485,7 @@ TSTAT_MARK, TSTAT_MARKS, TSTAT_TIMED = 100, 10, 400
 # path E, the star-polymer melt: its steps per window, the longest bond
 # allowed (~13 thermal deviations sqrt(kT / 2K) = 0.11 above r0 = 0.55),
 # the small path's 307 stars (the L = 8 box) and its warm-up stages
-STAR_STEPS, STAR_BOND_LIMIT = 400, 2.0
+STAR_STEPS, STAR_BOND_LIMIT = 200, 2.0
 STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
 # path F, the open star melt under shear: its production windows (two of
 # OPEN_STEPS at scenes.STAR_PROD_CAP, as star_probe --open read it), the
@@ -472,7 +493,7 @@ STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
 # paths' USHER targets (nattempt 0: about a third of the trials pass, so
 # that the first step inserts on every law's box) and the stars' partner
 # search in the 4-channel row checks
-OPEN_STEPS, OPEN_INS_STEPS = 200, 50
+OPEN_STEPS, OPEN_INS_STEPS = 100, 50
 MOL_SMALL_ETARGET = {"dpd": 36.0, "dpd1": 36.0, "lj": 20.0, "lj1": 20.0,
                      "ljrf": 20.0}
 STAR_NEIGHBOURS = 16
@@ -525,7 +546,7 @@ RIGID_GOLDEN_CPU = 1e-4
 DECK_STATIC_SCHEDULE = "neigh_modify every 10 check no"
 # path F under gaussian noise: its steps; the small 4-channel boxes' steps
 # (the ramp box and the films)
-GAUSS_F_STEPS, EXCL4_SMALL_STEPS = 200, 20
+GAUSS_F_STEPS, EXCL4_SMALL_STEPS = 100, 20
 # cycles of the sleep kernel that holds the card while time_ms enqueues a
 # batch (~10 ms at an H100's 1.98 GHz boost clock)
 HOLD_CYCLES = 20_000_000
@@ -1775,37 +1796,27 @@ def run_lj():
     """Phases 7-9: the LJ melt path, its run through the full-stencil
     kernel, and the LJ kernel checks."""
     import torch
+    import bench_lj_torch
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
     from obmd_tpu_torch.integrate import make_run, setup
     from obmd_tpu_torch.observe import check_invariants, make_thermo_fn
 
-    # ---- phase 7: the LJ melt path
+    # ---- phase 7: the LJ melt path, through bench_lj_torch.py's steps
     _build.reset_launch_counts()
     t_path = time.perf_counter()
-    sc = scenes.lj_melt_scene(nx=LJ_NX, device=DEV)
-    cfg = sc.cfg
+    cfg, st = bench_lj_torch.scene(device=DEV)
     geom = make_geometry(cfg)
     thermo = make_thermo_fn(cfg)
-    st = setup(cfg, sc.state)
-    run = make_run(cfg, LJ_STEPS)
-    st = run(st)
-    sync()
-    marks = [thermo_line(thermo(st))]
-    windows = []
-    for _ in range(2):
-        s0 = st.step
-        t1 = time.perf_counter()
-        st = run(st)
-        sync()
-        windows.append((time.perf_counter() - t1, st.step - s0))
-        marks.append(thermo_line(thermo(st)))
+    st, windows, marks = bench_lj_torch.production(
+        cfg, st, probe=lambda s: thermo_line(thermo(s)))
     tel = check_invariants(cfg, st)
     check_finite(st, "LJ melt path")
     natoms = int(st.natoms)
     path_s = time.perf_counter() - t_path
     launches = launch_counts()
-    log(f"LJ melt path (nx {LJ_NX}, {natoms} atoms, {geom}) {path_s:.1f} s, "
+    log(f"LJ melt path (nx {bench_lj_torch.NX}, {natoms} atoms, {geom}) "
+        f"{path_s:.1f} s, "
         f"windows {windows}, telemetry {tel}, launches {launches}")
     require_launches(launches, {"pair": ("lj-cap36",)}, "LJ melt path")
     drift = energy_drift(marks, "LJ melt")
@@ -2057,6 +2068,8 @@ def chain_marks(cfg, thermo, state, marks, label):
 def run_chain():
     """Phases 13-15: the chain melt's small path against the CPU, its main
     path, the kernels with exclusion, and the full-stencil run."""
+    import bench_chain_torch
+    from bench_torch import NSTEPS
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
     from obmd_tpu_torch.integrate import make_run, setup
@@ -2069,19 +2082,18 @@ def run_chain():
         small_err = check_small_path("chain", small_chain,
                                      require_insert=False)
 
-    # ---- phase 14: the main path
+    # ---- phase 14: the main path, through bench_chain_torch.py's steps
+    # (the generated start and its warm-up, then setup and production)
     t_path = time.perf_counter()
-    sc = scenes.chain_scene(nx=CHAIN_NX, device=DEV)
-    cfg = sc.cfg
-    n_bonds = bond_stats(cfg, sc.state)[2]
+    _build.reset_launch_counts()
+    t_warm = time.perf_counter()
+    cfg, st = bench_chain_torch.start(device=DEV)
+    sync()
+    warm_s = time.perf_counter() - t_warm
+    n_bonds = bond_stats(cfg, st)[2]
     wcfg = scenes.chain_warm_up_config(cfg)
     wgeom = make_geometry(wcfg)
     wkey = f"lj-excl2-cap{wgeom.fcap}"
-    _build.reset_launch_counts()
-    t_warm = time.perf_counter()
-    st = scenes.chain_warm_up(cfg, sc.state)
-    sync()
-    warm_s = time.perf_counter() - t_warm
     warm_launches = launch_counts()
     require_launches(warm_launches, {"pair": (wkey,)}, "chain warm-up")
     warm_t = float(temperature(cfg, st))
@@ -2103,21 +2115,12 @@ def run_chain():
     thermo = make_thermo_fn(cfg)
     st = setup(cfg, st)
     occupancy = [max_cell_count(geom, st)]
-    run = make_run(cfg, CHAIN_STEPS)
-    st = run(st)
-    sync()
-    occupancy.append(max_cell_count(geom, st))
     marks = []
-    chain_marks(cfg, thermo, st, marks, "chain main path")
-    windows = []
-    for _ in range(2):
-        s0 = st.step
-        t1 = time.perf_counter()
-        st = run(st)
-        sync()
-        windows.append((time.perf_counter() - t1, st.step - s0))
-        occupancy.append(max_cell_count(geom, st))
-        chain_marks(cfg, thermo, st, marks, "chain main path")
+
+    def probe(state):
+        occupancy.append(max_cell_count(geom, state))
+        chain_marks(cfg, thermo, state, marks, "chain main path")
+    st, windows, _ = bench_chain_torch.production(cfg, st, probe)
     launches = launch_counts()
     tel = check_invariants(cfg, st)
     check_finite(st, "chain main path")
@@ -2139,9 +2142,9 @@ def run_chain():
         f"{launches} (warm-up: {wkey} x {warm_launches['pair'][1][wkey]})")
     key = f"lj-excl2-cap{geom.fcap}"
     require_launches(launches, {"pair": (key,)}, "chain main path")
-    if launches["pair"][0] != 3 * CHAIN_STEPS + 1:
+    if launches["pair"][0] != 3 * NSTEPS + 1:
         fail(f"chain: {launches['pair'][0]} pair kernel launches for setup "
-             f"and {3 * CHAIN_STEPS} steps")
+             f"and {3 * NSTEPS} steps")
 
     # ---- phase 15: both kernels with exclusion on the ended state, the
     # exclusion's reach, a profile of two epochs, the full-stencil run
@@ -2250,6 +2253,7 @@ def kernel_only_checks(cfg, state):
     nx = 20 LJ melt lattice (0.05 normal jitter)."""
     import numpy as np
     import torch
+    from bench_lj_torch import NX as LJ_NX
     from bench_torch import SEED, repack
     from obmd_tpu_torch import config, scenes
     from obmd_tpu_torch.cellpad import layout_build
@@ -4694,7 +4698,7 @@ DECK_SMALL_STEPS = 2000
 DECK_SMALL_EQUIL = 1000
 # the scaled validation/run_ref/in.obmd: its two runs, output cadences and
 # the ave/chunk bins' expected count
-DECK_RUNS = (1000, 500)
+DECK_RUNS = (1000, 250)
 DECK_DUMP_EVERY, DECK_DCD_EVERY = 500, 1000
 DECK_CHUNK, DECK_THERMO = "10 10 100", 100
 DECK_BINS = 450
@@ -4702,6 +4706,10 @@ DECK_RHO, DECK_RHO_TOL = 3.0, 0.05
 # the time-dependent parameter's sample times and tolerance (relative)
 TPARAM_TIMES = (0.0, 0.125, 0.37, 3.1)
 TPARAM_TOL = 1e-4
+# the native I/O phase: timed repeats (best of), the 11-column frame's
+# tolerance against the Python frame's float32 values (%.6f rounds to half
+# a unit of its last place), the C API deck's run
+NATIVE_REPEATS, NATIVE_FRAME_TOL, CAPI_STEPS = 3, 5.1e-7, 100
 
 
 def state_data(cfg, state):
@@ -5231,7 +5239,7 @@ def deck_big(tmp, cfg_eq, st_eq, scene_ms):
                     pair_replaces(cap), launches["pair"][1][key], fig_pair),
         kernel_line("usher_search", "dpd, in.obmd deck", None,
                     launches["usher_search"][0], fig_usher)]
-    return dict(atoms_read=n0, atoms_end=int(it.state.natoms), cap=cap,
+    return it, dict(atoms_read=n0, atoms_end=int(it.state.natoms), cap=cap,
                 n_max=it.cfg.capacity.n_max, nbuf=nbuf, inserted=inserted,
                 ms_per_step=per, ms_per_step_without_outputs=quiet_ms,
                 without_outputs_telemetry=quiet_tel,
@@ -5263,13 +5271,212 @@ def run_decks(cfg_eq, st_eq, scene_ms):
         tparam = deck_time_param(tmp, data)
         wall["time_param"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        big, big_kernels = deck_big(tmp, cfg_eq, st_eq, scene_ms)
+        it, big, big_kernels = deck_big(tmp, cfg_eq, st_eq, scene_ms)
         wall["in_obmd"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = run_native(tmp, it, data)
+        wall["native"] = time.perf_counter() - t0
+        del it
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"path J: {wall}")
+    log(f"path J and the native phase: {wall}")
     return dict(wall_s=wall, in_lj=lj, in_simulation=small,
-                time_param=tparam, in_obmd=big), lj_kernels + big_kernels
+                time_param=tparam, in_obmd=big,
+                native=native), lj_kernels + big_kernels
+
+
+def best_of(fn, repeats=NATIVE_REPEATS):
+    """(the least seconds of `repeats` calls, the last call's result)."""
+    best, out = float("inf"), None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def same_datafile(a, b, label):
+    """Every DataFile field equal: arrays with their dtypes, None alike."""
+    import numpy as np
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                bad.append(f.name)
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            bad.append(f.name)
+    if bad:
+        fail(f"{label}: the native and Python readers differ in {bad}")
+
+
+def frame_rows(path, dtype):
+    """The atom rows of a custom file's one frame, parsed as `dtype`."""
+    import numpy as np
+    with open(path) as fh:
+        head = [next(fh) for _ in range(9)]
+        rows = np.loadtxt(fh, dtype=dtype, ndmin=2)
+    if rows.shape[0] != int(head[3]):
+        fail(f"{path}: {rows.shape[0]} rows, the frame says {head[3]}")
+    return rows
+
+
+def capi_session(deck):
+    """The C client's calls (tests/test_c_api.py) in process, on a
+    capi.Session on the card: natoms, whether the ids were 1..natoms
+    (the client's ids_ok), the steps, and the final tag-ordered x and
+    ids."""
+    import numpy as np
+    from obmd_tpu_torch.capi import Session
+    s = Session(DEV)
+    s.file(deck)
+    n, step = s.natoms(), s.thermo("step")
+    ids = np.frombuffer(s.gather_int("id"), np.int64)
+    x = np.frombuffer(s.gather("x"), np.float64)
+    v = np.frombuffer(s.gather("v"), np.float64) * 0.5
+    s.scatter("v", v.tobytes())
+    s.scatter("x", x.tobytes())
+    s.command("run 5")
+    return dict(natoms=n,
+                ids_ok=bool(np.array_equal(ids, np.arange(1, n + 1))),
+                steps=(step, s.thermo("step")),
+                x=np.frombuffer(s.gather("x"), np.float64).reshape(-1, 3),
+                ids=np.frombuffer(s.gather_int("id"), np.int64))
+
+
+def run_native(tmp, it, data_small):
+    """Phase 40b: the native reader and writers against the Python paths
+    on path J's final state and deck.final.data, timed; the C API's client
+    on the card against in-process sessions.  Returns the figures."""
+    import numpy as np
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.io import dump, lammps_data, native
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    # by path: the machine with the card has another package named tests
+    spec = importlib.util.spec_from_file_location(
+        "torch_capi_support", os.path.join(here, "tests",
+                                           "torch_capi_support.py"))
+    capi_client = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(capi_client)
+    label = "native phase"
+    # a failed build of csrc/obmdio.cpp raises here with g++'s output
+    if not native.available():
+        fail(f"{label}: no C++ compiler, so no native I/O library")
+    path = os.path.join(tmp, "deck.final.data")
+    style = it.atom_style
+    read_native_s, df_native = best_of(
+        lambda: native.read_data_native(path, style))
+    read_py_s, df_py = best_of(
+        lambda: lammps_data.read_data(path, style, prefer_native=False))
+    if df_native is None:
+        fail(f"{label}: the native reader did not run")
+    same_datafile(df_native, df_py, f"{label}: {path}")
+    same_datafile(lammps_data.read_data(path, style), df_native,
+                  f"{label}: read_data against the native reader")
+    cfg, st = it.cfg, it.state
+    frames = {}
+    for name, write in (
+            ("custom_native", lambda p: native.write_dump_custom_native(
+                p, cfg, st, append=False)),
+            ("custom_python", lambda p: dump._write_custom_frame_py(
+                p, cfg, st, dump.NATIVE_CUSTOM_COLS, append=False)),
+            ("xyz_native", lambda p: native.write_xyz_native(
+                p, st, append=False)),
+            ("xyz_python", lambda p: dump._write_xyz_frame_py(
+                p, cfg, st, append=False))):
+        out = os.path.join(tmp, f"frame.{name}")
+        secs, ok = best_of(lambda: write(out))
+        if ok is False:
+            fail(f"{label}: the native writer refused {out}")
+        frames[name] = (out, secs)
+    nat = frame_rows(frames["custom_native"][0], np.float64)
+    pyt = frame_rows(frames["custom_python"][0], np.float32).astype(
+        np.float64)
+    frame_err = float(np.abs(nat[:, 2:] - pyt[:, 2:]).max())
+    if not (nat.shape == pyt.shape and np.array_equal(nat[:, :2], pyt[:, :2])
+            and frame_err <= NATIVE_FRAME_TOL):
+        fail(f"{label}: the 11-column frames differ: shapes {nat.shape} / "
+             f"{pyt.shape}, largest float difference {frame_err}")
+    with open(frames["xyz_native"][0], "rb") as a, \
+            open(frames["xyz_python"][0], "rb") as b:
+        if a.read() != b.read():
+            fail(f"{label}: the native and Python xyz frames differ")
+
+    # the C API on the card: the client in a subprocess, OBMD_PLATFORM unset
+    src = open(os.path.join(here, "examples", "OBMD_DPD",
+                            "in.simulation")).read()
+    deck = os.path.join(tmp, "in.simulation.capi")
+    with open(deck, "w") as fh:
+        fh.write(edit_deck(src, [
+            ("read_data", f"read_data       {data_small}"),
+            ("run", f"run             {CAPI_STEPS}")]))
+    t0 = time.perf_counter()
+    exe = capi_client.build_client(str(_build.capi_library()), tmp)
+    client_build_s = time.perf_counter() - t0
+    xbin = os.path.join(tmp, "capi_x.bin")
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("OBMD_PLATFORM", None)
+    t0 = time.perf_counter()
+    p = subprocess.run([exe, deck, xbin], env=env, capture_output=True,
+                       text=True, timeout=600)
+    client_s = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"{label}: the C client exited {p.returncode}: "
+             f"{p.stderr[-2000:]}")
+    line = capi_client.parse_client_line(p.stdout)
+    xc, idc = capi_client.read_client_dump(xbin)
+    runs = [capi_session(deck) for _ in range(2)]
+    r = runs[0]
+    # the client's ids_ok asks for ids 1..natoms: on this open deck it holds
+    # only while no atom has left, as the in-process gather shows
+    if not (line["natoms"] == str(r["natoms"])
+            and line["step"] == str(CAPI_STEPS)
+            and line["ids_ok"] == str(int(r["ids_ok"]))
+            and line["v_ok"] == "1"
+            and line["step2"] == str(CAPI_STEPS + 5)
+            and r["steps"] == (CAPI_STEPS, CAPI_STEPS + 5)):
+        fail(f"{label}: the C client printed {line}; in process "
+             f"{r['natoms']} atoms, ids 1..natoms {r['ids_ok']}, steps "
+             f"{r['steps']}")
+    x1, x2 = runs[0]["x"], runs[1]["x"]
+    if not (xc.shape == x1.shape == x2.shape
+            and np.array_equal(idc, runs[0]["ids"])
+            and np.array_equal(idc, runs[1]["ids"])
+            and bool(np.all(np.diff(idc) > 0))):
+        fail(f"{label}: final atoms: client {xc.shape[0]}, in process "
+             f"{x1.shape[0]} and {x2.shape[0]}, or their ids differ")
+    n = r["natoms"]
+    runs_equal = x1.tobytes() == x2.tobytes()
+    spread = float(np.abs(x1 - x2).max())
+    client_err = float(np.abs(xc - x1).max())
+    if runs_equal and xc.tobytes() != x1.tobytes():
+        fail(f"{label}: the in-process runs agree to the byte, the C "
+             f"client differs by {client_err}")
+    if not client_err <= spread:
+        fail(f"{label}: the C client differs from the in-process run by "
+             f"{client_err}, above the two in-process runs' {spread}")
+    host_build = {lib.name: lib.build_seconds
+                  for lib in _build.HOST_LIBRARIES.values()}
+    out = dict(atoms=df_py.natoms, read_native_s=read_native_s,
+               read_python_s=read_py_s,
+               custom_native_s=frames["custom_native"][1],
+               custom_python_s=frames["custom_python"][1],
+               custom_frame_max_err=frame_err,
+               xyz_native_s=frames["xyz_native"][1],
+               xyz_python_s=frames["xyz_python"][1],
+               capi_atoms=n, capi_ids_contiguous=r["ids_ok"],
+               capi_client_s=client_s,
+               capi_client_build_s=client_build_s,
+               capi_in_process_equal=runs_equal,
+               capi_in_process_spread=spread, capi_client_err=client_err,
+               host_build_s=host_build)
+    log(f"{label}: {out}; client line {line}")
+    print("native " + json.dumps(out), flush=True)
+    return out
 
 
 def slots_of(cfg, state):
@@ -5310,6 +5517,9 @@ def run_smoke():
     for kern in _build.KERNELS.values():
         log(f"{kern.name} ({kern.source}): build {kern.build_seconds} s\n"
             f"{kern.ptxas_info}")
+    for lib in _build.HOST_LIBRARIES.values():
+        log(f"host library {lib.name} ({lib.source}): build "
+            f"{lib.build_seconds} s")
     # each path's whole wall time, checks and profile included: the
     # smoke's time budget
     wall_s = {}

@@ -20,7 +20,10 @@ under dpd/ext on the neighbor-list engine (`neighbors.py`,
 A LAMMPS input deck runs through `io/script.py` (`run_script(path)`,
 `Interpreter`), with its leaves `io/expr.py`, `io/dump.py`,
 `io/dump_dcd.py`, `io/checkpoint.py`, `io/lammps_data.py` and
-`minimize.py` (FIRE).
+`minimize.py` (FIRE); data files and the xyz and 11-column custom frames
+go through the C++ reader and writers of `io/native.py` where they load.
+A C or Fortran program drives decks through the C library API
+(`csrc/obmdc_torch.cpp` over `capi.py`; `_build.capi_library()` builds it).
 
 Entry points take `device=` ("cuda" by default; asking for the card on a
 machine without one raises).  Quick start:

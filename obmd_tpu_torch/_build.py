@@ -1,16 +1,24 @@
-"""Builds the port's CUDA kernels and binds them with ctypes.
+"""Builds the port's CUDA kernels and host libraries and binds them with
+ctypes.
 
-Each source under `csrc/` is compiled by `nvcc` for `sm_90a` into a shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), at first use, into `csrc/build/` (listed in `.gitignore`).  The
-library name carries a hash of the source and the flags, so an edited source
-is rebuilt and never loaded stale.  `build_all` starts one `nvcc` per source
-at once and waits for all of them; kernels that share a source share its
-library.
+Each kernel source under `csrc/` is compiled by `nvcc` for `sm_90a` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), at first use, into `csrc/build/` (listed in `.gitignore`).
+The library name carries a hash of the source and the flags, so an edited
+source is rebuilt and never loaded stale.  `build_all` starts one `nvcc`
+per source at once and waits for all of them; kernels that share a source
+share its library.
 
 Every kernel has one `Kernel` record here.  Its wrapper adds one to
 `launches` each time it launches the kernel, and only there, so a run can
 show which kernels its main path went through.
+
+The host libraries (`HostLibrary`: the data-file reader and dump writers
+of `csrc/obmdio.cpp`, the C library API of `csrc/obmdc_torch.cpp`) are
+host C++ with no CUDA, built by the host's C++ compiler the same way (a
+hashed name, a temporary output renamed into place), so they build on a
+machine without the CUDA toolkit too.  `build_all` builds them beside the
+kernels.
 """
 from __future__ import annotations
 
@@ -23,8 +31,10 @@ import re
 import shutil
 import subprocess
 import sys
+import sysconfig
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -36,6 +46,9 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0")
+
+# the host libraries' compiler flags (no CUDA)
+HOST_CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -144,6 +157,69 @@ def reset_launch_counts() -> None:
         k.launches_by_shape.clear()
 
 
+@dataclasses.dataclass
+class HostLibrary:
+    """A host C++ library of the port: its source under csrc/ (whose header
+    names the JAX package's library it stands for), and whether it embeds
+    CPython (then the include and link flags come from this interpreter's
+    sysconfig)."""
+
+    name: str
+    source: str
+    embeds_python: bool = False
+    build_seconds: Optional[float] = None
+
+    @property
+    def source_path(self) -> Path:
+        return CSRC / self.source
+
+    def flags(self) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """(compile flags, link flags after the source)."""
+        if not self.embeds_python:
+            return HOST_CXX_FLAGS, ()
+        libdir = sysconfig.get_config_var("LIBDIR")
+        include = "-I" + sysconfig.get_config_var("INCLUDEPY")
+        return (HOST_CXX_FLAGS + (include,),
+                ("-L" + libdir, "-lpython%d.%d" % sys.version_info[:2],
+                 "-Wl,-rpath," + libdir))
+
+    def library_path(self) -> Path:
+        cflags, lflags = self.flags()
+        h = hashlib.sha256(self.source_path.read_bytes()
+                           + " ".join(cflags + lflags).encode()
+                           ).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.source_path.stem}-{h}.so"
+
+    def path(self) -> Path:
+        """The built library, building it on first use."""
+        out = self.library_path()
+        if not out.exists():
+            build_all([], [self])
+        return out
+
+
+HOST_LIBRARIES: Dict[str, HostLibrary] = {
+    "obmdio": HostLibrary(name="obmdio", source="obmdio.cpp"),
+    "obmdc": HostLibrary(name="obmdc", source="obmdc_torch.cpp",
+                         embeds_python=True),
+}
+
+
+def capi_library() -> Path:
+    """The port's C library API (obmd_open ... obmd_close, the symbols of
+    native/obmdc.cpp), built on first use: the shared library a C or
+    Fortran client links against."""
+    return HOST_LIBRARIES["obmdc"].path()
+
+
+def cxx_path() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if found is None:
+        raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the host "
+                           "libraries are built at first use")
+    return found
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -155,41 +231,63 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build_all(kernels=None) -> Dict[str, float]:
-    """Compile every kernel whose library is missing, one nvcc per source,
-    all started together.  Returns seconds per kernel; raises with the
-    compiler's output if any build fails."""
-    kernels = list(KERNELS.values()) if kernels is None else list(kernels)
+def build_all(kernels=None, libraries=None) -> Dict[str, float]:
+    """Compile every kernel and host library whose library is missing, one
+    compiler per source, all started together; with neither argument given,
+    every kernel and every host library.  Returns seconds per kernel and
+    library; raises with the compiler's output if any build fails."""
+    if kernels is None and libraries is None:
+        kernels, libraries = KERNELS.values(), HOST_LIBRARIES.values()
+    kernels, libraries = list(kernels or ()), list(libraries or ())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     by_lib: Dict[Path, list] = {}
     for k in kernels:
         by_lib.setdefault(k.library_path(), []).append(k)
-    procs = []
+    jobs = []
     t0 = time.perf_counter()
+    nvcc = None
     for out, ks in by_lib.items():
         if out.exists():
             for k in ks:
                 k.build_seconds = 0.0
             continue
+        nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(ks[0].source_path)]
-        procs.append((ks, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        jobs.append((ks, out, tmp, [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                    str(ks[0].source_path)]))
+    for lib in libraries:
+        out = lib.library_path()
+        if out.exists():
+            lib.build_seconds = 0.0
+            continue
+        cflags, lflags = lib.flags()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        jobs.append(([lib], out, tmp, [cxx_path(), *cflags, "-o", str(tmp),
+                                       str(lib.source_path), *lflags]))
+    procs = [(ks, out, tmp, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for ks, out, tmp, cmd in jobs]
+
+    def finish(job):
+        """The compiler's output and its seconds, read as it ends."""
+        log, _ = job[3].communicate()
+        return log, time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=max(len(procs), 1)) as pool:
+        ended = list(pool.map(finish, procs))
     failed = []
-    for ks, out, tmp, p in procs:
-        log, _ = p.communicate()
+    for (ks, out, tmp, p), (log, secs) in zip(procs, ended):
         for k in ks:
-            k.build_seconds = time.perf_counter() - t0
-            k.ptxas_info = ptxas_lines(log)
+            k.build_seconds = secs
+            if isinstance(k, Kernel):
+                k.ptxas_info = ptxas_lines(log)
         if p.returncode != 0:
-            failed.append(f"{ks[0].source}: nvcc rc={p.returncode}\n{log}")
+            failed.append(f"{ks[0].source}: {p.args[0]} rc={p.returncode}\n"
+                          f"{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {k.name: k.build_seconds for k in kernels}
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return {k.name: k.build_seconds for k in kernels + libraries}
 
 
 def check(rc: int, kernel: Kernel) -> None:

@@ -1,11 +1,16 @@
 """Trajectory dump writers: `dump ID group xyz N file` and `dump ID group
 custom N file cols...` (dump.cpp, dump_custom.cpp).
 
-The port's own copy of the JAX package's Python writers.  Each column is
-copied to the host as numpy of the state's own dtype (float32 positions,
-int32 tags) before it is formatted, so a frame is the same bytes as the
-JAX package's Python writers give for the same state.  The native writers
-are not ported.
+The port's own copy of the JAX package's writers.  An xyz frame, and a
+custom frame of exactly the columns id type x y z vx vy vz fx fy fz, go
+through the native writers of io/native.py where its library loads (the
+JAX package's condition); every other frame, or any frame where the
+library is unavailable, is written in Python.  Each column is copied to
+the host as numpy of the state's own dtype (float32 positions, int32
+tags) before it is formatted, so a Python frame is the same bytes as the
+JAX package's Python writers give for the same state, and a native frame
+the same bytes as its native writers (which print the 11-column frame's
+floats as %.6f, its box as %.9g: not the Python frame's bytes).
 """
 from __future__ import annotations
 
@@ -13,6 +18,11 @@ import numpy as np
 
 from ..config import SceneConfig
 from ..state import State
+from . import native
+
+# the custom frame's columns that the native writer writes
+NATIVE_CUSTOM_COLS = ("id", "type", "x", "y", "z", "vx", "vy", "vz", "fx",
+                      "fy", "fz")
 
 
 def _host(t) -> np.ndarray:
@@ -21,6 +31,13 @@ def _host(t) -> np.ndarray:
 
 def write_xyz_frame(path: str, cfg: SceneConfig, state: State,
                     append: bool = True):
+    """`dump xyz` frame, natively where the library loads."""
+    if not native.write_xyz_native(path, state, append):
+        _write_xyz_frame_py(path, cfg, state, append)
+
+
+def _write_xyz_frame_py(path: str, cfg: SceneConfig, state: State,
+                        append: bool = True):
     alive = _host(state.alive)
     x = _host(state.x)[alive]
     t = _host(state.type)[alive]
@@ -35,9 +52,19 @@ def write_xyz_frame(path: str, cfg: SceneConfig, state: State,
 def write_custom_frame(path: str, cfg: SceneConfig, state: State,
                        cols=("id", "type", "x", "y", "z", "vx", "vy", "vz"),
                        append: bool = True, extra=None):
-    """`dump custom` frame: ITEM: headers and per-atom columns.  `extra`:
-    {name: per-ALIVE-atom numpy array} for the v_<name> columns of
-    atom-style variables."""
+    """`dump custom` frame: ITEM: headers and per-atom columns, natively
+    for NATIVE_CUSTOM_COLS.  `extra`: {name: per-ALIVE-atom numpy array}
+    for the v_<name> columns of atom-style variables."""
+    if tuple(cols) == NATIVE_CUSTOM_COLS and native.write_dump_custom_native(
+            path, cfg, state, append):
+        return
+    _write_custom_frame_py(path, cfg, state, cols, append, extra)
+
+
+def _write_custom_frame_py(path: str, cfg: SceneConfig, state: State,
+                           cols=("id", "type", "x", "y", "z", "vx", "vy",
+                                 "vz"),
+                           append: bool = True, extra=None):
     alive = _host(state.alive)
     x = _host(state.x)[alive]
     v = _host(state.v)[alive]

@@ -7,8 +7,12 @@ sections the OBMD workloads use): the header (atoms, atom types, box
 bounds; bond, angle, dihedral and improper counts are read from their
 sections), Masses, Atoms (`atomic`: id type x y z; `charge`: id type q x y
 z; `bond`, `molecular` and `adress`: id mol type x y z; `full`: id mol
-type q x y z), Velocities, Bonds, Angles, Dihedrals and Impropers, through
-the same pure-Python parser.  The native reader is not ported.
+type q x y z), Velocities, Bonds, Angles, Dihedrals and Impropers.
+`read_data` reads through the native reader of io/native.py
+(csrc/obmdio.cpp) where its library loads, as the JAX package's does,
+and through the same pure-Python parser (`_read_data_py`) for
+`atom_style bond`, where the library is unavailable, or where the native
+reader refuses the file.
 """
 from __future__ import annotations
 
@@ -77,9 +81,26 @@ def _read_rows(lines, i, first: int, last: int):
     return i, np.asarray(rows, dtype=np.int64)
 
 
-def read_data(path: str, atom_style: str = "atomic") -> DataFile:
+def read_data(path: str, atom_style: str = "atomic",
+              prefer_native: bool = True) -> DataFile:
     """Parse a data file of `atom_style` atomic, charge, bond, molecular,
-    full or adress."""
+    full or adress: natively where `prefer_native` and the library loads
+    (io/native.py's `available()`), else, and for `bond`, or where the
+    native reader refuses the file, in Python."""
+    _check_style(atom_style)
+    if prefer_native and atom_style != "bond":
+        from . import native
+        try:
+            df = native.read_data_native(path, atom_style)
+        except OSError:
+            df = None   # the pure-Python parser reads or refuses it
+        if df is not None:
+            return df
+    return _read_data_py(path, atom_style)
+
+
+def _read_data_py(path: str, atom_style: str = "atomic") -> DataFile:
+    """The pure-Python parser."""
     _check_style(atom_style)
     with open(path) as fh:
         lines = fh.readlines()

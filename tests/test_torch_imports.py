@@ -1,7 +1,9 @@
 """obmd_tpu_torch's import and device rules: it imports with JAX blocked,
-no file of it (nor chip_smoke.py, lj_state_point.py, bench_torch.py or
-profile_torch.py) names JAX or the JAX package, and on a machine without a GPU the default device raises
-instead of running on the CPU."""
+no file of it (its Python, CUDA and C++ sources, nor chip_smoke.py,
+lj_state_point.py, the benches, profile_torch.py or the C client's
+tests/torch_capi_support.py, which chip_smoke.py loads) names JAX or the
+JAX package, and on a machine without a GPU the default device raises instead
+of running on the CPU."""
 import pathlib
 import re
 import subprocess
@@ -40,8 +42,12 @@ def test_imports_with_jax_blocked():
 
 def test_no_file_names_jax():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) \
+        + sorted(PKG.rglob("*.cpp")) \
         + [ROOT / name for name in ("chip_smoke.py", "lj_state_point.py",
-                                    "bench_torch.py", "profile_torch.py")]
+                                    "bench_torch.py", "bench_lj_torch.py",
+                                    "bench_chain_torch.py",
+                                    "profile_torch.py",
+                                    "tests/torch_capi_support.py")]
     pat = re.compile(r"\bjax\b|obmd_tpu\.|import obmd_tpu\b")
     for p in files:
         for i, line in enumerate(p.read_text().splitlines(), 1):
