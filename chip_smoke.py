@@ -376,7 +376,27 @@ Phases (any failure exits non-zero and prints no result line):
      its plain version; the binned observables evaluated twice to the
      same bytes; validation/rigid_golden on the card against dump.ref,
      dump.rv and the CPU; the small rigid-water box against the CPU;
- 42. the figures of the seventeen paths (with each path's whole wall time,
+ 42. path L, the multi-device steps (run_slab: obmd_tpu_torch/parallel,
+     each rank a process spawned by parallel.comm.spawn after the build),
+     from phase 4's equilibrated state at scale 9 (~107k atoms): (a) four
+     gloo ranks sharing the card, the gathered slab step against the sweep
+     engine, SLAB_CHECK_STEPS steps at the insertion phase's nbuf on the
+     same replayed draws (nattempt 0 at SLAB_ETARGET): natoms, ndeleted,
+     ninserted, the tags equal, positions by tag within 1e-4; (b) at T 0
+     the kernel slab step against the gathered one, SLAB_KERNEL_STEPS
+     steps, within 1e-5; (c) production through the kernel at the deck's
+     nbuf and T, SLAB_WARM + SLAB_PROD steps, ms/step and Mparticle-
+     steps/s: no overflow, every atom inside its rank's slab, tags unique,
+     the same draws on every rank, the pair kernel once a step on each
+     rank with the 4-rank slab's key (launch counts zeroed on each rank
+     before and read after), that launch on rank 0's filed rows against
+     its plain version; (d) one NCCL rank, SLAB_NCCL_STEPS steps of the
+     same production (the 1-rank slab's key held the same way) beside the
+     cellpad engine's ms/step from the same start; (e) two gloo ranks of
+     the atom decomposition on OBMD_DPD at scale 1 against the nlist
+     engine, ATOM_STEPS steps on replayed draws, counters equal and
+     positions by tag within 2e-3;
+ 43. the figures of the eighteen paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -850,36 +870,46 @@ def same_bytes(kern, args, sig_scale, label):
 
 def check_pair(cfg, geom, state, label, kernel="pair", sig_scale=None):
     """A pair kernel ("pair", make_pair_kernel's, or "full",
-    make_dpd_kernel's) against its plain version on one state (a ramp
-    law's at sig_scale), and again on that state with holes
-    (holed_inputs); two launches on each input give the same bytes.
-    Returns its figures and its forces on the state."""
+    make_dpd_kernel's) on one state (a ramp law's at sig_scale) against
+    its plain version (check_pair_inputs).  Returns its figures and its
+    forces on the state."""
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
-    from obmd_tpu_torch.forces.pair_kernel import (PairCoef, TilePlan,
-                                                   pair_forces_plain)
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef
     fld, tag, salt, occ, pbond = pack_fields(cfg, geom, state)
-    kern = _make_kernel(cfg, geom, kernel)
-    coef = PairCoef.of(geom, cfg.pair, cfg.dt)
+    return check_pair_inputs(
+        geom, PairCoef.of(geom, cfg.pair, cfg.dt),
+        _make_kernel(cfg, geom, kernel), (fld, tag, salt, occ, pbond),
+        state.alive, f"{kernel} kernel {label}", legacy=kernel == "full",
+        sig_scale=sig_scale)
+
+
+def check_pair_inputs(geom, coef, kern, inputs, alive, label, legacy=False,
+                      sig_scale=None):
+    """A pair kernel on its inputs (fld, tag, salt, occ, pbond; alive over
+    the slots) against its plain version, and again on a copy with holes
+    (holed_inputs); two launches on each input give the same bytes; its
+    time (time_ms), the plain version's and its bound.  Returns its
+    figures and its forces."""
+    from obmd_tpu_torch.forces.pair_kernel import TilePlan, pair_forces_plain
+    fld, tag, salt, occ, pbond = inputs
     plan = TilePlan.of(geom)
 
     def plain(fld, tag, pbond):
-        return pair_forces_plain(geom, coef, fld, tag, salt,
-                                 legacy=kernel == "full", pbond=pbond,
-                                 sig_scale=sig_scale)
+        return pair_forces_plain(geom, coef, fld, tag, salt, legacy=legacy,
+                                 pbond=pbond, sig_scale=sig_scale)
     with KeepCounts():
         f_k = same_bytes(kern, (fld, tag, salt, occ, pbond), sig_scale,
-                         f"{kernel} kernel {label}")
+                         label)
         f_p = plain(fld, tag, pbond)
         sync()
-        err, scale, fsum = compare_forces(geom, state.alive, f_k, f_p,
-                                          f"{kernel} kernel {label}")
+        err, scale, fsum = compare_forces(geom, alive, f_k, f_p, label)
         h_fld, h_tag, h_occ, h_pbond, h_alive = holed_inputs(
             geom, fld, tag, occ, pbond)
         f_h = same_bytes(kern, (h_fld, h_tag, salt, h_occ, h_pbond),
-                         sig_scale, f"{kernel} kernel {label} with holes")
+                         sig_scale, f"{label} with holes")
         h_err, h_scale, _ = compare_forces(
             geom, h_alive, f_h, plain(h_fld, h_tag, h_pbond),
-            f"{kernel} kernel {label} with holes")
+            f"{label} with holes")
         ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond,
                                   sig_scale=sig_scale))
         plain_ms = time_ms(lambda: plain(fld, tag, pbond), reps=3, warmup=1,
@@ -887,7 +917,7 @@ def check_pair(cfg, geom, state, label, kernel="pair", sig_scale=None):
     b_ms, b_by, n_cand, n_in, n_coul = pair_bound(geom, fld, coef, tag,
                                                   pbond)
     coul = f" / {n_coul} charged in rc_coul" if coef.law == "ljrf" else ""
-    log(f"{kernel} kernel {label}: max_abs_err {err:.3e} (max|f| "
+    log(f"{label}: max_abs_err {err:.3e} (max|f| "
         f"{scale:.1f}), |sum f| {fsum:.3e}, with holes {h_err:.3e} (max|f| "
         f"{h_scale:.1f}), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, {n_cand} candidate / {n_in} in-cutoff pairs"
@@ -5507,8 +5537,323 @@ def scratch_figure(cfg, subsets):
                                                    for s in subsets)))
 
 
+# path L: the multi-device steps (obmd_tpu_torch/parallel) on the one card,
+# four gloo ranks sharing it (NCCL refuses two ranks on one device)
+SLAB_WORLD = 4
+SLAB_CHECK_STEPS = 10       # (a) the gathered slab against the sweep engine
+SLAB_KERNEL_STEPS = 3       # (b) the kernel slab against the gathered at T 0
+SLAB_WARM, SLAB_PROD = 20, 200    # (c) production through the kernel
+SLAB_NCCL_STEPS = 50        # (d) one NCCL rank beside the cellpad engine
+ATOM_WORLD, ATOM_STEPS = 2, 10    # (e) the atom decomposition
+# (a) and (b) search with nattempt 0 at this etarget (unmoved candidates
+# pass in the liquid): a 40-iteration USHER verdict at the etarget gate
+# hangs on the float32 order of the sums over the ranks
+SLAB_ETARGET = 60.0
+SLAB_SEED = 11
+SLAB_SCALE = 9.0
+RANK_TIMEOUT_S = 300.0
+
+
+def replay_draws(cfg, n_calls, seed):
+    """Uniform draws for n_calls stage calls, one entry each (ranks.
+    ReplayDraws), so that two engines that call the seam on every stage
+    call take the same candidates whatever their demand."""
+    import torch
+    o = cfg.obmd
+    g = torch.Generator().manual_seed(seed)
+    return [dict(pos=torch.rand((2, max(1, o.maxattempt), o.insert_kmax, 3),
+                                generator=g).numpy())
+            for _ in range(n_calls)]
+
+
+def by_tag(arrays):
+    a = arrays["alive"]
+    return dict(zip(arrays["tag"][a].tolist(), arrays["x"][a]))
+
+
+def same_atoms(got, ref, tol, label, counters=("ndeleted", "ninserted")):
+    """Two global states hold the same atoms: natoms, the counters and the
+    tag sets equal, positions by tag within tol.  Returns the largest
+    position difference."""
+    import numpy as np
+    for k in ("alive",) + tuple(counters):
+        a = int(np.sum(got[k])) if k == "alive" else int(got[k])
+        b = int(np.sum(ref[k])) if k == "alive" else int(ref[k])
+        if a != b:
+            fail(f"{label}: {k} {a} against {b}")
+    m1, m2 = by_tag(got), by_tag(ref)
+    if set(m1) != set(m2):
+        fail(f"{label}: tag sets differ ({len(set(m1) ^ set(m2))} tags)")
+    diff = max(float(np.abs(m1[t] - m2[t]).max()) for t in m1)
+    if not diff <= tol:
+        fail(f"{label}: positions by tag differ by {diff} > {tol}")
+    return diff
+
+
+def check_slab_fields(cfg, pg, fields, label):
+    """The slab's pair-kernel launch (its key on pad geometry pg) on rank
+    0's filed owned + halo rows against its plain version
+    (check_pair_inputs).  Returns (its launch key, its figures)."""
+    import torch
+    from obmd_tpu_torch.engine_cellpad import pair_salt
+    from obmd_tpu_torch.forces.pair_kernel import (PairCoef, launch_key,
+                                                   make_pair_kernel)
+    fld = torch.from_numpy(fields["fld"]).to(DEV)
+    coef = PairCoef.of(pg, cfg.pair, cfg.dt)
+    key = launch_key(pg, coef, 0)
+    alive = (fld[:, 0] < 0.5e8).reshape(-1)
+    log(f"{label}: {key}, {pg.dims} cells, {pg.n_blocks} blocks, "
+        f"{int(alive.sum())} filed rows")
+    figures, _ = check_pair_inputs(
+        pg, coef, make_pair_kernel(pg, cfg.pair, cfg.dt),
+        (fld, torch.from_numpy(fields["tag"]).to(DEV),
+         pair_salt(cfg, fields["step"]),
+         torch.from_numpy(fields["occ"]).to(DEV), None), alive, label)
+    return key, figures
+
+
+def rank_sum(res, i, key):
+    """Launches of pair-kernel key `key` in run i, summed over the ranks,
+    after checking that no rank launched any other kernel or key."""
+    n = 0
+    for r in res:
+        got = r[i]["launches"]
+        if set(got) - {"pair"} or set(got.get("pair", {})) - {key}:
+            fail(f"path L: a rank launched {got}, expected only pair {key}")
+        n += got.get("pair", {}).get(key, 0)
+    return n
+
+
+def run_slab(cfg24, st_eq):
+    """Phase 42: path L, the multi-device steps on the card
+    (obmd_tpu_torch/parallel, the ranks spawned by parallel.comm.spawn with
+    the kernels built beforehand).  From phase 4's equilibrated OBMD_DPD
+    state in a store of n_max slots (slots_of), scale SLAB_SCALE (9):
+      (a) SLAB_WORLD gloo ranks, the gathered slab step against the sweep
+          engine in this process, SLAB_CHECK_STEPS steps at the insertion
+          phase's nbuf (1.05 x census / alpha) with the same replayed
+          draws (nattempt 0 at SLAB_ETARGET): natoms, ndeleted, ninserted
+          (> 0), the tag sets equal, positions by tag within 1e-4, no
+          overflow;
+      (b) at temperature 0 the kernel slab step against the gathered one,
+          SLAB_KERNEL_STEPS steps each from the same start: the same atoms,
+          positions by tag within 1e-5;
+      (c) production at the deck's nbuf and temperature (USHER at its
+          nattempt 40, the state's own draws): SLAB_WARM steps, then
+          SLAB_PROD timed; no overflow, every live atom inside its rank's
+          slab (beyond-face atoms on the edge ranks excepted), tags unique,
+          every rank drew the same numbers, the pair kernel launched once a
+          step on each rank with the slab's key and no other kernel; the
+          slab's launch on rank 0's last filed rows against its plain
+          version (check_slab_fields);
+      (d) one NCCL rank, the same production for SLAB_NCCL_STEPS steps
+          (the one-rank slab's key held the same way), beside the cellpad
+          engine's ms/step over as many steps from the same start;
+      (e) ATOM_WORLD gloo ranks, the atom decomposition on OBMD_DPD at scale
+          1 (the nlist engine's setup) against the nlist engine in this
+          process, ATOM_STEPS steps on replayed draws: counters equal,
+          positions by tag within 2e-3.
+    Launch counts of the main path are the ranks' own over (c)."""
+    import numpy as np
+    import torch
+    from obmd_tpu_torch import convert, scenes
+    from obmd_tpu_torch.config import DPDParams
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    from obmd_tpu_torch.integrate import make_run, make_step, setup
+    from obmd_tpu_torch.observe import make_obmd_metrics_fn
+    from obmd_tpu_torch.parallel.comm import spawn
+    from obmd_tpu_torch.parallel.ranks import ReplayDraws, atom_runs, slab_runs
+    from obmd_tpu_torch.parallel.slab_decomp import make_slab_geom
+    t_path = time.perf_counter()
+    deck = scenes.obmd_dpd_config(scale=SLAB_SCALE, force_path="sweep")
+    keys = {w: launch_key(make_slab_geom(deck, w).pad_geom,
+                          PairCoef.of(make_slab_geom(deck, w).pad_geom,
+                                      deck.pair, deck.dt), 0)
+            for w in (SLAB_WORLD, 1)}
+    m = make_obmd_metrics_fn(deck)(st_eq)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    o = deck.obmd
+    cfg_ins = dataclasses.replace(deck, obmd=dataclasses.replace(
+        o, nbuf=1.05 * census / o.alpha, usher=dataclasses.replace(
+            o.usher, nattempt=0, etarget=SLAB_ETARGET))).finalize()
+    cfg_t0 = dataclasses.replace(cfg_ins, pair=DPDParams.create(
+        temp=0.0, cutoff=1.0, seed=deck.pair.seed, a0=209.6,
+        gamma=4.5)).finalize()
+    start = slots_of(deck, st_eq)
+    arrays = convert.to_arrays(start)
+    natoms0 = int(start.natoms)
+    draws = replay_draws(cfg_ins, SLAB_CHECK_STEPS, SLAB_SEED)
+
+    # (a)'s reference: the sweep engine on the same start and draws
+    t0 = time.perf_counter()
+    with KeepCounts():
+        ref = convert.from_arrays(arrays, seed=SLAB_SEED, device=DEV)
+        step = make_step(cfg_ins, ReplayDraws(draws))
+        for _ in range(SLAB_CHECK_STEPS):
+            ref = step(ref)
+        sync()
+    sweep_s = time.perf_counter() - t0
+    ref = convert.to_arrays(ref)
+    del step
+    torch.cuda.empty_cache()
+    runs = [
+        dict(cfg=cfg_ins, arrays=arrays, seed=SLAB_SEED,
+             steps=SLAB_CHECK_STEPS, draws=draws),
+        dict(cfg=cfg_t0, arrays=arrays, seed=SLAB_SEED,
+             steps=SLAB_KERNEL_STEPS, draws=draws),
+        dict(cfg=cfg_t0, arrays=arrays, seed=SLAB_SEED,
+             steps=SLAB_KERNEL_STEPS, draws=draws, force_impl="kernel"),
+        dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=SLAB_WARM,
+             steps=SLAB_PROD, force_impl="kernel", fields=True)]
+    t0 = time.perf_counter()
+    res = spawn(slab_runs, SLAB_WORLD, "gloo", DEV, RANK_TIMEOUT_S, runs)
+    spawn_s = time.perf_counter() - t0
+    r0 = res[0]
+    # (a)
+    got = r0[0]["state"]
+    if int(got["ninserted"]) <= int(arrays["ninserted"]) \
+            or int(got["ndeleted"]) <= int(arrays["ndeleted"]):
+        fail("path L (a): the window inserted or deleted nothing")
+    for g in (got, ref):
+        if int(g["cell_overflow"]) != int(arrays["cell_overflow"]):
+            fail(f"path L (a): cell overflow {int(g['cell_overflow'])}")
+    diff_a = same_atoms(got, ref, 1e-4, "path L (a) gathered slab against "
+                        "the sweep engine")
+    log(f"path L (a): {SLAB_WORLD} gloo ranks, {SLAB_CHECK_STEPS} steps, "
+        f"natoms {int(got['alive'].sum())}, ndeleted {int(got['ndeleted'])}"
+        f", ninserted {int(got['ninserted'])}, positions by tag within "
+        f"{diff_a:.3e} of the sweep engine; slab {r0[0]['seconds']:.2f} s, "
+        f"sweep {sweep_s:.2f} s")
+    # (b)
+    for i in (1, 2):
+        if int(r0[i]["state"]["cell_overflow"]) \
+                != int(arrays["cell_overflow"]):
+            fail("path L (b): cell overflow")
+    diff_b = same_atoms(r0[2]["state"], r0[1]["state"], 1e-5,
+                        "path L (b) kernel slab against the gathered slab")
+    b_launch = rank_sum(res, 2, keys[SLAB_WORLD])
+    if b_launch != SLAB_WORLD * SLAB_KERNEL_STEPS:
+        fail(f"path L (b): {b_launch} kernel launches")
+    log(f"path L (b): T 0, {SLAB_KERNEL_STEPS} steps, kernel against "
+        f"gathered within {diff_b:.3e} by tag")
+    # (c)
+    prod = r0[3]
+    fin = prod["state"]
+    if int(fin["cell_overflow"]) != int(arrays["cell_overflow"]):
+        fail(f"path L (c): cell overflow {int(fin['cell_overflow'])}")
+    outside = [r[3]["outside"] for r in res]
+    if any(outside):
+        fail(f"path L (c): live atoms outside their rank's slab {outside}")
+    tags = fin["tag"][fin["alive"]]
+    if len(np.unique(tags)) != len(tags):
+        fail("path L (c): a tag is live on two ranks")
+    if not all(r[3]["same_draws"] for r in res):
+        fail("path L (c): the ranks drew different numbers")
+    if not np.isfinite(fin["x"][fin["alive"]]).all():
+        fail("path L (c): non-finite positions")
+    c_launch = rank_sum(res, 3, keys[SLAB_WORLD])
+    if c_launch != SLAB_WORLD * (SLAB_WARM + SLAB_PROD):
+        fail(f"path L (c): {c_launch} kernel launches")
+    c_s = max(r[3]["seconds"] for r in res)
+    natoms_c = int(fin["alive"].sum())
+    c_ms = c_s / SLAB_PROD * 1e3
+    geom4 = make_slab_geom(deck, SLAB_WORLD)
+    key4, fig4 = check_slab_fields(deck, geom4.pad_geom, prod["fields"],
+                                   "path L slab kernel, 4 ranks")
+    log(f"path L (c): world {SLAB_WORLD}, gloo, {SLAB_PROD} steps in "
+        f"{c_s:.2f} s: {c_ms:.3f} ms/step, "
+        f"{SLAB_PROD / c_s * natoms_c / 1e6:.3f} Mparticle-steps/s, "
+        f"{natoms_c} atoms, per-rank atoms {[r[3]['natoms'] for r in res]}, "
+        f"ndeleted {int(fin['ndeleted'])}, ninserted "
+        f"{int(fin['ninserted'])}, launches {c_launch}; the spawn took "
+        f"{spawn_s:.1f} s")
+    # (d)
+    t0 = time.perf_counter()
+    res1 = spawn(slab_runs, 1, "nccl", DEV, RANK_TIMEOUT_S,
+                 [dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=5,
+                       steps=SLAB_NCCL_STEPS, force_impl="kernel",
+                       fields=True)])
+    d_spawn_s = time.perf_counter() - t0
+    one = res1[0][0]
+    if int(one["state"]["cell_overflow"]) != int(arrays["cell_overflow"]) \
+            or one["outside"]:
+        fail("path L (d): overflow or an atom outside the slab")
+    d_launch = rank_sum(res1, 0, keys[1])
+    if d_launch != 5 + SLAB_NCCL_STEPS:
+        fail(f"path L (d): {d_launch} kernel launches")
+    d_ms = one["seconds"] / SLAB_NCCL_STEPS * 1e3
+    geom1 = make_slab_geom(deck, 1)
+    key1, fig1 = check_slab_fields(deck, geom1.pad_geom, one["fields"],
+                                   "path L slab kernel, 1 rank")
+    with KeepCounts():
+        cp = scenes.obmd_dpd_config(scale=SLAB_SCALE)
+        st = setup(cp, convert.from_arrays(arrays, seed=SLAB_SEED,
+                                           device=DEV))
+        st = make_run(cp, 5)(st)
+        sync()
+        t0 = time.perf_counter()
+        st = make_run(cp, SLAB_NCCL_STEPS)(st)
+        sync()
+        cell_ms = (time.perf_counter() - t0) / SLAB_NCCL_STEPS * 1e3
+    del st
+    log(f"path L (d): one NCCL rank {d_ms:.3f} ms/step over "
+        f"{SLAB_NCCL_STEPS} steps ({int(one['state']['alive'].sum())} "
+        f"atoms), the cellpad engine {cell_ms:.3f} ms/step over as many "
+        f"from the same start; the spawn took {d_spawn_s:.1f} s")
+    # (e)
+    sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
+                               device=DEV)
+    n_max = sa.cfg.capacity.n_max // ATOM_WORLD * ATOM_WORLD
+    sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
+                               n_max=n_max, device=DEV)
+    with KeepCounts():
+        st = setup(sa.cfg, sa.state)
+        a_arrays = convert.to_arrays(st)
+        e_draws = replay_draws(sa.cfg, ATOM_STEPS, SLAB_SEED)
+        step = make_step(sa.cfg, ReplayDraws(e_draws))
+        for _ in range(ATOM_STEPS):
+            st = step(st)
+        sync()
+    e_ref = convert.to_arrays(st)
+    del st, step
+    t0 = time.perf_counter()
+    res2 = spawn(atom_runs, ATOM_WORLD, "gloo", DEV, RANK_TIMEOUT_S,
+                 [dict(cfg=sa.cfg, arrays={k: v for k, v in a_arrays.items()
+                                           if k not in ("nlist", "xref")},
+                       seed=SLAB_SEED, steps=ATOM_STEPS, draws=e_draws)])
+    e_spawn_s = time.perf_counter() - t0
+    e_got = res2[0][0]["state"]
+    diff_e = same_atoms(e_got, e_ref, 2e-3, "path L (e) atom decomposition "
+                        "against the nlist engine",
+                        counters=("ndeleted", "ninserted", "insert_fail"))
+    if any(r[0]["launches"] for r in res2):
+        fail(f"path L (e): kernel launches {[r[0]['launches'] for r in res2]}")
+    log(f"path L (e): {ATOM_WORLD} gloo ranks, {ATOM_STEPS} steps, "
+        f"{int(e_got['alive'].sum())} atoms, ndeleted "
+        f"{int(e_got['ndeleted'])}, ninserted {int(e_got['ninserted'])}, "
+        f"positions by tag within {diff_e:.3e} of the nlist engine; "
+        f"{res2[0][0]['seconds']:.2f} s, the spawn took {e_spawn_s:.1f} s")
+    path_s = time.perf_counter() - t_path
+    log(f"path L: {path_s:.1f} s")
+    path = dict(atoms_at_start=natoms0, atoms=natoms_c, world=SLAB_WORLD,
+                backend="gloo", ms_per_step=c_ms,
+                mparticle_steps_per_s=SLAB_PROD / c_s * natoms_c / 1e6,
+                nccl_world1_ms_per_step=d_ms, cellpad_ms_per_step=cell_ms,
+                check_a_max_diff=diff_a, check_b_max_diff=diff_b,
+                atom_decomp_max_diff=diff_e, path_s=path_s,
+                spawn_s=[spawn_s, d_spawn_s, e_spawn_s])
+    replaces = ("obmd_tpu/forces/pallas_dpd.py:324 (make_pair_kernel's "
+                "kernel, :858) on slab_decomp.py:450-461's pad geometry")
+    kernels = [
+        kernel_line("pair", f"dpd, the 4-rank slab's pad geometry, {key4}",
+                    replaces, c_launch, fig4),
+        kernel_line("pair", f"dpd, the 1-rank slab's pad geometry, {key1}",
+                    replaces, d_launch, fig1)]
+    return path, kernels
+
+
 def run_smoke():
-    """Phases 2-41; returns the paths' figures and the kernel figures."""
+    """Phases 2-42; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -5581,6 +5926,9 @@ def run_smoke():
                                           water_path["ms_per_step"])
     del water_warm
     wall_s["open_rigid_water"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slab_path, slab_kernels = run_slab(*obmd_prod[:2])
+    wall_s["multi_rank"] = time.perf_counter() - t0
     wall_s["total"] = time.perf_counter() - t_all
     log(f"the smoke's paths took {wall_s['total']:.1f} s, the build "
         f"included")
@@ -5595,12 +5943,14 @@ def run_smoke():
                           obmd_dpd_keywords=kw_path,
                           excl4_small_rows=excl4_path,
                           open_water=water_path,
-                          open_rigid_water=rigid_path, decks=deck_path),
+                          open_rigid_water=rigid_path, decks=deck_path,
+                          multi_rank=slab_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
-                + water_kernels + deck_kernels + rigid_kernels)
+                + water_kernels + deck_kernels + rigid_kernels
+                + slab_kernels)
 
 
 def main():

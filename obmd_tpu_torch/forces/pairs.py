@@ -26,6 +26,10 @@ device: it is the semantics reference the cellpad kernels are held
 against, and what thermo and profiles run on.  The 27 stencil offsets are
 looped, never stacked, so one offset's [n_cells, cap, cap, 3] block is the
 largest temporary.
+
+`trial_energy_force` is the conservative energy and force on trial
+particles over the 27 cells around each (the insertion search of the
+atom decomposition, obmd/stage._usher_search).
 """
 from __future__ import annotations
 
@@ -381,3 +385,66 @@ def pair_sweep(params, box: Box, spec: GridSpec, ctab: CellTable,
         virial=w_acc,
         virial_atom=(_scatter_back(wa_acc, idx, n) if compute_virial_atom
                      else None))
+
+
+def trial_energy_force(params, box: Box, spec: GridSpec, ctab: CellTable,
+                       x, types, q, cand_x, cand_type, cand_q=None):
+    """Energy E [K] and force F [K, 3] on K trial particles cand_x [K, 3]
+    of types cand_type [K] against all live atoms filed in ctab: the
+    conservative part of the pair law only, as pair->single returns it
+    (fix_obmd_merged.cpp:1774-1857 `energy()`; pair_dpd.cpp:401,
+    pair_lj_cut_rf.cpp:492/533), over the 27 cells around each trial's
+    cell (obmd_tpu/forces/pairs.py:388-469: every one of the 27 offsets,
+    a cell that two offsets reach counted twice, as there).  dpd/tstat and
+    dpd/ext/tstat have no conservative term: zero."""
+    dtype = x.dtype
+    dev = x.device
+    dims = spec.dims
+    charged = isinstance(params, LJCutRFParams)
+    inv = [float(np.float32(1.0) / np.float32(c)) for c in spec.cell_size]
+    nd = torch.tensor(dims, dtype=torch.int64, device=dev)
+    cc = torch.floor((cand_x - torch.tensor(spec.lo, dtype=dtype, device=dev))
+                     * torch.tensor(inv, dtype=dtype, device=dev))
+    cc = torch.minimum(torch.clamp(cc.to(torch.int64), min=0), nd - 1)
+    offs = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                         for c in (-1, 0, 1)], dtype=torch.int64, device=dev)
+    nb = cc[:, None, :] + offs[None, :, :]
+    per = torch.tensor(spec.periodic, dtype=torch.bool, device=dev)
+    ok = torch.all(per | ((nb >= 0) & (nb < nd)), dim=-1)
+    nb = torch.where(per, torch.remainder(nb, nd), nb)
+    lin = (nb[..., 0] * dims[1] + nb[..., 1]) * dims[2] + nb[..., 2]
+    lin = torch.where(ok, lin, spec.n_cells)
+    k = cand_x.shape[0]
+    jdx = ctab.table[lin].reshape(k, -1)
+    xj = gather_padded(x, jdx, BIG)
+    tj = gather_padded(types, jdx, 0)
+    d = box.min_image(cand_x[:, None, :] - xj)
+    rsq = (d * d).sum(-1)
+    valid = xj[..., 0] < BIG * 0.5
+    if isinstance(params, DPDTstatParams) or (
+            isinstance(params, DPDExtParams) and params.tstat_only):
+        return torch.zeros((k,), dtype=dtype, device=dev), \
+            torch.zeros_like(cand_x)
+    if isinstance(params, (DPDParams, DPDExtParams)):
+        tabs = _tables(params, dtype, dev)
+        cut = _lookup(tabs["cut"], cand_type[:, None], tj)
+        a0 = _lookup(tabs["a0"], cand_type[:, None], tj)
+        r = torch.sqrt(rsq)
+        rinv = torch.where(r > EPS_R, 1.0 / torch.clamp(r, min=EPS_R), 0.0)
+        wd = 1.0 - r / cut
+        in_range = (rsq < cut * cut) & (r > EPS_R) & valid
+        fpair = torch.where(in_range, a0 * wd * rinv, 0.0)
+        e = torch.where(in_range, 0.5 * a0 * cut * wd * wd, 0.0)
+    else:
+        pair_fn = make_pair_law(params, 1.0, dtype, dev)
+        kw = {}
+        if charged:
+            cq = cand_q if cand_q is not None else \
+                torch.zeros((k,), dtype=dtype, device=dev)
+            kw = dict(qi=cq[:, None], qj=gather_padded(q, jdx, 0.0))
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        fpair, e = pair_fn(rsq, d, torch.zeros_like(d), cand_type[:, None],
+                           tj, zero, zero, 0, **kw)
+        fpair = torch.where(valid, fpair, 0.0)
+        e = torch.where(valid, e, 0.0)
+    return e.sum(-1), (fpair[..., None] * d).sum(1)

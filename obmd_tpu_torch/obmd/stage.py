@@ -9,7 +9,10 @@ or `gaussian` draws, then the deposit keywords `rate`, `global` and
 `rounds_of`, `_append_subset` and `insertion_tag_base`, which the cellpad
 engine uses; and for the nlist and sweep engines
 `insert_particles_subset` (`maxattempt` rounds), `pre_exchange` and
-`apply_boundary_force`.  Inserted atoms are at rest unless a velocity
+`apply_boundary_force`; for the atom decomposition (parallel/
+atom_decomp.py) `_usher_search` and `_near_check`, the search and the
+`near` test over the cell table of the gathered state
+(forces.pairs.trial_energy_force).  Inserted atoms are at rest unless a velocity
 keyword is set; their momentum then enters the setpoints' tally.
 
 Random numbers come from the draw seam (`Draws`, handed out by an
@@ -177,6 +180,57 @@ def _sequential_accept(cfg: SceneConfig, cand_x, cand_type, cand_ok, budget):
     return accepted, count
 
 
+def _usher_search(cfg: SceneConfig, spec, ctab, state, cand_x, cand_type,
+                  region):
+    """USHER over the cell table (obmd_tpu/obmd/stage.py:118-171), the
+    search of the atom decomposition on its gathered state: the K
+    candidates' search (subset.usher_steps) with the trial energies of
+    forces.pairs.trial_energy_force.  Returns (positions [K, 3], accepted
+    [K], iterations [K] i32, final E [K])."""
+    from ..forces.pairs import trial_energy_force
+    from .subset import usher_steps
+
+    def energy(pos):
+        return trial_energy_force(cfg.pair, cfg.box, spec, ctab, state.x,
+                                  state.type, state.q, pos, cand_type)
+    return usher_steps(cfg.obmd.usher, energy, cand_x,
+                       const_like(region.lo, cand_x),
+                       const_like(region.hi, cand_x))
+
+
+def _near_check(cfg: SceneConfig, spec, ctab, state, cand_x, cand_type):
+    """`near` insertion's test over the cell table (obmd_tpu/obmd/stage.py:
+    174-204): a candidate is ok when no live atom of the 27 cells around
+    it lies closer than `near`.  Returns (ok [K], the trial energies E
+    [K], which the JAX function computes beside it)."""
+    from ..cells import gather_padded
+    from ..forces.pairs import trial_energy_force
+    E, _ = trial_energy_force(cfg.pair, cfg.box, spec, ctab, state.x,
+                              state.type, state.q, cand_x, cand_type)
+    dims = spec.dims
+    dev = cand_x.device
+    inv = [float(np.float32(1.0) / np.float32(c)) for c in spec.cell_size]
+    nd = torch.tensor(dims, dtype=torch.int64, device=dev)
+    cc = torch.floor((cand_x - const_like(spec.lo, cand_x))
+                     * const_like(inv, cand_x)).to(torch.int64)
+    cc = torch.minimum(torch.clamp(cc, min=0), nd - 1)
+    offs = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                         for c in (-1, 0, 1)], dtype=torch.int64, device=dev)
+    nb = cc[:, None, :] + offs[None, :, :]
+    per = torch.tensor(spec.periodic, dtype=torch.bool, device=dev)
+    nb_ok = torch.all(per | ((nb >= 0) & (nb < nd)), dim=-1)
+    nb = torch.where(per, torch.remainder(nb, nd), nb)
+    lin = (nb[..., 0] * dims[1] + nb[..., 1]) * dims[2] + nb[..., 2]
+    lin = torch.where(nb_ok, lin, spec.n_cells)
+    jdx = ctab.table[lin].reshape(cand_x.shape[0], -1)
+    xj = gather_padded(state.x, jdx, BIG)
+    d = cfg.box.min_image(cand_x[:, None, :] - xj)
+    rsq = (d * d).sum(-1)
+    min_rsq = torch.where(xj[..., 0] < BIG * 0.5, rsq, torch.inf) \
+        .min(-1).values
+    return min_rsq >= near_squared(cfg), E
+
+
 class Draws(NamedTuple):
     """The random numbers of one stage call, from an engine's draw seam
     (the state's generator in production, the JAX engine's own draws in
@@ -219,7 +273,7 @@ def draw_shapes(cfg: SceneConfig, rounds: int, k: int, dim: int) -> dict:
                 and len(o.templates) > 1 else None)
 
 
-def draw_candidates(cfg: SceneConfig, u, uz, region, state):
+def draw_candidates(cfg: SceneConfig, u, uz, region, state, comm=None):
     """Candidate positions [K, 3] and their initial validity [K] (ref
     :921-985, obmd_tpu/obmd/stage.py:263-313): uniform in the insertion
     region from uniform draws u [K, 3], or under `gaussian` normal draws u
@@ -227,7 +281,10 @@ def draw_candidates(cfg: SceneConfig, u, uz, region, state):
     moves z by rate * sim_time, or `global` / `local` put it at zmax + lo
     + uz (hi - lo) from the uniforms uz [K], zmax the highest z of the
     alive atoms (under `local` those within lateral minimum-image distance
-    delta of the candidate; the box's lower z face when none is)."""
+    delta of the candidate; the box's lower z face when none is).  Under
+    the slab decomposition `comm` (parallel.comm.Comm) completes zmax with
+    its maximum over the ranks, so that every rank draws the same
+    candidates (obmd_tpu/obmd/stage.py:301-302, `axis_name`)."""
     obmd = cfg.obmd
     if obmd.gaussian is not None:
         xm, ym, zm, sg = (float(v) for v in obmd.gaussian)
@@ -254,6 +311,8 @@ def draw_candidates(cfg: SceneConfig, u, uz, region, state):
             zmax = torch.where(sel, zs[None, :], floor).max(dim=1).values
         else:
             zmax = torch.where(state.alive, zs, floor).max()
+        if comm is not None:
+            zmax = comm.max(zmax)
         z = zmax + _f32(lo, u) + uz * _f32(hi - lo, u)
     return torch.cat([cand[:, :2], z[:, None]], dim=1), ok
 

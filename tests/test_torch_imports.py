@@ -25,7 +25,13 @@ def _modules():
 def test_imports_with_jax_blocked():
     mods = list(_modules())
     for m in ("obmd_tpu_torch.forces.pair_kernel",
-              "obmd_tpu_torch.forces.bonded", "obmd_tpu_torch.io.lammps_data"):
+              "obmd_tpu_torch.forces.bonded", "obmd_tpu_torch.io.lammps_data",
+              "obmd_tpu_torch.forces.gathered",
+              "obmd_tpu_torch.parallel.comm",
+              "obmd_tpu_torch.parallel.atom_decomp",
+              "obmd_tpu_torch.parallel.slab_decomp",
+              "obmd_tpu_torch.parallel.ranks",
+              "obmd_tpu_torch.parallel.dryrun"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
