@@ -377,7 +377,7 @@ Phases (any failure exits non-zero and prints no result line):
      same bytes; validation/rigid_golden on the card against dump.ref,
      dump.rv and the CPU; the small rigid-water box against the CPU;
  42. path L, the multi-device steps (run_slab: obmd_tpu_torch/parallel,
-     each rank a process spawned by parallel.comm.spawn after the build),
+     each rank a process started by parallel.comm.Launch after the build),
      from phase 4's equilibrated state at scale 9 (~107k atoms): (a) four
      gloo ranks sharing the card, the gathered slab step against the sweep
      engine, SLAB_CHECK_STEPS steps at the insertion phase's nbuf on the
@@ -392,11 +392,35 @@ Phases (any failure exits non-zero and prints no result line):
      before and read after), that launch on rank 0's filed rows against
      its plain version; (d) one NCCL rank, SLAB_NCCL_STEPS steps of the
      same production (the 1-rank slab's key held the same way) beside the
-     cellpad engine's ms/step from the same start; (e) two gloo ranks of
-     the atom decomposition on OBMD_DPD at scale 1 against the nlist
-     engine, ATOM_STEPS steps on replayed draws, counters equal and
-     positions by tag within 2e-3;
- 43. the figures of the eighteen paths (with each path's whole wall time,
+     cellpad engine's ms/step from the same start; (e) the same four ranks
+     after (a)-(c) running the atom decomposition on OBMD_DPD at scale 1
+     against the nlist engine, ATOM_STEPS steps on replayed draws,
+     counters equal and positions by tag within 2e-3;
+ 43. path M, the slab decomposition's MOLECULE mode (run_slab_mol), from
+     path F's ended production state (the open star melt under shear,
+     ~97k beads, harmonic bonds, angles and impropers, MOL-mode USHER) on
+     slabs of 1.3 x the atoms / world slots: (a) four gloo ranks, the
+     gathered slab step against the cellpad engine, M_CHECK_STEPS steps
+     at an insertion phase's nbuf on the same replayed draws (nattempt 0
+     at M_ETARGET): natoms, ndeleted and ninserted (multiples of 5), the
+     tags equal, positions by tag within 1e-4, molecules whole; (b) at T
+     0 the kernel slab step against the gathered one, M_KERNEL_STEPS
+     steps, within 1e-5; (c) production through the kernel at the deck's
+     nbuf and T, M_WARM + M_PROD steps, ms/step and Mparticle-steps/s: no
+     overflow, every atom inside its rank's slab, tags unique, molecules
+     whole, the same draws on every rank, the pair kernel once a step on
+     each rank under the slab's 4-channel key, that launch on rank 0's
+     filed rows (with their partner-tag channels) against its plain
+     version; (d) one NCCL rank, M_NCCL_STEPS steps of the same production
+     beside the cellpad engine's ms/step from the same start; (e) the
+     dry run's SHAKE water (its cuts rebalanced every step) and the same
+     waters as rigid bodies of the tree template under insertion, on the
+     card's four slabs against the port's single-device step on the CPU,
+     M_SMALL_STEPS steps: SHAKE x within 1e-4, v within 1e-3, constraint
+     error <= 1e-5, rigid positions and bodies within RIGID_GEOMETRY; then
+     the port's dry run (parallel/dryrun.py, all four paths) on the same
+     ranks;
+ 44. the figures of the nineteen paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -466,6 +490,8 @@ import subprocess
 import sys
 import time
 
+# the smoke's clock: every log line starts with the seconds since import
+T_START = time.perf_counter()
 DEV = "cuda"
 # the main path's sizes are bench_torch.py's (bench.py's scene,
 # equilibration, production cap and windows); the insertion phase's steps
@@ -505,7 +531,7 @@ TSTAT_MARK, TSTAT_MARKS, TSTAT_TIMED = 100, 10, 400
 # path E, the star-polymer melt: its steps per window, the longest bond
 # allowed (~13 thermal deviations sqrt(kT / 2K) = 0.11 above r0 = 0.55),
 # the small path's 307 stars (the L = 8 box) and its warm-up stages
-STAR_STEPS, STAR_BOND_LIMIT = 200, 2.0
+STAR_STEPS, STAR_BOND_LIMIT = 100, 2.0
 STAR_SMALL, STAR_SMALL_WARM = 307, (100, 100)
 # path F, the open star melt under shear: its production windows (two of
 # OPEN_STEPS at scenes.STAR_PROD_CAP, as star_probe --open read it), the
@@ -570,6 +596,11 @@ GAUSS_F_STEPS, EXCL4_SMALL_STEPS = 100, 20
 # cycles of the sleep kernel that holds the card while time_ms enqueues a
 # batch (~10 ms at an H100's 1.98 GHz boost clock)
 HOLD_CYCLES = 20_000_000
+# the side process's torch threads (one core of the card machine's 8:
+# with four, the paths it ran beside drove the card 10-50% slower) and how
+# long a check waits for its run
+SIDE_THREADS = 1
+SIDE_TIMEOUT_S = 600.0
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 operations of one candidate-pair distance test (3 subtractions;
@@ -616,11 +647,13 @@ OPS_RAMP = 1
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    side_stop()
     sys.exit(1)
 
 
 def log(msg: str):
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", file=sys.stderr,
+          flush=True)
 
 
 def sync():
@@ -656,6 +689,71 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class Side:
+    """The side process: one worker of a spawn-context pool that computes
+    the CPU references needing no card (the small paths' CPU runs, the
+    rigid golden's) while the card runs the paths; its jobs by label, each
+    with the spec it was queued with."""
+    pool = None
+    jobs = {}
+
+
+def _side_init():
+    # no CUDA context in the side process, its torch threads on
+    # SIDE_THREADS of the cores and below the driving process's priority
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(10)
+    import torch
+    torch.set_num_threads(SIDE_THREADS)
+
+
+def _spec(make, unsteady=None, runner="run"):
+    """What a small path's CPU run depends on, comparable: make's function
+    and its string arguments, unsteady's name, the runner."""
+    fn = getattr(make, "func", make)
+    return (fn.__name__, tuple(a for a in getattr(make, "args", ())
+                               if isinstance(a, str)),
+            getattr(unsteady, "__name__", None), runner)
+
+
+def side_start():
+    import multiprocessing as mp
+    Side.pool = mp.get_context("spawn").Pool(1, initializer=_side_init)
+
+
+def side_queue(label, fn, *args):
+    """Queue fn(*args) on the side process under `label`."""
+    Side.jobs[label] = (Side.pool.apply_async(fn, args), args)
+
+
+def side_queue_small(label, make, unsteady=None, runner="run"):
+    """Queue a small path's CPU run (small_run) under `label`."""
+    side_queue(label, small_run, make, "cpu", unsteady, runner)
+
+
+def side_take(label, small=None):
+    """The side process's result under `label` (waiting for it), or None
+    when none was queued.  `small`, for a small path's run: the (make,
+    unsteady, runner) of the check, which must be the queued run's."""
+    if label not in Side.jobs:
+        return None
+    job, args = Side.jobs.pop(label)
+    if small is not None and _spec(*small) != _spec(args[0], *args[2:]):
+        fail(f"{label}: the side process ran {_spec(args[0], *args[2:])}, "
+             f"the check asks for {_spec(*small)}")
+    try:
+        return job.get(timeout=SIDE_TIMEOUT_S)
+    except Exception as e:  # noqa: BLE001 -- the side's traceback
+        fail(f"{label}: the side process's run failed: {e!r}")
+
+
+def side_stop():
+    if Side.pool is not None:
+        Side.pool.terminate()
+        Side.pool.join()
+        Side.pool = None
 
 
 class KeepCounts:
@@ -1444,6 +1542,37 @@ def small_chain(dev):
     return cfg, convert.from_arrays(arrays, device=dev)
 
 
+def small_run(make, dev, unsteady=None, runner="run"):
+    """One device's half of check_small_path: make(dev)'s scene with
+    nattempt = 0 and SeededDraws, the arrays after setup and after each of
+    SMALL_STEPS steps (with an "unsteady" column where unsteady is
+    given)."""
+    import dataclasses as dc
+
+    from obmd_tpu_torch import convert
+    from obmd_tpu_torch.integrate import make_run, make_step, setup
+    cfg, state = make(dev)
+    draws = None
+    if cfg.obmd is not None:
+        cfg = dc.replace(cfg, obmd=dc.replace(
+            cfg.obmd, usher=dc.replace(cfg.obmd.usher, nattempt=0)))
+        draws = SeededDraws(cfg, SMALL_SEED)
+    st = setup(cfg, state, draw=draws)
+
+    def arrays(st):
+        d = convert.to_arrays(st)
+        if unsteady is not None:
+            d["unsteady"] = unsteady(cfg, st).cpu().numpy()
+        return d
+    out = [arrays(st)]
+    run = (make_step(cfg, draw=draws) if runner == "step"
+           else make_run(cfg, 1, draw=draws))
+    for _ in range(SMALL_STEPS):
+        st = run(st)
+        out.append(arrays(st))
+    return out
+
+
 def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
                      unsteady=None, setpoint_rtol=0.0, runner="run"):
     """The whole path at a small size on the card against the same path on
@@ -1463,37 +1592,16 @@ def check_small_path(label, make, require_insert, exact=SMALL_EXACT,
     magnitude to its 1e-4 (a molecule leaving whole puts its momentum over
     dt, thousands, into one float32 sum); runner "step" steps through
     make_step (the stage where step % nfreq == 0) instead of make_run(1)
-    calls (each of which starts a stage group).  Returns
-    the largest position difference by tag."""
-    import dataclasses as dc
-
+    calls (each of which starts a stage group).  The CPU's run is the side
+    process's under `label` where side_start queued one (the same make,
+    unsteady and runner), else run here.  Returns the largest position
+    difference by tag."""
     import numpy as np
-    from obmd_tpu_torch import convert
-    from obmd_tpu_torch.integrate import make_run, make_step, setup
 
-    runs = []
-    for dev in (DEV, "cpu"):
-        cfg, state = make(dev)
-        draws = None
-        if cfg.obmd is not None:
-            cfg = dc.replace(cfg, obmd=dc.replace(
-                cfg.obmd, usher=dc.replace(cfg.obmd.usher, nattempt=0)))
-            draws = SeededDraws(cfg, SMALL_SEED)
-        st = setup(cfg, state, draw=draws)
-
-        def arrays(st):
-            d = convert.to_arrays(st)
-            if unsteady is not None:
-                d["unsteady"] = unsteady(cfg, st).cpu().numpy()
-            return d
-        out = [arrays(st)]
-        run = (make_step(cfg, draw=draws) if runner == "step"
-               else make_run(cfg, 1, draw=draws))
-        for _ in range(SMALL_STEPS):
-            st = run(st)
-            out.append(arrays(st))
-        runs.append(out)
-    dev_run, cpu_run = runs
+    dev_run = small_run(make, DEV, unsteady, runner)
+    cpu_run = side_take(label, (make, unsteady, runner))
+    if cpu_run is None:
+        cpu_run = small_run(make, "cpu", unsteady, runner)
     unheld = 0
     for i in (0, 1):
         got, want = dev_run[i], cpu_run[i]
@@ -1558,6 +1666,7 @@ def profile_steps(run, state, nsteps: int):
     kernel and copy (one stream, so they do not overlap); the idle share is
     1 - busy / wall.  Returns None when the profiler sees no device
     activity."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -1566,12 +1675,17 @@ def profile_steps(run, state, nsteps: int):
         state = run(state)
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the device intervals straight from the profiler's raw results:
+    # prof.events() would first build a FunctionEvent, and a tree, for each
+    # of the ~10^5 host events of an insertion step, seconds a profile
+    device = ((e.name(), e.duration_ns() / 1e3)
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not getattr(e, "is_hidden_event", lambda: False)())
     by_name = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us in device:
+        n, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, total + us)
     if not by_name:
         return None
     busy_us = sum(us for _, us in by_name.values())
@@ -1582,8 +1696,19 @@ def profile_steps(run, state, nsteps: int):
         device_busy_ms_per_step=busy_us / nsteps / 1e3,
         idle_share=1.0 - busy_us / wall_us,
         device_ops_per_step=launches / nsteps,
-        top=[dict(name=name[:90], ms_per_step=us / nsteps / 1e3,
-                  calls_per_step=n / nsteps) for name, (n, us) in top])
+        top=[dict(name=torch._C._demangle(name)[:90],
+                  ms_per_step=us / nsteps / 1e3, calls_per_step=n / nsteps)
+             for name, (n, us) in top])
+
+
+def warm_profiler():
+    """The process's first torch.profiler session, on one trivial step:
+    the profiler's set-up (seconds) is paid while the kernels build."""
+    import torch
+    t0 = time.perf_counter()
+    prof = profile_steps(lambda x: x * 2.0, torch.ones(1024, device=DEV), 1)
+    log(f"the profiler's first session, beside the build: "
+        f"{time.perf_counter() - t0:.1f} s ({prof and prof['steps']} step)")
 
 
 def max_cell_count(geom, state) -> int:
@@ -3007,11 +3132,16 @@ def _small_star_start():
     return sc.cfg, convert.to_arrays(warm)
 
 
-def small_star(dev):
-    """The star melt's small path: one warmed start, copied to `dev`, at
-    the production filing cap."""
+def small_star():
+    """The star melt's small path, make(device): one warmed start
+    (_small_star_start), copied to the device, at the production filing
+    cap."""
+    return functools.partial(_small_star_make, _small_star_start())
+
+
+def _small_star_make(start, dev):
     from obmd_tpu_torch import convert, scenes
-    cfg, arrays = _small_star_start()
+    cfg, arrays = start
     return (scenes.with_cap(cfg, scenes.STAR_PROD_CAP),
             convert.from_arrays(arrays, device=dev))
 
@@ -3088,12 +3218,16 @@ def run_star():
                                         make_thermo_fn)
     from obmd_tpu_torch.state import temperature
 
-    # ---- phase 25: the path at a small size against the CPU
+    # ---- phase 25: the path at a small size against the CPU, checked
+    # after phase 26: its start is warmed on the card here, its CPU run
+    # goes to the side process meanwhile
     exact = SMALL_EXACT + ("bond3", "bond4", "impr")
     with KeepCounts():
-        small_err = check_small_path("star melt", small_star,
-                                     require_insert=False, exact=exact,
-                                     unsteady=ill_conditioned_impropers)
+        star_small = small_star()
+    side_queue_small("star melt", star_small, ill_conditioned_impropers)
+    for free in (False, True):
+        side_queue(f"rigid golden, free {free}", rigid_golden_run, "cpu",
+                   free)
 
     # ---- phase 26: the main path
     t_path = time.perf_counter()
@@ -3198,6 +3332,11 @@ def run_star():
     if prof is None:
         fail("star profile: no device activity traced")
 
+    with KeepCounts():
+        small_err = check_small_path("star melt", star_small,
+                                     require_insert=False, exact=exact,
+                                     unsteady=ill_conditioned_impropers)
+
     # ---- phase 27: the bonded goldens on the card
     goldens = check_bonded_goldens()
 
@@ -3236,12 +3375,14 @@ def small_mol(law):
     """The small molecule-mode path of `law` (scenes.MOL_LAWS): the
     star box (DPD laws) or the stretched LJ lattice (LJ laws) of
     scenes.mol_box_scene at MOL_SMALL_ETARGET[law]; `make(device)`."""
-    def make(dev):
-        from obmd_tpu_torch import scenes
-        sc = scenes.mol_box_scene(law, device=dev,
-                                  etarget=MOL_SMALL_ETARGET[law])
-        return sc.cfg, sc.state
-    return make
+    return functools.partial(_small_mol_make, law)
+
+
+def _small_mol_make(law, dev):
+    from obmd_tpu_torch import scenes
+    sc = scenes.mol_box_scene(law, device=dev,
+                              etarget=MOL_SMALL_ETARGET[law])
+    return sc.cfg, sc.state
 
 
 def whole_molecules(cfg, state, label):
@@ -3316,9 +3457,11 @@ def run_open_star(ended):
     """Phases 28-30: the small molecule-mode paths against the CPU, path F
     (the open star melt under shear) and the pair kernel's 4-channel rows
     on the ended states of OBMD_DPD, the open LJ fluid and the charged
-    fluid (`ended`: law -> (cfg, state))."""
+    fluid (`ended`: law -> (cfg, state)).  Returns (path, kernels, (the
+    production's config, its ended state as convert.to_arrays gives it,
+    its buffer census in molecules))."""
     import torch
-    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch import _build, convert, scenes
     from obmd_tpu_torch.config import LJCutParams
     from obmd_tpu_torch.engine_cellpad import auto_rebuild_every, make_geometry
     from obmd_tpu_torch.integrate import make_run, setup
@@ -3412,6 +3555,8 @@ def run_open_star(ended):
                          f"exclusion, cap {geom.fcap}, path F (open x)")
     near = check_exclusion(pcfg, geom, st, "pair",
                            label=f"path F cap {geom.fcap}")
+    # path M starts from the production's ended state
+    prod_end = (pcfg, convert.to_arrays(st), census)
     gauss = run_open_star_gaussian(pcfg, geom, st)
     prof = profile_steps(make_run(pcfg, 2 * auto_rebuild_every(pcfg)), st,
                          2 * auto_rebuild_every(pcfg))
@@ -3511,7 +3656,7 @@ def run_open_star(ended):
                else "324"), row_launches[small_key], figs))
     del sc, st
     torch.cuda.empty_cache()
-    return path, kernels
+    return path, kernels, prod_end
 
 
 def run_open_star_gaussian(pcfg, geom, state):
@@ -3748,28 +3893,30 @@ def small_keywords(kind):
     `gaussian` (around region5's middle, sigma 1: the other side's draws
     invalid) and `rate`; "census" the open charged fluid's small deck (two
     types) counting type 0 only, with maxattempt 2 and `global`."""
-    def make(dev):
-        from obmd_tpu_torch.config import DPDTstatParams
-        v = (-1.732, 1.732)
-        if kind == "census":
-            cfg, st = small_ljrf(dev)
-            kw = dict(maxattempt=2, group_types=(0,),
-                      deposit_global=(-1.0, -0.2))
+    return functools.partial(_small_keywords_make, kind)
+
+
+def _small_keywords_make(kind, dev):
+    from obmd_tpu_torch.config import DPDTstatParams
+    v = (-1.732, 1.732)
+    if kind == "census":
+        cfg, st = small_ljrf(dev)
+        kw = dict(maxattempt=2, group_types=(0,),
+                  deposit_global=(-1.0, -0.2))
+    else:
+        cfg, st = small_dpd(dev)
+        if kind == "cellpad":
+            kw = dict(maxattempt=3, deposit_local=(0.0, 0.5, 1.0),
+                      vx=v, vy=v, vz=v, target=(4.2, 5.6, 5.6),
+                      id_policy="max")
         else:
-            cfg, st = small_dpd(dev)
-            if kind == "cellpad":
-                kw = dict(maxattempt=3, deposit_local=(0.0, 0.5, 1.0),
-                          vx=v, vy=v, vz=v, target=(4.2, 5.6, 5.6),
-                          id_policy="max")
-            else:
-                cfg = dataclasses.replace(
-                    cfg, force_path="nlist", pair=DPDTstatParams.create(
-                        t_start=1.0, cutoff=1.0, seed=9, gamma=4.5))
-                kw = dict(maxattempt=2, nfreq=2, rate=2.0,
-                          gaussian=(0.6, 5.6, 5.6, 1.0))
-        return dataclasses.replace(cfg, obmd=dataclasses.replace(
-            cfg.obmd, **kw)).finalize(), st
-    return make
+            cfg = dataclasses.replace(
+                cfg, force_path="nlist", pair=DPDTstatParams.create(
+                    t_start=1.0, cutoff=1.0, seed=9, gamma=4.5))
+            kw = dict(maxattempt=2, nfreq=2, rate=2.0,
+                      gaussian=(0.6, 5.6, 5.6, 1.0))
+    return dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, **kw)).finalize(), st
 
 
 def drained(cfg, state, share, seed):
@@ -4169,66 +4316,68 @@ def small_mol_keywords(kind):
     `target`; "deposit" the trimer with `gaussian`, `rate` and nfreq 2
     (stepped through make_step); "local" the dimer with `local` and
     maxattempt 2."""
-    def make(dev):
-        import numpy as np
-        from obmd_tpu_torch import scenes
-        from obmd_tpu_torch.config import (BondHarmonicParams, Capacity,
-                                           DPDParams, MolTemplate,
-                                           ObmdParams, SceneConfig,
-                                           UsherParams)
-        from obmd_tpu_torch.geometry import Box, RegionBlock
-        from obmd_tpu_torch.state import init_state
-        r = np.random.default_rng(4)
-        if kind in ("water", "rigid-water"):
-            rigid = kind == "rigid-water"
-            cfg = scenes.open_water_config(
-                planes=33, cap=24, n_max=1200, nbuf=60.0, rigid=rigid,
-                usher=UsherParams(etarget=0.0, nattempt=0))
-            tpl = scenes.water_template_coords()
-            tpl = tpl - tpl.mean(0)
-            g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"),
-                         -1).reshape(-1, 3) * 1.1 + [0.6, 0.3, 0.3]
-            x = (g[:, None] + np.einsum("sij,kj->ski",
-                                        scenes._rotations(r, 125), tpl)
-                 ).reshape(-1, 3)
-            types, q, mol, bonds = scenes._water_topology(125, tree=rigid)
-            return cfg, init_state(cfg, x, v=r.normal(0.0, 0.3, x.shape),
-                                   types=types, q=q, mol=mol, bonds=bonds,
-                                   device=dev)
-        dimer, trimer = (MolTemplate(dx=dx, types=(0,) * len(dx),
-                                     bonds=b)
-                         for dx, b in (MOL_DIMER, MOL_TRIMER))
-        v = (-1.732, 1.732)
-        kw = {"molfrac": dict(mol=dimer, mols=(dimer, trimer),
-                              molfrac=(0.3, 0.7), maxattempt=3,
-                              orient=(0.0, 0.0, 1.0), vx=v, vy=v,
-                              vz=(0.0, 2.0), target=(5.0, 2.0, 2.0)),
-              "deposit": dict(mol=trimer, gaussian=(1.0, 2.0, 2.0, 0.6),
-                              rate=0.5, nfreq=2),
-              "local": dict(mol=dimer, maxattempt=2,
-                            deposit_local=(-2.0, -0.5, 0.9))}[kind]
-        box = Box((0.0, 0.0, 0.0), (10.0, 4.0, 4.0), (False, True, True))
-        r1 = RegionBlock((0.0, 0.0, 0.0), (2.0, 4.0, 4.0))
-        r2 = RegionBlock((8.0, 0.0, 0.0), (10.0, 4.0, 4.0))
-        deg = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
-        args = dict(
-            ntype=0, nfreq=1, seed=11, pxx=5.0, alpha=0.5, tau=0.01,
-            nbuf=200.0, region1=r1, region2=r2, region3=deg, region4=deg,
-            region5=r1, region6=r2, buffer_size=2.0,
-            usher=UsherParams(etarget=40.0, nattempt=0), mol_len=2,
-            insert_kmax=6)
-        obmd = ObmdParams(**{**args, **kw})
-        cfg = SceneConfig(
-            box=box, masses=(1.0,), dt=0.01,
-            pair=DPDParams.create(temp=1.0, cutoff=1.0, seed=3, a0=25.0,
-                                  gamma=4.5),
-            capacity=Capacity(n_max=900, cell_capacity=22), obmd=obmd,
-            bond=BondHarmonicParams(k=40.0, r0=0.6), skin=0.3,
-            force_path="cellpad").finalize()
-        x = r.uniform([1.05, 0.05, 0.05], [8.95, 3.95, 3.95], (200, 3))
-        return cfg, init_state(cfg, x, v=r.normal(0.0, 1.0, x.shape),
+    return functools.partial(_small_mol_keywords_make, kind)
+
+
+def _small_mol_keywords_make(kind, dev):
+    import numpy as np
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.config import (BondHarmonicParams, Capacity,
+                                       DPDParams, MolTemplate,
+                                       ObmdParams, SceneConfig,
+                                       UsherParams)
+    from obmd_tpu_torch.geometry import Box, RegionBlock
+    from obmd_tpu_torch.state import init_state
+    r = np.random.default_rng(4)
+    if kind in ("water", "rigid-water"):
+        rigid = kind == "rigid-water"
+        cfg = scenes.open_water_config(
+            planes=33, cap=24, n_max=1200, nbuf=60.0, rigid=rigid,
+            usher=UsherParams(etarget=0.0, nattempt=0))
+        tpl = scenes.water_template_coords()
+        tpl = tpl - tpl.mean(0)
+        g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3) * 1.1 + [0.6, 0.3, 0.3]
+        x = (g[:, None] + np.einsum("sij,kj->ski",
+                                    scenes._rotations(r, 125), tpl)
+             ).reshape(-1, 3)
+        types, q, mol, bonds = scenes._water_topology(125, tree=rigid)
+        return cfg, init_state(cfg, x, v=r.normal(0.0, 0.3, x.shape),
+                               types=types, q=q, mol=mol, bonds=bonds,
                                device=dev)
-    return make
+    dimer, trimer = (MolTemplate(dx=dx, types=(0,) * len(dx),
+                                 bonds=b)
+                     for dx, b in (MOL_DIMER, MOL_TRIMER))
+    v = (-1.732, 1.732)
+    kw = {"molfrac": dict(mol=dimer, mols=(dimer, trimer),
+                          molfrac=(0.3, 0.7), maxattempt=3,
+                          orient=(0.0, 0.0, 1.0), vx=v, vy=v,
+                          vz=(0.0, 2.0), target=(5.0, 2.0, 2.0)),
+          "deposit": dict(mol=trimer, gaussian=(1.0, 2.0, 2.0, 0.6),
+                          rate=0.5, nfreq=2),
+          "local": dict(mol=dimer, maxattempt=2,
+                        deposit_local=(-2.0, -0.5, 0.9))}[kind]
+    box = Box((0.0, 0.0, 0.0), (10.0, 4.0, 4.0), (False, True, True))
+    r1 = RegionBlock((0.0, 0.0, 0.0), (2.0, 4.0, 4.0))
+    r2 = RegionBlock((8.0, 0.0, 0.0), (10.0, 4.0, 4.0))
+    deg = RegionBlock((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    args = dict(
+        ntype=0, nfreq=1, seed=11, pxx=5.0, alpha=0.5, tau=0.01,
+        nbuf=200.0, region1=r1, region2=r2, region3=deg, region4=deg,
+        region5=r1, region6=r2, buffer_size=2.0,
+        usher=UsherParams(etarget=40.0, nattempt=0), mol_len=2,
+        insert_kmax=6)
+    obmd = ObmdParams(**{**args, **kw})
+    cfg = SceneConfig(
+        box=box, masses=(1.0,), dt=0.01,
+        pair=DPDParams.create(temp=1.0, cutoff=1.0, seed=3, a0=25.0,
+                              gamma=4.5),
+        capacity=Capacity(n_max=900, cell_capacity=22), obmd=obmd,
+        bond=BondHarmonicParams(k=40.0, r0=0.6), skin=0.3,
+        force_path="cellpad").finalize()
+    x = r.uniform([1.05, 0.05, 0.05], [8.95, 3.95, 3.95], (200, 3))
+    return cfg, init_state(cfg, x, v=r.normal(0.0, 1.0, x.shape),
+                           device=dev)
 
 
 def drained_molecules(cfg, state, share, seed):
@@ -4471,6 +4620,20 @@ def check_binned_repeat(cfg, state, label, nbins: int = 450):
                 atomic_pxx=m0[1], density_mean=float(p0[1].mean()))
 
 
+def rigid_golden_run(dev, free):
+    """validation/rigid_golden's RIGID_GOLDEN_STEPS steps on `dev` (the
+    cellpad engine): {tag: (x, v)} of the live atoms."""
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.integrate import make_run, setup
+    sc = scenes.rigid_golden_scene(device=dev, force_path="cellpad",
+                                   free=free)
+    st = make_run(sc.cfg, scenes.RIGID_GOLDEN_STEPS)(setup(sc.cfg, sc.state))
+    al = st.alive.cpu().numpy()
+    x, v = st.x.cpu().numpy(), st.v.cpu().numpy()
+    return {int(t): (x[i], v[i]) for i, t in
+            enumerate(st.tag.cpu().numpy()) if al[i]}
+
+
 def check_rigid_golden():
     """validation/rigid_golden on the card (the cellpad engine, the pair
     kernel at its fill cap) against dump.ref (in.rigid's DPD law) and
@@ -4479,23 +4642,16 @@ def check_rigid_golden():
     Returns the largest differences."""
     import numpy as np
     from obmd_tpu_torch import scenes
-    from obmd_tpu_torch.integrate import make_run, setup
     out = {}
     for free in (False, True):
         ref = scenes.golden_dump("rigid_golden",
                                  "dump.rv" if free else "dump.ref")
-        runs = {}
-        for dev in (DEV, "cpu"):
-            sc = scenes.rigid_golden_scene(device=dev, force_path="cellpad",
-                                           free=free)
-            st = make_run(sc.cfg, scenes.RIGID_GOLDEN_STEPS)(
-                setup(sc.cfg, sc.state))
-            al = st.alive.cpu().numpy()
-            x, v = st.x.cpu().numpy(), st.v.cpu().numpy()
-            runs[dev] = {int(t): (x[i], v[i]) for i, t in
-                         enumerate(st.tag.cpu().numpy()) if al[i]}
-        card, cpu = runs[DEV], runs["cpu"]
-        length = sc.cfg.box.lengths[0]
+        card = rigid_golden_run(DEV, free)
+        cpu = side_take(f"rigid golden, free {free}")
+        if cpu is None:
+            cpu = rigid_golden_run("cpu", free)
+        length = scenes.rigid_golden_scene(
+            device="cpu", free=free).cfg.box.lengths[0]
 
         def unwrap(d):
             return d - length * np.round(d / length)
@@ -5542,9 +5698,9 @@ def scratch_figure(cfg, subsets):
 SLAB_WORLD = 4
 SLAB_CHECK_STEPS = 10       # (a) the gathered slab against the sweep engine
 SLAB_KERNEL_STEPS = 3       # (b) the kernel slab against the gathered at T 0
-SLAB_WARM, SLAB_PROD = 20, 200    # (c) production through the kernel
+SLAB_WARM, SLAB_PROD = 20, 100    # (c) production through the kernel
 SLAB_NCCL_STEPS = 50        # (d) one NCCL rank beside the cellpad engine
-ATOM_WORLD, ATOM_STEPS = 2, 10    # (e) the atom decomposition
+ATOM_STEPS = 10             # (e) the atom decomposition, on the slab's ranks
 # (a) and (b) search with nattempt 0 at this etarget (unmoved candidates
 # pass in the liquid): a 40-iteration USHER verdict at the etarget gate
 # hangs on the float32 order of the sums over the ranks
@@ -5557,13 +5713,19 @@ RANK_TIMEOUT_S = 300.0
 def replay_draws(cfg, n_calls, seed):
     """Uniform draws for n_calls stage calls, one entry each (ranks.
     ReplayDraws), so that two engines that call the seam on every stage
-    call take the same candidates whatever their demand."""
+    call take the same candidates whatever their demand: the positions'
+    (in MOLECULE mode the centre's and the rotation axis's and angle's)
+    and, where their keywords are set, the deposit z's and the
+    velocities' (obmd.stage.draw_shapes; template 0 in MOLECULE mode)."""
     import torch
-    o = cfg.obmd
+    from obmd_tpu_torch.engine_cellpad import mol_mode
+    from obmd_tpu_torch.obmd.stage import draw_shapes, rounds_of
+    shapes = draw_shapes(cfg, rounds_of(cfg), cfg.obmd.insert_kmax,
+                         7 if mol_mode(cfg) else 3)
     g = torch.Generator().manual_seed(seed)
-    return [dict(pos=torch.rand((2, max(1, o.maxattempt), o.insert_kmax, 3),
-                                generator=g).numpy())
-            for _ in range(n_calls)]
+    return [{k: None if shapes[k] is None
+             else torch.rand(shapes[k], generator=g).numpy()
+             for k in ("pos", "z", "vel")} for _ in range(n_calls)]
 
 
 def by_tag(arrays):
@@ -5591,43 +5753,50 @@ def same_atoms(got, ref, tol, label, counters=("ndeleted", "ninserted")):
 
 
 def check_slab_fields(cfg, pg, fields, label):
-    """The slab's pair-kernel launch (its key on pad geometry pg) on rank
-    0's filed owned + halo rows against its plain version
-    (check_pair_inputs).  Returns (its launch key, its figures)."""
+    """The slab's pair-kernel launch (its key on pad geometry pg, with the
+    partner-tag channels where the fields have them) on rank 0's filed
+    owned + halo rows against its plain version (check_pair_inputs).
+    Returns (its launch key, its figures)."""
     import torch
     from obmd_tpu_torch.engine_cellpad import pair_salt
     from obmd_tpu_torch.forces.pair_kernel import (PairCoef, launch_key,
                                                    make_pair_kernel)
     fld = torch.from_numpy(fields["fld"]).to(DEV)
+    pbond = fields.get("pbond")
+    n_excl = 0 if pbond is None else pbond.shape[1]
     coef = PairCoef.of(pg, cfg.pair, cfg.dt)
-    key = launch_key(pg, coef, 0)
+    key = launch_key(pg, coef, n_excl)
     alive = (fld[:, 0] < 0.5e8).reshape(-1)
     log(f"{label}: {key}, {pg.dims} cells, {pg.n_blocks} blocks, "
         f"{int(alive.sum())} filed rows")
+    kern = make_pair_kernel(pg, cfg.pair, cfg.dt, exclude_bonded=n_excl > 0,
+                            **({"n_excl": n_excl} if n_excl else {}))
     figures, _ = check_pair_inputs(
-        pg, coef, make_pair_kernel(pg, cfg.pair, cfg.dt),
+        pg, coef, kern,
         (fld, torch.from_numpy(fields["tag"]).to(DEV),
          pair_salt(cfg, fields["step"]),
-         torch.from_numpy(fields["occ"]).to(DEV), None), alive, label)
+         torch.from_numpy(fields["occ"]).to(DEV),
+         None if pbond is None else torch.from_numpy(pbond).to(DEV)),
+        alive, label)
     return key, figures
 
 
-def rank_sum(res, i, key):
+def rank_sum(res, i, key, path="path L"):
     """Launches of pair-kernel key `key` in run i, summed over the ranks,
     after checking that no rank launched any other kernel or key."""
     n = 0
     for r in res:
         got = r[i]["launches"]
         if set(got) - {"pair"} or set(got.get("pair", {})) - {key}:
-            fail(f"path L: a rank launched {got}, expected only pair {key}")
+            fail(f"{path}: a rank launched {got}, expected only pair {key}")
         n += got.get("pair", {}).get(key, 0)
     return n
 
 
 def run_slab(cfg24, st_eq):
     """Phase 42: path L, the multi-device steps on the card
-    (obmd_tpu_torch/parallel, the ranks spawned by parallel.comm.spawn with
-    the kernels built beforehand).  From phase 4's equilibrated OBMD_DPD
+    (obmd_tpu_torch/parallel, the ranks started by parallel.comm.Launch
+    with the kernels built beforehand).  From phase 4's equilibrated OBMD_DPD
     state in a store of n_max slots (slots_of), scale SLAB_SCALE (9):
       (a) SLAB_WORLD gloo ranks, the gathered slab step against the sweep
           engine in this process, SLAB_CHECK_STEPS steps at the insertion
@@ -5649,11 +5818,15 @@ def run_slab(cfg24, st_eq):
       (d) one NCCL rank, the same production for SLAB_NCCL_STEPS steps
           (the one-rank slab's key held the same way), beside the cellpad
           engine's ms/step over as many steps from the same start;
-      (e) ATOM_WORLD gloo ranks, the atom decomposition on OBMD_DPD at scale
-          1 (the nlist engine's setup) against the nlist engine in this
+      (e) the same SLAB_WORLD gloo ranks after (a)-(c) (one spawn), the
+          atom decomposition on OBMD_DPD at scale 1 (the nlist engine's
+          setup) against the nlist engine in this
           process, ATOM_STEPS steps on replayed draws: counters equal,
           positions by tag within 2e-3.
-    Launch counts of the main path are the ranks' own over (c)."""
+    Launch counts of the main path are the ranks' own over (c).  A
+    generator (run_multi_rank drives it): it yields its rank tasks for the
+    four gloo ranks and the one NCCL rank, which path M's share, and is
+    sent their results and the calls' seconds."""
     import numpy as np
     import torch
     from obmd_tpu_torch import convert, scenes
@@ -5661,8 +5834,8 @@ def run_slab(cfg24, st_eq):
     from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
     from obmd_tpu_torch.integrate import make_run, make_step, setup
     from obmd_tpu_torch.observe import make_obmd_metrics_fn
-    from obmd_tpu_torch.parallel.comm import spawn
-    from obmd_tpu_torch.parallel.ranks import ReplayDraws, atom_runs, slab_runs
+    from obmd_tpu_torch.parallel.ranks import (ReplayDraws, atom_runs,
+                                               slab_runs)
     from obmd_tpu_torch.parallel.slab_decomp import make_slab_geom
     t_path = time.perf_counter()
     deck = scenes.obmd_dpd_config(scale=SLAB_SCALE, force_path="sweep")
@@ -5705,9 +5878,36 @@ def run_slab(cfg24, st_eq):
              steps=SLAB_KERNEL_STEPS, draws=draws, force_impl="kernel"),
         dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=SLAB_WARM,
              steps=SLAB_PROD, force_impl="kernel", fields=True)]
-    t0 = time.perf_counter()
-    res = spawn(slab_runs, SLAB_WORLD, "gloo", DEV, RANK_TIMEOUT_S, runs)
-    spawn_s = time.perf_counter() - t0
+    # (e)'s reference: the nlist engine on OBMD_DPD at scale 1
+    sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
+                               device=DEV)
+    n_max = sa.cfg.capacity.n_max // SLAB_WORLD * SLAB_WORLD
+    sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
+                               n_max=n_max, device=DEV)
+    with KeepCounts():
+        st = setup(sa.cfg, sa.state)
+        a_arrays = convert.to_arrays(st)
+        e_draws = replay_draws(sa.cfg, ATOM_STEPS, SLAB_SEED)
+        step = make_step(sa.cfg, ReplayDraws(e_draws))
+        for _ in range(ATOM_STEPS):
+            st = step(st)
+        sync()
+    e_ref = convert.to_arrays(st)
+    del st, step
+    # the atom decomposition's run rides in the same spawn, after the
+    # slab's; (d)'s in the one-rank spawn
+    own_s = time.perf_counter() - t_path
+    both, res1, spawn_s, d_spawn_s = yield (
+        [(slab_runs, (runs,)), (atom_runs, ([dict(
+            cfg=sa.cfg, arrays={k: v for k, v in a_arrays.items()
+                                if k not in ("nlist", "xref")},
+            seed=SLAB_SEED, steps=ATOM_STEPS, draws=e_draws)],))],
+        [(slab_runs, ([dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=5,
+                            steps=SLAB_NCCL_STEPS, force_impl="kernel",
+                            fields=True)],))])
+    t_path = time.perf_counter()
+    res = [b[0] for b in both]
+    res2 = [b[1] for b in both]
     r0 = res[0]
     # (a)
     got = r0[0]["state"]
@@ -5765,16 +5965,11 @@ def run_slab(cfg24, st_eq):
         f"{SLAB_PROD / c_s * natoms_c / 1e6:.3f} Mparticle-steps/s, "
         f"{natoms_c} atoms, per-rank atoms {[r[3]['natoms'] for r in res]}, "
         f"ndeleted {int(fin['ndeleted'])}, ninserted "
-        f"{int(fin['ninserted'])}, launches {c_launch}; the spawn took "
-        f"{spawn_s:.1f} s")
+        f"{int(fin['ninserted'])}, launches {c_launch}; the ranks' call "
+        f"(paths L and M) took {spawn_s:.1f} s")
     # (d)
-    t0 = time.perf_counter()
-    res1 = spawn(slab_runs, 1, "nccl", DEV, RANK_TIMEOUT_S,
-                 [dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=5,
-                       steps=SLAB_NCCL_STEPS, force_impl="kernel",
-                       fields=True)])
-    d_spawn_s = time.perf_counter() - t0
-    one = res1[0][0]
+    one = res1[0][0][0]
+    res1 = [r[0] for r in res1]
     if int(one["state"]["cell_overflow"]) != int(arrays["cell_overflow"]) \
             or one["outside"]:
         fail("path L (d): overflow or an atom outside the slab")
@@ -5799,49 +5994,29 @@ def run_slab(cfg24, st_eq):
     log(f"path L (d): one NCCL rank {d_ms:.3f} ms/step over "
         f"{SLAB_NCCL_STEPS} steps ({int(one['state']['alive'].sum())} "
         f"atoms), the cellpad engine {cell_ms:.3f} ms/step over as many "
-        f"from the same start; the spawn took {d_spawn_s:.1f} s")
+        f"from the same start; the ranks' call (paths L and M) took "
+        f"{d_spawn_s:.1f} s")
     # (e)
-    sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
-                               device=DEV)
-    n_max = sa.cfg.capacity.n_max // ATOM_WORLD * ATOM_WORLD
-    sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
-                               n_max=n_max, device=DEV)
-    with KeepCounts():
-        st = setup(sa.cfg, sa.state)
-        a_arrays = convert.to_arrays(st)
-        e_draws = replay_draws(sa.cfg, ATOM_STEPS, SLAB_SEED)
-        step = make_step(sa.cfg, ReplayDraws(e_draws))
-        for _ in range(ATOM_STEPS):
-            st = step(st)
-        sync()
-    e_ref = convert.to_arrays(st)
-    del st, step
-    t0 = time.perf_counter()
-    res2 = spawn(atom_runs, ATOM_WORLD, "gloo", DEV, RANK_TIMEOUT_S,
-                 [dict(cfg=sa.cfg, arrays={k: v for k, v in a_arrays.items()
-                                           if k not in ("nlist", "xref")},
-                       seed=SLAB_SEED, steps=ATOM_STEPS, draws=e_draws)])
-    e_spawn_s = time.perf_counter() - t0
     e_got = res2[0][0]["state"]
     diff_e = same_atoms(e_got, e_ref, 2e-3, "path L (e) atom decomposition "
                         "against the nlist engine",
                         counters=("ndeleted", "ninserted", "insert_fail"))
     if any(r[0]["launches"] for r in res2):
         fail(f"path L (e): kernel launches {[r[0]['launches'] for r in res2]}")
-    log(f"path L (e): {ATOM_WORLD} gloo ranks, {ATOM_STEPS} steps, "
-        f"{int(e_got['alive'].sum())} atoms, ndeleted "
+    log(f"path L (e): {SLAB_WORLD} gloo ranks (the slab's spawn), "
+        f"{ATOM_STEPS} steps, {int(e_got['alive'].sum())} atoms, ndeleted "
         f"{int(e_got['ndeleted'])}, ninserted {int(e_got['ninserted'])}, "
         f"positions by tag within {diff_e:.3e} of the nlist engine; "
-        f"{res2[0][0]['seconds']:.2f} s, the spawn took {e_spawn_s:.1f} s")
-    path_s = time.perf_counter() - t_path
-    log(f"path L: {path_s:.1f} s")
+        f"{res2[0][0]['seconds']:.2f} s")
+    path_s = own_s + time.perf_counter() - t_path
+    log(f"path L: {path_s:.1f} s, the ranks' calls apart")
     path = dict(atoms_at_start=natoms0, atoms=natoms_c, world=SLAB_WORLD,
                 backend="gloo", ms_per_step=c_ms,
                 mparticle_steps_per_s=SLAB_PROD / c_s * natoms_c / 1e6,
                 nccl_world1_ms_per_step=d_ms, cellpad_ms_per_step=cell_ms,
                 check_a_max_diff=diff_a, check_b_max_diff=diff_b,
                 atom_decomp_max_diff=diff_e, path_s=path_s,
-                spawn_s=[spawn_s, d_spawn_s, e_spawn_s])
+                spawn_s=[spawn_s, d_spawn_s])
     replaces = ("obmd_tpu/forces/pallas_dpd.py:324 (make_pair_kernel's "
                 "kernel, :858) on slab_decomp.py:450-461's pad geometry")
     kernels = [
@@ -5852,12 +6027,483 @@ def run_slab(cfg24, st_eq):
     return path, kernels
 
 
-def run_smoke():
-    """Phases 2-42; returns the paths' figures and the kernel figures."""
-    from obmd_tpu_torch import _build
-    t_all = time.perf_counter()
+# path M: the slab decomposition's MOLECULE mode on path F's open star melt
+# (obmd_tpu_torch/parallel/slab_decomp.py), four gloo ranks sharing the card
+M_WORLD = 4
+M_CHECK_STEPS = 10          # (a) the gathered slab against the cellpad engine
+M_KERNEL_STEPS = 3          # (b) the kernel slab against the gathered at T 0
+M_WARM, M_PROD = 10, 60     # (c) production through the kernel
+M_NCCL_STEPS = 30           # (d) one NCCL rank beside the cellpad engine
+M_SMALL_STEPS = 10          # (e) the small SHAKE and rigid water slabs
+# (a) and (b) search with nattempt 0 at this etarget (most unmoved star
+# trials pass: their median energy in the melt is 20.8, scenes.
+# OPEN_STAR_ETARGET)
+M_ETARGET = 60.0
+M_SEED = 13
+M_ROOM = 1.3                # a rank's slots: M_ROOM x the atoms / world
+# (e)'s water (parallel/dryrun.mol_scenes' path 1c template)
+M_WATER_DX = ((0.0, 0.2667, 0.0), (-0.6, -0.2333, 0.0), (0.6, -0.2333, 0.0))
+
+
+def tag_molecules(arrays, sizes, label):
+    """A slab state's molecules (partner columns as tags) are whole: every
+    live atom's partner tags are live and each live molecule id has one of
+    `sizes` atoms.  Returns the molecule count."""
+    import numpy as np
+    a = arrays["alive"]
+    live = np.zeros(int(arrays["tag"].max()) + 2, bool)
+    live[arrays["tag"][a]] = True
+    for k in ("bond1", "bond2", "bond3", "bond4"):
+        if k in arrays:
+            p = arrays[k][a]
+            p = p[p >= 0]
+            if p.size and ((p >= live.size).any() or not live[p].all()):
+                fail(f"{label}: a live atom's partner {k} is dead")
+    mol = arrays["mol"][a]
+    _, counts = np.unique(mol[mol != 0], return_counts=True)
+    if not np.isin(counts, sizes).all():
+        fail(f"{label}: molecules of {sorted(set(counts.tolist()))} atoms")
+    return len(counts)
+
+
+def template_error(cfg, arrays, dx):
+    """The largest |distance - the template's| over every pair of atoms of
+    each live molecule of a slab state, its atoms in tag order (the
+    template's; minimum image on the periodic axes)."""
+    import numpy as np
+    dx = np.asarray(dx)
+    a = arrays["alive"] & (arrays["mol"] != 0)
+    order = np.lexsort((arrays["tag"][a], arrays["mol"][a]))
+    x = arrays["x"][a][order].astype(np.float64)
+    m = dx.shape[0]
+    x = x.reshape(-1, m, 3)
+    lengths = np.asarray(cfg.box.lengths)
+    per = np.asarray(cfg.box.periodic)
+    err = 0.0
+    for i in range(m):
+        for j in range(i + 1, m):
+            d = x[:, i] - x[:, j]
+            d = np.where(per, d - lengths * np.round(d / lengths), d)
+            d0 = np.linalg.norm(dx[i] - dx[j])
+            err = max(err, float(np.abs(np.linalg.norm(d, axis=1)
+                                        - d0).max()))
+    return err
+
+
+def small_water_slabs(world):
+    """(e)'s scenes at the dry run's size (parallel/dryrun.mol_scenes'
+    path 1c): the SHAKE water (closed, nlist setup) and the same waters as
+    rigid bodies of the tree template (O-H twice) under `near` insertion of
+    that template (cellpad setup), each (slab config, the CPU's start
+    arrays, the CPU's single-device step, draws for the slab)."""
+    import dataclasses as dc
+    import numpy as np
+    from obmd_tpu_torch import convert
+    from obmd_tpu_torch.config import MolTemplate, ObmdParams
+    from obmd_tpu_torch.geometry import RegionBlock
+    from obmd_tpu_torch.integrate import make_step, setup
+    from obmd_tpu_torch.parallel.dryrun import mol_scenes
+    from obmd_tpu_torch.parallel.ranks import ReplayDraws
+    from obmd_tpu_torch.state import init_state
+    _, (scfg, water) = mol_scenes(world)
+    shake_st = setup(scfg, init_state(scfg, device="cpu", **water))
+    lx, lyz = scfg.box.hi[0], scfg.box.hi[1]
+    tpl = MolTemplate(dx=M_WATER_DX, types=(0, 1, 1),
+                      q=(0.0, 0.0, 0.0), bonds=((0, 1), (0, 2)))
+    r1 = RegionBlock((0.0, 0.0, 0.0), (2.5, lyz, lyz))
+    r2 = RegionBlock((lx - 2.5, 0.0, 0.0), (lx, lyz, lyz))
+    rcfg = dc.replace(scfg, shake=None, force_path="cellpad", obmd=ObmdParams(
+        ntype=0, nfreq=1, seed=11, pxx=1.0, alpha=0.5, tau=0.01, nbuf=60.0,
+        region1=r1, region2=r2, region5=r1, region6=r2, buffer_size=2.5,
+        near=0.45, mol=tpl, mol_len=3, insert_kmax=4, rigid=True)).finalize()
+    n = water["x"].shape[0] // 3
+    tree = np.concatenate([np.asarray(tpl.bonds) + 3 * k + 1
+                           for k in range(n)])
+    draws = replay_draws(rcfg, M_SMALL_STEPS + 1, M_SEED)
+    rigid_st = setup(rcfg, init_state(rcfg, device="cpu",
+                                      **dict(water, bonds=tree)),
+                     ReplayDraws(draws[:1]))
+
+    def strip(st):
+        return {k: v for k, v in convert.to_arrays(st).items()
+                if k not in ("nlist", "xref")}
+    return (("SHAKE water", scfg, strip(shake_st), make_step(scfg), None,
+             shake_st),
+            ("rigid water", rcfg, strip(rigid_st),
+             make_step(rcfg, ReplayDraws(draws[1:])), draws[1:], rigid_st))
+
+
+def run_slab_mol(star_end):
+    """Phase 43: path M, the slab decomposition's MOLECULE mode on the card
+    (obmd_tpu_torch/parallel/slab_decomp.py, the ranks started by
+    parallel.comm.Launch with the kernels built beforehand).  From path F's
+    ended production state (`star_end`: config, arrays, buffer census in
+    molecules): the open star melt under shear, ~100,000 beads, harmonic
+    bonds, angles and impropers on the branched template, MOL-mode USHER,
+    at full width on M_WORLD slabs of M_ROOM x the atoms / world slots:
+      (a) M_WORLD gloo ranks, the gathered slab step against the port's
+          cellpad engine in this process, M_CHECK_STEPS steps at the
+          insertion phase's nbuf (1.05 x census / alpha, cap 24) on the
+          same replayed draws (nattempt 0 at M_ETARGET): natoms, ndeleted
+          and ninserted (> 0, a multiple of 5) equal, the tag sets equal,
+          positions by tag within 1e-4, molecules whole;
+      (b) at temperature 0 the kernel slab step against the gathered one,
+          M_KERNEL_STEPS steps each from the same start: positions by tag
+          within 1e-5, the kernel launched once a step on each rank;
+      (c) production at the deck's nbuf and temperature (USHER at its
+          nattempt 40, the state's own draws): M_WARM steps, then M_PROD
+          timed; no overflow, every live atom inside its rank's slab, tags
+          unique, molecules whole, every rank drew the same numbers, the
+          pair kernel launched once a step on each rank under the slab's
+          4-channel key and no other kernel; that launch on rank 0's last
+          filed rows against its plain version (check_slab_fields);
+      (d) one NCCL rank, the same production for M_NCCL_STEPS steps, beside
+          the cellpad engine's ms/step over as many steps from the same
+          start;
+      (e) the small SHAKE water and rigid water (tree template) slabs on the
+          card against the same scenes on the port's single-device engine
+          on the CPU, M_SMALL_STEPS steps (small_water_slabs): SHAKE x by
+          tag within 1e-4, v within 1e-3, constraint error <= 1e-5 (the
+          slab's cuts rebalanced every step); rigid bodies by tag within
+          RIGID_GEOMETRY and at the template within it; then the port's
+          dry run (parallel/dryrun.py, all four paths) on the same M_WORLD
+          gloo ranks, after the runs.
+    Launch counts of the main path are the ranks' own over (c).  A
+    generator, as run_slab: path L's ranks run its rank tasks too."""
+    import numpy as np
+    import torch
+    from obmd_tpu_torch import convert, scenes
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    from obmd_tpu_torch.integrate import (make_run, make_step,
+                                          rebuild_neighbors, setup)
+    from obmd_tpu_torch.observe import rigid_error
+    from obmd_tpu_torch.parallel.dryrun import dry_inputs, dry_line, dry_rank
+    from obmd_tpu_torch.parallel.ranks import ReplayDraws, slab_runs
+    from obmd_tpu_torch.parallel.slab_decomp import make_slab_geom
+    from obmd_tpu_torch.shake import constraint_error
+    t_path = time.perf_counter()
+    deck, arrays, census = star_end
+    natoms0 = int(arrays["alive"].sum())
+    o = deck.obmd
+    cfg_ins = dataclasses.replace(
+        scenes.with_cap(deck, scenes.STAR_WARM_CAP),
+        obmd=dataclasses.replace(o, nbuf=1.05 * census / o.alpha,
+                                 usher=dataclasses.replace(
+                                     o.usher, nattempt=0,
+                                     etarget=M_ETARGET))).finalize()
+    cfg_t0 = dataclasses.replace(cfg_ins, pair=dataclasses.replace(
+        cfg_ins.pair, temp=0.0)).finalize()
+    geom_kw = {w: dict(n_loc=int(M_ROOM * natoms0 / w)) for w in (M_WORLD, 1)}
+    geoms = {w: make_slab_geom(deck, w, **geom_kw[w]) for w in geom_kw}
+
+    def key_of(cfg, g):
+        return launch_key(g.pad_geom, PairCoef.of(g.pad_geom, cfg.pair,
+                                                  cfg.dt), 4)
+    keys = {w: key_of(deck, g) for w, g in geoms.items()}
+    draws = replay_draws(cfg_ins, M_CHECK_STEPS, M_SEED)
+
+    # (a)'s reference: the cellpad engine on the same start and draws
     t0 = time.perf_counter()
-    _build.build_all()
+    with KeepCounts():
+        ref = rebuild_neighbors(cfg_ins, convert.from_arrays(
+            arrays, seed=M_SEED, device=DEV))
+        step = make_step(cfg_ins, ReplayDraws(draws))
+        for _ in range(M_CHECK_STEPS):
+            ref = step(ref)
+        sync()
+    cell_s = time.perf_counter() - t0
+    ref = convert.to_arrays(ref)
+    del step
+    small = small_water_slabs(M_WORLD)
+    torch.cuda.empty_cache()
+    g4 = geom_kw[M_WORLD]
+    runs = [
+        dict(cfg=cfg_ins, arrays=arrays, seed=M_SEED, steps=M_CHECK_STEPS,
+             draws=draws, geom=g4),
+        dict(cfg=cfg_t0, arrays=arrays, seed=M_SEED, steps=M_KERNEL_STEPS,
+             draws=draws, geom=g4),
+        dict(cfg=cfg_t0, arrays=arrays, seed=M_SEED, steps=M_KERNEL_STEPS,
+             draws=draws, geom=g4, force_impl="kernel"),
+        dict(cfg=deck, arrays=arrays, seed=M_SEED, warm=M_WARM,
+             steps=M_PROD, force_impl="kernel", fields=True, geom=g4)]
+    for _, cfg, start, _, sdraws, _ in small:
+        runs.append(dict(cfg=cfg, arrays=start, seed=M_SEED,
+                         steps=M_SMALL_STEPS, draws=sdraws,
+                         balance_every=0 if cfg.rigid else 1,
+                         geom={} if cfg.rigid else dict(grow=1.5)))
+    # the dry run's four paths ride in the same spawn, after the runs;
+    # (d)'s in the one-rank spawn
+    t0 = time.perf_counter()
+    dry_args = dry_inputs(M_WORLD, DEV)
+    dry_in_s = time.perf_counter() - t0
+    own_s = time.perf_counter() - t_path
+    both, res1, spawn_s, d_spawn_s = yield (
+        [(slab_runs, (runs,)), (dry_rank, dry_args)],
+        [(slab_runs, ([dict(cfg=deck, arrays=arrays, seed=M_SEED, warm=5,
+                            steps=M_NCCL_STEPS, force_impl="kernel",
+                            fields=True, geom=geom_kw[1])],))])
+    t_path = time.perf_counter()
+    res = [b[0] for b in both]
+    dry = dry_line(M_WORLD, both[0][1])
+    log(dry)
+    if not dry.startswith(f"dryrun_multichip({M_WORLD}): ok"):
+        fail(f"path M (e): the dry run printed {dry}")
+    log("path M, rank 0's seconds a run (set-up, steps, after): "
+        + ", ".join(f"{r['setup_s']:.1f}/{r['steps_s']:.1f}/"
+                    f"{r['after_s']:.1f}" for r in res[0])
+        + f"; the dry run's inputs {dry_in_s:.1f} s")
+    r0 = res[0]
+    # (a)
+    got = r0[0]["state"]
+    for k in ("ninserted", "ndeleted"):
+        d = int(got[k]) - int(arrays[k])
+        if d <= 0 or d % 5:
+            fail(f"path M (a): {k} grew by {d}")
+    for g in (got, ref):
+        if int(g["cell_overflow"]) != int(arrays["cell_overflow"]):
+            fail(f"path M (a): cell overflow {int(g['cell_overflow'])}")
+    diff_a = same_atoms(got, ref, 1e-4, "path M (a) gathered slab against "
+                        "the cellpad engine")
+    mols_a = tag_molecules(got, (5,), "path M (a)")
+    log(f"path M (a): {M_WORLD} gloo ranks, {M_CHECK_STEPS} steps, natoms "
+        f"{int(got['alive'].sum())} ({mols_a} stars, all whole), ndeleted "
+        f"{int(got['ndeleted'])}, ninserted {int(got['ninserted'])}, "
+        f"positions by tag within {diff_a:.3e} of the cellpad engine; slab "
+        f"{r0[0]['seconds']:.2f} s, cellpad {cell_s:.2f} s")
+    # (b)
+    for i in (1, 2):
+        if int(r0[i]["state"]["cell_overflow"]) \
+                != int(arrays["cell_overflow"]):
+            fail("path M (b): cell overflow")
+    diff_b = same_atoms(r0[2]["state"], r0[1]["state"], 1e-5,
+                        "path M (b) kernel slab against the gathered slab")
+    b_launch = rank_sum(res, 2, key_of(cfg_t0, make_slab_geom(
+        cfg_t0, M_WORLD, **geom_kw[M_WORLD])), "path M")
+    if b_launch != M_WORLD * M_KERNEL_STEPS:
+        fail(f"path M (b): {b_launch} kernel launches")
+    log(f"path M (b): T 0, {M_KERNEL_STEPS} steps, kernel against gathered "
+        f"within {diff_b:.3e} by tag")
+    # (c)
+    prod = r0[3]
+    fin = prod["state"]
+    if int(fin["cell_overflow"]) != int(arrays["cell_overflow"]):
+        fail(f"path M (c): cell overflow {int(fin['cell_overflow'])}")
+    outside = [r[3]["outside"] for r in res]
+    if any(outside):
+        fail(f"path M (c): live atoms outside their rank's slab {outside}")
+    tags = fin["tag"][fin["alive"]]
+    if len(np.unique(tags)) != len(tags):
+        fail("path M (c): a tag is live on two ranks")
+    if not all(r[3]["same_draws"] for r in res):
+        fail("path M (c): the ranks drew different numbers")
+    if not np.isfinite(fin["x"][fin["alive"]]).all():
+        fail("path M (c): non-finite positions")
+    mols_c = tag_molecules(fin, (5,), "path M (c)")
+    c_launch = rank_sum(res, 3, keys[M_WORLD], "path M")
+    if c_launch != M_WORLD * (M_WARM + M_PROD):
+        fail(f"path M (c): {c_launch} kernel launches")
+    c_s = max(r[3]["seconds"] for r in res)
+    natoms_c = int(fin["alive"].sum())
+    c_ms = c_s / M_PROD * 1e3
+    key4, fig4 = check_slab_fields(deck, geoms[M_WORLD].pad_geom,
+                                   prod["fields"],
+                                   "path M slab kernel, 4 ranks")
+    log(f"path M (c): world {M_WORLD}, gloo, {M_PROD} steps in {c_s:.2f} s: "
+        f"{c_ms:.3f} ms/step, {M_PROD / c_s * natoms_c / 1e6:.3f} "
+        f"Mparticle-steps/s, {natoms_c} beads ({mols_c} stars, all whole), "
+        f"per-rank beads {[r[3]['natoms'] for r in res]}, ndeleted "
+        f"{int(fin['ndeleted'])}, ninserted {int(fin['ninserted'])}, "
+        f"launches {c_launch}; the ranks' call (paths L and M) took "
+        f"{spawn_s:.1f} s")
+    # (e), the slabs on the card
+    small_out = {}
+    for i, (label, cfg, start, cpu_step, _, cpu_st) in enumerate(small, 4):
+        st = cpu_st
+        for _ in range(M_SMALL_STEPS):
+            st = cpu_step(st)
+        want = convert.to_arrays(st)
+        got_e = r0[i]["state"]
+        if any(r[i]["outside"] for r in res):
+            fail(f"path M (e) {label}: an atom outside its slab")
+        x_tol = 1e-4 if cfg.shake is not None else RIGID_GEOMETRY
+        dx = same_atoms(got_e, want, x_tol, f"path M (e) {label}",
+                        counters=("ndeleted", "ninserted", "cell_overflow"))
+        if cfg.shake is not None:
+            v1, v2 = by_tag(dict(got_e, x=got_e["v"])), by_tag(
+                dict(want, x=want["v"]))
+            dv = max(float(np.abs(v1[t] - v2[t]).max()) for t in v1)
+            if not dv <= 1e-3:
+                fail(f"path M (e) {label}: velocities by tag differ by {dv}")
+            err = template_error(cfg, got_e, M_WATER_DX)
+            if not err <= 1e-5:
+                fail(f"path M (e) {label}: constraint error {err}")
+            small_out[label] = dict(max_dx=dx, max_dv=dv,
+                                    constraint_error=err,
+                                    cpu_constraint_error=float(
+                                        constraint_error(cfg, st)))
+        else:
+            err = template_error(cfg, got_e, M_WATER_DX)
+            if not err <= RIGID_GEOMETRY:
+                fail(f"path M (e) {label}: bodies {err} off the template")
+            small_out[label] = dict(
+                max_dx=dx, rigid_error=err,
+                cpu_rigid_error=float(rigid_error(cfg, st)),
+                bodies=tag_molecules(got_e, (3,), label),
+                inserted=int(got_e["ninserted"]) - int(start["ninserted"]))
+        log(f"path M (e) {label}: {M_SMALL_STEPS} steps on the card's "
+            f"{M_WORLD} slabs against the CPU's single-device step: "
+            f"{small_out[label]}")
+    # (d)
+    one = res1[0][0][0]
+    res1 = [r[0] for r in res1]
+    if int(one["state"]["cell_overflow"]) != int(arrays["cell_overflow"]) \
+            or one["outside"]:
+        fail("path M (d): overflow or an atom outside the slab")
+    tag_molecules(one["state"], (5,), "path M (d)")
+    d_launch = rank_sum(res1, 0, keys[1], "path M")
+    if d_launch != 5 + M_NCCL_STEPS:
+        fail(f"path M (d): {d_launch} kernel launches")
+    d_ms = one["seconds"] / M_NCCL_STEPS * 1e3
+    key1, fig1 = check_slab_fields(deck, geoms[1].pad_geom, one["fields"],
+                                   "path M slab kernel, 1 rank")
+    with KeepCounts():
+        st = setup(deck, convert.from_arrays(arrays, seed=M_SEED,
+                                             device=DEV))
+        st = make_run(deck, 5)(st)
+        sync()
+        t0 = time.perf_counter()
+        st = make_run(deck, M_NCCL_STEPS)(st)
+        sync()
+        cell_ms = (time.perf_counter() - t0) / M_NCCL_STEPS * 1e3
+    del st
+    log(f"path M (d): one NCCL rank {d_ms:.3f} ms/step over {M_NCCL_STEPS} "
+        f"steps ({int(one['state']['alive'].sum())} beads), the cellpad "
+        f"engine {cell_ms:.3f} ms/step over as many from the same start; "
+        f"the ranks' call (paths L and M) took {d_spawn_s:.1f} s")
+    path_s = own_s + time.perf_counter() - t_path
+    log(f"path M: {path_s:.1f} s, the ranks' calls apart")
+    path = dict(beads_at_start=natoms0, beads=natoms_c, stars=mols_c,
+                world=M_WORLD, backend="gloo", ms_per_step=c_ms,
+                mparticle_steps_per_s=M_PROD / c_s * natoms_c / 1e6,
+                nccl_world1_ms_per_step=d_ms, cellpad_ms_per_step=cell_ms,
+                check_a_max_diff=diff_a, check_b_max_diff=diff_b,
+                small=small_out, dryrun=dry, path_s=path_s,
+                spawn_s=[spawn_s, d_spawn_s])
+    replaces = ("obmd_tpu/forces/pallas_dpd.py:575 (make_pair_kernel's "
+                "kernel_bigtile, :858) on slab_decomp.py:450-461's pad "
+                "geometry with 4 exclusion channels")
+    kernels = [
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, the "
+                    f"4-rank slab's pad geometry, path M, {key4}", replaces,
+                    c_launch, fig4),
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, the "
+                    f"1-rank slab's pad geometry, path M, {key1}", replaces,
+                    d_launch, fig1)]
+    return path, kernels
+
+
+def run_multi_rank(cfg24, st_eq, star_end):
+    """Phases 42-43, paths L and M (run_slab, run_slab_mol): four gloo
+    ranks and one NCCL rank boot (parallel.comm.Launch) while each path
+    prepares its inputs and yields its rank tasks; both paths' four-rank
+    tasks run on the gloo ranks (ranks.rank_tasks, path L's first), their
+    one-rank tasks on the NCCL rank; then each path checks its own
+    results.  Returns each path's (figures, kernel lines) and its seconds,
+    the ranks' calls apart, and the calls' seconds."""
+    from obmd_tpu_torch.parallel.comm import Launch
+    from obmd_tpu_torch.parallel.ranks import rank_clock, rank_tasks
+    assert SLAB_WORLD == M_WORLD
+    # the ranks boot while the paths prepare their inputs
+    launches = [Launch(SLAB_WORLD, "gloo", DEV, RANK_TIMEOUT_S),
+                Launch(1, "nccl", DEV, RANK_TIMEOUT_S)]
+    paths, asks, own = [], [], []
+    for make in (lambda: run_slab(cfg24, st_eq),
+                 lambda: run_slab_mol(star_end)):
+        t0 = time.perf_counter()
+        gen = make()
+        asks.append(next(gen))
+        own.append(time.perf_counter() - t0)
+        paths.append(gen)
+    clock = (rank_clock, ())
+
+    def timed_spawn(which):
+        """Both paths' tasks on one launch, each path's after a clock task,
+        a last clock after them: (each rank's results by path, seconds,
+        the last rank's first task, each path's and the return's
+        seconds)."""
+        tasks = [t for a in asks for t in [clock, *a[which]]] + [clock]
+        t_wall, t0 = time.time(), time.perf_counter()
+        got = launches[which].run(rank_tasks, tasks)
+        secs = time.perf_counter() - t0
+        t_end = t_wall + secs
+        by_path, i = [], 0
+        for a in asks:
+            n = len(a[which])
+            by_path.append([r[i + 1:i + 1 + n] for r in got])
+            i += n + 1
+        clocks = [[r[j] for j in range(len(r)) if tasks[j] is clock]
+                  for r in got]
+        start = max(c[0] for c in clocks) - t_wall
+        parts = [max(c[k + 1] for c in clocks) - max(c[k] for c in clocks)
+                 for k in range(len(asks))]
+        return by_path, secs, (start, parts, t_end - max(c[-1]
+                                                         for c in clocks))
+    four, spawn_s, f_t = timed_spawn(0)
+    one, d_spawn_s, o_t = timed_spawn(1)
+    for label, secs, (start, parts, back) in (
+            ("four-rank gloo", spawn_s, f_t), ("one-rank NCCL", d_spawn_s,
+                                               o_t)):
+        log(f"paths L and M: the {label} ranks' call took {secs:.1f} s: "
+            f"the last rank began {start:.1f} s in, path L's tasks "
+            f"{parts[0]:.1f} s, path M's {parts[1]:.1f} s, the results "
+            f"were back {back:.1f} s after the last task")
+    out = []
+    for k, (gen, t_own) in enumerate(zip(paths, own)):
+        t0 = time.perf_counter()
+        try:
+            gen.send((four[k], one[k], spawn_s, d_spawn_s))
+        except StopIteration as done:
+            out.append((done.value, t_own + time.perf_counter() - t0))
+        else:
+            fail("a multi-rank path yielded twice")
+    return out, spawn_s + d_spawn_s
+
+
+def queue_side_jobs():
+    """Start the side process and queue, in the order the paths need them,
+    the CPU runs that need no card: the small paths whose start is built on
+    the device they run on.  (run_star queues the star melt's small path,
+    whose start is warmed on the card, then the rigid golden's two runs.)"""
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.observe import ill_conditioned_impropers
+    side_start()
+    side_queue_small("OBMD_DPD", small_dpd)
+    side_queue_small("open LJ", small_obmd_lj)
+    side_queue_small("open charged", small_ljrf)
+    for law in scenes.MOL_LAWS:
+        side_queue_small(f"molecule-mode {law}", small_mol(law),
+                         ill_conditioned_impropers)
+    for kind in ("cellpad", "nlist", "census"):
+        side_queue_small(f"keywords {kind}", small_keywords(kind),
+                         runner="step" if kind == "nlist" else "run")
+    for kind in ("water", "molfrac", "deposit", "local"):
+        side_queue_small(f"molecule keywords {kind}",
+                         small_mol_keywords(kind),
+                         runner="step" if kind == "deposit" else "run")
+    side_queue_small("rigid water", small_mol_keywords("rigid-water"))
+
+
+def run_smoke():
+    """Phases 2-43; returns the paths' figures and the kernel figures."""
+    from obmd_tpu_torch import _build
+    from concurrent.futures import ThreadPoolExecutor
+    t_all = time.perf_counter()
+    queue_side_jobs()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(_build.build_all)
+        warm_profiler()
+        built.result()
     build_s = time.perf_counter() - t0
     for kern in _build.KERNELS.values():
         log(f"{kern.name} ({kern.source}): build {kern.build_seconds} s\n"
@@ -5902,7 +6548,7 @@ def run_smoke():
     star_path, star_kernels = run_star()
     wall_s["star_melt"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    open_path, open_kernels = run_open_star(
+    open_path, open_kernels, star_end = run_open_star(
         dict(dpd=obmd_prod[:2], lj=olj_end, ljrf=rf_end))
     wall_s["open_star"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5926,10 +6572,15 @@ def run_smoke():
                                           water_path["ms_per_step"])
     del water_warm
     wall_s["open_rigid_water"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    slab_path, slab_kernels = run_slab(*obmd_prod[:2])
-    wall_s["multi_rank"] = time.perf_counter() - t0
+    ((slab_out, wall_s["multi_rank"]), (mol_out,
+     wall_s["multi_rank_molecules"])), wall_s["multi_rank_spawns"] = \
+        run_multi_rank(*obmd_prod[:2], star_end)
+    slab_path, slab_kernels = slab_out
+    mol_path, mol_kernels = mol_out
+    del star_end
     wall_s["total"] = time.perf_counter() - t_all
+    if Side.jobs:
+        fail(f"side process runs no check took: {sorted(Side.jobs)}")
     log(f"the smoke's paths took {wall_s['total']:.1f} s, the build "
         f"included")
     return dict(path=dict(build_s=build_s, wall_s=wall_s, obmd_dpd=obmd_path,
@@ -5944,13 +6595,14 @@ def run_smoke():
                           excl4_small_rows=excl4_path,
                           open_water=water_path,
                           open_rigid_water=rigid_path, decks=deck_path,
-                          multi_rank=slab_path),
+                          multi_rank=slab_path,
+                          multi_rank_molecules=mol_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
                 + near_kernels + box_kernels + film_kernels + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
                 + water_kernels + deck_kernels + rigid_kernels
-                + slab_kernels)
+                + slab_kernels + mol_kernels)
 
 
 def main():
@@ -5972,7 +6624,10 @@ def main():
         fail(f"nvidia-smi failed rc={smi.returncode}: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
-    result = run_smoke()
+    try:
+        result = run_smoke()
+    finally:
+        side_stop()
     print(json.dumps(result["path"]))
     print(json.dumps({"kernels": result["kernels"]}))
     print(card)

@@ -6,7 +6,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), at first use, into `csrc/build/` (listed in `.gitignore`).
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and never loaded stale.  `build_all` starts one `nvcc`
-per source at once and waits for all of them; kernels that share a source
+per source at once (per part, for a source split into translation units:
+SOURCE_PARTS) and waits for all of them; kernels that share a source
 share its library.
 
 Every kernel has one `Kernel` record here.  Its wrapper adds one to
@@ -40,12 +41,21 @@ from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
-# -split-compile=0: nvcc compiles a source's kernels on every core of the
-# host (pair_kernel.cu has 148 instantiations; its build time is in
-# PERF.md §5)
+# -split-compile=0: nvcc runs a translation unit's optimizer on every core
+# of the host (its front end, code generation and ptxas take one core)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0")
+# Sources compiled as several translation units at once, their parts
+# selected by a macro (the source's header says which instantiations each
+# holds), and linked into one library: -split-compile parallelizes only
+# the optimizer, so pair_kernel.cu's instantiations as one unit took
+# about a minute to build (PERF.md §6).  Undefined references
+# fail the link.
+SOURCE_PARTS = {"pair_kernel.cu": ("OBMD_PAIR_PART", 11)}
+NVCC_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+NVCC_LINK_FLAGS = (NVCC_FLAGS[0], "-shared", "-Xlinker", "-z", "-Xlinker",
+                   "defs")
 
 # the host libraries' compiler flags (no CUDA)
 HOST_CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
@@ -76,8 +86,10 @@ class Kernel:
         return CSRC / self.source
 
     def library_path(self) -> Path:
+        flags = NVCC_FLAGS + tuple(map(str, SOURCE_PARTS.get(self.source,
+                                                              ())))
         h = hashlib.sha256(self.source_path.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                           + " ".join(flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.source_path.stem}-{h}.so"
 
     def count(self, shape_key: str) -> None:
@@ -244,6 +256,9 @@ def build_all(kernels=None, libraries=None) -> Dict[str, float]:
     for k in kernels:
         by_lib.setdefault(k.library_path(), []).append(k)
     jobs = []
+    # a parted source's library: (kernels, library, temporary, objects,
+    # link command), linked once all its parts have compiled
+    links = []
     t0 = time.perf_counter()
     nvcc = None
     for out, ks in by_lib.items():
@@ -253,8 +268,20 @@ def build_all(kernels=None, libraries=None) -> Dict[str, float]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        jobs.append((ks, out, tmp, [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                                    str(ks[0].source_path)]))
+        src = str(ks[0].source_path)
+        if ks[0].source not in SOURCE_PARTS:
+            jobs.append((ks, out, tmp, [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                                        src]))
+            continue
+        macro, n = SOURCE_PARTS[ks[0].source]
+        objs = [out.with_suffix(f".{os.getpid()}.part{i}.o")
+                for i in range(n)]
+        for i, obj in enumerate(objs):
+            jobs.append((ks, None, obj, [nvcc, *NVCC_COMPILE_FLAGS,
+                                         f"-D{macro}={i}", "-o", str(obj),
+                                         src]))
+        links.append((ks, out, tmp, objs, [nvcc, *NVCC_LINK_FLAGS, "-o",
+                                           str(tmp), *map(str, objs)]))
     for lib in libraries:
         out = lib.library_path()
         if out.exists():
@@ -274,17 +301,36 @@ def build_all(kernels=None, libraries=None) -> Dict[str, float]:
         return log, time.perf_counter() - t0
     with ThreadPoolExecutor(max_workers=max(len(procs), 1)) as pool:
         ended = list(pool.map(finish, procs))
-    failed = []
+    failed, part_logs = [], {}
     for (ks, out, tmp, p), (log, secs) in zip(procs, ended):
+        if out is None:
+            part_logs.setdefault(id(ks), []).append(log)
+        for k in ks:
+            k.build_seconds = secs
+            if isinstance(k, Kernel) and out is not None:
+                k.ptxas_info = ptxas_lines(log)
+        if p.returncode != 0:
+            failed.append(f"{ks[0].source}: {' '.join(p.args[-4:])} "
+                          f"rc={p.returncode}\n{log}")
+            continue
+        if out is not None:
+            os.replace(tmp, out)
+    for ks, out, tmp, objs, cmd in links:
+        if not failed:
+            p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            if p.returncode != 0:
+                failed.append(f"{ks[0].source}: link rc={p.returncode}\n"
+                              f"{p.stdout}")
+            else:
+                os.replace(tmp, out)
+        secs = time.perf_counter() - t0
         for k in ks:
             k.build_seconds = secs
             if isinstance(k, Kernel):
-                k.ptxas_info = ptxas_lines(log)
-        if p.returncode != 0:
-            failed.append(f"{ks[0].source}: {p.args[0]} rc={p.returncode}\n"
-                          f"{log}")
-            continue
-        os.replace(tmp, out)
+                k.ptxas_info = ptxas_lines("\n".join(part_logs[id(ks)]))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("build failed:\n" + "\n".join(failed))
     return {k.name: k.build_seconds for k in kernels + libraries}

@@ -152,6 +152,12 @@ constexpr int kSmemMax = 232448 - 1024;
 
 enum Law { kDpd = 0, kLj = 1, kLjrf = 2 };
 
+}  // namespace
+
+// The launch parameters and tables cross the source's translation units
+// (OBMD_PAIR_PART, at the end), so they live in a named namespace.
+namespace obmd_pair_detail {
+
 struct Params {
   int nb, cap, lanes, nx, ny, nz, s, p, per_x;
   float lx, ly, lz, inv_lx, inv_ly, inv_lz;
@@ -174,6 +180,12 @@ struct Tables {
   float cut2_max, qq, cut_coul2, inv_rc3;
   float v[kRows * kMaxPairs];
 };
+
+}  // namespace obmd_pair_detail
+
+namespace {
+
+using namespace obmd_pair_detail;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -634,21 +646,72 @@ int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
   }
 }
 
+}  // namespace
+
+// The source's parts.  Compiled whole (OBMD_PAIR_PART undefined), the file
+// holds every instantiation.  _build.py compiles it as PAIR_PARTS
+// translation units at once (OBMD_PAIR_PART = 0 .. PAIR_PARTS - 1) and
+// links them into one library, so that nvcc's front end and ptxas, which
+// take one core each per translation unit, run on every core: part 0
+// holds the entry points and make_dpd_kernel's instantiations, and calls
+// start_part for make_pair_kernel's; parts 1-6 instantiate start_part for
+// the dpd law, one (exclusion channels, types) each, 7-8 for lj and 9-10
+// for ljrf, one type flag each.
+namespace obmd_pair_detail {
+
+#define OBMD_START_ARGS                                                      \
+  const dim3 &grid, cudaStream_t st, const void *fld, const void *tag,      \
+      const void *occ, const void *pbond, void *out, bool gauss, bool ramp, \
+      const Params &P, const Tables &T
+
+template <int kLaw, bool kLegacy, int kExcl, bool kTypes>
+int start_part(OBMD_START_ARGS)
+#if defined(OBMD_PAIR_PART) && OBMD_PAIR_PART == 0
+    ;
+#else
+{
+  return start_noise<kLaw, kLegacy, kExcl, kTypes>(
+      grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
+}
+#endif
+
+#if defined(OBMD_PAIR_PART) && OBMD_PAIR_PART > 0
+#define OBMD_PART(law, excl, types) \
+  template int start_part<law, false, excl, types>(OBMD_START_ARGS);
+#if OBMD_PAIR_PART <= 6
+OBMD_PART(kDpd, 2 * ((OBMD_PAIR_PART - 1) / 2), (OBMD_PAIR_PART - 1) % 2 == 1)
+#elif OBMD_PAIR_PART <= 10
+#define OBMD_LAW (OBMD_PAIR_PART <= 8 ? kLj : kLjrf)
+#define OBMD_TYPES (OBMD_PAIR_PART % 2 == 0)
+OBMD_PART(OBMD_LAW, 0, OBMD_TYPES)
+OBMD_PART(OBMD_LAW, 2, OBMD_TYPES)
+OBMD_PART(OBMD_LAW, 4, OBMD_TYPES)
+#else
+#error "pair_kernel.cu has parts 0-10"
+#endif
+#endif
+
+}  // namespace obmd_pair_detail
+
+#if !defined(OBMD_PAIR_PART) || OBMD_PAIR_PART == 0
+namespace {
+
 // The type flag at run time -> the instantiation (make_dpd_kernel has one
-// type).
+// type): make_dpd_kernel's here, make_pair_kernel's through start_part.
 template <int kLaw, bool kLegacy, int kExcl>
 int start_types(const dim3& grid, cudaStream_t st, const void* fld,
                 const void* tag, const void* occ, const void* pbond,
                 void* out, bool types, bool gauss, bool ramp,
                 const Params& P, const Tables& T) {
-  if (!types) {
+  if constexpr (kLegacy) {
+    if (types) return (int)cudaErrorInvalidValue;
     return start_noise<kLaw, kLegacy, kExcl, false>(
         grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
-  }
-  if constexpr (kLegacy) {
-    return (int)cudaErrorInvalidValue;
+  } else if (!types) {
+    return obmd_pair_detail::start_part<kLaw, kLegacy, kExcl, false>(
+        grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   } else {
-    return start_noise<kLaw, kLegacy, kExcl, true>(
+    return obmd_pair_detail::start_part<kLaw, kLegacy, kExcl, true>(
         grid, st, fld, tag, occ, pbond, out, gauss, ramp, P, T);
   }
 }
@@ -763,3 +826,4 @@ extern "C" int obmd_dpd_full(OBMD_PAIR_ARGS) {
   return launch<true>(fld, tag, occ, pbond, out, law, n_excl, tables,
                       ntypes, gaussian, ramp, OBMD_PAIR_PARAMS, stream);
 }
+#endif  // the entry points: the whole source, or part 0

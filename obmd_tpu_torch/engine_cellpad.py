@@ -503,7 +503,31 @@ def _append_mol(sub: Subset, pos, acc, types_k, q_k, am_k) -> Subset:
                                                 q_k.reshape(kk * m)]))
 
 
-def _mol_rounds(cfg, state, side, region, budget, sub, u, tpl):
+def mol_com(pos, amask):
+    """Each trial's geometric centre [K, 3] over its real atoms (amask [K,
+    m]) of pos [K, m, 3]."""
+    ones = torch.ones_like(amask, dtype=pos.dtype)
+    return (torch.where(amask[:, :, None], pos, 0.0).sum(1)
+            / torch.clamp(torch.where(amask, ones, 0.0).sum(1),
+                          min=1.0)[:, None])
+
+
+def _rank_sums(comm):
+    """reduce(E, F, Fa) for subset.usher_search_subset_mol: a molecule's
+    partial energies, net forces and per-atom forces summed over the ranks
+    in one all-reduce (obmd_tpu/parallel/slab_decomp.py:1239-1243); with
+    F None, the energies alone."""
+    def reduce(e, f, fa):
+        if f is None:
+            return comm.sum(e), None, None
+        k = e.shape[0]
+        buf = comm.sum(torch.cat([e[:, None], f, fa.reshape(k, -1)], 1))
+        return buf[:, 0], buf[:, 1:4], buf[:, 4:].reshape(fa.shape)
+    return reduce
+
+
+def _mol_rounds(cfg, state, side, region, budget, sub, u, tpl, comm=None,
+                visible=None):
     """One buffer's `maxattempt` rounds (obmd_tpu/engine_cellpad.py:356-399):
     per round K trials, each of the template u.tpl picks (template 0 where
     None) at the candidate draw (`draw_candidates`: uniform, `gaussian`,
@@ -512,8 +536,12 @@ def _mol_rounds(cfg, state, side, region, budget, sub, u, tpl):
     search (with the template charges under `charged 1`) or the `near`
     check, every real atom inside the region, greedy in-order acceptance
     within the budget left; with rounds > 1 the round's accepted molecules
-    appended to the subset.  Returns (pos [M, m, 3], accepted [M], tsel
-    [M], usher iterations)."""
+    appended to the subset.  Under the slab decomposition (obmd_tpu/
+    parallel/slab_decomp.py:1217-1263) `comm` completes the deposit's
+    zmax, the search's partial sums (`_rank_sums`) and `near`'s distances
+    over the ranks, and visible(acc, pos, amask) picks the accepted
+    molecules this rank appends.  Returns (pos [M, m, 3], accepted [M],
+    tsel [M], usher iterations)."""
     obmd = cfg.obmd
     k = obmd.insert_kmax
     rounds = rounds_of(cfg)
@@ -527,7 +555,7 @@ def _mol_rounds(cfg, state, side, region, budget, sub, u, tpl):
                 if u.tpl is None else u.tpl[side, r].long())
         centers, ok0 = draw_candidates(
             cfg, us[:, 0:3], None if u.z is None else u.z[side, r], region,
-            state)
+            state, comm=comm)
         rots = random_rotations(us[:, 3:6], us[:, 6], axis=obmd.orient)
         am_k = tpl["amask"][tsel]
         types_k = tpl["types"][tsel]
@@ -536,16 +564,21 @@ def _mol_rounds(cfg, state, side, region, budget, sub, u, tpl):
         if obmd.usher is not None:
             pos, ok, it = usher_search_subset_mol(
                 cfg, sub, coords, types_k, region,
-                mol_q=q_k if obmd.charged else None, amask=am_k)
+                mol_q=q_k if obmd.charged else None, amask=am_k,
+                reduce=None if comm is None else _rank_sums(comm))
             iters = iters + it.sum(dtype=torch.int32)
         else:
-            pos, ok = coords, near_check_subset_mol(cfg, sub, coords)
+            pos, ok = coords, near_check_subset_mol(
+                cfg, sub, coords,
+                reduce_min=None if comm is None else comm.min)
         ok = ok & ok0 & torch.all(region.match(pos) | ~am_k, dim=1)
         acc, cnt = mol_sequential_accept(cfg, pos, types_k, ok,
                                          torch.clamp(rem, max=k))
         rem = rem - cnt
         if rounds > 1:
-            sub = _append_mol(sub, pos, acc, types_k, q_k, am_k)
+            sub = _append_mol(sub, pos, acc if visible is None
+                              else visible(acc, pos, am_k), types_k, q_k,
+                              am_k)
         poss.append(pos)
         accs.append(acc)
         tsels.append(tsel)
@@ -614,11 +647,7 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
         upd["impr"] = scatter_rows(state.impr, slot, torch.stack(
             [pslot(iidx[:, :, c]) for c in range(3)], dim=1))
     zeros3 = torch.zeros_like(apos)
-    ones = torch.ones_like(am_k, dtype=state.dtype)
-    com_k = (torch.where(am_k[:, :, None], pos, 0.0).sum(1)
-             / torch.clamp(torch.where(am_k, ones, 0.0).sum(1), min=1.0)
-             [:, None])
-    vnew = draw_inserted_velocities(cfg, u.vel, com_k)
+    vnew = draw_inserted_velocities(cfg, u.vel, mol_com(pos, am_k))
     if vnew is None:
         av = zeros3
         pins_l = pins_r = torch.zeros((3,), dtype=state.dtype, device=dev)

@@ -336,7 +336,7 @@ def _axis_angle_rotate(coords, com, axis, angle):
 
 
 def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
-                            mol_q=None, amask=None):
+                            mol_q=None, amask=None, reduce=None):
     """Molecule USHER (ref fix_obmd_merged.cpp:1586-1605): each iteration
     translates a molecule along its net force as ATOM mode moves an atom,
     then rotates it about its center of mass along the torque, dtheta =
@@ -346,7 +346,11 @@ def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
     accepts; a degenerate force or a step that takes a real atom out of the
     region rejects; a post-loop check accepts a molecule still below
     target.  mol_q: the trials' charges under `charged 1` (None:
-    neutral).  Returns (coords [K, m, 3], accepted [K], iters [K] i32)."""
+    neutral).  reduce(E, F, Fa) -> (E, F, Fa), when given, completes each
+    iteration's energies, net forces and per-atom forces (the slab
+    decomposition's sums over the ranks of each rank's partials, one
+    all-reduce an iteration), and reduce(E, None, None) the final
+    energies.  Returns (coords [K, m, 3], accepted [K], iters [K] i32)."""
     u = cfg.obmd.usher
     dtheta0 = float(getattr(u, "dtheta0", 0.0) or 0.0)
     kk, mm = coords.shape[:2]
@@ -364,6 +368,8 @@ def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
     for _ in range(u.nattempt):
         e, f, fa = mol_energy_force(cfg, sub, pos, mol_types, per_atom=True,
                                     mol_q=mol_q)
+        if reduce is not None:
+            e, f, fa = reduce(e, f, fa)
         ok = e < u.etarget + EPSILON
         newly = active & ok
         fabs = torch.sqrt((f * f).sum(-1))
@@ -393,18 +399,24 @@ def usher_search_subset_mol(cfg, sub: Subset, coords, mol_types, region,
         accepted = accepted | newly
         iters = iters + active.to(torch.int32)
     e = mol_energy_force(cfg, sub, pos, mol_types, mol_q=mol_q)[0]
+    if reduce is not None:
+        e = reduce(e, None, None)[0]
     accepted = accepted | (active & (e < u.etarget + EPSILON))
     return pos, accepted, iters
 
 
-def near_check_subset_mol(cfg, sub: Subset, coords):
+def near_check_subset_mol(cfg, sub: Subset, coords, reduce_min=None):
     """`near` insertion's molecule check (ref :1036-1049): every atom of a
     trial at least `near` from every valid subset atom.  coords [K, m, 3]
-    -> ok [K]."""
+    -> ok [K].  reduce_min, when given, completes each atom's least
+    squared distance (the slab decomposition's minimum over the ranks,
+    obmd_tpu/parallel/slab_decomp.py:1141-1149)."""
     k, m, _ = coords.shape
     d = cfg.box.min_image(coords.reshape(k * m, 1, 3) - sub.x[None, :, :])
     rsq = (d * d).sum(-1)
     min_rsq = torch.where(sub.valid[None, :], rsq, torch.inf).min(-1).values
+    if reduce_min is not None:
+        min_rsq = reduce_min(min_rsq)
     return torch.all(min_rsq.reshape(k, m) >= near_squared(cfg), dim=1)
 
 

@@ -25,11 +25,14 @@ need gloo, as NCCL refuses two ranks on one device.
 `spawn` starts the ranks: one process each, by the `spawn` start method,
 meeting at a FileStore in a temporary directory.  It joins them with a
 hard timeout and, on the first failure or the timeout, kills every rank
-and raises with each failed rank's traceback.
+and raises with each failed rank's traceback.  `Launch` is the same in two
+steps: the ranks boot when it is made and take their call from `run`, so
+that a caller prepares the ranks' inputs while they boot.
 """
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -205,7 +208,7 @@ def check_launch(world: int, backend: str, device: str) -> None:
                 "to share the cards")
 
 
-def _child(fn, rank, world, backend, device, store_path, results, args):
+def _child(call_path, rank, world, backend, device, store_path, results):
     torch.set_num_threads(1)
     try:
         dev = rank_device(backend, device, rank)
@@ -214,6 +217,14 @@ def _child(fn, rank, world, backend, device, store_path, results, args):
         store = dist.FileStore(store_path, world)
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world)
+        # booted: wait for the call (Launch.run), or end with the launcher
+        parent = os.getppid()
+        while not os.path.exists(call_path):
+            if os.getppid() != parent:
+                return
+            time.sleep(0.02)
+        with open(call_path, "rb") as fh:
+            fn, args = pickle.load(fh)
         out = fn(Comm(dist.group.WORLD, rank, world, dev, backend), *args)
     except BaseException:
         # report first: a rank still waiting in a collective is killed by
@@ -224,67 +235,103 @@ def _child(fn, rank, world, backend, device, store_path, results, args):
     dist.destroy_process_group()
 
 
-def spawn(fn, world: int, backend: str = "nccl", device: str = "cuda",
-          timeout_s: float = 600.0, *args, store_dir: Optional[str] = None):
-    """Run fn(comm, *args) on `world` ranks, one process each (the spawn
-    start method: fn and args are pickled, fn by its import path), and
-    return their results in rank order.  The ranks meet at a FileStore in
-    a fresh directory (under store_dir when given, else the temporary
-    directory).  On the first rank that fails, or when timeout_s passes,
-    every rank is killed and RuntimeError raised with each failed rank's
-    traceback."""
-    import multiprocessing as mp
-    check_launch(world, backend, device)
-    ctx = mp.get_context("spawn")
-    tmp = tempfile.mkdtemp(prefix="obmd_ranks_", dir=store_dir)
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_child, args=(
-        fn, r, world, backend, device, os.path.join(tmp, "store"), results,
-        args), name=f"rank{r}") for r in range(world)]
-    out, failed = {}, {}
-    try:
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout_s
-        while len(out) < world and not failed:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise RuntimeError(
-                    f"{world} ranks did not finish within {timeout_s} s "
-                    f"(done: {sorted(out)}); every rank was killed")
-            try:
-                rank, ok, payload = results.get(timeout=min(left, 0.5))
-            except queue.Empty:
-                for r, p in enumerate(procs):
-                    if p.exitcode not in (None, 0) and r not in out:
-                        failed[r] = (f"rank {r} exited with code "
-                                     f"{p.exitcode} and reported nothing")
-                continue
-            if ok:
-                out[rank] = payload
-            else:
-                failed[rank] = payload
-        if failed:
-            # the other ranks' reports, where they failed too
-            t_end = time.monotonic() + 1.0
-            while time.monotonic() < t_end:
+class Launch:
+    """`world` rank processes (the spawn start method, daemonic), started
+    here and met at a FileStore in a fresh directory (under store_dir when
+    given, else the temporary directory): each imports, takes its device
+    and joins the process group, then waits for run's call, so that the
+    caller can prepare the ranks' inputs while they boot.  run(fn, *args)
+    pickles fn (by its import path) and args once into a file that every
+    rank reads (handed to each process at its start, they would be
+    written through its pipe while it boots, and the ranks would start
+    one after another), runs fn(comm, *args) on every rank and returns
+    the results in rank order.  On the first rank that fails, or when
+    timeout_s passes from run's call, every rank is killed and
+    RuntimeError raised with each failed rank's traceback.  One call a
+    launch; close() (run's end) kills what is left."""
+
+    def __init__(self, world: int, backend: str = "nccl",
+                 device: str = "cuda", timeout_s: float = 600.0,
+                 store_dir: Optional[str] = None):
+        import multiprocessing as mp
+        check_launch(world, backend, device)
+        ctx = mp.get_context("spawn")
+        self.world, self.timeout_s = world, timeout_s
+        self.tmp = tempfile.mkdtemp(prefix="obmd_ranks_", dir=store_dir)
+        self.call_path = os.path.join(self.tmp, "call.pkl")
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_child, args=(
+            self.call_path, r, world, backend, device,
+            os.path.join(self.tmp, "store"), self.results), name=f"rank{r}",
+            daemon=True) for r in range(world)]
+        try:
+            for p in self.procs:
+                p.start()
+        except BaseException:
+            self.close()
+            raise
+
+    def run(self, fn, *args):
+        world, results, procs = self.world, self.results, self.procs
+        out, failed = {}, {}
+        try:
+            part = self.call_path + ".part"
+            with open(part, "wb") as fh:
+                pickle.dump((fn, args), fh, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(part, self.call_path)
+            deadline = time.monotonic() + self.timeout_s
+            while len(out) < world and not failed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise RuntimeError(
+                        f"{world} ranks did not finish within "
+                        f"{self.timeout_s} s (done: {sorted(out)}); every "
+                        "rank was killed")
                 try:
-                    rank, ok, payload = results.get(timeout=0.1)
+                    rank, ok, payload = results.get(timeout=min(left, 0.5))
                 except queue.Empty:
+                    for r, p in enumerate(procs):
+                        if p.exitcode not in (None, 0) and r not in out:
+                            failed[r] = (f"rank {r} exited with code "
+                                         f"{p.exitcode} and reported "
+                                         "nothing")
                     continue
-                if not ok:
+                if ok:
+                    out[rank] = payload
+                else:
                     failed[rank] = payload
-            raise RuntimeError("ranks failed:\n" + "\n".join(
-                f"--- rank {r} ---\n{failed[r]}" for r in sorted(failed)))
-        return [out[r] for r in range(world)]
-    finally:
-        for p in procs:
+            if failed:
+                # the other ranks' reports, where they failed too
+                t_end = time.monotonic() + 1.0
+                while time.monotonic() < t_end:
+                    try:
+                        rank, ok, payload = results.get(timeout=0.1)
+                    except queue.Empty:
+                        continue
+                    if not ok:
+                        failed[rank] = payload
+                raise RuntimeError("ranks failed:\n" + "\n".join(
+                    f"--- rank {r} ---\n{failed[r]}" for r in sorted(failed)))
+            return [out[r] for r in range(world)]
+        finally:
+            self.close()
+
+    def close(self):
+        for p in self.procs:
             if p.is_alive():
                 p.kill()
-        for p in procs:
+        for p in self.procs:
             p.join(timeout=10)
-        results.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        self.results.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def spawn(fn, world: int, backend: str = "nccl", device: str = "cuda",
+          timeout_s: float = 600.0, *args, store_dir: Optional[str] = None):
+    """Run fn(comm, *args) on `world` ranks, one process each, and return
+    their results in rank order: Launch(...).run(fn, *args)."""
+    return Launch(world, backend, device, timeout_s, store_dir).run(fn,
+                                                                    *args)
 
 
 def _gloo_op(comm: Comm, op: str):

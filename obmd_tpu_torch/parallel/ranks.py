@@ -13,8 +13,9 @@ pair-kernel inputs after the last step).  Every rank returns, per run:
 its live atoms, its launch counts over the run (warm-up included),
 whether every rank drew the same candidates' draws, the host seconds of
 the steps after the warm-up (synchronized on the card and over the
-ranks), and for the slab its live atoms outside its slab and the cuts;
-rank 0 also the gathered global state.
+ranks), and for the slab its live atoms outside its slab, the cuts and
+the seconds of the run's set-up, its steps and what follows them; rank 0
+also the gathered global state.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ class ReplayDraws:
             v = d.get(k)
             return None if v is None else torch.from_numpy(
                 np.asarray(v)).to(state.device)
-        return Draws(t("pos"), t("z"), t("vel"))
+        return Draws(t("pos"), t("z"), t("vel"), t("tpl"))
 
 
 class DrawLog:
@@ -108,6 +109,7 @@ def slab_runs(comm: Comm, runs):
                               with_balance_cuts)
     out = []
     for run in runs:
+        t0 = time.perf_counter()
         cfg = run["cfg"]
         state = convert.from_arrays(run["arrays"], seed=run["seed"],
                                     device=comm.device)
@@ -124,9 +126,12 @@ def slab_runs(comm: Comm, runs):
                               force_impl=run.get("force_impl", "gathered"),
                               balance_every=bal, draw=log)
         _build.reset_launch_counts()
+        t1 = time.perf_counter()
         local, secs = _steps(comm, step, local, run)
+        t2 = time.perf_counter()
         res = dict(natoms=int(local.natoms), launches=_counts(),
-                   seconds=secs, same_draws=log.same_on_all(comm))
+                   seconds=secs, same_draws=log.same_on_all(comm),
+                   setup_s=t1 - t0, steps_s=t2 - t1)
         cuts = (local.nbrs.cuts if bal else torch.tensor(
             geom.boundaries, dtype=local.dtype, device=local.device))
         lo, hi = cuts[comm.rank], cuts[comm.rank + 1]
@@ -136,19 +141,35 @@ def slab_runs(comm: Comm, runs):
         res["outside"] = int(outside.sum())
         res["cuts"] = cuts.cpu().numpy()
         if run.get("fields"):
-            xs, v, t, g, q, valid, _ = _halo_arrays(geom, comm, local, lo, hi)
-            fld, tag, occ, _, over = file_slab(cfg, geom.pad_geom, xs, v, t,
-                                               g, q, valid)
+            xs, v, t, g, q, valid, _, extras = _halo_arrays(
+                cfg.finalize(), geom, comm, local, lo, hi)
+            fld, tag, occ, pbond, _, over = file_slab(
+                cfg, geom.pad_geom, xs, v, t, g, q, valid,
+                extras.btags if cfg.bond is not None else None)
             if comm.rank == 0:
-                res["fields"] = dict(fld=fld.cpu().numpy(),
-                                     tag=tag.cpu().numpy(),
-                                     occ=occ.cpu().numpy(),
-                                     overflow=int(over), step=local.step)
+                res["fields"] = dict(
+                    fld=fld.cpu().numpy(), tag=tag.cpu().numpy(),
+                    occ=occ.cpu().numpy(), overflow=int(over),
+                    step=local.step,
+                    pbond=None if pbond is None else pbond.cpu().numpy())
         full = gather_state(comm, local)
         if comm.rank == 0:
             res["state"] = convert.to_arrays(full)
+        res["after_s"] = time.perf_counter() - t2
         out.append(res)
     return out
+
+
+def rank_clock(comm: Comm):
+    """The rank's wall clock (time.time()): a task that times the others
+    of a rank_tasks list."""
+    return time.time()
+
+
+def rank_tasks(comm: Comm, tasks):
+    """Several rank functions on the same ranks, one spawn for all:
+    [fn(comm, *args) for fn, args in tasks], in order."""
+    return [fn(comm, *args) for fn, args in tasks]
 
 
 def atom_runs(comm: Comm, runs):

@@ -112,10 +112,52 @@ def test_atom_decomp_matches_nlist_engine(runs, robust):
     assert runs["same_draws"]
 
 
+def _jax_dry_paths(world):
+    """JAX's paths 1b and 1c (__graft_entry__.py:76-158, the scenes of
+    dryrun.mol_scenes) on a world-device mesh, 1b's forces set up without
+    the stage as the port's dry run sets them up: (natoms after 1b's step,
+    after 1c's, 1b's draws for the port)."""
+    import dataclasses
+    from obmd_tpu.parallel import slab_decomp as jslab
+    from obmd_tpu.state import init_state as jinit
+    from obmd_tpu_torch.parallel.dryrun import mol_scenes
+    from test_torch_obmd_lj import to_jax
+    from test_torch_slab_mol import jax_mol_draws
+    mesh = jslab.make_mesh(world)
+    (mcfg, mol), (wcfg, water) = mol_scenes(world)
+    out = []
+    for cfg, inputs, geom_kw, step_kw in (
+            (mcfg, mol, {}, {}),
+            (wcfg, water, dict(grow=1.5), dict(balance_every=1))):
+        jcfg = to_jax(cfg).finalize()
+        st = jsetup(dataclasses.replace(jcfg, obmd=None), jinit(jcfg,
+                                                               **inputs))
+        geom = jslab.make_slab_geom(jcfg, world, **geom_kw)
+        s = jslab.shard_by_slab(jcfg, geom, st, mesh)
+        if step_kw:
+            s = jslab.with_balance_cuts(geom, s)
+        s = jslab.make_slab_step(jcfg, mesh, geom, **step_kw)(s)
+        out.append(int(s.natoms))
+        if jcfg.obmd is not None:
+            draws = jax_mol_draws(jcfg, st.key, [0])
+    return out[0], out[1], draws
+
+
 def test_dryrun_gloo_cpu(tmp_path):
-    line = dryrun_multichip(2, backend="gloo", device="cpu", timeout_s=150.0)
+    """The dry run's four paths (dryrun_multichip's inputs, rank function
+    and line) on 2 gloo ranks: JAX's line, and paths 1b and 1c (MOLECULE
+    mode, SHAKE with balancing) at JAX's natoms on the same scenes and
+    draws."""
+    from obmd_tpu_torch.parallel.dryrun import dry_inputs, dry_line, dry_rank
+    n_mol, n_water, draws = _jax_dry_paths(2)
+    got = pcomm.spawn(dry_rank, 2, "gloo", "cpu", 150.0,
+                      *dry_inputs(2, "cpu", draws),
+                      store_dir=str(tmp_path))[0]
+    line = dry_line(2, got)
     assert line.startswith("dryrun_multichip(2): ok, slab natoms=")
     assert line.endswith("step=1")
+    assert got["mol"] == n_mol > 80
+    assert got["water"] == n_water == 90
 
 
 def test_launch_refusals():

@@ -261,16 +261,24 @@ def test_slab_ownership(runs):
 
 
 def test_slab_refusals():
-    """MOLECULE mode and the molecule terms are refused on the slab path
-    (ROADMAP.md, Queue 1); JAX's own refusals keep their texts."""
+    """The slab step takes the molecule terms and SHAKE
+    (tests/test_torch_slab_mol.py, test_torch_slab_constraints.py) and
+    refuses what every engine refuses, bonded terms under ATOM-mode
+    insertion (engine_cellpad.check_scene), and rigid bodies without the
+    molecule template whose span sizes the halo; JAX's own refusals keep
+    their texts."""
     sc = jscenes.obmd_dpd_scene(scale=0.35, seed=3, force_path="sweep")
     pcfg = convert.scene_config(sc.cfg).finalize()
     solo = pcomm.Comm.solo("cpu")
-    bond = jconfig.BondHarmonicParams(k=10.0, r0=0.5)
-    for kw in (dict(bond=convert.bonded_params(bond)),
-               dict(shake=ShakeParams(d0=((0.5,),))), dict(rigid=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            pslab.make_slab_step(dataclasses.replace(pcfg, **kw), solo)
+    bond = convert.bonded_params(jconfig.BondHarmonicParams(k=10.0, r0=0.5))
+    with pytest.raises(NotImplementedError, match="ATOM-mode insertion"):
+        pslab.make_slab_step(dataclasses.replace(pcfg, bond=bond), solo)
+    closed = dataclasses.replace(pcfg, obmd=None)
+    for kw in (dict(bond=bond), dict(shake=ShakeParams(d0=((0.5,),)))):
+        assert callable(pslab.make_slab_step(
+            dataclasses.replace(closed, **kw), solo))
+    with pytest.raises(NotImplementedError, match="molecule template"):
+        pslab.make_slab_step(dataclasses.replace(closed, rigid=True), solo)
     per = dataclasses.replace(pcfg, box=dataclasses.replace(
         pcfg.box, periodic=(True, True, True)), obmd=None)
     with pytest.raises(ValueError, match="open \\(non-periodic\\) x"):
