@@ -557,6 +557,9 @@ NEAR, NEAR_BOX_STEPS, FILM_STEPS = 0.35, 200, 10
 # candidates a side, so that each holds enough margin-robust ones
 HOLES_SEED = 9
 EDGE_K = 4
+# the share of a cell by which stale_inputs moves every live atom down each
+# periodic axis
+STALE_SHIFT = 0.04
 # path H's insertion phase: the share of each buffer's atoms taken out, the
 # steps (two per stage call at nfreq 2) and the seed of its one-call checks
 H_DRAIN = 0.25
@@ -954,6 +957,29 @@ def holed_inputs(geom, fld, tag, occ, pbond, seed=HOLES_SEED):
                 nb, cap, lanes, -1).permute(0, 3, 1, 2).contiguous(), alive)
 
 
+def stale_inputs(geom, fld):
+    """A copy of a pair kernel's fld with every live atom moved down each
+    periodic axis by STALE_SHIFT of a cell and wrapped into the box, as a
+    run moves atoms between two relayouts: an atom that crosses a low face
+    keeps its filed cell and lies a box length from it.  Returns (fld, the
+    atoms that crossed a face)."""
+    import torch
+    from obmd_tpu_torch.cells import BIG
+    f = fld.clone()
+    live = f[:, 0] < 0.5 * BIG
+    crossed = torch.zeros_like(live)
+    per = (geom.periodic_x,) + tuple(geom.periodic_yz)
+    for a in range(3):
+        if not per[a]:
+            continue
+        v = f[:, a] - STALE_SHIFT * geom.cell_size[a]
+        low = live & (v < geom.lo[a])
+        v = torch.where(low, v + geom.dims[a] * geom.cell_size[a], v)
+        f[:, a] = torch.where(live, v, f[:, a])
+        crossed |= low
+    return f, int(crossed.sum())
+
+
 def same_bytes(kern, args, sig_scale, label):
     """Two launches on one input give the same bytes (no float atomics, a
     fixed summation order); returns the first launch's forces."""
@@ -985,12 +1011,15 @@ def check_pair_inputs(geom, coef, kern, inputs, alive, label, legacy=False,
                       sig_scale=None):
     """A pair kernel on its inputs (fld, tag, salt, occ, pbond; alive over
     the slots) against its plain version, and again on a copy with holes
-    (holed_inputs); two launches on each input give the same bytes; its
+    (holed_inputs) and on a copy with atoms across a periodic face
+    (stale_inputs); two launches on each input give the same bytes; its
     time (time_ms), the plain version's and its bound.  Returns its
     figures and its forces."""
-    from obmd_tpu_torch.forces.pair_kernel import TilePlan, pair_forces_plain
+    from obmd_tpu_torch.forces.pair_kernel import (TilePlan, launch_kind,
+                                                   pair_forces_plain)
     fld, tag, salt, occ, pbond = inputs
-    plan = TilePlan.of(geom)
+    plan = TilePlan.of(geom, launch_kind(
+        coef, 0 if pbond is None else pbond.shape[1], legacy))
 
     def plain(fld, tag, pbond):
         return pair_forces_plain(geom, coef, fld, tag, salt, legacy=legacy,
@@ -1008,6 +1037,17 @@ def check_pair_inputs(geom, coef, kern, inputs, alive, label, legacy=False,
         h_err, h_scale, _ = compare_forces(
             geom, h_alive, f_h, plain(h_fld, h_tag, h_pbond),
             f"{label} with holes")
+        s_fld, crossed = stale_inputs(geom, fld)
+        if crossed:
+            f_s = same_bytes(kern, (s_fld, tag, salt, occ, pbond), sig_scale,
+                             f"{label}, atoms across a face")
+            s_err, s_scale, _ = compare_forces(
+                geom, alive, f_s, plain(s_fld, tag, pbond),
+                f"{label}, {crossed} atoms across a face")
+            stale = (f", {crossed} atoms across a face {s_err:.3e} (max|f| "
+                     f"{s_scale:.1f})")
+        else:
+            stale = ""
         ms = time_ms(lambda: kern(fld, tag, salt, occ, pbond,
                                   sig_scale=sig_scale))
         plain_ms = time_ms(lambda: plain(fld, tag, pbond), reps=3, warmup=1,
@@ -1017,13 +1057,31 @@ def check_pair_inputs(geom, coef, kern, inputs, alive, label, legacy=False,
     coul = f" / {n_coul} charged in rc_coul" if coef.law == "ljrf" else ""
     log(f"{label}: max_abs_err {err:.3e} (max|f| "
         f"{scale:.1f}), |sum f| {fsum:.3e}, with holes {h_err:.3e} (max|f| "
-        f"{h_scale:.1f}), kernel {ms:.4f} ms, plain "
+        f"{h_scale:.1f}){stale}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, {n_cand} candidate / {n_in} in-cutoff pairs"
-        f"{coul}, bound {b_ms:.5f} ms, tiles of {plan.tile} cells x "
-        f"{plan.split} blocks ({plan.n_blocks} blocks, "
-        f"{plan.smem_bytes} B of shared memory each)")
+        f"{coul}, bound {b_ms:.5f} ms, {plan_figures(plan)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), f_k
+
+
+def plan_figures(plan):
+    """The plan's body, tiles, blocks and shared memory; where it takes the
+    dense body, that body's resident blocks an SM, its records' bytes and
+    its two kernels' ptxas figures."""
+    from obmd_tpu_torch import _build
+    from obmd_tpu_torch.forces.pair_kernel import dense_resident
+    body = "dense" if plan.dense else "tiled"
+    text = (f"{body} body, tiles of {plan.tile} cells x {plan.split} blocks "
+            f"({plan.n_blocks} blocks, {plan.smem_bytes} B of shared "
+            f"memory each")
+    if plan.dense:
+        regs = {k: v for k, v in _build.ptxas_table(
+            _build.KERNELS["pair"].ptxas_info).items()
+            if "pair_dense" in k or "dense_compact" in k}
+        text += (f", {dense_resident(plan)} resident an SM, "
+                 f"{plan.scratch_bytes} B of records; ptxas (registers, "
+                 f"stack, shared, spill stores) {regs}")
+    return text + ")"
 
 
 def check_both(cfg, geom, state, label):
@@ -4417,6 +4475,16 @@ def check_water(cfg, state, label):
     return rep
 
 
+def warmed_water(cfg, state):
+    """Path I's warm-up of a water scene's state: water_warm_up's melt, then
+    setup and WATER_EQUIL steps of equilibrate at 2/3 kT."""
+    from obmd_tpu_torch import scenes
+    from obmd_tpu_torch.integrate import equilibrate, setup
+    st = scenes.water_warm_up(cfg, state)
+    return equilibrate(cfg, setup(cfg, st), WATER_EQUIL,
+                       temp=scenes.WATER_THERMO_T)
+
+
 def run_water():
     """Phases 37-39: path I, BASELINE config 5's open SPC/E water
     (scenes.open_water_scene: 33,212 waters, 99,636 atoms, `charged 1`,
@@ -4432,7 +4500,7 @@ def run_water():
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import make_geometry
     from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
-    from obmd_tpu_torch.integrate import equilibrate, make_run, setup
+    from obmd_tpu_torch.integrate import make_run, setup
     from obmd_tpu_torch.observe import check_invariants, make_thermo_fn
     from obmd_tpu_torch.star_probe import census
     t_path = time.perf_counter()
@@ -4444,9 +4512,7 @@ def run_water():
     start = (int(sc.state.natoms), census(cfg, sc.state))
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    st = scenes.water_warm_up(cfg, sc.state)
-    st = equilibrate(cfg, setup(cfg, st), WATER_EQUIL,
-                     temp=scenes.WATER_THERMO_T)
+    st = warmed_water(cfg, sc.state)
     sync()
     warm_s = time.perf_counter() - t0
     warmed_state = st

@@ -52,7 +52,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the optimizer, so pair_kernel.cu's instantiations as one unit took
 # about a minute to build (PERF.md §6).  Undefined references
 # fail the link.
-SOURCE_PARTS = {"pair_kernel.cu": ("OBMD_PAIR_PART", 11)}
+SOURCE_PARTS = {"pair_kernel.cu": ("OBMD_PAIR_PART", 12)}
 NVCC_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 NVCC_LINK_FLAGS = (NVCC_FLAGS[0], "-shared", "-Xlinker", "-z", "-Xlinker",
                    "defs")
@@ -115,9 +115,10 @@ class Kernel:
 # per_y, per_z, law, n_excl, lx, ly, lz, inv_lx, inv_ly, inv_lz, a0, gamma,
 # sigma, cut, inv_cut, dtinvsqrt, lj1, lj2, salt, tables (host float32),
 # ntypes, gaussian, ramp, sig_scale, the tile plan (tile_x, tile_y, tile_z,
-# split, shared memory bytes), stream
+# split, shared memory bytes), the body (1: dense), the dense body's
+# scratch, the grid's origin lo (x, y, z), stream
 _PAIR_ARGS = (_P,) * 5 + (_I,) * 13 + (_F,) * 14 + (_U, _P, _I, _I, _I, _F) \
-    + (_I,) * 5 + (_P,)
+    + (_I,) * 6 + (_P,) + (_F,) * 3 + (_P,)
 _L = ctypes.c_longlong
 # per side x, type, valid, B; cand_l, cand_r, K, scratch, scratch words,
 # out_pos, out_acc, out_iters, cells, grid, bounds, coef (host arrays),
@@ -351,9 +352,9 @@ def ptxas_lines(log: str) -> str:
                      if "ptxas" in line or "bytes stack frame" in line)
 
 
-def ptxas_table(log: str) -> Dict[str, Tuple[int, int, int]]:
-    """{function symbol: (registers, stack bytes, shared bytes)} of a
-    ptxas report (ptxas_lines)."""
+def ptxas_table(log: str) -> Dict[str, Tuple[int, int, int, int]]:
+    """{function symbol: (registers, stack bytes, shared bytes, spill store
+    bytes)} of a ptxas report (ptxas_lines)."""
     out: Dict[str, list] = {}
     name = None
     for line in log.splitlines():
@@ -361,13 +362,16 @@ def ptxas_table(log: str) -> Dict[str, Tuple[int, int, int]]:
                       r"'?([\w$]+)'?", line)
         if m:
             name = m.group(1)
-            out.setdefault(name, [0, 0, 0])
+            out.setdefault(name, [0, 0, 0, 0])
             continue
         if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
         if m:
             out[name][1] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name][3] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name][0] = int(m.group(1))
@@ -395,8 +399,10 @@ def instantiation(symbol: str):
 def compare_ptxas(old_src: str, new_src: str) -> dict:
     """Compile two versions of a kernel source with NVCC_FLAGS at once and
     line up their pair_kernel instantiations: each one present in both with
-    its (registers, stack, shared) unchanged or changed, and those only in
-    one.  Returns the figures and each build's seconds."""
+    its (registers, stack, shared, spill stores) unchanged or changed, and
+    those only in one; the other kernels of each (the dense body and its
+    compaction pass) by symbol.  Returns the figures and each build's
+    seconds."""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -412,14 +418,17 @@ def compare_ptxas(old_src: str, new_src: str) -> dict:
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc rc={p.returncode}\n{log}")
             logs.append(log)
-    tables = []
+    tables, others = [], []
     for log in logs:
-        tab = {}
+        tab, other = {}, {}
         for sym, res in ptxas_table(ptxas_lines(log)).items():
             key = instantiation(sym)
             if key is not None:
                 tab[key] = res
+            elif sym.startswith("_Z"):
+                other[sym] = res
         tables.append(tab)
+        others.append(other)
     old, new = tables
     both = sorted(set(old) & set(new))
 
@@ -430,7 +439,8 @@ def compare_ptxas(old_src: str, new_src: str) -> dict:
         unchanged=sum(old[k] == new[k] for k in both),
         changed=[dict(args=k, old=old[k], new=new[k]) for k in both
                  if old[k] != new[k]],
-        only_old=only(old, new), only_new=only(new, old))
+        only_old=only(old, new), only_new=only(new, old),
+        other_old=others[0], other_new=others[1])
 
 
 if __name__ == "__main__":

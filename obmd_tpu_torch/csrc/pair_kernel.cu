@@ -41,13 +41,19 @@
 //
 // Design.  Newton-off: each live atom i sums F_ij over every live atom
 // filed in the stencil's cells around its own FILED cell (27 where every
-// axis has >= 3 cells), so there are no atomics and no cross-block
-// reaction pass (the Newton kernel's out2 shift).  One CUDA block takes one
-// tile of cells, a tx x ty x tz box of the grid (the tile plan,
-// forces/pair_kernel.TilePlan: chosen per geometry so that the staged
-// stencil fits the shared-memory budget with every cell at the storage
-// cap),
-// and runs in three steps:
+// axis has >= 3 cells), in the stencil's order (ox, then oy, then oz,
+// pair_kernel.neighbor_offsets) and, within a cell, in ascending rank, so
+// there are no atomics and no cross-block reaction pass (the Newton
+// kernel's out2 shift), and the sums are the thread-per-slot kernel's (the
+// first design both bodies replaced), less its dead slots.  The self pair
+// is skipped by slot.  Two bodies compute this; the tile plan
+// (forces/pair_kernel.TilePlan.of(geom)) picks one from the geometry's fill
+// cap, and the launch's shared-memory figure must match the body's layout.
+//
+// The tiled body (fill cap <= 128, a block's threads; pair_kernel):  one
+// CUDA block takes one tile of cells, a tx x ty x tz box of the grid
+// chosen so that its staged stencil fits the shared-memory budget with
+// every cell at the storage cap, and runs in three steps:
 //  1. it stages its tile's stencil, the box one cell wider on each side
 //     (the whole axis where that box would wrap onto itself), each cell
 //     once: a pass over (rank, cell) with the cell fastest reads x of
@@ -62,27 +68,59 @@
 //     mostly walks the same cells' lists; a chunk goes to block part
 //     chunk % split (split > 1 where the grid has few tiles: the 7 x 1 x 1
 //     box's 7 cells run on 28 blocks, not 7);
-//  3. each thread walks the live atoms of its atom's stencil cells in
-//     the stencil's order (ox, then oy, then oz, pair_kernel.
-//     neighbor_offsets) and, within a cell, in ascending rank: the order of
-//     the thread-per-slot kernel this design replaced, less its dead
-//     slots, with the same per-pair arithmetic.  The self pair is skipped
-//     by slot (same cell, same rank).  v, q, the type and the tag of a j
-//     within the cutoff are read by slot through L1; x, y and z of every
-//     candidate come from shared memory.
+//  3. each thread walks the live atoms of its atom's stencil cells; v, q,
+//     the type and the tag of a j within the cutoff are read by slot
+//     through L1; x, y and z of every candidate come from shared memory.
 // Every slot of the output is written once: a live i by its thread, a
 // dead rank of a tile cell by block part 0 while staging, the padding
-// lanes (slabs past nx, lanes past p * s) by a grid-stride loop.  There are
-// no float atomics, so two launches on one input give the same bytes.
+// lanes (slabs past nx, lanes past p * s) by a grid-stride loop.
 // Shared memory, per staged cell: cap float4s (16 B each), five ints (the
 // block, the lane, the ranks to read, the live count, a tile-cell flag)
 // and ceil(cap / 32) mask words; plus (tile cells + 1) ints of the tile's
 // prefix; at most 100 KB (SMEM_BUDGET) so that two blocks fit an SM.
 //
+// The dense body (fill cap > 128: path I's and K's water, ~100 atoms a
+// cell at cap 150), where a tile would be one cell staging 27 cells at the
+// storage cap (66 KB: 3 blocks, 12 warps an SM) and a thread's j reads of
+// q, type and tag by slot would be three dependent trips to L2 per pair.
+// Two kernels in one C call:
+//  1. dense_compact files the pad layout into cell-major record runs in
+//     device memory (scratch the wrapper allocates): each cell's live atoms
+//     in ascending rank, 32 bytes each (x, y, z, q; tag, type, rank), and
+//     each cell's count; it writes the zero force of every dead rank and
+//     padding lane;
+//  2. pair_dense: one block a cell, one thread a live atom of it (the
+//     atoms ordered by z, so that a warp's atoms share a slab of the
+//     cell).  Thread 0 streams the stencil's runs through a ring of three
+//     slots with cp.async.bulk, each completing on its slot's mbarrier, so
+//     every value the candidate loop reads (x, y, z, q, type, tag) is in
+//     shared memory and the next runs load while a run is consumed.  For
+//     each run a warp first tests the candidates, 8 at a time, into one
+//     bit a candidate per thread, then each thread runs the law on its own
+//     bits in ascending rank: the warp runs the law as often as its
+//     busiest thread has pairs, where the tiled body runs it for every
+//     candidate any thread has within the cutoff.  Resident blocks are
+//     set by registers (at most 64, 8 blocks an SM: the water's 972 cells
+//     in one wave).  The image on a periodic axis is the j cell's shift,
+//     subtracted from the plain difference: a run wraps an atom across a
+//     face every step but refiles it only at a relayout, so dense_compact
+//     writes each atom's record in its filed cell's frame (less the box
+//     length where the atom lies more than half a box from its cell), and
+//     the shift is then every pair's minimum image.  An atom within its
+//     cell's frame keeps its coordinates, so on such an input the two
+//     bodies give the same bytes (the law's arithmetic is the tiled
+//     body's).  It is instantiated for the dense rows' launch only (ljrf,
+//     types, two exclusion channels, no noise, y and z periodic with >= 3
+//     cells; pair_kernel.DENSE_BUILT); TilePlan.of gives every other
+//     launch the tiled body.
+// Neither body uses float atomics, so two launches on one input give the
+// same bytes.
+//
 // Axes: x is open (neighbour slabs outside [0, nx) are skipped) or
 // periodic with >= 3 cells (the slab index wraps); y and z are periodic
-// with >= 3 cells (the cell index wraps), or, in the instantiations with
-// the geometry flags, periodic with a single cell or open:
+// with >= 3 cells (the cell index wraps), or, in the tiled body's
+// instantiations with the geometry flags, periodic with a single cell or
+// open:
 //  - kOneCell (pallas_dpd.py:316-322): a periodic axis shorter than 3 cut +
 //    skin widths is one cell, its own neighbour on both sides, so only the
 //    offset 0 is visited on it (the wrapped -1 and +1 would count each
@@ -108,8 +146,9 @@
 // the TPU kernels' one-sided check because partner lists are symmetric
 // (state.init_state builds both directions of every bond).  -2 matches no
 // tag (live tags are >= 1; a dead slot's stale tag is never read).
-// Four channels are instantiated for every law, type flag, noise variant
-// and y/z geometry of make_pair_kernel (make_dpd_kernel has two).
+// The tiled body instantiates four channels for every law, type flag,
+// noise variant and y/z geometry of make_pair_kernel (make_dpd_kernel has
+// two); the dense body, the dense rows' two.
 // The channel count, the law and the type tables are template parameters,
 // so a 6-channel one-type launch compiles none of them.  So are the DPD
 // law's two variants, instantiated for obmd_pair's dpd law only
@@ -127,14 +166,23 @@
 // Bound on an H100: the work is the candidate-pair distance tests plus the
 // in-cutoff force evaluations of the pairs not excluded, each unordered
 // pair once; chip_smoke.py counts both, and the bytes, from its run's
-// inputs.  This kernel does each pair twice (Newton-off), reads each
-// candidate from shared memory at a few addresses per warp (one per cell
-// its lanes are in), and a warp runs the law for its lanes that found a
-// pair while the others wait: per-lane queues of pairs that let the whole
-// warp take the law at once ran slower on the card (PERF.md §6).
-// chip_smoke.py reports its time against the bound.
+// inputs.  Both bodies do each pair twice (Newton-off) and are bound by
+// their candidate loops.  The tiled body reads each candidate from shared
+// memory at a few addresses per warp (one per cell its lanes are in), and
+// a warp runs the law for its lanes that found a pair while the others
+// wait: per-lane queues of pairs that let the whole warp take the law at
+// once ran slower on the card (PERF.md §6).  The dense body tests each
+// candidate with one broadcast shared-memory read and ~10 instructions (no
+// rounding for the image) and runs the law as often as a warp's busiest
+// thread has pairs in the run: on the water's ~2,750
+// candidates an atom (~11% within the cutoff) the law takes a large share
+// of the instruction slots; packing the warp's pairs onto all lanes would need
+// queues that take the shared memory of the eighth block an SM.
+// chip_smoke.py reports each body's time against the bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -168,6 +216,14 @@ struct Params {
   int tile_x, tile_y, tile_z;      // the tile plan: cells per tile on x, y, z
   int split;                       // blocks per tile
   int smem;                        // dynamic shared memory bytes per block
+};
+
+// The launch's host-side parameters: the kernels' Params, which the tiled
+// body's instantiations keep as they were, and the plan's body.
+struct Launch : Params {
+  int dense;                       // the plan's body: 1 the dense body
+  void* scratch;                   // the dense body's records and counts
+  float lo_x, lo_y, lo_z;          // the grid's origin (the records' frames)
 };
 
 // The per-type-pair coefficient tables (row-major [kRows][T*T], T <= 4)
@@ -574,22 +630,27 @@ pair_kernel(const float* __restrict__ fld, const int* __restrict__ tag,
   }
 }
 
+// Above 48 KB a block's dynamic shared memory must be allowed, once per
+// kernel and size (`allowed`: the kernel's largest size allowed so far).
+template <typename K>
+int allow_smem(K* kern, const Params& P, int& allowed) {
+  if (P.smem <= allowed) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
+  if (e != cudaSuccess) return (int)e;
+  allowed = P.smem;
+  return 0;
+}
+
 template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp, bool kOneCell, bool kOpen>
 int start_geo(const dim3& grid, cudaStream_t st, const void* fld,
               const void* tag, const void* occ, const void* pbond,
-              void* out, const Params& P, const Tables& T) {
+              void* out, const Launch& P, const Tables& T) {
   auto* kern = pair_kernel<kLaw, kLegacy, kExcl, kTypes, kGauss, kRamp,
                            kOneCell, kOpen>;
-  // above 48 KB a block's dynamic shared memory must be allowed, once per
-  // instantiation and size
   static int allowed = 48 * 1024;
-  if (P.smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed = P.smem;
-  }
+  if (const int e = allow_smem(kern, P, allowed)) return e;
   kern<<<grid, kThreads, P.smem, st>>>((const float*)fld, (const int*)tag,
                                        (const int*)occ, (const int*)pbond,
                                        (float*)out, P, T);
@@ -602,7 +663,7 @@ template <int kLaw, bool kLegacy, int kExcl, bool kTypes, bool kGauss,
           bool kRamp>
 int start(const dim3& grid, cudaStream_t st, const void* fld,
           const void* tag, const void* occ, const void* pbond, void* out,
-          const Params& P, const Tables& T) {
+          const Launch& P, const Tables& T) {
   const bool one_cell = P.ny == 1 || P.nz == 1;
   const bool open = !(P.per_y && P.per_z);
   if (!one_cell && !open) {
@@ -627,7 +688,7 @@ int start(const dim3& grid, cudaStream_t st, const void* fld,
 template <int kLaw, bool kLegacy, int kExcl, bool kTypes>
 int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
                 const void* tag, const void* occ, const void* pbond,
-                void* out, bool gauss, bool ramp, const Params& P,
+                void* out, bool gauss, bool ramp, const Launch& P,
                 const Tables& T) {
   if (!gauss && !ramp) {
     return start<kLaw, kLegacy, kExcl, kTypes, false, false>(
@@ -646,23 +707,400 @@ int start_noise(const dim3& grid, cudaStream_t st, const void* fld,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The dense body (TilePlan.dense: a cell's fill cap above a block's threads)
+// ---------------------------------------------------------------------------
+
+constexpr int kRing = 3;         // j cells in flight (pair_kernel.DENSE_RING)
+constexpr int kCompactWarps = 8;  // the compaction pass's warps a block
+// The body's blocks an SM: at most 64 registers a thread, so that the water
+// row's 972 cells run in one wave of 132 x 8 blocks.
+constexpr int kDenseMinBlocks = 8;
+
+// A cell's record run: ranks at stride 8 (cp.async.bulk moves 16-byte
+// multiples; the test loop reads 8 candidates at a time).
+__host__ __device__ inline int dense_capr(int cap) { return (cap + 7) & ~7; }
+__host__ __device__ inline int dense_words(int cap) {
+  return (dense_capr(cap) + 31) >> 5;
+}
+// A coordinate on a periodic axis of n cells from lo, in the frame of its
+// filed cell c: less the box length times the nearest integer to its
+// distance from the cell's centre over the box length.  A coordinate
+// within half a box of the centre comes back unchanged.
+__device__ __forceinline__ float in_cell_frame(float v, int c, int n,
+                                               float len, float inv_len,
+                                               float lo) {
+  const float centre = lo + (c + 0.5f) * (len / n);
+  return v - len * rintf((v - centre) * inv_len);
+}
+
+// TilePlan.smem_bytes of a dense plan: the ring of kRing record runs of 32
+// bytes an atom, each thread's candidate masks of one run, and the cell's
+// z and its atoms' order by z (8 bytes an atom of a run)
+__host__ __device__ inline long long dense_smem(int cap) {
+  return (long long)kRing * dense_capr(cap) * 32
+         + (long long)dense_words(cap) * kThreads * 4
+         + (long long)dense_capr(cap) * 8;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// one arrival that also expects `bytes` of copies to complete the phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// a bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Pass 1 of the dense body: the pad layout -> cell-major records.  Block
+// (x, b) takes 32 lanes of layout block b, its warps every 8th rank.  Each
+// live rank (below min(occ, cap), x below BIG/2) sets its bit in its lane's
+// mask; each dead rank and every rank of a padding lane gets a zero force
+// (the body writes the live ones, so every slot is written once).  Then
+// each live rank writes its record at its cell's run plus the live ranks
+// below it, so a run holds the cell's live atoms in ascending rank: x, y, z
+// (in the cell's frame on each periodic axis, in_cell_frame), q (0 without
+// charges), then the tag, the type (0 with one type) and the rank as ints.
+// A cell's count goes to cnt.
+template <int kNf, bool kQ, bool kTypes>
+__global__ void __launch_bounds__(kCompactWarps * 32)
+dense_compact(const float* __restrict__ fld, const int* __restrict__ tag,
+              const int* __restrict__ occ, float* __restrict__ out,
+              float4* __restrict__ rec, int* __restrict__ cnt, Params P,
+              float lo_x, float lo_y, float lo_z) {
+  extern __shared__ unsigned cmask[];          // [words][32]
+  const int l = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int lane = blockIdx.x * 32 + l;
+  const int cap = P.cap, words = (cap + 31) >> 5;
+  const size_t plane = (size_t)cap * P.lanes;
+  const bool real = lane < min(P.nx - b * P.p, P.p) * P.s;
+  const int cread = min(occ[b], cap);
+  for (int k = threadIdx.x; k < words * 32; k += blockDim.x) cmask[k] = 0u;
+  __syncthreads();
+  const float* f = fld + (size_t)b * kNf * plane + lane;
+  if (lane < P.lanes) {
+    float* fo = out + (size_t)b * 3 * plane + lane;
+    for (int r = warp; r < cap; r += kCompactWarps) {
+      const size_t row = (size_t)r * P.lanes;
+      if (real && r < cread && f[row] < kBigHalf) {
+        atomicOr(&cmask[(r >> 5) * 32 + l], 1u << (r & 31));
+      } else {
+        fo[row] = 0.f;
+        fo[plane + row] = 0.f;
+        fo[2 * plane + row] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+  if (!real) return;
+  const int cx = b * P.p + lane / P.s;
+  const int cell = cx * P.s + lane % P.s;
+  const int cy = lane % P.s / P.nz, cz = lane % P.nz;
+  float4* run = rec + (size_t)cell * dense_capr(cap) * 2;
+  for (int r = warp; r < cap; r += kCompactWarps) {
+    const unsigned bit = 1u << (r & 31);
+    const unsigned m = cmask[(r >> 5) * 32 + l];
+    if (!(m & bit)) continue;
+    int pos = __popc(m & (bit - 1u));
+    for (int w = 0; w < (r >> 5); ++w) pos += __popc(cmask[w * 32 + l]);
+    const size_t row = (size_t)r * P.lanes;
+    const float q = kQ ? f[6 * plane + row] : 0.f;
+    const int ty = kTypes ? (int)f[(kNf - 1) * plane + row] : 0;
+    float x = f[row];
+    if (P.per_x) x = in_cell_frame(x, cx, P.nx, P.lx, P.inv_lx, lo_x);
+    const float y = in_cell_frame(f[plane + row], cy, P.ny, P.ly, P.inv_ly,
+                                  lo_y);
+    const float z = in_cell_frame(f[2 * plane + row], cz, P.nz, P.lz,
+                                  P.inv_lz, lo_z);
+    run[2 * pos] = make_float4(x, y, z, q);
+    run[2 * pos + 1] = make_float4(
+        __int_as_float(tag[(size_t)b * plane + row + lane]),
+        __int_as_float(ty),
+        __int_as_float(r), 0.f);
+  }
+  if (warp == 0) {
+    int n = 0;
+    for (int w = 0; w < words; ++w) n += __popc(cmask[w * 32 + l]);
+    cnt[cell] = n;
+  }
+}
+
+// Pass 2: one block per cell, one thread per live atom of the cell (in
+// passes of kThreads atoms).  Thread 0 streams the stencil's record runs,
+// in neighbor_offsets' order, through a ring of kRing slots (cp.async.bulk
+// completing on one mbarrier a slot; a slot's phase flips each time it is
+// filled), so every value the candidate loop reads is in shared memory.
+// For each j cell a warp first tests the run 8 candidates at a time and
+// keeps, per thread, a bit a candidate within the largest cutoff (the
+// self pair cleared), then every thread takes the law on its own bits in
+// ascending rank: the warp runs the law as many times as its busiest
+// thread has pairs, not once for every candidate any thread has.  The
+// image on a periodic axis is the j cell's shift, subtracted from the
+// plain difference: with both records in their cells' frames it is the
+// minimum image of every pair within the cutoff, and on atoms within
+// their cells' frames it gives the tiled body's bytes.  Lanes, ranks and
+// the law's arithmetic are the tiled body's.
+template <int kLaw, int kExcl, bool kTypes>
+__global__ void __launch_bounds__(kThreads, kDenseMinBlocks)
+pair_dense(const int* __restrict__ pbond, const float4* __restrict__ rec,
+           const int* __restrict__ cnt, float* __restrict__ out, Params P,
+           const Tables T) {
+  static_assert(kLaw != kDpd, "the dense records carry no velocity");
+  constexpr bool kTyped = kTypes || kLaw == kLjrf;
+  __shared__ float tab[kTyped ? kRows * kMaxPairs : 1];
+  __shared__ __align__(8) uint64_t bar[kRing];
+  __shared__ int jcell[27], jcnt[27];
+  __shared__ float jsh[27][3];
+  extern __shared__ float4 dsm[];
+  const int tid = threadIdx.x;
+  const int capr = dense_capr(P.cap);
+  float4* ring = dsm;                                  // [kRing][capr][2]
+  unsigned* msk = reinterpret_cast<unsigned*>(dsm + (size_t)kRing * capr * 2);
+  float* zi_all = reinterpret_cast<float*>(
+      msk + (size_t)dense_words(P.cap) * kThreads);   // [capr]
+  int* by_z = reinterpret_cast<int*>(zi_all + capr);  // [capr]
+  if constexpr (kTyped) {
+    for (int k = tid; k < kRows * kMaxPairs; k += kThreads) tab[k] = T.v[k];
+  }
+  const int c = blockIdx.x;
+  const int cz = c % P.nz, cy = c / P.nz % P.ny, cx = c / (P.nz * P.ny);
+  // the stencil, less the slabs an open x axis lacks
+  const int lo_x = !P.per_x && cx == 0;
+  const int ns = 27 - 9 * (lo_x + (!P.per_x && cx == P.nx - 1));
+  if (tid < ns) {
+    const int k = tid + 9 * lo_x;
+    int j[3] = {cx + k / 9 - 1, cy + k / 3 % 3 - 1, cz + k % 3 - 1};
+    const int n[3] = {P.nx, P.ny, P.nz};
+    const float len[3] = {P.lx, P.ly, P.lz};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      jsh[tid][a] = j[a] < 0 ? -len[a] : (j[a] >= n[a] ? len[a] : 0.f);
+      j[a] = j[a] < 0 ? j[a] + n[a] : (j[a] >= n[a] ? j[a] - n[a] : j[a]);
+    }
+    jcell[tid] = (j[0] * P.ny + j[1]) * P.nz + j[2];
+    jcnt[tid] = cnt[jcell[tid]];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  const int n_i = cnt[c];
+  for (int a = tid; a < n_i; a += kThreads) {
+    zi_all[a] = rec[((size_t)c * capr + a) * 2].z;
+  }
+  __syncthreads();
+  // the cell's atoms in ascending z (ties by rank), so that a warp's atoms
+  // lie in a slab of the cell: the stencil cells then find pairs for most
+  // of its threads or for few, and the law's divergent loop runs fewer
+  // times.  An atom's sum does not depend on which thread takes it.
+  for (int a = tid; a < n_i; a += kThreads) {
+    const float z = zi_all[a];
+    int p = 0;
+    for (int u = 0; u < n_i; ++u) {
+      p += zi_all[u] < z || (zi_all[u] == z && u < a);
+    }
+    by_z[p] = a;
+  }
+  __syncthreads();
+  const int total = (n_i + kThreads - 1) / kThreads * ns;
+  // stream position g: stencil cell g % ns into slot g % kRing
+  auto load_run = [&](int g) {
+    const int k = g % ns;
+    const unsigned bytes = (unsigned)jcnt[k] * 32u;
+    uint64_t* b = &bar[g % kRing];
+    mbar_expect_tx(b, bytes);
+    if (bytes) {
+      bulk_load(ring + (size_t)(g % kRing) * capr * 2,
+                rec + (size_t)jcell[k] * capr * 2, bytes, b);
+    }
+  };
+  if (tid == 0) {
+    for (int g = 0; g < min(kRing, total); ++g) load_run(g);
+  }
+  const float cut2 = kTyped ? T.cut2_max : P.cut * P.cut;
+  const int bi = cx / P.p;
+  const int lane = (cx % P.p) * P.s + cy * P.nz + cz;
+  const size_t plane = (size_t)P.cap * P.lanes;
+  for (int a0 = 0, g = 0; a0 < n_i; a0 += kThreads) {
+    const bool has_i = a0 + tid < n_i;
+    const bool warp_on = a0 + (tid & ~31) < n_i;
+    const int a = has_i ? by_z[a0 + tid] : 0;      // its place in the run
+    float xi = 0.f, yi = 0.f, zi = 0.f, qi = 0.f;
+    int ri = 0, tbase = 0;
+    int pt[4] = {-2, -2, -2, -2};
+    if (has_i) {
+      const float4 p = rec[((size_t)c * capr + a) * 2];
+      const float4 e = rec[((size_t)c * capr + a) * 2 + 1];
+      xi = p.x;
+      yi = p.y;
+      zi = p.z;
+      qi = p.w;
+      ri = __float_as_int(e.z);
+      if constexpr (kTypes) tbase = __float_as_int(e.y) * T.ntypes;
+      if constexpr (kExcl > 0) {
+        const int* pb = pbond + (size_t)bi * kExcl * plane
+                        + (size_t)ri * P.lanes + lane;
+#pragma unroll
+        for (int k = 0; k < kExcl; ++k) pt[k] = pb[k * plane];
+      }
+    }
+    float fx = 0.f, fy = 0.f, fz = 0.f;
+    for (int k = 0; k < ns; ++k, ++g) {
+      mbar_wait(&bar[g % kRing], (g / kRing) & 1);
+      const float4* slot = ring + (size_t)(g % kRing) * capr * 2;
+      const int nj = jcnt[k];
+      const float sx = jsh[k][0], sy = jsh[k][1], sz = jsh[k][2];
+      if (warp_on) {
+        // the candidates within the largest cutoff, a bit each (a j cell
+        // without an image shift skips the shift's subtractions, which
+        // would subtract 0)
+        auto test = [&](auto shifted) {
+          unsigned word = 0u;
+          for (int q0 = 0; q0 < nj; q0 += 8) {
+            unsigned v = 0u;
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              const float4 bj = slot[2 * (q0 + u)];
+              float dx = xi - bj.x;
+              float dy = yi - bj.y;
+              float dz = zi - bj.z;
+              if constexpr (decltype(shifted)::value) {
+                dx = dx - sx;
+                dy = dy - sy;
+                dz = dz - sz;
+              }
+              const float rsq = dx * dx + dy * dy + dz * dz;
+              if (rsq < cut2) v |= 1u << u;
+            }
+            if (q0 + 8 > nj) v &= (1u << (nj - q0)) - 1u;
+            word |= v << (q0 & 31);
+            if ((q0 & 31) == 24 || q0 + 8 >= nj) {
+              msk[(q0 >> 5) * kThreads + tid] = has_i ? word : 0u;
+              word = 0u;
+            }
+          }
+        };
+        if (sx == 0.f && sy == 0.f && sz == 0.f) {
+          test(std::false_type{});
+        } else {
+          test(std::true_type{});
+        }
+        if (jcell[k] == c && has_i) {
+          msk[(a >> 5) * kThreads + tid] &= ~(1u << (a & 31));
+        }
+        // the law on each thread's pairs, in ascending rank
+        const int nw = (nj + 31) >> 5;
+        int w = 0;
+        unsigned m = nw > 0 ? msk[tid] : 0u;
+        while (true) {
+          while (m == 0u && ++w < nw) m = msk[w * kThreads + tid];
+          if (m == 0u) break;
+          const int q = (w << 5) + __ffs(m) - 1;
+          m &= m - 1u;
+          const float4 bj = slot[2 * q];
+          const float4 ej = slot[2 * q + 1];
+          const float dx = xi - bj.x - sx;
+          const float dy = yi - bj.y - sy;
+          const float dz = zi - bj.z - sz;
+          const float rsq = dx * dx + dy * dy + dz * dz;
+          const int tjx = __float_as_int(ej.x);
+          if constexpr (kExcl == 2) {
+            if (tjx == pt[0] || tjx == pt[1]) continue;
+          } else if constexpr (kExcl == 4) {
+            if (tjx == pt[0] || tjx == pt[1] || tjx == pt[2]
+                || tjx == pt[3])
+              continue;
+          }
+          if (!(rsq > kEps2)) continue;
+          int tp = 0;                      // the type pair's table column
+          if constexpr (kTypes) tp = tbase + __float_as_int(ej.y);
+          float fpair;
+          if constexpr (kLaw == kLj && !kTyped) {
+            const float r2inv = 1.f / rsq;
+            const float r6inv = r2inv * r2inv * r2inv;
+            fpair = r6inv * (P.lj1 * r6inv - P.lj2) * r2inv;
+          } else {
+            fpair = 0.f;
+            if (rsq < tab[kCut2 * kMaxPairs + tp]) {
+              const float r2inv = 1.f / rsq;
+              const float r6inv = r2inv * r2inv * r2inv;
+              fpair = r6inv * (tab[kLj1 * kMaxPairs + tp] * r6inv
+                               - tab[kLj2 * kMaxPairs + tp]) * r2inv;
+            }
+            if constexpr (kLaw == kLjrf) {
+              if (rsq < T.cut_coul2) {
+                const float rinv = rsqrtf(rsq);
+                const float r2i = rinv * rinv;
+                const float qprod = T.qq * qi * bj.w;
+                fpair += qprod * (r2i * rinv
+                                  - T.inv_rc3 * tab[kCrf * kMaxPairs + tp]);
+              }
+            }
+          }
+          fx += fpair * dx;
+          fy += fpair * dy;
+          fz += fpair * dz;
+        }
+      }
+      __syncthreads();                 // the slot is read: refill it
+      if (tid == 0 && g + kRing < total) load_run(g + kRing);
+    }
+    if (has_i) {
+      float* fo = out + (size_t)bi * 3 * plane + (size_t)ri * P.lanes + lane;
+      fo[0] = fx;
+      fo[plane] = fy;
+      fo[2 * plane] = fz;
+    }
+  }
+}
+
 }  // namespace
 
 // The source's parts.  Compiled whole (OBMD_PAIR_PART undefined), the file
-// holds every instantiation.  _build.py compiles it as PAIR_PARTS
-// translation units at once (OBMD_PAIR_PART = 0 .. PAIR_PARTS - 1) and
-// links them into one library, so that nvcc's front end and ptxas, which
-// take one core each per translation unit, run on every core: part 0
-// holds the entry points and make_dpd_kernel's instantiations, and calls
-// start_part for make_pair_kernel's; parts 1-6 instantiate start_part for
-// the dpd law, one (exclusion channels, types) each, 7-8 for lj and 9-10
-// for ljrf, one type flag each.
+// holds every instantiation.  _build.py compiles it as SOURCE_PARTS
+// translation units at once (OBMD_PAIR_PART = 0 .. 11) and links them
+// into one library, so that nvcc's front end and ptxas, which take one
+// core each per translation unit, run on every core: part 0 holds the
+// entry points and make_dpd_kernel's instantiations, and calls start_part
+// for make_pair_kernel's tiled body and start_dense for its dense body;
+// parts 1-6 instantiate start_part for the dpd law, one (exclusion
+// channels, types) each, 7-8 for lj and 9-10 for ljrf, one type flag
+// each, part 11 start_dense.
 namespace obmd_pair_detail {
 
 #define OBMD_START_ARGS                                                      \
   const dim3 &grid, cudaStream_t st, const void *fld, const void *tag,      \
       const void *occ, const void *pbond, void *out, bool gauss, bool ramp, \
-      const Params &P, const Tables &T
+      const Launch &P, const Tables &T
 
 template <int kLaw, bool kLegacy, int kExcl, bool kTypes>
 int start_part(OBMD_START_ARGS)
@@ -675,23 +1113,75 @@ int start_part(OBMD_START_ARGS)
 }
 #endif
 
-#if defined(OBMD_PAIR_PART) && OBMD_PAIR_PART > 0
+#if defined(OBMD_PAIR_PART) && OBMD_PAIR_PART > 0 && OBMD_PAIR_PART <= 10
 #define OBMD_PART(law, excl, types) \
   template int start_part<law, false, excl, types>(OBMD_START_ARGS);
 #if OBMD_PAIR_PART <= 6
 OBMD_PART(kDpd, 2 * ((OBMD_PAIR_PART - 1) / 2), (OBMD_PAIR_PART - 1) % 2 == 1)
-#elif OBMD_PAIR_PART <= 10
+#else
 #define OBMD_LAW (OBMD_PAIR_PART <= 8 ? kLj : kLjrf)
 #define OBMD_TYPES (OBMD_PAIR_PART % 2 == 0)
 OBMD_PART(OBMD_LAW, 0, OBMD_TYPES)
 OBMD_PART(OBMD_LAW, 2, OBMD_TYPES)
 OBMD_PART(OBMD_LAW, 4, OBMD_TYPES)
-#else
-#error "pair_kernel.cu has parts 0-10"
 #endif
+#elif defined(OBMD_PAIR_PART) && OBMD_PAIR_PART > 11
+#error "pair_kernel.cu has parts 0-11"
+#endif
+
+#define OBMD_DENSE_ARGS                                                  \
+  cudaStream_t st, const void *fld, const void *tag, const void *occ,    \
+      const void *pbond, void *out, const Launch &P, const Tables &T
+
+// The dense body's two passes.  scratch: the records,
+// [cells][dense_capr(cap)][8] words, then the cells' counts.
+template <int kLaw, int kExcl, bool kTypes>
+int start_dense(OBMD_DENSE_ARGS)
+#if defined(OBMD_PAIR_PART) && OBMD_PAIR_PART != 11
+    ;
+#else
+{
+  constexpr int kNf = 6 + (kLaw == kLjrf) + kTypes;
+  const int ncells = P.nx * P.ny * P.nz;
+  float4* rec = static_cast<float4*>(P.scratch);
+  int* cnt = reinterpret_cast<int*>(
+      rec + (size_t)ncells * dense_capr(P.cap) * 2);
+  auto* body = pair_dense<kLaw, kExcl, kTypes>;
+  static int allowed = 48 * 1024;
+  if (const int e = allow_smem(body, P, allowed)) return e;
+  const dim3 cgrid((unsigned)((P.lanes + 31) / 32), (unsigned)P.nb);
+  dense_compact<kNf, kLaw == kLjrf, kTypes>
+      <<<cgrid, kCompactWarps * 32, (P.cap + 31) / 32 * 32 * 4, st>>>(
+          (const float*)fld, (const int*)tag, (const int*)occ, (float*)out,
+          rec, cnt, P, P.lo_x, P.lo_y, P.lo_z);
+  body<<<ncells, kThreads, P.smem, st>>>((const int*)pbond, rec, cnt,
+                                          (float*)out, P, T);
+  return 0;
+}
+#endif
+
+// part 11: the dense rows' law, path I's and K's water
+#if defined(OBMD_PAIR_PART) && OBMD_PAIR_PART == 11
+template int start_dense<kLjrf, 2, true>(OBMD_DENSE_ARGS);
 #endif
 
 }  // namespace obmd_pair_detail
+
+#if !defined(OBMD_PAIR_PART) || OBMD_PAIR_PART == 11
+// The dense body's blocks an SM at `smem` bytes of dynamic shared memory
+// (TilePlan.smem_bytes), into *resident: cudaOccupancyMaxActiveBlocks-
+// PerMultiprocessor of its one instantiation.
+extern "C" int obmd_pair_dense_resident(int smem, int* resident) {
+  if (resident == nullptr || smem < 0 || smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  auto* body = pair_dense<kLjrf, 2, true>;
+  cudaError_t e = cudaFuncSetAttribute(
+      body, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      resident, body, kThreads, smem);
+}
+#endif
 
 #if !defined(OBMD_PAIR_PART) || OBMD_PAIR_PART == 0
 namespace {
@@ -702,7 +1192,7 @@ template <int kLaw, bool kLegacy, int kExcl>
 int start_types(const dim3& grid, cudaStream_t st, const void* fld,
                 const void* tag, const void* occ, const void* pbond,
                 void* out, bool types, bool gauss, bool ramp,
-                const Params& P, const Tables& T) {
+                const Launch& P, const Tables& T) {
   if constexpr (kLegacy) {
     if (types) return (int)cudaErrorInvalidValue;
     return start_noise<kLaw, kLegacy, kExcl, false>(
@@ -722,7 +1212,7 @@ int start_types(const dim3& grid, cudaStream_t st, const void* fld,
 template <int kLaw, bool kLegacy>
 int start_law(const dim3& grid, cudaStream_t st, const void* fld,
               const void* tag, const void* occ, const void* pbond, void* out,
-              int n_excl, bool types, bool gauss, bool ramp, const Params& P,
+              int n_excl, bool types, bool gauss, bool ramp, const Launch& P,
               const Tables& T) {
   if (n_excl == 0) {
     return start_types<kLaw, kLegacy, 0>(grid, st, fld, tag, occ, pbond, out,
@@ -742,14 +1232,18 @@ template <bool kLegacy>
 int launch(const void* fld, const void* tag, const void* occ,
            const void* pbond, void* out, int law, int n_excl,
            const float* tables, int ntypes, int gaussian, int ramp,
-           const Params& P, void* stream) {
+           const Launch& P, void* stream) {
   if (P.lanes <= 0 || P.cap <= 0 || P.nb <= 0 || P.p * P.s > P.lanes)
     return (int)cudaErrorInvalidValue;
-  // the tile plan: tiles within the grid, and the caller's shared memory
-  // figure (TilePlan.smem_bytes) equal to the layout the kernel carves
+  // the tile plan: tiles within the grid (one cell and one block a tile
+  // for the dense body), and the caller's shared memory figure
+  // (TilePlan.smem_bytes) equal to the layout the body carves
   if (P.tile_x < 1 || P.tile_x > P.nx || P.tile_y < 1 || P.tile_y > P.ny
       || P.tile_z < 1 || P.tile_z > P.nz || P.split < 1
-      || (long long)P.smem != smem_bytes(P) || P.smem > kSmemMax)
+      || (P.dense && (P.tile_x * P.tile_y * P.tile_z != 1 || P.split != 1
+                      || P.scratch == nullptr))
+      || (long long)P.smem != (P.dense ? dense_smem(P.cap) : smem_bytes(P))
+      || P.smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
   if (!(n_excl == 0 || ((n_excl == 2 || n_excl == 4) && pbond != nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -771,11 +1265,24 @@ int launch(const void* fld, const void* tag, const void* occ,
       for (int i = 0; i < n; ++i) T.v[k * kMaxPairs + i] = tables[4 + k * n + i];
   }
   const bool gauss = gaussian != 0, rmp = ramp != 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (P.dense) {
+    // built for the dense rows' law only (pair_kernel.check_dense): ljrf
+    // with types and two exclusion channels, y and z periodic with >= 3
+    // cells each
+    if (kLegacy || law != kLjrf || !types || n_excl != 2 || gauss || rmp
+        || !P.per_y || !P.per_z || P.ny < 3 || P.nz < 3
+        || (P.per_x && P.nx < 3))
+      return (int)cudaErrorInvalidValue;
+    const int rc = obmd_pair_detail::start_dense<kLjrf, 2, true>(
+        st, fld, tag, occ, pbond, out, P, T);
+    if (rc != 0) return rc;
+    return (int)cudaGetLastError();
+  }
   const int tiles = ((P.nx + P.tile_x - 1) / P.tile_x)
                     * ((P.ny + P.tile_y - 1) / P.tile_y)
                     * ((P.nz + P.tile_z - 1) / P.tile_z);
   const dim3 grid((unsigned)tiles, (unsigned)P.split);
-  const cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if (law == kDpd) {
     rc = start_law<kDpd, kLegacy>(grid, st, fld, tag, occ, pbond, out,
@@ -808,12 +1315,14 @@ int launch(const void* fld, const void* tag, const void* occ,
       float sigma, float cut, float inv_cut, float dtinvsqrt, float lj1,    \
       float lj2, uint32_t salt, const float *tables, int ntypes,            \
       int gaussian, int ramp, float sig_scale, int tile_x, int tile_y,     \
-      int tile_z, int split, int smem, void *stream
+      int tile_z, int split, int smem, int dense, void *scratch,           \
+      float lo_x, float lo_y, float lo_z, void *stream
 #define OBMD_PAIR_PARAMS                                                     \
-  Params{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,       \
-         inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,    \
-         lj2, salt, sig_scale, per_y, per_z, tile_x, tile_y, tile_z, split, \
-         smem}
+  Launch{{nb, cap, lanes, nx, ny, nz, s, p, per_x, lx, ly, lz, inv_lx,      \
+          inv_ly, inv_lz, a0, gamma, sigma, cut, inv_cut, dtinvsqrt, lj1,   \
+          lj2, salt, sig_scale, per_y, per_z, tile_x, tile_y, tile_z, split,\
+          smem},                                                             \
+         dense, scratch, lo_x, lo_y, lo_z}
 
 // make_pair_kernel's function (TPU kernels #1 and #2).
 extern "C" int obmd_pair(OBMD_PAIR_ARGS) {

@@ -9,11 +9,16 @@ the legacy full-stencil make_dpd_kernel.  The Hopper kernel source
 `csrc/pair_kernel.cu` replaces them with one Newton-off kernel that takes any
 capacity, behind two C entry points: `obmd_pair` (make_pair_kernel) and
 `obmd_dpd_full` (make_dpd_kernel, with that kernel's own r and cutoff
-arithmetic).  Each CUDA block takes a tile of cells (`TilePlan`), stages
-each live atom of the tile's stencil once in shared memory and runs one
-thread per live atom of the tile.  Beside them, `pair_forces_plain` is
-the same function in PyTorch: the CPU tests run it, and `chip_smoke.py`
-holds each kernel against it on the card.
+arithmetic).  `TilePlan.of(geom, kind)` picks one of two bodies from the
+fill cap and the launch: the tiled body (a CUDA block a tile of cells,
+each live atom of the tile's stencil staged once in shared memory, one
+thread a live atom of the tile) or, where a cell's fill cap exceeds a
+block's threads and the dense body is built for the launch, the dense
+body (cell-major records compacted first, `dense_records_plain`, then a
+block a cell streaming its stencil's records through shared memory).
+Beside them, `pair_forces_plain` is the same function in PyTorch: the CPU
+tests run it, and `chip_smoke.py` holds each kernel against it on the
+card.
 
 The function: for every live slot i, F_i = sum_j fpair_ij * d_ij over the
 live atoms j filed in the cells around i's FILED cell (the 27 of the
@@ -436,27 +441,47 @@ def _span(t0: int, t: int, n: int, periodic: bool):
 
 
 class TilePlan(NamedTuple):
-    """How the Hopper pair kernel cuts the cell grid: one CUDA block (or
-    `split` blocks, each taking every split-th 32-atom chunk) per tile of
-    tile = (tx, ty, tz) cells, whose stencil it stages in shared memory.
-    `TilePlan.of(geom)` picks the tile: among the tiles of at most as many
-    cells as the block's THREADS threads hold atoms at half the fill cap
-    per cell, whose worst-case stencil (every cell at the storage cap)
-    fits SMEM_BUDGET and whose z length divides nz, the longest along z
-    (a warp's atoms then sit in neighbouring z cells, whose stencils
-    overlap: the fastest shape of those timed on the card, PERF.md §6),
-    then the one that stages the fewest cells over the grid
+    """How the Hopper pair kernel cuts the cell grid, and which of its two
+    bodies runs.  `TilePlan.of(geom, kind)` picks from the geometry and the
+    launch's kind (`launch_kind`): the dense body where a cell's fill cap
+    exceeds THREADS and the body is built for the kind and the axes
+    (`dense_built`), the tiled body everywhere else.
+
+    The tiled body: one CUDA block (or `split` blocks, each taking
+    every split-th 32-atom chunk) per tile of tile = (tx, ty, tz) cells,
+    whose stencil it stages in shared memory.  The tile: among the tiles of
+    at most as many cells as the block's THREADS threads hold atoms at half
+    the fill cap per cell, whose worst-case stencil (every cell at the
+    storage cap) fits SMEM_BUDGET and whose z length divides nz, the
+    longest along z (a warp's atoms then sit in neighbouring z cells, whose
+    stencils overlap: the fastest shape of those timed on the card, PERF.md
+    §6), then the one that stages the fewest cells over the grid
     (`staged_total`), then the longest along y.  Where the grid has fewer
     than two tiles per SM, split spreads each tile's atoms over more
-    blocks."""
+    blocks.  Bound by its candidate loop: a warp runs the law for every
+    candidate that any of its threads finds within the cutoff.
+
+    The dense body (`dense`: a cell's fill cap above THREADS, where a tile
+    would be one cell staging 27 cells at the storage cap, 3 blocks an SM:
+    path I's and K's water, ~100 atoms a cell at cap 150; every other
+    launch at such a cap keeps the one-cell tile).  A first pass
+    compacts the layout into cell-major records (`dense_records_plain`,
+    `scratch_bytes` of device memory); then one block a cell (tile 1 x 1 x
+    1, split 1) streams its stencil's record runs through a ring of
+    DENSE_RING runs (`smem_bytes`), tests a run's candidates into per-thread
+    masks and runs the law on each thread's own hits, so a warp takes the
+    law as often as its busiest thread has pairs.  Bound by its candidate
+    loop: each atom's tests of 27 cells of ~100 atoms, and the law on each
+    thread's hits."""
 
     geom: PadGeometry
     tile: Tuple[int, int, int]
     split: int = 1
+    dense: bool = False
 
     @staticmethod
-    def of(geom: PadGeometry) -> "TilePlan":
-        return _tile_plan(geom)
+    def of(geom: PadGeometry, kind: tuple = ()) -> "TilePlan":
+        return _tile_plan(geom, kind)
 
     @property
     def periodic(self) -> Tuple[bool, bool, bool]:
@@ -486,12 +511,29 @@ class TilePlan(NamedTuple):
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of one block (csrc/pair_kernel.cu
-        smem_bytes): per staged cell cap float4s, five ints and ceil(cap /
-        32) live-mask words; the tile's prefix of (cells + 1) ints."""
-        cells, cap = self.staged_max, self.geom.cap
+        smem_bytes and dense_smem).  Tiled: per staged cell cap float4s,
+        five ints and ceil(cap / 32) live-mask words; the tile's prefix of
+        (cells + 1) ints.  Dense: the ring's DENSE_RING record runs of
+        `run` 32-byte records, each thread's ceil(run / 32) mask words, and
+        the cell's z and order by z (8 bytes an atom of a run)."""
+        cap = self.geom.cap
+        if self.dense:
+            run = dense_run(cap)
+            return (DENSE_RING * run * 32 + -(-run // 32) * THREADS * 4
+                    + run * 8)
+        cells = self.staged_max
         words = -(-cap // 32)
         return (cells * cap * 16 + cells * 5 * 4 + cells * words * 4
                 + (int(np.prod(self.tile)) + 1) * 4)
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device memory the dense body's records take: a run of
+        dense_run(cap) 32-byte records a cell, then an int count a cell
+        (0 for the tiled body)."""
+        if not self.dense:
+            return 0
+        return self.geom.n_cells * (dense_run(self.geom.cap) * 32 + 4)
 
     def tiles(self):
         """Each tile's origin cell, in the kernel's block order (z
@@ -518,11 +560,47 @@ THREADS = 128                  # a block's threads (kThreads in the kernel)
 SMEM_BUDGET = 100 * 1024       # a block's shared memory: two fit an SM
 SMEM_MAX = 232448 - 1024       # one block's most on an H100 (kSmemMax)
 N_SMS = 132                    # an H100 SXM's multiprocessors
+DENSE_RING = 3                 # the dense body's record runs in flight
+
+
+def dense_run(cap: int) -> int:
+    """A cell's record run in the dense body: cap rounded up to 8."""
+    return -(-cap // 8) * 8
+
+
+# The launch kinds the dense body is instantiated for (csrc/pair_kernel.cu
+# part 11): path I's and K's water (launch_kind)
+DENSE_BUILT = (("ljrf", True, N_EXCL, False, False, False),)
+
+
+def launch_kind(coef: "PairCoef", n_excl: int, legacy: bool = False) -> tuple:
+    """What of a launch, beside its geometry, decides its body: (law, more
+    than one type, exclusion channels, gaussian noise, ramp, the
+    full-stencil entry point)."""
+    return (coef.law, coef.ntypes > 1, n_excl, bool(coef.gaussian),
+            bool(coef.ramp), legacy)
+
+
+def dense_built(geom: PadGeometry, kind: tuple) -> bool:
+    """Whether the dense body is built for a launch: its kind in
+    DENSE_BUILT, y and z periodic with >= 3 cells each (the body visits
+    the full 3 x 3 stencil on them) and x open or periodic with >= 3."""
+    return (kind in DENSE_BUILT and tuple(geom.periodic_yz) == (True, True)
+            and min(geom.dims[1:]) >= 3
+            and (not geom.periodic_x or geom.dims[0] >= 3))
 
 
 @functools.lru_cache(maxsize=32)
-def _tile_plan(geom: PadGeometry) -> TilePlan:
+def _tile_plan(geom: PadGeometry, kind: tuple) -> TilePlan:
     dims = geom.dims
+    if geom.fcap > THREADS and dense_built(geom, kind):
+        plan = TilePlan(geom, (1, 1, 1), dense=True)
+        if plan.smem_bytes > SMEM_BUDGET:
+            raise NotImplementedError(
+                f"pair kernel: the dense body's ring at cap {geom.cap} needs "
+                f"{plan.smem_bytes} bytes of shared memory (at most "
+                f"{SMEM_BUDGET})")
+        return plan
     target = max(1, 2 * THREADS // geom.fcap)
     best = None
     for tile in itertools.product(*(range(1, min(n, target) + 1)
@@ -699,6 +777,56 @@ def launch_key(geom: PadGeometry, coef: PairCoef, n_excl: int) -> str:
     return f"{coef.law}{types}{noise}{excl}{axes}-cap{geom.fcap}"
 
 
+def dense_records_plain(geom: PadGeometry, coef: PairCoef, fld: torch.Tensor,
+                        tag: torch.Tensor, occ: torch.Tensor):
+    """The dense body's first pass in PyTorch: the pad layout as cell-major
+    record runs.  Cell (linear id, cells x slowest) c's run holds its live
+    atoms (rank below min(occ of its block, cap), x below BIG/2) in
+    ascending rank, dense_run(cap) records long: pos f32[cells, run, 4] (x,
+    y, z in the cell's frame on each periodic axis, and q for the ljrf law,
+    else 0), aux i32[cells, run, 4] (tag, type (0 with one type), rank, 0),
+    zero past the count; count i32[cells].  The cell's frame: a coordinate
+    less the box length times the nearest integer to its distance from the
+    cell's centre over the box length, so an atom that a run wrapped
+    across a face since its last relayout lies beside its filed cell."""
+    nf, cap = fld.shape[1:3]
+    dev = fld.device
+    cell = torch.arange(geom.n_cells, device=dev)
+    b, lane = geom.slot_of_cell(cell)
+    fl = fld[b, :, :, lane]                          # [cells, NF, cap]
+    rank = torch.arange(cap, device=dev)
+    live = (rank[None, :] < torch.clamp(occ.long()[b], max=cap)[:, None]) \
+        & (fl[:, 0] < 0.5 * BIG)
+    q = fl[:, 6] if coef.law == "ljrf" else torch.zeros_like(fl[:, 0])
+    ty = fl[:, nf - 1].int() if coef.ntypes > 1 \
+        else torch.zeros_like(fl[:, 0], dtype=torch.int32)
+    _, ny, nz = geom.dims
+    index = (cell // (ny * nz), cell // nz % ny, cell % nz)
+    xyz = []
+    for a, per in enumerate((geom.periodic_x,) + tuple(geom.periodic_yz)):
+        v = fl[:, a]
+        if per:
+            length = geom.dims[a] * geom.cell_size[a]
+            centre = geom.lo[a] + (index[a] + 0.5) * geom.cell_size[a]
+            v = v - length * torch.round((v - centre[:, None].float())
+                                         / length)
+        xyz.append(v)
+    pos_all = torch.stack((*xyz, q), -1)
+    aux_all = torch.stack((tag[b, :, lane], ty,
+                           rank.int().expand(geom.n_cells, cap),
+                           torch.zeros_like(ty)), -1)
+    # a live rank's place in its run: the live ranks below it
+    place = torch.cumsum(live.int(), 1) - 1
+    run = dense_run(cap)
+    pos = torch.zeros((geom.n_cells, run, 4), dtype=torch.float32,
+                      device=dev)
+    aux = torch.zeros((geom.n_cells, run, 4), dtype=torch.int32, device=dev)
+    ci, ri = live.nonzero(as_tuple=True)
+    pos[ci, place[ci, ri]] = pos_all[ci, ri]
+    aux[ci, place[ci, ri]] = aux_all[ci, ri]
+    return pos, aux, live.sum(1).int()
+
+
 def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
             salt: int, occ, pbond, sig_scale: float):
     kern = _build.KERNELS[name]
@@ -706,9 +834,11 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
     nb, _, cap, lanes = fld.shape
     nx, ny, nz = geom.dims
     n_excl = 0 if pbond is None else pbond.shape[1]
-    plan = TilePlan.of(geom)
+    plan = TilePlan.of(geom, launch_kind(coef, n_excl, name == "dpd_full"))
     out = torch.empty((nb, 3, cap, lanes), dtype=torch.float32,
                       device=fld.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=fld.device) if plan.dense else None
     with torch.cuda.device(fld.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(fld.data_ptr(), tag.data_ptr(), occ.data_ptr(),
@@ -721,10 +851,28 @@ def _launch(name: str, geom: PadGeometry, coef: PairCoef, tables, fld, tag,
                 coef.inv_cut, coef.dtinvsqrt, coef.lj1, coef.lj2,
                 salt & 0xFFFFFFFF,
                 tables, coef.ntypes, int(coef.gaussian), int(coef.ramp),
-                sig_scale, *plan.tile, plan.split, plan.smem_bytes, stream)
+                sig_scale, *plan.tile, plan.split, plan.smem_bytes,
+                int(plan.dense),
+                None if scratch is None else scratch.data_ptr(),
+                *map(float, geom.lo),
+                stream)
     _build.check(rc, kern)
     kern.count(launch_key(geom, coef, n_excl))
     return out
+
+
+def dense_resident(plan: TilePlan) -> int:
+    """The dense body's blocks an SM at the plan's shared memory
+    (obmd_pair_dense_resident: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    of its instantiation); needs the card."""
+    kern = _build.KERNELS["pair"]
+    kern.function()                        # builds and loads the library
+    fn = ctypes.CDLL(str(kern.library_path())).obmd_pair_dense_resident
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    _build.check(fn(plan.smem_bytes, ctypes.byref(n)), kern)
+    return n.value
 
 
 def _wrapper(name: str, geom: PadGeometry, coef: PairCoef, legacy: bool,
