@@ -176,6 +176,17 @@ Phases (any failure exits non-zero and prints no result line):
      timed window of NEAR_BOX_STEPS steps and a profile; then both pair
      kernels against their plain versions, each other and the pair sweep,
      and FULL_STEPS steps through the full-stencil kernel;
+ 23b. path N, the closed periodic DPD box of Milestone A
+     (scenes.closed_dpd_scene(n=2000, box_l=8.736, seed=1)): per engine,
+     the nlist engine as the scene sets it and the cellpad engine at skin
+     0.7 and filing cap 32 (the pair kernel on a fully periodic DPD box of
+     5 cells a side; the skin keeps the half-skin budget at dt 0.04),
+     launch counts zeroed before setup and read after, 300 steps to
+     settle, then the mean kinetic T over 300 more within (0.95, 1.08)
+     (the JAX package's tests/test_integrate.py:45-60), check_invariants;
+     the nlist engine launches no kernel, the cellpad engine the pair
+     kernel once per step and at setup, that launch then held to its
+     plain version;
  24. a thin DPD film of ~100k atoms (scenes.dpd_film_scene: the OBMD_DPD
      fluid in 302.3 x 56.0 x 2.0, z one cell), then the same with y open:
      setup and FILM_STEPS steps (keys dpd-1cell-cap32,
@@ -420,7 +431,7 @@ Phases (any failure exits non-zero and prints no result line):
      error <= 1e-5, rigid positions and bodies within RIGID_GEOMETRY; then
      the port's dry run (parallel/dryrun.py, all four paths) on the same
      ranks;
- 44. the figures of the nineteen paths (with each path's whole wall time,
+ 44. the figures of the twenty paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -551,6 +562,18 @@ DPDEXT_RELAX, DPDEXT_STEPS = 200, 200
 # path D's steps (the first insertions come near step 45) and the steps the
 # DPD film runs before its kernel checks
 NEAR, NEAR_BOX_STEPS, FILM_STEPS = 0.35, 200, 10
+# path N, the closed DPD box of Milestone A (tests/test_integrate.py:45-60):
+# the scene's arguments, the steps that settle it, the steps its mean T is
+# taken over and the window that mean must lie in
+CLOSED_BOX = dict(n=2000, box_l=8.736, seed=1, temp=1.0)
+CLOSED_SETTLE, CLOSED_MEAN, CLOSED_T = 300, 300, (0.95, 1.08)
+# the box on the cellpad engine: at dt 0.04 the fastest atom moves up to
+# 0.26 in a step (a CPU rehearsal of this phase), more than half the
+# scene's skin of 0.3, and the cellpad engine counts a move past half its
+# skin between relayouts as a fault; skin 0.7 (5 cells of 1.747 a side,
+# ~16 atoms a cell) keeps that budget, and filing cap 32 the random start's
+# fullest cell
+CLOSED_CELLPAD_SKIN, CLOSED_CELLPAD_CAP = 0.7, 32
 
 # the seed of the holes each pair-kernel check adds (holed_inputs), also
 # the USHER edge inputs' (usher_edge_inputs), which try EDGE_K x K
@@ -3105,6 +3128,80 @@ def run_near_box():
                     f"{geom.fcap}", None, full_launches["dpd_full"][0],
                     full),
     ]
+    return path, kernels
+
+
+def run_closed_box():
+    """Phase 23b: path N, the closed periodic DPD box of Milestone A
+    (scenes.closed_dpd_scene at CLOSED_BOX: 2,000 atoms in a cube of
+    8.736, NVE with the DPD thermostat, dt 0.04), on the nlist engine as
+    the scene sets it and on the cellpad engine (force_path="cellpad" at
+    CLOSED_CELLPAD_SKIN and _CAP: the pair kernel on a fully periodic DPD
+    box of 5 cells a side): per engine launch counts zeroed before setup
+    and read after, setup, CLOSED_SETTLE steps, then CLOSED_MEAN steps
+    one at a time with the kinetic T read after each, its mean in
+    CLOSED_T (the JAX package's tests/test_integrate.py:45-60),
+    check_invariants; the nlist engine launches no kernel, the cellpad
+    engine the pair kernel once per step and at setup; then that launch
+    on the ended state against its plain version."""
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+    from obmd_tpu_torch.state import temperature
+
+    path, kernels = {}, []
+    for engine in ("nlist", "cellpad"):
+        sc = scenes.closed_dpd_scene(**CLOSED_BOX, device=DEV)
+        cfg = sc.cfg
+        if engine == "cellpad":
+            cfg = dataclasses.replace(
+                cfg, force_path=engine, skin=CLOSED_CELLPAD_SKIN,
+                capacity=dataclasses.replace(
+                    cfg.capacity, cell_capacity=CLOSED_CELLPAD_CAP))
+        cfg = cfg.finalize()
+        label = f"closed DPD box, {engine} engine"
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = make_run(cfg, CLOSED_SETTLE)(setup(cfg, sc.state))
+        step = make_run(cfg, 1)
+        temps = []
+        for _ in range(CLOSED_MEAN):
+            st = step(st)
+            temps.append(float(temperature(cfg, st)))
+        run_s = time.perf_counter() - t0
+        tel = check_invariants(cfg, st)
+        check_finite(st, label)
+        launches = launch_counts()
+        t_mean = statistics.fmean(temps)
+        log(f"{label} ({int(st.natoms)} atoms): setup and "
+            f"{CLOSED_SETTLE + CLOSED_MEAN} steps {run_s:.2f} s, mean T over "
+            f"the last {CLOSED_MEAN} {t_mean:.5f}, telemetry {tel}, launches "
+            f"{launches}")
+        if not CLOSED_T[0] < t_mean < CLOSED_T[1]:
+            fail(f"{label}: mean T {t_mean} outside {CLOSED_T}")
+        fig = dict(atoms=int(st.natoms), t_mean=t_mean,
+                   ms_per_step=run_s / (CLOSED_SETTLE + CLOSED_MEAN) * 1e3,
+                   telemetry=tel)
+        if engine == "nlist":
+            require_launches(launches, {}, label)
+        else:
+            geom = make_geometry(cfg)
+            key = f"dpd-cap{geom.fcap}"
+            require_launches(launches, {"pair": (key,)}, label)
+            n = launches["pair"][0]
+            if n != CLOSED_SETTLE + CLOSED_MEAN + 1:
+                fail(f"{label}: {n} pair launches for setup and "
+                     f"{CLOSED_SETTLE + CLOSED_MEAN} steps")
+            row = (f"dpd, closed periodic box of "
+                   f"{' x '.join(map(str, geom.dims))} cells, fill cap "
+                   f"{geom.fcap}")
+            pair, _ = check_pair(cfg, geom, st, row)
+            kernels.append(kernel_line("pair", row,
+                                       "obmd_tpu/forces/pallas_dpd.py:324",
+                                       n, pair))
+            fig.update(dims=geom.dims, launches=n)
+        path[engine] = fig
     return path, kernels
 
 
@@ -6608,6 +6705,9 @@ def run_smoke():
     box_path, box_kernels = run_near_box()
     wall_s["near_box"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    closed_path, closed_kernels = run_closed_box()
+    wall_s["closed_dpd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     film, film_kernels = run_film()
     wall_s["dpd_film_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -6654,7 +6754,8 @@ def run_smoke():
                           chain=chain_path, obmd_ljrf=rf_path,
                           obmd_dpd_gaussian=gauss_path,
                           dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
-                          near_box=box_path, dpd_film=film,
+                          near_box=box_path, closed_dpd=closed_path,
+                          dpd_film=film,
                           star_melt=star_path, open_star=open_path,
                           obmd_dpdext=ext_path,
                           obmd_dpd_keywords=kw_path,
@@ -6665,7 +6766,8 @@ def run_smoke():
                           multi_rank_molecules=mol_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
-                + near_kernels + box_kernels + film_kernels + star_kernels
+                + near_kernels + box_kernels + closed_kernels + film_kernels
+                + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
                 + water_kernels + deck_kernels + rigid_kernels
                 + slab_kernels + mol_kernels)

@@ -18,8 +18,9 @@ does, or builds its start in the repository: chains threaded through the
 LJ melt's fcc lattice (`chain_lattice`), warmed up by `chain_warm_up`.
 The dpd/tstat ramp (`dpd_tstat_config`, `dpd_tstat_scene`) is the JAX
 package's own ramp test (tests/test_dpd_variants.py:212-253) in a 100k-atom
-box.  The `near` box (`near_box_config`, `near_box_scene`) is the JAX
-package's momentum-conservation box (tests/test_conservation.py:34-55):
+box; `closed_dpd_scene` is the JAX package's closed periodic DPD box
+(Milestone A).  The `near` box (`near_box_config`, `near_box_scene`) is
+the JAX package's momentum-conservation box (tests/test_conservation.py:34-55):
 `near` insertion on a 7 x 1 x 1 cell grid, single-cell periodic y and z.
 The DPD film (`dpd_film_config`, `dpd_film_scene`) is a thin slab of the
 OBMD_DPD fluid whose z axis is one cell, and with `y_open` whose y axis is
@@ -588,6 +589,30 @@ def dpd_tstat_scene(box_l: float = 35.0, t_start: float = 0.4,
     v = r.normal(0.0, np.sqrt(t_start), (n, 3))
     v -= v.mean(axis=0)
     return Scene(cfg=cfg, state=init_state(cfg, x, v=v, device=device))
+
+
+def closed_dpd_scene(n: int = 3000, box_l: float = 10.0, seed: int = 0,
+                     temp: float = 1.0, n_max: Optional[int] = None,
+                     dtype: str = "float32", device="cuda") -> Scene:
+    """The closed, fully periodic DPD fluid of Milestone A
+    (obmd_tpu/scenes.py closed_dpd_scene): NVE with the DPD thermostat,
+    which must hold T at `temp`.  DPD a0 25, gamma 4.5, rc 1, pair seed
+    90823, dt 0.04, filing cap 24, no OBMD, on the nlist engine; n atoms
+    uniform in the cube of side box_l and normal velocities at `temp` with
+    zero net momentum, from numpy's generator at `seed` (the JAX scene's
+    draws), on `device`."""
+    box = Box((0.0, 0.0, 0.0), (box_l, box_l, box_l), (True, True, True))
+    pair = DPDParams.create(temp=temp, cutoff=1.0, seed=90823,
+                            a0=25.0, gamma=4.5, ntypes=1)
+    cfg = SceneConfig(box=box, masses=(1.0,), pair=pair, dt=0.04,
+                      capacity=Capacity(n_max=n_max or n, cell_capacity=24),
+                      obmd=None, dtype=dtype, force_path="nlist")
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, box_l, (n, 3))
+    v = rng.normal(0, np.sqrt(temp), (n, 3))
+    v -= v.mean(axis=0)
+    return Scene(cfg=cfg, state=init_state(cfg, x, v=v, seed=seed,
+                                           device=device))
 
 
 def near_box_config() -> SceneConfig:

@@ -22,7 +22,15 @@ diverge, so the engines are compared statistically.
 
 prints one JSON line per engine (the second: the JAX engine through
 profile_torch.py's run, on the CPU, with the density RMSE/mean of its
-profile against the reference binary's).  The tests below hold the face
+profile against the reference binary's).
+
+    python3 tests/test_torch_gate_split.py --save \
+        validation/profile_jax_samestart.npz
+
+runs the JAX engine's same-start reference of the port's main path
+(samestart: scale 1, the deck's 1,500 + 60,000 steps, ~1.1-1.7 h on 8 CPU
+cores) and saves it for `profile_torch.py --against jax`.  The tests below
+hold the face
 deletion and the boundary force to the JAX stage slot for slot and run a
 short drain at scale 0.25."""
 import argparse
@@ -248,22 +256,103 @@ def test_drain_matches_jax_engine():
         assert abs(a - b) <= 0.25 * b + 0.1, (pt, jx)
 
 
+def samestart(path, scale=1.0, seed=7, noise="uniform", equil=None,
+              steps=None, warm=None):
+    """The JAX nlist engine's same-start reference for the port's main
+    path (profile_torch.py --against jax): obmd_dpd_scene's uniform gas at
+    the reference deck's seeds, `equil` steps of equilibrate, then the
+    deck's steps, sampled by profile_torch.deck_series with the JAX
+    package's own profile function; saved with its settings to `path`."""
+    import subprocess
+    import jax
+    from obmd_tpu.observe import make_profile_fn
+    from obmd_tpu.integrate import make_run
+    import profile_torch as pt
+    equil = pt.EQUIL if equil is None else equil
+    steps = pt.REF["usher"][1] if steps is None else steps
+    warm = pt.WARM if warm is None else warm
+    t0 = time.perf_counter()
+    cfg, state, equilibrate, _, _ = _engine("jax", scale, seed, noise)
+    state = equilibrate(state, equil)
+    counts0 = [int(state.natoms), int(state.obmd.ndeleted),
+               int(state.obmd.ninserted)]
+    masses = np.asarray(cfg.masses, np.float64)
+    prof = make_profile_fn(cfg, nbins=pt.NBINS)
+    lx = cfg.box.lengths[0]
+
+    def arrays(st):
+        return (np.asarray(st.x), np.asarray(st.v), np.asarray(st.alive),
+                masses[np.asarray(st.type)])
+
+    def profile(st):
+        p = prof(st)
+        return {k: np.asarray(getattr(p, k), np.float64)
+                for k in ("density", "vx", "temp")}
+
+    def log(st, s):
+        print(f"step {s} N {int(st.natoms)} ins {int(st.obmd.ninserted)} "
+              f"del {int(st.obmd.ndeleted)} {time.perf_counter() - t0:.0f} s",
+              file=sys.stderr, flush=True)
+    state, out = pt.deck_series(
+        state, jax.jit(make_run(cfg, pt.SAMPLE_EVERY)), profile, arrays,
+        cfg.box.lo[0], cfg.box.hi[0], steps, warm=warm,
+        t_nbins=round(lx / pt.T_BIN), log=log)
+    try:
+        commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                                capture_output=True, text=True,
+                                check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        commit = None
+    meta = dict(engine="jax", force_path=cfg.force_path, scale=scale,
+                scene_seed=seed, pair_seed=cfg.pair.seed,
+                obmd_seed=cfg.obmd.seed, noise=noise,
+                insertion="usher", equil=equil, steps=steps,
+                sample_every=pt.SAMPLE_EVERY, warm=warm, nbins=pt.NBINS,
+                t_until=pt.T_UNTIL, t_nbins=round(lx / pt.T_BIN),
+                blocks=pt.BLOCKS, jax_version=jax.__version__,
+                commit=commit, wall_s=time.perf_counter() - t0)
+    for k in ("density", "vx", "temp"):        # the series as block means
+        out[f"block_{k}"] = pt.blocks(out.pop(f"series_{k}"))
+    np.savez_compressed(
+        path, meta=np.asarray(json.dumps(meta)),
+        counts_after_equilibrate=np.asarray(counts0, np.int64),
+        counts_end=np.asarray([int(state.natoms), int(state.obmd.ndeleted),
+                               int(state.obmd.ninserted)], np.int64), **out)
+    return meta
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scale", type=float, default=0.5)
+    ap.add_argument("--scale", type=float, default=None,
+                    help="0.5 by default; 1 with --save")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--noise", choices=("uniform", "gaussian"),
                     default="uniform")
-    ap.add_argument("--equil", type=int, default=200)
-    ap.add_argument("--steps", type=int, default=3000)
+    ap.add_argument("--equil", type=int, default=None,
+                    help="200 by default; profile_torch.EQUIL with --save")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="3000 by default; the deck's with --save")
     ap.add_argument("--every", type=int, default=50)
-    ap.add_argument("--warm", type=int, default=0)
+    ap.add_argument("--warm", type=int, default=None,
+                    help="0 by default; profile_torch.WARM with --save")
     ap.add_argument("--engines", nargs="+", default=["jax", "port"])
     ap.add_argument("--threads", type=int, default=1)
+    ap.add_argument("--save", metavar="PATH",
+                    help="run the JAX engine's same-start reference "
+                         "(samestart) and save it to PATH")
     a = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if a.save:
+        print(json.dumps(samestart(
+            a.save, 1.0 if a.scale is None else a.scale, a.seed, a.noise,
+            a.equil, a.steps, a.warm)), flush=True)
+        return
+    a.scale = 0.5 if a.scale is None else a.scale
+    a.equil = 200 if a.equil is None else a.equil
+    a.steps = 3000 if a.steps is None else a.steps
+    a.warm = 0 if a.warm is None else a.warm
     import torch
     torch.set_num_threads(a.threads)
     for name in a.engines:
