@@ -70,7 +70,9 @@ Phases (any failure exits non-zero and prints no result line):
      shifted law's rows on the same input too), both pair kernels against
      their plain versions and each other, the pair kernel against the
      port's pair sweep; a profile of two relayout epochs; FULL_STEPS steps
-     through the full-stencil kernel, check_invariants;
+     through the full-stencil kernel, check_invariants; the float64 lj
+     rows (usher_search_lj_f64) on the same subsets widened to float64,
+     kernel-only (check_usher_f64);
  13. the FENE chain melt at a small size (chain_scene(nx=7): 28 chains of
      49 beads, warmed up on the card, then copied to the CPU) on the card
      against the same path on the CPU (check_small_path: slots, tags and
@@ -123,6 +125,8 @@ Phases (any failure exits non-zero and prints no result line):
      on the nx = 20 LJ melt lattice; the fork's LAMMPS golden
      (validation/ljrf_golden/charged.data, 220 charged atoms) through
      setup on the card, every force within 5e-5 * max|f| of dump.ref;
+     the float64 lj/cut/rf rows (usher_search_ljrf_f64) on the charged
+     subsets widened to float64, kernel-only (check_usher_f64);
  19. path A, OBMD_DPD with LAMMPS' gaussian pair noise (the scene with
      pair.gaussian_noise = True, dataclasses.replace) from phase 4's
      equilibrated state: repacked at cap 15, the gaussian kernel against
@@ -187,6 +191,12 @@ Phases (any failure exits non-zero and prints no result line):
      the nlist engine launches no kernel, the cellpad engine the pair
      kernel once per step and at setup, that launch then held to its
      plain version;
+ 23c. path N64, path N at float64 (closed_dpd_scene(dtype="float64"), the
+     same settings and checks): on the nlist engine every float tensor of
+     the ended state float64 and most forces not float32 values; on the
+     cellpad engine the state float64 over the dpd-cap32 row's float32
+     fields, every force a float32 value (the kernel's, cast up, as the
+     JAX engine runs it), the row held to its plain version;
  24. a thin DPD film of ~100k atoms (scenes.dpd_film_scene: the OBMD_DPD
      fluid in 302.3 x 56.0 x 2.0, z one cell), then the same with y open:
      setup and FILM_STEPS steps (keys dpd-1cell-cap32,
@@ -279,7 +289,9 @@ Phases (any failure exits non-zero and prints no result line):
      other kernel;
  33. the dpd/ext rows on the insertion state's buffer subsets (the nlist
      stage's region_subset rows, n_max // 2 a side) against their plain
-     version (check_usher), with the kernel's scratch at that size;
+     version (check_usher), with the kernel's scratch at that size; the
+     float64 dpd/ext rows (usher_search_dpdext_f64) on the same subsets
+     widened to float64, kernel-only (check_usher_f64);
  34. the fix's other keywords on the card against the CPU at a small size
      (check_small_path, nattempt 0, SMALL_STEPS steps): the OBMD_DPD small
      deck on the cellpad engine with maxattempt 3, `local`, `vx`/`vy`/`vz`,
@@ -431,7 +443,21 @@ Phases (any failure exits non-zero and prints no result line):
      error <= 1e-5, rigid positions and bodies within RIGID_GEOMETRY; then
      the port's dry run (parallel/dryrun.py, all four paths) on the same
      ranks;
- 44. the figures of the twenty paths (with each path's whole wall time,
+ 43b. path O, OBMD_DPD at float64 on the nlist engine (run_float64:
+     obmd_dpd_config(scale=9, dtype="float64", force_path="nlist"), from
+     phase 4's equilibrated state widened to float64): setup; every float
+     tensor float64 at the start and the end; the list's pure pair forces
+     against the plain pair_sweep at float64 within 1e-10 * max|f| and
+     summing to within 1e-10 * max|f| of zero; O_RELAX steps, two timed
+     windows of O_STEPS, check_invariants, the thermal T relaxing to
+     within 5% of 1.0 (check_thermal), a profile of two steps beside
+     path G's; the insertion phase with nbuf raised to 1.05 x census /
+     alpha (INS_STEPS steps, insertions > 0).  Launch counts are zeroed
+     before setup and read after the insertion phase: the float64 USHER
+     kernel (usher_search_f64) on every step that needs atoms, no other
+     kernel; then that kernel on the insertion state's subsets against
+     its plain version (check_usher_f64);
+ 44. the figures of the twenty-two paths (with each path's whole wall time,
      its checks included, and the smoke's total), the kernel figures
      ({"kernels": [...]}), the card line, and last {"ok": true, "device":
      {...}}.
@@ -461,7 +487,12 @@ search (verdicts and iterations equal, positions NaN alike),
 checks that two launches on each input give the same bytes, and logs the
 grid's cells per axis, the mean and largest atoms per cell, the distance
 tests per evaluation (the kernel's stencil and all-pairs), the longest
-candidate's evaluations and the ms per dependent evaluation.
+candidate's evaluations and the ms per dependent evaluation.  Every
+float64 USHER check (check_usher_f64: dpd on path O, dpd/ext, lj and ljrf
+kernel-only) holds the float64 row to its plain version at float64 one
+step at a time: verdicts and iterations equal, positions within 1e-9 x
+Ly, a step apart only within 1e-9 x |etarget| of the gate; its bound
+counts 8-byte reals and float64 operations over 34 TFLOP/s.
 
 Tolerances are the CPU tests': pair forces within 2e-4 * max|f| over alive
 slots and |sum f| <= 1e-3 * max|f| (kernel against plain, kernel against
@@ -558,6 +589,10 @@ STAR_NEIGHBOURS = 16
 # that relax the thermostat after the switch, and the steps of each timed
 # window
 DPDEXT_RELAX, DPDEXT_STEPS = 200, 200
+# path O, the OBMD_DPD deck at float64 on the nlist engine: the steps
+# after setup and of each timed window (path G's, so that the thermal T's
+# three marks are as far apart)
+O_SCALE, O_RELAX, O_STEPS = 9.0, DPDEXT_RELAX, DPDEXT_STEPS
 # path C's `near` distance (the reference's in.obmd_near: near 1 0.35),
 # path D's steps (the first insertions come near step 45) and the steps the
 # DPD film runs before its kernel checks
@@ -593,6 +628,10 @@ H_SEED = 13
 ROBUST_E = 1e-4
 ROBUST_F = 0.1
 ROBUST_X = 1e-4
+# the float64 USHER rows against their plain version (check_usher_f64):
+# whole searches' positions within USHER_F64_POS x Ly, a verdict apart
+# only within USHER_F64_GATE x |etarget| of the gate
+USHER_F64_POS, USHER_F64_GATE = 1e-9, 1e-9
 # path I, BASELINE config 5's open SPC/E water: the steps equilibrate runs
 # after setup (thermo's T rescaled to 2/3 kT, scenes.WATER_THERMO_T), the
 # insertion phase's share of each buffer's waters taken out, its steps and
@@ -629,6 +668,9 @@ SIDE_THREADS = 1
 SIDE_TIMEOUT_S = 600.0
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the H100 SXM's float64 rate outside the tensor cores (data sheet): the
+# float64 USHER rows' operations are counted against it
+F64_OPS_PER_S = 34e12
 # float32 operations of one candidate-pair distance test (3 subtractions;
 # minimum image on y and z: multiply, round, fused multiply-add each;
 # squared norm: 3 multiplies, 2 adds) and of one in-cutoff DPD evaluation
@@ -711,9 +753,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, batches: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = None):
+    """The least time (ms) of n_bytes moved and n_ops done (float32 at
+    F32_OPS_PER_S unless another rate is given) and which bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / (ops_per_s or F32_OPS_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1127,18 +1171,20 @@ def usher_work(cfg, sub_l, sub_r, cl, cr, iters):
     only on the atoms within the cutoff, counted at those positions.
     Bytes: each Subset row's valid flag, the valid rows' x and type (the
     binning reads no other row's) and the candidates read once and the
-    outputs written once, in both forms; the kernel's own scratch (the
-    sorted float4 rows and the cell starts, written once and read once) is
-    returned apart as scratch_bytes.  Returns a dict of the counts and both
-    (bytes, operations)."""
+    outputs written once, in both forms, each real of the candidates'
+    dtype (4 bytes, or 8 for the float64 rows); the kernel's own scratch
+    (the sorted rows of four reals and the cell starts, written once and
+    read once) is returned apart as scratch_bytes.  Returns a dict of the
+    counts and both (bytes, operations)."""
     import torch
     from obmd_tpu_torch.config import LJCutParams, LJCutRFParams
     from obmd_tpu_torch.forces.usher_kernel import UsherPlan, bin_rows
     from obmd_tpu_torch.obmd.subset import usher_search_subset_batch
     o = cfg.obmd
     k = cl.shape[0]
+    real = cl.element_size()
     subs = (sub_l, sub_r)
-    grids = UsherPlan.of(cfg, o.region5, o.region6).grids
+    grids = UsherPlan.of(cfg, o.region5, o.region6, cl.dtype).grids
     counts = [torch.diff(bin_rows(g, s)[1]).cpu() for g, s in
               zip(grids, subs)]
     ct = torch.zeros((k,), dtype=torch.int32, device=cl.device)
@@ -1161,15 +1207,15 @@ def usher_work(cfg, sub_l, sub_r, cl, cr, iters):
     law = OPS_USHER_LJ if isinstance(cfg.pair, (LJCutParams, LJCutRFParams)) \
         else OPS_USHER_DPD
     nvalid = sum(int(s.valid.sum()) for s in subs)
-    rows_in = sum(s.x.shape[0] for s in subs) + nvalid * (12 + 4) \
-        + 2 * k * 12
-    out = 2 * k * (3 * 4 + 4 + 4)
+    rows_in = sum(s.x.shape[0] for s in subs) + nvalid * (3 * real + 4) \
+        + 2 * k * 3 * real
+    out = 2 * k * (3 * real + 4 + 4)
     n_cells = sum(g.n_cells + 1 for g in grids)
     evals = int((iters + 1).sum())
     return dict(
         tests=tests, tests_all_pairs=tests_all, inside=inside, evals=evals,
         bytes=rows_in + out, ops=tests * OPS_USHER_TEST + inside * law,
-        scratch_bytes=2 * (16 * nvalid + 4 * n_cells),
+        scratch_bytes=2 * (4 * real * nvalid + 4 * n_cells),
         bytes_all_pairs=rows_in + out,
         ops_all_pairs=tests_all * OPS_USHER_TEST + inside * law)
 
@@ -1506,6 +1552,157 @@ def check_usher(cfg, geom, state, label, subsets=None):
         accepted=int(ak.sum()), overlap_candidates=overlap,
         distance_tests=w["tests"], distance_tests_all_pairs=w[
             "tests_all_pairs"], within_cutoff=w["inside"], **extra)
+
+
+def buffer_subsets(cfg, geom, state):
+    """Both buffers' subsets of a cellpad state, as its stage takes them
+    (the slot slices)."""
+    from obmd_tpu_torch.engine_cellpad import _subset_slice
+    o = cfg.obmd
+    pad = cfg.pair.max_cut + cfg.skin
+    return (_subset_slice(cfg, geom, state, o.region5, pad),
+            _subset_slice(cfg, geom, state, o.region6, pad))
+
+
+def widened(sub):
+    """A float32 buffer subset's rows in float64 (exact), for the float64
+    USHER rows' kernel-only checks."""
+    import torch
+    return sub._replace(x=sub.x.to(torch.float64), q=None if sub.q is None
+                        else sub.q.to(torch.float64))
+
+
+def check_usher_f64(cfg, sub_l, sub_r, label):
+    """The float64 instantiation of the law's USHER kernel against its
+    plain version (usher_search_subset_batch at float64) on float64 buffer
+    subsets with K uniform float64 candidates a buffer, one step at a time
+    as usher_compare holds the float32 rows, so that the summation order's
+    drift does not compound over a search (whole float64 searches of the
+    kernel and the plain version, with equal verdicts, end up to a few
+    units apart in a liquid after tens of steps): the
+    kernel runs with nattempt = n for n = 0 .. nattempt, a candidate that
+    had stopped keeps its position, verdict and iterations to the byte,
+    and each candidate still searching after n steps takes one step of the
+    plain version from the kernel's position.  On every such step the
+    kernel's verdict and whether it searches on equal the plain step's and
+    the positions lie within USHER_F64_POS x Ly; a step may differ only
+    where the energy at the kernel's position before it or at either
+    position after it lies within USHER_F64_GATE x |etarget| of the gate
+    etarget + eps (their count and margins logged).  Two launches give the
+    same bytes; the whole searches' verdicts against the plain whole
+    search are logged beside, not held.  Its time is the whole C call; its
+    bound counts 8-byte reals and float64 operations at F64_OPS_PER_S.
+    Returns (kernel figures, info)."""
+    import torch
+    from obmd_tpu_torch.forces.usher_kernel import launch
+    from obmd_tpu_torch.obmd.subset import (EPSILON, _batched_energy_force,
+                                            pad_subset,
+                                            usher_search_subset_batch)
+    o = cfg.obmd
+    u = o.usher
+    k = o.insert_kmax
+    f64 = torch.float64
+    if not all(s.x.dtype == f64 for s in (sub_l, sub_r)):
+        fail(f"USHER {label}: the subsets are not float64")
+    g = torch.Generator(device=DEV)
+    g.manual_seed(1234)
+    draws = torch.rand((2, k, 3), generator=g, device=DEV, dtype=f64)
+    cl = o.region5.sample_uniform(draws[0])
+    cr = o.region6.sample_uniform(draws[1])
+    ct = torch.zeros((k,), dtype=torch.int32, device=DEV)
+    b = max(sub_l.x.shape[0], sub_r.x.shape[0])
+    sl, sr = pad_subset(sub_l, b), pad_subset(sub_r, b)
+    ct2 = torch.stack([ct, ct])
+
+    def energy(pos):
+        return _batched_energy_force(
+            cfg.pair, torch.stack([sl.x, sr.x]), torch.stack(
+                [sl.type, sr.type]), torch.stack([sl.valid, sr.valid]),
+            pos, ct2, box=cfg.box)[0]
+
+    def steps_cfg(n):
+        return dataclasses.replace(cfg, obmd=dataclasses.replace(
+            o, usher=dataclasses.replace(u, nattempt=n)))
+
+    def kernel(n=u.nattempt):
+        return launch(steps_cfg(n), sub_l, sub_r, cl, cr, o.region5,
+                      o.region6)
+
+    def plain(n, pos_l, pos_r):
+        return usher_search_subset_batch(steps_cfg(n), sub_l, sub_r, pos_l,
+                                         pos_r, ct, o.region5, o.region6)
+    gate = u.etarget + EPSILON
+    near = USHER_F64_GATE * abs(u.etarget)
+    ly = cfg.box.lengths[1]
+    err, steps, ties = 0.0, 0, []
+    with KeepCounts():
+        kern = kernel(0)
+        for n in range(u.nattempt):
+            pk, ak, ik = kern
+            nxt = kernel(n + 1)
+            pk1, ak1, ik1 = nxt
+            if pk.dtype != f64 or pk1.dtype != f64:
+                fail(f"USHER {label}: the kernel's positions are not "
+                     f"float64")
+            searching = ik == n
+            done = ~searching
+            if not (torch.equal(pk1[done], pk[done])
+                    and torch.equal(ak1[done], ak[done])
+                    and torch.equal(ik1[done], ik[done])):
+                fail(f"USHER {label}: a candidate that stopped within {n} "
+                     f"steps changed in the run of {n + 1}")
+            pp, ap, ip = plain(1, pk[0].contiguous(), pk[1].contiguous())
+            margin = torch.minimum(
+                (energy(pk) - gate).abs(),
+                torch.minimum((energy(pk1) - gate).abs(),
+                              (energy(pp) - gate).abs()))
+            same = (ak1 == ap) & ((ik1 == n + 1) == (ip == 1))
+            apart = searching & ~same
+            if bool((apart & (margin >= near)).any()):
+                fail(f"USHER {label}: step {n + 1}'s verdicts differ from "
+                     f"the plain step's clear of the gate (margins "
+                     f"{margin[apart].tolist()})")
+            ties += margin[apart].tolist()
+            held = searching & same
+            steps += int(held.sum())
+            if bool(held.any()):
+                err = max(err, float((pk1 - pp).abs().amax(-1)[held].max()))
+            kern = nxt
+        if not err <= USHER_F64_POS * ly:
+            fail(f"USHER {label}: position error {err} > {USHER_F64_POS} x "
+                 f"Ly")
+        if steps < 6:
+            fail(f"USHER {label}: only {steps} steps checked")
+        pk, ak, ik = kern
+        if not all(torch.equal(a, c) for a, c in zip(kern, kernel())):
+            fail(f"USHER {label}: two launches on one input differ")
+        pp, ap, ip = plain(u.nattempt, cl, cr)
+        sync()
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: plain(u.nattempt, cl, cr), reps=5,
+                           warmup=1, batches=1)
+    whole = (ak == ap) & (ik == ip)
+    whole_err = float((pk - pp).abs().amax(-1)[whole].max()) \
+        if bool(whole.any()) else 0.0
+    w = usher_work(cfg, sub_l, sub_r, cl, cr, ik)
+    b_ms, b_by = bound(w["bytes"], w["ops"], F64_OPS_PER_S)
+    log(f"usher {label} (float64): B={sub_l.x.shape[0]},{sub_r.x.shape[0]}, "
+        f"K={k}, {steps} steps equal to the plain step, max position error "
+        f"{err:.3e} (bar {USHER_F64_POS * ly:.3e}), {len(ties)} steps apart "
+        f"at the gate (margins {ties}); accepted {int(ak.sum())}/"
+        f"{ak.numel()} (plain {int(ap.sum())}), iterations {int(ik.sum())} "
+        f"(plain {int(ip.sum())}), whole searches: {int((~whole).sum())} "
+        f"verdicts or counts apart, the others' positions within "
+        f"{whole_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}; {w['bytes']} bytes, {w['ops']} "
+        f"float64 operations, {w['evals']} evaluations); two launches the "
+        f"same bytes")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None), dict(
+        B=[sub_l.x.shape[0], sub_r.x.shape[0]], K=k, steps_checked=steps,
+        gate_ties=len(ties), gate_tie_margins=ties, accepted=int(ak.sum()),
+        iterations=int(ik.sum()), whole_searches_apart=int((~whole).sum()),
+        whole_searches_max_pos_err=whole_err)
 
 
 class SeededDraws:
@@ -2206,6 +2403,8 @@ def run_obmd_lj():
     # ---- phase 12: the kernels on the ended production state, a profile
     # of two relayout epochs, then FULL_STEPS steps through the full kernel
     usher, usher_info = check_usher(cfg, geom, st_prod, "lj")
+    usher64, usher64_info = check_usher_f64(
+        cfg, *map(widened, buffer_subsets(cfg, geom, st_prod)), "lj")
     pair, full = check_both(cfg, geom, st_prod, f"lj cap {geom.fcap}, open x")
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
     with KeepCounts():
@@ -2230,13 +2429,16 @@ def run_obmd_lj():
                 small_path_max_pos_err=small_err, usher=usher_info,
                 forces_vs_sweep_max_abs_err=sweep_err,
                 forces_vs_sweep_max_f=sweep_scale, profile=prof,
-                full_kernel_ms_per_step=full_ms)
+                full_kernel_ms_per_step=full_ms, usher_f64=usher64_info)
     config = f"lj, cap {geom.fcap}, open x, p = {geom.p}"
     kernels = [
         kernel_line("pair", config, "obmd_tpu/forces/pallas_dpd.py:324",
                     launches["pair"][1][f"lj-cap{geom.fcap}"], pair),
         kernel_line("usher_search_lj", "lj", None,
                     launches["usher_search_lj"][0], usher),
+        kernel_line("usher_search_lj_f64", "lj rows on the open LJ fluid's "
+                    "subsets widened to float64, kernel-only", None, 0,
+                    usher64),
         kernel_line("dpd_full", config, None, full_launches["dpd_full"][0],
                     full),
     ]
@@ -2655,6 +2857,8 @@ def run_ljrf():
     # ---- phase 18: the kernels on the ended production state, a profile,
     # the kernel-only configurations and the LAMMPS golden
     usher, usher_info = check_usher(cfg, geom, st_prod, "ljrf")
+    usher64, usher64_info = check_usher_f64(
+        cfg, *map(widened, buffer_subsets(cfg, geom, st_prod)), "ljrf")
     pair, _ = check_pair(cfg, geom, st_prod,
                          f"ljrf, 2 types, cap {geom.fcap}, open x")
     from obmd_tpu_torch.engine_cellpad import _make_kernel, pack_fields
@@ -2679,13 +2883,17 @@ def run_ljrf():
                 small_path_max_pos_err=small_err, usher=usher_info,
                 forces_vs_sweep_max_abs_err=sweep_err,
                 forces_vs_sweep_max_f=sweep_scale, profile=prof,
-                kernel_only_checks=kernel_only, golden=golden)
+                kernel_only_checks=kernel_only, golden=golden,
+                usher_f64=usher64_info)
     kernels = [
         kernel_line("pair", f"ljrf, 2 types, cap {geom.fcap}, open x, "
                     f"p = {geom.p}", "obmd_tpu/forces/pallas_dpd.py:324",
                     launches["pair"][1][key], pair),
         kernel_line("usher_search_ljrf", "lj/cut/rf rows, 2 types", None,
                     launches["usher_search_ljrf"][0], usher),
+        kernel_line("usher_search_ljrf_f64", "lj/cut/rf rows, 2 types, on "
+                    "the open charged fluid's subsets widened to float64, "
+                    "kernel-only", None, 0, usher64),
     ]
     return path, kernels, (cfg, st_prod)
 
@@ -3131,7 +3339,32 @@ def run_near_box():
     return path, kernels
 
 
-def run_closed_box():
+def float_leaves(state) -> dict:
+    """Every floating tensor of a State, its ObmdScalars and its layout, by
+    name."""
+    import torch
+    out = {}
+    for obj, pre in ((state, ""), (state.obmd, "obmd."),
+                     (state.nbrs, "nbrs.")):
+        if obj is None:
+            continue
+        for f in dataclasses.fields(obj):
+            t = getattr(obj, f.name)
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                out[pre + f.name] = t
+    return out
+
+
+def require_float64(state, label):
+    """Every float tensor of the state is float64."""
+    import torch
+    narrow = {k: str(t.dtype) for k, t in float_leaves(state).items()
+              if t.dtype != torch.float64}
+    if narrow:
+        fail(f"{label}: float tensors not float64: {narrow}")
+
+
+def run_closed_box(dtype="float32"):
     """Phase 23b: path N, the closed periodic DPD box of Milestone A
     (scenes.closed_dpd_scene at CLOSED_BOX: 2,000 atoms in a cube of
     8.736, NVE with the DPD thermostat, dt 0.04), on the nlist engine as
@@ -3143,16 +3376,25 @@ def run_closed_box():
     CLOSED_T (the JAX package's tests/test_integrate.py:45-60),
     check_invariants; the nlist engine launches no kernel, the cellpad
     engine the pair kernel once per step and at setup; then that launch
-    on the ended state against its plain version."""
+    on the ended state against its plain version.
+
+    Phase 23c, path N64, with dtype="float64": the same at float64.  On
+    the nlist engine every float tensor of the ended state float64 and
+    most forces not float32 values (a float64 force, not one cast up); on
+    the cellpad engine the state float64 and every force a float32 value
+    (the kernel's on float32 fields, cast up, as the JAX engine runs it),
+    the same row held to its plain version."""
+    import torch
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import make_geometry
     from obmd_tpu_torch.integrate import make_run, setup
     from obmd_tpu_torch.observe import check_invariants
     from obmd_tpu_torch.state import temperature
 
+    f64 = dtype == "float64"
     path, kernels = {}, []
     for engine in ("nlist", "cellpad"):
-        sc = scenes.closed_dpd_scene(**CLOSED_BOX, device=DEV)
+        sc = scenes.closed_dpd_scene(**CLOSED_BOX, dtype=dtype, device=DEV)
         cfg = sc.cfg
         if engine == "cellpad":
             cfg = dataclasses.replace(
@@ -3160,7 +3402,7 @@ def run_closed_box():
                 capacity=dataclasses.replace(
                     cfg.capacity, cell_capacity=CLOSED_CELLPAD_CAP))
         cfg = cfg.finalize()
-        label = f"closed DPD box, {engine} engine"
+        label = f"closed DPD box, {engine} engine, {dtype}"
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         st = make_run(cfg, CLOSED_SETTLE)(setup(cfg, sc.state))
@@ -3183,6 +3425,18 @@ def run_closed_box():
         fig = dict(atoms=int(st.natoms), t_mean=t_mean,
                    ms_per_step=run_s / (CLOSED_SETTLE + CLOSED_MEAN) * 1e3,
                    telemetry=tel)
+        if f64:
+            require_float64(st, label)
+            f = st.f[st.alive]
+            narrow = float((f == f.to(torch.float32).to(f.dtype))
+                           .all(-1).to(torch.float64).mean())
+            if engine == "nlist" and not narrow < 0.1:
+                fail(f"{label}: {narrow:.3f} of the forces are float32 "
+                     f"values")
+            if engine == "cellpad" and narrow != 1.0:
+                fail(f"{label}: the kernel's forces are not float32 values "
+                     f"({narrow:.3f})")
+            fig["float32_valued_forces"] = narrow
         if engine == "nlist":
             require_launches(launches, {}, label)
         else:
@@ -3195,7 +3449,7 @@ def run_closed_box():
                      f"{CLOSED_SETTLE + CLOSED_MEAN} steps")
             row = (f"dpd, closed periodic box of "
                    f"{' x '.join(map(str, geom.dims))} cells, fill cap "
-                   f"{geom.fcap}")
+                   f"{geom.fcap}" + (", float64 state" if f64 else ""))
             pair, _ = check_pair(cfg, geom, st, row)
             kernels.append(kernel_line("pair", row,
                                        "obmd_tpu/forces/pallas_dpd.py:324",
@@ -4016,6 +4270,8 @@ def run_dpdext(cfg24, st_eq):
     subsets = insertion_subsets(cfg_ins, st)
     scratch = scratch_figure(cfg_ins, subsets)
     usher, _ = check_usher(cfg_ins, None, st, "dpd/ext", subsets=subsets)
+    usher64, usher64_info = check_usher_f64(
+        cfg_ins, *map(widened, subsets), "dpd/ext")
     log(f"path G USHER: kernel {usher['ms']:.4f} ms, bound "
         f"{usher['bound_ms']:.5f} ms ({usher['bound_by']}), plain "
         f"{usher['plain_ms']:.3f} ms, scratch {scratch}")
@@ -4027,9 +4283,133 @@ def run_dpdext(cfg24, st_eq):
                 kinetic_thermal_temps=[p[1:] for p in probes],
                 net_pair_force=fsum, insertion_phase_inserted=inserted,
                 insertion_phase_usher_iters=iters, profile=prof,
-                cross_engine=cross, golden=golden, usher_scratch=scratch)
+                cross_engine=cross, golden=golden, usher_scratch=scratch,
+                usher_f64=usher64_info)
     kernels = [kernel_line("usher_search_dpdext", "dpd/ext, path G", None,
-                           launches["usher_search_dpdext"][0], usher)]
+                           launches["usher_search_dpdext"][0], usher),
+               kernel_line("usher_search_dpdext_f64", "dpd/ext rows on path "
+                           "G's insertion subsets widened to float64, "
+                           "kernel-only", None, 0, usher64)]
+    return path, kernels
+
+
+def run_float64(cfg24, st_eq, g_path):
+    """Phase 43b: path O, OBMD_DPD at float64 on the nlist engine
+    (obmd_dpd_config(scale=9, dtype="float64", force_path="nlist"), the
+    scene's own list settings), from phase 4's equilibrated state st_eq
+    widened to float64 (slots_of: exact, so paths A, G and O share one
+    start).  Setup; at the start every float tensor float64, the list's
+    pure pair forces against the plain pair_sweep at float64 within
+    1e-10 x max|f| and summing to within 1e-10 x max|f| of zero; O_RELAX
+    steps, two timed windows of O_STEPS (host clock, synchronized),
+    check_invariants (no list or cell overflow), the thermal T relaxing to
+    within 5% of 1.0 over the three marks (check_thermal), every float
+    tensor still float64, a profile of two steps beside path G's (g_path,
+    the same card); then the insertion phase with nbuf raised to 1.05 x
+    census / alpha (INS_STEPS steps, insertions > 0, check_invariants).
+    Launch counts are zeroed before setup and read after the insertion
+    phase: the float64 USHER kernel (usher_search_f64) on every step that
+    needs atoms, and no other kernel.  Then that kernel on the insertion
+    state's subsets against its plain version (check_usher_f64)."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.integrate import (compute_forces, make_grid_spec,
+                                          make_run, setup)
+    from obmd_tpu_torch.obmd.stage import insertion_subsets
+    from obmd_tpu_torch.observe import check_invariants, make_obmd_metrics_fn
+    label = "path O"
+    cfg = scenes.obmd_dpd_config(scale=O_SCALE, dtype="float64",
+                                 force_path="nlist")
+    start = slots_of(cfg, st_eq)
+    require_float64(start, f"{label} start")
+    _build.reset_launch_counts()
+    t_path = time.perf_counter()
+    st = setup(cfg, start)
+    require_float64(st, f"{label} after setup")
+    natoms0 = int(st.natoms)
+    with KeepCounts():
+        f_list = nlist_pair_forces(cfg, st)
+        pf, ctab = compute_forces(dataclasses.replace(cfg, obmd=None),
+                                  make_grid_spec(cfg), st)
+        sync()
+    if int(ctab.overflow) != 0:
+        fail(f"{label}: the pair sweep's cell overflow {int(ctab.overflow)}")
+    alive = st.alive
+    scale = float(pf.f[alive].abs().max())
+    sweep_err = float((f_list - pf.f)[alive].abs().max())
+    fsum = float(f_list[alive].sum(0).abs().max())
+    if not (f_list.dtype == pf.f.dtype == torch.float64
+            and sweep_err <= 1e-10 * scale and fsum <= 1e-10 * scale):
+        fail(f"{label}: the list force against the plain pair_sweep "
+             f"{sweep_err} (max|f| {scale}), |sum f| {fsum}, dtypes "
+             f"{f_list.dtype}, {pf.f.dtype}")
+    del pf, ctab
+    st = make_run(cfg, O_RELAX)(st)
+    sync()
+    probe = window_temps(cfg, None, label)
+    probes = [probe(st)]
+    run = make_run(cfg, O_STEPS)
+    windows = []
+    for _ in range(2):
+        s0 = st.step
+        t0 = time.perf_counter()
+        st = run(st)
+        sync()
+        windows.append((time.perf_counter() - t0, st.step - s0))
+        probes.append(probe(st))
+    t_relax = check_thermal(probes, label)
+    tel = check_invariants(cfg, st)
+    check_finite(st, label)
+    require_float64(st, f"{label} after the windows")
+    natoms = int(st.natoms)
+    st_prod = st
+    m = make_obmd_metrics_fn(cfg)(st)
+    census = 0.5 * (int(m.nbuf_left) + int(m.nbuf_right))
+    cfg_ins = dataclasses.replace(cfg, obmd=dataclasses.replace(
+        cfg.obmd, nbuf=1.05 * census / cfg.obmd.alpha)).finalize()
+    ins0, it0 = int(st.obmd.ninserted), int(st.obmd.usher_iters)
+    t_ins = time.perf_counter()
+    st = make_run(cfg_ins, INS_STEPS)(st)
+    sync()
+    ins_s = time.perf_counter() - t_ins
+    tel_ins = check_invariants(cfg_ins, st)
+    inserted = int(st.obmd.ninserted) - ins0
+    iters = int(st.obmd.usher_iters) - it0
+    if inserted <= 0:
+        fail(f"{label}: the insertion phase inserted no atoms")
+    check_finite(st, f"{label} insertion phase")
+    require_float64(st, f"{label} after the insertion phase")
+    path_s = time.perf_counter() - t_path
+    launches = launch_counts()
+    wall, steps = min(windows)
+    log(f"{label} ({natoms0} atoms at setup, {natoms} after the windows, "
+        f"n_max {cfg.capacity.n_max}, float64) {path_s:.1f} s, windows "
+        f"{windows}, {wall / steps * 1e3:.3f} ms/step (path G "
+        f"{g_path['ms_per_step']:.3f}), "
+        f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, telemetry "
+        f"{tel}; list force against the plain pair_sweep {sweep_err:.3e}, "
+        f"|sum f| {fsum:.3e} (max|f| {scale:.1f}); insertion phase: nbuf "
+        f"{cfg_ins.obmd.nbuf:.1f}, {inserted} inserted, {iters} USHER "
+        f"iterations in {INS_STEPS} steps ({ins_s:.2f} s), {tel_ins}; "
+        f"launches {launches}")
+    require_launches(launches, {"usher_search_f64": None}, label)
+    prof = profile_steps(make_run(cfg, 2), st_prod, 2)
+    log(f"{label} profile: {prof}; path G's: {g_path['profile']}")
+    subsets = insertion_subsets(cfg_ins, st)
+    usher, usher_info = check_usher_f64(cfg_ins, *subsets, "dpd, path O")
+    path = dict(atoms_at_setup=natoms0, atoms=natoms,
+                n_max=cfg.capacity.n_max, ms_per_step=wall / steps * 1e3,
+                mparticle_steps_per_s=steps / wall * natoms / 1e6,
+                path_g_ms_per_step=g_path["ms_per_step"],
+                windows_s=[w for w, _ in windows], path_s=path_s,
+                telemetry=tel, thermal_temp_limit=t_relax,
+                kinetic_thermal_temps=[p[1:] for p in probes],
+                list_vs_sweep_max_abs_err=sweep_err, net_pair_force=fsum,
+                max_f=scale, insertion_phase_inserted=inserted,
+                insertion_phase_usher_iters=iters, profile=prof,
+                path_g_profile=g_path["profile"], usher=usher_info)
+    kernels = [kernel_line("usher_search_f64", "dpd, float64, path O", None,
+                           launches["usher_search_f64"][0], usher)]
     return path, kernels
 
 
@@ -5831,7 +6211,8 @@ def run_native(tmp, it, data_small):
 def slots_of(cfg, state):
     """The live atoms of a state (a cellpad layout's slots are padded
     beyond n_max) in a fresh store of cfg's n_max slots, in tag order, with
-    their velocities, tags, step, time and counters."""
+    their velocities, tags, step, time and counters, in cfg's dtype (a
+    float32 state widened to a float64 scene's exactly)."""
     import torch
     from obmd_tpu_torch.state import init_state
     alive = state.alive
@@ -5840,9 +6221,13 @@ def slots_of(cfg, state):
                      v=state.v[alive][order].cpu().numpy(),
                      tags=state.tag[alive][order].cpu().numpy(),
                      device=state.device)
-    return out.replace(step=state.step, sim_time=state.sim_time.clone(),
-                       maxtag=state.maxtag.clone(),
-                       obmd=dataclasses.replace(state.obmd))
+    obmd = dataclasses.replace(state.obmd, **{
+        f.name: getattr(state.obmd, f.name).to(out.dtype)
+        for f in dataclasses.fields(state.obmd)
+        if getattr(state.obmd, f.name).is_floating_point()})
+    return out.replace(step=state.step,
+                       sim_time=state.sim_time.to(out.dtype, copy=True),
+                       maxtag=state.maxtag.clone(), obmd=obmd)
 
 
 def scratch_figure(cfg, subsets):
@@ -6657,7 +7042,7 @@ def queue_side_jobs():
 
 
 def run_smoke():
-    """Phases 2-43; returns the paths' figures and the kernel figures."""
+    """Phases 2-43b; returns the paths' figures and the kernel figures."""
     from obmd_tpu_torch import _build
     from concurrent.futures import ThreadPoolExecutor
     t_all = time.perf_counter()
@@ -6708,6 +7093,9 @@ def run_smoke():
     closed_path, closed_kernels = run_closed_box()
     wall_s["closed_dpd"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    closed64_path, closed64_kernels = run_closed_box("float64")
+    wall_s["closed_dpd_float64"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     film, film_kernels = run_film()
     wall_s["dpd_film_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -6744,6 +7132,9 @@ def run_smoke():
     slab_path, slab_kernels = slab_out
     mol_path, mol_kernels = mol_out
     del star_end
+    t0 = time.perf_counter()
+    f64_path, f64_kernels = run_float64(*obmd_prod[:2], ext_path)
+    wall_s["obmd_dpd_float64"] = time.perf_counter() - t0
     wall_s["total"] = time.perf_counter() - t_all
     if Side.jobs:
         fail(f"side process runs no check took: {sorted(Side.jobs)}")
@@ -6755,6 +7146,7 @@ def run_smoke():
                           obmd_dpd_gaussian=gauss_path,
                           dpd_tstat_ramp=tstat_path, obmd_dpd_near=near_path,
                           near_box=box_path, closed_dpd=closed_path,
+                          closed_dpd_float64=closed64_path,
                           dpd_film=film,
                           star_melt=star_path, open_star=open_path,
                           obmd_dpdext=ext_path,
@@ -6763,14 +7155,16 @@ def run_smoke():
                           open_water=water_path,
                           open_rigid_water=rigid_path, decks=deck_path,
                           multi_rank=slab_path,
-                          multi_rank_molecules=mol_path),
+                          multi_rank_molecules=mol_path,
+                          obmd_dpd_float64=f64_path),
                 kernels=obmd_kernels + lj_kernels + olj_kernels
                 + chain_kernels + rf_kernels + gauss_kernels + tstat_kernels
-                + near_kernels + box_kernels + closed_kernels + film_kernels
+                + near_kernels + box_kernels + closed_kernels
+                + closed64_kernels + film_kernels
                 + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
                 + water_kernels + deck_kernels + rigid_kernels
-                + slab_kernels + mol_kernels)
+                + slab_kernels + mol_kernels + f64_kernels)
 
 
 def main():

@@ -50,9 +50,11 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # selected by a macro (the source's header says which instantiations each
 # holds), and linked into one library: -split-compile parallelizes only
 # the optimizer, so pair_kernel.cu's instantiations as one unit took
-# about a minute to build (PERF.md §6).  Undefined references
-# fail the link.
-SOURCE_PARTS = {"pair_kernel.cu": ("OBMD_PAIR_PART", 12)}
+# about a minute to build (PERF.md §6); usher_kernel.cu's float64 entry
+# points build beside its float32 ones.  Undefined references fail the
+# link.
+SOURCE_PARTS = {"pair_kernel.cu": ("OBMD_PAIR_PART", 12),
+                "usher_kernel.cu": ("OBMD_USHER_PART", 2)}
 NVCC_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 NVCC_LINK_FLAGS = (NVCC_FLAGS[0], "-shared", "-Xlinker", "-z", "-Xlinker",
                    "defs")
@@ -63,6 +65,7 @@ HOST_CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _U = ctypes.c_uint32
 
 
@@ -123,9 +126,14 @@ _L = ctypes.c_longlong
 # per side x, type, valid, B; cand_l, cand_r, K, scratch, scratch words,
 # out_pos, out_acc, out_iters, cells, grid, bounds, coef (host arrays),
 # ntypes, nattempt, ly, lz, thresh, etarget, ds0, uovlp, dsovlp, four_eps,
-# eps, stream
+# eps, stream; the float64 entry points take the nine reals as doubles
 _USHER_ARGS = ((_P,) * 3 + (_I,)) * 2 + (_P, _P, _I, _P, _L) + (_P,) * 7 \
     + (_I,) * 2 + (_F,) * 9 + (_P,)
+_USHER_ARGS_F64 = _USHER_ARGS[:-10] + (_D,) * 9 + (_P,)
+# the float64 rows' TPU counterpart: the same kernel, which the JAX nlist
+# engine runs as the XLA usher_search_subset at x64
+_F64_REPLACES = ("obmd_tpu/forces/pallas_usher.py:110 (float64; the JAX "
+                 "nlist engine's XLA usher_search_subset at x64)")
 
 KERNELS: Dict[str, Kernel] = {
     "pair": Kernel(
@@ -161,6 +169,24 @@ KERNELS: Dict[str, Kernel] = {
         symbol="obmd_usher_search_lj", argtypes=_USHER_ARGS,
         replaces="obmd_tpu/forces/pallas_usher.py:110 (neutral lj/cut/rf "
                  "rows :57-75, E and F :155-166)"),
+    # each law again on a float64 scene's subsets (usher_kernel.py picks
+    # the instantiation from the subset's dtype)
+    "usher_search_f64": Kernel(
+        name="usher_search_f64", source="usher_kernel.cu",
+        symbol="obmd_usher_search_f64", argtypes=_USHER_ARGS_F64,
+        replaces=_F64_REPLACES),
+    "usher_search_dpdext_f64": Kernel(
+        name="usher_search_dpdext_f64", source="usher_kernel.cu",
+        symbol="obmd_usher_search_f64", argtypes=_USHER_ARGS_F64,
+        replaces=_F64_REPLACES),
+    "usher_search_lj_f64": Kernel(
+        name="usher_search_lj_f64", source="usher_kernel.cu",
+        symbol="obmd_usher_search_lj_f64", argtypes=_USHER_ARGS_F64,
+        replaces=_F64_REPLACES),
+    "usher_search_ljrf_f64": Kernel(
+        name="usher_search_ljrf_f64", source="usher_kernel.cu",
+        symbol="obmd_usher_search_lj_f64", argtypes=_USHER_ARGS_F64,
+        replaces=_F64_REPLACES),
 }
 
 

@@ -735,6 +735,10 @@ class Capacity:
 
 
 FORCE_PATHS = ("cellpad", "nlist", "sweep")
+# the dtypes a scene's state may take, as the JAX package's SceneConfig.dtype
+# (which runs float64 with x64 enabled; engine_cellpad.check_float64 names
+# the parts of the port that run float32 only)
+DTYPES = ("float32", "float64")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -783,11 +787,14 @@ class SceneConfig:
         templates under the fix's `shake`, and refuse rigid with shake, a
         table of another type count (obmd_tpu/config.py:868-893) and, where
         the JAX package does not, rigid with a template whose bonds close a
-        cycle."""
+        cycle, and a dtype outside DTYPES."""
         out = self
         if out.force_path not in FORCE_PATHS:
             raise ValueError(f"force_path must be one of {FORCE_PATHS}, not "
                              f"{out.force_path!r}")
+        if out.dtype not in DTYPES:
+            raise NotImplementedError(f"dtype must be one of {DTYPES}, not "
+                                      f"{out.dtype!r}")
         if out.obmd is not None and out.obmd.buffer_size == 0.0:
             lx = out.box.lengths[0]
             obmd = dataclasses.replace(out.obmd, buffer_size=0.3 * lx)

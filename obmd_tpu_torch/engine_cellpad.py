@@ -70,9 +70,9 @@ from .cellpad import (PadAux, layout_build, maybe_rebuild, note_skin_check,
                       relayout_incremental, scatter_rows, slab_slice_bounds,
                       compact_indices)
 from .cells import BIG
-from .config import (DPDTstatParams, LJCutRFParams, SceneConfig,
+from .config import (DTYPES, DPDTstatParams, LJCutRFParams, SceneConfig,
                      template_stacks)
-from .geometry import const, const_like
+from .geometry import const, const_like, rounded
 from .rigid import check_bodies, rigid_drift, rigid_project
 from .shake import rattle_velocities, shake_positions
 from .forces.bonded import (angle_forces, bond_forces, dihedral_forces,
@@ -140,14 +140,47 @@ def own_draws(cfg: SceneConfig) -> Draw:
     return draw
 
 
+def check_float64(cfg: SceneConfig) -> None:
+    """The parts of a float64 scene this port does not run yet (ROADMAP
+    Queue 1): rigid bodies (whose drift departs from the JAX package's,
+    so no float64 parity holds them) and MOLECULE-mode insertion.  A
+    float64 scene without them, bonded terms and SHAKE/RATTLE included,
+    runs on every single-device engine (config.DTYPES;
+    tests/test_torch_float64_bonded.py)."""
+    if cfg.dtype != "float64":
+        return
+    parts = [name for name, on in (
+        ("rigid bodies", cfg.rigid),
+        ("MOLECULE-mode insertion", mol_mode(cfg))) if on]
+    if parts:
+        raise NotImplementedError(
+            f"float64 scenes with {', '.join(parts)} are not ported yet; "
+            f"run the scene at float32")
+
+
+def refuse_float64(cfg: SceneConfig, part: str) -> None:
+    """Raise for a float64 scene in a part of the port that runs float32
+    only (ROADMAP Queue 1: the deck Interpreter and the C ABI over it, which
+    have no dtype in the JAX package either, and the multi-device
+    steps)."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"{part} runs float32 scenes only; a float64 scene runs on one "
+            f"device (the nlist or sweep engine, or the cellpad engine "
+            f"without an OBMD stage)")
+
+
 def check_scene(cfg: SceneConfig) -> None:
-    """The refusals every engine shares: float32 only, as many masses as
+    """The refusals every engine shares: a dtype of config.DTYPES (float32,
+    or float64 without the parts check_float64 refuses), as many masses as
     the pair law has types, and an OBMD stage only on an open x axis,
     without bonded terms in ATOM mode (where the JAX engines bond a
     survivor of a deleted partner to the next atom inserted into its
     slot)."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError("only float32 scenes are ported")
+    if cfg.dtype not in DTYPES:
+        raise NotImplementedError(f"dtype {cfg.dtype!r}: scenes run in "
+                                  f"{' or '.join(DTYPES)}")
+    check_float64(cfg)
     if cfg.ntypes != cfg.pair.ntypes:
         raise ValueError(f"{cfg.ntypes} masses for a pair law of "
                          f"{cfg.pair.ntypes} types")
@@ -171,6 +204,16 @@ def check_scene(cfg: SceneConfig) -> None:
             "keyword")
 
 
+# why the cellpad engine refuses a float64 scene with an OBMD stage
+FLOAT64_STAGE = (
+    "a float64 scene with an OBMD stage runs on the nlist engine "
+    "(force_path='nlist'), in float64 throughout; the cellpad engine "
+    "refuses it, as the JAX cellpad engine fails on it under x64: the "
+    "lax.cond in its _insert has branches whose iteration counts differ "
+    "in type (obmd_tpu/engine_cellpad.py:539 int64 from _rounds_body, "
+    ":616 int32 from _skip_rounds)")
+
+
 def check_supported(cfg: SceneConfig) -> None:
     """Raise for a configuration the port's cellpad engine cannot run yet:
     open boxes with ATOM-mode USHER or `near` insertion or MOLECULE-mode
@@ -184,8 +227,12 @@ def check_supported(cfg: SceneConfig) -> None:
     obmd_tpu/engine_cellpad.py:149-154) and impropers, on chains or
     branched topologies (the pair kernel's 4-channel exclusion); rigid
     bodies, whose trees setup checks (rigid.check_bodies; check_scene's
-    refusals first)."""
+    refusals first).  At float64 the state is float64 and the kernel
+    fields float32, as the JAX engine runs it; a float64 scene with an
+    OBMD stage is refused (FLOAT64_STAGE)."""
     check_scene(cfg)
+    if cfg.dtype == "float64" and cfg.obmd is not None:
+        raise NotImplementedError(FLOAT64_STAGE)
     if mol_mode(cfg):
         top = int(template_stacks(cfg.obmd).types.max())
         if top >= cfg.ntypes:
@@ -281,14 +328,17 @@ def pack_fields(cfg, geom, state: State):
     """The pair kernel's inputs: (fld f32[nb, NF, cap, lanes] = x (BIG at
     dead slots), v, then q for lj/cut/rf, then the type as a float with 2-4
     types (obmd_tpu/engine_cellpad.py:81-101); tag3d; the step's noise
-    salt; occ; on a bonded scene the partner tags pbond, else None)."""
+    salt; occ; on a bonded scene the partner tags pbond, else None).  The
+    fields are float32 whatever the state's dtype: a float64 state is
+    rounded into them, as the JAX engine packs them (:94-99)."""
     nb, cap, lanes = geom.n_blocks, geom.cap, geom.lanes
     chans = [torch.where(state.alive[:, None], state.x, BIG), state.v]
     if isinstance(cfg.pair, LJCutRFParams):
         chans.append(state.q[:, None])
     if cfg.ntypes > 1:
-        chans.append(state.type.to(torch.float32)[:, None])
-    fld = torch.cat(chans, dim=1).reshape(nb, cap, lanes, -1) \
+        chans.append(state.type[:, None])
+    fld = torch.cat([c.to(torch.float32) for c in chans], dim=1) \
+        .reshape(nb, cap, lanes, -1) \
         .permute(0, 3, 1, 2).contiguous()
     aux: PadAux = state.nbrs
     pbond = partner_tags(geom, state) if cfg.bond is not None else None
@@ -297,13 +347,14 @@ def pack_fields(cfg, geom, state: State):
 
 def _forces(cfg, geom, kern, state: State) -> torch.Tensor:
     """Pair kernel on the packed fields (with a dpd/tstat ramp's noise
-    scale of the salt's step, obmd_tpu/integrate.py:51-53), then the
-    boundary force, the bond, angle, dihedral and improper forces and the
-    Langevin force, in the JAX engine's order
+    scale of the salt's step, obmd_tpu/integrate.py:51-53), its float32
+    force cast to the state's dtype (obmd_tpu/engine_cellpad.py:130), then
+    the boundary force, the bond, angle, dihedral and improper forces and
+    the Langevin force, in the JAX engine's order
     (obmd_tpu/engine_cellpad.py:131-166)."""
     fpad = kern(*pack_fields(cfg, geom, state),
                 sig_scale=sig_scale_of(cfg.pair, state.step))
-    f = fpad.permute(0, 2, 3, 1).reshape(-1, 3)
+    f = fpad.permute(0, 2, 3, 1).reshape(-1, 3).to(state.dtype)
     if cfg.obmd is not None:
         f = _boundary_force_sliced(cfg, geom, state, f)
     f = add_bonded_forces(cfg, state, f)
@@ -805,8 +856,7 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     and the force pass (f is dead there and skips the move); with_stage
     False leaves out the OBMD stage (a step between two of an nfreq
     group's stages)."""
-    dt = float(np.float32(cfg.dt))          # float32 values as python floats
-    dtf = float(np.float32(0.5 * cfg.dt))
+    dt, dtf = step_times(cfg)
     state = kick_drift(cfg, state, dt, dtf)
     if relayout:
         if cfg.skin > 0:
@@ -816,6 +866,14 @@ def _plain_step(cfg, geom, kern, state: State, draw: Draw,
     if cfg.obmd is not None and with_stage:
         state = _obmd_stage(cfg, geom, state, draw, with_rebuild=False)
     return _finish_step(cfg, geom, kern, state)
+
+
+def step_times(cfg: SceneConfig):
+    """(dt, dt / 2) rounded to the scene's dtype, as python floats: the
+    JAX step's dtype(cfg.dt) and dtype(0.5 * dt) (obmd_tpu/integrate.py:
+    296-299)."""
+    real = getattr(torch, cfg.dtype)
+    return rounded(cfg.dt, real), rounded(0.5 * cfg.dt, real)
 
 
 def kick_drift(cfg, state: State, dt: float, dtf: float) -> State:
@@ -857,7 +915,7 @@ def kick(cfg, state: State, f, dtf: float) -> torch.Tensor:
 def _finish_step(cfg, geom, kern, state: State) -> State:
     """The force pass and the second half kick (and the molecules'
     centers of mass in MOLECULE mode)."""
-    dtf = float(np.float32(0.5 * cfg.dt))
+    _, dtf = step_times(cfg)
     f = _forces(cfg, geom, kern, state)
     state = state.replace(v=kick(cfg, state, f, dtf), f=f,
                           step=state.step + 1)
@@ -886,8 +944,7 @@ def make_step_cellpad(cfg: SceneConfig, draw: Optional[Draw] = None):
     geom = make_geometry(cfg)
     kern = _make_kernel(cfg, geom)
     nfreq = stage_every(cfg)
-    dt = float(np.float32(cfg.dt))
-    dtf = float(np.float32(0.5 * cfg.dt))
+    dt, dtf = step_times(cfg)
 
     def step(state: State) -> State:
         state = kick_drift(cfg, state, dt, dtf)

@@ -16,12 +16,11 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..cells import BIG, CellTable, GridSpec
 from ..config import LJCutRFParams
-from ..geometry import const_like
+from ..geometry import const_like, reciprocals
 from .pairs import apply_pair_law, make_pair_law
 
 # rows of the subset gathered at a time: bounds the [rows, S * cap]
@@ -53,11 +52,11 @@ def neighbor_slots(spec: GridSpec, ctab: CellTable,
                    pos: torch.Tensor) -> torch.Tensor:
     """[P, S * cap] slot ids of the atoms in the S distinct stencil cells
     around each position pos [P, 3] (N for an empty entry), cell by cell
-    in stencil order.  A position files into its cell by the float32
-    reciprocal of the cell side, clipped to the grid, as
+    in stencil order.  A position files into its cell by the reciprocal of
+    the cell side in its dtype, clipped to the grid, as
     cells.GridSpec.cell_of files atoms."""
     dims = spec.dims
-    inv = [float(np.float32(1.0) / np.float32(c)) for c in spec.cell_size]
+    inv = reciprocals(spec.cell_size, pos.dtype)
     nd = const_like(dims, pos, torch.int64)
     cc = torch.floor((pos - const_like(spec.lo, pos))
                      * const_like(inv, pos)).to(torch.int64)

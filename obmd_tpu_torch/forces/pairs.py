@@ -42,7 +42,7 @@ from .. import rng
 from ..cells import BIG, CellTable, GridSpec, gather_padded
 from ..config import (DPDExtParams, DPDParams, DPDTstatParams, LJCutParams,
                       LJCutRFParams)
-from ..geometry import Box
+from ..geometry import Box, real_type, reciprocals, rounded
 
 EPS_R = 1.0e-10  # reference EPSILON for the r ~ 0 skip (pair_dpd.cpp:117)
 
@@ -56,22 +56,25 @@ class PairFields(NamedTuple):
     virial_atom: Optional[torch.Tensor] = None   # [N, 6] per-atom shares
 
 
-def sig_scale_of(params, step: int) -> Optional[float]:
+def sig_scale_of(params, step: int,
+                 dtype: torch.dtype = torch.float32) -> Optional[float]:
     """The noise-amplitude scale sqrt(T(step) / t_start) of a dpd/tstat
     ramp (pair_dpd_tstat.cpp:52-60), T linear in the step over the window
-    `ramp`, or None for a constant-T law.  Computed on the host in float32
-    as the JAX package's sig_scale_of computes it: frac = clip((step - b)
-    / max(e - b, 1), 0, 1), t = t_start + frac * (t_stop - t_start),
+    `ramp`, or None for a constant-T law.  Computed on the host in `dtype`
+    (the state's, or float32 for the pair kernel's launch parameter) as
+    the JAX package's sig_scale_of computes it: frac = clip((step - b) /
+    max(e - b, 1), 0, 1), t = t_start + frac * (t_stop - t_start),
     sqrt(t / t_start).  (XLA's jitted step takes the divisions as
     multiplications by reciprocals and fuses the multiply-add, so the JAX
     engine's value may differ from this in the last bit.)"""
     if not isinstance(params, DPDTstatParams) or not params.is_ramp:
         return None
     b, e = params.ramp if params.ramp is not None else (0, 1)
-    f32 = np.float32
-    frac = np.clip(f32(step - b) / f32(max(e - b, 1)), f32(0.0), f32(1.0))
-    t = f32(params.temp) + frac * f32(params.t_stop - params.temp)
-    return float(np.sqrt(t / f32(params.temp)))
+    real = real_type(dtype)
+    frac = np.clip(real(step - b) / real(max(e - b, 1)), real(0.0),
+                   real(1.0))
+    t = real(params.temp) + frac * real(params.t_stop - params.temp)
+    return float(np.sqrt(t / real(params.temp)))
 
 
 def _table_names(params):
@@ -139,8 +142,8 @@ def make_pair_law(params, dt: float, dtype=torch.float32, device="cpu"):
         return _dpd_ext_law(params, tabs, dt, dtype)
 
     if isinstance(params, LJCutRFParams):
-        qq = float(np.float32(params.qqrd2e))
-        cut_coul = float(np.float32(params.cut_coul))
+        qq = rounded(params.qqrd2e, dtype)
+        cut_coul = rounded(params.cut_coul, dtype)
 
         def pair_fn(rsq, d, dv, ti, tj, tag_i, tag_j, salt, qi=None,
                     qj=None):
@@ -174,7 +177,7 @@ def make_pair_law(params, dt: float, dtype=torch.float32, device="cpu"):
         return pair_fn
 
     if isinstance(params, (DPDParams, DPDTstatParams)):
-        dtinvsqrt = float(np.float32(1.0 / np.sqrt(dt)))
+        dtinvsqrt = rounded(1.0 / np.sqrt(dt), dtype)
         gaussian = params.gaussian_noise
         tstat = isinstance(params, DPDTstatParams)
 
@@ -239,7 +242,7 @@ def _dpd_ext_law(params, tabs, dt: float, dtype):
     same for both orientations of a pair and takes the sign of tag_i -
     tag_j, so the full-neighbour sums keep Newton's third law bit for
     bit."""
-    dtinvsqrt = float(np.float32(1.0 / np.sqrt(dt)))
+    dtinvsqrt = rounded(1.0 / np.sqrt(dt), dtype)
     gaussian = params.gaussian_noise
     tstat_only = params.tstat_only
 
@@ -401,7 +404,7 @@ def trial_energy_force(params, box: Box, spec: GridSpec, ctab: CellTable,
     dev = x.device
     dims = spec.dims
     charged = isinstance(params, LJCutRFParams)
-    inv = [float(np.float32(1.0) / np.float32(c)) for c in spec.cell_size]
+    inv = reciprocals(spec.cell_size, dtype)
     nd = torch.tensor(dims, dtype=torch.int64, device=dev)
     cc = torch.floor((cand_x - torch.tensor(spec.lo, dtype=dtype, device=dev))
                      * torch.tensor(inv, dtype=dtype, device=dev))

@@ -12,6 +12,15 @@ kernel follows (it is also what the JAX engine runs off the TPU).  A CUDA
 tensor goes to the kernel, a CPU tensor to the plain version; the choice
 is the tensors' device, never an environment variable.
 
+A float64 scene's subsets go to the float64 instantiation of each law
+(`obmd_usher_search_f64`, `obmd_usher_search_lj_f64`; launch keys
+`usher_search_f64`, `usher_search_dpdext_f64`, `usher_search_lj_f64`,
+`usher_search_ljrf_f64`), the counterpart of the float64 search the JAX
+nlist engine runs (its XLA usher_search_subset at x64): `launch` picks the
+instantiation from the subset's dtype, with the grid, the bounds, the
+coefficients and the step parameters in that dtype, and refuses inputs of
+mixed dtypes.
+
 The kernel bins each side's valid subset rows on a cell grid
 (`UsherGrid`: x spans the insertion region widened by pad = max_cut +
 skin, y and z the box; every cell side at least the law's largest cut
@@ -40,7 +49,7 @@ import torch
 
 from .. import _build
 from ..config import DPDExtParams, DPDParams, LJCutParams, LJCutRFParams
-from ..geometry import Box, RegionBlock, const_like
+from ..geometry import Box, RegionBlock, const_like, real_type, reciprocals
 from ..obmd.subset import (EPSILON, Subset, _batched_energy_force,
                            usher_search_subset_batch)
 
@@ -52,16 +61,19 @@ MAX_CELLS = (48 * 1024 - 1024) // 4
 # a cell side exceeds the cut by this share, so that float32 rounding of
 # the cell index never puts a pair within the cutoff two cells apart
 CELL_MARGIN = 1e-3
+# the launch keys' suffix of each dtype's instantiation
+SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
-def usher_law(pair, ct: int):
-    """(kernel name, coefficient table f32[MAX_TYPES, N_COEF], the cut
-    column) of a pair style against trial type ct: row tj holds the law's
-    coefficients for a subset atom of type tj (dpd: a0, cut, 0, 0; lj/cut
-    and lj/cut/rf: lj3, lj4, cut, eshift), rows past ntypes zero; None when
-    this port has no kernel law for the style (dpd/ext/tstat, as JAX has
-    it, and dpd/tstat).  dpd/ext takes the DPD table of its a0 and cut,
-    counted under its own name."""
+def usher_law(pair, ct: int, dtype: torch.dtype = torch.float32):
+    """(kernel name, coefficient table [MAX_TYPES, N_COEF] in `dtype`, the
+    cut column) of a pair style against trial type ct: row tj holds the
+    law's coefficients for a subset atom of type tj (dpd: a0, cut, 0, 0;
+    lj/cut and lj/cut/rf: lj3, lj4, cut, eshift), rows past ntypes zero;
+    None when this port has no kernel law for the style (dpd/ext/tstat, as
+    JAX has it, and dpd/tstat).  dpd/ext takes the DPD table of its a0 and
+    cut, counted under its own name; a float64 table's name ends in
+    _f64."""
     if isinstance(pair, DPDExtParams) and pair.tstat_only:
         return None
     if isinstance(pair, (DPDParams, DPDExtParams)):
@@ -92,16 +104,17 @@ def usher_law(pair, ct: int):
     if nt > MAX_TYPES:
         raise NotImplementedError(
             f"USHER kernel: {nt} types (at most {MAX_TYPES})")
-    table = np.zeros((MAX_TYPES, N_COEF), np.float32)
+    real = real_type(dtype)
+    table = np.zeros((MAX_TYPES, N_COEF), real)
     for c, col in enumerate(cols):
-        table[:nt, c] = col.astype(np.float32)
-    return name, table, cut_col
+        table[:nt, c] = col.astype(real)
+    return name + SUFFIX[dtype], table, cut_col
 
 
-def _kernel_law(pair, ct: int):
+def _kernel_law(pair, ct: int, dtype: torch.dtype = torch.float32):
     """usher_law's (name, table) and the largest cut of the table, which
     sizes the grid's cells; raises for a style without a kernel law."""
-    law = usher_law(pair, ct)
+    law = usher_law(pair, ct, dtype)
     if law is None:
         raise NotImplementedError(
             f"USHER kernel: no law for {type(pair).__name__}")
@@ -111,10 +124,12 @@ def _kernel_law(pair, ct: int):
 
 class UsherGrid(NamedTuple):
     """One buffer side's cell grid: `cells` per axis from `lo`, each cell
-    `side` long (at least the cut), `inv` its float32 reciprocal (the
-    kernel files a position with floor((v - lo) * inv)); x is open and
-    spans the insertion region widened by pad, y and z span the box and
-    wrap where it is periodic."""
+    `side` long (at least the cut), `inv` its reciprocal (the kernel files
+    a position with floor((v - lo) * inv)); lo and inv are rounded to the
+    dtype of the rows it files (float32, or float64 for the float64
+    instantiation), so the plain binning and the kernel's agree; x is open
+    and spans the insertion region widened by pad, y and z span the box
+    and wrap where it is periodic."""
 
     lo: Tuple[float, float, float]
     cells: Tuple[int, int, int]
@@ -123,9 +138,10 @@ class UsherGrid(NamedTuple):
     periodic: Tuple[bool, bool, bool]
 
     @staticmethod
-    def of(cfg, region: RegionBlock, pad: float) -> "UsherGrid":
-        _, _, cut = _kernel_law(cfg.pair, int(cfg.obmd.ntype))
-        return _grid(cfg.box, cut, region, float(pad))
+    def of(cfg, region: RegionBlock, pad: float,
+           dtype: torch.dtype = torch.float32) -> "UsherGrid":
+        _, _, cut = _kernel_law(cfg.pair, int(cfg.obmd.ntype), dtype)
+        return _grid(cfg.box, cut, region, float(pad), dtype)
 
     @property
     def n_cells(self) -> int:
@@ -141,8 +157,8 @@ class UsherGrid(NamedTuple):
         return [c + o for o in (-1, 0, 1) if 0 <= c + o < n]
 
     def cell3(self, x: torch.Tensor) -> torch.Tensor:
-        """[..., 3] float32 positions -> [..., 3] int64 cells per axis (the
-        kernel's axis_cell)."""
+        """[..., 3] positions of the grid's dtype -> [..., 3] int64 cells
+        per axis (the kernel's axis_cell)."""
         f = torch.floor((x - const_like(self.lo, x))
                         * const_like(self.inv, x))
         # fminf(fmaxf(f, -1e6), 1e6): a NaN coordinate files as -1e6
@@ -169,7 +185,8 @@ class UsherGrid(NamedTuple):
 
 
 @functools.lru_cache(maxsize=32)
-def _grid(box: Box, cut: float, region: RegionBlock, pad: float) -> UsherGrid:
+def _grid(box: Box, cut: float, region: RegionBlock, pad: float,
+          dtype: torch.dtype = torch.float32) -> UsherGrid:
     if box.periodic[0]:
         raise NotImplementedError("USHER kernel: x must be open (the "
                                   "OBMD buffers' axis)")
@@ -180,10 +197,10 @@ def _grid(box: Box, cut: float, region: RegionBlock, pad: float) -> UsherGrid:
     while int(np.prod(cells)) > MAX_CELLS:
         cells[int(np.argmax(cells))] -= 1
     side = [s / n for s, n in zip(span, cells)]
-    return UsherGrid(lo=tuple(float(np.float32(v)) for v in lo),
+    real = real_type(dtype)
+    return UsherGrid(lo=tuple(float(real(v)) for v in lo),
                      cells=tuple(cells), side=tuple(side),
-                     inv=tuple(float(np.float32(1.0) / np.float32(h))
-                               for h in side),
+                     inv=tuple(reciprocals(side, dtype)),
                      periodic=(False,) + tuple(box.periodic[1:]))
 
 
@@ -191,36 +208,44 @@ def _align4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def scratch_words(grids, b_l: int, b_r: int) -> int:
+def scratch_words(grids, b_l: int, b_r: int,
+                  dtype: torch.dtype = torch.float32) -> int:
     """int32 words of scratch the kernel takes (usher_kernel.cu side_words):
     per side each cell's count and start, each row's cell, the scattered
-    row indices and the sorted float4 rows."""
-    return sum(2 * _align4(g.n_cells + 1) + 2 * _align4(b) + 4 * b
+    row indices and the sorted rows, four reals each (4 words a row in
+    float32, 8 in float64: as many words as a real has bytes)."""
+    return sum(2 * _align4(g.n_cells + 1) + 2 * _align4(b)
+               + dtype.itemsize * b
                for g, b in zip(grids, (b_l, b_r)))
 
 
 class UsherPlan(NamedTuple):
     """Both sides' grids and the C entry point's host arrays, made once per
-    configuration."""
+    configuration and dtype."""
 
     name: str
     grids: Tuple[UsherGrid, UsherGrid]
     cells: object      # ctypes int32[6]
-    grid: object       # ctypes float32[12]: origin, inverse side per side
-    bounds: object     # ctypes float32[12]: region lo, hi per side
-    coef: object       # ctypes float32[16]
+    grid: object       # ctypes real[12]: origin, inverse side per side
+    bounds: object     # ctypes real[12]: region lo, hi per side
+    coef: object       # ctypes real[16]
     ntypes: int
 
     @staticmethod
-    def of(cfg, region_l: RegionBlock, region_r: RegionBlock) -> "UsherPlan":
+    def of(cfg, region_l: RegionBlock, region_r: RegionBlock,
+           dtype: torch.dtype = torch.float32) -> "UsherPlan":
         return _plan(cfg.box, cfg.pair, int(cfg.obmd.ntype), cfg.ntypes,
-                     region_l, region_r, float(cfg.pair.max_cut + cfg.skin))
+                     region_l, region_r, float(cfg.pair.max_cut + cfg.skin),
+                     dtype)
 
 
 @functools.lru_cache(maxsize=32)
-def _plan(box, pair, ct, ntypes, region_l, region_r, pad) -> UsherPlan:
-    name, table, cut = _kernel_law(pair, ct)
-    grids = tuple(_grid(box, cut, r, pad) for r in (region_l, region_r))
+def _plan(box, pair, ct, ntypes, region_l, region_r, pad,
+          dtype) -> UsherPlan:
+    name, table, cut = _kernel_law(pair, ct, dtype)
+    grids = tuple(_grid(box, cut, r, pad, dtype)
+                  for r in (region_l, region_r))
+    real = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
 
     def arr(ctype, values):
         values = list(values)
@@ -228,11 +253,10 @@ def _plan(box, pair, ct, ntypes, region_l, region_r, pad) -> UsherPlan:
     return UsherPlan(
         name=name, grids=grids,
         cells=arr(ctypes.c_int, itertools.chain(*(g.cells for g in grids))),
-        grid=arr(ctypes.c_float, itertools.chain(
-            *(g.lo + g.inv for g in grids))),
-        bounds=arr(ctypes.c_float, itertools.chain(
+        grid=arr(real, itertools.chain(*(g.lo + g.inv for g in grids))),
+        bounds=arr(real, itertools.chain(
             *(r.lo + r.hi for r in (region_l, region_r)))),
-        coef=arr(ctypes.c_float, table.reshape(-1).tolist()),
+        coef=arr(real, table.reshape(-1).tolist()),
         ntypes=int(ntypes))
 
 
@@ -248,19 +272,25 @@ def _check(arg, t, dtype, shape, dev):
 def launch(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r, region_l,
            region_r):
     """Bin both subsets and run both buffers' searches on the card: each
-    Subset's x f32[B, 3], type i32[B] and valid bool[B] as they are (B may
-    differ between the sides), candidates f32[K, 3], all contiguous on one
-    CUDA device.  Returns (pos [2, K, 3], accepted [2, K], iters [2, K])."""
-    plan = UsherPlan.of(cfg, region_l, region_r)
+    Subset's x real[B, 3], type i32[B] and valid bool[B] as they are (B
+    may differ between the sides), candidates real[K, 3], all contiguous
+    on one CUDA device, real float32 or float64 alike on every input (the
+    left candidates' dtype picks the instantiation; a mix raises).
+    Returns (pos real[2, K, 3], accepted [2, K], iters [2, K])."""
+    dtype = cand_l.dtype
+    if dtype not in SUFFIX:
+        raise ValueError(f"USHER kernel: no {dtype} instantiation (float32 "
+                         f"or float64)")
+    plan = UsherPlan.of(cfg, region_l, region_r, dtype)
     dev = cand_l.device
     k = cand_l.shape[0]
     for side, sub in (("left", sub_l), ("right", sub_r)):
         b = sub.x.shape[0]
-        _check(f"{side} x", sub.x, torch.float32, (b, 3), dev)
+        _check(f"{side} x", sub.x, dtype, (b, 3), dev)
         _check(f"{side} type", sub.type, torch.int32, (b,), dev)
         _check(f"{side} valid", sub.valid, torch.bool, (b,), dev)
-    _check("left candidates", cand_l, torch.float32, (k, 3), dev)
-    _check("right candidates", cand_r, torch.float32, (k, 3), dev)
+    _check("left candidates", cand_l, dtype, (k, 3), dev)
+    _check("right candidates", cand_r, dtype, (k, 3), dev)
     b_l, b_r = sub_l.x.shape[0], sub_r.x.shape[0]
     kern = _build.KERNELS[plan.name]
     fn = kern.function()
@@ -268,9 +298,9 @@ def launch(cfg, sub_l: Subset, sub_r: Subset, cand_l, cand_r, region_l,
     per = cfg.box.periodic
     ly = float(cfg.box.lengths[1]) if per[1] else 0.0
     lz = float(cfg.box.lengths[2]) if per[2] else 0.0
-    words = scratch_words(plan.grids, b_l, b_r)
+    words = scratch_words(plan.grids, b_l, b_r, dtype)
     scratch = torch.empty((words,), dtype=torch.int32, device=dev)
-    pos = torch.empty((2, k, 3), dtype=torch.float32, device=dev)
+    pos = torch.empty((2, k, 3), dtype=dtype, device=dev)
     acc = torch.empty((2, k), dtype=torch.bool, device=dev)
     iters = torch.empty((2, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -348,7 +378,7 @@ def usher_search_binned_plain(cfg, sub_l: Subset, sub_r: Subset, cand_l,
     """usher_search_subset_batch's step rule over usher_energy_binned_plain:
     (pos [2,K,3], accepted [2,K], iters [2,K] i32)."""
     u = cfg.obmd.usher
-    grids = UsherPlan.of(cfg, region_l, region_r).grids
+    grids = UsherPlan.of(cfg, region_l, region_r, cand_l.dtype).grids
     subs = (sub_l, sub_r)
     pos = torch.stack([cand_l, cand_r])
     dtype = pos.dtype

@@ -27,14 +27,38 @@ def const_like(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
     return const(tuple(values), dtype or like.dtype, like.device)
 
 
+# the numpy scalar type of each float dtype a scene may take
+# (SceneConfig.dtype: "float32" or "float64")
+_REAL = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def real_type(dtype: torch.dtype) -> type:
+    """The numpy scalar type of a scene's float dtype."""
+    return _REAL[dtype]
+
+
+def rounded(v, dtype: torch.dtype) -> float:
+    """The host value v rounded to `dtype`, as a python float: the constant
+    the JAX package builds with `dtype(v)` in a state of that dtype."""
+    return float(_REAL[dtype](v))
+
+
+def reciprocals(values, dtype: torch.dtype) -> list:
+    """1 / v of each value, computed in `dtype` (the reciprocal XLA
+    multiplies by where the JAX package divides by a constant of the
+    array's dtype), as python floats."""
+    real = _REAL[dtype]
+    return [float(real(1.0) / real(v)) for v in values]
+
+
 def cell_index(x: torch.Tensor, lo, cell_size, dims) -> torch.Tensor:
     """Linear cell id (int32) of [..., 3] positions on a grid of `dims`
     cells of `cell_size` from `lo`, clipped to the grid.  The division by
-    the cell size is a multiplication by its float32 reciprocal, as the
-    reference's compiled code computes it (XLA turns a division by a
-    float32 constant into one), so an atom within rounding of a cell face
-    is filed alike."""
-    inv = [float(np.float32(1.0) / np.float32(c)) for c in cell_size]
+    the cell size is a multiplication by its reciprocal in x's dtype, as
+    the reference's compiled code computes it (XLA turns a division by a
+    constant of the array's dtype into one), so an atom within rounding of
+    a cell face is filed alike at float32 and at float64."""
+    inv = reciprocals(cell_size, x.dtype)
     top = const_like([d - 1 for d in dims], x, torch.int32)
     c = torch.floor((x - const_like(lo, x)) * const_like(inv, x))
     c = torch.minimum(torch.clamp(c.to(torch.int32), min=0), top)

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .cells import GridSpec, build_cells
@@ -35,7 +34,7 @@ from .config import SceneConfig
 from .engine_cellpad import (Draw, add_bonded_forces, check_scene, kick,
                              kick_drift, make_geometry, make_run_cellpad,
                              make_step_cellpad, mol_mode, own_draws,
-                             setup_cellpad, stage_every)
+                             setup_cellpad, stage_every, step_times)
 from .engine_cellpad import pair_salt as _salt
 from .forces.bonded import langevin_force
 from .forces.nlist import nlist_sweep
@@ -111,7 +110,7 @@ def compute_forces(cfg: SceneConfig, spec: GridSpec, state: State, *,
     pf = pair_sweep(cfg.pair, cfg.box, spec, ctab, state.x, state.v,
                     state.type, state.tag, _salt(cfg, state.step),
                     dt=cfg.dt, q=state.q,
-                    sig_scale=sig_scale_of(cfg.pair, state.step),
+                    sig_scale=sig_scale_of(cfg.pair, state.step, state.dtype),
                     compute_energy=compute_energy,
                     compute_virial=compute_virial,
                     compute_virial_atom=compute_virial_atom)
@@ -128,7 +127,8 @@ def _nlist_forces(cfg: SceneConfig, state: State) -> torch.Tensor:
                      bond1=state.bond1 if bonded else None,
                      bond2=state.bond2 if bonded else None,
                      more_bonds=state.bond_partners[2:] if bonded else (),
-                     sig_scale=sig_scale_of(cfg.pair, state.step))
+                     sig_scale=sig_scale_of(cfg.pair, state.step,
+                                             state.dtype))
     return _extra_forces(cfg, state, pf.f)
 
 
@@ -255,8 +255,7 @@ def make_step(cfg: SceneConfig, draw: Optional[Draw] = None):
     nparams = make_neighbor_params(cfg)
     fast = cfg.force_path == "nlist"
     nfreq = stage_every(cfg)
-    dt = float(np.float32(cfg.dt))          # float32 values as python floats
-    dtf = float(np.float32(0.5 * cfg.dt))
+    dt, dtf = step_times(cfg)
 
     def step(state: State) -> State:
         state = kick_drift(cfg, state, dt, dtf)

@@ -832,10 +832,15 @@ class Interpreter:
     def cmd_read_restart(self, a):
         """Load the state and configuration, carry the step count on
         (read_restart.cpp restores the timestep) and rebuild the layout,
-        which a checkpoint does not hold, so a `run` can follow."""
+        which a checkpoint does not hold, so a `run` can follow.  A
+        checkpoint of a float64 scene is refused: the Interpreter runs
+        float32 decks, as the JAX package's has no dtype."""
+        from ..engine_cellpad import refuse_float64
         from ..integrate import rebuild_neighbors
         from .checkpoint import load_checkpoint
-        self.cfg, state = load_checkpoint(a[0], device=self.device)
+        cfg, state = load_checkpoint(a[0], device=self.device)
+        refuse_float64(cfg, "the deck Interpreter")
+        self.cfg = cfg
         self.state = rebuild_neighbors(self.cfg, state)
         self.dt = self.cfg.dt
         self.total_steps = self.state.step

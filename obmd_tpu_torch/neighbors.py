@@ -16,10 +16,11 @@ computed, and its slot is tombstoned so that the stale ids left in other
 rows never name another atom before the next rebuild.
 
 A row takes the first K candidates within cut + skin by the reference's
-key 1e9 - r^2 in float32, a stable descending sort standing in for
-`lax.top_k` (lower index first among equal keys), so integer outputs equal
-the JAX package's.  A conflicting scatter in `update_table` keeps the last
-mover of the conflict, the largest slot, as XLA's sequential scatter does.
+key 1e9 - r^2 in the positions' dtype, a stable descending sort standing
+in for `lax.top_k` (lower index first among equal keys), so integer
+outputs equal the JAX package's.  A conflicting scatter in `update_table`
+keeps the last mover of the conflict, the largest slot, as XLA's
+sequential scatter does.
 
 The rebuild decision is data-dependent (a `lax.cond` in the JAX package):
 here `rebuild_needed` computes it on the device and `maybe_rebuild` reads
@@ -30,13 +31,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .cells import BIG, CellTable, GridSpec, build_cells, gather_padded
 from .cellpad import compact_indices
 from .forces.gathered import neighbor_slots
-from .geometry import Box
+from .geometry import Box, rounded
 
 I32 = torch.int32
 I64 = torch.int64
@@ -75,11 +75,10 @@ class NeighborParams:
     cutoff: float = 1.0
     skin: float = 0.3
 
-    @property
-    def rlist2(self) -> float:
-        """(cutoff + skin)^2 as the float32 a float32 distance is compared
-        with."""
-        return float(np.float32((self.cutoff + self.skin) ** 2))
+    def rlist2(self, dtype: torch.dtype) -> float:
+        """(cutoff + skin)^2 rounded to the dtype of the distances it is
+        compared with, as the JAX package's weakly typed constant is."""
+        return rounded((self.cutoff + self.skin) ** 2, dtype)
 
 
 def full_table(p: NeighborParams, x, alive):
@@ -125,7 +124,7 @@ def _nlist_chunk(p: NeighborParams, box: Box, table, x, me, xi, ai):
     xj = gather_padded(x, jdx, BIG)
     d = box.min_image(xi[:, None, :] - xj)
     rsq = (d * d).sum(-1)
-    ok = (rsq < p.rlist2) & (jdx != me[:, None]) \
+    ok = (rsq < p.rlist2(rsq.dtype)) & (jdx != me[:, None]) \
         & (xj[..., 0] < BIG * 0.5) & ai[:, None]
     row, row_ok, over = first_k_rows(p, jdx, ok, rsq, n)
     return (torch.where(row_ok, row, n).to(I32), row_ok.sum(1, dtype=I32),
@@ -231,7 +230,7 @@ def patch_insertions(p: NeighborParams, box: Box, ns: NeighborState, x,
     xj = gather_padded(x, jdx, BIG)
     d = box.min_image(pos[:, None, :] - xj)
     rsq = (d * d).sum(-1)
-    ok = (rsq < p.rlist2) & (jdx != new_slots[:, None]) \
+    ok = (rsq < p.rlist2(rsq.dtype)) & (jdx != new_slots[:, None]) \
         & (xj[..., 0] < BIG * 0.5) & act[:, None]
     row, row_ok, over = first_k_rows(p, jdx, ok, rsq, n)
     return apply_new_rows(p, ns, x, new_slots, row, row_ok, over)
@@ -301,7 +300,7 @@ def rebuild_needed(p: NeighborParams, box: Box, ns: NeighborState, x,
         return torch.ones((), dtype=torch.bool, device=x.device)
     d = box.min_image(x - ns.xref)
     disp2 = torch.where(alive, (d * d).sum(-1), 0.0)
-    half = float(np.float32((0.5 * p.skin) ** 2))
+    half = rounded((0.5 * p.skin) ** 2, disp2.dtype)
     return (disp2.max() > half) | ns.force_rebuild
 
 

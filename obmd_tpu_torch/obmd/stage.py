@@ -33,21 +33,22 @@ import torch
 from ..cells import BIG
 from ..config import (DPDExtParams, DPDParams, DPDTstatParams, LJCutParams,
                       LJCutRFParams, SceneConfig, eval_param)
-from ..geometry import const, const_like
+from ..geometry import const, const_like, reciprocals, rounded
 from .subset import Subset, near_check_subset, near_squared, region_subset
 
 EPSILON = 1.0e-6  # reference EPSILON (fix_obmd_merged.cpp:62)
 
 
-def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    """A parameter as a float32 scalar tensor on `like`'s device (cached, so
-    no host-to-device copy per call; a tensor, not a python number, so that
-    a division by it is a true division on the card too, where PyTorch
-    turns division by a host scalar into multiplication by its
-    reciprocal)."""
+def _scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A parameter as a scalar tensor of `like`'s float dtype (the state's:
+    float32 or float64, as the JAX stage builds its constants in the
+    state's dtype) on `like`'s device (cached, so no host-to-device copy
+    per call; a tensor, not a python number, so that a division by it is a
+    true division on the card too, where PyTorch turns division by a host
+    scalar into multiplication by its reciprocal)."""
     if isinstance(v, torch.Tensor):
-        return v.to(torch.float32)
-    return const((float(v),), torch.float32, like.device)[0]
+        return v.to(like.dtype)
+    return const((float(v),), like.dtype, like.device)[0]
 
 
 def delete_outside(cfg: SceneConfig, state):
@@ -95,12 +96,17 @@ def region_count(state, region, group_types=None) -> torch.Tensor:
 
 def feedback_count(cnt: torch.Tensor, mol_len, alpha, nbuf, dt, tau):
     """ninsert = -(int)((cnt/mol_len - alpha*nbuf) * dt/tau), C truncation
-    toward zero (ref :586-589), in float32 like the reference port, with its
+    toward zero (ref :586-589), as the reference port computes it, with its
     5-ulp-relative nudge so a result landing on an integer is not cut a hair
-    below it."""
-    val = (cnt.to(torch.float32) / mol_len - _f32(alpha * nbuf, cnt)) \
-        * _f32(dt, cnt) / _f32(tau, cnt)
-    adj = -val * _f32(1.0 + 5.0e-6, cnt)
+    below it: cnt / mol_len - alpha nbuf in float32, the rest in dt's dtype
+    (the state's; the JAX port's float32 head times its dtype(dt), which
+    x64 promotes to float64; a dt given as a number is float32)."""
+    head = cnt.to(torch.float32) / mol_len \
+        - const((float(alpha * nbuf),), torch.float32, cnt.device)[0]
+    if not isinstance(dt, torch.Tensor):
+        dt = const((float(dt),), torch.float32, cnt.device)[0]
+    val = head.to(dt.dtype) * dt / _scalar(tau, dt)
+    adj = -val * _scalar(1.0 + 5.0e-6, dt)
     return torch.trunc(adj).to(torch.int32)
 
 
@@ -209,7 +215,7 @@ def _near_check(cfg: SceneConfig, spec, ctab, state, cand_x, cand_type):
                               state.type, state.q, cand_x, cand_type)
     dims = spec.dims
     dev = cand_x.device
-    inv = [float(np.float32(1.0) / np.float32(c)) for c in spec.cell_size]
+    inv = reciprocals(spec.cell_size, cand_x.dtype)
     nd = torch.tensor(dims, dtype=torch.int64, device=dev)
     cc = torch.floor((cand_x - const_like(spec.lo, cand_x))
                      * const_like(inv, cand_x)).to(torch.int64)
@@ -288,7 +294,7 @@ def draw_candidates(cfg: SceneConfig, u, uz, region, state, comm=None):
     obmd = cfg.obmd
     if obmd.gaussian is not None:
         xm, ym, zm, sg = (float(v) for v in obmd.gaussian)
-        cand = const_like((xm, ym, zm), u) + _f32(sg, u) * u
+        cand = const_like((xm, ym, zm), u) + _scalar(sg, u) * u
         ok = region.match(cand)
     else:
         cand = region.sample_uniform(u)
@@ -297,23 +303,23 @@ def draw_candidates(cfg: SceneConfig, u, uz, region, state, comm=None):
         return cand, ok
     z = cand[:, 2]
     if obmd.rate is not None:
-        z = z + _f32(obmd.rate, u) * state.sim_time
+        z = z + _scalar(obmd.rate, u) * state.sim_time
     dep = obmd.deposit_global or obmd.deposit_local
     if dep is not None:
         lo, hi = float(dep[0]), float(dep[1])
         zs = state.x[:, 2]
-        floor = _f32(cfg.box.lo[2], u)
+        floor = _scalar(cfg.box.lo[2], u)
         if obmd.deposit_local is not None:
             delta = float(obmd.deposit_local[2])
             d = cfg.box.min_image(cand[:, None, :] - state.x[None, :, :])
             lat2 = d[..., 0] ** 2 + d[..., 1] ** 2
-            sel = state.alive[None, :] & (lat2 <= _f32(delta * delta, u))
+            sel = state.alive[None, :] & (lat2 <= _scalar(delta * delta, u))
             zmax = torch.where(sel, zs[None, :], floor).max(dim=1).values
         else:
             zmax = torch.where(state.alive, zs, floor).max()
         if comm is not None:
             zmax = comm.max(zmax)
-        z = zmax + _f32(lo, u) + uz * _f32(hi - lo, u)
+        z = zmax + _scalar(lo, u) + uz * _scalar(hi - lo, u)
     return torch.cat([cand[:, :2], z[:, None]], dim=1), ok
 
 
@@ -334,7 +340,7 @@ def draw_inserted_velocities(cfg: SceneConfig, uv, pos):
         if rng_range is None:
             cols.append(torch.zeros_like(pos[:, 0]))
         else:
-            lo, hi = _f32(rng_range[0], pos), _f32(rng_range[1], pos)
+            lo, hi = _scalar(rng_range[0], pos), _scalar(rng_range[1], pos)
             cols.append(torch.maximum(lo, uv[c] * (hi - lo) + lo))
     v = torch.stack(cols, dim=1)
     if obmd.target is not None:
@@ -353,9 +359,10 @@ def inserted_momenta(cfg: SceneConfig, vnew, landed):
     (the first half of the candidates left, the rest right), zero without
     velocities."""
     if vnew is None:
-        z = torch.zeros((3,), dtype=torch.float32, device=landed.device)
+        z = torch.zeros((3,), dtype=getattr(torch, cfg.dtype),
+                        device=landed.device)
         return z, z
-    mass = _f32(cfg.masses[cfg.obmd.ntype], vnew)
+    mass = _scalar(cfg.masses[cfg.obmd.ntype], vnew)
     mv = mass * torch.where(landed[:, None], vnew, 0.0)
     half = vnew.shape[0] // 2
     return mv[:half].sum(0), mv[half:].sum(0)
@@ -500,15 +507,15 @@ def insert_particles_subset(cfg: SceneConfig, state, ninsert_left,
 
 def stage_params(cfg: SceneConfig, state) -> dict:
     """The fix's equal-style parameters at the state's time (ref :563-572),
-    and dt and the face area as float32 scalars on the device (a division
-    by a host scalar would become a multiplication by its reciprocal on
-    the card)."""
+    and dt and the face area as scalars of the state's dtype on the device
+    (a division by a host scalar would become a multiplication by its
+    reciprocal on the card)."""
     obmd = cfg.obmd
     t = state.sim_time
     out = {name: eval_param(getattr(obmd, name), t)
            for name in ("pxx", "pxy", "pxz", "dpxx", "freq", "alpha", "tau",
                         "nbuf")}
-    out["dt"] = const((float(np.float32(cfg.dt)),), state.dtype,
+    out["dt"] = const((rounded(cfg.dt, state.dtype),), state.dtype,
                       state.device)[0]
     out["area"] = const((cfg.box.cross_area,), state.dtype, state.device)[0]
     return out

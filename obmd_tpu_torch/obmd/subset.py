@@ -34,7 +34,7 @@ from ..cells import BIG
 from ..config import (DPDExtParams, DPDParams, DPDTstatParams, LJCutParams,
                       LJCutRFParams, SceneConfig)
 from ..forces.pairs import make_pair_law
-from ..geometry import RegionBlock, const_like
+from ..geometry import RegionBlock, const_like, rounded
 
 EPSILON = 1.0e-6
 
@@ -85,7 +85,7 @@ def subset_rows(p, box, sub: Subset, pos, new_slots, act):
     cand_valid = torch.cat([sub.valid, act])
     d = box.min_image(pos[:, None, :] - cand_x[None, :, :])
     rsq = (d * d).sum(-1)
-    ok = (rsq < p.rlist2) & cand_valid[None, :] & act[:, None]
+    ok = (rsq < p.rlist2(rsq.dtype)) & cand_valid[None, :] & act[:, None]
     b = sub.x.shape[0]
     ok[:, b:] &= ~torch.eye(m, dtype=torch.bool, device=pos.device)
     n_cand = cand_idx.shape[0]
@@ -233,10 +233,11 @@ def usher_search_subset_batch(cfg: SceneConfig, sub_l: Subset, sub_r: Subset,
 
 
 def near_squared(cfg: SceneConfig) -> float:
-    """The `near` distance squared as the float32 value a float32 distance
-    is compared with (JAX compares with the weakly typed python float
-    near**2, which it rounds to float32)."""
-    return float(np.float32(cfg.obmd.near ** 2))
+    """The `near` distance squared rounded to the scene's dtype, the value
+    a distance of that dtype is compared with (JAX compares with the weakly
+    typed python float near**2, which it rounds to float32 in a float32
+    state and keeps whole in a float64 one, obmd_tpu/obmd/subset.py:161)."""
+    return rounded(cfg.obmd.near ** 2, getattr(torch, cfg.dtype))
 
 
 def near_check_subset(cfg: SceneConfig, sub: Subset, cand_x):

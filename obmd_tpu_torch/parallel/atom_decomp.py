@@ -33,7 +33,8 @@ import torch
 from ..cellpad import compact_indices, scatter_rows
 from ..cells import build_cells
 from ..config import SceneConfig
-from ..engine_cellpad import check_scene, own_draws, pair_salt
+from ..engine_cellpad import (check_scene, own_draws, pair_salt,
+                              refuse_float64)
 from ..forces.gathered import forces_for_subset
 from ..forces.pairs import sig_scale_of
 from ..integrate import make_grid_spec
@@ -75,6 +76,7 @@ def gather_state(comm: Comm, state: State) -> State:
 def check_atom_decomp(cfg: SceneConfig) -> None:
     """Raise for what the atom decomposition does not run (the module's
     docstring)."""
+    refuse_float64(cfg, "the atom decomposition")
     check_scene(cfg)
     if any(t is not None for t in (cfg.bond, cfg.angle, cfg.dihedral,
                                    cfg.improper, cfg.shake)) or cfg.rigid:

@@ -59,7 +59,7 @@ from ..cells import BIG, GridSpec, build_cells
 from ..config import LJCutRFParams, SceneConfig, template_stacks
 from ..engine_cellpad import (_mol_rounds, _templates, check_scene,
                               mol_com, mol_mode, own_draws, pair_salt,
-                              stage_every)
+                              refuse_float64, stage_every)
 from ..forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                              improper_forces)
 from ..forces.gathered import forces_for_subset
@@ -357,6 +357,7 @@ def check_slab_scene(cfg: SceneConfig) -> None:
     JAX slab step, slab_decomp.py:910-913), a molecule template whose types
     the scene lacks, and the refusals every engine shares
     (engine_cellpad.check_scene)."""
+    refuse_float64(cfg, "the slab decomposition")
     if cfg.langevin is not None:
         raise NotImplementedError(
             "the multi-device steps have no Langevin thermostat (the JAX "

@@ -1,10 +1,12 @@
 """Counter-based, stateless random numbers for the pair noise.
 
 Counterpart of `obmd_tpu/rng.py`.  The hashes and uniform draws match the
-reference bit for bit; the gaussian draws (`box_muller`) take torch's log,
-sqrt and cos, within float32 rounding of XLA's.  torch on the CPU has no uint32 shift, so a uint32 value is held in
-an int64 tensor masked to 32 bits, and each product by a 32-bit constant is
-split into 16-bit halves so no intermediate exceeds 2^49.  The same
+reference bit for bit, in the dtype asked for (the state's: float32 or
+float64); the gaussian draws (`box_muller`) take torch's log, sqrt and
+cos, within rounding of XLA's.  torch on the CPU has no uint32 shift, so
+a uint32 value is held in an int64 tensor masked to 32 bits, and each
+product by a 32-bit constant is split into 16-bit halves so no
+intermediate exceeds 2^49.  The same
 functions take python ints, which is how the step salt is computed on the
 host and handed to the pair kernel as a kernel argument.
 """
@@ -68,7 +70,7 @@ def box_muller(bits, stream: int, u1_min: float,
                dtype=torch.float32) -> torch.Tensor:
     """A unit gaussian from the pair bits: u1 = uniform01(bits) clamped at
     u1_min, u2 = uniform01(fmix32(bits ^ stream)),
-    sqrt(-2 ln u1) cos(2 pi u2), every constant a float32."""
+    sqrt(-2 ln u1) cos(2 pi u2), every constant rounded to `dtype`."""
     u1 = torch.clamp(uniform01(bits, dtype),
                      min=float(torch.tensor(u1_min, dtype=dtype)))
     u2 = uniform01(_avalanche(bits ^ stream), dtype)

@@ -20,31 +20,32 @@ In float32 the corrections are accumulated at their own magnitude
 (dx_acc, dv_acc) and added to x and v once: rounding each sweep through a
 position of ~|x| would leak about ulp(x)/dt of momentum per step, where
 the separate sum keeps m_i dx_i + m_j dx_j = 0.  The denominator's floor
-keeps its sign (fix_shake.cpp's determinant guard).
+keeps its sign (fix_shake.cpp's determinant guard).  The d0 table and dt
+take the positions' dtype, float32 or float64, as JAX's do.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .config import SceneConfig
-from .geometry import const
+from .geometry import const, rounded
 
 EPS = 1.0e-12
 
 
-def _d0_table(cfg: SceneConfig, device) -> torch.Tensor:
+def _d0_table(cfg: SceneConfig, dtype, device) -> torch.Tensor:
+    """The d0 table in the positions' dtype (obmd_tpu/shake.py:39-40)."""
     nt = len(cfg.shake.d0)
     return const(tuple(float(v) for row in cfg.shake.d0 for v in row),
-                 torch.float32, device).reshape(nt, nt)
+                 dtype, device).reshape(nt, nt)
 
 
-def _columns(cfg: SceneConfig, type_, alive, partners):
-    """Per partner column (clamped partner index, has [N] bool, d0 [N]):
-    has marks a live atom whose live partner's type pair is
+def _columns(cfg: SceneConfig, type_, alive, partners, dtype):
+    """Per partner column (clamped partner index, has [N] bool, d0 [N] in
+    `dtype`): has marks a live atom whose live partner's type pair is
     constrained."""
     n = type_.shape[0]
-    d0t = _d0_table(cfg, alive.device)
+    d0t = _d0_table(cfg, dtype, alive.device)
     nt = d0t.shape[0]
     ti = torch.clamp(type_.long(), 0, nt - 1)
     out = []
@@ -72,7 +73,8 @@ def shake_positions(cfg: SceneConfig, x_ref, x, v, type_, bond1, bond2,
     eps = EPS
     cols = []
     for j, has, d0 in _columns(cfg, type_, alive,
-                               (bond1, bond2) + tuple(more_partners)):
+                               (bond1, bond2) + tuple(more_partners),
+                               x.dtype):
         rref = _bond(box, x_ref, j, has)
         two_winv = 2.0 * torch.where(has, invm + invm[j], 1.0)
         cols.append((j, has, d0 * d0, rref, two_winv))
@@ -90,7 +92,7 @@ def shake_positions(cfg: SceneConfig, x_ref, x, v, type_, bond1, bond2,
             term = (g * invm)[:, None] * rref
             dx = term if dx is None else dx + term
         dx_acc = dx_acc + dx
-    dt = const((float(np.float32(cfg.dt)),), x.dtype, x.device)[0]
+    dt = const((rounded(cfg.dt, x.dtype),), x.dtype, x.device)[0]
     return box.wrap(x + dx_acc), v + dx_acc / dt
 
 
@@ -101,7 +103,8 @@ def rattle_velocities(cfg: SceneConfig, x, v, type_, bond1, bond2, alive,
     box = cfg.box
     cols = []
     for j, has, _ in _columns(cfg, type_, alive,
-                              (bond1, bond2) + tuple(more_partners)):
+                              (bond1, bond2) + tuple(more_partners),
+                              v.dtype):
         r = _bond(box, x, j, has)
         rsq = torch.clamp((r * r).sum(-1), min=EPS)
         winv = torch.where(has, invm + invm[j], 1.0)
@@ -123,7 +126,7 @@ def constraint_error(cfg: SceneConfig, state) -> torch.Tensor:
     """max |r - d0| over the live constraints (0 when there are none)."""
     err = torch.zeros((), dtype=state.x.dtype, device=state.x.device)
     for j, has, d0 in _columns(cfg, state.type, state.alive,
-                               state.bond_partners):
+                               state.bond_partners, state.x.dtype):
         r = state.x - state.x[j]
         d = torch.sqrt(torch.clamp((cfg.box.min_image(r) ** 2).sum(-1),
                                    min=EPS))

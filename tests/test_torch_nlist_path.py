@@ -292,8 +292,12 @@ def test_entry_points_run_the_nlist_engine():
 
 
 SHARED_FAULTS = {
+    # a float64 deck runs on the nlist and sweep engines; the cellpad engine
+    # refuses its OBMD stage at float64 (words by engine)
     "float64": (lambda c: dataclasses.replace(c, dtype="float64"),
-                "float32"),
+                {"cellpad": "nlist engine", "nlist": None, "sweep": None}),
+    "float16": (lambda c: dataclasses.replace(c, dtype="float16"),
+                "float16"),
     "masses": (lambda c: dataclasses.replace(c, masses=(1.0, 1.0)),
                "masses"),
     "periodic-x": (lambda c: dataclasses.replace(c, box=dataclasses.replace(
@@ -318,15 +322,18 @@ def test_engines_share_their_refusals(fault):
     one message: the cellpad engine's check_supported and the nlist and
     sweep engines' both raise it for the same faulty OBMD_DPD deck.  The
     deck with maxattempt 2 and nfreq 2, with `vx`, or under dpd/tstat, once
-    refused, every engine now takes alike."""
+    refused, every engine now takes alike; at float64 the nlist and sweep
+    engines take it and the cellpad engine refuses it, naming the nlist
+    engine."""
     from obmd_tpu_torch.engine_cellpad import \
         check_supported as cellpad_supported
     from obmd_tpu_torch.integrate import check_supported
-    make, words = SHARED_FAULTS[fault]
+    make, by_path = SHARED_FAULTS[fault]
     for path in ("cellpad", "nlist", "sweep"):
         good = pscenes.obmd_dpd_config(scale=0.5, force_path=path)
         check = cellpad_supported if path == "cellpad" else check_supported
         check(good)
+        words = by_path[path] if isinstance(by_path, dict) else by_path
         if words is None:
             check(make(good).finalize())
             continue

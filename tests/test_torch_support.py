@@ -69,13 +69,16 @@ class JaxDraws:
     jax.random.normal), and where their keywords are set the deposit z's
     uniform(fold_in(keys[i], 0x5a), (K,)) and the velocities'
     uniform(split(fold_in(fold_in(key, step), 7), 3)[c], (2RK,))
-    (obmd_tpu/obmd/stage.py:263-347), as a Draws."""
+    (obmd_tpu/obmd/stage.py:263-347), as a Draws.  The draws take the
+    scene's dtype, as the JAX stage draws in the state's (a float64 scene
+    needs jax_enable_x64 on)."""
 
     def __init__(self, cfg, seed: int):
         self.key = jax.random.PRNGKey(seed)
         self.rounds = max(1, int(cfg.obmd.maxattempt))
         self.k = cfg.obmd.insert_kmax
         self.obmd = cfg.obmd
+        self.dtype = jnp.dtype(cfg.dtype)
 
     def __call__(self, state, need):
         from obmd_tpu_torch.obmd.stage import Draws, deposit_z, has_velocity
@@ -89,20 +92,20 @@ class JaxDraws:
             else jax.random.uniform
         shape = (2, self.rounds, self.k)
         u = np.stack([np.asarray(draw(keys[i], (self.k, 3),
-                                      dtype=jnp.float32))
+                                      dtype=self.dtype))
                       for i in range(2 * self.rounds)])
         pos = torch.from_numpy(u.reshape(shape + (3,)))
         z = vel = None
         if deposit_z(o):
             z = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
                 jax.random.fold_in(keys[i], 0x5a), (self.k,),
-                dtype=jnp.float32)) for i in range(2 * self.rounds)])
+                dtype=self.dtype)) for i in range(2 * self.rounds)])
                 .reshape(shape))
         if has_velocity(o):
             kv = jax.random.split(jax.random.fold_in(step_key, 7), 3)
             m2 = 2 * self.rounds * self.k
             vel = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
-                kc, (m2,), dtype=jnp.float32)) for kc in kv]))
+                kc, (m2,), dtype=self.dtype)) for kc in kv]))
         return Draws(pos, z, vel)
 
 

@@ -325,32 +325,42 @@ def test_binned_search_matches_pallas(case):
 
 
 def test_ctypes_signature_matches_the_source():
-    """The argtypes bound for both entry points follow the C signature
-    (OBMD_USHER_ARGS in csrc/usher_kernel.cu): a pointer for each pointer,
-    c_int, c_longlong and c_float for the scalars, in order."""
+    """The argtypes bound for every entry point follow the C signature
+    (OBMD_USHER_ARGS(real) in csrc/usher_kernel.cu, real float for the
+    float32 entry points and double for the _f64 ones): a pointer for each
+    pointer, c_int, c_longlong and c_float or c_double for the scalars, in
+    order."""
     import ctypes
     import re
     from obmd_tpu_torch import _build
     src = (_build.CSRC / "usher_kernel.cu").read_text()
-    body = src[src.index("#define OBMD_USHER_ARGS"):]
+    body = src[src.index("#define OBMD_USHER_ARGS(real)"):]
     body = body[:body.index("#define OBMD_USHER_CALL")]
-    body = body.replace("\\", " ").replace("#define OBMD_USHER_ARGS", "")
-    want = []
-    for arg in body.split(","):
-        decl = " ".join(arg.split())
-        if "*" in decl:
-            want.append(ctypes.c_void_p)
-        elif re.match(r"long long \w+$", decl):
-            want.append(ctypes.c_longlong)
-        elif re.match(r"int \w+$", decl):
-            want.append(ctypes.c_int)
-        elif re.match(r"float \w+$", decl):
-            want.append(ctypes.c_float)
-        else:
-            raise AssertionError(decl)
-    assert len(want) == 32
-    for name in ("usher_search", "usher_search_lj", "usher_search_ljrf"):
-        assert list(_build.KERNELS[name].argtypes) == want, name
+    body = body.replace("\\", " ").replace("#define OBMD_USHER_ARGS(real)",
+                                            "")
+    for real, ctype, names in (
+            ("float", ctypes.c_float,
+             ("usher_search", "usher_search_lj", "usher_search_ljrf",
+              "usher_search_dpdext")),
+            ("double", ctypes.c_double,
+             ("usher_search_f64", "usher_search_lj_f64",
+              "usher_search_ljrf_f64", "usher_search_dpdext_f64"))):
+        want = []
+        for arg in re.sub(r"\breal\b", real, body).split(","):
+            decl = " ".join(arg.split())
+            if "*" in decl:
+                want.append(ctypes.c_void_p)
+            elif re.match(r"long long \w+$", decl):
+                want.append(ctypes.c_longlong)
+            elif re.match(r"int \w+$", decl):
+                want.append(ctypes.c_int)
+            elif re.match(rf"{real} \w+$", decl):
+                want.append(ctype)
+            else:
+                raise AssertionError(decl)
+        assert len(want) == 32
+        for name in names:
+            assert list(_build.KERNELS[name].argtypes) == want, name
 
 
 def test_max_cells_fit_shared_memory():
