@@ -651,6 +651,11 @@ WATER_CONSTRAINT, WATER_CHARGE = 1e-5, 1e-3
 RIGID_GEOMETRY = 5e-4
 RIGID_GOLDEN_POS, RIGID_GOLDEN_ARM, RIGID_GOLDEN_VEL = 5e-3, 1e-4, 5e-3
 RIGID_GOLDEN_CPU = 1e-4
+# path K64, path K's end at float64 without the stage: the waters with an
+# atom within K64_MARGIN nm of an open x face are left out (nothing
+# holds the faces' fluid in without the stage), so that in K64_STEPS steps
+# (0.1 ps) no atom reaches a face, which the phase asserts
+K64_MARGIN, K64_STEPS = 0.5, 50
 # path J's quiet deck also under a static relayout every 10 steps (the
 # outputs' chunk), beside the deck's own schedule (neigh_modify check yes:
 # the half-skin test every step)
@@ -4293,7 +4298,7 @@ def run_dpdext(cfg24, st_eq):
     return path, kernels
 
 
-def run_float64(cfg24, st_eq, g_path):
+def run_float64(cfg24, st_eq, g_path, l64):
     """Phase 43b: path O, OBMD_DPD at float64 on the nlist engine
     (obmd_dpd_config(scale=9, dtype="float64", force_path="nlist"), the
     scene's own list settings), from phase 4's equilibrated state st_eq
@@ -4310,7 +4315,9 @@ def run_float64(cfg24, st_eq, g_path):
     Launch counts are zeroed before setup and read after the insertion
     phase: the float64 USHER kernel (usher_search_f64) on every step that
     needs atoms, and no other kernel.  Then that kernel on the insertion
-    state's subsets against its plain version (check_usher_f64)."""
+    state's subsets against its plain version (check_usher_f64).  l64:
+    path L64's figures (its one NCCL rank's ms/step from the same start is
+    logged beside this engine's)."""
     import torch
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.integrate import (compute_forces, make_grid_spec,
@@ -4385,7 +4392,8 @@ def run_float64(cfg24, st_eq, g_path):
     log(f"{label} ({natoms0} atoms at setup, {natoms} after the windows, "
         f"n_max {cfg.capacity.n_max}, float64) {path_s:.1f} s, windows "
         f"{windows}, {wall / steps * 1e3:.3f} ms/step (path G "
-        f"{g_path['ms_per_step']:.3f}), "
+        f"{g_path['ms_per_step']:.3f}; path L64 (d')'s one NCCL rank of the "
+        f"slab from the same start {l64['nccl_world1_ms_per_step']:.3f}), "
         f"{steps / wall * natoms / 1e6:.3f} Mparticle-steps/s, telemetry "
         f"{tel}; list force against the plain pair_sweep {sweep_err:.3e}, "
         f"|sum f| {fsum:.3e} (max|f| {scale:.1f}); insertion phase: nbuf "
@@ -4401,6 +4409,7 @@ def run_float64(cfg24, st_eq, g_path):
                 n_max=cfg.capacity.n_max, ms_per_step=wall / steps * 1e3,
                 mparticle_steps_per_s=steps / wall * natoms / 1e6,
                 path_g_ms_per_step=g_path["ms_per_step"],
+                path_l64_nccl_ms_per_step=l64["nccl_world1_ms_per_step"],
                 windows_s=[w for w, _ in windows], path_s=path_s,
                 telemetry=tel, thermal_temp_limit=t_relax,
                 kinetic_thermal_temps=[p[1:] for p in probes],
@@ -5114,15 +5123,18 @@ def run_water():
 # path K: path I's water as rigid bodies (obmd_tpu_torch/rigid.py)
 # ---------------------------------------------------------------------------
 
-def check_rigid_water(cfg, state, label):
+def check_rigid_water(cfg, state, label, templates=None):
     """Path K's checks on a state: every molecule id holds 3 live atoms or
     none, the bodies' largest distance error against the template (O-H and
-    H-H) at most RIGID_GEOMETRY nm, the net charge within WATER_CHARGE e,
-    finite positions, velocities and forces.  Returns
-    observe.molecule_report's figures."""
+    H-H; the stage's, or `templates` on a scene without one) at most
+    RIGID_GEOMETRY nm, the net charge within WATER_CHARGE e, finite
+    positions, velocities and forces.  Returns observe.molecule_report's
+    figures."""
     import torch
     from obmd_tpu_torch.observe import molecule_report, molecule_sizes
-    rep = molecule_report(cfg, state)
+    rep = molecule_report(cfg, state, templates)
+    if rep["molecules"] == 0 or "rigid_error" not in rep:
+        fail(f"{label}: no rigid molecule audited: {rep}")
     sizes = molecule_sizes(state)[1:]
     if bool(((sizes != 0) & (sizes != 3)).any()) or rep["broken"]:
         fail(f"{label}: molecules not of 3 atoms: {rep}")
@@ -5236,7 +5248,8 @@ def run_rigid(warm_i, water_ms):
     version on path K's state (its H-H pair now in the law); the binned
     observables twice on that state (check_binned_repeat); then the rigid
     golden and the small rigid-water box against the CPU.  water_ms: path
-    I's ms/step from this smoke.  Returns (figures, kernel lines)."""
+    I's ms/step from this smoke.  Returns (figures, kernel lines, the
+    production's last state)."""
     from obmd_tpu_torch import _build, scenes
     from obmd_tpu_torch.engine_cellpad import make_geometry
     from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
@@ -5381,6 +5394,84 @@ def run_rigid(warm_i, water_ms):
         f"{geom.fcap}, open x, path K (rigid SPC/E water)",
         "obmd_tpu/forces/pallas_dpd.py:324", launches["pair"][1][key],
         pair)]
+    return path, kernels, st
+
+
+def run_rigid_float64(state):
+    """Phase 41b: path K64, path K's rigid SPC/E water at float64 on the
+    cellpad engine: path K's production end (`state`) without the OBMD
+    stage (the cellpad engine runs no float64 stage, FLOAT64_STAGE), in
+    open_water_config(rigid=True)'s store at float64, widened exactly
+    (scenes.rigid_water_start), the waters with an atom within K64_MARGIN
+    of an open x face left out.  Setup, K64_STEPS steps; no atom across an
+    open x face, the bodies within RIGID_GEOMETRY of the template
+    (check_rigid_water), check_invariants, every float tensor float64; the
+    pair kernel launched once a step with path K's key (the dense body of
+    ljrf-t2-excl2-cap150) and no other kernel, launch counts zeroed before
+    setup and read after the steps; that launch on float32 fields packed
+    from the float64 state against its plain version (check_pair, path
+    K's bar).  Returns (figures, kernel lines)."""
+    import torch
+    from obmd_tpu_torch import _build, scenes
+    from obmd_tpu_torch.engine_cellpad import make_geometry
+    from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
+    from obmd_tpu_torch.integrate import make_run, setup
+    from obmd_tpu_torch.observe import check_invariants
+    label = "path K64"
+    t_path = time.perf_counter()
+    k_cfg = scenes.open_water_config(rigid=True)
+    water = k_cfg.obmd.templates
+    cfg = dataclasses.replace(k_cfg, obmd=None, dtype="float64").finalize()
+    geom = make_geometry(cfg)
+    key = launch_key(geom, PairCoef.of(geom, cfg.pair, cfg.dt), 2)
+    lo, hi = cfg.box.lo[0], cfg.box.hi[0]
+    x0 = state.x[:, 0]
+    near = state.alive & ((x0 < lo + K64_MARGIN) | (x0 > hi - K64_MARGIN))
+    keep = state.alive & ~torch.isin(state.mol, state.mol[near])
+    start = scenes.rigid_water_start(cfg, state.replace(alive=keep))
+    require_float64(start, f"{label} start")
+    _build.reset_launch_counts()
+    st = setup(cfg, start)
+    start_rep = check_rigid_water(cfg, st, f"{label} start", water)
+    t0 = time.perf_counter()
+    st = make_run(cfg, K64_STEPS)(st)
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    require_launches(launches, {"pair": (key,)}, label)
+    if launches["pair"][1][key] != K64_STEPS + 1:
+        fail(f"{label}: {launches['pair']} pair launches for setup and "
+             f"{K64_STEPS} steps")
+    xs = st.x[st.alive, 0]
+    across = int(((xs < lo) | (xs > hi)).sum())
+    if across:
+        fail(f"{label}: {across} atoms across an open x face")
+    rep = check_rigid_water(cfg, st, label, water)
+    tel = check_invariants(cfg, st)
+    require_float64(st, f"{label} after the steps")
+    pair, _ = check_pair(cfg, geom, st, "ljrf, 2 types, 2-channel "
+                         f"exclusion, cap {geom.fcap}, float32 fields of a "
+                         f"float64 state, {label} (rigid water)")
+    path_s = time.perf_counter() - t_path
+    natoms = int(st.natoms)
+    log(f"{label}: {int(state.natoms)} atoms at path K's end, {natoms} kept "
+        f"({int(state.natoms) - natoms} within {K64_MARGIN} nm of a face "
+        f"left out, whole waters), {K64_STEPS} steps in {run_s:.2f} s "
+        f"({run_s / K64_STEPS * 1e3:.3f} ms/step, "
+        f"{K64_STEPS / run_s * natoms / 1e6:.3f} Mparticle-steps/s, setup "
+        f"apart), bodies {start_rep['rigid_error']:.3e} -> "
+        f"{rep['rigid_error']:.3e} nm off the template, telemetry {tel}, "
+        f"launches {launches['pair']}; {path_s:.1f} s")
+    path = dict(atoms_at_k_end=int(state.natoms), atoms=natoms,
+                steps=K64_STEPS, ms_per_step=run_s / K64_STEPS * 1e3,
+                mparticle_steps_per_s=K64_STEPS / run_s * natoms / 1e6,
+                start_rigid_error=start_rep["rigid_error"], report=rep,
+                telemetry=tel, path_s=path_s)
+    kernels = [kernel_line(
+        "pair", f"{key}: ljrf, 2 types, 2-channel exclusion, cap "
+        f"{geom.fcap}, open x, float32 fields of a float64 state, path K64 "
+        "(rigid SPC/E water)", "obmd_tpu/forces/pallas_dpd.py:324",
+        launches["pair"][1][key], pair)]
     return path, kernels
 
 
@@ -6246,9 +6337,14 @@ def scratch_figure(cfg, subsets):
 SLAB_WORLD = 4
 SLAB_CHECK_STEPS = 10       # (a) the gathered slab against the sweep engine
 SLAB_KERNEL_STEPS = 3       # (b) the kernel slab against the gathered at T 0
-SLAB_WARM, SLAB_PROD = 20, 100    # (c) production through the kernel
-SLAB_NCCL_STEPS = 50        # (d) one NCCL rank beside the cellpad engine
+SLAB_WARM, SLAB_PROD = 20, 60     # (c) production through the kernel
+SLAB_NCCL_STEPS = 30        # (d) one NCCL rank beside the cellpad engine
 ATOM_STEPS = 10             # (e) the atom decomposition, on the slab's ranks
+L64_PROD = 30               # (c') path L64's production through the kernel
+L64_NCCL_STEPS = 20         # (d') its one NCCL rank
+# (a') path L64's gathered slab at float64 against the nlist engine at
+# float64: positions by tag within this x Ly
+L64_X_REL = 1e-8
 # (a) and (b) search with nattempt 0 at this etarget (unmoved candidates
 # pass in the liquid): a 40-iteration USHER verdict at the etarget gate
 # hangs on the float32 order of the sums over the ranks
@@ -6271,9 +6367,31 @@ def replay_draws(cfg, n_calls, seed):
     shapes = draw_shapes(cfg, rounds_of(cfg), cfg.obmd.insert_kmax,
                          7 if mol_mode(cfg) else 3)
     g = torch.Generator().manual_seed(seed)
+    real = getattr(torch, cfg.dtype)
     return [{k: None if shapes[k] is None
-             else torch.rand(shapes[k], generator=g).numpy()
+             else torch.rand(shapes[k], generator=g, dtype=real).numpy()
              for k in ("pos", "z", "vel")} for _ in range(n_calls)]
+
+
+def widened_arrays(arrays):
+    """A global state's arrays (convert.to_arrays) with every float array
+    cast to float64, exactly: a float64 path's start from a float32
+    one's."""
+    import numpy as np
+    return {k: np.asarray(v, np.float64)
+            if np.issubdtype(np.asarray(v).dtype, np.floating) else v
+            for k, v in arrays.items()}
+
+
+def require_float64_arrays(arrays, label):
+    """Every float array of a global state (convert.to_arrays) is
+    float64."""
+    import numpy as np
+    narrow = {k: str(np.asarray(v).dtype) for k, v in arrays.items()
+              if np.issubdtype(np.asarray(v).dtype, np.floating)
+              and np.asarray(v).dtype != np.float64}
+    if narrow or arrays["x"].dtype != np.float64:
+        fail(f"{label}: float arrays not float64: {narrow}")
 
 
 def by_tag(arrays):
@@ -6341,6 +6459,31 @@ def rank_sum(res, i, key, path="path L"):
     return n
 
 
+def check_slab_production(res, i, start, label, sizes=None):
+    """Run i of a multi-rank call, a production through the kernel: no
+    overflow beyond the start's, every live atom inside its rank's slab
+    (beyond-face atoms on the edge ranks excepted), tags unique, every rank
+    drew the same numbers, finite positions; with `sizes` the molecules
+    whole (tag_molecules).  Returns (the global state, its atoms, its
+    molecules or None)."""
+    import numpy as np
+    fin = res[0][i]["state"]
+    if int(fin["cell_overflow"]) != int(start["cell_overflow"]):
+        fail(f"{label}: cell overflow {int(fin['cell_overflow'])}")
+    outside = [r[i]["outside"] for r in res]
+    if any(outside):
+        fail(f"{label}: live atoms outside their rank's slab {outside}")
+    tags = fin["tag"][fin["alive"]]
+    if len(np.unique(tags)) != len(tags):
+        fail(f"{label}: a tag is live on two ranks")
+    if not all(r[i]["same_draws"] for r in res):
+        fail(f"{label}: the ranks drew different numbers")
+    if not np.isfinite(fin["x"][fin["alive"]]).all():
+        fail(f"{label}: non-finite positions")
+    mols = None if sizes is None else tag_molecules(fin, sizes, label)
+    return fin, int(fin["alive"].sum()), mols
+
+
 def run_slab(cfg24, st_eq):
     """Phase 42: path L, the multi-device steps on the card
     (obmd_tpu_torch/parallel, the ranks started by parallel.comm.Launch
@@ -6371,16 +6514,29 @@ def run_slab(cfg24, st_eq):
           setup) against the nlist engine in this
           process, ATOM_STEPS steps on replayed draws: counters equal,
           positions by tag within 2e-3.
-    Launch counts of the main path are the ranks' own over (c).  A
-    generator (run_multi_rank drives it): it yields its rank tasks for the
-    four gloo ranks and the one NCCL rank, which path M's share, and is
+    Path L64, the same start widened to float64 exactly (slots_of), on the
+    same ranks:
+      (a') the gathered slab at float64 against the nlist engine at float64
+           in this process, SLAB_CHECK_STEPS steps on the same replayed
+           float64 draws (nattempt 0 at SLAB_ETARGET): the counters and the
+           tag sets equal, positions by tag within L64_X_REL x Ly;
+      (c') production through the kernel at float64 (float32 kernel fields
+           from the float64 state): SLAB_WARM steps, then L64_PROD timed,
+           with (c)'s checks, every float array float64 at the end, and
+           the launch on rank 0's filed rows against its plain version;
+      (d') the same on the one NCCL rank for L64_NCCL_STEPS steps (path O,
+           the nlist engine at float64 from the same start, logs its
+           ms/step beside this one's).
+    Launch counts of the main path are the ranks' own over (c) and (c').
+    A generator (run_multi_rank drives it): it yields its rank tasks for
+    the four gloo ranks and the one NCCL rank, which path M's share, and is
     sent their results and the calls' seconds."""
-    import numpy as np
     import torch
     from obmd_tpu_torch import convert, scenes
     from obmd_tpu_torch.config import DPDParams
     from obmd_tpu_torch.forces.pair_kernel import PairCoef, launch_key
-    from obmd_tpu_torch.integrate import make_run, make_step, setup
+    from obmd_tpu_torch.integrate import (make_run, make_step,
+                                          rebuild_neighbors, setup)
     from obmd_tpu_torch.observe import make_obmd_metrics_fn
     from obmd_tpu_torch.parallel.ranks import (ReplayDraws, atom_runs,
                                                slab_runs)
@@ -6416,6 +6572,31 @@ def run_slab(cfg24, st_eq):
     sweep_s = time.perf_counter() - t0
     ref = convert.to_arrays(ref)
     del step
+    # L64: the same start widened to float64; (a')'s reference, the nlist
+    # engine at float64 on the same replayed float64 draws
+    deck64 = dataclasses.replace(deck, dtype="float64").finalize()
+    ins64 = dataclasses.replace(cfg_ins, dtype="float64").finalize()
+    start64 = slots_of(deck64, st_eq)
+    require_float64(start64, "path L64 start")
+    arrays64 = convert.to_arrays(start64)
+    del start64
+    draws64 = replay_draws(ins64, SLAB_CHECK_STEPS, SLAB_SEED)
+    nl64 = dataclasses.replace(
+        scenes.obmd_dpd_config(scale=SLAB_SCALE, dtype="float64",
+                               force_path="nlist"),
+        obmd=ins64.obmd).finalize()
+    t0 = time.perf_counter()
+    with KeepCounts():
+        ref64 = rebuild_neighbors(nl64, convert.from_arrays(
+            arrays64, seed=SLAB_SEED, device=DEV))
+        step = make_step(nl64, ReplayDraws(draws64))
+        for _ in range(SLAB_CHECK_STEPS):
+            ref64 = step(ref64)
+        sync()
+    nlist64_s = time.perf_counter() - t0
+    require_float64(ref64, "path L64 (a') the nlist engine")
+    ref64 = convert.to_arrays(ref64)
+    del step
     torch.cuda.empty_cache()
     runs = [
         dict(cfg=cfg_ins, arrays=arrays, seed=SLAB_SEED,
@@ -6425,7 +6606,11 @@ def run_slab(cfg24, st_eq):
         dict(cfg=cfg_t0, arrays=arrays, seed=SLAB_SEED,
              steps=SLAB_KERNEL_STEPS, draws=draws, force_impl="kernel"),
         dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=SLAB_WARM,
-             steps=SLAB_PROD, force_impl="kernel", fields=True)]
+             steps=SLAB_PROD, force_impl="kernel", fields=True),
+        dict(cfg=ins64, arrays=arrays64, seed=SLAB_SEED,
+             steps=SLAB_CHECK_STEPS, draws=draws64),
+        dict(cfg=deck64, arrays=arrays64, seed=SLAB_SEED, warm=SLAB_WARM,
+             steps=L64_PROD, force_impl="kernel", fields=True)]
     # (e)'s reference: the nlist engine on OBMD_DPD at scale 1
     sa = scenes.obmd_dpd_scene(scale=1.0, seed=7, force_path="nlist",
                                device=DEV)
@@ -6452,6 +6637,9 @@ def run_slab(cfg24, st_eq):
             seed=SLAB_SEED, steps=ATOM_STEPS, draws=e_draws)],))],
         [(slab_runs, ([dict(cfg=deck, arrays=arrays, seed=SLAB_SEED, warm=5,
                             steps=SLAB_NCCL_STEPS, force_impl="kernel",
+                            fields=True),
+                       dict(cfg=deck64, arrays=arrays64, seed=SLAB_SEED,
+                            warm=5, steps=L64_NCCL_STEPS, force_impl="kernel",
                             fields=True)],))])
     t_path = time.perf_counter()
     res = [b[0] for b in both]
@@ -6486,24 +6674,11 @@ def run_slab(cfg24, st_eq):
         f"gathered within {diff_b:.3e} by tag")
     # (c)
     prod = r0[3]
-    fin = prod["state"]
-    if int(fin["cell_overflow"]) != int(arrays["cell_overflow"]):
-        fail(f"path L (c): cell overflow {int(fin['cell_overflow'])}")
-    outside = [r[3]["outside"] for r in res]
-    if any(outside):
-        fail(f"path L (c): live atoms outside their rank's slab {outside}")
-    tags = fin["tag"][fin["alive"]]
-    if len(np.unique(tags)) != len(tags):
-        fail("path L (c): a tag is live on two ranks")
-    if not all(r[3]["same_draws"] for r in res):
-        fail("path L (c): the ranks drew different numbers")
-    if not np.isfinite(fin["x"][fin["alive"]]).all():
-        fail("path L (c): non-finite positions")
+    fin, natoms_c, _ = check_slab_production(res, 3, arrays, "path L (c)")
     c_launch = rank_sum(res, 3, keys[SLAB_WORLD])
     if c_launch != SLAB_WORLD * (SLAB_WARM + SLAB_PROD):
         fail(f"path L (c): {c_launch} kernel launches")
     c_s = max(r[3]["seconds"] for r in res)
-    natoms_c = int(fin["alive"].sum())
     c_ms = c_s / SLAB_PROD * 1e3
     geom4 = make_slab_geom(deck, SLAB_WORLD)
     key4, fig4 = check_slab_fields(deck, geom4.pad_geom, prod["fields"],
@@ -6516,7 +6691,7 @@ def run_slab(cfg24, st_eq):
         f"{int(fin['ninserted'])}, launches {c_launch}; the ranks' call "
         f"(paths L and M) took {spawn_s:.1f} s")
     # (d)
-    one = res1[0][0][0]
+    one, one64 = res1[0][0]
     res1 = [r[0] for r in res1]
     if int(one["state"]["cell_overflow"]) != int(arrays["cell_overflow"]) \
             or one["outside"]:
@@ -6556,6 +6731,59 @@ def run_slab(cfg24, st_eq):
         f"{int(e_got['ndeleted'])}, ninserted {int(e_got['ninserted'])}, "
         f"positions by tag within {diff_e:.3e} of the nlist engine; "
         f"{res2[0][0]['seconds']:.2f} s")
+    # (a')
+    got64 = r0[4]["state"]
+    require_float64_arrays(got64, "path L64 (a') the gathered slab")
+    if int(got64["ninserted"]) <= int(arrays64["ninserted"]) \
+            or int(got64["ndeleted"]) <= int(arrays64["ndeleted"]):
+        fail("path L64 (a'): the window inserted or deleted nothing")
+    for g in (got64, ref64):
+        if int(g["cell_overflow"]) != int(arrays64["cell_overflow"]):
+            fail(f"path L64 (a'): cell overflow {int(g['cell_overflow'])}")
+    ly = deck.box.lengths[1]
+    diff_a64 = same_atoms(got64, ref64, L64_X_REL * ly,
+                          "path L64 (a') gathered slab at float64 against "
+                          "the nlist engine at float64")
+    log(f"path L64 (a'): {SLAB_WORLD} gloo ranks, {SLAB_CHECK_STEPS} steps "
+        f"at float64, natoms {int(got64['alive'].sum())}, ndeleted "
+        f"{int(got64['ndeleted'])}, ninserted {int(got64['ninserted'])}, "
+        f"positions by tag within {diff_a64:.3e} ({diff_a64 / ly:.3e} Ly) of "
+        f"the nlist engine at float64; slab {r0[4]['seconds']:.2f} s, "
+        f"nlist {nlist64_s:.2f} s")
+    # (c')
+    prod64 = r0[5]
+    fin64, natoms_c64, _ = check_slab_production(res, 5, arrays64,
+                                                 "path L64 (c')")
+    require_float64_arrays(fin64, "path L64 (c')")
+    c64_launch = rank_sum(res, 5, keys[SLAB_WORLD], "path L64")
+    if c64_launch != SLAB_WORLD * (SLAB_WARM + L64_PROD):
+        fail(f"path L64 (c'): {c64_launch} kernel launches")
+    c64_s = max(r[5]["seconds"] for r in res)
+    c64_ms = c64_s / L64_PROD * 1e3
+    key64_4, fig64_4 = check_slab_fields(
+        deck64, geom4.pad_geom, prod64["fields"],
+        "path L64 slab kernel, 4 ranks, float32 fields of a float64 state")
+    log(f"path L64 (c'): world {SLAB_WORLD}, gloo, float64, {L64_PROD} steps "
+        f"in {c64_s:.2f} s: {c64_ms:.3f} ms/step (float32 (c) {c_ms:.3f}), "
+        f"{L64_PROD / c64_s * natoms_c64 / 1e6:.3f} Mparticle-steps/s, "
+        f"{natoms_c64} atoms, ndeleted {int(fin64['ndeleted'])}, ninserted "
+        f"{int(fin64['ninserted'])}, launches {c64_launch}")
+    # (d')
+    if int(one64["state"]["cell_overflow"]) \
+            != int(arrays64["cell_overflow"]) or one64["outside"]:
+        fail("path L64 (d'): overflow or an atom outside the slab")
+    require_float64_arrays(one64["state"], "path L64 (d')")
+    d64_launch = rank_sum(res1, 1, keys[1], "path L64")
+    if d64_launch != 5 + L64_NCCL_STEPS:
+        fail(f"path L64 (d'): {d64_launch} kernel launches")
+    d64_ms = one64["seconds"] / L64_NCCL_STEPS * 1e3
+    key64_1, fig64_1 = check_slab_fields(
+        deck64, geom1.pad_geom, one64["fields"],
+        "path L64 slab kernel, 1 rank, float32 fields of a float64 state")
+    log(f"path L64 (d'): one NCCL rank at float64 {d64_ms:.3f} ms/step over "
+        f"{L64_NCCL_STEPS} steps ({int(one64['state']['alive'].sum())} "
+        f"atoms; float32 (d) {d_ms:.3f}); path O logs the nlist engine's "
+        f"beside it")
     path_s = own_s + time.perf_counter() - t_path
     log(f"path L: {path_s:.1f} s, the ranks' calls apart")
     path = dict(atoms_at_start=natoms0, atoms=natoms_c, world=SLAB_WORLD,
@@ -6564,14 +6792,27 @@ def run_slab(cfg24, st_eq):
                 nccl_world1_ms_per_step=d_ms, cellpad_ms_per_step=cell_ms,
                 check_a_max_diff=diff_a, check_b_max_diff=diff_b,
                 atom_decomp_max_diff=diff_e, path_s=path_s,
-                spawn_s=[spawn_s, d_spawn_s])
+                spawn_s=[spawn_s, d_spawn_s],
+                float64=dict(
+                    atoms=natoms_c64, ms_per_step=c64_ms,
+                    mparticle_steps_per_s=L64_PROD / c64_s * natoms_c64
+                    / 1e6, nccl_world1_ms_per_step=d64_ms,
+                    check_a_max_diff=diff_a64,
+                    check_a_max_diff_over_ly=diff_a64 / ly,
+                    check_a_slab_s=r0[4]["seconds"], nlist_s=nlist64_s))
     replaces = ("obmd_tpu/forces/pallas_dpd.py:324 (make_pair_kernel's "
                 "kernel, :858) on slab_decomp.py:450-461's pad geometry")
     kernels = [
         kernel_line("pair", f"dpd, the 4-rank slab's pad geometry, {key4}",
                     replaces, c_launch, fig4),
         kernel_line("pair", f"dpd, the 1-rank slab's pad geometry, {key1}",
-                    replaces, d_launch, fig1)]
+                    replaces, d_launch, fig1),
+        kernel_line("pair", f"dpd, the 4-rank slab's pad geometry, float32 "
+                    f"fields of a float64 state, path L64, {key64_4}",
+                    replaces, c64_launch, fig64_4),
+        kernel_line("pair", f"dpd, the 1-rank slab's pad geometry, float32 "
+                    f"fields of a float64 state, path L64, {key64_1}",
+                    replaces, d64_launch, fig64_1)]
     return path, kernels
 
 
@@ -6580,9 +6821,11 @@ def run_slab(cfg24, st_eq):
 M_WORLD = 4
 M_CHECK_STEPS = 10          # (a) the gathered slab against the cellpad engine
 M_KERNEL_STEPS = 3          # (b) the kernel slab against the gathered at T 0
-M_WARM, M_PROD = 10, 60     # (c) production through the kernel
-M_NCCL_STEPS = 30           # (d) one NCCL rank beside the cellpad engine
+M_WARM, M_PROD = 10, 40     # (c) production through the kernel
+M_NCCL_STEPS = 20           # (d) one NCCL rank beside the cellpad engine
 M_SMALL_STEPS = 10          # (e) the small SHAKE and rigid water slabs
+M64_PROD = 20               # (c') path M64's production through the kernel
+M64_NCCL_STEPS = 10         # (d') its one NCCL rank
 # (a) and (b) search with nattempt 0 at this etarget (most unmoved star
 # trials pass: their median energy in the melt is 20.8, scenes.
 # OPEN_STAR_ETARGET)
@@ -6716,8 +6959,21 @@ def run_slab_mol(star_end):
           RIGID_GEOMETRY and at the template within it; then the port's
           dry run (parallel/dryrun.py, all four paths) on the same M_WORLD
           gloo ranks, after the runs.
-    Launch counts of the main path are the ranks' own over (c).  A
-    generator, as run_slab: path L's ranks run its rank tasks too."""
+    Path M64, the same start widened to float64 exactly (widened_arrays),
+    on the same ranks (no single-device engine inserts molecules at
+    float64, engine_cellpad.FLOAT64_MOL):
+      (b') at temperature 0 the kernel slab at float64 (float32 kernel
+           fields from the float64 state) against the gathered slab at
+           float64, M_KERNEL_STEPS steps each on the same replayed float64
+           draws: positions by tag within 1e-5, the kernel launched once a
+           step on each rank;
+      (c') production through the kernel at float64: M_WARM steps, then
+           M64_PROD timed, with (c)'s checks (molecules whole, insertions
+           and deletions in whole stars), every float array float64, the
+           launch on rank 0's filed rows against its plain version;
+      (d') the same on the one NCCL rank for M64_NCCL_STEPS steps.
+    Launch counts of the main path are the ranks' own over (c) and (c').
+    A generator, as run_slab: path L's ranks run its rank tasks too."""
     import numpy as np
     import torch
     from obmd_tpu_torch import convert, scenes
@@ -6749,6 +7005,10 @@ def run_slab_mol(star_end):
                                                   cfg.dt), 4)
     keys = {w: key_of(deck, g) for w, g in geoms.items()}
     draws = replay_draws(cfg_ins, M_CHECK_STEPS, M_SEED)
+    deck64 = dataclasses.replace(deck, dtype="float64").finalize()
+    t0_64 = dataclasses.replace(cfg_t0, dtype="float64").finalize()
+    arrays64 = widened_arrays(arrays)
+    draws64 = replay_draws(t0_64, M_KERNEL_STEPS, M_SEED)
 
     # (a)'s reference: the cellpad engine on the same start and draws
     t0 = time.perf_counter()
@@ -6779,6 +7039,14 @@ def run_slab_mol(star_end):
                          steps=M_SMALL_STEPS, draws=sdraws,
                          balance_every=0 if cfg.rigid else 1,
                          geom={} if cfg.rigid else dict(grow=1.5)))
+    m64 = len(runs)
+    runs += [
+        dict(cfg=t0_64, arrays=arrays64, seed=M_SEED, steps=M_KERNEL_STEPS,
+             draws=draws64, geom=g4),
+        dict(cfg=t0_64, arrays=arrays64, seed=M_SEED, steps=M_KERNEL_STEPS,
+             draws=draws64, geom=g4, force_impl="kernel"),
+        dict(cfg=deck64, arrays=arrays64, seed=M_SEED, warm=M_WARM,
+             steps=M64_PROD, force_impl="kernel", fields=True, geom=g4)]
     # the dry run's four paths ride in the same spawn, after the runs;
     # (d)'s in the one-rank spawn
     t0 = time.perf_counter()
@@ -6789,6 +7057,9 @@ def run_slab_mol(star_end):
         [(slab_runs, (runs,)), (dry_rank, dry_args)],
         [(slab_runs, ([dict(cfg=deck, arrays=arrays, seed=M_SEED, warm=5,
                             steps=M_NCCL_STEPS, force_impl="kernel",
+                            fields=True, geom=geom_kw[1]),
+                       dict(cfg=deck64, arrays=arrays64, seed=M_SEED, warm=5,
+                            steps=M64_NCCL_STEPS, force_impl="kernel",
                             fields=True, geom=geom_kw[1])],))])
     t_path = time.perf_counter()
     res = [b[0] for b in both]
@@ -6833,25 +7104,12 @@ def run_slab_mol(star_end):
         f"within {diff_b:.3e} by tag")
     # (c)
     prod = r0[3]
-    fin = prod["state"]
-    if int(fin["cell_overflow"]) != int(arrays["cell_overflow"]):
-        fail(f"path M (c): cell overflow {int(fin['cell_overflow'])}")
-    outside = [r[3]["outside"] for r in res]
-    if any(outside):
-        fail(f"path M (c): live atoms outside their rank's slab {outside}")
-    tags = fin["tag"][fin["alive"]]
-    if len(np.unique(tags)) != len(tags):
-        fail("path M (c): a tag is live on two ranks")
-    if not all(r[3]["same_draws"] for r in res):
-        fail("path M (c): the ranks drew different numbers")
-    if not np.isfinite(fin["x"][fin["alive"]]).all():
-        fail("path M (c): non-finite positions")
-    mols_c = tag_molecules(fin, (5,), "path M (c)")
+    fin, natoms_c, mols_c = check_slab_production(res, 3, arrays,
+                                                  "path M (c)", (5,))
     c_launch = rank_sum(res, 3, keys[M_WORLD], "path M")
     if c_launch != M_WORLD * (M_WARM + M_PROD):
         fail(f"path M (c): {c_launch} kernel launches")
     c_s = max(r[3]["seconds"] for r in res)
-    natoms_c = int(fin["alive"].sum())
     c_ms = c_s / M_PROD * 1e3
     key4, fig4 = check_slab_fields(deck, geoms[M_WORLD].pad_geom,
                                    prod["fields"],
@@ -6902,7 +7160,7 @@ def run_slab_mol(star_end):
             f"{M_WORLD} slabs against the CPU's single-device step: "
             f"{small_out[label]}")
     # (d)
-    one = res1[0][0][0]
+    one, one64 = res1[0][0]
     res1 = [r[0] for r in res1]
     if int(one["state"]["cell_overflow"]) != int(arrays["cell_overflow"]) \
             or one["outside"]:
@@ -6928,6 +7186,60 @@ def run_slab_mol(star_end):
         f"steps ({int(one['state']['alive'].sum())} beads), the cellpad "
         f"engine {cell_ms:.3f} ms/step over as many from the same start; "
         f"the ranks' call (paths L and M) took {d_spawn_s:.1f} s")
+    # (b')
+    for i in (m64, m64 + 1):
+        require_float64_arrays(r0[i]["state"], "path M64 (b')")
+        if int(r0[i]["state"]["cell_overflow"]) \
+                != int(arrays64["cell_overflow"]):
+            fail("path M64 (b'): cell overflow")
+    diff_b64 = same_atoms(r0[m64 + 1]["state"], r0[m64]["state"], 1e-5,
+                          "path M64 (b') kernel slab at float64 against "
+                          "the gathered slab at float64")
+    b64_launch = rank_sum(res, m64 + 1, key_of(t0_64, make_slab_geom(
+        t0_64, M_WORLD, **geom_kw[M_WORLD])), "path M64")
+    if b64_launch != M_WORLD * M_KERNEL_STEPS:
+        fail(f"path M64 (b'): {b64_launch} kernel launches")
+    log(f"path M64 (b'): T 0, float64, {M_KERNEL_STEPS} steps, kernel "
+        f"against gathered within {diff_b64:.3e} by tag")
+    # (c')
+    prod64 = r0[m64 + 2]
+    fin64, natoms_c64, mols_c64 = check_slab_production(
+        res, m64 + 2, arrays64, "path M64 (c')", (5,))
+    require_float64_arrays(fin64, "path M64 (c')")
+    for k in ("ninserted", "ndeleted"):
+        d = int(fin64[k]) - int(arrays64[k])
+        if d < 0 or d % 5:
+            fail(f"path M64 (c'): {k} grew by {d}")
+    c64_launch = rank_sum(res, m64 + 2, keys[M_WORLD], "path M64")
+    if c64_launch != M_WORLD * (M_WARM + M64_PROD):
+        fail(f"path M64 (c'): {c64_launch} kernel launches")
+    c64_s = max(r[m64 + 2]["seconds"] for r in res)
+    c64_ms = c64_s / M64_PROD * 1e3
+    key64_4, fig64_4 = check_slab_fields(
+        deck64, geoms[M_WORLD].pad_geom, prod64["fields"],
+        "path M64 slab kernel, 4 ranks, float32 fields of a float64 state")
+    log(f"path M64 (c'): world {M_WORLD}, gloo, float64, {M64_PROD} steps "
+        f"in {c64_s:.2f} s: {c64_ms:.3f} ms/step (float32 (c) "
+        f"{c_ms:.3f}), {M64_PROD / c64_s * natoms_c64 / 1e6:.3f} "
+        f"Mparticle-steps/s, {natoms_c64} beads ({mols_c64} stars, all "
+        f"whole), ndeleted {int(fin64['ndeleted'])}, ninserted "
+        f"{int(fin64['ninserted'])}, launches {c64_launch}")
+    # (d')
+    if int(one64["state"]["cell_overflow"]) \
+            != int(arrays64["cell_overflow"]) or one64["outside"]:
+        fail("path M64 (d'): overflow or an atom outside the slab")
+    require_float64_arrays(one64["state"], "path M64 (d')")
+    tag_molecules(one64["state"], (5,), "path M64 (d')")
+    d64_launch = rank_sum(res1, 1, keys[1], "path M64")
+    if d64_launch != 5 + M64_NCCL_STEPS:
+        fail(f"path M64 (d'): {d64_launch} kernel launches")
+    d64_ms = one64["seconds"] / M64_NCCL_STEPS * 1e3
+    key64_1, fig64_1 = check_slab_fields(
+        deck64, geoms[1].pad_geom, one64["fields"],
+        "path M64 slab kernel, 1 rank, float32 fields of a float64 state")
+    log(f"path M64 (d'): one NCCL rank at float64 {d64_ms:.3f} ms/step over "
+        f"{M64_NCCL_STEPS} steps ({int(one64['state']['alive'].sum())} "
+        f"beads; float32 (d) {d_ms:.3f})")
     path_s = own_s + time.perf_counter() - t_path
     log(f"path M: {path_s:.1f} s, the ranks' calls apart")
     path = dict(beads_at_start=natoms0, beads=natoms_c, stars=mols_c,
@@ -6936,7 +7248,12 @@ def run_slab_mol(star_end):
                 nccl_world1_ms_per_step=d_ms, cellpad_ms_per_step=cell_ms,
                 check_a_max_diff=diff_a, check_b_max_diff=diff_b,
                 small=small_out, dryrun=dry, path_s=path_s,
-                spawn_s=[spawn_s, d_spawn_s])
+                spawn_s=[spawn_s, d_spawn_s],
+                float64=dict(
+                    beads=natoms_c64, stars=mols_c64, ms_per_step=c64_ms,
+                    mparticle_steps_per_s=M64_PROD / c64_s * natoms_c64
+                    / 1e6, nccl_world1_ms_per_step=d64_ms,
+                    check_b_max_diff=diff_b64))
     replaces = ("obmd_tpu/forces/pallas_dpd.py:575 (make_pair_kernel's "
                 "kernel_bigtile, :858) on slab_decomp.py:450-461's pad "
                 "geometry with 4 exclusion channels")
@@ -6946,7 +7263,15 @@ def run_slab_mol(star_end):
                     c_launch, fig4),
         kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, the "
                     f"1-rank slab's pad geometry, path M, {key1}", replaces,
-                    d_launch, fig1)]
+                    d_launch, fig1),
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, the "
+                    f"4-rank slab's pad geometry, float32 fields of a "
+                    f"float64 state, path M64, {key64_4}", replaces,
+                    c64_launch, fig64_4),
+        kernel_line("pair", f"dpd, 2 types, 4-channel exclusion, the "
+                    f"1-rank slab's pad geometry, float32 fields of a "
+                    f"float64 state, path M64, {key64_1}", replaces,
+                    d64_launch, fig64_1)]
     return path, kernels
 
 
@@ -7122,10 +7447,14 @@ def run_smoke():
                                         obmd_path["ms_per_step"])
     wall_s["decks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rigid_path, rigid_kernels = run_rigid(water_warm,
-                                          water_path["ms_per_step"])
+    rigid_path, rigid_kernels, rigid_end = run_rigid(
+        water_warm, water_path["ms_per_step"])
     del water_warm
     wall_s["open_rigid_water"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k64_path, k64_kernels = run_rigid_float64(rigid_end)
+    del rigid_end
+    wall_s["open_rigid_water_float64"] = time.perf_counter() - t0
     ((slab_out, wall_s["multi_rank"]), (mol_out,
      wall_s["multi_rank_molecules"])), wall_s["multi_rank_spawns"] = \
         run_multi_rank(*obmd_prod[:2], star_end)
@@ -7133,7 +7462,8 @@ def run_smoke():
     mol_path, mol_kernels = mol_out
     del star_end
     t0 = time.perf_counter()
-    f64_path, f64_kernels = run_float64(*obmd_prod[:2], ext_path)
+    f64_path, f64_kernels = run_float64(*obmd_prod[:2], ext_path,
+                                        slab_path["float64"])
     wall_s["obmd_dpd_float64"] = time.perf_counter() - t0
     wall_s["total"] = time.perf_counter() - t_all
     if Side.jobs:
@@ -7153,7 +7483,8 @@ def run_smoke():
                           obmd_dpd_keywords=kw_path,
                           excl4_small_rows=excl4_path,
                           open_water=water_path,
-                          open_rigid_water=rigid_path, decks=deck_path,
+                          open_rigid_water=rigid_path,
+                          open_rigid_water_float64=k64_path, decks=deck_path,
                           multi_rank=slab_path,
                           multi_rank_molecules=mol_path,
                           obmd_dpd_float64=f64_path),
@@ -7163,7 +7494,7 @@ def run_smoke():
                 + closed64_kernels + film_kernels
                 + star_kernels
                 + open_kernels + ext_kernels + kw_kernels + excl4_kernels
-                + water_kernels + deck_kernels + rigid_kernels
+                + water_kernels + deck_kernels + rigid_kernels + k64_kernels
                 + slab_kernels + mol_kernels + f64_kernels)
 
 

@@ -736,8 +736,8 @@ class Capacity:
 
 FORCE_PATHS = ("cellpad", "nlist", "sweep")
 # the dtypes a scene's state may take, as the JAX package's SceneConfig.dtype
-# (which runs float64 with x64 enabled; engine_cellpad.check_float64 names
-# the parts of the port that run float32 only)
+# (which runs float64 with x64 enabled; engine_cellpad.FLOAT64_MOL and
+# io.script.FLOAT64_DECK name what the port refuses at float64, and why)
 DTYPES = ("float32", "float64")
 
 

@@ -140,47 +140,39 @@ def own_draws(cfg: SceneConfig) -> Draw:
     return draw
 
 
+# why no single-device engine runs a float64 scene with MOLECULE-mode
+# insertion
+FLOAT64_MOL = (
+    "MOLECULE-mode insertion at float64 runs on the slab decomposition "
+    "(parallel.slab_decomp.make_slab_step, on one rank or more); no "
+    "single-device engine runs it, as none of the JAX package's does: its "
+    "nlist and sweep engines refuse molecule insertion "
+    "(obmd_tpu/integrate.py:282-285) and its cellpad engine fails under "
+    "x64 with any stage, the lax.cond in its _insert having branches "
+    "whose iteration counts differ in type (obmd_tpu/engine_cellpad.py:539 "
+    "int64 from _rounds_body, :616 int32 from _skip_rounds)")
+
+
 def check_float64(cfg: SceneConfig) -> None:
-    """The parts of a float64 scene this port does not run yet (ROADMAP
-    Queue 1): rigid bodies (whose drift departs from the JAX package's,
-    so no float64 parity holds them) and MOLECULE-mode insertion.  A
-    float64 scene without them, bonded terms and SHAKE/RATTLE included,
-    runs on every single-device engine (config.DTYPES;
-    tests/test_torch_float64_bonded.py)."""
-    if cfg.dtype != "float64":
-        return
-    parts = [name for name, on in (
-        ("rigid bodies", cfg.rigid),
-        ("MOLECULE-mode insertion", mol_mode(cfg))) if on]
-    if parts:
-        raise NotImplementedError(
-            f"float64 scenes with {', '.join(parts)} are not ported yet; "
-            f"run the scene at float32")
-
-
-def refuse_float64(cfg: SceneConfig, part: str) -> None:
-    """Raise for a float64 scene in a part of the port that runs float32
-    only (ROADMAP Queue 1: the deck Interpreter and the C ABI over it, which
-    have no dtype in the JAX package either, and the multi-device
-    steps)."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"{part} runs float32 scenes only; a float64 scene runs on one "
-            f"device (the nlist or sweep engine, or the cellpad engine "
-            f"without an OBMD stage)")
+    """Raise for a float64 scene with MOLECULE-mode insertion on a
+    single-device engine (FLOAT64_MOL).  Every other float64 scene of
+    config.DTYPES, bonded terms, SHAKE/RATTLE and rigid bodies included,
+    runs on the single-device engines (tests/test_torch_float64_bonded.py,
+    test_torch_float64_rigid.py), and the slab decomposition runs
+    molecule insertion at float64 too (test_torch_float64_parallel.py)."""
+    if cfg.dtype == "float64" and mol_mode(cfg):
+        raise NotImplementedError(FLOAT64_MOL)
 
 
 def check_scene(cfg: SceneConfig) -> None:
-    """The refusals every engine shares: a dtype of config.DTYPES (float32,
-    or float64 without the parts check_float64 refuses), as many masses as
-    the pair law has types, and an OBMD stage only on an open x axis,
-    without bonded terms in ATOM mode (where the JAX engines bond a
-    survivor of a deleted partner to the next atom inserted into its
-    slot)."""
+    """The refusals every engine shares: a dtype of config.DTYPES (float32
+    or float64), as many masses as the pair law has types, and an OBMD
+    stage only on an open x axis, without bonded terms in ATOM mode (where
+    the JAX engines bond a survivor of a deleted partner to the next atom
+    inserted into its slot)."""
     if cfg.dtype not in DTYPES:
         raise NotImplementedError(f"dtype {cfg.dtype!r}: scenes run in "
                                   f"{' or '.join(DTYPES)}")
-    check_float64(cfg)
     if cfg.ntypes != cfg.pair.ntypes:
         raise ValueError(f"{cfg.ntypes} masses for a pair law of "
                          f"{cfg.pair.ntypes} types")
@@ -229,8 +221,10 @@ def check_supported(cfg: SceneConfig) -> None:
     bodies, whose trees setup checks (rigid.check_bodies; check_scene's
     refusals first).  At float64 the state is float64 and the kernel
     fields float32, as the JAX engine runs it; a float64 scene with an
-    OBMD stage is refused (FLOAT64_STAGE)."""
+    OBMD stage is refused (FLOAT64_MOL in MOLECULE mode, else
+    FLOAT64_STAGE)."""
     check_scene(cfg)
+    check_float64(cfg)
     if cfg.dtype == "float64" and cfg.obmd is not None:
         raise NotImplementedError(FLOAT64_STAGE)
     if mol_mode(cfg):
@@ -523,17 +517,18 @@ def _insert(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
 
 
 @functools.lru_cache(maxsize=8)
-def _templates(obmd, device):
+def _templates(obmd, device, real):
     """The insertion templates' stacks as tensors on `device`, padded to the
     largest template's m atoms (config.template_stacks): dx [T, m, 3], amask
     [T, m], types [T, m], q [T, m], rep [T, m], natoms [T], pidx [T, m, 4],
-    iidx [T, m, 3]."""
+    iidx [T, m, 3]; dx and q in `real`, the state's dtype (as
+    obmd_tpu/obmd/subset.py:221 and :299 take the centers')."""
     ts = template_stacks(obmd)
 
     def t(a, dtype):
         return torch.tensor(a, dtype=dtype, device=device)
-    return dict(dx=t(ts.dx, torch.float32), amask=t(ts.amask, torch.bool),
-                types=t(ts.types, torch.int32), q=t(ts.q, torch.float32),
+    return dict(dx=t(ts.dx, real), amask=t(ts.amask, torch.bool),
+                types=t(ts.types, torch.int32), q=t(ts.q, real),
                 rep=t(ts.rep, torch.int32), natoms=t(ts.natoms, torch.int32),
                 pidx=t(ts.pidx, torch.int64), iidx=t(ts.iidx, torch.int64))
 
@@ -654,7 +649,7 @@ def _insert_mol(cfg, geom, state: State, nins_l, nins_r, sub_l, sub_r, u):
     obmd = cfg.obmd
     n_slots = geom.n_slots
     dev = state.device
-    tpl = _templates(obmd, dev)
+    tpl = _templates(obmd, dev, state.dtype)
     m = tpl["dx"].shape[1]
     pos_l, acc_l, ts_l, it_l = _mol_rounds(cfg, state, 0, obmd.region5,
                                            nins_l, sub_l, u, tpl)

@@ -31,10 +31,11 @@ import torch
 from .cells import GridSpec, build_cells
 from .cellpad import layout_build
 from .config import SceneConfig
-from .engine_cellpad import (Draw, add_bonded_forces, check_scene, kick,
-                             kick_drift, make_geometry, make_run_cellpad,
-                             make_step_cellpad, mol_mode, own_draws,
-                             setup_cellpad, stage_every, step_times)
+from .engine_cellpad import (Draw, add_bonded_forces, check_float64,
+                             check_scene, kick, kick_drift, make_geometry,
+                             make_run_cellpad, make_step_cellpad, mol_mode,
+                             own_draws, setup_cellpad, stage_every,
+                             step_times)
 from .engine_cellpad import pair_salt as _salt
 from .forces.bonded import langevin_force
 from .forces.nlist import nlist_sweep
@@ -69,8 +70,10 @@ def check_supported(cfg: SceneConfig) -> None:
     run: engine_cellpad.check_scene's refusals, then molecule-mode
     insertion, which runs on the cellpad engine (as
     obmd_tpu/integrate.py:282-285 has it), and bonded terms on the sweep,
-    which has no 1-2 exclusion."""
+    which has no 1-2 exclusion.  A float64 scene with molecule insertion
+    is refused first with the reason (engine_cellpad.FLOAT64_MOL)."""
     check_scene(cfg)
+    check_float64(cfg)
     if cfg.force_path == "sweep" and cfg.bond is not None:
         raise NotImplementedError(
             "the sweep path has no special-bonds 1-2 exclusion; bonded "

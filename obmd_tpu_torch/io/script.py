@@ -57,6 +57,16 @@ class ScriptError(RuntimeError):
     pass
 
 
+# why the Interpreter, and the C ABI over it, refuse a float64 restart
+FLOAT64_DECK = (
+    "the deck Interpreter (and the C ABI over it) runs float32 decks: the "
+    "JAX package's Interpreter has no dtype (obmd_tpu/config.py:848 "
+    "defaults SceneConfig.dtype to float32 and obmd_tpu/io/script.py never "
+    "sets it), so a float64 deck would be a feature the reference lacks; "
+    "a float64 scene runs through the library API (integrate.setup, "
+    "make_step) or the slab and atom decompositions")
+
+
 @dataclasses.dataclass
 class _PairStyle:
     name: str
@@ -833,13 +843,12 @@ class Interpreter:
         """Load the state and configuration, carry the step count on
         (read_restart.cpp restores the timestep) and rebuild the layout,
         which a checkpoint does not hold, so a `run` can follow.  A
-        checkpoint of a float64 scene is refused: the Interpreter runs
-        float32 decks, as the JAX package's has no dtype."""
-        from ..engine_cellpad import refuse_float64
+        checkpoint of a float64 scene is refused (FLOAT64_DECK)."""
         from ..integrate import rebuild_neighbors
         from .checkpoint import load_checkpoint
         cfg, state = load_checkpoint(a[0], device=self.device)
-        refuse_float64(cfg, "the deck Interpreter")
+        if cfg.dtype != "float32":
+            raise NotImplementedError(FLOAT64_DECK)
         self.cfg = cfg
         self.state = rebuild_neighbors(self.cfg, state)
         self.dt = self.cfg.dt

@@ -27,14 +27,13 @@ out), a dpd/tstat ramp's noise scale is applied.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..cellpad import compact_indices, scatter_rows
 from ..cells import build_cells
 from ..config import SceneConfig
 from ..engine_cellpad import (check_scene, own_draws, pair_salt,
-                              refuse_float64)
+                              step_times)
 from ..forces.gathered import forces_for_subset
 from ..forces.pairs import sig_scale_of
 from ..integrate import make_grid_spec
@@ -75,8 +74,8 @@ def gather_state(comm: Comm, state: State) -> State:
 
 def check_atom_decomp(cfg: SceneConfig) -> None:
     """Raise for what the atom decomposition does not run (the module's
-    docstring)."""
-    refuse_float64(cfg, "the atom decomposition")
+    docstring).  A float64 scene runs in float64 throughout, as the JAX
+    atom step runs it under x64."""
     check_scene(cfg)
     if any(t is not None for t in (cfg.bond, cfg.angle, cfg.dihedral,
                                    cfg.improper, cfg.shake)) or cfg.rigid:
@@ -259,8 +258,7 @@ def make_sharded_step(cfg: SceneConfig, comm: Comm, draw=None):
             f"n_max={n_max} must divide the mesh size {comm.world}")
     spec = make_grid_spec(cfg)
     draw = draw or own_draws(cfg)
-    dt = float(np.float32(cfg.dt))
-    dtf = float(np.float32(0.5 * cfg.dt))
+    dt, dtf = step_times(cfg)
     n_loc = n_max // comm.world
 
     def step(state: State) -> State:
@@ -281,7 +279,7 @@ def make_sharded_step(cfg: SceneConfig, comm: Comm, draw=None):
             cfg.pair, cfg.box, spec, ctab, full_x, full_v, ints[:, 0],
             ints[:, 1], full_q, my_slot, state.x, state.v, state.type,
             state.tag, state.q, pair_salt(cfg, state.step), dt=cfg.dt,
-            sig_scale=sig_scale_of(cfg.pair, state.step))
+            sig_scale=sig_scale_of(cfg.pair, state.step, state.dtype))
         if cfg.obmd is not None:
             f = boundary_force_psum(cfg, comm, state, f)
         f = torch.where(state.alive[:, None], f, 0.0)

@@ -59,14 +59,14 @@ from ..cells import BIG, GridSpec, build_cells
 from ..config import LJCutRFParams, SceneConfig, template_stacks
 from ..engine_cellpad import (_mol_rounds, _templates, check_scene,
                               mol_com, mol_mode, own_draws, pair_salt,
-                              refuse_float64, stage_every)
+                              stage_every, step_times)
 from ..forces.bonded import (angle_forces, bond_forces, dihedral_forces,
                              improper_forces)
 from ..forces.gathered import forces_for_subset
 from ..forces.pair_kernel import (N_EXCL, N_EXCL_BRANCHED, PadGeometry,
                                   make_pair_kernel)
 from ..forces.pairs import sig_scale_of
-from ..geometry import Box, const_like
+from ..geometry import Box, const_like, rounded
 from ..obmd.stage import (_append_subset, _sequential_accept,
                           draw_candidates, draw_inserted_velocities,
                           feedback_count, rounds_of, setpoints, stage_params)
@@ -253,12 +253,12 @@ def _rebalanced_cuts(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
     frac = torch.where(csum[idx] > prev,
                        (targets - prev) / torch.clamp(csum[idx] - prev,
                                                       min=1e-9), 0.5)
-    want = x0 + (idx.to(dtype) + frac) * float(np.float32(w))
-    step_max = float(np.float32(0.9 * geom.halo_w))
+    want = x0 + (idx.to(dtype) + frac) * rounded(w, dtype)
+    step_max = rounded(0.9 * geom.halo_w, dtype)
     inner = torch.minimum(torch.maximum(want, cuts[1:-1] - step_max),
                           cuts[1:-1] + step_max)
-    wmin = float(np.float32(geom.halo_w))
-    wmax = float(np.float32(geom.slab_w))
+    wmin = rounded(geom.halo_w, dtype)
+    wmax = rounded(geom.slab_w, dtype)
     vals = [cuts[0]] + [inner[i] for i in range(ndev - 1)] + [cuts[-1]]
 
     def clip(v, lo, hi):
@@ -356,8 +356,9 @@ def check_slab_scene(cfg: SceneConfig) -> None:
     them on a cutoff-wide halo), dihedrals on a branched topology (as the
     JAX slab step, slab_decomp.py:910-913), a molecule template whose types
     the scene lacks, and the refusals every engine shares
-    (engine_cellpad.check_scene)."""
-    refuse_float64(cfg, "the slab decomposition")
+    (engine_cellpad.check_scene).  A float64 scene runs in float64
+    throughout, as the JAX slab step runs it under x64 (on the kernel path
+    with float32 kernel fields, `file_slab`)."""
     if cfg.langevin is not None:
         raise NotImplementedError(
             "the multi-device steps have no Langevin thermostat (the JAX "
@@ -489,7 +490,7 @@ def _halo_arrays(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
     differ by a rounded lo_d); else extras is None.  missed counts the
     face atoms beyond the h_max rows."""
     n_loc, h_max = geom.n_loc, geom.h_max
-    w = float(np.float32(geom.halo_w))
+    w = rounded(geom.halo_w, state.dtype)
     x0 = state.x[:, 0]
     near_lo = state.alive & (x0 < lo_d + w)
     near_hi = state.alive & (x0 >= hi_d - w)
@@ -759,7 +760,7 @@ def _forces_slab(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
         torch.arange(n_loc, device=state.device), xs[:n_loc], state.v,
         state.type, state.tag, state.q, pair_salt(cfg, state.step),
         dt=cfg.dt, my_pb=my_pb, bond=cfg.bond,
-        sig_scale=sig_scale_of(cfg.pair, state.step))
+        sig_scale=sig_scale_of(cfg.pair, state.step, state.dtype))
     if extras is not None and _has_extra_terms(cfg):
         f = f + _bonded_extra_forces(
             cfg, n_loc, extras, _resolve_partner_rows(extras, g, valid), t,
@@ -776,7 +777,11 @@ def file_slab(cfg: SceneConfig, pg: PadGeometry, xs, v, t, g, q, valid,
     occ i32[nb], pbond i32[nb, n_excl, cap, lanes] of the rows' partner
     tags ptags (n_excl columns; -2 for none and on empty slots) or None,
     the slot of each row (n_slots where not filed), the rows that did not
-    fit)."""
+    fit).  The fields are float32 whatever the rows' dtype: a float64 view
+    is rounded into them, as engine_cellpad.pack_fields packs the
+    single-device kernel's (the JAX slab step packs them in the state's
+    dtype, obmd_tpu/parallel/slab_decomp.py:997-1008, which its float32
+    kernel refuses under x64)."""
     n_full = xs.shape[0]
     dev = xs.device
     n_slots, n_cells, cap = pg.n_slots, pg.n_cells, pg.cap
@@ -794,12 +799,12 @@ def file_slab(cfg: SceneConfig, pg: PadGeometry, xs, v, t, g, q, valid,
     if isinstance(cfg.pair, LJCutRFParams):
         chans.append(q[:, None])
     if cfg.ntypes > 1:
-        chans.append(t.to(xs.dtype)[:, None])
-    flat = torch.cat(chans, 1)[order]
+        chans.append(t[:, None])
+    f32 = torch.float32
+    flat = torch.cat([c.to(f32) for c in chans], 1)[order]
     nf = flat.shape[1]
-    base = torch.cat([torch.full((n_slots, 3), BIG, dtype=xs.dtype,
-                                 device=dev),
-                      torch.zeros((n_slots, nf - 3), dtype=xs.dtype,
+    base = torch.cat([torch.full((n_slots, 3), BIG, dtype=f32, device=dev),
+                      torch.zeros((n_slots, nf - 3), dtype=f32,
                                   device=dev)], 1)
     fld = scatter_rows(base, dest, flat).reshape(nb, cap, lanes, nf) \
         .permute(0, 3, 1, 2).contiguous()
@@ -828,10 +833,11 @@ def _forces_slab_kernel(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
     padded layout (obmd_tpu/parallel/slab_decomp.py:962-1056): the owned
     and halo rows filed every step (`file_slab`, with their partner tags
     under a bond style for the kernel's 1-2 exclusion), the kernel, the
-    owned rows' forces read back (halo slots dropped); then the bond
-    forces over the resolved rows in the global frame and the angle,
-    dihedral and improper forces; (f, the halo rows, cells and owned rows
-    that did not fit, summed over the ranks)."""
+    owned rows' forces read back (halo slots dropped) and cast to the
+    state's dtype; then the bond forces over the resolved rows in the
+    global frame and the angle, dihedral and improper forces; (f, the halo
+    rows, cells and owned rows that did not fit, summed over the
+    ranks)."""
     pg = geom.pad_geom
     n_loc = geom.n_loc
     xs, v, t, g, q, valid, halo_miss, extras = _halo_arrays(
@@ -843,7 +849,7 @@ def _forces_slab_kernel(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
                 sig_scale=sig_scale_of(cfg.pair, state.step))
     f_all = torch.cat([fpad.permute(0, 2, 3, 1).reshape(-1, 3),
                        torch.zeros((1, 3), dtype=fpad.dtype,
-                                   device=fpad.device)])
+                                   device=fpad.device)]).to(state.dtype)
     mine = slot_of_row[:n_loc]
     dropped = (valid[:n_loc] & (mine >= pg.n_slots)).sum(dtype=I32)
     f = f_all[mine]
@@ -943,7 +949,7 @@ def _insert_mol_slab(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
     obmd = cfg.obmd
     n_loc = geom.n_loc
     dev = state.device
-    tpl = _templates(obmd, dev)
+    tpl = _templates(obmd, dev, state.dtype)
     m = tpl["dx"].shape[1]
     pad = cfg.pair.max_cut + cfg.skin
 
@@ -1163,7 +1169,7 @@ def _pre_exchange_slab(cfg: SceneConfig, geom: SlabGeom, comm: Comm,
     vnew = draw_inserted_velocities(cfg, u.vel, pos)
     z3 = torch.zeros_like(pos)
     if vnew is not None:
-        mass = float(np.float32(cfg.masses[obmd.ntype]))
+        mass = rounded(cfg.masses[obmd.ntype], state.dtype)
         mv_ins = mass * torch.where(landed[:, None], vnew, 0.0)
         pins = comm.sum(torch.cat([mv_ins[:mm].sum(0), mv_ins[mm:].sum(0)]))
         vnewl, vnewr = vnewl - pins[:3], vnewr - pins[3:]
@@ -1218,8 +1224,7 @@ def make_slab_step(cfg: SceneConfig, comm: Comm,
     elif force_impl != "gathered":
         raise ValueError(f"unknown force_impl {force_impl}")
     draw = draw or own_draws(cfg)
-    dt = float(np.float32(cfg.dt))
-    dtf = float(np.float32(0.5 * cfg.dt))
+    dt, dtf = step_times(cfg)
     nfreq = stage_every(cfg)
     bnd = torch.tensor(geom.boundaries, dtype=getattr(torch, cfg.dtype),
                        device=comm.device)

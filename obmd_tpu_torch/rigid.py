@@ -26,16 +26,17 @@ puts member velocities back on the rigid field V + omega x r.  omega
 solves I omega = L by a cofactor solve with a small diagonal regularizer
 (a linear body's I is singular along its axis, where L has no part).
 
-Every product is an explicit float32 elementwise operation: R I R^T is
-written out entry by entry, so no batched matrix product (which the
-H100 may run in TF32 under the caller's flags) enters the step.
+Every product is an explicit elementwise operation in the state's dtype
+(float32, or float64 as the JAX package runs rigid bodies under x64):
+R I R^T is written out entry by entry, so no batched matrix product
+(which the H100 may run in TF32 under the caller's flags) enters the step.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .config import SceneConfig
+from .geometry import rounded
 from .state import State, per_atom_mass
 
 
@@ -220,7 +221,7 @@ def _member(cfg: SceneConfig, state: State):
 
 def _rotate_inertia(I6, omega, dt):
     """I' = R I R^T for the Rodrigues rotation R(omega dt), per row, each
-    entry an explicit float32 sum of products."""
+    entry an explicit sum of products in I6's dtype."""
     th = torch.linalg.vector_norm(omega, dim=1, keepdim=True) * dt
     k = omega * dt / torch.clamp(th, min=1e-30)
     small = (th < 1e-8)[:, 0]
@@ -251,8 +252,9 @@ def rigid_drift(cfg: SceneConfig, state: State, v):
     """The initial_integrate drift with rigid members moved as bodies; `v`
     is the half-kicked velocity.  Returns (x_new, v_new), wrapped.  The
     angular momentum L is carried through the rotation: the new velocity
-    field uses omega' = (R I R^T)^-1 L."""
-    dt = float(np.float32(cfg.dt))
+    field uses omega' = (R I R^T)^-1 L.  dt is rounded to the state's
+    dtype (obmd_tpu/rigid.py:238)."""
+    dt = rounded(cfg.dt, state.dtype)
     member = _member(cfg, state)
     x_rigid, v_rigid = rigid_kinematics(
         cfg.box, state.x, v, per_atom_mass(cfg, state), state.bond1,

@@ -1483,13 +1483,13 @@ RIGID_GOLDEN_DT, RIGID_GOLDEN_STEPS = 0.004, 40
 
 
 def rigid_golden_scene(device="cuda", force_path: str = "nlist",
-                       free: bool = False) -> Scene:
+                       free: bool = False, dtype: str = "float32") -> Scene:
     """validation/rigid_golden's trimers.data through the port's read_data
     (atom_style molecular: positions, velocities, molecule ids and the two
     bonds of each trimer) as a scene-level rigid body per molecule under
     RIGID_GOLDEN's DPD law (with `free`, a0 = gamma = 0: in.r2's pair_style
-    zero), on `force_path`.  No bond style: the pair law acts inside a
-    body too, where its central forces cancel (the JAX run of
+    zero), on `force_path`, in `dtype`.  No bond style: the pair law acts
+    inside a body too, where its central forces cancel (the JAX run of
     run_rigid_golden.py does the same)."""
     from .io.lammps_data import read_data
     df = read_data(os.path.join(VALIDATION, "rigid_golden", "trimers.data"),
@@ -1499,7 +1499,7 @@ def rigid_golden_scene(device="cuda", force_path: str = "nlist",
         box=df.box(periodic=(True, True, True)), masses=tuple(df.masses),
         pair=DPDParams.create(**law), dt=RIGID_GOLDEN_DT,
         capacity=Capacity(n_max=df.natoms, cell_capacity=24), rigid=True,
-        skin=0.3, force_path=force_path).finalize()
+        skin=0.3, force_path=force_path, dtype=dtype).finalize()
     return Scene(cfg=cfg, state=init_state(
         cfg, df.x, v=df.v, types=df.types, tags=df.tags, mol=df.mol,
         bonds=df.bonds, device=device))

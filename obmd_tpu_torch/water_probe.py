@@ -112,7 +112,7 @@ def search_share(cfg, state, k_trials: int, seed: int = 3) -> dict:
     cfg_k = dataclasses.replace(cfg, obmd=dataclasses.replace(
         o, insert_kmax=k))
     u = torch.rand((2, k, 7), generator=g, device=state.device)
-    tpl = _templates(o, state.device)
+    tpl = _templates(o, state.device, state.dtype)
     out = {}
     for side, region in ((0, o.region5), (1, o.region6)):
         sub = _subset_slice(cfg, geom, state, region,

@@ -14,11 +14,15 @@ jax_enable_x64 where a test holds the port to it.
   JAX package's, float64 out.
 - A checkpoint of a float64 state loads back float64, bit for bit; the
   converter carries a JAX float64 state across unnarrowed.
-- The refusals: a float64 scene with an OBMD stage on the cellpad engine
-  (naming the nlist engine), float64 with rigid bodies or MOLECULE-mode
-  insertion, a float64 restart in the deck
-  Interpreter and the C ABI over it, float64 in the slab and atom
-  decompositions, and float16 / bfloat16 anywhere."""
+- The refusals that remain, each naming its reason in the JAX package: a
+  float64 scene with an OBMD stage on the cellpad engine (naming the nlist
+  engine), MOLECULE-mode insertion at float64 on the single-device engines
+  (naming the slab step, which runs it), a float64 restart in the deck
+  Interpreter and the C ABI over it (JAX's Interpreter has no dtype), and
+  float16 / bfloat16 anywhere; and what runs at float64 since rigid
+  bodies and the multi-device steps were held to JAX under x64 (the slab
+  and atom decompositions' checks, rigid bodies on every single-device
+  engine)."""
 import dataclasses
 
 import jax
@@ -271,6 +275,7 @@ def test_checkpoint_and_convert_keep_float64(tmp_path):
 
 def test_float64_refusals(tmp_path):
     from obmd_tpu_torch import capi
+    from obmd_tpu_torch import integrate as pint
     from obmd_tpu_torch.engine_cellpad import check_scene, check_supported
     from obmd_tpu_torch.io.script import Interpreter
     from obmd_tpu_torch.parallel.atom_decomp import check_atom_decomp
@@ -285,26 +290,30 @@ def test_float64_refusals(tmp_path):
     box = pscenes.closed_dpd_scene(n=N, box_l=BOX_L, dtype="float64",
                                    device=CPU).cfg
     check_scene(box.finalize())
-    parts = {
-        "rigid": dataclasses.replace(box, rigid=True),
-        "MOLECULE-mode": dataclasses.replace(
-            pscenes.mol_box_config("dpd"), dtype="float64"),
-    }
-    for word, cfg in parts.items():
-        with pytest.raises(NotImplementedError, match=word):
-            check_supported(cfg.finalize())
+    for path in ("cellpad", "nlist"):
+        check_supported(dataclasses.replace(box, rigid=True,
+                                            force_path=path).finalize())
+    mol = dataclasses.replace(pscenes.mol_box_config("dpd"),
+                              dtype="float64")
+    for path, check in (("cellpad", check_supported),
+                        ("nlist", pint.check_supported)):
+        with pytest.raises(NotImplementedError, match="slab") as err:
+            check(dataclasses.replace(mol, force_path=path).finalize())
+        assert "_insert" in str(err.value)
     for check in (check_slab_scene, check_atom_decomp):
-        with pytest.raises(NotImplementedError, match="float32 scenes"):
-            check(obmd)
+        check(obmd)
+    check_slab_scene(mol.finalize())
     path = str(tmp_path / "f64.npz")
     ps = pscenes.closed_dpd_scene(n=N, box_l=BOX_L, dtype="float64",
                                   device=CPU)
     save_checkpoint(path, ps.cfg, ps.state)
-    with pytest.raises(NotImplementedError, match="deck Interpreter"):
+    with pytest.raises(NotImplementedError, match="deck Interpreter") as err:
         Interpreter(device=CPU, log_fn=lambda *a: None).one(
             f"read_restart {path}")
-    with pytest.raises(NotImplementedError, match="deck Interpreter"):
+    assert "no dtype" in str(err.value)
+    with pytest.raises(NotImplementedError, match="deck Interpreter") as err:
         capi.Session(CPU).command(f"read_restart {path}")
+    assert "no dtype" in str(err.value)
     for dt in ("float16", "bfloat16"):
         with pytest.raises(NotImplementedError, match=dt):
             pscenes.closed_dpd_scene(n=N, box_l=BOX_L, dtype=dt, device=CPU)

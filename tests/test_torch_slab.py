@@ -41,8 +41,11 @@ def jax_stage_draws(cfg, key, steps, slab=True):
     3)) (normal under `gaussian`), side-major; the deposit z's
     uniform(fold_in(keys[i], 0x5a), (K,)); the velocities' uniforms from
     split(fold_in(k, 7), 3), k the carried key on the slab step
-    (slab_decomp.py:1546) and the step's key on the single-device ones."""
+    (slab_decomp.py:1546) and the step's key on the single-device ones.
+    The draws take the scene's dtype, as the JAX stage draws in the
+    state's (a float64 scene needs jax_enable_x64 on)."""
     o = cfg.obmd
+    real = jnp.dtype(cfg.dtype)
     rounds, k = max(1, int(o.maxattempt)), o.insert_kmax
     draw = jax.random.normal if o.gaussian is not None \
         else jax.random.uniform
@@ -52,18 +55,18 @@ def jax_stage_draws(cfg, key, steps, slab=True):
         keys = jax.random.split(step_key, 2 * rounds + 1)
         key = keys[-1]
         d = dict(pos=np.stack([np.asarray(draw(keys[i], (k, 3),
-                                               dtype=jnp.float32))
+                                               dtype=real))
                                for i in range(2 * rounds)])
                  .reshape(2, rounds, k, 3))
         if o.deposit_global is not None or o.deposit_local is not None:
             d["z"] = np.stack([np.asarray(jax.random.uniform(
-                jax.random.fold_in(keys[i], 0x5a), (k,), dtype=jnp.float32))
+                jax.random.fold_in(keys[i], 0x5a), (k,), dtype=real))
                 for i in range(2 * rounds)]).reshape(2, rounds, k)
         if any(v is not None for v in (o.vx, o.vy, o.vz)):
             kv = jax.random.split(jax.random.fold_in(
                 keys[-1] if slab else step_key, 7), 3)
             d["vel"] = np.stack([np.asarray(jax.random.uniform(
-                kc, (2 * rounds * k,), dtype=jnp.float32)) for kc in kv])
+                kc, (2 * rounds * k,), dtype=real)) for kc in kv])
         seq.append(d)
     return seq
 

@@ -121,19 +121,22 @@ class JaxMolDraws:
     templates choice(kt, T, (K,), p=frac); under `global` / `local` the
     deposit z's uniform(fold_in(kc, 0x5a), (K,)); under a velocity keyword
     the velocities' uniform(split(fold_in(next, 7), 3)[c], (2 rounds K,))
-    (obmd_tpu/obmd/stage.py:263-347)."""
+    (obmd_tpu/obmd/stage.py:263-347).  The draws take the scene's dtype,
+    as the JAX engines draw in the state's (subset.py:196-212; a float64
+    scene needs jax_enable_x64 on)."""
 
     def __init__(self, cfg, seed: int):
         self.key = jax.random.PRNGKey(seed)
         self.obmd = cfg.obmd
         self.k = cfg.obmd.insert_kmax
         self.rounds = max(1, int(cfg.obmd.maxattempt))
+        self.dtype = jnp.dtype(cfg.dtype)
         self.frac = (np.asarray(cfg.obmd.molfrac, np.float32)
                      if cfg.obmd.molfrac is not None else None)
 
     def __call__(self, state, need):
         from obmd_tpu_torch.obmd.stage import Draws, deposit_z, has_velocity
-        o, k = self.obmd, self.k
+        o, k, real = self.obmd, self.k, self.dtype
         key = jax.random.fold_in(self.key, jnp.uint32(state.step))
         kl, kr, self.key = jax.random.split(key, 3)
         if not need:
@@ -149,9 +152,10 @@ class JaxMolDraws:
                 kc, krot = ks[0], ks[1]
                 ka, ka2 = jax.random.split(krot)
                 pos.append(np.concatenate([
-                    np.asarray(centre(kc, (k, 3), dtype=jnp.float32)),
-                    np.asarray(jax.random.uniform(ka, (k, 3))),
-                    np.asarray(jax.random.uniform(ka2, (k,)))[:, None]],
+                    np.asarray(centre(kc, (k, 3), dtype=real)),
+                    np.asarray(jax.random.uniform(ka, (k, 3), dtype=real)),
+                    np.asarray(jax.random.uniform(ka2, (k,),
+                                                  dtype=real))[:, None]],
                     1))
                 frac = (self.frac if self.frac is not None
                         else np.full((n_t,), 1.0 / n_t, np.float32))
@@ -159,13 +163,13 @@ class JaxMolDraws:
                     ks[2], n_t, (k,), p=jnp.asarray(frac))) if n_t > 1
                     else np.zeros((k,), np.int32))
                 z.append(np.asarray(jax.random.uniform(
-                    jax.random.fold_in(kc, 0x5a), (k,), dtype=jnp.float32)))
+                    jax.random.fold_in(kc, 0x5a), (k,), dtype=real)))
         shape = (2, self.rounds, k)
         vel = None
         if has_velocity(o):
             kv = jax.random.split(jax.random.fold_in(self.key, 7), 3)
             vel = torch.from_numpy(np.stack([np.asarray(jax.random.uniform(
-                kc, (2 * self.rounds * k,), dtype=jnp.float32))
+                kc, (2 * self.rounds * k,), dtype=real))
                 for kc in kv]))
         return Draws(
             torch.from_numpy(np.stack(pos).reshape(shape + (7,))),
